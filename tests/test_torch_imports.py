@@ -1,0 +1,58 @@
+"""The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
+imports JAX or the reference package, and importing the port's gateway
+leaves JAX unloaded."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree: ast.AST) -> list[str]:
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and \
+                getattr(node.func, "id", None) == "__import__" and \
+                node.args and isinstance(node.args[0], ast.Constant):
+            names.append(node.args[0].value)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    names = _imported(ast.parse(path.read_text(), str(path)))
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_files_found():
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert "chip_smoke.py" in rel
+    assert "src/repro_torch/serve/gateway/gateway.py" in rel
+    assert "src/repro_torch/kernels/ops.py" in rel
+
+
+def test_gateway_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.serve.gateway.gateway, "
+            "repro_torch.convert, repro_torch.kernels.ops\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
