@@ -9,13 +9,24 @@ Phases, each printing one JSON line:
      TF32 switched off for matmul and cuDNN;
   2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, all started together);
-  3. each kernel held bitwise against its plain PyTorch version on the same
-     CUDA tensors, and timed at the main path's shapes beside it;
-  4. the main path: ``MicroBatchGateway`` serving the full-width LeNet-5
+  3. each kernel held against its plain PyTorch version on the same CUDA
+     tensors — the SC kernels and ``scatter_kv_rows`` bit for bit,
+     ``paged_decode_attention`` within 2e-5 (float32) / 2e-2 (bfloat16) —
+     and timed at the main paths' shapes beside it;
+  4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
      each run, one batch's payload held byte for byte against the plain path
-     on the card and on the CPU, and its logits within 1e-4.
+     on the card and on the CPU, and its logits within 1e-4;
+  5. the prompt path: ``make_gateway`` serving stablelm-3b at its published
+     width and depth (bf16, random weights from a seeded generator) over
+     paged KV slots, on (a) the seeded fleet's prompts and (b) four
+     1,000-token requests with a radix prefix hit and a copy-on-write, with
+     the paged kernels' launch counts read around each load; the decode
+     tick timed at 8 lanes x 1k context; then the kernel tick held against
+     the plain tick on the same card and weights: float32 at full width and
+     depth 4 (tokens equal, logits within 2e-4) and bf16 at full depth
+     (max |logit difference| within ``BF16_LOGIT_BOUND``).
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -39,8 +50,21 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # instruction throughput): 32-bit integer compare/add, and population count
 INT32_PER_CLK_SM = 64
 POPC_PER_CLK_SM = 16
-KERNELS = ("sng_pack", "sc_dot")
+# fp32 outside the tensor cores (NVIDIA H100 SXM data sheet): the paged
+# attention's score and value products are float32 FMAs
+F32_FLOPS = 67e12
+SOURCES = ("sng_pack", "sc_dot", "paged_attn")
+KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows")
 TRACE_SECONDS = 1.0             # ~330 frames from the default 64-sensor fleet
+# The bf16 kernel tick differs from the plain tick only in rounding: the
+# plain path casts the softmax probabilities to bf16 before the value
+# product, the kernel keeps them in float32 (as the TPU kernel does), and
+# the difference then travels through 32 bf16 layers.  Stated before the
+# first run on the card (PERF.md): the max |logit difference| over 8 lanes
+# x 8 forced ticks stays under this.
+BF16_LOGIT_BOUND = 1.0
+# the prompt path: stablelm-3b, 8 lanes of 1,536 tokens, 16-token blocks
+LM_SLOTS, LM_MAX_LEN, LM_BLOCK = 8, 1536, 16
 
 
 def emit(obj: dict) -> None:
@@ -99,6 +123,413 @@ def host_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
+    """Phase 3 for the paged KV kernels.  Returns (max_abs_err, timing) per
+    kernel; raises SystemExit when a kernel disagrees with its plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.kernels import ref
+
+    def arr(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def case(B, nb, bs, Hq, Hkv, D, dtype, lens):
+        """Each lane owns distinct blocks; table entries past its chain
+        and the trash block 0 hold garbage that ``lens`` must mask."""
+        num_blocks = B * nb + 1
+        ka, va = arr((num_blocks, bs, Hkv, D), dtype), \
+            arr((num_blocks, bs, Hkv, D), dtype)
+        ka[0], va[0] = 1e9, -1e9
+        perm = torch.randperm(num_blocks - 1, generator=gen,
+                              device=dev).to(torch.int32) + 1
+        tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+        for b, n in enumerate(lens):
+            used = -(-n // bs)
+            tables[b, :used] = perm[b * nb:b * nb + used]
+        return (arr((B, Hq, D), dtype), ka, va, tables,
+                torch.tensor(lens, dtype=torch.int32, device=dev),
+                (arr((B, Hkv, D), dtype), arr((B, Hkv, D), dtype)))
+
+    err = {"paged_decode_attention": 0.0, "scatter_kv_rows": 0.0}
+    checks = []
+    shapes = [("MHA", 3, 4, 16, 8, 8, 80), ("GQA 4:1", 3, 3, 16, 16, 4, 64),
+              ("MQA", 3, 5, 8, 8, 1, 16), ("decode", 8, 96, 16, 32, 32, 80)]
+    for label, B, nb, bs, Hq, Hkv, D in shapes:
+        # lens of 1, a partial block and exactly nb*bs, in turn
+        lens = [(1, bs + bs // 2, nb * bs)[b % 3] for b in range(B)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, ka, va, tables, ln, nk = case(B, nb, bs, Hq, Hkv, D, dtype,
+                                             lens)
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            for window in (None, 3, 17):
+                for splice in (False, True):
+                    new_kv = nk if splice else None
+                    got = paged_k.paged_decode_attention(
+                        q, ka, va, tables, ln, window=window, new_kv=new_kv)
+                    want = ref.paged_decode_attention(q, ka, va, tables, ln,
+                                                      window, new_kv)
+                    torch.cuda.synchronize()
+                    e = float((got.float() - want.float()).abs().max())
+                    err["paged_decode_attention"] = max(
+                        err["paged_decode_attention"], e)
+                    checks.append({
+                        "kernel": "paged_decode_attention", "case": label,
+                        "dtype": str(dtype), "window": window,
+                        "splice": splice, "max_abs_err": e,
+                        "ok": torch.allclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol)})
+            # NaN in the trash block: the kernel never reads it
+            base = paged_k.paged_decode_attention(q, ka, va, tables, ln,
+                                                  new_kv=nk)
+            ka[0], va[0] = float("nan"), float("nan")
+            nan = paged_k.paged_decode_attention(q, ka, va, tables, ln,
+                                                 new_kv=nk)
+            checks.append({"kernel": "paged_decode_attention", "case": label,
+                           "dtype": str(dtype), "nan_trash_bitwise": True,
+                           "ok": torch.equal(base, nan)})
+    for dtype in (torch.float32, torch.bfloat16):
+        L, nbk, bs, H, D, S = 4, 40, 16, 32, 80, 8
+        ka, va = arr((L, nbk, 1, bs, H, D), dtype), \
+            arr((L, nbk, 1, bs, H, D), dtype)
+        kr, vr = arr((L, S, H, D), dtype), arr((L, S, H, D), dtype)
+        w = (torch.randperm(nbk - 1, generator=gen, device=dev)[:S] + 1
+             ).to(torch.int32)
+        w[5:] = 0                                 # trash lanes, colliding
+        o = torch.randint(0, bs, (S,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        o[5:] = 3
+        rk, rv = ref.scatter_kv_rows(ka.clone(), va.clone(), kr, vr, w, o)
+        paged_k.scatter_kv_rows(ka, va, kr, vr, w, o)
+        torch.cuda.synchronize()
+        ok = torch.equal(ka[:, 1:], rk[:, 1:]) and \
+            torch.equal(va[:, 1:], rv[:, 1:])
+        e = max(float((ka[:, 1:].float() - rk[:, 1:].float()).abs().max()),
+                float((va[:, 1:].float() - rv[:, 1:].float()).abs().max()))
+        err["scatter_kv_rows"] = max(err["scatter_kv_rows"], e)
+        checks.append({"kernel": "scatter_kv_rows", "dtype": str(dtype),
+                       "bitwise_non_trash": ok, "ok": ok})
+    bad = [c for c in checks if not c["ok"]]
+
+    # timing at the prompt path's decode shape: 8 lanes x 1,032 positions,
+    # bs 16, 96 table entries, 32 KV heads of 80, bf16, one layer's arena
+    B, nb, bs, H, D, n_pos = 8, 96, 16, 32, 80, 1032
+    num_blocks = LM_SLOTS * (LM_MAX_LEN // LM_BLOCK) + 1
+    bf = torch.bfloat16
+    q, ka, va = arr((B, H, D), bf), arr((num_blocks, bs, H, D), bf), \
+        arr((num_blocks, bs, H, D), bf)
+    k1, v1 = arr((B, H, D), bf), arr((B, H, D), bf)
+    used = -(-n_pos // bs)
+    perm = torch.randperm(num_blocks - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    tables[:, :used] = perm[:B * used].reshape(B, used).to(torch.int32)
+    lens = torch.full((B,), n_pos, dtype=torch.int32, device=dev)
+    attn_ms, attn_b2b = time_ms(lambda: paged_k.paged_decode_attention(
+        q, ka, va, tables, lens, new_kv=(k1, v1)), 5, 20, sleep)
+    attn_plain = time_ms(lambda: ref.paged_decode_attention(
+        q, ka, va, tables, lens, None, (k1, v1)), 3, 3, sleep)[0]
+    # the library yardstick attends over the already-gathered dense view
+    # (the gather itself is not timed)
+    kd = ka[tables.long()].reshape(B, nb * bs, H, D)[:, :n_pos]
+    vd = va[tables.long()].reshape(B, nb * bs, H, D)[:, :n_pos]
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    attn_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd), 5, 20, sleep)[0]
+    row = H * D * 2                                   # bytes per K or V row
+    attn_bytes = (2 * B * n_pos * row                 # live K and V rows
+                  + 2 * B * H * D * 2                 # q in, out
+                  + B * nb * 4 + B * 4)               # tables, lens
+    attn_ops = 4 * B * H * n_pos * D                  # QK and PV FMAs x 2
+    del kd, vd
+    L, S = 32, B
+    kaL = torch.empty((L, num_blocks, 1, bs, H, D), dtype=bf, device=dev)
+    vaL = torch.empty_like(kaL)
+    kr, vr = arr((L, S, H, D), bf), arr((L, S, H, D), bf)
+    w = tables[:, 64].contiguous()
+    o = torch.full((S,), n_pos % bs, dtype=torch.int32, device=dev)
+    sc_ms, sc_b2b = time_ms(lambda: paged_k.scatter_kv_rows(
+        kaL, vaL, kr, vr, w, o), 5, 20, sleep)
+    sc_plain = time_ms(lambda: ref.scatter_kv_rows(kaL, vaL, kr, vr, w, o),
+                       3, 5, sleep)[0]
+    idx = (torch.arange(L, device=dev)[:, None], w.long()[None, :],
+           torch.zeros((1, 1), dtype=torch.long, device=dev),
+           o.long()[None, :])
+    sc_lib = time_ms(lambda: (kaL.index_put_(idx, kr),
+                              vaL.index_put_(idx, vr)), 5, 20, sleep)[0]
+    sc_bytes = 2 * 2 * L * S * row + 2 * S * 4        # rows in + out, ids
+    del kaL, vaL
+    torch.cuda.empty_cache()
+    timing = {
+        "paged_decode_attention": {
+            "shape": f"q ({B}, {H}, {D}) bf16, {n_pos} positions per lane, "
+                     f"bs {bs}, tables ({B}, {nb}), splice on",
+            "ms": attn_ms, "back_to_back_ms": attn_b2b, "plain_ms": attn_plain,
+            "library_ms": attn_lib,
+            "library": "F.scaled_dot_product_attention on the gathered "
+                       "dense view (gather not timed)",
+            "bytes_ms": attn_bytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_ms": attn_ops / F32_FLOPS * 1e3},
+        "scatter_kv_rows": {
+            "shape": f"arenas ({L}, {num_blocks}, 1, {bs}, {H}, {D}) bf16, "
+                     f"rows ({L}, {S}, {H}, {D})",
+            "ms": sc_ms, "back_to_back_ms": sc_b2b, "plain_ms": sc_plain,
+            "library_ms": sc_lib,
+            "library": "index_put_ on the K and V arenas",
+            "bytes_ms": sc_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": 0.0}}
+    for t in timing.values():
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+            "operations"
+    emit({"phase": "paged_kernel_checks", "checks": len(checks),
+          "failed": bad, "max_abs_err": err, "timing": timing})
+    if bad:
+        raise SystemExit(f"paged kernel disagrees with its plain version: "
+                         f"{bad}")
+    return err, timing
+
+
+class TickProbe:
+    """Wraps an adapter's ``decode``: host time of each tick (it ends in the
+    tokens' copy to the host, so the device work is inside) and whether
+    every tick's logits were finite."""
+
+    def __init__(self, adapter):
+        self.adapter, self.inner = adapter, adapter.decode
+        self.times: list[float] = []
+        self.finite = True
+        adapter.decode = self
+
+    def __call__(self, tokens, active):
+        import torch
+        t0 = time.perf_counter()
+        out = self.inner(tokens, active)
+        self.times.append((time.perf_counter() - t0) * 1e3)
+        self.finite &= bool(torch.isfinite(self.adapter.last_logits).all())
+        return out
+
+
+def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
+    """Device time of ``n`` batcher steps (decode ticks, nothing to admit)
+    from ``torch.profiler``: busy ms per tick, the idle share of a tick of
+    ``tick_ms`` (timed without the profiler), and the kernels that take the
+    most device time.  Busy time is None when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            batcher.step()
+        torch.cuda.synchronize()
+    # the device's own events (kernels, copies); a host operator's device
+    # time repeats its kernels', so only these are summed
+    dev_us: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            dev_us[ev.name] = dev_us.get(ev.name, 0) + ev.device_time_total
+    if not dev_us:
+        return {"device_busy_ms_per_tick": None, "device_idle_share": None,
+                "top_device_ms_per_tick": None}
+    busy = sum(dev_us.values()) / 1e3 / n
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_busy_ms_per_tick": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / tick_ms),
+            "top_device_ms_per_tick": {k[:80]: v / 1e3 / n for k, v in top}}
+
+
+def forced_ticks(cfg, params, prompts, forced, backend: str):
+    """Admit ``prompts`` into fresh paged slots and run one tick per row of
+    ``forced`` tokens.  Returns (first tokens, per-tick tokens, per-tick
+    logits, per-tick host ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.gateway.slots import make_adapter
+    ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=LM_MAX_LEN,
+                      paged=True, block_size=LM_BLOCK, chunked=False,
+                      backend=backend)
+    probe = TickProbe(ad)
+    first = [ad.insert(s, p, max_new=len(forced) + 1)
+             for s, p in enumerate(prompts)]
+    active = np.ones(len(prompts), bool)
+    toks, logits = [], []
+    for row in forced:
+        toks.append(ad.decode(row, active))
+        logits.append(ad.last_logits.clone())
+    del ad
+    torch.cuda.empty_cache()
+    return first, np.stack(toks), torch.stack(logits), probe.times
+
+
+def lm_main_path(dev, wrappers: dict, attn_ms: float) -> dict:
+    """Phase 5: the prompt path at stablelm-3b's full width and depth.
+    Returns the paged kernels' launches; raises SystemExit on a failed
+    check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.gateway.sensors import FleetConfig, SensorFleet
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    paged = ("paged_decode_attention", "scatter_kv_rows")
+    cfg = configs.config("stablelm-3b")
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = 0
+    stack = [params]
+    while stack:
+        for v in stack.pop().values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                n_params += v.numel()
+    gw = make_gateway(cfg, params, ServeSpec(
+        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+        block_size=LM_BLOCK, chunked=False), device=dev)
+    ad, batcher = gw.batcher.adapter, gw.batcher
+    arena_bytes = sum(a.numel() * a.element_size()
+                      for a in ad.arena.values())
+    fleet = SensorFleet(FleetConfig(prompt_fraction=0.125))
+    trace = fleet.events(TRACE_SECONDS)
+    n_prompts = sum(a.kind == "prompt" for a in trace)
+    gw.warmup(fleet.cfg.prompt_lens)
+    probe = TickProbe(ad)
+    failures = []
+
+    def count(run):
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = {name: wrappers[name].launches for name in paged}
+        if not all(counts.values()):
+            failures.append(f"a paged kernel never launched: {counts}")
+        return out, s, counts
+
+    # (a) the seeded fleet's prompts through the gateway
+    tel, run_s, counts_a = count(lambda: gw.run(trace))
+    rep = tel.report(TRACE_SECONDS, kind="prompt")
+    ticks_a = len(probe.times)
+    if len(tel.records) + len(tel.dropped) != n_prompts or \
+            not probe.finite or any(r.tokens_out != gw.max_new_tokens
+                                    for r in tel.records):
+        failures.append("load (a): the ledger does not account for the "
+                        "trace, or a tick's logits were not finite")
+    load_a = {"prompts": n_prompts, "served": len(tel.records),
+              "dropped": len(tel.dropped), "ticks": ticks_a,
+              "run_s": run_s, "launches": counts_a,
+              "j_per_request": rep.get("j_per_inference"),
+              "p50_latency_ms": rep.get("p50_latency_ms"),
+              "p99_latency_ms": rep.get("p99_latency_ms"),
+              "tick_ms_median": statistics.median(probe.times),
+              "logits_finite": probe.finite}
+
+    # (b) four 1,000-token requests: r1 shares r0's first 512 tokens (a
+    # 32-block radix hit); r2 repeats r0 whole (62 full blocks + the shared
+    # partial block, so r0 and r2 each copy it on their first write)
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, cfg.vocab, 1000).astype(np.int32)
+    prompts = [a, np.concatenate([a[:512], rng.integers(0, cfg.vocab, 488)]),
+               a.copy(), rng.integers(0, cfg.vocab, 1000)]
+    reqs = [Request(uid=1000 + i, prompt=p.astype(np.int32),
+                    max_new_tokens=32) for i, p in enumerate(prompts)]
+    cow0 = ad.pool.cow_copies
+    probe.times.clear()
+    for r in reqs:
+        batcher.submit(r)
+    done, run_b, counts_b = count(batcher.run)
+    done = {r.uid: r for r in done}
+    hits = [done[r.uid].prefix_hit_blocks for r in reqs]
+    cow = ad.pool.cow_copies - cow0
+    same = done[1000].generated == done[1002].generated
+    if hits[1] != 32 or hits[2] != 63 or cow != 2 or not same or \
+            not probe.finite or any(len(done[r.uid].generated) != 32
+                                    for r in reqs):
+        failures.append(f"load (b): hits {hits}, cow copies {cow}, r0 == r2 "
+                        f"{same}, finite {probe.finite}")
+    load_b = {"requests": len(reqs), "prefix_hit_blocks": hits,
+              "cow_copies": cow, "r0_equals_r2": same,
+              "ticks": len(probe.times), "run_s": run_b,
+              "launches": counts_b, "logits_finite": probe.finite}
+
+    # the decode tick at 8 lanes x 1,024..1,031 positions: the first step
+    # admits all 8 (prefill) and ticks once, then 4 timed ticks, then 3
+    # under the profiler for the device's busy time (the profiler's own
+    # host overhead stays out of the timed ticks)
+    probe.times.clear()
+    for i in range(LM_SLOTS):
+        batcher.submit(Request(uid=2000 + i, prompt=rng.integers(
+            0, cfg.vocab, 1024).astype(np.int32), max_new_tokens=9))
+    for _ in range(5):
+        batcher.step()
+    tick_ms = statistics.median(probe.times[1:])
+    device = profile_ticks(batcher, 3, tick_ms)
+    batcher.run()
+    launches = {n: counts_a[n] + counts_b[n] for n in paged}
+    del gw, ad, batcher, probe
+    torch.cuda.empty_cache()
+
+    # the kernel tick against the plain tick, same card, same weights
+    lens = [1000, 517, 16, 1, 33, 250, 800, 1024]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    forced = rng.integers(0, cfg.vocab, (8, len(lens))).astype(np.int32)
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    f_k, t_k, l_k, _ = forced_ticks(cfg4, params4, prompts, forced, "cuda")
+    f_p, t_p, l_p, _ = forced_ticks(cfg4, params4, prompts, forced, "plain")
+    f32_err = float((l_k - l_p).abs().max())
+    f32_ok = f_k == f_p and np.array_equal(t_k, t_p) and \
+        torch.allclose(l_k, l_p, rtol=2e-4, atol=2e-4)
+    del params4
+    torch.cuda.empty_cache()
+    b_k, bt_k, bl_k, ms_k = forced_ticks(cfg, params, prompts, forced,
+                                         "cuda")
+    b_p, bt_p, bl_p, ms_p = forced_ticks(cfg, params, prompts, forced,
+                                         "plain")
+    bf16_err = float((bl_k - bl_p).abs().max())
+    bf16_finite = bool(torch.isfinite(bl_k).all())
+    if not f32_ok:
+        failures.append(f"float32 depth 4: kernel tick vs plain tick "
+                        f"max |dlogit| {f32_err}, tokens equal "
+                        f"{np.array_equal(t_k, t_p)}")
+    if not bf16_err <= BF16_LOGIT_BOUND or not bf16_finite:
+        failures.append(f"bf16 full depth: max |dlogit| {bf16_err} > "
+                        f"{BF16_LOGIT_BOUND}")
+    emit({"phase": "lm_main_path", "model": cfg.name,
+          "params": n_params, "init_s": init_s,
+          "arena_blocks": LM_SLOTS * (LM_MAX_LEN // LM_BLOCK) + 1,
+          "arena_bytes": arena_bytes, "load_a_fleet": load_a,
+          "load_b_shared_prefix": load_b,
+          "decode_tick_ms_8x1k": tick_ms, "profile_8x1k": device,
+          "weight_stream_bound_ms": 2 * n_params / PEAK_BYTES_PER_S * 1e3,
+          "attention_share_8x1k": cfg.n_layers * attn_ms / tick_ms,
+          "plain_tick_ms_8x1k_bf16": statistics.median(ms_p[1:]),
+          "kernel_tick_ms_8x1k_bf16": statistics.median(ms_k[1:]),
+          "f32_depth4_max_abs_dlogit": f32_err,
+          "f32_depth4_tokens_equal": bool(np.array_equal(t_k, t_p)),
+          "bf16_max_abs_dlogit": bf16_err,
+          "bf16_logit_bound": BF16_LOGIT_BOUND,
+          "bf16_token_agreement": float((bt_k == bt_p).mean()),
+          "failures": failures})
+    if failures:
+        raise SystemExit(f"prompt path: {failures}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -109,6 +540,7 @@ def main() -> int:
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import paged_attn as paged_k
     from repro_torch.kernels import sc_dot as sc_dot_k
     from repro_torch.kernels import sng_pack as sng_pack_k
     from repro_torch.models.lenet import LeNetConfig
@@ -118,7 +550,10 @@ def main() -> int:
     from repro_torch.serve.gateway.sensors import FleetConfig, SensorFleet
 
     dev = torch.device("cuda")
-    wrappers = {"sng_pack": sng_pack_k.sng_pack, "sc_dot": sc_dot_k.sc_dot}
+    wrappers = {"sng_pack": sng_pack_k.sng_pack, "sc_dot": sc_dot_k.sc_dot,
+                "paged_decode_attention": paged_k.paged_decode_attention,
+                "scatter_kv_rows": paged_k.scatter_kv_rows}
+    sc_kernels = ("sng_pack", "sc_dot")
 
     # -- 1. the card ---------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -137,7 +572,7 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build_all(KERNELS)
+    logs = build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
     emit({"build_s": build_s, "ptxas": {
         name: [ln.strip() for ln in log.splitlines()
@@ -151,7 +586,7 @@ def main() -> int:
         return torch.randint(-2**31, 2**31, shape, generator=gen,
                              dtype=torch.int64, device=dev).to(torch.int32)
 
-    err = {name: 0 for name in KERNELS}
+    err = {name: 0 for name in sc_kernels}
     checks = []
     for N in (4, 16, 32, 256):
         bits = N.bit_length() - 1
@@ -224,8 +659,10 @@ def main() -> int:
                      for (k, b), v in timing.items()]})
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    paged_err, paged_timing = paged_kernel_checks(dev, gen, sleep)
+    err.update(paged_err)
 
-    # -- 4. the main path ---------------------------------------------------
+    # -- 4. the frame path --------------------------------------------------
     trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
     launches = {name: 0 for name in KERNELS}
     for bits in (4, 8):
@@ -238,8 +675,8 @@ def main() -> int:
         tel = gw.run(trace)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        for name in KERNELS:
+        counts = {name: wrappers[name].launches for name in sc_kernels}
+        for name in sc_kernels:
             launches[name] += counts[name]
         if not all(counts.values()):
             raise SystemExit(f"bits={bits}: a kernel of the main path never "
@@ -302,19 +739,33 @@ def main() -> int:
             raise SystemExit(f"bits={bits}: the served output disagrees with "
                              "the plain path")
 
-    # -- 5. the result ------------------------------------------------------
+    # -- 5. the prompt path -------------------------------------------------
+    launches.update(lm_main_path(
+        dev, wrappers, paged_timing["paged_decode_attention"]["ms"]))
+
+    # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",
                             "src/repro/kernels/sng_pack.py:33"),
                "sc_dot": ("src/repro_torch/kernels/csrc/sc_dot.cu",
-                          "src/repro/kernels/sc_dot.py:80")}
+                          "src/repro/kernels/sc_dot.py:80"),
+               "paged_decode_attention": (
+                   "src/repro_torch/kernels/csrc/paged_attn.cu",
+                   "src/repro/kernels/paged_attn.py:179"),
+               "scatter_kv_rows": (
+                   "src/repro_torch/kernels/csrc/paged_attn.cu",
+                   "src/repro/kernels/paged_attn.py:135")}
+    results = {name: dict(timing[(name, 4)], library_ms=None)
+               for name in sc_kernels}
+    results.update(paged_timing)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
-         "max_abs_err": err[name], "ms": timing[(name, 4)]["ms"],
-         "plain_ms": timing[(name, 4)]["plain_ms"],
-         "bound_ms": timing[(name, 4)]["bound_ms"],
-         "bound_by": timing[(name, 4)]["bound_by"], "library_ms": None,
-         "shape": timing[(name, 4)]["shape"]}
+         "max_abs_err": err[name], "ms": results[name]["ms"],
+         "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"],
+         "bound_by": results[name]["bound_by"],
+         "library_ms": results[name]["library_ms"],
+         "shape": results[name]["shape"]}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

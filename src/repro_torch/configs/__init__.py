@@ -1,0 +1,30 @@
+"""Architecture registry of the port: the reference's configurations for
+the archs that are ported (the reference's ``configs/__init__.py`` imports
+JAX, so this is its own small copy).
+
+Each ``<arch>.py`` exposes ``config()`` (the published configuration) and
+``smoke_config()`` (a reduced same-family config for CPU tests).
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ("stablelm_3b",)
+ALIASES = {"stablelm-3b": "stablelm_3b"}
+
+
+def get(arch: str):
+    mod = ALIASES.get(arch, arch)
+    if mod not in ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ported: {ARCHS}); see "
+            "ROADMAP.md §1 item 11")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def config(arch: str):
+    return get(arch).config()
+
+
+def smoke_config(arch: str):
+    return get(arch).smoke_config()

@@ -6,7 +6,9 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """Return ``torch.device(device)``, raising if it is a CUDA device and no
-    CUDA device is present — the port never falls back to the CPU."""
+    CUDA device is present — the port never falls back to the CPU.  A bare
+    ``"cuda"`` gets the current device's index, so the result compares equal
+    to the ``.device`` of a tensor allocated there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -14,4 +16,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

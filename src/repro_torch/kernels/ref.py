@@ -71,3 +71,76 @@ def sc_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"unknown adder {adder!r}")
     return arith.tff_tree_counts(counts.transpose(1, 2), s0_mode
                                  ).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Paged KV cache: decode attention through a block table, and the tick's
+# in-place row write.
+# --------------------------------------------------------------------------
+
+NEG_INF = -1e30
+NO_WINDOW = 1 << 30          # a window this large never masks
+
+
+def splice_rows(kv: torch.Tensor, rows: torch.Tensor, at: torch.Tensor
+                ) -> torch.Tensor:
+    """In place: write ``rows[b]`` at position ``at[b]`` of ``kv[b]``
+    (B, S, H, D), dropping lanes whose position falls outside ``[0, S)`` —
+    an at-capacity lane rides the decode tick masked, with ``at == S``."""
+    ok = ((at >= 0) & (at < kv.shape[1]))[:, None, None]
+    lanes = torch.arange(kv.shape[0], device=kv.device)
+    at = at.long().clamp(0, kv.shape[1] - 1)
+    kv[lanes, at] = torch.where(ok, rows.to(kv.dtype), kv[lanes, at])
+    return kv
+
+
+def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                           v_arena: torch.Tensor, tables: torch.Tensor,
+                           lens: torch.Tensor, window: int | None = None,
+                           new_kv: tuple[torch.Tensor, torch.Tensor] | None
+                           = None) -> torch.Tensor:
+    """One-query decode attention read through a block table.
+
+    q: (B, Hq, D); k_arena, v_arena: (num_blocks, bs, Hkv, D); tables:
+    (B, nb) block ids; lens: (B,) valid lengths.  Position ``pos`` of lane
+    ``b`` attends when ``lens[b] - win <= pos < lens[b]`` (``win`` is
+    ``NO_WINDOW`` for a window of None or 0).  ``new_kv`` = (k1, v1), each
+    (B, Hkv, D), replaces the row at ``lens[b] - 1`` (dropped past the
+    table's end).  Scores, softmax and the value product are float32 —
+    the probabilities are not cast to the arena's dtype — and the result is
+    divided by ``max(l, 1e-30)``, as the TPU kernel does.  Returns
+    (B, Hq, D) in v_arena's dtype; a lane with ``lens == 0`` is garbage."""
+    B, Hq, D = q.shape
+    Hkv = k_arena.shape[2]
+    win = window if window else NO_WINDOW
+    t = tables.long()
+    k = k_arena[t].reshape(B, -1, Hkv, D).float()         # (B, S, Hkv, D)
+    v = v_arena[t].reshape(B, -1, Hkv, D).float()
+    S = k.shape[1]
+    if new_kv is not None:
+        splice_rows(k, new_kv[0], lens - 1)
+        splice_rows(v, new_kv[1], lens - 1)
+    qh = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhrd,bshd->bhrs", qh, k) * D ** -0.5
+    pos = torch.arange(S, device=q.device)
+    ln = lens.long()[:, None, None, None]
+    s = torch.where((pos < ln) & (pos >= ln - win), s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bhrs,bshd->bhrd", p, v)
+    out = out / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(v_arena.dtype)
+
+
+def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                    k_rows: torch.Tensor, v_rows: torch.Tensor,
+                    wbids: torch.Tensor, offs: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l, b]`` for both
+    arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D).  No other
+    row changes; lanes that collide (only trash-routed ones may) land in
+    some order.  Returns the two arenas."""
+    w, o = wbids.long(), offs.long()
+    k_arena[:, w, 0, o] = k_rows.to(k_arena.dtype)
+    v_arena[:, w, 0, o] = v_rows.to(v_arena.dtype)
+    return k_arena, v_arena

@@ -1,0 +1,39 @@
+"""The attention-backend enum of the paged decode tick.
+
+    backend="plain"  the in-place tick with the plain PyTorch attention read
+                     (gather each chain + masked softmax) and an indexed
+                     row write: the reference's ``"xla"``
+    backend="cuda"   the in-place tick through the hand-written kernels:
+                     ``paged_decode_attention`` in every layer and one
+                     ``scatter_kv_rows`` launch per tick: the reference's
+                     ``"pallas"``
+
+The reference's ``"gather"`` (the gather-tick parity oracle) and
+``"cascade"`` (shared-prefix cascade attention) come with their own slices.
+"""
+from __future__ import annotations
+
+import torch
+
+BACKENDS = ("plain", "cuda")
+LATER = {"gather": "ROADMAP.md §1 item 8 (the gather-tick oracle)",
+         "cascade": "ROADMAP.md §1 item 10 (cascade decode)"}
+
+
+def auto_backend(device: str | torch.device) -> str:
+    """``"cuda"`` on a CUDA device, ``"plain"`` on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+def resolve_backend(backend: str | None, device: str | torch.device) -> str:
+    """``backend`` checked against the enum; ``None`` is the device's
+    :func:`auto_backend`."""
+    if backend is None:
+        return auto_backend(device)
+    if backend in LATER:
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet: {LATER[backend]}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    return backend

@@ -1,0 +1,126 @@
+"""Serving engine of the port, decoder family: one-shot prefill and the
+batched single-token decode tick against the paged block arena.
+
+Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
+``len``.  The paged arena splices a ``num_blocks`` axis in just before the
+batch axis of a B=1, ``block_size``-long cache: (L, num_blocks, 1, bs,
+Hkv, Dh), layer-leading, so one layer's slice is exactly what the paged
+attention reads.
+
+Unlike the reference, which rebuilds arrays functionally (and lets XLA
+donate them), the decode tick here writes the arena **in place**: the new
+token's K/V row per layer and lane lands where the block table says, and no
+other row changes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import paged_attn as paged_kernels
+from repro_torch.kernels import ref
+from repro_torch.models import lm
+
+# Cache keys whose axis -3 is the (paged) sequence axis; the decoder
+# family has only k and v.
+PAGED_SEQ_KEYS = ("k", "v")
+
+
+def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh) and ``len``."""
+    lm.check_supported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"len": torch.zeros((), dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
+                     device: str | torch.device = "cuda") -> dict:
+    """Block arenas for the paged KV cache: per sequence key, the B=1 cache
+    of ``max_len=block_size`` with a ``num_blocks`` axis spliced in just
+    before the batch axis — (L, num_blocks, 1, bs, Hkv, Dh)."""
+    blk = init_cache(cfg, 1, block_size, device="meta")
+    out = {}
+    for key in PAGED_SEQ_KEYS:
+        s = blk[key].shape                       # (L, 1, bs, Hkv, Dh)
+        ax = len(s) - 4                          # just before the B axis
+        out[key] = torch.zeros(s[:ax] + (num_blocks,) + s[ax:],
+                               dtype=blk[key].dtype, device=device)
+    return out
+
+
+def arena_block_axis(a: torch.Tensor) -> int:
+    """Block-id axis of an :func:`init_paged_arena` tensor (5 from the
+    end, whatever the leading layer axes)."""
+    return a.dim() - 5
+
+
+def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
+    """Process a whole prompt.  tokens (B, S) -> (cache, last-token logits
+    (B, vocab_padded) float32); cache k/v (L, B, S, Hkv, Dh), len S."""
+    B, S = tokens.shape
+    x = lm.embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = lm.decoder_block(cfg, lm.layer_params(params["blocks"], i),
+                                     x, positions,
+                                     window=lm.layer_window(cfg, i))
+        ks.append(k)
+        vs.append(v)
+    cache = {"len": torch.tensor(S, dtype=torch.int32, device=x.device),
+             "k": torch.stack(ks), "v": torch.stack(vs)}
+    return cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
+
+
+def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
+                      *, tables: torch.Tensor, lens: torch.Tensor,
+                      arena: dict, wbids: torch.Tensor | None = None,
+                      backend: str = "plain") -> torch.Tensor:
+    """One batched decode tick reading K/V in place from the block arena.
+
+    tokens  (S, 1) int32, one per slot lane.
+    tables  (S, nb) int32 arena block ids (trash-padded past each chain).
+    lens    (S,) int32 lengths; the new token lands at position ``lens``.
+    arena   :func:`init_paged_arena` dict, **updated in place**: one K and
+            one V row per layer and lane at (``wbids``, ``lens % bs``).
+    wbids   (S,) int32 block each lane's row lands in; the caller routes
+            lanes that must not write to the trash block 0.  ``None``
+            derives it from the table, routing lanes past the table to 0.
+    backend ``"plain"`` (gather + masked softmax, indexed write) or
+            ``"cuda"`` (the ``paged_decode_attention`` kernel in every
+            layer and one ``scatter_kv_rows`` launch after the layer loop).
+
+    The decoder family has no slot state besides ``lens`` (the caller's).
+    Returns the logits (S, vocab_padded) float32."""
+    if backend not in ("plain", "cuda"):
+        raise ValueError(f"unknown decode backend {backend!r}")
+    bs = arena["k"].shape[-3]
+    nb = tables.shape[1]
+    pos = lens.to(torch.int32)
+    offs = pos % bs
+    if wbids is None:
+        blk = tables.gather(1, (pos // bs).clamp(max=nb - 1).long()[:, None])
+        wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
+    x = lm.embed_tokens(cfg, params, tokens)               # (S, 1, d)
+    k_rows, v_rows = [], []
+    for i in range(cfg.n_layers):
+        lp = lm.layer_params(params["blocks"], i)
+        h, k1, v1 = lm.attn_decode_paged(
+            cfg, lp["attn"], lm._norm_apply(cfg, lp["ln1"], x),
+            arena["k"][i], arena["v"][i], tables, pos,
+            window=lm.layer_window(cfg, i), backend=backend)
+        x = x + h
+        x = x + lm._mlp_apply(cfg, lp["mlp"],
+                              lm._norm_apply(cfg, lp["ln2"], x))
+        k_rows.append(k1)
+        v_rows.append(v1)
+    # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,
+    # landed after the layer loop so every layer read the arena as it was
+    rows = (torch.stack(k_rows), torch.stack(v_rows))
+    wbids, offs = wbids.to(torch.int32), offs.to(torch.int32)
+    scatter = paged_kernels.scatter_kv_rows if backend == "cuda" else \
+        ref.scatter_kv_rows
+    scatter(arena["k"], arena["v"], *rows, wbids, offs)
+    return lm.logits(cfg, params, x)[:, 0]

@@ -78,6 +78,17 @@ def frame_energy_nj(spec: FrontendSpec) -> float:
     return r.sc_energy_nj if spec.mode == "sc" else r.bin_energy_nj
 
 
+def lm_token_energy_nj(spec: FrontendSpec, d_model: int) -> float:
+    """Per-token first-projection energy for the LM path: one
+    ``d_model``-wide dot-product window per token (one unit, ``n_kernels``
+    weight passes) through the same calibrated Table-3 model the frame path
+    charges, so frame and prompt requests land in the ledger in the same
+    joules."""
+    r = energy.scaled_report(spec.bits, k_window=d_model, n_units=1,
+                             n_kernels=spec.lenet.conv1_filters)
+    return r.sc_energy_nj if spec.mode == "sc" else r.bin_energy_nj
+
+
 def sensor_latency_s(spec: FrontendSpec) -> float:
     """At-sensor processing latency before the payload hits the link: the SC
     engine streams 2**bits cycles/frame; the binary partition transmits

@@ -1,0 +1,244 @@
+"""Continuous batching over slot adapters: the request record, the adapter
+factory and the family-agnostic scheduler loop.
+
+So far the port has one adapter, the paged KV slots of the decoder family
+(``serve/kvcache/paged.py``).  The dense ``KVSlotAdapter``, the rwkv
+``StateSlotAdapter`` and the chunked-prefill adapter come with later slices.
+
+The batcher discovers paging hooks by presence: ``can_admit`` (queue while
+the pool cannot cover a request's worst-case block demand),
+``validate_request`` (reject at submit what could never fit),
+``at_capacity`` (retire a lane whose context filled every block) and
+``slot_stats`` (per-request block accounting stamped onto the Request).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+
+import numpy as np
+
+from repro_torch.models.lm import LMConfig
+from repro_torch.serve.kvcache.pool import PoolExhausted
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray              # (S,) int32
+    max_new_tokens: int = 16
+    eos_id: int | None = None
+    generated: list = dataclasses.field(default_factory=list)
+    # paged-adapter accounting, stamped at retire
+    kv_blocks: int = 0
+    prefix_hit_blocks: int = 0
+    # prompt tokens whose prefill was skipped via a prefix-cache resume
+    prefill_tokens_skipped: int = 0
+    # cross-slice migration accounting (sharded gateway, a later slice)
+    migrations: int = 0
+    migration_bytes: int = 0
+    # virtual-clock stamps (-1 = untracked): when the request left the
+    # pending queue for a slot, and when its prefill produced the first
+    # token — stamped by the batcher when it has a clock
+    t_dequeue: float = -1.0
+    t_admit: float = -1.0
+
+    @property
+    def done(self) -> bool:
+        if self.eos_id is not None and self.generated and \
+                self.generated[-1] == self.eos_id:
+            return True
+        return len(self.generated) >= self.max_new_tokens
+
+
+def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
+                 max_len: int = 128, *, paged: bool = False,
+                 block_size: int = 16, num_blocks: int | None = None,
+                 chunked: bool = True, backend: str | None = None):
+    """The slot adapter for ``cfg``.  Ported so far: ``paged=True`` with
+    ``chunked=False`` (one-shot prefill, storage-only prefix sharing) for
+    the decoder family; ``backend`` picks the decode tick's attention
+    ("plain" | "cuda"; None: "cuda" on a CUDA device, else "plain")."""
+    if not paged:
+        raise NotImplementedError(
+            "the dense KVSlotAdapter is not ported yet: ROADMAP.md §1 "
+            "item 8; pass paged=True")
+    if chunked:
+        raise NotImplementedError(
+            "chunked prefill is not ported yet: ROADMAP.md §1 item 9; pass "
+            "chunked=False")
+    from repro_torch.serve.kvcache.paged import PagedKVSlotAdapter
+    return PagedKVSlotAdapter(cfg, params, n_slots, max_len,
+                              block_size=block_size, num_blocks=num_blocks,
+                              backend=backend)
+
+
+class ContinuousBatcher:
+    """vLLM-style continuous batching over a slot adapter.
+
+    Flow per step():
+      1. admit: for each free slot, pop a pending request, prefill (B=1) and
+         scatter its context into the slot; a request whose prefill token
+         already finishes it (EOS or a 1-token budget) retires immediately
+         without occupying the slot;
+      2. decode: one batched decode over all slots;
+      3. retire: finished requests free their slot.
+    """
+
+    def __init__(self, adapter):
+        self.adapter = adapter
+        self.n_slots = adapter.n_slots
+        self.pending: deque[Request] = deque()
+        self.active: list[Request | None] = [None] * self.n_slots
+        self.last_token = np.zeros((self.n_slots,), np.int32)
+        self.peak_active = 0            # max concurrent slots ever decoded
+        self.last_active = 0            # slots decoding in the latest step
+        # observability hooks, wired by the prompt gateway for a run; all
+        # None by default and every use is guarded
+        self.clock = None               # SimClock for t_dequeue/t_admit
+        self.tracer = None              # span recorder (a later slice)
+        self.trace_pid = 1
+
+    def submit(self, req: Request):
+        if self.adapter.max_len is not None and \
+                len(req.prompt) + req.max_new_tokens > self.adapter.max_len:
+            raise ValueError(
+                f"request {req.uid}: prompt {len(req.prompt)} + "
+                f"{req.max_new_tokens} new tokens exceeds slot capacity "
+                f"{self.adapter.max_len}")
+        validate = getattr(self.adapter, "validate_request", None)
+        if validate is not None:        # paged: whole-pool capacity bound
+            validate(len(req.prompt), req.max_new_tokens)
+        self.pending.append(req)
+
+    def _admissible(self, req: Request) -> bool:
+        can = getattr(self.adapter, "can_admit", None)
+        return can is None or can(req.prompt, req.max_new_tokens)
+
+    def _stamp_stats(self, slot: int, req: Request) -> None:
+        stats = getattr(self.adapter, "slot_stats", None)
+        if stats is not None:
+            st = stats(slot)
+            req.kv_blocks = st.get("kv_blocks", 0)
+            req.prefix_hit_blocks = st.get("prefix_hit_blocks", 0)
+            req.prefill_tokens_skipped = st.get("prefill_tokens_skipped", 0)
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.pending) or any(r is not None for r in self.active)
+
+    def _now(self) -> float:
+        """Virtual time for the stamps: the tracer's clock when tracing,
+        the bare clock when only stamping, -1 (untracked) otherwise."""
+        if self.tracer is not None:
+            return self.tracer.now()
+        if self.clock is not None:
+            return self.clock.t
+        return -1.0
+
+    def _retire_trace(self, req: Request, reason: str) -> None:
+        if self.tracer is not None and \
+                self.tracer.innermost(tid=req.uid) == "decode":
+            self.tracer.end("decode", tid=req.uid,
+                            args={"tokens": len(req.generated),
+                                  "retire": reason})
+
+    def step(self) -> list[Request]:
+        """Admit + one decode tick.  Returns requests completed this tick."""
+        tr = self.tracer
+        if tr is not None:
+            tr.begin("tick", pid=self.trace_pid, tid=0)
+        finished: list[Request] = []
+        stalled = False                 # FIFO: head can't admit -> stop
+        for slot in range(self.n_slots):
+            while self.active[slot] is None and self.pending and not stalled:
+                if not self._admissible(self.pending[0]):
+                    stalled = True      # blocks free up as requests retire
+                    break
+                req = self.pending.popleft()
+                req.t_dequeue = self._now()
+                if tr is not None:
+                    if tr.innermost(tid=req.uid) != "queue_wait":
+                        # submitted before the tracer was wired: open the
+                        # lifecycle late so the rest of it is traced
+                        tr.begin("request", tid=req.uid,
+                                 args={"late_open": True})
+                        tr.begin("queue_wait", tid=req.uid)
+                    tr.end("queue_wait", tid=req.uid)
+                    tr.begin("prefill", tid=req.uid,
+                             args={"prompt_len": len(req.prompt)})
+                    tr.set_ctx(req.uid)
+                try:
+                    tok = self.adapter.insert(
+                        slot, np.asarray(req.prompt, np.int32),
+                        max_new=req.max_new_tokens)
+                except PoolExhausted:
+                    # insert rolled its allocations back; requeue at the
+                    # head (can_admit makes this unreachable, but admission
+                    # must degrade to queueing, never to a crashed loop)
+                    self.pending.appendleft(req)
+                    stalled = True
+                    if tr is not None:
+                        tr.end("prefill", tid=req.uid,
+                               args={"admitted": False})
+                        tr.begin("queue_wait", tid=req.uid)
+                    break
+                req.t_admit = self._now()
+                if tr is not None:
+                    tr.end("prefill", tid=req.uid, args={"slot": slot})
+                req.generated.append(tok)
+                if req.done:            # EOS fired on the prefill token
+                    self._stamp_stats(slot, req)
+                    self.adapter.clear(slot)
+                    finished.append(req)
+                    continue
+                if tr is not None:
+                    tr.begin("decode", tid=req.uid)
+                self.active[slot] = req
+                self.last_token[slot] = tok
+        # a slot whose context filled every KV block cannot take another
+        # token — surface it as finished
+        cap = getattr(self.adapter, "at_capacity", None)
+        if cap is not None:
+            for slot, req in enumerate(self.active):
+                if req is not None and cap(slot):
+                    self._stamp_stats(slot, req)
+                    self._retire_trace(req, "at_capacity")
+                    finished.append(req)
+                    self.active[slot] = None
+                    self.adapter.clear(slot)
+                    self.last_token[slot] = 0
+        active = np.asarray([r is not None for r in self.active])
+        self.last_active = int(active.sum())
+        self.peak_active = max(self.peak_active, self.last_active)
+        if not active.any():
+            if tr is not None:
+                tr.end("tick", pid=self.trace_pid, tid=0,
+                       args={"active": 0, "finished": len(finished)})
+            return finished
+        toks = self.adapter.decode(self.last_token, active)
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            tok = int(toks[slot])
+            req.generated.append(tok)
+            self.last_token[slot] = tok
+            if req.done:
+                self._stamp_stats(slot, req)
+                self._retire_trace(req, "done")
+                finished.append(req)
+                self.active[slot] = None
+                self.adapter.clear(slot)
+                self.last_token[slot] = 0
+        if tr is not None:
+            tr.end("tick", pid=self.trace_pid, tid=0,
+                   args={"active": self.last_active,
+                         "finished": len(finished)})
+        return finished
+
+    def run(self) -> list[Request]:
+        """Drain the queue; returns all completed requests."""
+        done: list[Request] = []
+        while self.busy:
+            done.extend(self.step())
+        return done

@@ -1,0 +1,353 @@
+"""Block-table-backed KV slots: the paged KV cache of the prompt path.
+
+Layout
+    One preallocated arena per sequence key on the adapter's device —
+    ``arena[key]: (L, num_blocks, 1, bs, Hkv, Dh)`` from
+    :func:`engine.init_paged_arena` — shared by every slot.  Each slot holds
+    a block table (a row of ``(n_slots, nb_max)`` int32) mapping logical
+    block j to an arena block id.  Tables and lengths are host numpy state,
+    as in the reference.
+
+Decode tick
+    :func:`engine.decode_step_paged` reads K/V in place through the block
+    tables in every attention layer and writes exactly one row per layer
+    and lane (in place).  Inactive lanes, at-capacity lanes and lanes not
+    yet past copy-on-write write the reserved trash block 0, so the call
+    never changes shape.
+
+Sharing / copy-on-write (one-shot prefill)
+    Admission walks the pool's radix index: full prompt blocks that match
+    an earlier request's chain are referenced instead of written (their
+    prefill values are discarded).  A trailing partial prompt block is
+    shared too when the whole chain plus the partial chunk matches; since
+    decode extends partial blocks in place, every holder of a shared
+    partial block carries a pre-allocated *spare* and copies into it before
+    its first write — the sibling keeps the original, bit for bit.
+
+Admission control
+    ``can_admit`` prices a request at its worst case, ``ceil((P + max_new)
+    / bs)`` blocks minus full-prefix hits, plus the shared partial's
+    revival and the copy-on-write spares it obliges (see
+    ``_admission_demand``), and admits only when the pool's free +
+    evictable supply covers it.
+
+The reference's chunked prefill (``chunked=True``), cascade tick, gather
+tick, mesh placement and obs hooks come with later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import LMConfig
+from repro_torch.serve import engine
+from repro_torch.serve.backend import resolve_backend
+from repro_torch.serve.kvcache.pool import (TRASH_BLOCK, BlockPool,
+                                            PoolExhausted)
+
+
+class PagedKVSlotAdapter:
+    """Paged KV slots for the decoder family, with the batcher surface
+    (``insert`` / ``decode`` / ``clear``) and the paging hooks the batcher
+    discovers by presence: ``can_admit``, ``validate_request``,
+    ``at_capacity``, ``slot_stats``, ``pool_stats``."""
+
+    def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
+                 max_len: int, *, block_size: int = 16,
+                 num_blocks: int | None = None, backend: str | None = None):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.n_slots = n_slots
+        self.bs = block_size
+        self.nb_max = -(-max_len // block_size)
+        self.max_len = self.nb_max * block_size
+        self.backend = resolve_backend(backend, self.device)
+        if self.device.type == "cuda":
+            # float32 matrix products in full float32, as the reference
+            # computes them (TF32 would keep about three digits)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if num_blocks is None:
+            # dense-equivalent capacity + the reserved trash block
+            num_blocks = n_slots * self.nb_max + 1
+        self.pool = BlockPool(num_blocks, block_size)
+        self.arena = engine.init_paged_arena(cfg, num_blocks, block_size,
+                                             self.device)
+        self.seq_keys = tuple(self.arena)
+        self.prefill_tokens_total = 0
+
+        # host-side paging state
+        self.tables = np.zeros((n_slots, self.nb_max), np.int32)
+        self.lens = np.zeros(n_slots, np.int64)
+        self.slot_bids: list[list[int]] = [[] for _ in range(n_slots)]
+        self.cow_blk: list[int | None] = [None] * n_slots
+        self.cow_spare: list[int | None] = [None] * n_slots
+        self.partial_reg: list[tuple[int, int] | None] = [None] * n_slots
+        self._stats: list[dict] = [{} for _ in range(n_slots)]
+        # per-token arena bytes (for the bytes-saved-vs-dense telemetry)
+        self._token_bytes = sum(
+            a.element_size() * (a.numel() // num_blocks) // block_size
+            for a in self.arena.values())
+        self.peak_blocks_in_use = 0
+        self.peak_bytes_saved = 0
+        self.last_logits = None
+
+    # -- device work ---------------------------------------------------------
+
+    def _scatter(self, cache: dict, fresh: list[tuple[int, bytes, int]]
+                 ) -> None:
+        """Write the freshly owned prompt blocks ``(j, key, bid)`` of a B=1
+        prefill cache into the arena (a partial block's tail is zeros, as
+        the reference's padded write leaves it); shared blocks keep the
+        sibling's values."""
+        if not fresh:
+            return
+        js = torch.tensor([j for j, _, _ in fresh], device=self.device)
+        bids = torch.tensor([b for _, _, b in fresh], device=self.device)
+        n = max(j for j, _, _ in fresh) + 1
+        for key in self.seq_keys:
+            a = cache[key][:, 0]                          # (L, P, Hkv, Dh)
+            pad = n * self.bs - a.shape[1]
+            if pad > 0:
+                a = torch.cat([a, a.new_zeros((a.shape[0], pad)
+                                              + a.shape[2:])], dim=1)
+            blocks = a[:, :n * self.bs].reshape(
+                a.shape[0], n, self.bs, *a.shape[2:])
+            self.arena[key][:, bids, 0] = blocks[:, js]
+
+    def _copy(self, dst: int, src: int) -> None:
+        """Copy block ``src`` onto block ``dst`` for every key (CoW)."""
+        for a in self.arena.values():
+            a[:, dst] = a[:, src]
+
+    # -- admission ----------------------------------------------------------
+
+    def _block_demand(self, prompt_len: int, max_new: int) -> int:
+        return -(-(prompt_len + max_new) // self.bs)
+
+    def validate_request(self, prompt_len: int, max_new: int) -> None:
+        n_total = self._block_demand(prompt_len, max_new)
+        if n_total > self.pool.capacity:
+            raise ValueError(
+                f"request needs {n_total} blocks worst-case; pool holds "
+                f"{self.pool.capacity} (block_size={self.bs})")
+
+    def _arming_demand(self, partial_hit: int | None) -> int:
+        """Spares newly required by existing holders of a shared partial."""
+        if partial_hit is None:
+            return 0
+        return sum(1 for s in range(self.n_slots)
+                   if self.partial_reg[s]
+                   and self.partial_reg[s][1] == partial_hit
+                   and self.cow_spare[s] is None)
+
+    def _admission_demand(self, prompt: np.ndarray, max_new: int) -> int:
+        """Exact worst-case supply (free + evictable) an ``insert`` of this
+        request consumes: the chain's blocks minus full-prefix hits, plus
+        one per hit revived from the LRU, plus the shared partial's revival
+        and the copy-on-write spares its existing holders must take."""
+        pool = self.pool
+        n_total = self._block_demand(len(prompt), max_new)
+        hits, partial_hit, _, _ = pool.match_prefix(
+            np.asarray(prompt, np.int32), count=False)
+        revived = sum(1 for b in hits if pool.refcount[b] == 0)
+        demand = n_total - len(hits) + revived
+        if partial_hit is not None and pool.refcount[partial_hit] == 0:
+            demand += 1
+        return demand + self._arming_demand(partial_hit)
+
+    def can_admit(self, prompt: np.ndarray, max_new: int) -> bool:
+        """Worst-case block demand vs free + evictable supply; the batcher
+        queues the request when it does not fit (never fails mid-flight)."""
+        return self._admission_demand(prompt, max_new) <= \
+            self.pool.available()
+
+    # -- slot lifecycle ------------------------------------------------------
+
+    def insert(self, slot: int, prompt: np.ndarray,
+               max_new: int | None = None) -> int:
+        """One-shot prefill of ``prompt`` into ``slot``: storage is shared
+        (hit blocks are referenced, their recomputed values discarded) but
+        no compute is skipped; a shared partial block is held read-only
+        with lazy copy-on-write.  Returns the first generated token."""
+        P = len(prompt)
+        if max_new is None:
+            max_new = max(1, self.max_len - P)
+        if P + max_new > self.max_len:
+            raise ValueError(f"prompt {P} + {max_new} new tokens exceeds "
+                             f"slot capacity {self.max_len}")
+        prompt = np.asarray(prompt, np.int32)
+        n_total = self._block_demand(P, max_new)
+        n_full = P // self.bs
+        hits, partial_hit, keys, pkey = self.pool.match_prefix(prompt)
+        pool = self.pool
+        # take references on every hit before allocating (allocation may
+        # evict from the LRU the hits are parked in); on exhaustion release
+        # everything this insert took — including the spares it armed other
+        # holders with — so a failed admission leaks nothing
+        bids = []
+        fresh: list[tuple[int, bytes, int]] = []       # (blk_idx, key, bid)
+        armed: list[tuple[int, tuple[int, int]]] = []  # (slot, partial_reg)
+        try:
+            bids.extend(pool.acquire(b) for b in hits)
+            for j in range(len(hits), n_full):
+                b = pool.alloc()
+                fresh.append((j, keys[j], b))
+                bids.append(b)
+            if n_full * self.bs < P:                   # partial prompt block
+                if partial_hit is not None:
+                    # share it; every holder copies before its first write
+                    self._arm_holders(partial_hit, armed)
+                    pool.acquire(partial_hit)
+                    bids.append(partial_hit)
+                    self.cow_blk[slot] = n_full
+                    self.cow_spare[slot] = pool.alloc()
+                else:
+                    b = pool.alloc()
+                    fresh.append((n_full, pkey, b))
+                    bids.append(b)
+            while len(bids) < n_total:                 # generation blocks
+                bids.append(pool.alloc())
+        except PoolExhausted:
+            for b in bids:
+                pool.release(b)
+            if self.cow_spare[slot] is not None:
+                pool.release(self.cow_spare[slot])
+            self.cow_blk[slot] = self.cow_spare[slot] = None
+            self.partial_reg[slot] = None
+            for s, prev in armed:                      # disarm: un-leak the
+                pool.release(self.cow_spare[s])        # holders' spares
+                self.cow_blk[s] = self.cow_spare[s] = None
+                self.partial_reg[s] = prev
+            raise
+
+        tokens = torch.from_numpy(prompt[None]).to(self.device)
+        cache, logits = engine.prefill(self.cfg, self.params, tokens)
+        self._scatter(cache, fresh)
+        # index only after the contents exist (a failed insert must never
+        # leave a key pointing at an unwritten block)
+        for j, key, b in fresh:
+            pool.register(key, b, partial=j >= n_full)
+            if j >= n_full:
+                self.partial_reg[slot] = (j, b)
+
+        self.tables[slot, :] = TRASH_BLOCK
+        self.tables[slot, :len(bids)] = bids
+        self.lens[slot] = P
+        self.slot_bids[slot] = bids
+        self.prefill_tokens_total += P
+        self._stats[slot] = {
+            "kv_blocks": n_total,
+            "prefix_hit_blocks": len(hits)
+            + (1 if partial_hit is not None else 0),
+            "prefill_tokens_skipped": 0}
+        self._update_peaks()
+        return int(logits[0].argmax())
+
+    def _update_peaks(self) -> None:
+        in_use = self.pool.blocks_in_use()
+        live = sum(1 for b in self.slot_bids if b)
+        saved = (live * self.max_len - in_use * self.bs) * self._token_bytes
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use, in_use)
+        self.peak_bytes_saved = max(self.peak_bytes_saved, saved)
+
+    def _arm_holders(self, bid: int,
+                     armed: list[tuple[int, tuple[int, int]]]) -> None:
+        """Give every live holder of a newly shared partial block a spare,
+        recording each in ``armed`` before the next allocation can raise so
+        the caller's rollback disarms exactly these holders."""
+        for s in range(self.n_slots):
+            if (self.partial_reg[s] and self.partial_reg[s][1] == bid
+                    and self.cow_spare[s] is None):
+                prev = self.partial_reg[s]
+                spare = self.pool.alloc()
+                self.cow_blk[s] = prev[0]
+                self.cow_spare[s] = spare
+                self.partial_reg[s] = None
+                armed.append((s, prev))
+
+    def clear(self, slot: int) -> None:
+        for bid in self.slot_bids[slot]:
+            self.pool.release(bid)
+        if self.cow_spare[slot] is not None:
+            self.pool.release(self.cow_spare[slot])
+        self.cow_blk[slot] = self.cow_spare[slot] = None
+        self.partial_reg[slot] = None
+        self.slot_bids[slot] = []
+        self.tables[slot, :] = TRASH_BLOCK
+        self.lens[slot] = 0
+
+    # -- decode --------------------------------------------------------------
+
+    def at_capacity(self, slot: int) -> bool:
+        """A slot whose context has filled every block cannot take another
+        token: its next write has no block to land in."""
+        return bool(self.slot_bids[slot]) and \
+            int(self.lens[slot]) >= self.max_len
+
+    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One tick over every lane; returns the greedy token per lane
+        (garbage for inactive lanes, whose lengths stay as they are)."""
+        active = np.asarray(active, bool).copy()
+        wbids = np.full(self.n_slots, TRASH_BLOCK, np.int32)
+        for slot in np.nonzero(active)[0]:
+            if self.at_capacity(slot):
+                # a full slot must not write: route the lane to the trash
+                # block and keep its length frozen
+                active[slot] = False
+                continue
+            blk = int(self.lens[slot]) // self.bs
+            bid = int(self.tables[slot, blk])
+            if self.cow_blk[slot] is not None and blk == self.cow_blk[slot]:
+                spare = self.cow_spare[slot]
+                self._copy(spare, bid)
+                self.pool.cow_copies += 1
+                self.pool.release(bid)
+                self.tables[slot, blk] = spare
+                self.slot_bids[slot][blk] = spare
+                self.cow_blk[slot] = self.cow_spare[slot] = None
+                bid = spare
+            elif self.pool.is_partial(bid):
+                # sole owner writes in place: the cached chunk changes, so
+                # the index entry must go before the write lands
+                self.pool.drop_partial(bid)
+                self.partial_reg[slot] = None
+            wbids[slot] = bid
+        dev = self.device
+        logits = engine.decode_step_paged(
+            self.cfg, self.params,
+            torch.from_numpy(np.asarray(tokens, np.int32)[:, None]).to(dev),
+            tables=torch.from_numpy(self.tables).to(dev),
+            lens=torch.from_numpy(self.lens.astype(np.int32)).to(dev),
+            arena=self.arena, wbids=torch.from_numpy(wbids).to(dev),
+            backend=self.backend)
+        self.lens[active] += 1
+        self.last_logits = logits           # (n_slots, vocab) — parity tests
+        return logits.argmax(-1).cpu().numpy()
+
+    # -- telemetry -----------------------------------------------------------
+
+    def arena_block(self, key: str, bid: int) -> torch.Tensor:
+        """One arena block's contents for ``key``: the B=1 cache slice of
+        ``block_size`` positions."""
+        return self.arena[key].select(engine.arena_block_axis(
+            self.arena[key]), bid)
+
+    def slot_stats(self, slot: int) -> dict:
+        return dict(self._stats[slot])
+
+    def pool_stats(self) -> dict:
+        st = self.pool.stats()
+        live = sum(1 for b in self.slot_bids if b)
+        st["bytes_dense_equiv"] = live * self.max_len * self._token_bytes
+        st["bytes_paged"] = st["blocks_in_use"] * self.bs * self._token_bytes
+        st["bytes_saved_vs_dense"] = (st["bytes_dense_equiv"]
+                                      - st["bytes_paged"])
+        st["peak_blocks_in_use"] = self.peak_blocks_in_use
+        st["peak_bytes_saved_vs_dense"] = self.peak_bytes_saved
+        st["prefill_tokens_total"] = self.prefill_tokens_total
+        # the one-shot path skips no prefill compute and keeps no
+        # recurrent boundary states (those are the chunked fold's)
+        st["prefill_tokens_skipped"] = 0
+        st["boundary_state_bytes"] = 0
+        return st

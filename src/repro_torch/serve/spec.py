@@ -1,0 +1,84 @@
+"""Declarative gateway construction: one ``ServeSpec``, one factory.
+
+``ServeSpec`` names the configuration of a prompt gateway once, as a frozen
+dataclass, and ``make_gateway`` validates it and builds the gateway it
+describes.  Ported so far: the colocated gateway over paged KV slots with
+one-shot prefill (``paged=True, chunked=False``).  ``chunked`` keeps the
+reference's default of True and raises until chunked prefill is ported;
+``mesh``/``roles`` (sharded and disaggregated serving) and the
+observability attachments raise until their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """Slot/cache geometry: ``n_slots`` decode lanes of ``max_len`` tokens;
+    ``paged`` KV in ``block_size``-token blocks, ``num_blocks`` of them
+    (None: dense-equivalent); ``chunked`` prefill.  ``backend`` picks the
+    decode tick's attention ("plain" | "cuda"; None: "cuda" on a CUDA
+    device).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
+    ``max_queue``; ``energy_spec`` prices tokens for the energy ledger."""
+    n_slots: int = 4
+    max_len: int = 128
+    paged: bool = False
+    block_size: int = 16
+    num_blocks: int | None = None
+    chunked: bool = True
+    backend: str | None = None
+    mesh: object | None = None
+    roles: object | None = None
+    max_new_tokens: int = 16
+    bytes_per_token: int = 4
+    max_queue: int = 64
+    energy_spec: object | None = None
+    tracer: object = None
+    metrics: object = None
+    slo: object = None
+    flight: object = None
+    incident_dir: str | None = None
+
+    def replace(self, **kw) -> "ServeSpec":
+        return dataclasses.replace(self, **kw)
+
+
+def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
+                 device: str | torch.device = "cuda", **overrides):
+    """Build the ``PromptGateway`` that ``spec`` (plus field ``overrides``)
+    describes, on ``device``, where ``params`` must already live."""
+    from repro_torch.serve.gateway.gateway import PromptGateway
+    from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
+
+    spec = spec or ServeSpec()
+    if overrides:
+        spec = spec.replace(**overrides)
+    dev = resolve_device(device)
+    if params["embed"].device != dev:
+        raise ValueError(f"params live on {params['embed'].device}, the "
+                         f"gateway on {dev}")
+    if spec.mesh is not None or spec.roles is not None:
+        raise NotImplementedError(
+            "mesh/roles (sharded and disaggregated serving) are not ported "
+            "yet: ROADMAP.md §1 item 12")
+    if spec.flight is not None or spec.incident_dir is not None:
+        raise NotImplementedError(
+            "flight/incident_dir are not ported yet: ROADMAP.md §1 item 13")
+    if spec.backend is not None and not spec.paged:
+        raise ValueError(f"backend={spec.backend!r} selects the paged decode "
+                         "tick's attention; it requires paged=True")
+    adapter = make_adapter(
+        cfg, params, n_slots=spec.n_slots, max_len=spec.max_len,
+        paged=spec.paged, block_size=spec.block_size,
+        num_blocks=spec.num_blocks, chunked=spec.chunked,
+        backend=spec.backend)
+    return PromptGateway(
+        ContinuousBatcher(adapter), max_new_tokens=spec.max_new_tokens,
+        bytes_per_token=spec.bytes_per_token, max_queue=spec.max_queue,
+        energy_spec=spec.energy_spec, tracer=spec.tracer,
+        metrics=spec.metrics, slo=spec.slo)

@@ -44,11 +44,16 @@ def test_files_found():
     assert "chip_smoke.py" in rel
     assert "src/repro_torch/serve/gateway/gateway.py" in rel
     assert "src/repro_torch/kernels/ops.py" in rel
+    assert "src/repro_torch/kernels/paged_attn.py" in rel
+    assert "src/repro_torch/serve/kvcache/paged.py" in rel
+    assert "src/repro_torch/serve/spec.py" in rel
 
 
 def test_gateway_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serve.gateway.gateway, "
-            "repro_torch.convert, repro_torch.kernels.ops\n"
+            "repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.serve.spec, repro_torch.serve.kvcache.paged, "
+            "repro_torch.configs.stablelm_3b\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "assert not bad, bad\n")

@@ -1,0 +1,201 @@
+"""The port's LM building blocks and decoder-family prefill against the
+reference on the same inputs (numpy, seeded) and the same weights
+(``convert.lm_params_from_jax``), at the stablelm-3b smoke size in float32:
+norms, RoPE and SwiGLU within 1e-6, attention within 1e-5, prefill logits
+and the K/V cache within 1e-5."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import lm as jlm
+from repro.nn import attention as jattn
+from repro.nn import mlp as jmlp
+from repro.nn import norms as jnorms
+from repro.nn import rope as jrope
+from repro.serve import engine as jengine
+from repro_torch import configs
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.models import lm
+from repro_torch.nn import attention, mlp, norms, rope
+from repro_torch.serve import engine
+
+ARCH = "stablelm_3b"
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def smoke_pair(dtype="float32"):
+    """(reference cfg, reference params, port cfg, port params) with the
+    reference's weights carried over."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config(ARCH),
+                               param_dtype=dtype)
+    cfg = dataclasses.replace(configs.smoke_config(ARCH), param_dtype=dtype)
+    jparams, _ = jlm.init(jax.random.key(0), jcfg, {})
+    params = lm_params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                "cpu")
+    return jcfg, jparams, cfg, params
+
+
+@pytest.mark.parametrize("arch_fn", ["config", "smoke_config"])
+def test_config_matches_reference(arch_fn):
+    cfg = getattr(configs, arch_fn)(ARCH)
+    jcfg = getattr(jconfigs, arch_fn)(ARCH)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.vocab_padded == jcfg.vocab_padded
+    assert cfg.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("window,global_every", [(0, 0), (5, 0), (5, 3)])
+def test_layer_window_matches_reference(window, global_every):
+    cfg = dataclasses.replace(configs.smoke_config(ARCH), window=window,
+                              global_every=global_every)
+    jcfg = dataclasses.replace(jconfigs.smoke_config(ARCH), window=window,
+                               global_every=global_every)
+    for i in range(7):
+        assert lm.layer_window(cfg, i) == int(jlm.layer_window(jcfg, i))
+
+
+def test_sc_frontend_and_other_families_raise():
+    cfg = configs.smoke_config(ARCH)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.init(dataclasses.replace(cfg, first_layer_mode="sc"), gen)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.init(dataclasses.replace(cfg, family="moe"), gen)
+    with pytest.raises(NotImplementedError):
+        configs.config("llama3_405b")
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norms_match_reference(kind):
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 2, (3, 5, 48)).astype(np.float32)
+    scale = rng.normal(1, 0.1, (48,)).astype(np.float32)
+    bias = rng.normal(0, 0.1, (48,)).astype(np.float32)
+    if kind == "rmsnorm":
+        got = norms.rmsnorm(_t(x), _t(scale))
+        want = jnorms.rmsnorm(jnp.asarray(x), jnp.asarray(scale))
+    else:
+        got = norms.layernorm(_t(x), _t(scale), _t(bias))
+        want = jnorms.layernorm(jnp.asarray(x), jnp.asarray(scale),
+                                jnp.asarray(bias))
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("d_head", [40, 80])
+def test_rope_matches_reference(d_head):
+    rng = np.random.default_rng(d_head)
+    x = rng.normal(0, 1, (2, 9, 3, d_head)).astype(np.float32)
+    pos = np.stack([np.arange(9), np.arange(30, 39)]).astype(np.int32)
+    got = rope.apply_rope(_t(x), _t(pos), 10000.0)
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    _close(got, want, 1e-6)
+
+
+def test_swiglu_matches_reference():
+    rng = np.random.default_rng(2)
+    x = rng.normal(0, 1, (2, 7, 32)).astype(np.float32)
+    wg, wi = (rng.normal(0, 0.2, (32, 64)).astype(np.float32)
+              for _ in range(2))
+    wo = rng.normal(0, 0.2, (64, 32)).astype(np.float32)
+    got = mlp.swiglu(_t(x), _t(wg), _t(wi), _t(wo))
+    want = jmlp.swiglu(*(jnp.asarray(a) for a in (x, wg, wi, wo)))
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 0, 0), (True, 6, 0), (False, 0, 0), (True, 0, 5)])
+def test_attend_chunked_matches_reference(causal, window, q_offset):
+    rng = np.random.default_rng(3)
+    q = rng.normal(0, 1, (2, 11, 4, 16)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (2, 11 + q_offset, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, q_chunk=4,
+              kv_chunk=8)
+    got = attention.attend_chunked(_t(q), _t(k), _t(v), **kw)
+    want = jattn.attend_chunked(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), **kw)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_attend_decode_matches_reference(window):
+    rng = np.random.default_rng(4)
+    q = rng.normal(0, 1, (2, 1, 4, 16)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (2, 12, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    got = attention.attend_decode(_t(q), _t(k), _t(v), 9, window=window)
+    want = jattn.attend_decode(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), 9, window=window)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 7, 13])
+def test_prefill_logits_and_cache_match_reference(S):
+    jcfg, jparams, cfg, params = smoke_pair()
+    tokens = np.random.default_rng(S).integers(0, cfg.vocab, (2, S),
+                                               dtype=np.int32)
+    cache, logits = engine.prefill(cfg, params, _t(tokens))
+    jcache, jlogits = jengine.prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(tokens)})
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert logits.dtype == torch.float32
+    _close(logits, jlogits, 1e-5)
+    for key in ("k", "v"):
+        assert cache[key].shape == jcache[key].shape
+        _close(cache[key], jcache[key], 1e-5)
+    assert int(cache["len"]) == int(jcache["len"]) == S
+
+
+def test_converted_params_give_reference_prefill_logits():
+    """lm_params_from_jax keeps every name, shape and value (bfloat16 bit
+    for bit), and the converted tree reproduces the reference's logits."""
+    jcfg, jparams, cfg, params = smoke_pair("bfloat16")
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat) == len(jax.tree.leaves(
+        {k: v for k, v in params.items()}))
+    for path, leaf in flat:
+        t = params
+        for p in path:
+            t = t[p.key]
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == leaf.shape
+        assert np.array_equal(t.view(torch.int16).numpy(),
+                              np.asarray(leaf).view(np.int16))
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    jf32 = dataclasses.replace(jcfg, param_dtype="float32")
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+    p32 = lm_params_from_jax(jax.tree.map(np.asarray, jp32), f32, "cpu")
+    tokens = np.arange(10, dtype=np.int32)[None] * 7 % cfg.vocab
+    _, logits = engine.prefill(f32, p32, _t(tokens))
+    _, jlogits = jengine.prefill(jf32, jp32, {"tokens": jnp.asarray(tokens)})
+    _close(logits, jlogits, 1e-5)
+
+
+def test_init_is_seeded_and_shaped_like_reference():
+    cfg = configs.smoke_config(ARCH)
+    a = lm.init(cfg, torch.Generator().manual_seed(3))
+    b = lm.init(cfg, torch.Generator().manual_seed(3))
+    jparams, _ = jlm.init(None, jconfigs.smoke_config(ARCH), abstract=True)
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    for path, leaf in flat:
+        ta, tb = a, b
+        for p in path:
+            ta, tb = ta[p.key], tb[p.key]
+        assert tuple(ta.shape) == leaf.shape and ta.dtype == torch.bfloat16
+        assert torch.equal(ta, tb)
+    assert float(a["blocks"]["attn"]["wq"].float().abs().max()) <= \
+        2 / np.sqrt(cfg.d_model) + 1e-3
