@@ -10,9 +10,13 @@ Phases, each printing one JSON line:
   2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, all started together);
   3. each kernel held against its plain PyTorch version on the same CUDA
-     tensors — the SC kernels and ``scatter_kv_rows`` bit for bit,
-     ``paged_decode_attention`` within 2e-5 (float32) / 2e-2 (bfloat16) —
-     and timed at the main paths' shapes beside it;
+     tensors — the SC kernels and ``scatter_kv_rows`` bit for bit, the
+     attention kernels (``paged_decode_attention`` and the cascade's
+     ``paged_decode_attention_with_state``, ``cascade_prefix_attention``
+     and ``merge_attn_states``) within 2e-5 (float32) / 2e-2 (bfloat16),
+     the cascade's empty state exactly; the cascade kernels also at load
+     (c)'s shapes (a 1,024-position chain, eight lanes, 8-block suffixes,
+     a NaN trash block) — and timed at the main paths' shapes beside it;
   4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
@@ -26,9 +30,24 @@ Phases, each printing one JSON line:
      tick timed at 8 lanes x 1k context; then the kernel tick held against
      the plain tick on the same card and weights: float32 at full width and
      depth 4 (tokens equal, logits within 2e-4) and bf16 at full depth
-     (max |logit difference| within ``BF16_LOGIT_BOUND``).
+     (max |logit difference| within ``BF16_LOGIT_BOUND``);
+  6. the cascade tick: ``make_gateway(..., backend="cascade")`` serving
+     load (c), eight requests that share a 1,024-token prompt, each with its
+     own 64-token tail and 32 new tokens, with one group of eight lanes on
+     every tick and the three cascade kernels launched 32 times per tick;
+     the same load through the flat ``"cuda"`` gateway, in turns with the
+     cascade one, for the tick times and the tokens: equal at float32 and
+     depth 4 with logits within 2e-4, and in bf16 at full depth equal up to
+     each stream's first difference, which must be a near tie (the flat
+     tick's margin for its token over the cascade's within the two ticks'
+     logit difference on the same history, itself within
+     ``NEAR_TIE_BOUND``); then the cascade tick held against the plain
+     flat tick on eight prompts sharing a 512-token prefix, at float32
+     depth 4 and bf16 full depth as in phase 5.
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+Then a ``{"kernels": [...]}`` line (each kernel's launches on the path that
+brought it, and on every path in ``launches_by_path``) and, last,
+``{"ok": true, "device": ...}``.
 Exits non-zero, and prints no result, without a CUDA device, without the
 repository beside it, or when any phase fails.
 """
@@ -53,8 +72,12 @@ POPC_PER_CLK_SM = 16
 # fp32 outside the tensor cores (NVIDIA H100 SXM data sheet): the paged
 # attention's score and value products are float32 FMAs
 F32_FLOPS = 67e12
-SOURCES = ("sng_pack", "sc_dot", "paged_attn")
-KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows")
+SOURCES = ("sng_pack", "sc_dot", "paged_attn", "cascade_attn")
+KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows",
+           "paged_decode_attention_with_state", "cascade_prefix_attention",
+           "merge_attn_states")
+CASCADE = ("paged_decode_attention_with_state", "cascade_prefix_attention",
+           "merge_attn_states")
 TRACE_SECONDS = 1.0             # ~330 frames from the default 64-sensor fleet
 # The bf16 kernel tick differs from the plain tick only in rounding: the
 # plain path casts the softmax probabilities to bf16 before the value
@@ -63,8 +86,21 @@ TRACE_SECONDS = 1.0             # ~330 frames from the default 64-sensor fleet
 # first run on the card (PERF.md): the max |logit difference| over 8 lanes
 # x 8 forced ticks stays under this.
 BF16_LOGIT_BOUND = 1.0
+# load (c) in bf16: where the cascade and flat greedy streams first differ,
+# the two ticks' max |logit difference| on that history must stay under
+# this (measured 0.058 and 0.055 on an H100, PERF.md) for the difference to
+# count as a near tie
+NEAR_TIE_BOUND = 0.2
+# the kernel that each path brought, and so the path whose launches the
+# kernels line reports as its own
+HOME_PATH = {"sng_pack": "frame", "sc_dot": "frame",
+             "paged_decode_attention": "prompt", "scatter_kv_rows": "prompt",
+             **dict.fromkeys(CASCADE, "cascade")}
 # the prompt path: stablelm-3b, 8 lanes of 1,536 tokens, 16-token blocks
 LM_SLOTS, LM_MAX_LEN, LM_BLOCK = 8, 1536, 16
+# load (c): a shared 1,024-token prompt (64 full blocks), a 64-token tail per
+# request, 32 new tokens each
+SHARED_PROMPT, OWN_TAIL, NEW_TOKENS_C = 1024, 64, 32
 
 
 def emit(obj: dict) -> None:
@@ -290,6 +326,276 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     return err, timing
 
 
+def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
+    """Phase 3 for the cascade kernels.  Returns (max_abs_err, timing) per
+    kernel; raises SystemExit when a kernel disagrees with its plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.kernels import ref
+    from repro_torch.nn import attention
+
+    def arr(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    # "cascade_vs_flat" is the whole cascade against flat attention, kept
+    # apart from the kernels' own errors
+    err = {name: 0.0 for name in CASCADE + ("cascade_vs_flat",)}
+    checks = []
+
+    def check(name, got, want, tol, **case):
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        err[name] = max(err[name], e)
+        checks.append({"kernel": name, **case, "max_abs_err": e,
+                       "ok": all(torch.allclose(g, w, rtol=tol, atol=tol)
+                                 for g, w in zip(got, want))})
+
+
+    # tests/test_cascade.py's fixture at 16-token blocks and full-width
+    # heads: lanes 0-2 share a 3-block prefix (lane 1 ends 3 positions past
+    # it, so window 8 clips into the prefix; window 2 empties every prefix
+    # state), lane 3 is ungrouped, lane 4 ends exactly at the prefix (an
+    # empty suffix), group slots 5-7 are padding, and the trash block holds
+    # NaN
+    bs, q0 = 16, 48
+    meta = {"group_tables": torch.tensor([[1, 2, 3, 0]], **i32),
+            "group_len": torch.tensor([q0], **i32),
+            "group_lanes": torch.tensor([[0, 1, 2, 4, 0, 0, 0, 0]], **i32),
+            "group_mask": torch.tensor([[1, 1, 1, 1, 0, 0, 0, 0]],
+                                       device=dev) != 0,
+            "lane_q0": torch.tensor([q0, q0, q0, 0, q0], **i32),
+            "suffix_tables": torch.tensor(
+                [[10, 11, 0, 0], [12, 0, 0, 0], [13, 14, 15, 0],
+                 [4, 5, 6, 7], [16, 0, 0, 0]], **i32)}
+    flat_tables = torch.tensor([[1, 2, 3, 10, 11, 0], [1, 2, 3, 12, 0, 0],
+                                [1, 2, 3, 13, 14, 15], [4, 5, 6, 7, 0, 0]],
+                               **i32)
+    cl = torch.tensor([q0 + 22, q0 + 3, q0 + 40, 50, q0], **i32)
+    meta = attention.with_lane_meta(meta, cl)
+    lanes = meta["group_lanes"].long()
+    for label, Hq, Hkv in (("MHA", 32, 32), ("GQA 4:1", 32, 8)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            q = arr((5, Hq, 80), dtype)
+            ka, va = arr((25, bs, Hkv, 80), dtype), arr((25, bs, Hkv, 80),
+                                                        dtype)
+            nk = (arr((5, Hkv, 80), dtype), arr((5, Hkv, 80), dtype))
+            for window in (0, 8, 2):
+                case = {"case": label, "dtype": str(dtype), "window": window}
+                states = {}
+                for trash in (1e9, float("nan")):
+                    ka[0], va[0] = trash, -trash
+                    pre = (q[lanes].contiguous(), ka, va,
+                           meta["group_tables"], meta["group_len"],
+                           cl[lanes].contiguous())
+                    suf = (q, ka, va, meta["suffix_tables"], cl)
+                    got_p = paged_k.cascade_prefix_attention(*pre,
+                                                             window=window)
+                    got_s = paged_k.paged_decode_attention_with_state(
+                        *suf, window=window, q0=meta["lane_q0"], new_kv=nk)
+                    states[trash != trash] = got_p + got_s
+                want_p = ref.cascade_prefix_attention(*pre, window)
+                want_s = ref.paged_decode_attention_with_state(
+                    *suf, window, meta["lane_q0"], nk)
+                torch.cuda.synchronize()
+                check("cascade_prefix_attention", got_p, want_p, tol, **case)
+                check("paged_decode_attention_with_state", got_s, want_s,
+                      tol, **case)
+                checks.append({
+                    "kernel": "cascade", **case, "nan_trash_bitwise": True,
+                    "ok": all(torch.equal(a, b) for a, b in
+                              zip(states[False], states[True]))})
+                # lane 4's suffix is empty: the empty state, exactly
+                acc, m, l = got_s
+                checks.append({
+                    "kernel": "paged_decode_attention_with_state", **case,
+                    "empty_state_exact": True,
+                    "ok": bool((acc[4] == 0).all() and (l[4] == 0).all()
+                               and (m[4] == ref.NEG_INF).all())
+                    and all(torch.equal(g[4], w[4])
+                            for g, w in zip(got_s, want_s))})
+                # the merge against its plain version on the states the
+                # cascade hands it, and the whole cascade against flat
+                # attention over lanes 0-3 (the plain flat version gets a
+                # clean trash block, since it multiplies those rows by 0)
+                states = attention.place_group_states(meta, *got_p, 5) + \
+                    got_s
+                check("merge_attn_states",
+                      (paged_k.merge_attn_states(*states),),
+                      (ref.merge_attn_states(*states),), 2e-5, **case)
+                out = attention.attend_decode_cascade(
+                    q[:, None], ka, va, meta, cl, window=window, new_kv=nk)
+                ka[0], va[0] = 0, 0
+                flat = ref.paged_decode_attention(
+                    q[:4], ka, va, flat_tables, cl[:4], window,
+                    (nk[0][:4], nk[1][:4]))
+                check("cascade_vs_flat", (out[:4, 0].float(),),
+                      (flat.float(),), tol, **case)
+    # the merge against its plain version, and an empty side exactly
+    B, Hq, D = 8, 32, 80
+
+    def state():
+        return (arr((B, Hq, D), torch.float32), arr((B, Hq), torch.float32),
+                torch.rand((B, Hq), generator=gen, device=dev) + 0.5)
+    a, b = state(), state()
+    e = (torch.zeros_like(a[0]), torch.full_like(a[1], ref.NEG_INF),
+         torch.zeros_like(a[2]))
+    check("merge_attn_states", (paged_k.merge_attn_states(*a, *b),),
+          (ref.merge_attn_states(*a, *b),), 2e-5, case="two states")
+    for label, args in (("empty first", e + b), ("empty second", a + e),
+                        ("both empty", e + e)):
+        got = paged_k.merge_attn_states(*args)
+        checks.append({"kernel": "merge_attn_states", "case": label,
+                       "exact": True,
+                       "ok": torch.equal(got, ref.merge_attn_states(*args))
+                       and not bool(torch.isnan(got).any())})
+
+    # load (c)'s shapes with the trash block NaN: one group of 8 lanes over
+    # a 64-block chain (eight 128-position chunks of the prefix kernel, so
+    # the rescale between chunks runs), suffixes of 1 to 128 positions in
+    # 8-entry trash-padded tables (the last lane reads all eight blocks),
+    # windows 0, 700 (clipping inside the chain) and 2
+    H, Lc, npre, nsuf = 32, LM_SLOTS, SHARED_PROMPT // LM_BLOCK, 8
+    num_blocks = LM_SLOTS * (LM_MAX_LEN // LM_BLOCK) + 1
+    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev) + 1
+            ).to(torch.int32)
+    suf = torch.tensor([1, 16, 17, 40, 64, 96, 127, 128], **i32)
+    lens = SHARED_PROMPT + suf
+    st = perm[npre:npre + Lc * nsuf].reshape(Lc, nsuf).clone()
+    st[torch.arange(nsuf, device=dev)[None] * LM_BLOCK >= suf[:, None]] = 0
+    gt = perm[:npre][None].contiguous()
+    big = attention.with_lane_meta(
+        {"group_tables": gt, "group_len": torch.tensor([SHARED_PROMPT], **i32),
+         "group_lanes": torch.arange(Lc, **i32)[None],
+         "group_mask": torch.ones((1, Lc), dtype=torch.bool, device=dev),
+         "lane_q0": torch.full((Lc,), SHARED_PROMPT, **i32),
+         "suffix_tables": st}, lens)
+    flat_tables = torch.cat([gt.expand(Lc, -1), st], 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        q = arr((Lc, H, D), dtype)
+        ka = arr((num_blocks, LM_BLOCK, H, D), dtype)
+        va = arr((num_blocks, LM_BLOCK, H, D), dtype)
+        nk = (arr((Lc, H, D), dtype), arr((Lc, H, D), dtype))
+        for window in (0, 700, 2):
+            case = {"case": "load (c) shapes", "dtype": str(dtype),
+                    "window": window}
+            ka[0], va[0] = float("nan"), float("nan")
+            pre = (q[big["group_lanes"]], ka, va, gt, big["group_len"],
+                   big["lane_lens"])
+            sfx = (q, ka, va, st, lens)
+            got_p = paged_k.cascade_prefix_attention(*pre, window=window)
+            got_s = paged_k.paged_decode_attention_with_state(
+                *sfx, window=window, q0=big["lane_q0"], new_kv=nk)
+            check("cascade_prefix_attention", got_p,
+                  ref.cascade_prefix_attention(*pre, window), tol, **case)
+            check("paged_decode_attention_with_state", got_s,
+                  ref.paged_decode_attention_with_state(
+                      *sfx, window, big["lane_q0"], nk), tol, **case)
+            states = attention.place_group_states(big, *got_p, Lc) + got_s
+            check("merge_attn_states",
+                  (paged_k.merge_attn_states(*states),),
+                  (ref.merge_attn_states(*states),), 2e-5, **case)
+            out = attention.attend_decode_cascade(
+                q[:, None], ka, va, big, lens, window=window, new_kv=nk)
+            ka[0], va[0] = 0, 0
+            flat = ref.paged_decode_attention(q, ka, va, flat_tables, lens,
+                                              window, nk)
+            check("cascade_vs_flat", (out[:, 0].float(),), (flat.float(),),
+                  tol, **case)
+        del q, ka, va, nk
+    torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+
+    # timing at load (c)'s last tick, bf16: one group of Lc = 8 lanes over a
+    # 64-block chain (1,024 positions), each lane 1,120 long, so its suffix
+    # is 96 positions in an 8-entry suffix table from q0 = 1,024
+    H, D, Lc, n_pre, n_len = 32, 80, 8, SHARED_PROMPT, 1120
+    n_suf = n_len - n_pre
+    num_blocks = LM_SLOTS * (LM_MAX_LEN // LM_BLOCK) + 1
+    bf = torch.bfloat16
+    ka, va = arr((num_blocks, LM_BLOCK, H, D), bf), \
+        arr((num_blocks, LM_BLOCK, H, D), bf)
+    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev) + 1
+            ).to(torch.int32)
+    npre, nsuf = n_pre // LM_BLOCK, 8
+    gt = perm[:npre][None].contiguous()
+    st = perm[npre:npre + Lc * nsuf].reshape(Lc, nsuf).contiguous()
+    glen = torch.tensor([n_pre], **i32)
+    lens = torch.full((Lc,), n_len, **i32)
+    q0s = torch.full((Lc,), n_pre, **i32)
+    q = arr((Lc, H, D), bf)
+    qg = q[None].contiguous()
+    ll = lens[None].contiguous()
+    nk = (arr((Lc, H, D), bf), arr((Lc, H, D), bf))
+    row = H * D * 2                                   # bytes per K or V row
+    timing = {}
+    pre_ms = time_ms(lambda: paged_k.cascade_prefix_attention(
+        qg, ka, va, gt, glen, ll), 5, 20, sleep)
+    kd = ka[gt.long()].reshape(1, -1, H, D)[:, :n_pre].transpose(1, 2)
+    vd = va[gt.long()].reshape(1, -1, H, D)[:, :n_pre].transpose(1, 2)
+    kd, vd = kd.contiguous(), vd.contiguous()
+    timing["cascade_prefix_attention"] = {
+        "shape": f"qg (1, {Lc}, {H}, {D}) bf16, {n_pre}-position chain, "
+                 f"group_tables (1, {npre}), lane_lens {n_len}",
+        "ms": pre_ms[0], "back_to_back_ms": pre_ms[1],
+        "plain_ms": time_ms(lambda: ref.cascade_prefix_attention(
+            qg, ka, va, gt, glen, ll), 3, 3, sleep)[0],
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(0, 1)[None], kd, vd), 5, 20, sleep)[0],
+        "library": "F.scaled_dot_product_attention of the 8 queries on the "
+                   "gathered chain (normalized output only; gather not "
+                   "timed)",
+        "bytes_ms": (2 * n_pre * row + Lc * H * D * 2 + Lc * H * (D + 2) * 4
+                     + 4 * (npre + 1 + Lc)) / PEAK_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * Lc * H * n_pre * D / F32_FLOPS * 1e3}
+    suf_ms = time_ms(lambda: paged_k.paged_decode_attention_with_state(
+        q, ka, va, st, lens, q0=q0s, new_kv=nk), 5, 20, sleep)
+    ks = ka[st.long()].reshape(Lc, -1, H, D)[:, :n_suf].transpose(1, 2)
+    vs = va[st.long()].reshape(Lc, -1, H, D)[:, :n_suf].transpose(1, 2)
+    ks, vs = ks.contiguous(), vs.contiguous()
+    timing["paged_decode_attention_with_state"] = {
+        "shape": f"q ({Lc}, {H}, {D}) bf16, {n_suf} suffix positions per "
+                 f"lane from q0 {n_pre}, tables ({Lc}, {nsuf}), splice on",
+        "ms": suf_ms[0], "back_to_back_ms": suf_ms[1],
+        "plain_ms": time_ms(lambda: ref.paged_decode_attention_with_state(
+            q, ka, va, st, lens, None, q0s, nk), 3, 3, sleep)[0],
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], ks, vs), 5, 20, sleep)[0],
+        "library": "F.scaled_dot_product_attention on the gathered suffix "
+                   "(normalized output only; gather not timed)",
+        "bytes_ms": (2 * Lc * n_suf * row + Lc * H * D * 2
+                     + Lc * H * (D + 2) * 4 + 4 * (Lc * nsuf + 2 * Lc))
+        / PEAK_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * Lc * H * n_suf * D / F32_FLOPS * 1e3}
+    a, b = state(), state()
+    mg_ms = time_ms(lambda: paged_k.merge_attn_states(*a, *b), 5, 20, sleep)
+    timing["merge_attn_states"] = {
+        "shape": f"2 x (acc ({B}, {Hq}, {D}), m, l ({B}, {Hq})) float32",
+        "ms": mg_ms[0], "back_to_back_ms": mg_ms[1],
+        "plain_ms": time_ms(lambda: ref.merge_attn_states(*a, *b), 3, 5,
+                            sleep)[0],
+        "library_ms": None,
+        "bytes_ms": 4 * (3 * B * Hq * D + 4 * B * Hq) / PEAK_BYTES_PER_S
+        * 1e3,
+        "ops_ms": 8 * B * Hq * D / F32_FLOPS * 1e3}
+    del ka, va, kd, vd, ks, vs
+    torch.cuda.empty_cache()
+    for t in timing.values():
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+            "operations"
+    emit({"phase": "cascade_kernel_checks", "checks": len(checks),
+          "failed": bad, "max_abs_err": err, "timing": timing})
+    if bad:
+        raise SystemExit(f"cascade kernel disagrees with its plain version: "
+                         f"{bad}")
+    return err, timing
+
+
 class TickProbe:
     """Wraps an adapter's ``decode``: host time of each tick (it ends in the
     tokens' copy to the host, so the device work is inside) and whether
@@ -313,9 +619,10 @@ class TickProbe:
 def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     """Device time of ``n`` batcher steps (decode ticks, nothing to admit)
     from ``torch.profiler``: busy ms per tick, the idle share of a tick of
-    ``tick_ms`` (timed without the profiler), and the kernels that take the
-    most device time.  Busy time is None when the trace holds no device
-    time."""
+    ``tick_ms`` (timed without the profiler), the kernels that take the
+    most device time, and on the host the kernel launches per tick and the
+    operations with the most self time.  Busy time is None when the trace
+    holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -332,20 +639,49 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
         if ev.device_type == DeviceType.CUDA and \
                 not getattr(ev, "is_user_annotation", False):
             dev_us[ev.name] = dev_us.get(ev.name, 0) + ev.device_time_total
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_out = {
+        "host_launches_per_tick": sum(
+            e.count for e in host
+            if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")) / n,
+        "top_host_self_ms_per_tick": {
+            e.key[:60]: e.self_cpu_time_total / 1e3 / n for e in host[:6]}}
     if not dev_us:
         return {"device_busy_ms_per_tick": None, "device_idle_share": None,
-                "top_device_ms_per_tick": None}
+                "top_device_ms_per_tick": None, **host_out}
     busy = sum(dev_us.values()) / 1e3 / n
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_ms_per_tick": busy,
             "device_idle_share": max(0.0, 1.0 - busy / tick_ms),
-            "top_device_ms_per_tick": {k[:80]: v / 1e3 / n for k, v in top}}
+            "top_device_ms_per_tick": {k[:80]: v / 1e3 / n for k, v in top},
+            **host_out}
+
+
+class CascadeProbe(TickProbe):
+    """A :class:`TickProbe` that also records each tick's grouping: the
+    adapter's ``cascade_stats()`` before the tick, its ``last_groups``
+    after, and ``tick_bytes_proxy()`` at the first tick (all outside the
+    timed call)."""
+
+    def __init__(self, adapter):
+        super().__init__(adapter)
+        self.stats: list[dict] = []
+        self.groups: list[int] = []
+        self.proxy = None
+
+    def __call__(self, tokens, active):
+        if self.proxy is None:
+            self.proxy = self.adapter.tick_bytes_proxy()
+        self.stats.append(self.adapter.cascade_stats())
+        out = super().__call__(tokens, active)
+        self.groups.append(self.adapter.last_groups)
+        return out
 
 
 def forced_ticks(cfg, params, prompts, forced, backend: str):
     """Admit ``prompts`` into fresh paged slots and run one tick per row of
     ``forced`` tokens.  Returns (first tokens, per-tick tokens, per-tick
-    logits, per-tick host ms)."""
+    logits, per-tick host ms, per-tick cascade groups)."""
     import numpy as np
     import torch
 
@@ -357,19 +693,20 @@ def forced_ticks(cfg, params, prompts, forced, backend: str):
     first = [ad.insert(s, p, max_new=len(forced) + 1)
              for s, p in enumerate(prompts)]
     active = np.ones(len(prompts), bool)
-    toks, logits = [], []
+    toks, logits, groups = [], [], []
     for row in forced:
         toks.append(ad.decode(row, active))
         logits.append(ad.last_logits.clone())
+        groups.append(ad.last_groups)
     del ad
     torch.cuda.empty_cache()
-    return first, np.stack(toks), torch.stack(logits), probe.times
+    return first, np.stack(toks), torch.stack(logits), probe.times, groups
 
 
-def lm_main_path(dev, wrappers: dict, attn_ms: float) -> dict:
+def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     """Phase 5: the prompt path at stablelm-3b's full width and depth.
-    Returns the paged kernels' launches; raises SystemExit on a failed
-    check."""
+    Returns (the paged kernels' launches, cfg, params); raises SystemExit
+    on a failed check."""
     import dataclasses
 
     import numpy as np
@@ -489,17 +826,19 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> dict:
     forced = rng.integers(0, cfg.vocab, (8, len(lens))).astype(np.int32)
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
-    f_k, t_k, l_k, _ = forced_ticks(cfg4, params4, prompts, forced, "cuda")
-    f_p, t_p, l_p, _ = forced_ticks(cfg4, params4, prompts, forced, "plain")
+    f_k, t_k, l_k, _, _ = forced_ticks(cfg4, params4, prompts, forced,
+                                       "cuda")
+    f_p, t_p, l_p, _, _ = forced_ticks(cfg4, params4, prompts, forced,
+                                       "plain")
     f32_err = float((l_k - l_p).abs().max())
     f32_ok = f_k == f_p and np.array_equal(t_k, t_p) and \
         torch.allclose(l_k, l_p, rtol=2e-4, atol=2e-4)
     del params4
     torch.cuda.empty_cache()
-    b_k, bt_k, bl_k, ms_k = forced_ticks(cfg, params, prompts, forced,
-                                         "cuda")
-    b_p, bt_p, bl_p, ms_p = forced_ticks(cfg, params, prompts, forced,
-                                         "plain")
+    b_k, bt_k, bl_k, ms_k, _ = forced_ticks(cfg, params, prompts, forced,
+                                            "cuda")
+    b_p, bt_p, bl_p, ms_p, _ = forced_ticks(cfg, params, prompts, forced,
+                                            "plain")
     bf16_err = float((bl_k - bl_p).abs().max())
     bf16_finite = bool(torch.isfinite(bl_k).all())
     if not f32_ok:
@@ -527,7 +866,232 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> dict:
           "failures": failures})
     if failures:
         raise SystemExit(f"prompt path: {failures}")
-    return launches
+    return launches, cfg, params
+
+
+def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
+    """Phase 6: the cascade tick at stablelm-3b's full width and depth.
+    Returns the launches of load (c); raises SystemExit on a failed
+    check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, cfg.vocab, SHARED_PROMPT)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, OWN_TAIL)]
+                              ).astype(np.int32) for _ in range(LM_SLOTS)]
+    failures = []
+
+    def serve(cfg, params, backend: str, profile: bool) -> dict:
+        """Load (c) through make_gateway: the first step admits all eight
+        requests and ticks once, four timed ticks follow, then (with
+        ``profile``) three under the profiler, left out of the tick times,
+        then the rest.  Keeps every tick's logits."""
+        gw = make_gateway(cfg, params, ServeSpec(
+            n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+            block_size=LM_BLOCK, chunked=False, backend=backend,
+            max_new_tokens=NEW_TOKENS_C), device=dev)
+        ad, batcher = gw.batcher.adapter, gw.batcher
+        probe = CascadeProbe(ad)
+        logits = []
+        inner = probe.inner
+
+        def keep(tokens, active):
+            out = inner(tokens, active)
+            logits.append(ad.last_logits.clone())
+            return out
+        probe.inner = keep
+        for i, p in enumerate(prompts):
+            batcher.submit(Request(uid=i, prompt=p,
+                                   max_new_tokens=NEW_TOKENS_C))
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        batcher.step()
+        slot = {r.uid: s for s, r in enumerate(batcher.active) if r}
+        for _ in range(4):
+            batcher.step()
+        device = profile_ticks(batcher, 3, statistics.median(
+            probe.times[1:5])) if profile else None
+        done = batcher.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        timed = probe.times[1:5] + probe.times[8 if profile else 5:]
+        out = {"backend": backend, "run_s": run_s, "ticks": len(probe.times),
+               "tick_ms": timed, "profile": device,
+               "launches": {name: fn.launches
+                            for name, fn in wrappers.items()},
+               "logits_finite": probe.finite, "logits": logits,
+               "slot": slot,
+               "tokens": {r.uid: list(map(int, r.generated)) for r in done},
+               "groups": probe.groups, "stats": probe.stats,
+               "proxy": probe.proxy}
+        del gw, ad, batcher, probe
+        torch.cuda.empty_cache()
+        return out
+
+    def first_differences(casc: dict, flat: dict) -> list[dict]:
+        """Per request whose two greedy streams differ: the first
+        differing token, and on that token's tick (the same history on both
+        sides) the flat tick's margin for its own token over the cascade's
+        next to the two ticks' max |logit difference|."""
+        out = []
+        for uid, a in casc["tokens"].items():
+            b = flat["tokens"][uid]
+            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if k is None:
+                continue
+            tick, s = k - 1, casc["slot"][uid]
+            lc = casc["logits"][tick][s].float()
+            lf = flat["logits"][tick][s].float()
+            d = float((lc - lf).abs().max())
+            margin = float(lf.max() - lf[a[k]])
+            out.append({"uid": uid, "token": k, "flat_margin": margin,
+                        "max_abs_dlogit": d,
+                        "near_tie": k >= 1 and margin <= d
+                        <= NEAR_TIE_BOUND})
+        return out
+
+    # bf16, full depth, the main path; runs in turns (cascade, flat, flat,
+    # cascade) because the host clock drifts within a call
+    runs = [serve(cfg, params, "cascade", True), serve(cfg, params, "cuda",
+                                                       True),
+            serve(cfg, params, "cuda", False),
+            serve(cfg, params, "cascade", False)]
+    casc, flat = runs[0], runs[1]
+    ticks = casc["ticks"]
+    grouped = sum(g > 0 for g in casc["groups"])
+    st = casc["stats"][0]
+    if ticks != NEW_TOKENS_C - 1 or any(g != 1 for g in casc["groups"]) or \
+            any(s["grouped_lanes"] != LM_SLOTS or s["prefix_rows_flat"] !=
+                LM_SLOTS * s["prefix_rows"] for s in casc["stats"]) or \
+            st["prefix_rows"] != SHARED_PROMPT:
+        failures.append(f"load (c): {ticks} ticks, groups {casc['groups']}, "
+                        f"first stats {st}")
+    proxy = casc["proxy"]
+    if not proxy["cascade"] < proxy["inplace"] < proxy["gather"]:
+        failures.append(f"load (c): tick_bytes_proxy order {proxy}")
+    want = {name: 0 for name in wrappers}
+    want.update({name: cfg.n_layers * grouped for name in CASCADE})
+    want["paged_decode_attention"] = cfg.n_layers * (ticks - grouped)
+    want["scatter_kv_rows"] = ticks
+    if casc["launches"] != want:
+        failures.append(f"load (c) cascade launches {casc['launches']}, "
+                        f"expected {want}")
+    want_flat = {name: 0 for name in wrappers}
+    want_flat.update(paged_decode_attention=cfg.n_layers * flat["ticks"],
+                     scatter_kv_rows=flat["ticks"])
+    if flat["launches"] != want_flat:
+        failures.append(f"load (c) flat launches {flat['launches']}")
+    if runs[3]["tokens"] != casc["tokens"] or \
+            runs[2]["tokens"] != flat["tokens"]:
+        failures.append("load (c): a second run of the same gateway "
+                        "generated other tokens")
+    if not all(r["logits_finite"] for r in runs) or \
+            sorted(len(t) for t in casc["tokens"].values()) != \
+            [NEW_TOKENS_C] * LM_SLOTS:
+        failures.append("load (c): a tick was not finite, or a request "
+                        "was not served")
+    # bf16 rounds every layer's attention output, so float32 summation
+    # order alone can flip a near tie between the two greedy streams:
+    # where they differ, the flat tick must rate the cascade's token within
+    # the two ticks' logit difference on the same history
+    diffs = first_differences(casc, flat)
+    if not all(d["near_tie"] for d in diffs):
+        failures.append(f"load (c) bf16: a difference from the flat "
+                        f"gateway that is not a near tie: {diffs}")
+    agree = sum(a == b for uid, t in casc["tokens"].items()
+                for a, b in zip(t, flat["tokens"][uid]))
+    # float32 at depth 4, where the reference's contract is exact tokens
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    casc4 = serve(cfg4, params4, "cascade", False)
+    flat4 = serve(cfg4, params4, "cuda", False)
+    if casc4["tokens"] != flat4["tokens"] or \
+            any(g != 1 for g in casc4["groups"]):
+        failures.append("load (c) float32 depth 4: the cascade gateway's "
+                        "tokens differ from the flat gateway's")
+    f32_c = max(float((a - b).abs().max())
+                for a, b in zip(casc4["logits"], flat4["logits"]))
+    if not f32_c <= 2e-4:
+        failures.append(f"load (c) float32 depth 4: max |dlogit| {f32_c} "
+                        f"against the flat gateway > 2e-4")
+    del params4, casc4["logits"], flat4["logits"]
+    for r in runs:
+        del r["logits"]
+    torch.cuda.empty_cache()
+
+    # the cascade tick against the plain flat tick, same card and weights:
+    # eight prompts share a 512-token prefix, with tails of 0 to 511 tokens
+    base = rng.integers(0, cfg.vocab, 512)
+    fprompts = [np.concatenate([base, rng.integers(0, cfg.vocab, n)]
+                               ).astype(np.int32)
+                for n in (0, 1, 15, 16, 47, 130, 300, 511)]
+    forced = rng.integers(0, cfg.vocab, (8, len(fprompts))).astype(np.int32)
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    f_c, t_c, l_c, _, g4 = forced_ticks(cfg4, params4, fprompts, forced,
+                                        "cascade")
+    f_p, t_p, l_p, _, _ = forced_ticks(cfg4, params4, fprompts, forced,
+                                       "plain")
+    f32_err = float((l_c - l_p).abs().max())
+    f32_ok = f_c == f_p and np.array_equal(t_c, t_p) and \
+        torch.allclose(l_c, l_p, rtol=2e-4, atol=2e-4) and \
+        all(g == 1 for g in g4)
+    del params4
+    torch.cuda.empty_cache()
+    b_c, bt_c, bl_c, ms_c, gb = forced_ticks(cfg, params, fprompts, forced,
+                                             "cascade")
+    b_p, bt_p, bl_p, ms_p, _ = forced_ticks(cfg, params, fprompts, forced,
+                                            "plain")
+    bf16_err = float((bl_c - bl_p).abs().max())
+    if not f32_ok:
+        failures.append(f"float32 depth 4: cascade tick vs plain tick max "
+                        f"|dlogit| {f32_err}, tokens equal "
+                        f"{np.array_equal(t_c, t_p)}, groups {g4}")
+    if not bf16_err <= BF16_LOGIT_BOUND or \
+            not bool(torch.isfinite(bl_c).all()) or any(g != 1 for g in gb):
+        failures.append(f"bf16 full depth: cascade tick max |dlogit| "
+                        f"{bf16_err} > {BF16_LOGIT_BOUND}, groups {gb}")
+    emit({"phase": "cascade_main_path", "model": cfg.name,
+          "load_c": {
+              "requests": LM_SLOTS, "prompt_tokens": SHARED_PROMPT + OWN_TAIL,
+              "shared_tokens": SHARED_PROMPT, "new_tokens": NEW_TOKENS_C,
+              "ticks": ticks, "grouped_ticks": grouped,
+              "cascade_stats_first_tick": st, "tick_bytes_proxy": proxy,
+              "bf16_tokens_equal_flat": casc["tokens"] == flat["tokens"],
+              "bf16_token_agreement": agree / (LM_SLOTS * NEW_TOKENS_C),
+              "bf16_first_differences": diffs,
+              "f32_depth4_tokens_equal_flat":
+                  casc4["tokens"] == flat4["tokens"],
+              "f32_depth4_max_abs_dlogit": f32_c,
+              "runs": [{"backend": r["backend"], "run_s": r["run_s"],
+                        "tick_ms_median": statistics.median(r["tick_ms"]),
+                        "profile": r["profile"]} for r in runs],
+              "tick_ms_median": {
+                  b: statistics.median(sum((r["tick_ms"] for r in runs
+                                            if r["backend"] == b), []))
+                  for b in ("cascade", "cuda")},
+              "launches": {"cascade": casc["launches"],
+                           "flat": flat["launches"]}},
+          "forced": {
+              "f32_depth4_max_abs_dlogit": f32_err,
+              "f32_depth4_tokens_equal": bool(np.array_equal(t_c, t_p)),
+              "bf16_max_abs_dlogit": bf16_err,
+              "bf16_logit_bound": BF16_LOGIT_BOUND,
+              "bf16_token_agreement": float((bt_c == bt_p).mean()),
+              "cascade_tick_ms_bf16": statistics.median(ms_c[1:]),
+              "plain_tick_ms_bf16": statistics.median(ms_p[1:])},
+          "failures": failures})
+    if failures:
+        raise SystemExit(f"cascade path: {failures}")
+    return casc["launches"]
 
 
 def main() -> int:
@@ -552,7 +1116,8 @@ def main() -> int:
     dev = torch.device("cuda")
     wrappers = {"sng_pack": sng_pack_k.sng_pack, "sc_dot": sc_dot_k.sc_dot,
                 "paged_decode_attention": paged_k.paged_decode_attention,
-                "scatter_kv_rows": paged_k.scatter_kv_rows}
+                "scatter_kv_rows": paged_k.scatter_kv_rows,
+                **{name: getattr(paged_k, name) for name in CASCADE}}
     sc_kernels = ("sng_pack", "sc_dot")
 
     # -- 1. the card ---------------------------------------------------------
@@ -661,10 +1226,12 @@ def main() -> int:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     paged_err, paged_timing = paged_kernel_checks(dev, gen, sleep)
     err.update(paged_err)
+    cascade_err, cascade_timing = cascade_kernel_checks(dev, gen, sleep)
+    err.update(cascade_err)
 
     # -- 4. the frame path --------------------------------------------------
     trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
-    launches = {name: 0 for name in KERNELS}
+    paths = {"frame": {name: 0 for name in sc_kernels}}
     for bits in (4, 8):
         spec = fe.FrontendSpec(mode="sc", bits=bits, lenet=LeNetConfig())
         gw = MicroBatchGateway(GatewayConfig(), spec, seed=0, device="cuda")
@@ -677,7 +1244,7 @@ def main() -> int:
         run_s = time.perf_counter() - t0
         counts = {name: wrappers[name].launches for name in sc_kernels}
         for name in sc_kernels:
-            launches[name] += counts[name]
+            paths["frame"][name] += counts[name]
         if not all(counts.values()):
             raise SystemExit(f"bits={bits}: a kernel of the main path never "
                              f"launched: {counts}")
@@ -740,8 +1307,11 @@ def main() -> int:
                              "the plain path")
 
     # -- 5. the prompt path -------------------------------------------------
-    launches.update(lm_main_path(
-        dev, wrappers, paged_timing["paged_decode_attention"]["ms"]))
+    paths["prompt"], lm_cfg, lm_params = lm_main_path(
+        dev, wrappers, paged_timing["paged_decode_attention"]["ms"])
+
+    # -- 6. the cascade tick ---------------------------------------------------
+    paths["cascade"] = cascade_main_path(dev, wrappers, lm_cfg, lm_params)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",
@@ -753,13 +1323,25 @@ def main() -> int:
                    "src/repro/kernels/paged_attn.py:179"),
                "scatter_kv_rows": (
                    "src/repro_torch/kernels/csrc/paged_attn.cu",
-                   "src/repro/kernels/paged_attn.py:135")}
+                   "src/repro/kernels/paged_attn.py:135"),
+               "paged_decode_attention_with_state": (
+                   "src/repro_torch/kernels/csrc/paged_attn.cu",
+                   "src/repro/kernels/paged_attn.py:298"),
+               "cascade_prefix_attention": (
+                   "src/repro_torch/kernels/csrc/cascade_attn.cu",
+                   "src/repro/kernels/paged_attn.py:419"),
+               "merge_attn_states": (
+                   "src/repro_torch/kernels/csrc/cascade_attn.cu",
+                   "src/repro/kernels/paged_attn.py:486")}
     results = {name: dict(timing[(name, 4)], library_ms=None)
                for name in sc_kernels}
     results.update(paged_timing)
+    results.update(cascade_timing)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
+         "replaces": sources[name][1],
+         "launches": paths[HOME_PATH[name]][name],
+         "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
          "max_abs_err": err[name], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"],

@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernels in src/repro/kernels/paged_attn.py:
 //   paged_decode_attention (_paged_kernel)   -> paged_attn_launch
+//   paged_decode_attention_with_state
+//                    (_paged_state_kernel)   -> paged_attn_state_launch
 //   scatter_kv_rows        (_scatter_kernel) -> scatter_rows_launch
-// Both are templated on float and __nv_bfloat16 (the arena's dtype).
+// All are templated on float and __nv_bfloat16 (the arena's dtype).
 //
 // paged_attn_launch
 //   q (B, Hq, D); arenas (num_blocks, bs, Hkv, D); tables (B, nb) int32;
@@ -28,6 +30,16 @@
 //   reach the result (a masked probability is exactly 0, as in the TPU
 //   kernel whenever the lane has a valid position; a lane with lens == 0
 //   returns 0).  A table entry outside [0, num_blocks) reads block 0.
+//
+// paged_attn_state_launch (the cascade's per-lane suffix pass)
+//   The same CTA loop, instantiated with kState: the table names lane b's
+//   divergent-suffix blocks, entry j holding absolute positions
+//   q0[b] + j*bs + i, so the sweep covers [max(q0, lens - win),
+//   min(lens, q0 + nb*bs)).  It writes the float32 online-softmax state
+//   acc (B, Hq, D), m, l (B, Hq) unnormalized instead of out; a sweep with
+//   no valid position leaves the empty state (acc 0, m -1e30, l 0), which
+//   the cascade merge drops exactly.  The flat instantiation has q0 = 0
+//   and is the code above unchanged.
 //
 // scatter_rows_launch
 //   arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D), wbids and
@@ -72,14 +84,18 @@ __device__ __forceinline__ float warp_max(float v) {
 // Shared memory, in order: K tile [T][D] and V tile [T][D] in the arena's
 // dtype (16-byte aligned rows), then float q [n_rep][D], scores
 // [n_rep][T], acc [n_rep][D], m, l, corr [n_rep].
-template <typename T>
+// kState: q0 (B,) gives each lane's first position and the state goes to
+// acc_out, m_out, l_out; otherwise positions start at 0 and out is written.
+template <typename T, bool kState>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
                   const T* __restrict__ va, const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ lens, const T* __restrict__ k1,
                   const T* __restrict__ v1, T* __restrict__ out,
-                  int num_blocks, int bs, int nb, int Hkv, int n_rep, int D,
-                  int win, int cb) {
+                  const int32_t* __restrict__ q0s,
+                  float* __restrict__ acc_out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int num_blocks, int bs, int nb,
+                  int Hkv, int n_rep, int D, int win, int cb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -105,15 +121,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
   }
 
   const int len = lens[b];
-  const int hi = min(len, nb * bs);              // positions [lo, hi) attend
-  const int lo = max(0, len - win);
+  const int q0 = kState ? q0s[b] : 0;            // position of table entry 0
+  const int hi = min(len, q0 + nb * bs);         // positions [lo, hi) attend
+  const int lo = max(q0, len - win);
   const float scale = 1.f / sqrtf((float)D);
   const int vpr = D * (int)sizeof(T) / 16;       // 16-byte vectors per row
   const size_t row_stride = (size_t)Hkv * D;     // elements between rows
 
-  for (int c0 = (lo / bs) * bs; c0 < hi; c0 += T_) {
+  for (int c0 = q0 + (lo - q0) / bs * bs; c0 < hi; c0 += T_) {
     const int t_lo = max(lo - c0, 0), t_hi = min(hi - c0, T_);
-    const int rows = min(T_, ((hi - 1) / bs + 1) * bs - c0);
+    const int rows = min(T_, q0 + ((hi - q0 - 1) / bs + 1) * bs - c0);
     __syncthreads();                             // previous chunk consumed
     for (int i = tid; i < 2 * rows * vpr; i += kThreads) {
       const int which = i / (rows * vpr);        // 0: K, 1: V
@@ -124,10 +141,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
       if (k1 != nullptr && pos == len - 1) {
         src = (which ? v1 : k1) + ((size_t)b * Hkv + h) * D;
       } else {
-        int bid = tables[(size_t)b * nb + pos / bs];
+        const int loc = pos - q0;                // index into the table
+        int bid = tables[(size_t)b * nb + loc / bs];
         if (bid < 0 || bid >= num_blocks) bid = 0;
         src = (which ? va : ka) +
-              ((size_t)bid * bs + pos % bs) * row_stride + (size_t)h * D;
+              ((size_t)bid * bs + loc % bs) * row_stride + (size_t)h * D;
       }
       T* dst = (which ? vs : ks) + (size_t)t * D;
       reinterpret_cast<uint4*>(dst)[vec] =
@@ -176,9 +194,17 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
     }
   }
   __syncthreads();
-  T* ob = out + ((size_t)b * Hq + (size_t)h * n_rep) * D;
-  for (int e = tid; e < n_rep * D; e += kThreads)
-    ob[e] = from_f32<T>(acc[e] / fmaxf(ls[e / D], 1e-30f));
+  const size_t o0 = ((size_t)b * Hq + (size_t)h * n_rep) * D;
+  if constexpr (kState) {
+    for (int e = tid; e < n_rep * D; e += kThreads) acc_out[o0 + e] = acc[e];
+    for (int r = tid; r < n_rep; r += kThreads) {
+      m_out[(size_t)b * Hq + (size_t)h * n_rep + r] = ms[r];
+      l_out[(size_t)b * Hq + (size_t)h * n_rep + r] = ls[r];
+    }
+  } else {
+    for (int e = tid; e < n_rep * D; e += kThreads)
+      out[o0 + e] = from_f32<T>(acc[e] / fmaxf(ls[e / D], 1e-30f));
+  }
 }
 
 template <typename T>
@@ -208,25 +234,35 @@ size_t attn_smem_bytes(int elem, int T_, int D, int n_rep) {
                           3 * (size_t)n_rep);
 }
 
-template <typename T>
+template <typename T, bool kState>
 cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         const void* tables, const void* lens, const void* k1,
-                        const void* v1, void* out, int B, int num_blocks,
-                        int bs, int nb, int Hkv, int n_rep, int D, int win,
-                        cudaStream_t stream) {
+                        const void* v1, void* out, const void* q0s,
+                        void* acc_out, void* m_out, void* l_out, int B,
+                        int num_blocks, int bs, int nb, int Hkv, int n_rep,
+                        int D, int win, cudaStream_t stream) {
   const int cb = bs >= kChunkPositions ? 1 : kChunkPositions / bs;
   const size_t smem = attn_smem_bytes(sizeof(T), cb * bs, D, n_rep);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_attn_kernel<T, kState>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  paged_attn_kernel<T><<<dim3(Hkv, B), kThreads, smem, stream>>>(
+  paged_attn_kernel<T, kState><<<dim3(Hkv, B), kThreads, smem, stream>>>(
       (const T*)q, (const T*)ka, (const T*)va, (const int32_t*)tables,
-      (const int32_t*)lens, (const T*)k1, (const T*)v1, (T*)out, num_blocks,
-      bs, nb, Hkv, n_rep, D, win, cb);
+      (const int32_t*)lens, (const T*)k1, (const T*)v1, (T*)out,
+      (const int32_t*)q0s, (float*)acc_out, (float*)m_out, (float*)l_out,
+      num_blocks, bs, nb, Hkv, n_rep, D, win, cb);
   return cudaGetLastError();
+}
+
+bool attn_args_ok(int B, int num_blocks, int bs, int nb, int Hkv, int n_rep,
+                  int D, int win, int dtype) {
+  const int elem = dtype == 0 ? 4 : 2;
+  return B > 0 && B <= 65535 && num_blocks > 0 && bs > 0 && nb > 0 &&
+         Hkv > 0 && n_rep > 0 && D > 0 && (D * elem) % 16 == 0 && win > 0 &&
+         (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
@@ -241,18 +277,35 @@ extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
                                  int B, int num_blocks, int bs, int nb,
                                  int Hkv, int n_rep, int D, int win, int dtype,
                                  void* stream) {
-  const int elem = dtype == 0 ? 4 : 2;
-  if (B <= 0 || B > 65535 || num_blocks <= 0 || bs <= 0 || nb <= 0 ||
-      Hkv <= 0 || n_rep <= 0 || D <= 0 || (D * elem) % 16 != 0 || win <= 0 ||
-      (dtype != 0 && dtype != 1))
+  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out, B,
-                                   num_blocks, bs, nb, Hkv, n_rep, D, win, s);
-  return (int)attn_launch<__nv_bfloat16>(q, ka, va, tables, lens, k1, v1,
-                                         out, B, num_blocks, bs, nb, Hkv,
-                                         n_rep, D, win, s);
+    return (int)attn_launch<float, false>(
+        q, ka, va, tables, lens, k1, v1, out, nullptr, nullptr, nullptr,
+        nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
+  return (int)attn_launch<__nv_bfloat16, false>(
+      q, ka, va, tables, lens, k1, v1, out, nullptr, nullptr, nullptr,
+      nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
+}
+
+// The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32
+// and the float32 state acc (B, Hq, D), m, l (B, Hq) in place of out.
+extern "C" int paged_attn_state_launch(
+    const void* q, const void* ka, const void* va, const void* tables,
+    const void* lens, const void* q0s, const void* k1, const void* v1,
+    void* acc_out, void* m_out, void* l_out, int B, int num_blocks, int bs,
+    int nb, int Hkv, int n_rep, int D, int win, int dtype, void* stream) {
+  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)attn_launch<float, true>(
+        q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc_out, m_out, l_out,
+        B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
+  return (int)attn_launch<__nv_bfloat16, true>(
+      q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc_out, m_out, l_out,
+      B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
 }
 
 // Shared-memory bytes paged_attn_launch asks for at these sizes (the wrapper

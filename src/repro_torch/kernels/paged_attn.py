@@ -1,12 +1,22 @@
-"""Paged KV cache kernels: wrappers of ``csrc/paged_attn.cu``.
+"""Paged KV cache kernels: wrappers of ``csrc/paged_attn.cu`` and
+``csrc/cascade_attn.cu``.
 
-``paged_decode_attention`` replaces the TPU kernel of the same name in
-``repro/kernels/paged_attn.py``: one-query decode attention that reads K/V
-in place through a block table, with GQA, a ``lens`` mask, a trailing
-window and the current token's row spliced in.  ``scatter_kv_rows``
-replaces the TPU kernel of the same name: the decode tick's in-place write
-of one K and one V row per (layer, lane).  Both are bound by bytes on the
-H100 (see the source for the design).
+Each replaces the TPU kernel of the same name in
+``repro/kernels/paged_attn.py``:
+
+- ``paged_decode_attention``: one-query decode attention that reads K/V in
+  place through a block table, with GQA, a ``lens`` mask, a trailing window
+  and the current token's row spliced in;
+- ``scatter_kv_rows``: the decode tick's in-place write of one K and one V
+  row per (layer, lane);
+- ``paged_decode_attention_with_state``: the same sweep restarted at an
+  absolute offset ``q0``, returning its unnormalized float32 softmax state
+  (the cascade's per-lane suffix pass);
+- ``cascade_prefix_attention``: one multi-query pass per shared prefix
+  chain, each chain row read once per group of lanes;
+- ``merge_attn_states``: the log-sum-exp merge of two states, normalized.
+
+All are bound by bytes on the H100 (see the sources for the design).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version in :mod:`repro_torch.kernels.ref`.
@@ -32,8 +42,23 @@ def _lib():
     lib.paged_attn_launch.restype = i
     lib.paged_attn_smem_bytes.argtypes = [i] * 4
     lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
+    lib.paged_attn_state_launch.argtypes = [p] * 11 + [i] * 9 + [p]
+    lib.paged_attn_state_launch.restype = i
     lib.scatter_rows_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.scatter_rows_launch.restype = i
+    return lib
+
+
+@functools.cache
+def _cascade_lib():
+    lib = build.load("cascade_attn")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cascade_prefix_launch.argtypes = [p] * 9 + [i] * 10 + [p]
+    lib.cascade_prefix_launch.restype = i
+    lib.cascade_prefix_smem_bytes.argtypes = [i] * 5
+    lib.cascade_prefix_smem_bytes.restype = ctypes.c_longlong
+    lib.merge_states_launch.argtypes = [p] * 7 + [ctypes.c_longlong, i, p]
+    lib.merge_states_launch.restype = i
     return lib
 
 
@@ -55,6 +80,71 @@ def _window(window: int | None) -> int:
     return int(window) if window else ref.NO_WINDOW
 
 
+def _attn_args(name: str, k_arena: torch.Tensor, D: int,
+               window: int | None) -> int:
+    """The checks every attention kernel makes of its arena's dtype and row
+    width and of the window; returns the window the kernel takes."""
+    dt = k_arena.dtype
+    if dt not in DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 arenas, got {dt}")
+    if (D * k_arena.element_size()) % 16:
+        raise ValueError(f"{name} needs rows of whole 16-byte vectors; "
+                         f"D={D} in {dt} is not")
+    win = _window(window)
+    if not 0 < win < 1 << 31:
+        raise ValueError(f"window must be positive, got {window}")
+    return win
+
+
+def _sweep_args(name: str, q: torch.Tensor, k_arena: torch.Tensor,
+                v_arena: torch.Tensor, tables: torch.Tensor,
+                lens: torch.Tensor, window: int | None,
+                new_kv: tuple[torch.Tensor, torch.Tensor] | None) -> tuple:
+    """The checks of the one-query sweeps (flat and with state) on CUDA
+    tensors.  Returns the launch's integer arguments after the pointers:
+    (B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype code)."""
+    dev, dt = q.device, k_arena.dtype
+    B, Hq, D = q.shape
+    win = _attn_args(name, k_arena, D, window)
+    num_blocks, bs, Hkv, D2 = k_arena.shape
+    nb = tables.shape[1] if tables.dim() == 2 else -1
+    if (D2 != D or v_arena.shape != k_arena.shape or Hq % Hkv
+            or tables.shape != (B, nb) or lens.shape != (B,)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, arenas "
+            f"{tuple(k_arena.shape)}/{tuple(v_arena.shape)}, tables "
+            f"{tuple(tables.shape)}, lens {tuple(lens.shape)}")
+    for arg, t, want, vec in (("q", q, dt, False),
+                              ("k_arena", k_arena, dt, True),
+                              ("v_arena", v_arena, dt, True),
+                              ("tables", tables, torch.int32, False),
+                              ("lens", lens, torch.int32, False)):
+        _check(arg, t, dev, want, vec)
+    if new_kv is not None:
+        for arg, t in zip(("k1", "v1"), new_kv):
+            _check(arg, t, dev, dt)
+            if t.shape != (B, Hkv, D):
+                raise ValueError(f"{arg} has shape {tuple(t.shape)}, "
+                                 f"expected {(B, Hkv, D)}")
+    if _lib().paged_attn_smem_bytes(bs, Hq // Hkv, D, DTYPES[dt]) > \
+            MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: block_size {bs}, {Hq // Hkv} queries per "
+                         f"KV head and D={D} need more shared memory than a "
+                         "block has")
+    if B > 65535 or max(q.numel(), k_arena.numel()) >= 1 << 62:
+        raise ValueError(f"{name}: too large for one launch")
+    return B, num_blocks, bs, nb, Hkv, Hq // Hkv, D, win, DTYPES[dt]
+
+
+def _ptrs(*ts: torch.Tensor | None) -> list[int | None]:
+    return [None if t is None else t.data_ptr() for t in ts]
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
                            v_arena: torch.Tensor, tables: torch.Tensor,
                            lens: torch.Tensor, *, window: int | None = None,
@@ -68,66 +158,159 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     if not q.is_cuda:
         return ref.paged_decode_attention(q, k_arena, v_arena, tables, lens,
                                           window, new_kv)
-    dev, dt = q.device, v_arena.dtype
-    if dt not in DTYPES:
-        raise TypeError(f"paged_decode_attention takes float32 or bfloat16 "
-                        f"arenas, got {dt}")
-    B, Hq, D = q.shape
-    num_blocks, bs, Hkv, D2 = k_arena.shape
-    nb = tables.shape[1] if tables.dim() == 2 else -1
-    if (D2 != D or v_arena.shape != k_arena.shape or Hq % Hkv
-            or tables.shape != (B, nb) or lens.shape != (B,)):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, arenas "
-            f"{tuple(k_arena.shape)}/{tuple(v_arena.shape)}, tables "
-            f"{tuple(tables.shape)}, lens {tuple(lens.shape)}")
-    if (D * k_arena.element_size()) % 16:
-        raise ValueError(f"paged_decode_attention needs rows of whole 16-byte "
-                         f"vectors; D={D} in {dt} is not")
-    for name, t, want, vec in (("q", q, dt, False),
-                               ("k_arena", k_arena, dt, True),
-                               ("v_arena", v_arena, dt, True),
-                               ("tables", tables, torch.int32, False),
-                               ("lens", lens, torch.int32, False)):
-        _check(name, t, dev, want, vec)
-    k1 = v1 = None
-    if new_kv is not None:
-        k1, v1 = new_kv
-        for name, t in (("k1", k1), ("v1", v1)):
-            _check(name, t, dev, dt)
-            if t.shape != (B, Hkv, D):
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                                 f"expected {(B, Hkv, D)}")
-    win = _window(window)
-    if not 0 < win < 1 << 31:
-        raise ValueError(f"window must be positive, got {window}")
-    lib = _lib()
-    if lib.paged_attn_smem_bytes(bs, Hq // Hkv, D, DTYPES[dt]) > \
-            MAX_SMEM_BYTES:
-        raise ValueError(f"paged_decode_attention: block_size {bs}, "
-                         f"{Hq // Hkv} queries per KV head and D={D} need "
-                         "more shared memory than a block has")
-    if B > 65535 or max(q.numel(), k_arena.numel()) >= 1 << 62:
-        raise ValueError("paged_decode_attention: too large for one launch")
-    out = torch.empty((B, Hq, D), dtype=dt, device=dev)
-    if B == 0:
+    args = _sweep_args("paged_decode_attention", q, k_arena, v_arena, tables,
+                       lens, window, new_kv)
+    out = torch.empty(q.shape, dtype=k_arena.dtype, device=q.device)
+    if q.shape[0] == 0:
         return out
-    with torch.cuda.device(dev):
-        err = lib.paged_attn_launch(
-            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            tables.data_ptr(), lens.data_ptr(),
-            None if k1 is None else k1.data_ptr(),
-            None if v1 is None else v1.data_ptr(), out.data_ptr(),
-            B, num_blocks, bs, nb, Hkv, Hq // Hkv, D, win, DTYPES[dt],
+    k1, v1 = new_kv if new_kv is not None else (None, None)
+    with torch.cuda.device(q.device):
+        err = _lib().paged_attn_launch(
+            *_ptrs(q, k_arena, v_arena, tables, lens, k1, v1, out), *args,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
+    _raise_on(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_with_state(
+        q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+        tables: torch.Tensor, lens: torch.Tensor, *,
+        window: int | None = None, q0: torch.Tensor | None = None,
+        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flat sweep over each lane's suffix table, positions starting at
+    ``q0`` (B,) int32 (None: 0).  Operands as :func:`paged_decode_attention`.
+    Returns the float32 state (acc (B, Hq, D), m (B, Hq), l (B, Hq)), see
+    :func:`repro_torch.kernels.ref.paged_decode_attention_with_state`."""
+    if not q.is_cuda:
+        return ref.paged_decode_attention_with_state(
+            q, k_arena, v_arena, tables, lens, window, q0, new_kv)
+    name = "paged_decode_attention_with_state"
+    args = _sweep_args(name, q, k_arena, v_arena, tables, lens, window,
+                       new_kv)
+    B, Hq, D = q.shape
+    if q0 is None:
+        q0 = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    _check("q0", q0, q.device, torch.int32, False)
+    if q0.shape != (B,):
+        raise ValueError(f"q0 has shape {tuple(q0.shape)}, expected {(B,)}")
+    acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if B == 0:
+        return acc, m, l
+    k1, v1 = new_kv if new_kv is not None else (None, None)
+    with torch.cuda.device(q.device):
+        err = _lib().paged_attn_state_launch(
+            *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1, acc, m, l),
+            *args, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    paged_decode_attention_with_state.launches += 1
+    return acc, m, l
+
+
+paged_decode_attention_with_state.launches = 0
+
+
+def cascade_prefix_attention(
+        qg: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+        group_tables: torch.Tensor, group_len: torch.Tensor,
+        lane_lens: torch.Tensor, *, window: int | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """qg: (G, Lc, Hq, D) in the arena's dtype; arenas (num_blocks, bs, Hkv,
+    D); group_tables (G, npre), group_len (G,), lane_lens (G, Lc) int32.
+    Returns the float32 state (acc (G, Lc, Hq, D), m, l (G, Lc, Hq)), see
+    :func:`repro_torch.kernels.ref.cascade_prefix_attention`."""
+    if not qg.is_cuda:
+        return ref.cascade_prefix_attention(qg, k_arena, v_arena,
+                                            group_tables, group_len,
+                                            lane_lens, window)
+    name = "cascade_prefix_attention"
+    dev, dt = qg.device, k_arena.dtype
+    G, Lc, Hq, D = qg.shape
+    win = _attn_args(name, k_arena, D, window)
+    num_blocks, bs, Hkv, D2 = k_arena.shape
+    npre = group_tables.shape[1] if group_tables.dim() == 2 else -1
+    if (D2 != D or v_arena.shape != k_arena.shape or Hq % Hkv
+            or group_tables.shape != (G, npre) or group_len.shape != (G,)
+            or lane_lens.shape != (G, Lc)):
+        raise ValueError(
+            f"shape mismatch: qg {tuple(qg.shape)}, arenas "
+            f"{tuple(k_arena.shape)}/{tuple(v_arena.shape)}, group_tables "
+            f"{tuple(group_tables.shape)}, group_len "
+            f"{tuple(group_len.shape)}, lane_lens {tuple(lane_lens.shape)}")
+    for arg, t, want, vec in (("qg", qg, dt, False),
+                              ("k_arena", k_arena, dt, True),
+                              ("v_arena", v_arena, dt, True),
+                              ("group_tables", group_tables, torch.int32,
+                               False),
+                              ("group_len", group_len, torch.int32, False),
+                              ("lane_lens", lane_lens, torch.int32, False)):
+        _check(arg, t, dev, want, vec)
+    lib = _cascade_lib()
+    if lib.cascade_prefix_smem_bytes(bs, Lc, Hq // Hkv, D, DTYPES[dt]) > \
+            MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {Lc} lanes x {Hq // Hkv} queries per KV "
+                         f"head at D={D} need more shared memory than a "
+                         "block has")
+    if G > 65535 or Hkv > 65535 or \
+            max(qg.numel(), k_arena.numel()) >= 1 << 62:
+        raise ValueError(f"{name}: too large for one launch")
+    acc = torch.empty((G, Lc, Hq, D), dtype=torch.float32, device=dev)
+    m = torch.empty((G, Lc, Hq), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    if G == 0 or Lc == 0:
+        return acc, m, l
+    with torch.cuda.device(dev):
+        err = lib.cascade_prefix_launch(
+            *_ptrs(qg, k_arena, v_arena, group_tables, group_len, lane_lens,
+                   acc, m, l),
+            G, num_blocks, bs, npre, Lc, Hkv, Hq // Hkv, D, win, DTYPES[dt],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    cascade_prefix_attention.launches += 1
+    return acc, m, l
+
+
+cascade_prefix_attention.launches = 0
+
+
+def merge_attn_states(acc1: torch.Tensor, m1: torch.Tensor,
+                      l1: torch.Tensor, acc2: torch.Tensor, m2: torch.Tensor,
+                      l2: torch.Tensor) -> torch.Tensor:
+    """Log-sum-exp merge of two float32 states, then the normalize: acc
+    (B, Hq, D), m and l (B, Hq).  Returns (B, Hq, D) float32, see
+    :func:`repro_torch.kernels.ref.merge_attn_states`."""
+    if not acc1.is_cuda:
+        return ref.merge_attn_states(acc1, m1, l1, acc2, m2, l2)
+    name = "merge_attn_states"
+    dev = acc1.device
+    rows = acc1.shape[:-1]
+    for arg, t, shape in (("acc1", acc1, acc1.shape), ("acc2", acc2,
+                                                       acc1.shape),
+                          ("m1", m1, rows), ("l1", l1, rows), ("m2", m2, rows),
+                          ("l2", l2, rows)):
+        _check(arg, t, dev, torch.float32, False)
+        if t.shape != shape:
+            raise ValueError(f"{arg} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+    out = torch.empty_like(acc1)
+    if acc1.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _cascade_lib().merge_states_launch(
+            *_ptrs(acc1, m1, l1, acc2, m2, l2, out), m1.numel(),
+            acc1.shape[-1], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    merge_attn_states.launches += 1
+    return out
+
+
+merge_attn_states.launches = 0
 
 
 def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
@@ -173,9 +356,7 @@ def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
             v_rows.data_ptr(), wbids.data_ptr(), offs.data_ptr(), L,
             num_blocks, bs, S, Hkv * D, DTYPES[dt],
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_kv_rows kernel launch failed: CUDA "
-                           f"error {err}")
+    _raise_on(err, "scatter_kv_rows")
     scatter_kv_rows.launches += 1
     return k_arena, v_arena
 

@@ -144,3 +144,111 @@ def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
     k_arena[:, w, 0, o] = k_rows.to(k_arena.dtype)
     v_arena[:, w, 0, o] = v_rows.to(v_arena.dtype)
     return k_arena, v_arena
+
+
+# --------------------------------------------------------------------------
+# Cascade decode: a lane's attention split into a shared-prefix pass per
+# group and a divergent-suffix pass per lane, each returning its unnormalized
+# float32 online-softmax state (acc, m, l), and their log-sum-exp merge.
+# --------------------------------------------------------------------------
+
+def softmax_state(s: torch.Tensor, valid: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked softmax state of float32 scores ``s`` (..., S) under the bool
+    mask ``valid`` (broadcast to ``s``).  Returns (p, m, l): the
+    unnormalized probabilities, zero where invalid, so a fully masked row
+    gives the empty state m = NEG_INF, l = 0 rather than a uniform one."""
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * valid
+    return p, m, p.sum(-1)
+
+
+def merge_softmax_states(acc1, m1, l1, acc2, m2, l2):
+    """Log-sum-exp merge of two online-softmax states over disjoint key
+    sets (acc with a trailing feature axis, m and l without).  Returns the
+    merged (acc, m, l).  An empty side (m = NEG_INF, l = 0, acc = 0) drops
+    out exactly, and two empty sides give zeros: NEG_INF is finite."""
+    m = torch.maximum(m1, m2)
+    c1 = torch.exp(m1 - m)
+    c2 = torch.exp(m2 - m)
+    return (c1[..., None] * acc1 + c2[..., None] * acc2, m,
+            c1 * l1 + c2 * l2)
+
+
+def paged_decode_attention_with_state(
+        q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+        tables: torch.Tensor, lens: torch.Tensor, window: int | None = None,
+        q0: torch.Tensor | None = None,
+        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flat sweep restarted at the absolute offset ``q0`` and left
+    unnormalized.
+
+    Same operands as :func:`paged_decode_attention`; ``tables`` (B, nsuf)
+    names each lane's suffix blocks, entry j holding positions ``q0[b] +
+    j*bs + i`` (``q0`` None: 0).  Position ``pos`` attends when ``lens[b] -
+    win <= pos < lens[b]``; ``new_kv`` replaces the row at ``lens[b] - 1``
+    (local index ``lens - 1 - q0``, dropped outside the table).  Returns the
+    float32 state (acc (B, Hq, D), m (B, Hq), l (B, Hq)); an all-masked
+    sweep gives the empty state.  Masked rows never reach acc, so garbage in
+    the trash block cannot either."""
+    B, Hq, D = q.shape
+    Hkv = k_arena.shape[2]
+    win = window if window else NO_WINDOW
+    t = tables.long()
+    k = k_arena[t].reshape(B, -1, Hkv, D).float()         # (B, S, Hkv, D)
+    v = v_arena[t].reshape(B, -1, Hkv, D).float()
+    start = torch.zeros_like(lens) if q0 is None else q0
+    if new_kv is not None:
+        splice_rows(k, new_kv[0], lens - 1 - start)
+        splice_rows(v, new_kv[1], lens - 1 - start)
+    pos = start.long()[:, None] + torch.arange(k.shape[1], device=q.device)
+    ln = lens.long()[:, None]
+    valid = (pos < ln) & (pos >= ln - win)                 # (B, S)
+    v = torch.where(valid[:, :, None, None], v, 0.0)
+    qh = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhrd,bshd->bhrs", qh, k) * D ** -0.5
+    p, m, l = softmax_state(s, valid[:, None, None, :])
+    acc = torch.einsum("bhrs,bshd->bhrd", p, v)
+    return acc.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
+def cascade_prefix_attention(
+        qg: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+        group_tables: torch.Tensor, group_len: torch.Tensor,
+        lane_lens: torch.Tensor, window: int | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One multi-query pass per shared chain.
+
+    qg (G, Lc, Hq, D): the query rows of each group's lanes; group_tables
+    (G, npre) the chain's block ids (trash-padded); group_len (G,) its
+    tokens (0: an empty state); lane_lens (G, Lc) each lane's length.
+    Position ``pos`` of the chain attends for lane c when ``pos <
+    group_len[g]`` and ``pos >= lane_lens[g, c] - win``.  Returns the
+    float32 state (acc (G, Lc, Hq, D), m, l (G, Lc, Hq))."""
+    G, Lc, Hq, D = qg.shape
+    Hkv = k_arena.shape[2]
+    n_rep = Hq // Hkv
+    win = window if window else NO_WINDOW
+    t = group_tables.long()
+    k = k_arena[t].reshape(G, -1, Hkv, D).float()         # (G, Sp, Hkv, D)
+    v = v_arena[t].reshape(G, -1, Hkv, D).float()
+    pos = torch.arange(k.shape[1], device=qg.device)
+    in_chain = pos[None, :] < group_len.long()[:, None]    # (G, Sp)
+    v = torch.where(in_chain[:, :, None, None], v, 0.0)
+    valid = in_chain[:, None, :] & \
+        (pos[None, None, :] >= lane_lens.long()[:, :, None] - win)
+    qh = qg.reshape(G, Lc, Hkv, n_rep, D).float()
+    s = torch.einsum("gchrd,gshd->gchrs", qh, k) * D ** -0.5
+    p, m, l = softmax_state(s, valid[:, :, None, None, :])
+    acc = torch.einsum("gchrs,gshd->gchrd", p, v)
+    return (acc.reshape(G, Lc, Hq, D), m.reshape(G, Lc, Hq),
+            l.reshape(G, Lc, Hq))
+
+
+def merge_attn_states(acc1, m1, l1, acc2, m2, l2) -> torch.Tensor:
+    """Merge two float32 states (acc (B, Hq, D), m and l (B, Hq)) and
+    normalize: ``acc / max(l, 1e-30)``, float32."""
+    acc, _, l = merge_softmax_states(acc1, m1, l1, acc2, m2, l2)
+    return acc / torch.clamp(l, min=1e-30)[..., None]

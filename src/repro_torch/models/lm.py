@@ -197,7 +197,8 @@ def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
 def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
                       k_blocks: torch.Tensor, v_blocks: torch.Tensor,
                       tables: torch.Tensor, pos: torch.Tensor, *,
-                      window: int = 0, backend: str = "plain"):
+                      window: int = 0, backend: str = "plain",
+                      cascade: dict | None = None):
     """One-token decode attention for a batch of slot lanes, reading K/V in
     place from one layer's slice of the paged block arena.
 
@@ -206,8 +207,9 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     int32; pos: (S,) int32 lengths (the new token's row index).  Returns
     (out (S, 1, d), k1, v1), k1/v1 the (S, Hkv, Dh) post-RoPE rows the
     caller writes into the arena after the layer loop; attention reads them
-    at ``pos`` in place of the arena's row (``backend`` "plain" or
-    "cuda", see :func:`repro_torch.nn.attention.attend_decode_paged`)."""
+    at ``pos`` in place of the arena's row (``backend`` "plain", "cuda" or
+    "cascade" with the group metadata ``cascade``, see
+    :func:`repro_torch.nn.attention.attend_decode_paged`)."""
     B = x1.shape[0]
     q = _proj(x1, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.d_head)
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
@@ -219,7 +221,8 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     k1, v1 = k1[:, 0].contiguous(), v1[:, 0].contiguous()
     o = attention.attend_decode_paged(q, k_blocks[:, 0], v_blocks[:, 0],
                                       tables, pos + 1, window=window,
-                                      new_kv=(k1, v1), backend=backend)
+                                      new_kv=(k1, v1), backend=backend,
+                                      cascade=cascade)
     out = _proj(o.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"],
                 p.get("bo"))
     return out, k1, v1

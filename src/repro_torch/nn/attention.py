@@ -1,19 +1,21 @@
 """Attention: chunked online-softmax prefill, dense single-token decode and
-paged single-token decode.
+paged single-token decode, flat or cascaded over shared prefixes.
 
 ``attend_chunked`` is the reference's flash-style prefill (query chunks x KV
 chunks, float32 online softmax) written as plain PyTorch loops, forward only.
 ``attend_decode_paged`` reads K/V through a block table: its ``"plain"``
 backend gathers each lane's chain and applies the masked softmax (the
 reference's ``"xla"`` body); its ``"cuda"`` backend calls the
-``paged_decode_attention`` kernel, which reads the blocks in place.
+``paged_decode_attention`` kernel, which reads the blocks in place; its
+``"cascade"`` backend is :func:`attend_decode_cascade`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import paged_attn as paged_kernels
-from repro_torch.kernels.ref import NEG_INF, NO_WINDOW, splice_rows
+from repro_torch.kernels.ref import (NEG_INF, NO_WINDOW,  # noqa: F401
+                                     merge_softmax_states, splice_rows)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -108,7 +110,8 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
                         v_arena: torch.Tensor, block_table: torch.Tensor,
                         cache_len: torch.Tensor, *, window: int = 0,
                         new_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-                        backend: str = "plain") -> torch.Tensor:
+                        backend: str = "plain",
+                        cascade: dict | None = None) -> torch.Tensor:
     """One-token decode attention against a paged cache (one layer).
 
     q: (B, 1, Hq, D); k_arena, v_arena: (num_blocks, bs, Hkv, D);
@@ -119,12 +122,20 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
     ``backend="plain"`` gathers and applies the masked softmax (the
     reference's ``"xla"`` body; probabilities cast to v's dtype before the
     value product); ``"cuda"`` runs the ``paged_decode_attention`` kernel
-    (no gather, no cast of the probabilities).  Returns (B, 1, Hq, D) in
-    v_arena's dtype."""
+    (no gather, no cast of the probabilities); ``"cascade"`` runs
+    :func:`attend_decode_cascade` with the group metadata ``cascade`` (the
+    block table is then unused).  Returns (B, 1, Hq, D) in v_arena's
+    dtype."""
     if backend == "cuda":
         return paged_kernels.paged_decode_attention(
             q[:, 0], k_arena, v_arena, block_table, cache_len,
             window=window, new_kv=new_kv)[:, None]
+    if backend == "cascade":
+        if cascade is None:
+            raise ValueError('backend="cascade" needs the group metadata '
+                             "in cascade=")
+        return attend_decode_cascade(q, k_arena, v_arena, cascade, cache_len,
+                                     window=window, new_kv=new_kv)
     if backend != "plain":
         raise ValueError(f"unknown attention backend {backend!r}")
     B, _, Hq, D = q.shape
@@ -145,3 +156,77 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhrs,bshd->bhrd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, 1, Hq, D).to(v.dtype)
+
+
+def attend_decode_cascade(q: torch.Tensor, k_arena: torch.Tensor,
+                          v_arena: torch.Tensor, cascade: dict,
+                          cache_len: torch.Tensor, *, window: int = 0,
+                          new_kv: tuple[torch.Tensor, torch.Tensor] | None
+                          = None) -> torch.Tensor:
+    """Two-level decode attention over shared radix prefixes (one layer).
+
+    Lanes that share an indexed prefix chain attend it once as a group: one
+    multi-query pass over the chain (``cascade_prefix_attention``), one pass
+    per lane over its divergent suffix from the absolute offset ``lane_q0``
+    (``paged_decode_attention_with_state``), and a log-sum-exp merge of the
+    two float32 states (``merge_attn_states``).  The three run as the CUDA
+    kernels on CUDA tensors and as their plain versions on CPU tensors.
+    ``cascade`` holds the host-built metadata (pow2-padded shapes):
+
+      group_tables  (G, npre)  int32  chain block ids, trash-padded
+      group_len     (G,)       int32  chain tokens (0 for a padded group)
+      group_lanes   (G, Lc)    int32  lane ids per group, 0-padded
+      group_mask    (G, Lc)    bool   which lane slots are real
+      lane_q0       (B,)       int32  prefix tokens per lane (0: ungrouped)
+      suffix_tables (B, nsuf)  int32  per-lane suffix block ids
+      lane_lens     (G, Lc)    int32  cache_len[group_lanes]
+      group_dest    (G*Lc,)    int32  each slot's lane, B for a padded slot
+
+The last two are the same in every layer of a tick, so the adapter builds
+them on the host with the rest (:func:`with_lane_meta` derives them from
+the first six on the device).
+    Positions ``[0, lane_q0)`` come from the group pass and ``[lane_q0,
+    cache_len)`` from the suffix pass, with the same ``cache_len`` and
+    ``window`` bounds as :func:`attend_decode_paged`.  The flat path
+    normalizes inside one sweep and this one after the merge, so the two
+    agree to float32 rounding, not bit for bit.  Returns (B, 1, Hq, D) in
+    v_arena's dtype."""
+    B = q.shape[0]
+    q1 = q[:, 0]
+    acc1g, m1g, l1g = paged_kernels.cascade_prefix_attention(
+        q1[cascade["group_lanes"]], k_arena, v_arena,
+        cascade["group_tables"], cascade["group_len"], cascade["lane_lens"],
+        window=window)
+    acc2, m2, l2 = paged_kernels.paged_decode_attention_with_state(
+        q1.contiguous(), k_arena, v_arena, cascade["suffix_tables"],
+        cache_len, window=window, q0=cascade["lane_q0"], new_kv=new_kv)
+    out = paged_kernels.merge_attn_states(
+        *place_group_states(cascade, acc1g, m1g, l1g, B), acc2, m2, l2)
+    return out[:, None].to(v_arena.dtype)
+
+
+def place_group_states(cascade: dict, acc: torch.Tensor, m: torch.Tensor,
+                       l: torch.Tensor, B: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The group pass's states (acc (G, Lc, Hq, D), m and l (G, Lc, Hq)) on
+    their lanes: (B, Hq, D), (B, Hq), (B, Hq).  Real slots name distinct
+    lanes, so this is a plain indexed copy; padded slots go to a spare row
+    that is dropped, and a lane in no group keeps the empty state."""
+    G, Lc, Hq, D = acc.shape
+    dest = cascade["group_dest"]
+    acc1 = acc.new_zeros((B + 1, Hq, D))
+    m1 = m.new_full((B + 1, Hq), NEG_INF)
+    l1 = l.new_zeros((B + 1, Hq))
+    acc1[dest] = acc.reshape(G * Lc, Hq, D)
+    m1[dest] = m.reshape(G * Lc, Hq)
+    l1[dest] = l.reshape(G * Lc, Hq)
+    return acc1[:B], m1[:B], l1[:B]
+
+
+def with_lane_meta(cascade: dict, cache_len: torch.Tensor) -> dict:
+    """``cascade`` with ``lane_lens`` and ``group_dest`` added, computed on
+    the device from the six keys the reference's metadata holds."""
+    lanes = cascade["group_lanes"].long()
+    dest = torch.where(cascade["group_mask"], lanes, cache_len.shape[0])
+    return {**cascade, "lane_lens": cache_len[lanes].to(torch.int32),
+            "group_dest": dest.reshape(-1).to(torch.int32)}

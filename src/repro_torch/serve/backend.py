@@ -1,23 +1,30 @@
 """The attention-backend enum of the paged decode tick.
 
-    backend="plain"  the in-place tick with the plain PyTorch attention read
-                     (gather each chain + masked softmax) and an indexed
-                     row write: the reference's ``"xla"``
-    backend="cuda"   the in-place tick through the hand-written kernels:
-                     ``paged_decode_attention`` in every layer and one
-                     ``scatter_kv_rows`` launch per tick: the reference's
-                     ``"pallas"``
+    backend="plain"    the in-place tick with the plain PyTorch attention
+                       read (gather each chain + masked softmax) and an
+                       indexed row write: the reference's ``"xla"``
+    backend="cuda"     the in-place tick through the hand-written kernels:
+                       ``paged_decode_attention`` in every layer and one
+                       ``scatter_kv_rows`` launch per tick: the reference's
+                       ``"pallas"``
+    backend="cascade"  the in-place tick with shared-prefix cascade
+                       attention: lanes sharing an indexed radix chain
+                       attend it once per group (``cascade_prefix_attention``,
+                       ``paged_decode_attention_with_state`` and
+                       ``merge_attn_states`` in every layer: the kernels on
+                       a CUDA device, their plain versions on the CPU); a
+                       tick with no chain shared by two lanes runs the
+                       device's flat tick (:func:`auto_backend`)
 
-The reference's ``"gather"`` (the gather-tick parity oracle) and
-``"cascade"`` (shared-prefix cascade attention) come with their own slices.
+The reference's ``"gather"`` (the gather-tick parity oracle) comes with its
+own slice.
 """
 from __future__ import annotations
 
 import torch
 
-BACKENDS = ("plain", "cuda")
-LATER = {"gather": "ROADMAP.md §1 item 8 (the gather-tick oracle)",
-         "cascade": "ROADMAP.md §1 item 10 (cascade decode)"}
+BACKENDS = ("plain", "cuda", "cascade")
+LATER = {"gather": "ROADMAP.md §1 item 8 (the gather-tick oracle)"}
 
 
 def auto_backend(device: str | torch.device) -> str:

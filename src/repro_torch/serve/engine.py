@@ -77,7 +77,8 @@ def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
 def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                       *, tables: torch.Tensor, lens: torch.Tensor,
                       arena: dict, wbids: torch.Tensor | None = None,
-                      backend: str = "plain") -> torch.Tensor:
+                      backend: str = "plain", cascade: dict | None = None
+                      ) -> torch.Tensor:
     """One batched decode tick reading K/V in place from the block arena.
 
     tokens  (S, 1) int32, one per slot lane.
@@ -88,13 +89,18 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     wbids   (S,) int32 block each lane's row lands in; the caller routes
             lanes that must not write to the trash block 0.  ``None``
             derives it from the table, routing lanes past the table to 0.
-    backend ``"plain"`` (gather + masked softmax, indexed write) or
+    backend ``"plain"`` (gather + masked softmax, indexed write),
             ``"cuda"`` (the ``paged_decode_attention`` kernel in every
-            layer and one ``scatter_kv_rows`` launch after the layer loop).
+            layer and one ``scatter_kv_rows`` launch after the layer loop)
+            or ``"cascade"`` (shared-prefix cascade attention in every
+            layer from the group metadata ``cascade``, see
+            :func:`repro_torch.nn.attention.attend_decode_cascade`; the
+            same write as ``"cuda"``, whose wrapper runs the plain write
+            for CPU tensors).
 
     The decoder family has no slot state besides ``lens`` (the caller's).
     Returns the logits (S, vocab_padded) float32."""
-    if backend not in ("plain", "cuda"):
+    if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
     bs = arena["k"].shape[-3]
     nb = tables.shape[1]
@@ -110,7 +116,8 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         h, k1, v1 = lm.attn_decode_paged(
             cfg, lp["attn"], lm._norm_apply(cfg, lp["ln1"], x),
             arena["k"][i], arena["v"][i], tables, pos,
-            window=lm.layer_window(cfg, i), backend=backend)
+            window=lm.layer_window(cfg, i), backend=backend,
+            cascade=cascade)
         x = x + h
         x = x + lm._mlp_apply(cfg, lp["mlp"],
                               lm._norm_apply(cfg, lp["ln2"], x))
@@ -120,7 +127,7 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     # landed after the layer loop so every layer read the arena as it was
     rows = (torch.stack(k_rows), torch.stack(v_rows))
     wbids, offs = wbids.to(torch.int32), offs.to(torch.int32)
-    scatter = paged_kernels.scatter_kv_rows if backend == "cuda" else \
-        ref.scatter_kv_rows
+    scatter = ref.scatter_kv_rows if backend == "plain" else \
+        paged_kernels.scatter_kv_rows
     scatter(arena["k"], arena["v"], *rows, wbids, offs)
     return lm.logits(cfg, params, x)[:, 0]

@@ -58,7 +58,8 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
     """The slot adapter for ``cfg``.  Ported so far: ``paged=True`` with
     ``chunked=False`` (one-shot prefill, storage-only prefix sharing) for
     the decoder family; ``backend`` picks the decode tick's attention
-    ("plain" | "cuda"; None: "cuda" on a CUDA device, else "plain")."""
+    ("plain" | "cuda" | "cascade", the last grouping lanes over shared
+    prefix chains; None: "cuda" on a CUDA device, else "plain")."""
     if not paged:
         raise NotImplementedError(
             "the dense KVSlotAdapter is not ported yet: ROADMAP.md §1 "

@@ -15,6 +15,16 @@ Decode tick
     yet past copy-on-write write the reserved trash block 0, so the call
     never changes shape.
 
+Cascade tick (``backend="cascade"``)
+    After the copy-on-write loop, the live lanes are grouped by the longest
+    chain of shared, indexed full blocks they hold in common
+    (:meth:`BlockPool.shared_chains`); each group's chain is attended once
+    per layer for all its lanes, each lane's remaining suffix on its own,
+    and the two softmax states merged (``nn.attention.attend_decode_cascade``).
+    The group metadata is built on the host with pow2-padded shapes and
+    reaches the device in one copy that does not wait for it.  A tick with
+    no chain shared by two lanes runs the device's flat tick unchanged.
+
 Sharing / copy-on-write (one-shot prefill)
     Admission walks the pool's radix index: full prompt blocks that match
     an earlier request's chain are referenced instead of written (their
@@ -31,8 +41,8 @@ Admission control
     ``_admission_demand``), and admits only when the pool's free +
     evictable supply covers it.
 
-The reference's chunked prefill (``chunked=True``), cascade tick, gather
-tick, mesh placement and obs hooks come with later slices (ROADMAP.md).
+The reference's chunked prefill (``chunked=True``), gather tick, mesh
+placement and obs hooks come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import torch
 
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import engine
-from repro_torch.serve.backend import resolve_backend
+from repro_torch.serve.backend import auto_backend, resolve_backend
 from repro_torch.serve.kvcache.pool import (TRASH_BLOCK, BlockPool,
                                             PoolExhausted)
 
@@ -63,6 +73,11 @@ class PagedKVSlotAdapter:
         self.nb_max = -(-max_len // block_size)
         self.max_len = self.nb_max * block_size
         self.backend = resolve_backend(backend, self.device)
+        # what a tick runs when nothing is grouped: the flat tick of the
+        # device, so a cascade tick without a group is exactly that tick
+        self.flat_backend = auto_backend(self.device) \
+            if self.backend == "cascade" else self.backend
+        self.last_groups = 0            # groups of the latest cascade tick
         if self.device.type == "cuda":
             # float32 matrix products in full float32, as the reference
             # computes them (TF32 would keep about three digits)
@@ -277,6 +292,120 @@ class PagedKVSlotAdapter:
         self.tables[slot, :] = TRASH_BLOCK
         self.lens[slot] = 0
 
+    # -- cascade grouping (backend="cascade") ------------------------------
+
+    def _cascade_plan(self, lanes) -> list[tuple[tuple[int, ...], list]]:
+        """Shared-chain groups over ``lanes``: each lane offers its full
+        blocks only (every sharer holds those positions identically), and
+        blocks armed for copy-on-write are skipped, so a group never reads a
+        block another lane is about to rewrite."""
+        skip = set()
+        for s in range(self.n_slots):
+            if self.cow_blk[s] is not None:
+                skip.add(int(self.tables[s, self.cow_blk[s]]))
+            if self.cow_spare[s] is not None:
+                skip.add(int(self.cow_spare[s]))
+        chains = {int(s): [int(b) for b in
+                           self.tables[s, :int(self.lens[s]) // self.bs]]
+                  for s in lanes}
+        return self.pool.shared_chains(chains, skip=skip)
+
+    @staticmethod
+    def _pow2(n: int) -> int:
+        return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+    def _cascade_meta(self, groups) -> dict[str, torch.Tensor]:
+        """The metadata of :func:`nn.attention.attend_decode_cascade` on the
+        adapter's device, padded to next-pow-2 shapes as the reference pads
+        them; ungrouped lanes get ``q0 = 0`` and their whole chain as the
+        suffix."""
+        G = self._pow2(len(groups))
+        npre = self._pow2(max(len(c) for c, _ in groups))
+        lc = self._pow2(max(len(ls) for _, ls in groups))
+        gt = np.full((G, npre), TRASH_BLOCK, np.int32)
+        gl = np.zeros(G, np.int32)
+        lanes = np.zeros((G, lc), np.int32)
+        gmask = np.zeros((G, lc), np.int32)
+        q0b = np.zeros(self.n_slots, np.int32)         # prefix blocks
+        for g, (chain, ls) in enumerate(groups):
+            gt[g, :len(chain)] = chain
+            gl[g] = len(chain) * self.bs
+            lanes[g, :len(ls)] = ls
+            gmask[g, :len(ls)] = 1
+            q0b[ls] = len(chain)
+        # suffix tables cover [q0 blocks, the block holding the new row)
+        need = [max(1, -(-(int(self.lens[s]) + 1) // self.bs) - int(q0b[s]))
+                for s in range(self.n_slots)]
+        nsuf = self._pow2(max(need))
+        st = np.full((self.n_slots, nsuf), TRASH_BLOCK, np.int32)
+        for s in range(self.n_slots):
+            row = self.tables[s, q0b[s]:q0b[s] + nsuf]
+            st[s, :len(row)] = row
+        # per-lane keys every layer of the tick shares: the lanes' cache_len
+        # (the engine's lens + 1) and where each group slot's state lands
+        meta = self._to_device({
+            "group_tables": gt, "group_len": gl, "group_lanes": lanes,
+            "group_mask": gmask, "lane_q0": q0b * self.bs,
+            "suffix_tables": st,
+            "lane_lens": self.lens.astype(np.int32)[lanes] + 1,
+            "group_dest": np.where(gmask != 0, lanes, self.n_slots
+                                   ).reshape(-1).astype(np.int32)})
+        meta["group_mask"] = meta["group_mask"] != 0
+        return meta
+
+    def _to_device(self, arrays: dict[str, np.ndarray]
+                   ) -> dict[str, torch.Tensor]:
+        """int32 host arrays as views of one device buffer, filled by one
+        copy from pinned memory that does not make the host wait for the
+        device (a copy from pageable memory would)."""
+        host = torch.from_numpy(np.concatenate(
+            [a.reshape(-1) for a in arrays.values()]))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        buf = host.to(self.device, non_blocking=True)
+        out, i = {}, 0
+        for key, a in arrays.items():
+            out[key] = buf[i:i + a.size].view(a.shape)
+            i += a.size
+        return out
+
+    def cascade_stats(self) -> dict:
+        """The groups the next tick would form over the live lanes, and the
+        prefix rows each layer attends once per group against once per lane
+        (``prefix_rows`` vs ``prefix_rows_flat``)."""
+        lanes = [s for s in range(self.n_slots)
+                 if self.slot_bids[s] and not self.at_capacity(s)]
+        shapes = [(len(c), len(ls)) for c, ls in self._cascade_plan(lanes)]
+        return {
+            "groups": len(shapes),
+            "grouped_lanes": sum(n for _, n in shapes),
+            "prefix_rows": sum(c * self.bs for c, _ in shapes),
+            "prefix_rows_flat": sum(c * self.bs * n for c, n in shapes),
+        }
+
+    def tick_bytes_proxy(self) -> dict:
+        """Arena bytes one tick moves under each dataflow, from the shapes
+        (a model, not a measurement): ``gather`` reads every lane's whole
+        table into a dense cache, rewrites it and scatters one block back;
+        ``inplace`` reads the blocks live chains own and writes one row per
+        lane; ``cascade`` reads each shared chain once per group instead of
+        once per lane."""
+        token = self._token_bytes
+        n, ml, bs = self.n_slots, self.max_len, self.bs
+        gather = n * ml * token * 2 + n * bs * token
+        live_rows = sum(-(-(int(ln) + 1) // bs) * bs
+                        for ln, b in zip(self.lens, self.slot_bids) if b)
+        inplace = live_rows * token + n * token
+        groups = self._cascade_plan(
+            [s for s in range(n) if self.slot_bids[s]])
+        q0b = {s: len(c) for c, ls in groups for s in ls}
+        prefix_rows = sum(len(c) * bs for c, _ in groups)
+        suffix_rows = sum((-(-(int(ln) + 1) // bs) - q0b.get(s, 0)) * bs
+                          for s, (ln, b) in
+                          enumerate(zip(self.lens, self.slot_bids)) if b)
+        cascade = (prefix_rows + suffix_rows) * token + n * token
+        return {"gather": gather, "inplace": inplace, "cascade": cascade}
+
     # -- decode --------------------------------------------------------------
 
     def at_capacity(self, slot: int) -> bool:
@@ -313,6 +442,15 @@ class PagedKVSlotAdapter:
                 self.pool.drop_partial(bid)
                 self.partial_reg[slot] = None
             wbids[slot] = bid
+        meta = None
+        if self.backend == "cascade":
+            # grouping runs after the copy-on-write and write-target loop,
+            # so a block resolved this tick is never both read by a group
+            # pass and rewritten by its owner
+            groups = self._cascade_plan(np.nonzero(active)[0])
+            self.last_groups = len(groups)
+            if groups:
+                meta = self._cascade_meta(groups)
         dev = self.device
         logits = engine.decode_step_paged(
             self.cfg, self.params,
@@ -320,7 +458,8 @@ class PagedKVSlotAdapter:
             tables=torch.from_numpy(self.tables).to(dev),
             lens=torch.from_numpy(self.lens.astype(np.int32)).to(dev),
             arena=self.arena, wbids=torch.from_numpy(wbids).to(dev),
-            backend=self.backend)
+            backend=self.flat_backend if meta is None else "cascade",
+            cascade=meta)
         self.lens[active] += 1
         self.last_logits = logits           # (n_slots, vocab) — parity tests
         return logits.argmax(-1).cpu().numpy()

@@ -3,10 +3,12 @@
 ``ServeSpec`` names the configuration of a prompt gateway once, as a frozen
 dataclass, and ``make_gateway`` validates it and builds the gateway it
 describes.  Ported so far: the colocated gateway over paged KV slots with
-one-shot prefill (``paged=True, chunked=False``).  ``chunked`` keeps the
-reference's default of True and raises until chunked prefill is ported;
-``mesh``/``roles`` (sharded and disaggregated serving) and the
-observability attachments raise until their slices.
+one-shot prefill (``paged=True, chunked=False``), with the flat decode tick
+(``backend`` "plain" | "cuda") or the shared-prefix cascade tick
+(``backend="cascade"``).  ``chunked`` keeps the reference's default of True
+and raises until chunked prefill is ported; ``mesh``/``roles`` (sharded and
+disaggregated serving) and the observability attachments raise until their
+slices.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ class ServeSpec:
     """Slot/cache geometry: ``n_slots`` decode lanes of ``max_len`` tokens;
     ``paged`` KV in ``block_size``-token blocks, ``num_blocks`` of them
     (None: dense-equivalent); ``chunked`` prefill.  ``backend`` picks the
-    decode tick's attention ("plain" | "cuda"; None: "cuda" on a CUDA
-    device).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
+    decode tick's attention ("plain" | "cuda" | "cascade"; None: "cuda" on
+    a CUDA device, "plain" on the CPU).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
     ``max_queue``; ``energy_spec`` prices tokens for the energy ledger."""
     n_slots: int = 4
     max_len: int = 128

@@ -15,6 +15,7 @@ from repro_torch.kernels import paged_attn as paged_attn_kernel
 from repro_torch.kernels import sc_dot as sc_dot_kernel
 from repro_torch.kernels import sng_pack as sng_pack_kernel
 from repro_torch.models import lenet, lm
+from repro_torch.nn import attention
 from repro_torch.serve.gateway import frontend as fe
 from repro_torch.serve.gateway.slots import Request, make_adapter
 from repro_torch.serve.spec import ServeSpec, make_gateway
@@ -152,6 +153,119 @@ def test_paged_kernels_refuse_bad_inputs(dev):
             a[..., :16].contiguous(), t, t[:, 0].clone())
 
 
+# -- cascade decode kernels ---------------------------------------------------
+
+def _cascade_case(gen, Hq, Hkv, D, dtype, dev, bs=16):
+    """``tests/test_cascade.py``'s fixture at a 16-token block: lanes 0-2
+    share a 3-block prefix (lane 1 ends 3 positions past it, lane 4 exactly
+    at it), lane 3 is ungrouped, the group's slots 5-7 are padding, and
+    the trash block 0 holds NaN."""
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    ka, va = arr(25, bs, Hkv, D), arr(25, bs, Hkv, D)
+    ka[0], va[0] = float("nan"), float("nan")
+    i32 = dict(dtype=torch.int32, device=dev)
+    q0 = 3 * bs
+    meta = {"group_tables": torch.tensor([[1, 2, 3, 0]], **i32),
+            "group_len": torch.tensor([q0], **i32),
+            "group_lanes": torch.tensor([[0, 1, 2, 4, 0, 0, 0, 0]], **i32),
+            "group_mask": torch.tensor([[1, 1, 1, 1, 0, 0, 0, 0]],
+                                       device=dev) != 0,
+            "lane_q0": torch.tensor([q0, q0, q0, 0, q0], **i32),
+            "suffix_tables": torch.tensor(
+                [[10, 11, 0, 0], [12, 0, 0, 0], [13, 14, 15, 0],
+                 [4, 5, 6, 7], [16, 0, 0, 0]], **i32)}
+    cl = torch.tensor([q0 + 22, q0 + 3, q0 + 40, 50, q0], **i32)
+    return (arr(5, Hq, D), ka, va, cl, (arr(5, Hkv, D), arr(5, Hkv, D)),
+            meta)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 2, 80), (8, 8, 80), (4, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 8, 2])
+def test_cascade_kernels_match_plain(dev, Hq, Hkv, D, dtype, window):
+    gen = torch.Generator().manual_seed(Hq * D + window)
+    q, ka, va, cl, nk, meta = _cascade_case(gen, Hq, Hkv, D, dtype, dev)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    lanes = meta["group_lanes"].long()
+    pre_args = (q[lanes].contiguous(), ka, va, meta["group_tables"],
+                meta["group_len"], cl[lanes].contiguous())
+    suf_args = (q, ka, va, meta["suffix_tables"], cl)
+    launches = (paged_attn_kernel.cascade_prefix_attention.launches,
+                paged_attn_kernel.paged_decode_attention_with_state.launches)
+    got_pre = paged_attn_kernel.cascade_prefix_attention(*pre_args,
+                                                         window=window)
+    got_suf = paged_attn_kernel.paged_decode_attention_with_state(
+        *suf_args, window=window, q0=meta["lane_q0"], new_kv=nk)
+    assert (paged_attn_kernel.cascade_prefix_attention.launches,
+            paged_attn_kernel.paged_decode_attention_with_state.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    want_pre = ref.cascade_prefix_attention(*pre_args, window)
+    want_suf = ref.paged_decode_attention_with_state(
+        *suf_args, window, meta["lane_q0"], nk)
+    for g, w in zip(got_pre + got_suf, want_pre + want_suf):
+        assert g.dtype == torch.float32 and not torch.isnan(g).any()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    # lane 4's suffix is empty: the exact empty state
+    assert torch.equal(got_suf[0][4], torch.zeros_like(got_suf[0][4]))
+    assert torch.equal(got_suf[2][4], torch.zeros_like(got_suf[2][4]))
+    assert bool((got_suf[1][4] == ref.NEG_INF).all())
+    # the whole cascade against flat attention for lanes 0-3 (the plain
+    # flat version multiplies the trash block's rows by 0, so it gets a
+    # clean one; lane 4's new row would fall inside the prefix there)
+    out = attention.attend_decode_cascade(
+        q[:, None], ka, va, attention.with_lane_meta(meta, cl), cl,
+        window=window, new_kv=nk)
+    ka[0], va[0] = 0, 0
+    tables = torch.tensor([[1, 2, 3, 10, 11, 0], [1, 2, 3, 12, 0, 0],
+                           [1, 2, 3, 13, 14, 15], [4, 5, 6, 7, 0, 0]],
+                          dtype=torch.int32, device=dev)
+    flat = ref.paged_decode_attention(q[:4], ka, va, tables, cl[:4], window,
+                                      (nk[0][:4], nk[1][:4]))
+    torch.testing.assert_close(out[:4, 0].float(), flat.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_merge_attn_states_kernel(dev):
+    gen = torch.Generator().manual_seed(3)
+    B, Hq, D = 8, 32, 80
+
+    def state():
+        return (torch.randn((B, Hq, D), generator=gen).to(dev),
+                torch.randn((B, Hq), generator=gen).to(dev),
+                torch.rand((B, Hq), generator=gen).add(0.5).to(dev))
+    a, b = state(), state()
+    e = (torch.zeros_like(a[0]), torch.full_like(a[1], ref.NEG_INF),
+         torch.zeros_like(a[2]))
+    before = paged_attn_kernel.merge_attn_states.launches
+    got = paged_attn_kernel.merge_attn_states(*a, *b)
+    assert paged_attn_kernel.merge_attn_states.launches == before + 1
+    torch.testing.assert_close(got, ref.merge_attn_states(*a, *b),
+                               rtol=2e-5, atol=2e-5)
+    for args in (e + b, a + e, e + e):          # an empty side drops out
+        assert torch.equal(paged_attn_kernel.merge_attn_states(*args),
+                           ref.merge_attn_states(*args))
+    assert torch.equal(paged_attn_kernel.merge_attn_states(*e, *e),
+                       torch.zeros_like(a[0]))
+
+
+def test_cascade_kernels_refuse_bad_inputs(dev):
+    q = torch.zeros((1, 2, 4, 20), dtype=torch.bfloat16, device=dev)
+    a = torch.zeros((5, 4, 4, 20), dtype=torch.bfloat16, device=dev)
+    t = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):               # 40-byte rows
+        paged_attn_kernel.cascade_prefix_attention(q, a, a, t, t[:, 0],
+                                                   t.clone())
+    with pytest.raises(ValueError):               # lane_lens (1, 1)
+        paged_attn_kernel.cascade_prefix_attention(
+            q[..., :16].contiguous(), a[..., :16].contiguous(),
+            a[..., :16].contiguous(), t, t[:, 0], t[:, :1].contiguous())
+    s = torch.zeros((2, 4), device=dev)
+    with pytest.raises(TypeError):
+        paged_attn_kernel.merge_attn_states(s[..., None].double(), s, s,
+                                            s[..., None], s, s)
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):
@@ -200,4 +314,37 @@ def test_kernel_tick_matches_plain_tick_float32(dev):
     assert out["cuda"][0] == out["plain"][0]
     np.testing.assert_array_equal(out["cuda"][1], out["plain"][1])
     torch.testing.assert_close(out["cuda"][2], out["plain"][2], rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_cascade_tick_matches_plain_tick_float32(dev):
+    """The cascade tick on the card against the plain flat tick: four lanes
+    share a 2-block prefix; greedy tokens equal and logits within 2e-4 on
+    every forced tick, each of which forms the group."""
+    cfg, params = _smoke_lm(dev, "float32")
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)]
+                              ).astype(np.int32) for n in (0, 5, 16, 30)]
+    forced = rng.integers(0, cfg.vocab, (6, len(prompts))).astype(np.int32)
+    out = {}
+    for backend in ("cascade", "plain"):
+        ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=80,
+                          paged=True, block_size=16, chunked=False,
+                          backend=backend)
+        first = [ad.insert(s, p, max_new=7) for s, p in enumerate(prompts)]
+        active = np.ones(len(prompts), bool)
+        toks, logits = [], []
+        counts = paged_attn_kernel.cascade_prefix_attention.launches
+        for row in forced:
+            toks.append(ad.decode(row, active))
+            logits.append(ad.last_logits.clone())
+            assert backend == "plain" or ad.last_groups == 1
+        if backend == "cascade":
+            assert paged_attn_kernel.cascade_prefix_attention.launches == \
+                counts + len(forced) * cfg.n_layers
+        out[backend] = (first, np.stack(toks), torch.stack(logits))
+    assert out["cascade"][0] == out["plain"][0]
+    np.testing.assert_array_equal(out["cascade"][1], out["plain"][1])
+    torch.testing.assert_close(out["cascade"][2], out["plain"][2], rtol=2e-4,
                                atol=2e-4)

@@ -223,7 +223,7 @@ def test_spec_refuses_what_is_not_ported(pair):
                     (dict(paged=True), NotImplementedError),   # chunked
                     (dict(paged=True, chunked=False, mesh=object()),
                      NotImplementedError),
-                    (dict(paged=True, chunked=False, backend="cascade"),
+                    (dict(paged=True, chunked=False, backend="gather"),
                      NotImplementedError),
                     (dict(paged=True, chunked=False, backend="xla"),
                      ValueError),
