@@ -16,7 +16,12 @@ Phases, each printing one JSON line:
      and ``merge_attn_states``) within 2e-5 (float32) / 2e-2 (bfloat16),
      the cascade's empty state exactly; the cascade kernels also at load
      (c)'s shapes (a 1,024-position chain, eight lanes, 8-block suffixes,
-     a NaN trash block) — and timed at the main paths' shapes beside it;
+     a NaN trash block); ``flash_attention`` within 2e-5 / 2e-2 on the TPU
+     kernel's five cases (also against its oracle), the fold's chunks (16
+     and 7 queries at offsets 0, 512 and 1,072), the one-shot prefill at
+     1,000 and a window of 8 with GQA 4:1, a repeated call bitwise — and
+     timed at the main paths' shapes beside it (``flash_attention`` at a
+     fold chunk and at the one-shot prefill, beside SDPA);
   4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
@@ -24,9 +29,11 @@ Phases, each printing one JSON line:
      on the card and on the CPU, and its logits within 1e-4;
   5. the prompt path: ``make_gateway`` serving stablelm-3b at its published
      width and depth (bf16, random weights from a seeded generator) over
-     paged KV slots, on (a) the seeded fleet's prompts and (b) four
-     1,000-token requests with a radix prefix hit and a copy-on-write, with
-     the paged kernels' launch counts read around each load; the decode
+     paged KV slots with one-shot prefill (``chunked=False``), on (a) the
+     seeded fleet's prompts and (b) four 1,000-token requests with a radix
+     prefix hit and a copy-on-write, with the launch counts of the paged
+     kernels and of ``flash_attention`` (every prefill) read around each
+     load; the decode
      tick timed at 8 lanes x 1k context; then the kernel tick held against
      the plain tick on the same card and weights: float32 at full width and
      depth 4 (tokens equal, logits within 2e-4) and bf16 at full depth
@@ -43,7 +50,20 @@ Phases, each printing one JSON line:
      logit difference on the same history, itself within
      ``NEAR_TIE_BOUND``); then the cascade tick held against the plain
      flat tick on eight prompts sharing a 512-token prefix, at float32
-     depth 4 and bf16 full depth as in phase 5.
+     depth 4 and bf16 full depth as in phase 5;
+  7. the chunked prefill fold: ``ServeSpec(paged=True)`` (the reference's
+     default ``chunked=True``) serving load (b) through ``backend="cuda"``
+     and load (c) through ``backend="cascade"`` (seven of its eight
+     prompts resume the fold at block 64), each beside the one-shot
+     gateway on the same load: ``flash_attention`` launched once per layer
+     per chunk the adapter counts, the decode kernels on the ticks; load
+     (b)'s r1 (a 512-token hit) bitwise equal, first-token logits and K/V
+     blocks, to the same prompt admitted cold into a fresh gateway; tokens
+     equal to one-shot with logits within 2e-4 at float32 depth 4, and in
+     bf16 at full depth up to each stream's first difference, a near tie;
+     the host-clock prefill time per prompt (cold fold, resumed fold,
+     one-shot) and a 1,000-token one-shot prefill with attention through
+     the kernel and through its plain version.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the path that
 brought it, and on every path in ``launches_by_path``) and, last,
@@ -72,10 +92,13 @@ POPC_PER_CLK_SM = 16
 # fp32 outside the tensor cores (NVIDIA H100 SXM data sheet): the paged
 # attention's score and value products are float32 FMAs
 F32_FLOPS = 67e12
-SOURCES = ("sng_pack", "sc_dot", "paged_attn", "cascade_attn")
+# dense bf16 on the tensor cores (NVIDIA H100 SXM data sheet): the least
+# time for prompt attention's bf16 products
+BF16_FLOPS = 989e12
+SOURCES = ("sng_pack", "sc_dot", "paged_attn", "cascade_attn", "flash_attn")
 KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows",
            "paged_decode_attention_with_state", "cascade_prefix_attention",
-           "merge_attn_states")
+           "merge_attn_states", "flash_attention")
 CASCADE = ("paged_decode_attention_with_state", "cascade_prefix_attention",
            "merge_attn_states")
 TRACE_SECONDS = 1.0             # ~330 frames from the default 64-sensor fleet
@@ -95,7 +118,7 @@ NEAR_TIE_BOUND = 0.2
 # kernels line reports as its own
 HOME_PATH = {"sng_pack": "frame", "sc_dot": "frame",
              "paged_decode_attention": "prompt", "scatter_kv_rows": "prompt",
-             **dict.fromkeys(CASCADE, "cascade")}
+             **dict.fromkeys(CASCADE, "cascade"), "flash_attention": "chunked"}
 # the prompt path: stablelm-3b, 8 lanes of 1,536 tokens, 16-token blocks
 LM_SLOTS, LM_MAX_LEN, LM_BLOCK = 8, 1536, 16
 # load (c): a shared 1,024-token prompt (64 full blocks), a 64-token tail per
@@ -596,6 +619,123 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     return err, timing
 
 
+def flash_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
+    """Phase 3 for ``flash_attention``: the kernel against its plain
+    version (and the TPU kernel's oracle on its own cases) within 2e-5
+    float32 / 2e-2 bfloat16, a repeated call bitwise, and the timing at the
+    fold chunk and the one-shot prefill.  Returns (max_abs_err, timing);
+    raises SystemExit when the kernel disagrees."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+
+    def arr(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    err = 0.0
+    checks = []
+
+    def check(got, want, dtype, **case):
+        nonlocal err
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        e = float((got.float() - want.float()).abs().max())
+        err = max(err, e)
+        checks.append({**case, "dtype": str(dtype), "max_abs_err": e,
+                       "ok": torch.allclose(got.float(), want.float(),
+                                            rtol=tol, atol=tol)})
+
+    # the TPU kernel's cases (tests/test_flash_kernel.py), (BH, S, D)
+    for BH, S, D, causal, dtype in (
+            (4, 256, 64, True, torch.float32),
+            (2, 256, 128, False, torch.float32),
+            (8, 512, 64, True, torch.bfloat16),
+            (1, 128, 64, True, torch.float32),
+            (3, 384, 128, True, torch.bfloat16)):
+        q, k, v = (arr((BH, S, D), dtype) for _ in range(3))
+        got = flash_k.flash_attention(q, k, v, causal=causal)
+        case = {"case": f"pallas ({BH}, {S}, {D})", "causal": causal}
+        check(got, ref.flash_attention_chunked(
+            q[:, :, None], k[:, :, None], v[:, :, None], causal)[:, :, 0],
+            dtype, **case)
+        check(got, ref.flash_attention(q, k, v, causal), dtype,
+              vs="oracle", **case)
+    # the fold's chunks (16 and a partial 7 at offsets 0, 512 and 1,072),
+    # one-shot prefill at 1,000, and a window of 8 with GQA 4:1, at
+    # stablelm-3b's 32 heads of 80 (8:2 heads for the GQA case)
+    shapes = [(sq, off, 32, 32, 0) for sq in (16, 7) for off in (0, 512, 1072)]
+    shapes += [(1000, 0, 32, 32, 0), (40, 24, 8, 2, 8), (16, 1072, 8, 2, 8)]
+    for Sq, off, Hq, Hkv, window in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = arr((1, Sq, Hq, 80), dtype)
+            k, v = arr((1, off + Sq, Hkv, 80), dtype), \
+                arr((1, off + Sq, Hkv, 80), dtype)
+            got = flash_k.flash_attention(q, k, v, window=window,
+                                          q_offset=off)
+            again = flash_k.flash_attention(q, k, v, window=window,
+                                            q_offset=off)
+            check(got, ref.flash_attention_chunked(q, k, v, True, window,
+                                                   off), dtype,
+                  case=f"Sq {Sq}, Sk {off + Sq}, q_offset {off}, "
+                       f"heads {Hq}:{Hkv}, window {window}")
+            checks.append({"case": f"Sq {Sq}, q_offset {off} repeated",
+                           "dtype": str(dtype), "bitwise": True,
+                           "ok": torch.equal(got, again)})
+    torch.cuda.synchronize()
+    bad = [c for c in checks if not c["ok"]]
+
+    # timing, bf16, 32 heads of 80: a fold chunk (16 queries at 1,072
+    # into 1,088 keys) and the one-shot prefill of a 1,000-token prompt
+    H, D, bf = 32, 80, torch.bfloat16
+    timing = {}
+    for label, Sq, off in (("fold_chunk", 16, 1072), ("oneshot", 1000, 0)):
+        Sk = off + Sq
+        q, k, v = arr((1, Sq, H, D), bf), arr((1, Sk, H, D), bf), \
+            arr((1, Sk, H, D), bf)
+        ms, b2b = time_ms(lambda: flash_k.flash_attention(
+            q, k, v, q_offset=off), 5, 20, sleep)
+        plain = time_ms(lambda: ref.flash_attention_chunked(
+            q, k, v, True, None, off), 3, 3, sleep)[0]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if off == 0:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 5, 20, sleep)[0]
+            how = "is_causal=True"
+        else:
+            mask = (torch.arange(Sk, device=dev)[None, :]
+                    <= off + torch.arange(Sq, device=dev)[:, None])
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 5, 20, sleep)[0]
+            how = "an explicit boolean mask"
+        # each input read once, the output written once; the operations of
+        # the causal band this call needs (2 per multiply-add, QK and PV)
+        pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
+        n_bytes = 2 * (2 * Sq * H * D + 2 * Sk * H * D)
+        ops = 4 * H * D * pairs
+        timing[label] = {
+            "shape": f"q (1, {Sq}, {H}, {D}) bf16 at q_offset {off}, k and "
+                     f"v (1, {Sk}, {H}, {D}), causal",
+            "ms": ms, "back_to_back_ms": b2b, "plain_ms": plain,
+            "library_ms": lib,
+            "library": f"F.scaled_dot_product_attention with {how} on "
+                       "(B, H, S, D) copies (the transpose not timed)",
+            "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_ms": ops / BF16_FLOPS * 1e3}
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    for t in timing.values():
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+            "operations"
+    emit({"phase": "flash_kernel_checks", "checks": len(checks),
+          "failed": bad, "max_abs_err": err, "timing": timing})
+    if bad:
+        raise SystemExit(f"flash_attention disagrees with its plain "
+                         f"version: {bad}")
+    return {"flash_attention": err}, timing
+
+
 class TickProbe:
     """Wraps an adapter's ``decode``: host time of each tick (it ends in the
     tokens' copy to the host, so the device work is inside) and whether
@@ -703,6 +843,136 @@ def forced_ticks(cfg, params, prompts, forced, backend: str):
     return first, np.stack(toks), torch.stack(logits), probe.times, groups
 
 
+def load_b_prompts(vocab: int):
+    """Load (b): four 1,000-token prompts; r1 shares r0's first 512 tokens
+    (a 32-block radix hit), r2 repeats r0 whole (62 full blocks + the
+    partial block), r3 shares nothing.  Returns (prompts, the generator
+    after them)."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, vocab, 1000).astype(np.int32)
+    prompts = [a, np.concatenate([a[:512], rng.integers(0, vocab, 488)]),
+               a.copy(), rng.integers(0, vocab, 1000)]
+    return [p.astype(np.int32) for p in prompts], rng
+
+
+def load_c_prompts(vocab: int):
+    """Load (c): eight prompts sharing a 1,024-token prompt, each with its
+    own 64-token tail.  Returns (prompts, the generator after them)."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, vocab, SHARED_PROMPT)
+    return [np.concatenate([shared, rng.integers(0, vocab, OWN_TAIL)]
+                           ).astype(np.int32) for _ in range(LM_SLOTS)], rng
+
+
+def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
+               chunked: bool, new_tokens: int, profile: bool = False,
+               keep_blocks: bool = False) -> dict:
+    """One load through ``make_gateway`` (8 lanes of 1,536 tokens): the
+    first step admits every prompt and ticks once, four timed ticks follow,
+    then (with ``profile``) three under the profiler, left out of the tick
+    times, then the rest.  Keeps every tick's logits and, per request, its
+    slot and its admission: host ms (ending in a synchronize), prefill
+    tokens skipped, first-token logits and, with ``keep_blocks``, a copy of
+    its prompt's K/V blocks taken right after the insert.  Counts every
+    kernel's launches and the fold's chunks from the first step on."""
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    gw = make_gateway(cfg, params, ServeSpec(
+        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+        block_size=LM_BLOCK, chunked=chunked, backend=backend,
+        max_new_tokens=new_tokens), device=dev)
+    ad, batcher = gw.batcher.adapter, gw.batcher
+    probe = CascadeProbe(ad)
+    logits = []
+    inner = probe.inner
+
+    def keep(tokens, active):
+        out = inner(tokens, active)
+        logits.append(ad.last_logits.clone())
+        return out
+    probe.inner = keep
+    admitted = {}
+    insert = ad.insert
+
+    def timed_insert(slot, prompt, max_new=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = insert(slot, prompt, max_new)
+        torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "skipped": ad.slot_stats(slot)["prefill_tokens_skipped"],
+               "logits": ad.last_prefill_logits[0].clone()}
+        if keep_blocks:
+            bids = torch.tensor(ad.slot_bids[slot][:-(-len(prompt)
+                                                     // LM_BLOCK)],
+                                device=dev)
+            rec["blocks"] = {key: a[:, bids].clone()
+                             for key, a in ad.arena.items()}
+        admitted[slot] = rec
+        return tok
+    ad.insert = timed_insert
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+    for fn in wrappers.values():
+        fn.launches = 0
+    chunks0 = ad.prefill_chunks_total
+    t0 = time.perf_counter()
+    batcher.step()
+    slot = {r.uid: s for s, r in enumerate(batcher.active) if r}
+    for _ in range(4):
+        batcher.step()
+    device = profile_ticks(batcher, 3, statistics.median(
+        probe.times[1:5])) if profile else None
+    done = batcher.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    timed = probe.times[1:5] + probe.times[8 if profile else 5:]
+    out = {"backend": backend, "chunked": chunked, "run_s": run_s,
+           "ticks": len(probe.times), "tick_ms": timed, "profile": device,
+           "launches": {name: fn.launches for name, fn in wrappers.items()},
+           "chunks": ad.prefill_chunks_total - chunks0,
+           "logits_finite": probe.finite, "logits": logits, "slot": slot,
+           "prefill": {uid: admitted[s] for uid, s in slot.items()},
+           "tokens": {r.uid: list(map(int, r.generated)) for r in done},
+           "groups": probe.groups, "stats": probe.stats,
+           "proxy": probe.proxy}
+    del gw, ad, batcher, probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_differences(a: dict, b: dict) -> list[dict]:
+    """Per request whose greedy streams in runs ``a`` and ``b`` differ: the
+    first differing token k and, on the logits that chose it (the prefill's
+    for k = 0, else tick k - 1's: the same history on both sides), ``b``'s
+    margin for its own token over ``a``'s next to the two runs' max |logit
+    difference|.  A near tie has margin <= difference <= NEAR_TIE_BOUND."""
+    out = []
+    for uid, ta in a["tokens"].items():
+        tb = b["tokens"][uid]
+        k = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 None)
+        if k is None:
+            continue
+        if k == 0:
+            la, lb = a["prefill"][uid]["logits"], b["prefill"][uid]["logits"]
+        else:
+            la = a["logits"][k - 1][a["slot"][uid]]
+            lb = b["logits"][k - 1][b["slot"][uid]]
+        la, lb = la.float(), lb.float()
+        d = float((la - lb).abs().max())
+        margin = float(lb.max() - lb[ta[k]])
+        out.append({"uid": uid, "token": k, "margin": margin,
+                    "max_abs_dlogit": d,
+                    "near_tie": margin <= d <= NEAR_TIE_BOUND})
+    return out
+
+
 def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     """Phase 5: the prompt path at stablelm-3b's full width and depth.
     Returns (the paged kernels' launches, cfg, params); raises SystemExit
@@ -718,7 +988,9 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     from repro_torch.serve.gateway.slots import Request
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
-    paged = ("paged_decode_attention", "scatter_kv_rows")
+    # the kernels this path launches: the two paged kernels on the ticks,
+    # flash_attention in every one-shot prefill
+    paged = ("paged_decode_attention", "scatter_kv_rows", "flash_attention")
     cfg = configs.config("stablelm-3b")
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -754,7 +1026,7 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
         s = time.perf_counter() - t0
         counts = {name: wrappers[name].launches for name in paged}
         if not all(counts.values()):
-            failures.append(f"a paged kernel never launched: {counts}")
+            failures.append(f"a kernel of the path never launched: {counts}")
         return out, s, counts
 
     # (a) the seeded fleet's prompts through the gateway
@@ -778,12 +1050,9 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     # (b) four 1,000-token requests: r1 shares r0's first 512 tokens (a
     # 32-block radix hit); r2 repeats r0 whole (62 full blocks + the shared
     # partial block, so r0 and r2 each copy it on their first write)
-    rng = np.random.default_rng(11)
-    a = rng.integers(0, cfg.vocab, 1000).astype(np.int32)
-    prompts = [a, np.concatenate([a[:512], rng.integers(0, cfg.vocab, 488)]),
-               a.copy(), rng.integers(0, cfg.vocab, 1000)]
-    reqs = [Request(uid=1000 + i, prompt=p.astype(np.int32),
-                    max_new_tokens=32) for i, p in enumerate(prompts)]
+    prompts, rng = load_b_prompts(cfg.vocab)
+    reqs = [Request(uid=1000 + i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
     cow0 = ad.pool.cow_copies
     probe.times.clear()
     for r in reqs:
@@ -879,85 +1148,14 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     import torch
 
     from repro_torch.models import lm
-    from repro_torch.serve.gateway.slots import Request
-    from repro_torch.serve.spec import ServeSpec, make_gateway
 
-    rng = np.random.default_rng(13)
-    shared = rng.integers(0, cfg.vocab, SHARED_PROMPT)
-    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, OWN_TAIL)]
-                              ).astype(np.int32) for _ in range(LM_SLOTS)]
+    prompts, rng = load_c_prompts(cfg.vocab)
     failures = []
 
     def serve(cfg, params, backend: str, profile: bool) -> dict:
-        """Load (c) through make_gateway: the first step admits all eight
-        requests and ticks once, four timed ticks follow, then (with
-        ``profile``) three under the profiler, left out of the tick times,
-        then the rest.  Keeps every tick's logits."""
-        gw = make_gateway(cfg, params, ServeSpec(
-            n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
-            block_size=LM_BLOCK, chunked=False, backend=backend,
-            max_new_tokens=NEW_TOKENS_C), device=dev)
-        ad, batcher = gw.batcher.adapter, gw.batcher
-        probe = CascadeProbe(ad)
-        logits = []
-        inner = probe.inner
-
-        def keep(tokens, active):
-            out = inner(tokens, active)
-            logits.append(ad.last_logits.clone())
-            return out
-        probe.inner = keep
-        for i, p in enumerate(prompts):
-            batcher.submit(Request(uid=i, prompt=p,
-                                   max_new_tokens=NEW_TOKENS_C))
-        for fn in wrappers.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        batcher.step()
-        slot = {r.uid: s for s, r in enumerate(batcher.active) if r}
-        for _ in range(4):
-            batcher.step()
-        device = profile_ticks(batcher, 3, statistics.median(
-            probe.times[1:5])) if profile else None
-        done = batcher.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        timed = probe.times[1:5] + probe.times[8 if profile else 5:]
-        out = {"backend": backend, "run_s": run_s, "ticks": len(probe.times),
-               "tick_ms": timed, "profile": device,
-               "launches": {name: fn.launches
-                            for name, fn in wrappers.items()},
-               "logits_finite": probe.finite, "logits": logits,
-               "slot": slot,
-               "tokens": {r.uid: list(map(int, r.generated)) for r in done},
-               "groups": probe.groups, "stats": probe.stats,
-               "proxy": probe.proxy}
-        del gw, ad, batcher, probe
-        torch.cuda.empty_cache()
-        return out
-
-    def first_differences(casc: dict, flat: dict) -> list[dict]:
-        """Per request whose two greedy streams differ: the first
-        differing token, and on that token's tick (the same history on both
-        sides) the flat tick's margin for its own token over the cascade's
-        next to the two ticks' max |logit difference|."""
-        out = []
-        for uid, a in casc["tokens"].items():
-            b = flat["tokens"][uid]
-            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                     None)
-            if k is None:
-                continue
-            tick, s = k - 1, casc["slot"][uid]
-            lc = casc["logits"][tick][s].float()
-            lf = flat["logits"][tick][s].float()
-            d = float((lc - lf).abs().max())
-            margin = float(lf.max() - lf[a[k]])
-            out.append({"uid": uid, "token": k, "flat_margin": margin,
-                        "max_abs_dlogit": d,
-                        "near_tie": k >= 1 and margin <= d
-                        <= NEAR_TIE_BOUND})
-        return out
+        return serve_load(dev, wrappers, cfg, params, prompts,
+                          backend=backend, chunked=False,
+                          new_tokens=NEW_TOKENS_C, profile=profile)
 
     # bf16, full depth, the main path; runs in turns (cascade, flat, flat,
     # cascade) because the host clock drifts within a call
@@ -982,12 +1180,15 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     want.update({name: cfg.n_layers * grouped for name in CASCADE})
     want["paged_decode_attention"] = cfg.n_layers * (ticks - grouped)
     want["scatter_kv_rows"] = ticks
+    # the eight one-shot prefills: one launch per layer each
+    want["flash_attention"] = cfg.n_layers * LM_SLOTS
     if casc["launches"] != want:
         failures.append(f"load (c) cascade launches {casc['launches']}, "
                         f"expected {want}")
     want_flat = {name: 0 for name in wrappers}
     want_flat.update(paged_decode_attention=cfg.n_layers * flat["ticks"],
-                     scatter_kv_rows=flat["ticks"])
+                     scatter_kv_rows=flat["ticks"],
+                     flash_attention=cfg.n_layers * LM_SLOTS)
     if flat["launches"] != want_flat:
         failures.append(f"load (c) flat launches {flat['launches']}")
     if runs[3]["tokens"] != casc["tokens"] or \
@@ -1023,9 +1224,13 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     if not f32_c <= 2e-4:
         failures.append(f"load (c) float32 depth 4: max |dlogit| {f32_c} "
                         f"against the flat gateway > 2e-4")
-    del params4, casc4["logits"], flat4["logits"]
+    del params4
+    for r in (casc4, flat4):
+        del r["logits"], r["prefill"]
     for r in runs:
         del r["logits"]
+        r["prefill_ms"] = statistics.median(
+            x["ms"] for x in r.pop("prefill").values())
     torch.cuda.empty_cache()
 
     # the cascade tick against the plain flat tick, same card and weights:
@@ -1073,6 +1278,7 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
               "f32_depth4_max_abs_dlogit": f32_c,
               "runs": [{"backend": r["backend"], "run_s": r["run_s"],
                         "tick_ms_median": statistics.median(r["tick_ms"]),
+                        "prefill_ms_median": r["prefill_ms"],
                         "profile": r["profile"]} for r in runs],
               "tick_ms_median": {
                   b: statistics.median(sum((r["tick_ms"] for r in runs
@@ -1094,6 +1300,193 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     return casc["launches"]
 
 
+def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
+    """Phase 7: the chunked prefill fold (``ServeSpec(paged=True)``, the
+    reference's default ``chunked=True``) at stablelm-3b's full width and
+    depth: load (b) through ``backend="cuda"`` and load (c) through
+    ``backend="cascade"``, each beside the one-shot gateway on the same
+    load; a resumed admission held bitwise against a cold one in a fresh
+    gateway; float32 at depth 4 against one-shot; the prefill host time per
+    prompt.  Returns the chunked runs' launches; raises SystemExit on a
+    failed check."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    from repro_torch.serve import engine
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    failures = []
+    pb, _ = load_b_prompts(cfg.vocab)
+    pc, _ = load_c_prompts(cfg.vocab)
+    L = cfg.n_layers
+
+    def serve(cfg, params, prompts, backend, chunked, **kw):
+        return serve_load(dev, wrappers, cfg, params, prompts,
+                          backend=backend, chunked=chunked,
+                          new_tokens=32, **kw)
+
+    # bf16 at full depth: each load chunked, then one-shot
+    b_ch = serve(cfg, params, pb, "cuda", True, keep_blocks=True)
+    b_os = serve(cfg, params, pb, "cuda", False)
+    c_ch = serve(cfg, params, pc, "cascade", True)
+    c_os = serve(cfg, params, pc, "cascade", False)
+
+    def skipped(run):
+        return [run["prefill"][uid]["skipped"] for uid in sorted(run["slot"])]
+
+    # what the folds ran, from the adapter's own count of chunks
+    want_chunks = {"b": 63 + 31 + 1 + 63, "c": 68 + 7 * 4}
+    for key, run, want_skip in (("b", b_ch, [0, 512, 992, 0]),
+                                ("c", c_ch, [0] + [SHARED_PROMPT] * 7)):
+        if run["chunks"] != want_chunks[key] or skipped(run) != want_skip:
+            failures.append(f"load ({key}) chunked: {run['chunks']} chunks, "
+                            f"skipped {skipped(run)}")
+        n = run["launches"]
+        if n["flash_attention"] != L * run["chunks"]:
+            failures.append(f"load ({key}) chunked: flash_attention launched "
+                            f"{n['flash_attention']} times for "
+                            f"{run['chunks']} chunks x {L} layers")
+    for key, run, n_prompts in (("b", b_os, len(pb)), ("c", c_os, len(pc))):
+        if run["launches"]["flash_attention"] != L * n_prompts:
+            failures.append(f"load ({key}) one-shot: flash_attention "
+                            f"launches {run['launches']['flash_attention']}")
+    nb, nc = b_ch["launches"], c_ch["launches"]
+    if not (nb["paged_decode_attention"] and nb["scatter_kv_rows"]) or \
+            any(nb[name] for name in CASCADE):
+        failures.append(f"load (b) chunked launches {nb}")
+    grouped = sum(g > 0 for g in c_ch["groups"])
+    if grouped == 0 or any(nc[name] != L * grouped for name in CASCADE) or \
+            nc["scatter_kv_rows"] != c_ch["ticks"]:
+        failures.append(f"load (c) chunked launches {nc}, grouped {grouped}")
+    for run in (b_ch, b_os, c_ch, c_os):
+        if not run["logits_finite"] or \
+                sorted(len(t) for t in run["tokens"].values()) != \
+                [32] * len(run["tokens"]):
+            failures.append("a tick was not finite, or a request was not "
+                            "served")
+    # bf16: equal up to each stream's first difference, a near tie
+    diffs = {"b": first_differences(b_ch, b_os),
+             "c": first_differences(c_ch, c_os)}
+    if not all(d["near_tie"] for ds in diffs.values() for d in ds):
+        failures.append(f"bf16 chunked vs one-shot: a difference that is "
+                        f"not a near tie: {diffs}")
+
+    # load (b)'s r1 (a 512-token hit, resumed at block 32) against the same
+    # prompt admitted cold into a fresh gateway: bitwise
+    warm = b_ch["prefill"][1]
+    gw_cold = make_gateway(cfg, params, ServeSpec(
+        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+        block_size=LM_BLOCK), device=dev)
+    ad = gw_cold.batcher.adapter
+    ad.insert(0, pb[1], max_new=32)
+    bids = torch.tensor(ad.slot_bids[0][:-(-len(pb[1]) // LM_BLOCK)],
+                        device=dev)
+    cold_logits = ad.last_prefill_logits[0]
+    resume_bitwise = {
+        "warm_skipped": warm["skipped"],
+        "cold_skipped": ad.slot_stats(0)["prefill_tokens_skipped"],
+        "logits": torch.equal(cold_logits, warm["logits"]),
+        "blocks": all(torch.equal(a[:, bids], warm["blocks"][key])
+                      for key, a in ad.arena.items())}
+    if not (resume_bitwise["logits"] and resume_bitwise["blocks"]) or \
+            resume_bitwise["warm_skipped"] != 512 or \
+            resume_bitwise["cold_skipped"] != 0:
+        failures.append(f"resumed vs cold admission: {resume_bitwise}")
+    del gw_cold, ad, cold_logits, warm
+    for run in (b_ch, b_os, c_ch, c_os):
+        for rec in run["prefill"].values():
+            rec.pop("blocks", None)
+    torch.cuda.empty_cache()
+
+    # one-shot prefill of a 1,000-token prompt with attention through the
+    # kernel, and through its plain version (the loops it replaced)
+    tokens = torch.from_numpy(pb[3][None]).to(dev)
+    prefill_kernel_ms = host_ms(lambda: engine.prefill(cfg, params, tokens),
+                                reps=3)
+
+    def plain(q, k, v, **kw):
+        return ref.flash_attention_chunked(
+            q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+            kw["q_chunk"], kw["kv_chunk"])
+    with mock.patch.object(attention, "flash_kernels",
+                           SimpleNamespace(flash_attention=plain)):
+        prefill_plain_ms = host_ms(lambda: engine.prefill(cfg, params,
+                                                          tokens), reps=3)
+    torch.cuda.empty_cache()
+
+    # float32 at depth 4: tokens equal and logits within 2e-4
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    f32 = {}
+    for key, prompts, backend in (("b", pb, "cuda"), ("c", pc, "cascade")):
+        ch = serve(cfg4, params4, prompts, backend, True)
+        os_ = serve(cfg4, params4, prompts, backend, False)
+        err = max([float((a - b).abs().max())
+                   for a, b in zip(ch["logits"], os_["logits"])]
+                  + [float((ch["prefill"][u]["logits"]
+                            - os_["prefill"][u]["logits"]).abs().max())
+                     for u in ch["slot"]])
+        f32[key] = {"tokens_equal": ch["tokens"] == os_["tokens"],
+                    "max_abs_dlogit": err, "chunks": ch["chunks"]}
+        if not f32[key]["tokens_equal"] or not err <= 2e-4:
+            failures.append(f"float32 depth 4, load ({key}): chunked vs "
+                            f"one-shot {f32[key]}")
+    del params4
+    torch.cuda.empty_cache()
+
+    def prefill_ms(run, pick):
+        return [run["prefill"][u]["ms"] for u in sorted(run["slot"])
+                if pick(run["prefill"][u]["skipped"])]
+    # a model, not a measurement: the bytes a cold fold of a 1,000-token
+    # prompt writes re-concatenating the prefix (k and v in every layer)
+    # and stacking the layers again, chunk after chunk
+    row = cfg.n_kv_heads * cfg.d_head * params["embed"].element_size()
+    fold_copy_bytes = sum(2 * 2 * L * min(q + LM_BLOCK, 1000) * row
+                          for q in range(0, 1000, LM_BLOCK))
+    times = {"cold_fold": prefill_ms(b_ch, lambda k: k == 0)
+             + prefill_ms(c_ch, lambda k: k == 0),
+             "resumed_fold": prefill_ms(b_ch, lambda k: k > 0)
+             + prefill_ms(c_ch, lambda k: k > 0),
+             "oneshot": prefill_ms(b_os, lambda k: True)
+             + prefill_ms(c_os, lambda k: True)}
+    emit({"phase": "chunked_main_path", "model": cfg.name,
+          "spec": {"n_slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+                   "block_size": LM_BLOCK, "chunked": True},
+          "load_b": {"chunks": b_ch["chunks"], "skipped": skipped(b_ch),
+                     "launches": nb, "ticks": b_ch["ticks"]},
+          "load_c": {"chunks": c_ch["chunks"], "skipped": skipped(c_ch),
+                     "launches": nc, "ticks": c_ch["ticks"],
+                     "grouped_ticks": grouped},
+          "resume_bitwise": resume_bitwise,
+          "bf16_first_differences": diffs,
+          "bf16_token_agreement": {
+              key: sum(x == y for u, t in a["tokens"].items()
+                       for x, y in zip(t, b["tokens"][u]))
+              / sum(len(t) for t in a["tokens"].values())
+              for key, a, b in (("b", b_ch, b_os), ("c", c_ch, c_os))},
+          "f32_depth4": f32,
+          "prefill_ms": times,
+          "prefill_ms_median": {k: statistics.median(v)
+                                for k, v in times.items()},
+          "fold_copy_bytes_written_cold_1000": fold_copy_bytes,
+          "oneshot_prefill_1000_ms": {"kernel": prefill_kernel_ms,
+                                      "plain_loops": prefill_plain_ms},
+          "tick_ms_median": {
+              f"{key}_{'chunked' if r['chunked'] else 'oneshot'}":
+                  statistics.median(r["tick_ms"])
+              for key, r in (("b", b_ch), ("b", b_os), ("c", c_ch),
+                             ("c", c_os))},
+          "failures": failures})
+    if failures:
+        raise SystemExit(f"chunked path: {failures}")
+    return {name: nb[name] + nc[name] for name in wrappers}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1104,6 +1497,7 @@ def main() -> int:
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attn as flash_k
     from repro_torch.kernels import paged_attn as paged_k
     from repro_torch.kernels import sc_dot as sc_dot_k
     from repro_torch.kernels import sng_pack as sng_pack_k
@@ -1117,7 +1511,8 @@ def main() -> int:
     wrappers = {"sng_pack": sng_pack_k.sng_pack, "sc_dot": sc_dot_k.sc_dot,
                 "paged_decode_attention": paged_k.paged_decode_attention,
                 "scatter_kv_rows": paged_k.scatter_kv_rows,
-                **{name: getattr(paged_k, name) for name in CASCADE}}
+                **{name: getattr(paged_k, name) for name in CASCADE},
+                "flash_attention": flash_k.flash_attention}
     sc_kernels = ("sng_pack", "sc_dot")
 
     # -- 1. the card ---------------------------------------------------------
@@ -1228,6 +1623,8 @@ def main() -> int:
     err.update(paged_err)
     cascade_err, cascade_timing = cascade_kernel_checks(dev, gen, sleep)
     err.update(cascade_err)
+    flash_err, flash_timing = flash_kernel_checks(dev, gen, sleep)
+    err.update(flash_err)
 
     # -- 4. the frame path --------------------------------------------------
     trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
@@ -1313,6 +1710,9 @@ def main() -> int:
     # -- 6. the cascade tick ---------------------------------------------------
     paths["cascade"] = cascade_main_path(dev, wrappers, lm_cfg, lm_params)
 
+    # -- 7. the chunked prefill fold ----------------------------------------
+    paths["chunked"] = chunked_main_path(dev, wrappers, lm_cfg, lm_params)
+
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",
                             "src/repro/kernels/sng_pack.py:33"),
@@ -1332,11 +1732,16 @@ def main() -> int:
                    "src/repro/kernels/paged_attn.py:419"),
                "merge_attn_states": (
                    "src/repro_torch/kernels/csrc/cascade_attn.cu",
-                   "src/repro/kernels/paged_attn.py:486")}
+                   "src/repro/kernels/paged_attn.py:486"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn.py:74")}
     results = {name: dict(timing[(name, 4)], library_ms=None)
                for name in sc_kernels}
     results.update(paged_timing)
     results.update(cascade_timing)
+    # the chunked path's own shape: a fold chunk
+    results["flash_attention"] = flash_timing["fold_chunk"]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],

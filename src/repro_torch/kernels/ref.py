@@ -252,3 +252,89 @@ def merge_attn_states(acc1, m1, l1, acc2, m2, l2) -> torch.Tensor:
     normalize: ``acc / max(l, 1e-30)``, float32."""
     acc, _, l = merge_softmax_states(acc1, m1, l1, acc2, m2, l2)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+# --------------------------------------------------------------------------
+# Prompt attention: the reference oracle of the flash kernel, and the
+# kernel's plain version (the online-softmax loops of the reference's
+# ``attend_chunked``).
+# --------------------------------------------------------------------------
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D) (GQA)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """The TPU kernel's oracle: naive softmax attention over (BH, S, D)
+    (float32 scores and probabilities, ``-1e30`` above the diagonal when
+    ``causal``), returned in v's dtype."""
+    D = q.shape[-1]
+    s = (q.float() @ k.float().transpose(-1, -2)) * D ** -0.5
+    if causal:
+        S = q.shape[1]
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()).to(v.dtype)
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            q_chunk: int = 512, kv_chunk: int = 1024
+                            ) -> torch.Tensor:
+    """The flash kernel's plain version: q (B, Sq, Hq, D) against k, v
+    (B, Sk, Hkv, D), GQA by repetition, query i at absolute position
+    ``q_offset + i``.  Key j attends when ``rel = q_offset + i - j`` has
+    ``rel < win`` and, if ``causal``, ``rel >= 0`` (``win`` is
+    ``NO_WINDOW`` for a window of None or 0).
+
+    Query chunks x key chunks with a float32 online softmax: scores, the
+    running max and sum, and the accumulator are float32; the probabilities
+    are cast to v's dtype before the value product; masked scores are
+    ``NEG_INF``, so a chunk masked for a row before its first valid key
+    gives that row p = 1 until the first real key's rescale (``corr = 0``)
+    wipes it, as in the reference; the result is ``acc / max(l, 1e-30)``
+    in v's dtype."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    n_rep = Hq // k.shape[2]
+    kt = repeat_kv(k, n_rep).transpose(1, 2)               # (B, H, Sk, D)
+    vt = repeat_kv(v, n_rep).transpose(1, 2)
+    qt = q.transpose(1, 2)                                 # (B, H, Sq, D)
+    win = window if window else NO_WINDOW
+    scale = D ** -0.5
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, qc):
+        q_i = qt[:, :, q0:q0 + qc].float()
+        q_pos = q_offset + torch.arange(q0, q0 + q_i.shape[2], device=dev)
+        m = torch.full(q_i.shape[:3], NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q_i.shape, dtype=torch.float32, device=dev)
+        for k0 in range(0, Sk, kc):
+            k_j, v_j = kt[:, :, k0:k0 + kc], vt[:, :, k0:k0 + kc]
+            k_pos = torch.arange(k0, k0 + k_j.shape[2], device=dev)
+            s = (q_i @ k_j.float().transpose(-1, -2)) * scale
+            rel = q_pos[:, None] - k_pos[None, :]
+            mask = rel < win
+            if causal:
+                mask &= rel >= 0
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(v.dtype).float() @ v_j.float()
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=2).transpose(1, 2)
+    return out.to(v.dtype)

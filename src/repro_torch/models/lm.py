@@ -175,10 +175,19 @@ def _mlp_apply(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
-                window: int = 0, q_offset: int = 0):
+                window: int = 0, q_offset: int = 0,
+                kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full-sequence attention (prefill).  Returns (out, (k, v)) with k, v
     the post-RoPE (B, S, Hkv, Dh) cache rows.  A sliding window is applied
-    as a mask through ``attend_chunked``."""
+    as a mask through ``attend_chunked``.
+
+    ``kv_prefix``: the post-RoPE (k, v) of a cache prefix of ``q_offset``
+    positions (one chunk of the prefill fold).  Queries come from ``x`` at
+    the absolute ``positions``, keys are the prefix followed by the chunk,
+    and the returned (k, v) cover prefix and chunk.  A layer whose static
+    window is shorter than the prefix attends only the prefix's last
+    ``window`` rows, with the offset shifted to match, as in the
+    reference."""
     B, S, _ = x.shape
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.d_head)
     k = _proj(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
@@ -186,9 +195,20 @@ def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
                                                cfg.d_head)
     q = rope.apply_rope(q, positions, cfg.rope_theta)
     k = rope.apply_rope(k, positions, cfg.rope_theta)
-    o = attention.attend_chunked(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, q_chunk=cfg.q_chunk,
-                                 kv_chunk=cfg.kv_chunk)
+    cut = 0                 # leading key rows attention does not read
+    if kv_prefix is not None:
+        pk, pv = kv_prefix
+        if pk.shape[1] != q_offset:
+            raise ValueError(f"kv_prefix holds {pk.shape[1]} positions, "
+                             f"q_offset is {q_offset}")
+        k = torch.cat([pk.to(k.dtype), k], dim=1)
+        v = torch.cat([pv.to(v.dtype), v], dim=1)
+        if 0 < window < q_offset and causal:
+            cut = q_offset - window
+    o = attention.attend_chunked(q, k[:, cut:].contiguous(),
+                                 v[:, cut:].contiguous(), causal=causal,
+                                 window=window, q_offset=q_offset - cut,
+                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     out = _proj(o.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"],
                 p.get("bo"))
     return out, (k, v)
@@ -230,18 +250,24 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
 
 def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
-                  q_offset: int = 0, causal: bool = True):
-    """Pre-norm transformer block.  Returns (x, (k, v))."""
+                  q_offset: int = 0, causal: bool = True,
+                  kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Pre-norm transformer block.  Returns (x, (k, v)); with
+    ``kv_prefix`` (a chunk of the prefill fold, see :func:`_attn_apply`)
+    k, v span prefix and chunk."""
     h, kv = _attn_apply(cfg, p["attn"], _norm_apply(cfg, p["ln1"], x),
                         positions, causal=causal, window=window,
-                        q_offset=q_offset)
+                        q_offset=q_offset, kv_prefix=kv_prefix)
     x = x + h
     return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x)), kv
 
 
-def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    """tokens (B, S) integer -> (B, S, d) embedding rows."""
+def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+                 pos_offset: int = 0) -> torch.Tensor:
+    """tokens (B, S) integer -> (B, S, d) embedding rows.  ``pos_offset``
+    is the absolute position of tokens[:, 0]; the decoder family encodes
+    positions by RoPE inside attention, so its embedding does not read it
+    (the reference's sinusoidal families do)."""
     check_supported(cfg)
     return params["embed"][tokens.long()]
 

@@ -1,8 +1,9 @@
 """Attention: chunked online-softmax prefill, dense single-token decode and
 paged single-token decode, flat or cascaded over shared prefixes.
 
-``attend_chunked`` is the reference's flash-style prefill (query chunks x KV
-chunks, float32 online softmax) written as plain PyTorch loops, forward only.
+``attend_chunked`` is the reference's flash-style prefill (float32 online
+softmax, forward only) through the ``flash_attention`` kernel, or its plain
+version on CPU tensors.
 ``attend_decode_paged`` reads K/V through a block table: its ``"plain"``
 backend gathers each lane's chain and applies the masked softmax (the
 reference's ``"xla"`` body); its ``"cuda"`` backend calls the
@@ -13,18 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import paged_attn as paged_kernels
-from repro_torch.kernels.ref import (NEG_INF, NO_WINDOW,  # noqa: F401
+from repro_torch.kernels.ref import (NEG_INF,  # noqa: F401
                                      merge_softmax_states, splice_rows)
-
-
-def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D) (GQA)."""
-    if n_rep == 1:
-        return k
-    b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
-        b, s, h * n_rep, d)
 
 
 def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,43 +29,12 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Scores, the running max and sum, and the accumulator are float32; the
     probabilities are cast to v's dtype before the value product, as in the
     reference.  ``window`` > 0 masks keys more than ``window - 1`` positions
-    behind the query; ``q_offset`` is the absolute position of q[:, 0]."""
-    B, Sq, Hq, D = q.shape
-    Sk = k.shape[1]
-    n_rep = Hq // k.shape[2]
-    kt = _repeat_kv(k, n_rep).transpose(1, 2)             # (B, H, Sk, D)
-    vt = _repeat_kv(v, n_rep).transpose(1, 2)
-    qt = q.transpose(1, 2)                                 # (B, H, Sq, D)
-    win = window if window else NO_WINDOW
-    scale = D ** -0.5
-    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
-    dev = q.device
-    outs = []
-    for q0 in range(0, Sq, qc):
-        q_i = qt[:, :, q0:q0 + qc].float()
-        q_pos = q_offset + torch.arange(q0, q0 + q_i.shape[2], device=dev)
-        m = torch.full(q_i.shape[:3], NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros_like(m)
-        acc = torch.zeros(q_i.shape, dtype=torch.float32, device=dev)
-        for k0 in range(0, Sk, kc):
-            k_j, v_j = kt[:, :, k0:k0 + kc], vt[:, :, k0:k0 + kc]
-            k_pos = torch.arange(k0, k0 + k_j.shape[2], device=dev)
-            s = (q_i @ k_j.float().transpose(-1, -2)) * scale
-            rel = q_pos[:, None] - k_pos[None, :]
-            mask = rel < win
-            if causal:
-                mask &= rel >= 0
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p.to(v.dtype).float() @ v_j.float()
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.cat(outs, dim=2).transpose(1, 2)
-    return out.to(v.dtype)
+    behind the query; ``q_offset`` is the absolute position of q[:, 0].
+    CUDA tensors run the ``flash_attention`` kernel (its own tiles); CPU
+    tensors run its plain version in ``q_chunk`` x ``kv_chunk`` chunks."""
+    return flash_kernels.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Serving engine of the port, decoder family: one-shot prefill and the
-batched single-token decode tick against the paged block arena.
+"""Serving engine of the port, decoder family: one-shot prefill, the
+chunked prefill fold's step and the batched single-token decode tick
+against the paged block arena.
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
 ``len``.  The paged arena splices a ``num_blocks`` axis in just before the
@@ -57,21 +58,51 @@ def arena_block_axis(a: torch.Tensor) -> int:
 
 
 def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
-    """Process a whole prompt.  tokens (B, S) -> (cache, last-token logits
-    (B, vocab_padded) float32); cache k/v (L, B, S, Hkv, Dh), len S."""
+    """Process a whole prompt: one fold step from an empty prefix.  tokens
+    (B, S) -> (cache, last-token logits (B, vocab_padded) float32); cache
+    k/v (L, B, S, Hkv, Dh), len S."""
+    return prefill_chunked(cfg, params, tokens,
+                           init_cache(cfg, tokens.shape[0], 0, tokens.device),
+                           0)
+
+
+def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
+                    cache: dict, q_offset: int):
+    """Process one prompt chunk against an existing KV prefix: one step of
+    the serving prefill fold.
+
+    tokens (B, S_chunk): only the tokens past the prefix.  ``cache``: k/v
+    (L, B, q_offset, Hkv, Dh), the prefix's post-RoPE rows (zero-length for
+    a cold fold).  Returns (cache covering prefix and chunk, len
+    ``q_offset + S_chunk``; the chunk's last-token logits (B, vocab_padded)
+    float32).  Decoder family only (other families raise).
+
+    A radix prefix hit of H blocks resumes the fold at chunk H with the
+    prefix gathered from the arena.  Chunk j runs the same operations on
+    the same inputs whether the fold started at 0 or at H <= j, so the
+    resumed fold reproduces the cold fold's K/V and logits bit for bit.
+    Every chunk concatenates the whole prefix in every layer and stacks the
+    layers again, as the reference does."""
+    lm.check_supported(cfg)
     B, S = tokens.shape
-    x = lm.embed_tokens(cfg, params, tokens)
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    if cache["k"].shape[-3] != q_offset:
+        raise ValueError(f"prefix holds {cache['k'].shape[-3]} positions, "
+                         f"q_offset is {q_offset}")
+    x = lm.embed_tokens(cfg, params, tokens, pos_offset=q_offset)
+    positions = torch.arange(q_offset, q_offset + S,
+                             device=x.device).expand(B, S)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = lm.decoder_block(cfg, lm.layer_params(params["blocks"], i),
-                                     x, positions,
-                                     window=lm.layer_window(cfg, i))
+        x, (k, v) = lm.decoder_block(
+            cfg, lm.layer_params(params["blocks"], i), x, positions,
+            window=lm.layer_window(cfg, i), q_offset=q_offset,
+            kv_prefix=(cache["k"][i], cache["v"][i]))
         ks.append(k)
         vs.append(v)
-    cache = {"len": torch.tensor(S, dtype=torch.int32, device=x.device),
-             "k": torch.stack(ks), "v": torch.stack(vs)}
-    return cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
+    new_cache = {"len": torch.tensor(q_offset + S, dtype=torch.int32,
+                                     device=x.device),
+                 "k": torch.stack(ks), "v": torch.stack(vs)}
+    return new_cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
 
 
 def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,

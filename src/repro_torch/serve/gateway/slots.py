@@ -2,8 +2,9 @@
 factory and the family-agnostic scheduler loop.
 
 So far the port has one adapter, the paged KV slots of the decoder family
-(``serve/kvcache/paged.py``).  The dense ``KVSlotAdapter``, the rwkv
-``StateSlotAdapter`` and the chunked-prefill adapter come with later slices.
+(``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The dense
+``KVSlotAdapter`` and the rwkv ``StateSlotAdapter`` come with later
+slices.
 
 The batcher discovers paging hooks by presence: ``can_admit`` (queue while
 the pool cannot cover a request's worst-case block demand),
@@ -55,23 +56,21 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg``.  Ported so far: ``paged=True`` with
-    ``chunked=False`` (one-shot prefill, storage-only prefix sharing) for
-    the decoder family; ``backend`` picks the decode tick's attention
-    ("plain" | "cuda" | "cascade", the last grouping lanes over shared
-    prefix chains; None: "cuda" on a CUDA device, else "plain")."""
+    """The slot adapter for ``cfg``.  Ported so far: ``paged=True`` for
+    the decoder family, admitting prompts through the chunked prefill fold
+    (``chunked=True``, prefix hits skip their compute) or one-shot
+    (``chunked=False``, storage-only prefix sharing); ``backend`` picks the
+    decode tick's attention ("plain" | "cuda" | "cascade", the last
+    grouping lanes over shared prefix chains; None: "cuda" on a CUDA
+    device, else "plain")."""
     if not paged:
         raise NotImplementedError(
             "the dense KVSlotAdapter is not ported yet: ROADMAP.md §1 "
             "item 8; pass paged=True")
-    if chunked:
-        raise NotImplementedError(
-            "chunked prefill is not ported yet: ROADMAP.md §1 item 9; pass "
-            "chunked=False")
     from repro_torch.serve.kvcache.paged import PagedKVSlotAdapter
     return PagedKVSlotAdapter(cfg, params, n_slots, max_len,
                               block_size=block_size, num_blocks=num_blocks,
-                              backend=backend)
+                              chunked=chunked, backend=backend)
 
 
 class ContinuousBatcher:

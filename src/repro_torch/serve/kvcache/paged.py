@@ -25,7 +25,20 @@ Cascade tick (``backend="cascade"``)
     reaches the device in one copy that does not wait for it.  A tick with
     no chain shared by two lanes runs the device's flat tick unchanged.
 
-Sharing / copy-on-write (one-shot prefill)
+Chunked prefill (``chunked=True``, the default): prefix-hit compute
+skipping
+    Admission prefills a prompt as a *fold* of block-size chunks through
+    :func:`engine.prefill_chunked`: chunk j extends the KV prefix of j*bs
+    positions by one block.  A radix prefix hit of H blocks gathers those
+    blocks from the arena and resumes the fold at chunk H, so the shared
+    prompt's transformer work is skipped, not just its storage.  Chunk j
+    runs the same operations on the same inputs whether the fold started at
+    0 or at H, so a resumed prefill is bitwise identical to the cold one:
+    same logits, same written blocks.  The trailing partial chunk is always
+    recomputed into a block of the slot's own, so nothing is shared
+    read-only and nothing is copied on write.
+
+Sharing / copy-on-write (one-shot prefill, ``chunked=False``)
     Admission walks the pool's radix index: full prompt blocks that match
     an earlier request's chain are referenced instead of written (their
     prefill values are discarded).  A trailing partial prompt block is
@@ -36,13 +49,14 @@ Sharing / copy-on-write (one-shot prefill)
 
 Admission control
     ``can_admit`` prices a request at its worst case, ``ceil((P + max_new)
-    / bs)`` blocks minus full-prefix hits, plus the shared partial's
-    revival and the copy-on-write spares it obliges (see
-    ``_admission_demand``), and admits only when the pool's free +
-    evictable supply covers it.
+    / bs)`` blocks minus full-prefix hits, plus one per hit revived from
+    the LRU; the one-shot path adds the shared partial's revival and the
+    copy-on-write spares it obliges (see ``_admission_demand``).  It admits
+    only when the pool's free + evictable supply covers the demand.
 
-The reference's chunked prefill (``chunked=True``), gather tick, mesh
-placement and obs hooks come with later slices (ROADMAP.md).
+The reference's hybrid boundary-state snapshots and encdec cross K/V (other
+families), gather tick, mesh placement and obs hooks come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -64,8 +78,10 @@ class PagedKVSlotAdapter:
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, *, block_size: int = 16,
-                 num_blocks: int | None = None, backend: str | None = None):
+                 num_blocks: int | None = None, chunked: bool = True,
+                 backend: str | None = None):
         self.cfg = cfg
+        self.chunked = chunked
         self.params = params
         self.device = params["embed"].device
         self.n_slots = n_slots
@@ -90,6 +106,8 @@ class PagedKVSlotAdapter:
                                              self.device)
         self.seq_keys = tuple(self.arena)
         self.prefill_tokens_total = 0
+        self.prefill_tokens_skipped_total = 0
+        self.prefill_chunks_total = 0       # fold steps run (chunked)
 
         # host-side paging state
         self.tables = np.zeros((n_slots, self.nb_max), np.int32)
@@ -106,11 +124,12 @@ class PagedKVSlotAdapter:
         self.peak_blocks_in_use = 0
         self.peak_bytes_saved = 0
         self.last_logits = None
+        self.last_prefill_logits = None     # the latest insert's logits
 
     # -- device work ---------------------------------------------------------
 
-    def _scatter(self, cache: dict, fresh: list[tuple[int, bytes, int]]
-                 ) -> None:
+    def _scatter(self, cache: dict,
+                 fresh: list[tuple[int, bytes | None, int]]) -> None:
         """Write the freshly owned prompt blocks ``(j, key, bid)`` of a B=1
         prefill cache into the arena (a partial block's tail is zeros, as
         the reference's padded write leaves it); shared blocks keep the
@@ -159,14 +178,18 @@ class PagedKVSlotAdapter:
     def _admission_demand(self, prompt: np.ndarray, max_new: int) -> int:
         """Exact worst-case supply (free + evictable) an ``insert`` of this
         request consumes: the chain's blocks minus full-prefix hits, plus
-        one per hit revived from the LRU, plus the shared partial's revival
-        and the copy-on-write spares its existing holders must take."""
+        one per hit revived from the LRU.  The chunked fold recomputes the
+        boundary chunk into the slot's own block (already counted), so a
+        partial hit adds nothing; the one-shot path also holds the shared
+        partial (its revival) and arms its existing holders' spares."""
         pool = self.pool
         n_total = self._block_demand(len(prompt), max_new)
         hits, partial_hit, _, _ = pool.match_prefix(
             np.asarray(prompt, np.int32), count=False)
         revived = sum(1 for b in hits if pool.refcount[b] == 0)
         demand = n_total - len(hits) + revived
+        if self.chunked:
+            return demand
         if partial_hit is not None and pool.refcount[partial_hit] == 0:
             demand += 1
         return demand + self._arming_demand(partial_hit)
@@ -181,10 +204,8 @@ class PagedKVSlotAdapter:
 
     def insert(self, slot: int, prompt: np.ndarray,
                max_new: int | None = None) -> int:
-        """One-shot prefill of ``prompt`` into ``slot``: storage is shared
-        (hit blocks are referenced, their recomputed values discarded) but
-        no compute is skipped; a shared partial block is held read-only
-        with lazy copy-on-write.  Returns the first generated token."""
+        """Prefill ``prompt`` into ``slot`` (the chunked fold, or one-shot
+        with ``chunked=False``).  Returns the first generated token."""
         P = len(prompt)
         if max_new is None:
             max_new = max(1, self.max_len - P)
@@ -195,6 +216,124 @@ class PagedKVSlotAdapter:
         n_total = self._block_demand(P, max_new)
         n_full = P // self.bs
         hits, partial_hit, keys, pkey = self.pool.match_prefix(prompt)
+        insert = self._insert_chunked if self.chunked else \
+            self._insert_oneshot
+        return insert(slot, prompt, n_total, n_full, hits, partial_hit,
+                      keys, pkey)
+
+    def _resume_blocks(self, P: int, hits: list[int]) -> int:
+        """How many prefix blocks the fold skips: the hit chain, capped so
+        that at least one prompt token remains (the fold must produce the
+        last token's logits)."""
+        return min(len(hits), (P - 1) // self.bs)
+
+    def _gather_prefix(self, bids: list[int]) -> dict[str, torch.Tensor]:
+        """An H-block chain in the layout :func:`engine.prefill_chunked`
+        consumes: per key (L, 1, H*bs, Hkv, Dh), copied out of the arena."""
+        idx = torch.tensor(bids, device=self.device)
+        out = {}
+        for key in self.seq_keys:
+            g = self.arena[key][:, idx, 0]         # (L, H, bs, Hkv, Dh)
+            out[key] = g.reshape(g.shape[0], 1, -1, *g.shape[3:])
+        return out
+
+    def _prefix_cache(self, bids: list[int]) -> dict[str, torch.Tensor]:
+        """The prefix cache a fold starts from: the gathered blocks
+        ``bids``, or an empty cache for a cold fold."""
+        if bids:
+            return self._gather_prefix(bids)
+        return engine.init_cache(self.cfg, 1, 0, self.device)
+
+    def _fold_prefill(self, prompt: np.ndarray, q0: int, cache: dict
+                      ) -> tuple[dict, torch.Tensor]:
+        """Run the chunk fold over ``prompt[q0:]``, one block-size chunk per
+        step.  Returns (the final cache, the last token's logits)."""
+        P = len(prompt)
+        tokens = torch.from_numpy(prompt[None]).to(self.device)
+        q, logits = q0, None
+        while q < P:
+            c = min(self.bs, P - q)
+            cache, logits = engine.prefill_chunked(
+                self.cfg, self.params, tokens[:, q:q + c], cache, q)
+            self.prefill_chunks_total += 1
+            q += c
+        return cache, logits
+
+    def _insert_chunked(self, slot: int, prompt: np.ndarray, n_total: int,
+                        n_full: int, hits, partial_hit, keys, pkey) -> int:
+        """Chunk-fold admission: reference every full-block hit (storage
+        sharing), resume the fold past the hit chain (compute skipping),
+        and recompute the trailing partial chunk into a block of the slot's
+        own: the shared partial is never referenced, so there is no
+        copy-on-write arming and nothing to disarm on rollback."""
+        P = len(prompt)
+        pool = self.pool
+        # take references on every hit before allocating (allocation may
+        # evict from the LRU the hits are parked in); on exhaustion release
+        # everything this insert took so a failed admission leaks nothing
+        bids: list[int] = []
+        fresh: list[tuple[int, bytes | None, int]] = []  # (blk_idx, key, bid)
+        try:
+            bids.extend(pool.acquire(b) for b in hits)
+            for j in range(len(hits), n_full):
+                b = pool.alloc()
+                fresh.append((j, keys[j], b))
+                bids.append(b)
+            if n_full * self.bs < P:                   # partial prompt block
+                b = pool.alloc()
+                # indexed only when no sibling indexes the chunk already;
+                # private either way, since decode writes it in place
+                fresh.append((n_full, None if partial_hit is not None
+                              else pkey, b))
+                bids.append(b)
+            while len(bids) < n_total:                 # generation blocks
+                bids.append(pool.alloc())
+        except PoolExhausted:
+            for b in bids:
+                pool.release(b)
+            raise
+
+        H = self._resume_blocks(P, hits)
+        q0 = H * self.bs
+        cache, logits = self._fold_prefill(prompt, q0,
+                                           self._prefix_cache(bids[:H]))
+        self._scatter(cache, fresh)
+        # index only after the contents exist (a failed insert must never
+        # leave a key pointing at an unwritten block)
+        for j, key, b in fresh:
+            if key is not None:
+                pool.register(key, b, partial=j >= n_full)
+                if j >= n_full:
+                    self.partial_reg[slot] = (j, b)
+        return self._admitted(slot, P, bids, n_total, hits, partial_hit, q0,
+                              logits)
+
+    def _admitted(self, slot: int, P: int, bids: list[int], n_total: int,
+                  hits, partial_hit, skipped: int,
+                  logits: torch.Tensor) -> int:
+        """The slot's table, length and statistics after a prefill; returns
+        the first generated token."""
+        self.tables[slot, :] = TRASH_BLOCK
+        self.tables[slot, :len(bids)] = bids
+        self.lens[slot] = P
+        self.slot_bids[slot] = bids
+        self.prefill_tokens_total += P
+        self.prefill_tokens_skipped_total += skipped
+        self._stats[slot] = {
+            "kv_blocks": n_total,
+            "prefix_hit_blocks": len(hits)
+            + (1 if partial_hit is not None else 0),
+            "prefill_tokens_skipped": skipped}
+        self._update_peaks()
+        self.last_prefill_logits = logits
+        return int(logits[0].argmax())
+
+    def _insert_oneshot(self, slot: int, prompt: np.ndarray, n_total: int,
+                        n_full: int, hits, partial_hit, keys, pkey) -> int:
+        """One-shot prefill: storage is shared (hit blocks are referenced,
+        their recomputed values discarded) but no compute is skipped; a
+        shared partial block is held read-only with lazy copy-on-write."""
+        P = len(prompt)
         pool = self.pool
         # take references on every hit before allocating (allocation may
         # evict from the LRU the hits are parked in); on exhaustion release
@@ -245,19 +384,8 @@ class PagedKVSlotAdapter:
             pool.register(key, b, partial=j >= n_full)
             if j >= n_full:
                 self.partial_reg[slot] = (j, b)
-
-        self.tables[slot, :] = TRASH_BLOCK
-        self.tables[slot, :len(bids)] = bids
-        self.lens[slot] = P
-        self.slot_bids[slot] = bids
-        self.prefill_tokens_total += P
-        self._stats[slot] = {
-            "kv_blocks": n_total,
-            "prefix_hit_blocks": len(hits)
-            + (1 if partial_hit is not None else 0),
-            "prefill_tokens_skipped": 0}
-        self._update_peaks()
-        return int(logits[0].argmax())
+        return self._admitted(slot, P, bids, n_total, hits, partial_hit, 0,
+                              logits)
 
     def _update_peaks(self) -> None:
         in_use = self.pool.blocks_in_use()
@@ -485,8 +613,8 @@ class PagedKVSlotAdapter:
         st["peak_blocks_in_use"] = self.peak_blocks_in_use
         st["peak_bytes_saved_vs_dense"] = self.peak_bytes_saved
         st["prefill_tokens_total"] = self.prefill_tokens_total
-        # the one-shot path skips no prefill compute and keeps no
-        # recurrent boundary states (those are the chunked fold's)
-        st["prefill_tokens_skipped"] = 0
+        st["prefill_tokens_skipped"] = self.prefill_tokens_skipped_total
+        # the decoder family keeps no recurrent boundary states (the
+        # hybrid family's fold does)
         st["boundary_state_bytes"] = 0
         return st

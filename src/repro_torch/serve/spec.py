@@ -2,11 +2,11 @@
 
 ``ServeSpec`` names the configuration of a prompt gateway once, as a frozen
 dataclass, and ``make_gateway`` validates it and builds the gateway it
-describes.  Ported so far: the colocated gateway over paged KV slots with
-one-shot prefill (``paged=True, chunked=False``), with the flat decode tick
-(``backend`` "plain" | "cuda") or the shared-prefix cascade tick
-(``backend="cascade"``).  ``chunked`` keeps the reference's default of True
-and raises until chunked prefill is ported; ``mesh``/``roles`` (sharded and
+describes.  Ported so far: the colocated gateway over paged KV slots
+(``paged=True``), admitting prompts through the chunked prefill fold (the
+reference's default ``chunked=True``) or one-shot (``chunked=False``), with
+the flat decode tick (``backend`` "plain" | "cuda") or the shared-prefix
+cascade tick (``backend="cascade"``).  ``mesh``/``roles`` (sharded and
 disaggregated serving) and the observability attachments raise until their
 slices.
 """

@@ -1,0 +1,375 @@
+"""The port's chunked prefill (the fold, its compute-skipping resume on
+radix prefix hits, and the chunked paged adapter and gateway) against the
+reference, decoder family, stablelm-3b smoke size in float32 with the
+reference's weights: ``engine.prefill_chunked`` logits and K/V within 1e-5,
+the decoder cases of ``tests/test_chunked_prefill.py`` ported (fold resume
+bitwise, adapter resume bitwise against a cold insert, divergent writers
+isolated, admission demand equal to the actual allocations, the
+at-capacity slot), and the chunked adapter and gateway token for token with
+equal tables and pool statistics.
+
+The reference's two jit-recompile tests (``test_fold_steady_state_never_
+recompiles`` and ``test_fold_buckets_shared_process_wide``) are not ported:
+PyTorch runs eagerly, so the port has no jit cache to hold steady or to
+share between adapters."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.serve import engine as jengine
+from repro.serve import spec as jspec
+from repro.serve.gateway import sensors as jsensors
+from repro.serve.gateway import slots as jslots
+from repro_torch.serve import engine, spec
+from repro_torch.serve.gateway import sensors, slots
+from repro_torch.serve.kvcache.pool import PoolExhausted
+from test_torch_lm import smoke_pair
+
+BS = 4
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return smoke_pair()
+
+
+def _empty(cfg):
+    shape = (cfg.n_layers, 1, 0, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape), "v": torch.zeros(shape),
+            "len": torch.tensor(0, dtype=torch.int32)}
+
+
+def _fold(cfg, params, prompt, cache, start):
+    q, logits = start, None
+    while q < len(prompt):
+        c = min(BS, len(prompt) - q)
+        cache, logits = engine.prefill_chunked(
+            cfg, params, torch.from_numpy(prompt[None, q:q + c]), cache, q)
+        q += c
+    return cache, logits
+
+
+def _jfold(cfg, params, prompt, cache, start):
+    q, logits = start, None
+    while q < len(prompt):
+        c = min(BS, len(prompt) - q)
+        cache, logits = jengine.prefill_chunked(
+            cfg, params, {"tokens": jnp.asarray(prompt[None, q:q + c])},
+            cache, q)
+        q += c
+    return cache, logits
+
+
+def _jempty(cfg):
+    shape = (cfg.n_layers, 1, 0, cfg.n_kv_heads, cfg.d_head)
+    return {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
+            "len": jnp.int32(0)}
+
+
+def _close(got, want, tol=1e-5):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_prefill_chunked_matches_reference(pair, window):
+    """The fold over an 11-token prompt (two full chunks and a partial
+    one), cold and resumed at one block: logits and K/V within 1e-5 of the
+    reference's fold; with a window of 5 the later chunks attend only the
+    prefix's last 5 rows."""
+    jcfg, jparams, cfg, params = pair
+    if window:
+        jcfg = dataclasses.replace(jcfg, window=window)
+        cfg = dataclasses.replace(cfg, window=window)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 11
+                                               ).astype(np.int32)
+    cache, logits = _fold(cfg, params, prompt, _empty(cfg), 0)
+    jcache, jlogits = _jfold(jcfg, jparams, prompt, _jempty(jcfg), 0)
+    assert int(cache["len"]) == 11
+    _close(logits, jlogits)
+    for key in ("k", "v"):
+        assert cache[key].shape == jcache[key].shape
+        _close(cache[key], jcache[key])
+    warm = {"k": cache["k"][:, :, :BS], "v": cache["v"][:, :, :BS],
+            "len": torch.tensor(BS, dtype=torch.int32)}
+    jwarm = {"k": jcache["k"][:, :, :BS], "v": jcache["v"][:, :, :BS],
+             "len": jnp.int32(BS)}
+    c1, l1 = engine.prefill_chunked(
+        cfg, params, torch.from_numpy(prompt[None, BS:2 * BS]), warm, BS)
+    j1, jl1 = jengine.prefill_chunked(
+        jcfg, jparams, {"tokens": jnp.asarray(prompt[None, BS:2 * BS])},
+        jwarm, BS)
+    _close(l1, jl1)
+    _close(c1["k"], j1["k"])
+    with pytest.raises(ValueError):
+        engine.prefill_chunked(cfg, params, torch.from_numpy(prompt[None]),
+                               warm, 0)
+
+
+def test_engine_fold_resume_bitwise(pair):
+    """Resuming the fold at an H-block prefix reproduces the cold fold's
+    logits and K/V bit for bit (H = 0 is the cold fold itself)."""
+    _, _, cfg, params = pair
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, 11
+                                               ).astype(np.int32)
+    cold, cold_logits = _fold(cfg, params, prompt, _empty(cfg), 0)
+    for H in (0, 1, 2):
+        q0 = H * BS
+        warm = {"k": cold["k"][:, :, :q0].clone(),
+                "v": cold["v"][:, :, :q0].clone(),
+                "len": torch.tensor(q0, dtype=torch.int32)}
+        got, logits = _fold(cfg, params, prompt, warm, q0)
+        assert torch.equal(logits, cold_logits), H
+        for key in ("k", "v"):
+            assert torch.equal(got[key], cold[key]), (key, H)
+
+
+def _adapter(pair, **kw):
+    _, _, cfg, params = pair
+    kw = {"n_slots": 2, "max_len": 32, **kw}
+    return slots.make_adapter(cfg, params, paged=True, block_size=BS, **kw)
+
+
+def _slot_blocks(ad, slot):
+    return {(key, j): ad.arena_block(key, bid).clone()
+            for j, bid in enumerate(ad.slot_bids[slot])
+            for key in ad.seq_keys}
+
+
+def _same_blocks(a, b):
+    assert a.keys() == b.keys()
+    for where, t in a.items():
+        assert torch.equal(t, b[where]), where
+
+
+def test_adapter_resume_matches_cold_insert(pair):
+    """A prefix-hit insert writes bit-identical blocks, returns bit-identical
+    logits and picks the same token as the same prompt admitted cold, also
+    when the shared prefix ends mid-block, while skipping the shared
+    blocks' prefill."""
+    _, _, cfg, _ = pair
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab, 2 * BS).astype(np.int32)
+    pa = np.concatenate([prefix, rng.integers(0, cfg.vocab, 3)]
+                        ).astype(np.int32)
+    pb = np.concatenate([prefix, rng.integers(0, cfg.vocab, 3)]
+                        ).astype(np.int32)
+    cold = _adapter(pair)
+    tok_cold = cold.insert(0, pb, max_new=4)
+    assert cold.prefill_chunks_total == 3
+    warm = _adapter(pair)
+    warm.insert(0, pa, max_new=4)
+    tok_warm = warm.insert(1, pb, max_new=4)
+    assert warm.prefill_chunks_total == 3 + 1
+    assert warm.slot_stats(1)["prefill_tokens_skipped"] == 2 * BS
+    assert warm.slot_stats(1)["prefix_hit_blocks"] == 2
+    assert tok_warm == tok_cold
+    assert torch.equal(warm.last_prefill_logits, cold.last_prefill_logits)
+    _same_blocks(_slot_blocks(cold, 0), _slot_blocks(warm, 1))
+    # a hit ending mid-block: the fold recomputes the boundary chunk into
+    # a block of its own
+    warm.clear(1)
+    tok_mid = warm.insert(1, pa, max_new=4)
+    st = warm.slot_stats(1)
+    assert st["prefix_hit_blocks"] == 3 and \
+        st["prefill_tokens_skipped"] == 2 * BS
+    assert warm.slot_bids[1][2] != warm.slot_bids[0][2]
+    oracle = _adapter(pair, n_slots=1)
+    assert tok_mid == oracle.insert(0, pa, max_new=4)
+    _same_blocks(_slot_blocks(oracle, 0), _slot_blocks(warm, 1))
+    assert warm.pool_stats()["prefill_tokens_skipped"] == 4 * BS
+
+
+def test_adapter_divergent_writers_stay_isolated(pair):
+    """Two slots admitted from one prompt decode into private boundary
+    blocks: one slot's writes leave the sibling's blocks and logits
+    untouched, bit for bit."""
+    _, _, cfg, _ = pair
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, 6
+                                               ).astype(np.int32)
+
+    def mk():
+        ad = _adapter(pair)
+        ad.insert(0, prompt, max_new=8)
+        ad.insert(1, prompt, max_new=8)
+        return ad
+
+    a, b = mk(), mk()
+    blocks0 = _slot_blocks(a, 0)
+    for tok in (3, 11, 5, 1):
+        a.decode(np.asarray([0, tok], np.int32), np.asarray([False, True]))
+    _same_blocks(blocks0, _slot_blocks(a, 0))
+    for tok in (7, 2, 5, 9):
+        for ad in (a, b):
+            ad.decode(np.asarray([tok, 0], np.int32),
+                      np.asarray([True, False]))
+        assert torch.equal(a.last_logits[0], b.last_logits[0])
+    assert a.pool_stats()["cow_copies"] == 0
+
+
+def _consumed(ad, prompt, max_new, slot):
+    before = ad.pool.available()
+    ad.insert(slot, prompt, max_new=max_new)
+    return before - ad.pool.available()
+
+
+def test_admission_demand_matches_actual_allocations(pair):
+    """``_admission_demand`` equals the supply ``insert`` consumes: cold,
+    warm with a live holder (the boundary block priced once), and warm
+    from the LRU (revivals consume evictable supply one for one)."""
+    _, _, cfg, _ = pair
+    rng = np.random.default_rng(5)
+    p = np.concatenate([rng.integers(0, cfg.vocab, 2 * BS),
+                        rng.integers(0, cfg.vocab, 2)]).astype(np.int32)
+    ad = _adapter(pair, n_slots=3, max_len=16, num_blocks=32)
+    d = ad._admission_demand(p, 4)
+    assert d == 4 and _consumed(ad, p, 4, 0) == d
+    d = ad._admission_demand(p, 4)
+    assert d == 2 and _consumed(ad, p, 4, 1) == d
+    ad.clear(0)
+    ad.clear(1)
+    d = ad._admission_demand(p, 4)
+    assert d == 4 and _consumed(ad, p, 4, 2) == d
+
+
+def test_failed_chunked_insert_leaks_nothing(pair):
+    _, _, cfg, _ = pair
+    p = np.random.default_rng(7).integers(0, cfg.vocab, 6).astype(np.int32)
+    ad = _adapter(pair, max_len=20, num_blocks=6)
+    ad.insert(0, p, max_new=2)
+    avail = ad.pool.available()
+    assert not ad.can_admit(p, 12)
+    with pytest.raises(PoolExhausted):
+        ad.insert(1, p, max_new=12)
+    assert ad.pool.available() == avail and ad.pool.blocks_in_use() == 2
+    ad.clear(0)
+    ad.insert(1, p, max_new=12)
+
+
+def test_at_capacity_slot_writes_trash_and_finishes(pair):
+    """A slot whose length reached max_len writes the trash block, keeps
+    its length, and the batcher retires its request."""
+    _, _, cfg, _ = pair
+    p = np.random.default_rng(8).integers(0, cfg.vocab, 6).astype(np.int32)
+    ad = _adapter(pair, n_slots=1, max_len=8)
+    ad.insert(0, p, max_new=2)
+    ad.lens[0] = ad.max_len
+    assert ad.at_capacity(0)
+    final = int(ad.tables[0, ad.nb_max - 1])
+    before = {key: ad.arena_block(key, final).clone() for key in ad.seq_keys}
+    ad.decode(np.asarray([3], np.int32), np.asarray([True]))
+    assert ad.lens[0] == ad.max_len
+    for key in ad.seq_keys:
+        assert torch.equal(before[key], ad.arena_block(key, final))
+    ad2 = _adapter(pair, n_slots=1, max_len=8)
+    batcher = slots.ContinuousBatcher(ad2)
+    batcher.submit(slots.Request(uid=0, prompt=p[:4], max_new_tokens=4))
+    batcher.step()
+    assert batcher.active[0] is not None
+    ad2.lens[0] = ad2.max_len
+    assert [r.uid for r in batcher.step()] == [0]
+    assert batcher.active[0] is None and not batcher.busy
+
+
+def _same_state(ref, port):
+    np.testing.assert_array_equal(port.tables, np.asarray(ref.tables))
+    np.testing.assert_array_equal(port.lens, np.asarray(ref.lens))
+    assert port.slot_bids == ref.slot_bids
+    assert port.partial_reg == ref.partial_reg
+    for s in range(port.n_slots):
+        assert port.slot_stats(s) == ref.slot_stats(s)
+    assert port.pool_stats() == ref.pool_stats()
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda", "cascade"])
+def test_chunked_adapter_matches_reference(pair, backend):
+    """The chunked adapter against the reference's ``chunked=True``
+    adapter over a scripted sequence: a cold prompt, one that shares its
+    two full blocks, one identical to the first (full chain plus the
+    partial chunk, recomputed privately), then forced decode ticks: tokens
+    equal, logits within 2e-4, equal tables, statistics and pool
+    statistics, and the chunks the fold ran."""
+    jcfg, jparams, cfg, params = pair
+    jbackend = {"plain": "xla", "cuda": "xla", "cascade": "cascade"}[backend]
+    ref = jslots.make_adapter(jcfg, jparams, n_slots=3, max_len=24,
+                              paged=True, block_size=BS, backend=jbackend)
+    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24,
+                              paged=True, block_size=BS, backend=backend)
+    assert ref.chunked and port.chunked
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, cfg.vocab, 10).astype(np.int32)
+    b = np.concatenate([a[:8], rng.integers(0, cfg.vocab, 5)]
+                       ).astype(np.int32)
+    for slot, prompt, max_new in ((0, a, 6), (1, b, 5), (2, a, 6)):
+        assert port.insert(slot, prompt, max_new) == \
+            ref.insert(slot, prompt, max_new)
+        _same_state(ref, port)
+    assert [port.slot_stats(s)["prefill_tokens_skipped"]
+            for s in range(3)] == [0, 8, 8]
+    assert port.prefill_chunks_total == 3 + 2 + 1
+    active = np.ones(3, bool)
+    for _ in range(4):
+        forced = rng.integers(0, cfg.vocab, 3).astype(np.int32)
+        got, want = port.decode(forced, active), ref.decode(forced, active)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        _close(port.last_logits, ref.last_logits, 2e-4)
+        _same_state(ref, port)
+    for s in range(3):
+        port.clear(s)
+        ref.clear(s)
+        _same_state(ref, port)
+
+
+def test_chunked_gateway_matches_reference(pair):
+    """``make_gateway`` with the reference's default ``chunked=True`` on a
+    seeded trace, against the reference's gateway: per request the same
+    tokens, energy, link bytes and KV blocks, and the same prefill tokens
+    skipped."""
+    jcfg, jparams, cfg, params = pair
+    fleet = dict(n_endpoints=8, prompt_fraction=0.25, frame_rate_hz=6.0,
+                 seed=3, image_pool=8)
+    trace = sensors.SensorFleet(sensors.FleetConfig(**fleet)).events(1.0)
+    jtrace = jsensors.SensorFleet(jsensors.FleetConfig(**fleet)).events(1.0)
+    kw = dict(n_slots=2, max_len=32, paged=True, block_size=BS,
+              max_new_tokens=6)
+    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), device="cpu")
+    jgw = jspec.make_gateway(jcfg, jparams,
+                             jspec.ServeSpec(backend="xla", **kw))
+    assert gw.batcher.adapter.chunked and jgw.batcher.adapter.chunked
+    gen = {}
+    for g, out in ((gw, "port"), (jgw, "ref")):
+        step = g.batcher.step
+
+        def traced(step=step, out=out):
+            fin = step()
+            for r in fin:
+                gen[(out, r.uid)] = list(r.generated)
+            return fin
+        g.batcher.step = traced
+    tel, jtel = gw.run(trace), jgw.run(jtrace)
+    assert tel.dropped == jtel.dropped
+    assert len(tel.records) == len(jtel.records) > 0
+    recs = {r.uid: r for r in tel.records}
+    for j in jtel.records:
+        r = recs[j.uid]
+        assert gen[("port", r.uid)] == gen[("ref", j.uid)]
+        assert (r.energy_nj, r.link_bytes, r.kv_blocks, r.output,
+                r.tokens_out) == (j.energy_nj, j.link_bytes, j.kv_blocks,
+                                  j.output, j.tokens_out)
+    for key in ("prefill_tokens_total", "prefill_tokens_skipped",
+                "blocks_in_use", "cow_copies"):
+        assert tel.pool[key] == jtel.pool[key], key
+
+
+def test_default_spec_builds_the_chunked_gateway(pair):
+    _, _, cfg, params = pair
+    gw = spec.make_gateway(cfg, params, spec.ServeSpec(paged=True),
+                           device="cpu")
+    assert gw.batcher.adapter.chunked
+    with pytest.raises(NotImplementedError):
+        spec.make_gateway(dataclasses.replace(cfg, family="moe"), params,
+                          spec.ServeSpec(paged=True), device="cpu")

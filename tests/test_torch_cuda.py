@@ -10,6 +10,7 @@ import dataclasses
 
 from repro_torch import configs
 from repro_torch.core import sng
+from repro_torch.kernels import flash_attn as flash_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attn as paged_attn_kernel
 from repro_torch.kernels import sc_dot as sc_dot_kernel
@@ -266,6 +267,76 @@ def test_cascade_kernels_refuse_bad_inputs(dev):
                                             s[..., None], s, s)
 
 
+# -- prompt attention kernel ----------------------------------------------------
+
+def _tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("BH,S,D,causal,dtype", [
+    (4, 256, 64, True, torch.float32), (2, 256, 128, False, torch.float32),
+    (8, 512, 64, True, torch.bfloat16), (1, 128, 64, True, torch.float32),
+    (3, 384, 128, True, torch.bfloat16)])
+def test_flash_attention_kernel_pallas_cases(dev, BH, S, D, causal, dtype):
+    """The TPU kernel's own cases (``tests/test_flash_kernel.py``): the
+    kernel against its plain version and against the oracle."""
+    gen = torch.Generator().manual_seed(BH * S)
+    q, k, v = (torch.randn((BH, S, D), generator=gen).to(dtype).to(dev)
+               for _ in range(3))
+    before = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    assert flash_kernel.flash_attention.launches == before + 1
+    plain = ref.flash_attention_chunked(q[:, :, None], k[:, :, None],
+                                        v[:, :, None], causal)[:, :, 0]
+    for want in (plain, ref.flash_attention(q, k, v, causal)):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("Sq,q_offset,Hq,Hkv,D,window", [
+    (16, 0, 8, 8, 80, 0), (7, 512, 8, 8, 80, 0), (16, 1072, 4, 4, 80, 0),
+    (40, 0, 8, 2, 40, 8), (16, 48, 8, 2, 64, 8), (100, 0, 4, 4, 80, 0),
+    (65, 3, 4, 1, 128, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_fold_shapes(dev, Sq, q_offset, Hq, Hkv, D,
+                                            window, dtype):
+    """Queries at an offset into a longer key range, windows, GQA by index
+    and ragged lengths against the plain version; a second call is
+    bitwise equal (the chunked resume relies on it)."""
+    gen = torch.Generator().manual_seed(Sq + q_offset)
+    Sk = q_offset + Sq
+    q = torch.randn((2, Sq, Hq, D), generator=gen).to(dtype).to(dev)
+    k = torch.randn((2, Sk, Hkv, D), generator=gen).to(dtype).to(dev)
+    v = torch.randn((2, Sk, Hkv, D), generator=gen).to(dtype).to(dev)
+    got = flash_kernel.flash_attention(q, k, v, window=window,
+                                       q_offset=q_offset)
+    want = ref.flash_attention_chunked(q, k, v, True, window, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(
+        q, k, v, window=window, q_offset=q_offset))
+
+
+def test_flash_attention_kernel_refuses_bad_inputs(dev):
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    with pytest.raises(ValueError):               # 40-byte rows
+        flash_kernel.flash_attention(z(1, 4, 2, 20), z(1, 4, 2, 20),
+                                     z(1, 4, 2, 20))
+    with pytest.raises(ValueError):               # D > 128
+        flash_kernel.flash_attention(z(1, 4, 2, 136), z(1, 4, 2, 136),
+                                     z(1, 4, 2, 136))
+    with pytest.raises(ValueError):               # Hq not a multiple
+        flash_kernel.flash_attention(z(1, 4, 3, 16), z(1, 4, 2, 16),
+                                     z(1, 4, 2, 16))
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention(*(z(1, 4, 2, 16, dtype=torch.float16)
+                                       for _ in range(3)))
+    with pytest.raises(ValueError):               # not contiguous
+        flash_kernel.flash_attention(z(1, 2, 4, 16).transpose(1, 2),
+                                     z(1, 4, 2, 16), z(1, 4, 2, 16))
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):
@@ -348,3 +419,64 @@ def test_cascade_tick_matches_plain_tick_float32(dev):
     np.testing.assert_array_equal(out["cascade"][1], out["plain"][1])
     torch.testing.assert_close(out["cascade"][2], out["plain"][2], rtol=2e-4,
                                atol=2e-4)
+
+
+def test_chunked_gateway_on_card_launches_flash_per_chunk(dev):
+    """``ServeSpec(paged=True)`` (chunked by default) on the card: the
+    flash kernel launches once per layer per fold chunk, and the paged
+    kernels on the ticks."""
+    cfg, params = _smoke_lm(dev, "bfloat16")
+    gw = make_gateway(cfg, params, ServeSpec(n_slots=2, max_len=96,
+                                             paged=True, block_size=16))
+    ad = gw.batcher.adapter
+    assert ad.chunked and ad.backend == "cuda"
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab, 32)
+    before = (flash_kernel.flash_attention.launches,
+              paged_attn_kernel.paged_decode_attention.launches)
+    for uid in range(3):
+        gw.batcher.submit(Request(uid=uid, prompt=np.concatenate(
+            [shared, rng.integers(0, cfg.vocab, 5 + uid)]).astype(np.int32),
+            max_new_tokens=4))
+    done = gw.batcher.run()
+    assert sorted(len(r.generated) for r in done) == [4, 4, 4]
+    assert sorted(r.prefill_tokens_skipped for r in done) == [0, 32, 32]
+    assert ad.prefill_chunks_total == 3 + 1 + 1
+    assert flash_kernel.flash_attention.launches == \
+        before[0] + cfg.n_layers * ad.prefill_chunks_total
+    assert paged_attn_kernel.paged_decode_attention.launches > before[1]
+
+
+def test_chunked_resume_bitwise_and_matches_oneshot_float32(dev):
+    """On the card, float32: a prompt admitted after a radix hit gives the
+    same first-token logits and blocks as the same prompt admitted cold,
+    bit for bit; and the chunked adapter's tokens equal the one-shot
+    adapter's over forced ticks, logits within 2e-4."""
+    cfg, params = _smoke_lm(dev, "float32")
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(0, cfg.vocab, 48)
+    pa, pb = (np.concatenate([prefix, rng.integers(0, cfg.vocab, 9)]
+                             ).astype(np.int32) for _ in range(2))
+
+    def adapter(chunked):
+        return make_adapter(cfg, params, n_slots=2, max_len=96, paged=True,
+                            block_size=16, chunked=chunked)
+    cold = adapter(True)
+    cold.insert(0, pb, max_new=8)
+    warm = adapter(True)
+    first = [warm.insert(0, pa, max_new=8), warm.insert(1, pb, max_new=8)]
+    assert warm.slot_stats(1)["prefill_tokens_skipped"] == 48
+    assert torch.equal(cold.last_prefill_logits, warm.last_prefill_logits)
+    for bc, bw in zip(cold.slot_bids[0], warm.slot_bids[1]):
+        for key in cold.seq_keys:
+            assert torch.equal(cold.arena_block(key, bc),
+                               warm.arena_block(key, bw))
+    one = adapter(False)
+    assert [one.insert(0, pa, max_new=8),
+            one.insert(1, pb, max_new=8)] == first
+    active = np.ones(2, bool)
+    for row in rng.integers(0, cfg.vocab, (5, 2)).astype(np.int32):
+        np.testing.assert_array_equal(warm.decode(row, active),
+                                      one.decode(row, active))
+        torch.testing.assert_close(warm.last_logits, one.last_logits,
+                                   rtol=2e-4, atol=2e-4)

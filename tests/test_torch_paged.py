@@ -220,7 +220,8 @@ def test_prompt_gateway_matches_reference(pair):
 def test_spec_refuses_what_is_not_ported(pair):
     _, _, cfg, params = pair
     for kw, err in ((dict(paged=False), NotImplementedError),
-                    (dict(paged=True), NotImplementedError),   # chunked
+                    (dict(paged=True, mesh=object()),          # chunked
+                     NotImplementedError),
                     (dict(paged=True, chunked=False, mesh=object()),
                      NotImplementedError),
                     (dict(paged=True, chunked=False, backend="gather"),
