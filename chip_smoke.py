@@ -8,7 +8,11 @@ Phases, each printing one JSON line:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      TF32 switched off for matmul and cuDNN;
   2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all started together);
+     (one ``nvcc`` per source, all started together), and the count of
+     tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
+     in the attention libraries (``cuobjdump -sass``; the run fails
+     without HMMA and LDGSTS in ``flash_attention`` and LDGSTS in
+     ``paged_decode_attention``);
   3. each kernel held against its plain PyTorch version on the same CUDA
      tensors — the SC kernels and ``scatter_kv_rows`` bit for bit, the
      attention kernels (``paged_decode_attention`` and the cascade's
@@ -19,9 +23,18 @@ Phases, each printing one JSON line:
      a NaN trash block); ``flash_attention`` within 2e-5 / 2e-2 on the TPU
      kernel's five cases (also against its oracle), the fold's chunks (16
      and 7 queries at offsets 0, 512 and 1,072), the one-shot prefill at
-     1,000 and a window of 8 with GQA 4:1, a repeated call bitwise — and
-     timed at the main paths' shapes beside it (``flash_attention`` at a
-     fold chunk and at the one-shot prefill, beside SDPA);
+     1,000 and a window of 8 with GQA 4:1, a repeated call bitwise; the
+     split designs with forced plans in both dtypes (``flash_attention``:
+     fold chunks at offsets 0, 512 and 1,072 in one split and one tile per
+     split, a causal prompt and a window of 8 with GQA 4:1 split per tile,
+     so some splits hold no key of some rows; ``paged_decode_attention``:
+     lens 0, 1, a partial block, nb*bs and a lane longer than one split,
+     in 12, 3 and 1 splits, windows None, 3 and 17, splice off and on, a
+     lens-0 lane exactly 0, the NaN trash block and a repeated call
+     bitwise) — and timed at the main paths' shapes beside it
+     (``flash_attention`` at a fold chunk and at the one-shot prefill,
+     beside SDPA), each timing with its launch's splits and CTAs and the
+     kernel's ``ptxas`` registers and spills;
   4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
@@ -73,7 +86,10 @@ repository beside it, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -182,6 +198,99 @@ def host_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def issue_us(fn, plans: dict, sleep_cycles: int, reps: int = 11,
+             inner: int = 20) -> dict:
+    """Median host time in microseconds to issue one call of ``fn`` (its
+    Python, allocations and launches) under each of ``plans`` (a function
+    returning the context that puts the plan in force), the calls queued
+    behind a sleep kernel so that the device never holds the host back;
+    the plans take turns in every repetition, so a drift of the host's
+    speed reaches them all alike."""
+    import torch
+    times = {key: [] for key in plans}
+    for plan in plans.values():
+        with plan():
+            fn()
+    for _ in range(reps):
+        for key, plan in plans.items():
+            with plan():
+                torch.cuda._sleep(sleep_cycles)
+                t0 = time.perf_counter()
+                for _ in range(inner):
+                    fn()
+                times[key].append((time.perf_counter() - t0) / inner * 1e6)
+            torch.cuda.synchronize()
+    return {key: statistics.median(t) for key, t in times.items()}
+
+
+def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, int]:
+    """How many SASS instructions of each opcode the built library of
+    ``csrc/<source>.cu`` holds (``cuobjdump -sass``, beside ``nvcc``)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build.library_path(source))], check=True,
+        capture_output=True, text=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\*/\s+(?:@!?U?P\w+\s+)?{op}[.\s]", sass))
+            for op in opcodes}
+
+
+def ptxas_of(source: str, *needles: str) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, spills) of the entry functions
+    of ``csrc/<source>.cu`` whose mangled name holds every needle."""
+    from repro_torch.kernels import build
+    log = build.library_path(source).with_suffix(".log").read_text()
+    out, entry = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif entry and all(n in entry for n in needles) and (
+                "registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def paged_split_checks(q, ka, va, tables, ln, nk, tol, live, err
+                       ) -> list[dict]:
+    """``paged_decode_attention`` at the split plan in force against its
+    plain version, windows None, 3 and 17, splice off and on; a lens == 0
+    lane exactly 0; the NaN trash block and a repeated call bitwise (the
+    trash block is left at 1e9 / -1e9)."""
+    import torch
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.kernels import ref
+    splits = paged_k.paged_split_plan(tables.shape[1], ka.shape[1])[0]
+    dtype, checks = str(ka.dtype), []
+    for window in (None, 3, 17):
+        for splice in (False, True):
+            new_kv = nk if splice else None
+            got = paged_k.paged_decode_attention(
+                q, ka, va, tables, ln, window=window, new_kv=new_kv)
+            want = ref.paged_decode_attention(q, ka, va, tables, ln, window,
+                                              new_kv)
+            torch.cuda.synchronize()
+            e = float((got[live].float() - want[live].float()).abs().max())
+            err["paged_decode_attention"] = max(
+                err["paged_decode_attention"], e)
+            checks.append({
+                "kernel": "paged_decode_attention", "case": "forced split",
+                "splits": splits, "dtype": dtype, "window": window,
+                "splice": splice, "max_abs_err": e,
+                "ok": torch.allclose(got[live].float(), want[live].float(),
+                                     rtol=tol, atol=tol)
+                and bool((got[~live] == 0).all())})
+    base = paged_k.paged_decode_attention(q, ka, va, tables, ln, new_kv=nk)
+    again = paged_k.paged_decode_attention(q, ka, va, tables, ln, new_kv=nk)
+    ka[0], va[0] = float("nan"), float("nan")
+    nan = paged_k.paged_decode_attention(q, ka, va, tables, ln, new_kv=nk)
+    ka[0], va[0] = 1e9, -1e9
+    checks.append({"kernel": "paged_decode_attention", "case": "forced split",
+                   "splits": splits, "dtype": dtype,
+                   "nan_trash_bitwise": True, "repeated_bitwise": True,
+                   "ok": torch.equal(base, nan) and torch.equal(base, again)})
+    return checks
+
+
 def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     """Phase 3 for the paged KV kernels.  Returns (max_abs_err, timing) per
     kernel; raises SystemExit when a kernel disagrees with its plain
@@ -270,6 +379,22 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         err["scatter_kv_rows"] = max(err["scatter_kv_rows"], e)
         checks.append({"kernel": "scatter_kv_rows", "dtype": str(dtype),
                        "bitwise_non_trash": ok, "ok": ok})
+    # forced splits of the chain (the planner's run length patched): lens
+    # 0, 1, a partial block, exactly nb*bs and a lane longer than one split,
+    # GQA 4:1 at d_head 80, split one block per CTA, four and all twelve
+    # (one split); windows None, 3 and 17, splice off and on; a lens == 0
+    # lane returns 0 exactly; the NaN trash block and a repeated call
+    # bitwise
+    B, nb, bs, Hq, Hkv, D = 5, 12, 16, 8, 2, 80
+    lens = [0, 1, bs + bs // 2, nb * bs, 150]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, ka, va, tables, ln, nk = case(B, nb, bs, Hq, Hkv, D, dtype, lens)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        live = ln > 0
+        for bps in (1, 4, nb):
+            with mock.patch.object(paged_k, "SPLIT_POSITIONS", bps * bs):
+                checks += paged_split_checks(q, ka, va, tables, ln, nk, tol,
+                                             live, err)
     bad = [c for c in checks if not c["ok"]]
 
     # timing at the prompt path's decode shape: 8 lanes x 1,032 positions,
@@ -285,8 +410,24 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
     tables[:, :used] = perm[:B * used].reshape(B, used).to(torch.int32)
     lens = torch.full((B,), n_pos, dtype=torch.int32, device=dev)
-    attn_ms, attn_b2b = time_ms(lambda: paged_k.paged_decode_attention(
-        q, ka, va, tables, lens, new_kv=(k1, v1)), 5, 20, sleep)
+    def attn():
+        return paged_k.paged_decode_attention(q, ka, va, tables, lens,
+                                              new_kv=(k1, v1))
+    attn_ms, attn_b2b = time_ms(attn, 5, 20, sleep)
+    # the run length of a split: the kernel's time and the host's time to
+    # issue one call (plan, scratch, launches) at 8, 16 and 32 blocks a
+    # split and at one split (no scratch, no combine launch)
+    plans = {p: functools.partial(mock.patch.object, paged_k,
+                                  "SPLIT_POSITIONS", p)
+             for p in (8 * bs, 16 * bs, 32 * bs, nb * bs)}
+    host = issue_us(attn, plans, sleep)
+    sweep = []
+    for positions, plan in plans.items():
+        with plan():
+            sweep.append({"positions_per_split": positions,
+                          "splits": paged_k.paged_split_plan(nb, bs)[0],
+                          "ms": time_ms(attn, 5, 20, sleep)[0],
+                          "host_issue_us": host[positions]})
     attn_plain = time_ms(lambda: ref.paged_decode_attention(
         q, ka, va, tables, lens, None, (k1, v1)), 3, 3, sleep)[0]
     # the library yardstick attends over the already-gathered dense view
@@ -320,10 +461,17 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     sc_bytes = 2 * 2 * L * S * row + 2 * S * 4        # rows in + out, ids
     del kaL, vaL
     torch.cuda.empty_cache()
+    splits, bps = paged_k.paged_split_plan(nb, bs)
     timing = {
         "paged_decode_attention": {
             "shape": f"q ({B}, {H}, {D}) bf16, {n_pos} positions per lane, "
                      f"bs {bs}, tables ({B}, {nb}), splice on",
+            "splits": splits, "blocks_per_split": bps,
+            "ctas": H * B * splits, "combine_ctas": B * H if splits > 1
+            else 0, "split_sweep": sweep,
+            "ptxas": ptxas_of("paged_attn", "paged_attn_kernel",
+                              "nv_bfloat16")
+            + ptxas_of("paged_attn", "combine_states_kernel", "nv_bfloat16"),
             "ms": attn_ms, "back_to_back_ms": attn_b2b, "plain_ms": attn_plain,
             "library_ms": attn_lib,
             "library": "F.scaled_dot_product_attention on the gathered "
@@ -583,6 +731,7 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     timing["paged_decode_attention_with_state"] = {
         "shape": f"q ({Lc}, {H}, {D}) bf16, {n_suf} suffix positions per "
                  f"lane from q0 {n_pre}, tables ({Lc}, {nsuf}), splice on",
+        "splits": 1, "ctas": H * Lc,
         "ms": suf_ms[0], "back_to_back_ms": suf_ms[1],
         "plain_ms": time_ms(lambda: ref.paged_decode_attention_with_state(
             q, ka, va, st, lens, None, q0s, nk), 3, 3, sleep)[0],
@@ -682,6 +831,33 @@ def flash_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
             checks.append({"case": f"Sq {Sq}, q_offset {off} repeated",
                            "dtype": str(dtype), "bitwise": True,
                            "ok": torch.equal(got, again)})
+    # forced splits of the key band (the planner's MIN_CTAS patched: 0
+    # keeps the band whole, 1 << 30 splits it one tile per CTA): fold
+    # chunks at offsets 0, 512 and 1,072 in one split and in one tile per
+    # split; a causal 200-query prompt split per tile (its last splits hold
+    # no key of the early rows); a window of 8 with GQA 4:1 split per tile
+    # (rows whose window lies wholly in the other split)
+    forced = [(16, off, 32, 32, 0, n) for off in (0, 512, 1072)
+              for n in (0, 1 << 30)]
+    forced += [(200, 0, 8, 8, 0, 1 << 30), (64, 256, 8, 2, 8, 1 << 30)]
+    for (Sq, off, Hq, Hkv, window, min_ctas), dtype in (
+            (f, dt) for f in forced for dt in (torch.float32, torch.bfloat16)):
+        with mock.patch.object(flash_k, "MIN_CTAS", min_ctas):
+            splits = flash_k.flash_split_plan(1, Sq, off + Sq, Hq, off,
+                                              window)[0]
+            q = arr((1, Sq, Hq, 80), dtype)
+            k, v = arr((1, off + Sq, Hkv, 80), dtype), \
+                arr((1, off + Sq, Hkv, 80), dtype)
+            got = flash_k.flash_attention(q, k, v, window=window,
+                                          q_offset=off)
+            again = flash_k.flash_attention(q, k, v, window=window,
+                                            q_offset=off)
+            case = (f"forced split: Sq {Sq}, q_offset {off}, heads "
+                    f"{Hq}:{Hkv}, window {window}, splits {splits}")
+            check(got, ref.flash_attention_chunked(q, k, v, True, window,
+                                                   off), dtype, case=case)
+            checks.append({"case": case + " repeated", "dtype": str(dtype),
+                           "bitwise": True, "ok": torch.equal(got, again)})
     torch.cuda.synchronize()
     bad = [c for c in checks if not c["ok"]]
 
@@ -693,8 +869,21 @@ def flash_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         Sk = off + Sq
         q, k, v = arr((1, Sq, H, D), bf), arr((1, Sk, H, D), bf), \
             arr((1, Sk, H, D), bf)
-        ms, b2b = time_ms(lambda: flash_k.flash_attention(
-            q, k, v, q_offset=off), 5, 20, sleep)
+        def flash():
+            return flash_k.flash_attention(q, k, v, q_offset=off)
+        ms, b2b = time_ms(flash, 5, 20, sleep)
+        splits = flash_k.flash_split_plan(1, Sq, Sk, H, off, None)[0]
+        # a split plan beside the band kept whole (no scratch, no combine
+        # launch): the kernel's time and the host's time to issue one call
+        whole_band = functools.partial(mock.patch.object, flash_k,
+                                       "MIN_CTAS", 0)
+        host = issue_us(flash, {"plan": contextlib.nullcontext,
+                                "whole": whole_band}, sleep)
+        whole = None
+        if splits > 1:
+            with whole_band():
+                whole = {"splits": 1, "ms": time_ms(flash, 5, 20, sleep)[0],
+                         "host_issue_us": host["whole"]}
         plain = time_ms(lambda: ref.flash_attention_chunked(
             q, k, v, True, None, off), 3, 3, sleep)[0]
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -713,9 +902,18 @@ def flash_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         pairs = sum(min(Sk, off + i + 1) for i in range(Sq))
         n_bytes = 2 * (2 * Sq * H * D + 2 * Sk * H * D)
         ops = 4 * H * D * pairs
+        tile = flash_k.tile_q(Sq)
         timing[label] = {
             "shape": f"q (1, {Sq}, {H}, {D}) bf16 at q_offset {off}, k and "
                      f"v (1, {Sk}, {H}, {D}), causal",
+            "splits": splits, "ctas": -(-Sq // tile) * H * splits,
+            "warps_per_cta": tile // 16,
+            "combine_ctas": Sq * H if splits > 1 else 0,
+            "host_issue_us": host["plan"], "unsplit": whole,
+            "ptxas": ptxas_of("flash_attn", "flash_mma_kernel",
+                              f"ILi{-(-D // 16)}ELi{tile // 16}E")
+            + (ptxas_of("flash_attn", "combine_states_kernel", "nv_bfloat16")
+               if splits > 1 else []),
             "ms": ms, "back_to_back_ms": b2b, "plain_ms": plain,
             "library_ms": lib,
             "library": f"F.scaled_dot_product_attention with {how} on "
@@ -791,8 +989,15 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
                 "top_device_ms_per_tick": None, **host_out}
     busy = sum(dev_us.values()) / 1e3 / n
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    # the paged sweep (kernels 3 and 5 share paged_attn_kernel) and the
+    # combine launch that merges its splits
+    paged = sum(us for name, us in dev_us.items()
+                if "paged_attn_kernel" in name
+                or "combine_states_kernel" in name) / 1e3 / n
     return {"device_busy_ms_per_tick": busy,
             "device_idle_share": max(0.0, 1.0 - busy / tick_ms),
+            "paged_attn_ms_per_tick": paged,
+            "paged_attn_share_of_busy": paged / busy if busy else None,
             "top_device_ms_per_tick": {k[:80]: v / 1e3 / n for k, v in top},
             **host_out}
 
@@ -1538,6 +1743,15 @@ def main() -> int:
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
         for name, log in logs.items()}})
+    # the redesigned attention kernels' instructions: tensor-core products
+    # (HMMA), asynchronous copies (LDGSTS, cp.async) and ldmatrix (LDSM)
+    sass = {name: sass_counts(name, ("HMMA", "LDGSTS", "LDSM"))
+            for name in ("flash_attn", "paged_attn")}
+    emit({"sass": sass})
+    if not (sass["flash_attn"]["HMMA"] and sass["flash_attn"]["LDGSTS"]
+            and sass["paged_attn"]["LDGSTS"]):
+        raise SystemExit(f"the attention kernels lack tensor-core or "
+                         f"asynchronous-copy instructions: {sass}")
 
     # -- 3. each kernel against its plain version ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -3,15 +3,16 @@
 Each ``csrc/<name>.cu`` exports plain C launch functions (no PyTorch headers),
 so a build takes seconds.  It is compiled for Hopper (``sm_90a``) into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the checkout;
-the hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  Nothing is fetched and nothing else is
-compiled.
+the hash covers the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edited source or header rebuilds and an unchanged one is
+loaded as it is.  Nothing is fetched and nothing else is compiled.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,6 +43,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include "(\w+\.cuh)"', src)))
+    src += b"".join((CSRC / h.decode()).read_bytes() for h in headers)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -13,33 +13,49 @@
 //   lens (B,) int32; optional new rows k1, v1 (B, Hkv, D); out (B, Hq, D).
 //   Position pos of lane b attends when lens[b] - win <= pos < lens[b];
 //   with new rows, the row at pos == lens[b] - 1 is read from k1/v1 instead
-//   of the arena.  Scores, running max m, running sum l and the accumulator
-//   are float32; the result is acc / max(l, 1e-30) in the arena's dtype.
+//   of the arena.  Scores, running max m, running sum l, the probabilities
+//   (never rounded to the arena's dtype, as in the TPU kernel) and the
+//   accumulator are float32; the result is acc / max(l, 1e-30) in the
+//   arena's dtype.  A lane with lens == 0 returns 0.  A table entry
+//   outside [0, num_blocks) reads block 0.
 //
 //   Bound on the H100: bytes.  Each live K and V row is read once (per
-//   lane, per KV head) and used for n_rep = Hq/Hkv queries, about 1 flop per
-//   byte per query.  Design: one CTA per (KV head, lane) computes that KV
-//   head's n_rep query heads.  It walks only the blocks that hold positions
-//   in [lens - win, lens), CB blocks (about 64 positions) at a time: the
-//   K and V tiles of those blocks are copied to shared memory with 16-byte
-//   loads (D = 80 bf16 is 10 of them per row), so each thread has several
-//   loads in flight; then one warp per (query, position) pair takes the dot
-//   product across its lanes, one warp per query updates m and l, and each
-//   thread owns fixed accumulator elements.  Positions outside the window
-//   are never read, so garbage in the trash block or in stale rows cannot
-//   reach the result (a masked probability is exactly 0, as in the TPU
-//   kernel whenever the lane has a valid position; a lane with lens == 0
-//   returns 0).  A table entry outside [0, num_blocks) reads block 0.
+//   lane, per KV head) and used for n_rep = Hq/Hkv queries, about 1 flop
+//   per byte per query.  Design (flash-decoding): grid (Hkv, B, splits);
+//   split z of a lane covers the fixed run of table entries [z*bps,
+//   (z+1)*bps) (bps blocks, 512 positions at bs 16), so the split plan is
+//   a function of the table width nb alone and the wrapper never reads
+//   lens on the host.  A CTA whose run holds no live position writes the
+//   empty state (acc 0, m -1e30, l 0) and does no other work.  In the CTA,
+//   128 threads walk the run's live positions in chunks of 64: cp.async
+//   brings the next chunk's K and V rows (only the live rows, a thread per
+//   row reading the table once and issuing the row's 16-byte vectors)
+//   into the other half of a two-stage ring, zeroed at the start, while
+//   the current one is computed; the loops run the whole chunk with p = 0
+//   past its live rows (fixed trip counts, unrolled).  Each position is
+//   scored by a group of G lanes (16, or 32 for rows of more than sixteen
+//   16-byte vectors; ten of them busy at D = 80 bf16), each dotting its
+//   slice of K against the float q in shared memory, reduced by xor
+//   shuffles inside the group; one warp per query updates m and l; in the
+//   value product each warp takes every fourth position and all n_rep*D
+//   accumulator elements (two adjacent ones a lane), into its own
+//   float partial in shared memory, and the four partials are summed in
+//   warp order at the end.  GQA reads each K and V row once for its
+//   n_rep queries.  With splits > 1 each CTA writes its unnormalized
+//   float32 state to scratch and a second launch (attn::combine_states,
+//   attn_common.cuh) merges the splits in order and normalizes.  Positions
+//   outside the window are never read, so garbage in the trash block or in
+//   stale rows cannot reach the result.  No atomics: bit for bit
+//   reproducible.
 //
 // paged_attn_state_launch (the cascade's per-lane suffix pass)
-//   The same CTA loop, instantiated with kState: the table names lane b's
+//   The same CTA loop with one split: the table names lane b's
 //   divergent-suffix blocks, entry j holding absolute positions
 //   q0[b] + j*bs + i, so the sweep covers [max(q0, lens - win),
 //   min(lens, q0 + nb*bs)).  It writes the float32 online-softmax state
 //   acc (B, Hq, D), m, l (B, Hq) unnormalized instead of out; a sweep with
 //   no valid position leaves the empty state (acc 0, m -1e30, l 0), which
-//   the cascade merge drops exactly.  The flat instantiation has q0 = 0
-//   and is the code above unchanged.
+//   the cascade merge drops exactly.
 //
 // scatter_rows_launch
 //   arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D), wbids and
@@ -47,46 +63,34 @@
 //   Grid (S, L); each CTA copies one K row and one V row of Hkv*D elements.
 //   No other byte of the arenas is written; a lane whose block or offset is
 //   out of range writes nothing.  Bound: bytes, a copy.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attn_common.cuh"
 
 namespace {
 
+using attn::from_f32;
+using attn::kNegInf;
+using attn::to_f32;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunkPositions = 64;
-constexpr float kNegInf = -1e30f;
+constexpr int kChunk = 64;                       // positions per ring stage
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Shared memory, in order: the ring, 2 stages x (K [kChunk][D], V
+// [kChunk][D]) in the arena's dtype; then float q [n_rep][D], scores
+// [n_rep][kChunk], per-warp accumulators [kWarps][n_rep][D], m, l, corr
+// [n_rep].
+size_t attn_smem_bytes(int elem, int D, int n_rep) {
+  return (size_t)4 * kChunk * D * elem +
+         sizeof(float) * ((size_t)n_rep * D + (size_t)n_rep * kChunk +
+                          (size_t)kWarps * n_rep * D + 3 * (size_t)n_rep);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shared memory, in order: K tile [T][D] and V tile [T][D] in the arena's
-// dtype (16-byte aligned rows), then float q [n_rep][D], scores
-// [n_rep][T], acc [n_rep][D], m, l, corr [n_rep].
-// kState: q0 (B,) gives each lane's first position and the state goes to
-// acc_out, m_out, l_out; otherwise positions start at 0 and out is written.
-template <typename T, bool kState>
+// Split z of lane b sweeps positions [q0 + z*P, q0 + (z+1)*P) of its table
+// (q0 = q0s[b], or 0 without q0s).  out != nullptr: one split, write
+// acc / max(l, 1e-30) to out; otherwise write the state of split z at
+// acc_out + z*B*Hq*D, m_out + z*B*Hq, l_out + z*B*Hq.  G: the lanes that
+// score one position (a power of two >= the row's 16-byte vectors).
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
                   const T* __restrict__ va, const int32_t* __restrict__ tables,
@@ -95,48 +99,53 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
                   const int32_t* __restrict__ q0s,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int num_blocks, int bs, int nb,
-                  int Hkv, int n_rep, int D, int win, int cb) {
+                  int Hkv, int n_rep, int D, int win, int P) {
+  constexpr int kVec = 16 / sizeof(T);           // elements per 16 bytes
+  constexpr int kGroups = kThreads / G;          // positions scored at once
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z, B = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T_ = cb * bs;                        // positions per chunk
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)T_ * D;
-  float* qs = reinterpret_cast<float*>(vs + (size_t)T_ * D);
-  float* ss = qs + n_rep * D;
-  float* acc = ss + n_rep * T_;
-  float* ms = acc + n_rep * D;
+  const int Hq = Hkv * n_rep, RD = n_rep * D;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(ring + (size_t)4 * kChunk * D);
+  float* ss = qs + RD;
+  float* accw = ss + n_rep * kChunk;
+  float* ms = accw + kWarps * RD;
   float* ls = ms + n_rep;
   float* corr = ls + n_rep;
 
-  const int Hq = Hkv * n_rep;
+  // the ring starts zeroed: a chunk shorter than kChunk leaves rows that
+  // hold zeros or an earlier chunk's live rows, finite either way, which
+  // the loops below run over with p = 0 (fixed trip counts)
+  for (int i = tid; i < kChunk * D * 4 / kVec; i += kThreads)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
   const T* qb = q + ((size_t)b * Hq + (size_t)h * n_rep) * D;
-  for (int i = tid; i < n_rep * D; i += kThreads) {
-    qs[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
+  for (int i = tid; i < RD; i += kThreads) qs[i] = to_f32(qb[i]);
+  for (int i = tid; i < kWarps * RD; i += kThreads) accw[i] = 0.f;
   for (int r = tid; r < n_rep; r += kThreads) {
     ms[r] = kNegInf;
     ls[r] = 0.f;
   }
+  __syncthreads();
 
   const int len = lens[b];
-  const int q0 = kState ? q0s[b] : 0;            // position of table entry 0
-  const int hi = min(len, q0 + nb * bs);         // positions [lo, hi) attend
-  const int lo = max(q0, len - win);
+  const int q0 = q0s != nullptr ? q0s[b] : 0;   // position of table entry 0
+  const int s_lo = q0 + z * P;
+  const int lo = max(max(q0, len - win), s_lo);  // positions [lo, hi) attend
+  const int hi = min(min(len, q0 + nb * bs), s_lo + P);
+  const int n_chunks = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
   const float scale = 1.f / sqrtf((float)D);
-  const int vpr = D * (int)sizeof(T) / 16;       // 16-byte vectors per row
+  const int vpr = D / kVec;                      // 16-byte vectors per row
   const size_t row_stride = (size_t)Hkv * D;     // elements between rows
 
-  for (int c0 = q0 + (lo - q0) / bs * bs; c0 < hi; c0 += T_) {
-    const int t_lo = max(lo - c0, 0), t_hi = min(hi - c0, T_);
-    const int rows = min(T_, q0 + ((hi - q0 - 1) / bs + 1) * bs - c0);
-    __syncthreads();                             // previous chunk consumed
-    for (int i = tid; i < 2 * rows * vpr; i += kThreads) {
-      const int which = i / (rows * vpr);        // 0: K, 1: V
-      const int j = i - which * rows * vpr;
-      const int t = j / vpr, vec = j - t * vpr;
-      const int pos = c0 + t;
+  // chunk c's live K and V rows into ring stage st: a thread copies whole
+  // rows, so the table is read once per row
+  auto issue = [&](int c, int st) {
+    const int c0 = lo + c * kChunk, n = min(kChunk, hi - c0);
+    T* ks = ring + (size_t)st * 2 * kChunk * D;
+    for (int i = tid; i < 2 * n; i += kThreads) {
+      const int which = i >= n;                  // 0: K, 1: V
+      const int t = i - which * n, pos = c0 + t;
       const T* src;
       if (k1 != nullptr && pos == len - 1) {
         src = (which ? v1 : k1) + ((size_t)b * Hkv + h) * D;
@@ -147,63 +156,120 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
         src = (which ? va : ka) +
               ((size_t)bid * bs + loc % bs) * row_stride + (size_t)h * D;
       }
-      T* dst = (which ? vs : ks) + (size_t)t * D;
-      reinterpret_cast<uint4*>(dst)[vec] =
-          __ldg(reinterpret_cast<const uint4*>(src) + vec);
+      T* dst = ks + ((size_t)which * kChunk + t) * D;
+#pragma unroll
+      for (int vec = 0; vec < G; ++vec)
+        if (vec < vpr) attn::cp_async16(dst + vec * kVec, src + vec * kVec);
+    }
+    attn::cp_async_commit();
+  };
+
+  const int grp = tid / G, gl = tid % G;
+  if (n_chunks > 0) issue(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      issue(c + 1, (c + 1) & 1);
+      attn::cp_async_wait<1>();
+    } else {
+      attn::cp_async_wait<0>();
+    }
+    __syncthreads();                             // chunk c has landed
+    const int n = min(kChunk, hi - (lo + c * kChunk));
+    const T* ks = ring + (size_t)(c & 1) * 2 * kChunk * D;
+    const T* vs = ks + (size_t)kChunk * D;
+    // scores: a group of G lanes per position, each its 16-byte slice of K
+    // against its slice of q, reduced by xor shuffles inside the group
+#pragma unroll 2
+    for (int t0 = 0; t0 < kChunk; t0 += kGroups) {
+      const int t = t0 + grp;
+      float kf[kVec];
+      if (gl < vpr) {
+        const uint4 x = reinterpret_cast<const uint4*>(ks + (size_t)t * D)[gl];
+        const T* e = reinterpret_cast<const T*>(&x);
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) kf[u] = to_f32(e[u]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) kf[u] = 0.f;
+      }
+      const float* qr = qs + (gl < vpr ? gl : 0) * kVec;
+      for (int r = 0; r < n_rep; ++r, qr += D) {
+        float s = 0.f;
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) s = fmaf(qr[u], kf[u], s);
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (gl == 0) ss[r * kChunk + t] = s * scale;
+      }
     }
     __syncthreads();
-    // scores: one warp per (query, position) pair, lanes across D
-    const int span = t_hi - t_lo;
-    for (int pr = warp; pr < n_rep * span; pr += kWarps) {
-      const int r = pr / span, t = t_lo + (pr - r * span);
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32)
-        s += qs[r * D + d] * to_f32(ks[(size_t)t * D + d]);
-      s = warp_sum(s);
-      if (lane == 0) ss[r * T_ + t] = s * scale;
-    }
-    __syncthreads();
-    // online softmax: one warp per query
+    // online softmax: one warp per query; positions past n get p = 0
     for (int r = warp; r < n_rep; r += kWarps) {
+      float x[kChunk / 32];
       float mx = kNegInf;
-      for (int t = t_lo + lane; t < t_hi; t += 32) mx = fmaxf(mx, ss[r * T_ + t]);
-      mx = warp_max(mx);
+#pragma unroll
+      for (int i = 0; i < kChunk / 32; ++i) {
+        const int t = lane + 32 * i;
+        x[i] = t < n ? ss[r * kChunk + t] : kNegInf;
+        mx = fmaxf(mx, x[i]);
+      }
+      mx = attn::warp_max(mx);
       const float m_prev = ms[r];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int t = t_lo + lane; t < t_hi; t += 32) {
-        const float p = expf(ss[r * T_ + t] - m_new);
-        ss[r * T_ + t] = p;
+#pragma unroll
+      for (int i = 0; i < kChunk / 32; ++i) {
+        const int t = lane + 32 * i;
+        const float p = t < n ? expf(x[i] - m_new) : 0.f;
+        ss[r * kChunk + t] = p;
         sum += p;
       }
-      sum = warp_sum(sum);
+      sum = attn::warp_sum(sum);
       if (lane == 0) {
-        const float c = expf(m_prev - m_new);
-        corr[r] = c;
-        ls[r] = ls[r] * c + sum;
+        const float cr = expf(m_prev - m_new);
+        corr[r] = cr;
+        ls[r] = ls[r] * cr + sum;
         ms[r] = m_new;
       }
     }
     __syncthreads();
-    for (int e = tid; e < n_rep * D; e += kThreads) {
+    // value product: warp w takes positions w, w + 4, ...; a lane two
+    // adjacent accumulator elements (D is even)
+    float* aw = accw + warp * RD;
+    for (int e = 2 * lane; e < RD; e += 64) {
       const int r = e / D, d = e - r * D;
-      float a = acc[e] * corr[r];
-      for (int t = t_lo; t < t_hi; ++t)
-        a += ss[r * T_ + t] * to_f32(vs[(size_t)t * D + d]);
-      acc[e] = a;
+      const float cr = corr[r];
+      float a0 = aw[e] * cr, a1 = aw[e + 1] * cr;
+#pragma unroll
+      for (int k = 0; k < kChunk / kWarps; ++k) {
+        const int t = warp + k * kWarps;
+        const float p = ss[r * kChunk + t];
+        const T* x = vs + (size_t)t * D + d;
+        a0 = fmaf(p, to_f32(x[0]), a0);
+        a1 = fmaf(p, to_f32(x[1]), a1);
+      }
+      aw[e] = a0;
+      aw[e + 1] = a1;
     }
+    __syncthreads();                             // stage c & 1 consumed
   }
   __syncthreads();
-  const size_t o0 = ((size_t)b * Hq + (size_t)h * n_rep) * D;
-  if constexpr (kState) {
-    for (int e = tid; e < n_rep * D; e += kThreads) acc_out[o0 + e] = acc[e];
+  const size_t row0 = (size_t)b * Hq + (size_t)h * n_rep;
+  for (int e = tid; e < RD; e += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += accw[w * RD + e];
+    if (out != nullptr)
+      out[row0 * D + e] = from_f32<T>(a / fmaxf(ls[e / D], 1e-30f));
+    else
+      acc_out[((size_t)z * B * Hq + row0) * D + e] = a;
+  }
+  if (out == nullptr) {
     for (int r = tid; r < n_rep; r += kThreads) {
-      m_out[(size_t)b * Hq + (size_t)h * n_rep + r] = ms[r];
-      l_out[(size_t)b * Hq + (size_t)h * n_rep + r] = ls[r];
+      m_out[(size_t)z * B * Hq + row0 + r] = ms[r];
+      l_out[(size_t)z * B * Hq + row0 + r] = ls[r];
     }
-  } else {
-    for (int e = tid; e < n_rep * D; e += kThreads)
-      out[o0 + e] = from_f32<T>(acc[e] / fmaxf(ls[e / D], 1e-30f));
   }
 }
 
@@ -228,69 +294,82 @@ scatter_rows_kernel(T* __restrict__ ka, T* __restrict__ va,
   }
 }
 
-size_t attn_smem_bytes(int elem, int T_, int D, int n_rep) {
-  return (size_t)2 * T_ * D * elem +
-         sizeof(float) * ((size_t)2 * n_rep * D + (size_t)n_rep * T_ +
-                          3 * (size_t)n_rep);
-}
-
-template <typename T, bool kState>
+template <typename T>
 cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         const void* tables, const void* lens, const void* k1,
                         const void* v1, void* out, const void* q0s,
                         void* acc_out, void* m_out, void* l_out, int B,
                         int num_blocks, int bs, int nb, int Hkv, int n_rep,
-                        int D, int win, cudaStream_t stream) {
-  const int cb = bs >= kChunkPositions ? 1 : kChunkPositions / bs;
-  const size_t smem = attn_smem_bytes(sizeof(T), cb * bs, D, n_rep);
+                        int D, int win, int splits, int P,
+                        cudaStream_t stream) {
+  const size_t smem = attn_smem_bytes(sizeof(T), D, n_rep);
+  const bool wide = D * (int)sizeof(T) > 16 * 16;  // more than 16 vectors
+  const auto kernel =
+      wide ? paged_attn_kernel<T, 32> : paged_attn_kernel<T, 16>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, kState>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  paged_attn_kernel<T, kState><<<dim3(Hkv, B), kThreads, smem, stream>>>(
+  const bool direct = out != nullptr && splits == 1;
+  kernel<<<dim3(Hkv, B, splits), kThreads, smem, stream>>>(
       (const T*)q, (const T*)ka, (const T*)va, (const int32_t*)tables,
-      (const int32_t*)lens, (const T*)k1, (const T*)v1, (T*)out,
-      (const int32_t*)q0s, (float*)acc_out, (float*)m_out, (float*)l_out,
-      num_blocks, bs, nb, Hkv, n_rep, D, win, cb);
-  return cudaGetLastError();
+      (const int32_t*)lens, (const T*)k1, (const T*)v1,
+      direct ? (T*)out : nullptr, (const int32_t*)q0s, (float*)acc_out,
+      (float*)m_out, (float*)l_out, num_blocks, bs, nb, Hkv, n_rep, D, win,
+      P);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || direct || out == nullptr) return e;
+  return attn::combine_states<T>((const float*)acc_out, (const float*)m_out,
+                                 (const float*)l_out, (T*)out, splits,
+                                 (long long)B * Hkv * n_rep, D, stream);
 }
 
 bool attn_args_ok(int B, int num_blocks, int bs, int nb, int Hkv, int n_rep,
                   int D, int win, int dtype) {
   const int elem = dtype == 0 ? 4 : 2;
   return B > 0 && B <= 65535 && num_blocks > 0 && bs > 0 && nb > 0 &&
-         Hkv > 0 && n_rep > 0 && D > 0 && (D * elem) % 16 == 0 && win > 0 &&
+         Hkv > 0 && n_rep > 0 && D > 0 && (D * elem) % 16 == 0 &&
+         D * elem <= 32 * 16 && win > 0 && (long long)nb * bs < (1LL << 30) &&
          (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  k1/v1 may be null (no splice).
-// Rows of D elements must be whole 16-byte vectors and every pointer
-// 16-byte aligned (the wrapper checks).  Returns cudaGetLastError() after
-// the launch.
+// dtype: 0 = float32, 1 = bfloat16.  k1/v1 may be null (no splice).  Rows
+// of D elements must be whole 16-byte vectors (at most 32 of them) and
+// every pointer 16-byte aligned (the wrapper checks).  The chain is swept
+// in `splits` runs of `bps` table entries (splits * bps >= nb); with
+// splits > 1, acc (splits, B, Hq, D), m, l (splits, B, Hq) float32 are the
+// scratch the combine launch reads.  Returns cudaGetLastError() after the
+// last launch.
 extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
                                  const void* tables, const void* lens,
                                  const void* k1, const void* v1, void* out,
-                                 int B, int num_blocks, int bs, int nb,
-                                 int Hkv, int n_rep, int D, int win, int dtype,
-                                 void* stream) {
-  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype))
+                                 void* acc, void* m, void* l, int B,
+                                 int num_blocks, int bs, int nb, int Hkv,
+                                 int n_rep, int D, int win, int splits,
+                                 int bps, int dtype, void* stream) {
+  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype) ||
+      splits <= 0 || splits > 65535 || bps <= 0 ||
+      (long long)splits * bps < nb || (long long)(splits - 1) * bps >= nb ||
+      (splits > 1 && (acc == nullptr || m == nullptr || l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int P = bps * bs;
   if (dtype == 0)
-    return (int)attn_launch<float, false>(
-        q, ka, va, tables, lens, k1, v1, out, nullptr, nullptr, nullptr,
-        nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
-  return (int)attn_launch<__nv_bfloat16, false>(
-      q, ka, va, tables, lens, k1, v1, out, nullptr, nullptr, nullptr,
-      nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
+    return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out,
+                                   nullptr, acc, m, l, B, num_blocks, bs, nb,
+                                   Hkv, n_rep, D, win, splits, P, s);
+  return (int)attn_launch<__nv_bfloat16>(q, ka, va, tables, lens, k1, v1,
+                                         out, nullptr, acc, m, l, B,
+                                         num_blocks, bs, nb, Hkv, n_rep, D,
+                                         win, splits, P, s);
 }
 
-// The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32
-// and the float32 state acc (B, Hq, D), m, l (B, Hq) in place of out.
+// The suffix pass of the cascade: as paged_attn_launch with one split, with
+// q0 (B,) int32 and the float32 state acc (B, Hq, D), m, l (B, Hq) in place
+// of out.
 extern "C" int paged_attn_state_launch(
     const void* q, const void* ka, const void* va, const void* tables,
     const void* lens, const void* q0s, const void* k1, const void* v1,
@@ -300,20 +379,18 @@ extern "C" int paged_attn_state_launch(
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)attn_launch<float, true>(
-        q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc_out, m_out, l_out,
-        B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
-  return (int)attn_launch<__nv_bfloat16, true>(
+    return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, nullptr,
+                                   q0s, acc_out, m_out, l_out, B, num_blocks,
+                                   bs, nb, Hkv, n_rep, D, win, 1, nb * bs, s);
+  return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc_out, m_out, l_out,
-      B, num_blocks, bs, nb, Hkv, n_rep, D, win, s);
+      B, num_blocks, bs, nb, Hkv, n_rep, D, win, 1, nb * bs, s);
 }
 
 // Shared-memory bytes paged_attn_launch asks for at these sizes (the wrapper
 // refuses a call above the card's per-block limit).
-extern "C" long long paged_attn_smem_bytes(int bs, int n_rep, int D,
-                                           int dtype) {
-  const int cb = bs >= kChunkPositions ? 1 : kChunkPositions / bs;
-  return (long long)attn_smem_bytes(dtype == 0 ? 4 : 2, cb * bs, D, n_rep);
+extern "C" long long paged_attn_smem_bytes(int n_rep, int D, int dtype) {
+  return (long long)attn_smem_bytes(dtype == 0 ? 4 : 2, D, n_rep);
 }
 
 // row = Hkv * D elements; row bytes must be whole 16-byte vectors.

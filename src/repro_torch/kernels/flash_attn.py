@@ -8,7 +8,15 @@ offset into k, v (B, Sk, Hkv, D), a sliding window and GQA by index.  One
 kernel serves both: a (BH, S, D) call is B = BH with one head.
 
 Bound on the H100: even between bytes and bf16 tensor-core operations at a
-1,000-token prompt, bytes at a fold chunk (see the source for the design).
+1,000-token prompt, bytes at a fold chunk.  In bfloat16 the kernel runs
+on the tensor cores (``mma.sync`` m16n8k16, K and V tiles through a
+``cp.async`` ring); in float32 on FMAs (TF32 would break the float32
+contract).  When the grid is small (the fold's 16-query chunk has one CTA
+per head) the key band is split into runs of whole 64-key tiles, one per
+CTA (:func:`flash_split_plan`, a function of the shapes alone, so chunk j
+of a cold and of a resumed fold launch the same plan); each CTA writes a
+float32 partial state and a second launch merges the splits in order and
+normalizes.  See the source for the design.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version :func:`repro_torch.kernels.ref.flash_attention_chunked`.
@@ -22,19 +30,48 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.paged_attn import (DTYPES, MAX_SMEM_BYTES, _check,
-                                            _raise_on, _window)
+                                            _ptrs, _raise_on, _scratch,
+                                            _window)
 
 MAX_D = 128
+TILE_K = 64                # keys per tile of the kernel
+MIN_CTAS = 2 * 132         # two CTAs per SM of the H100
+
+
+def tile_q(Sq: int) -> int:
+    """Queries per CTA: 16 for a fold chunk (Sq <= 16), else 64."""
+    return 16 if Sq <= 16 else 64
+
+
+def flash_split_plan(B: int, Sq: int, Sk: int, Hq: int, q_offset: int,
+                     window: int | None, causal: bool = True
+                     ) -> tuple[int, int, int]:
+    """(splits, split_lo, split_keys) of ``flash_attention``: the key band
+    of the call, ``[split_lo, k_hi)`` with ``split_lo = max(0, q_offset -
+    win + 1)`` and ``k_hi = min(Sk, q_offset + Sq)`` (causal) or ``Sk``,
+    cut into ``splits`` runs of ``split_keys`` keys (whole tiles of
+    ``TILE_K``), split z covering ``[split_lo + z * split_keys, ... +
+    split_keys)``; together they cover the band exactly once.  The band
+    is split only when (query tiles x Hq x B) is under ``MIN_CTAS``, into
+    about ``MIN_CTAS`` CTAs.  A function of the shapes alone."""
+    win = _window(window)
+    k_lo = max(0, q_offset - win + 1)
+    k_hi = min(Sk, q_offset + Sq) if causal else Sk
+    n_tiles = max(1, -(-(k_hi - k_lo) // TILE_K))
+    ctas = -(-Sq // tile_q(Sq)) * Hq * B
+    want = -(-MIN_CTAS // ctas) if ctas < MIN_CTAS else 1
+    tiles_per_split = -(-n_tiles // min(want, n_tiles))
+    return -(-n_tiles // tiles_per_split), k_lo, tiles_per_split * TILE_K
 
 
 @functools.cache
 def _lib():
     lib = build.load("flash_attn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attn_launch.argtypes = [p] * 4 + [i] * 9 + [ctypes.c_float, i,
-                                                          p]
+    lib.flash_attn_launch.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float] \
+        + [i] * 4 + [p]
     lib.flash_attn_launch.restype = i
-    lib.flash_attn_smem_bytes.argtypes = [i, i]
+    lib.flash_attn_smem_bytes.argtypes = [i, i, i]
     lib.flash_attn_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -49,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window.  Returns q's shape in v's dtype (see
     :func:`repro_torch.kernels.ref.flash_attention_chunked`, which CPU
     tensors run in ``q_chunk`` x ``kv_chunk`` chunks; the kernel has its
-    own tiles)."""
+    own tiles and :func:`flash_split_plan`)."""
     if q.dim() == 3:
         return flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
                                causal=causal, window=window,
@@ -77,7 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "non-negative 32-bit integers")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         _check(arg, t, dev, dt)
-    if _lib().flash_attn_smem_bytes(Sq, D) > MAX_SMEM_BYTES:
+    if _lib().flash_attn_smem_bytes(Sq, D, DTYPES[dt]) > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: D={D} needs more shared memory than a "
                          "block has")
     if B > 65535 or Hq > 65535 or max(q.numel(), k.numel()) >= 1 << 62:
@@ -87,11 +124,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if Sk == 0:
         raise ValueError(f"{name}: no keys to attend")
+    splits, split_lo, split_keys = flash_split_plan(
+        B, Sq, Sk, Hq, q_offset, window, causal)
+    if split_lo + splits * split_keys >= 1 << 31:
+        raise ValueError(f"{name}: too large for one launch")
+    _buf, acc, m, l = _scratch(splits, B * Sq * Hq, D, dev)
     with torch.cuda.device(dev):
         err = _lib().flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, Hq, Hkv, D, q_offset, win, int(causal), D ** -0.5,
-            DTYPES[dt], torch.cuda.current_stream().cuda_stream)
+            *_ptrs(q, k, v, out), acc, m, l, B, Sq, Sk, Hq, Hkv, D, q_offset,
+            win, int(causal), D ** -0.5, DTYPES[dt], splits, split_lo,
+            split_keys, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     flash_attention.launches += 1
     return out

@@ -6,7 +6,12 @@ Each replaces the TPU kernel of the same name in
 
 - ``paged_decode_attention``: one-query decode attention that reads K/V in
   place through a block table, with GQA, a ``lens`` mask, a trailing window
-  and the current token's row spliced in;
+  and the current token's row spliced in.  Each lane's chain is split
+  across CTAs in fixed runs of whole blocks (:func:`paged_split_plan`, a
+  function of the table width alone, so the wrapper never reads ``lens``
+  on the host); each CTA double-buffers its rows with ``cp.async`` and
+  writes a float32 partial state, and a second launch merges the splits in
+  order and normalizes (flash-decoding);
 - ``scatter_kv_rows``: the decode tick's in-place write of one K and one V
   row per (layer, lane);
 - ``paged_decode_attention_with_state``: the same sweep restarted at an
@@ -38,9 +43,9 @@ MAX_SMEM_BYTES = 227 * 1024        # per-block shared memory on the H100
 def _lib():
     lib = build.load("paged_attn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attn_launch.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.paged_attn_launch.argtypes = [p] * 11 + [i] * 11 + [p]
     lib.paged_attn_launch.restype = i
-    lib.paged_attn_smem_bytes.argtypes = [i] * 4
+    lib.paged_attn_smem_bytes.argtypes = [i] * 3
     lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
     lib.paged_attn_state_launch.argtypes = [p] * 11 + [i] * 9 + [p]
     lib.paged_attn_state_launch.restype = i
@@ -126,11 +131,16 @@ def _sweep_args(name: str, q: torch.Tensor, k_arena: torch.Tensor,
             if t.shape != (B, Hkv, D):
                 raise ValueError(f"{arg} has shape {tuple(t.shape)}, "
                                  f"expected {(B, Hkv, D)}")
-    if _lib().paged_attn_smem_bytes(bs, Hq // Hkv, D, DTYPES[dt]) > \
+    if D * k_arena.element_size() > 512:
+        raise ValueError(f"{name} takes rows of at most 512 bytes; D={D} in "
+                         f"{dt} is more")
+    if _lib().paged_attn_smem_bytes(Hq // Hkv, D, DTYPES[dt]) > \
             MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: block_size {bs}, {Hq // Hkv} queries per "
-                         f"KV head and D={D} need more shared memory than a "
-                         "block has")
+        raise ValueError(f"{name}: {Hq // Hkv} queries per KV head and "
+                         f"D={D} need more shared memory than a block has")
+    if nb * bs >= 1 << 30:
+        raise ValueError(f"{name}: tables of {nb} blocks of {bs} are too "
+                         "long")
     if B > 65535 or max(q.numel(), k_arena.numel()) >= 1 << 62:
         raise ValueError(f"{name}: too large for one launch")
     return B, num_blocks, bs, nb, Hkv, Hq // Hkv, D, win, DTYPES[dt]
@@ -140,9 +150,35 @@ def _ptrs(*ts: torch.Tensor | None) -> list[int | None]:
     return [None if t is None else t.data_ptr() for t in ts]
 
 
+def _scratch(splits: int, rows: int, D: int, dev: torch.device) -> tuple:
+    """(buffer, acc, m, l): the float32 partial states of a split launch,
+    acc (splits, rows, D) then m and l (splits, rows), as pointers into one
+    allocation that the caller keeps alive across its launches; Nones for
+    one split (the kernel then writes the output itself)."""
+    if splits == 1:
+        return None, None, None, None
+    n = splits * rows
+    buf = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
+    acc = buf.data_ptr()
+    return buf, acc, acc + 4 * n * D, acc + 4 * n * (D + 1)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+SPLIT_POSITIONS = 512     # positions per split of a lane's chain
+
+
+def paged_split_plan(nb: int, bs: int) -> tuple[int, int]:
+    """(splits, blocks per split bps) of ``paged_decode_attention``: split
+    z of a lane sweeps table entries ``[z * bps, (z + 1) * bps)``, whole
+    blocks of about ``SPLIT_POSITIONS`` positions, and the splits cover the
+    ``nb`` entries exactly once.  A function of the table's shape alone:
+    the wrapper never reads ``lens`` on the host."""
+    bps = max(1, SPLIT_POSITIONS // bs)
+    return -(-nb // bps), bps
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -158,17 +194,26 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     if not q.is_cuda:
         return ref.paged_decode_attention(q, k_arena, v_arena, tables, lens,
                                           window, new_kv)
-    args = _sweep_args("paged_decode_attention", q, k_arena, v_arena, tables,
-                       lens, window, new_kv)
+    name = "paged_decode_attention"
+    args = _sweep_args(name, q, k_arena, v_arena, tables, lens, window,
+                       new_kv)
+    B, Hq, D = q.shape
+    nb, bs = tables.shape[1], k_arena.shape[1]
+    splits, bps = paged_split_plan(nb, bs)
+    if splits > 65535:
+        raise ValueError(f"{name}: {splits} splits are too many for one "
+                         "launch")
     out = torch.empty(q.shape, dtype=k_arena.dtype, device=q.device)
-    if q.shape[0] == 0:
+    if B == 0:
         return out
+    _buf, acc, m, l = _scratch(splits, B * Hq, D, q.device)
     k1, v1 = new_kv if new_kv is not None else (None, None)
     with torch.cuda.device(q.device):
         err = _lib().paged_attn_launch(
-            *_ptrs(q, k_arena, v_arena, tables, lens, k1, v1, out), *args,
+            *_ptrs(q, k_arena, v_arena, tables, lens, k1, v1, out), acc, m,
+            l, *args[:8], splits, bps, args[8],
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "paged_decode_attention")
+    _raise_on(err, name)
     paged_decode_attention.launches += 1
     return out
 

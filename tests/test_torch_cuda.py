@@ -317,6 +317,89 @@ def test_flash_attention_kernel_fold_shapes(dev, Sq, q_offset, Hq, Hkv, D,
         q, k, v, window=window, q_offset=q_offset))
 
 
+@pytest.mark.parametrize("Sq,q_offset,Hq,Hkv,window,min_ctas", [
+    (16, 0, 8, 8, 0, 1 << 30), (16, 512, 8, 8, 0, 1 << 30),
+    (16, 1072, 8, 8, 0, 1 << 30), (16, 1072, 8, 8, 0, 0),
+    (200, 0, 4, 4, 0, 1 << 30), (64, 256, 8, 2, 8, 1 << 30),
+    (7, 300, 4, 1, 100, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_forced_splits(monkeypatch, dev, Sq, q_offset,
+                                              Hq, Hkv, window, min_ctas,
+                                              dtype):
+    """The key band split one tile per CTA (``MIN_CTAS`` 1 << 30), kept
+    whole (0) or as planned (None): some splits hold no key of some rows
+    (the causal prompt's last splits, a window of 8 at GQA 4:1); against
+    the plain version, a repeated call bitwise, and no host
+    synchronization in the call."""
+    if min_ctas is not None:
+        monkeypatch.setattr(flash_kernel, "MIN_CTAS", min_ctas)
+    gen = torch.Generator().manual_seed(Sq * 3 + q_offset)
+    Sk = q_offset + Sq
+    q = torch.randn((1, Sq, Hq, 80), generator=gen).to(dtype).to(dev)
+    k = torch.randn((1, Sk, Hkv, 80), generator=gen).to(dtype).to(dev)
+    v = torch.randn((1, Sk, Hkv, 80), generator=gen).to(dtype).to(dev)
+    kw = dict(window=window, q_offset=q_offset)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = flash_kernel.flash_attention(q, k, v, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = ref.flash_attention_chunked(q, k, v, True, window, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("bps", [1, 4, 12, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_kernel_forced_splits(monkeypatch, dev, bps,
+                                                    dtype):
+    """lens 0, 1, a partial block, exactly nb*bs and a lane longer than
+    one split, the chain split one block per CTA, four, twelve (one split)
+    and as planned; windows None, 3 and 17 with the splice off and on; a
+    lens == 0 lane is exactly 0; NaN in the trash block and a repeated
+    call bitwise; no host read of lens (no synchronization)."""
+    gen = torch.Generator().manual_seed(bps or 0)
+    B, nb, bs, Hq, Hkv, D = 5, 12, 16, 8, 2, 80
+    if bps is not None:
+        monkeypatch.setattr(paged_attn_kernel, "SPLIT_POSITIONS", bps * bs)
+    lens = torch.tensor([0, 1, 24, nb * bs, 150], dtype=torch.int32)
+    num_blocks = B * nb + 1
+    perm = torch.randperm(num_blocks - 1, generator=gen) + 1
+    tables = torch.zeros((B, nb), dtype=torch.int32)
+    for b in range(B):
+        used = -(-int(lens[b]) // bs)
+        tables[b, :used] = perm[b * nb:b * nb + used].to(torch.int32)
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    q, ka, va = arr(B, Hq, D), arr(num_blocks, bs, Hkv, D), \
+        arr(num_blocks, bs, Hkv, D)
+    nk = (arr(B, Hkv, D), arr(B, Hkv, D))
+    tables, lens = tables.to(dev), lens.to(dev)
+    live = lens > 0
+    for window in (None, 3, 17):
+        for new_kv in (None, nk):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = paged_attn_kernel.paged_decode_attention(
+                    q, ka, va, tables, lens, window=window, new_kv=new_kv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = ref.paged_decode_attention(q, ka, va, tables, lens,
+                                              window, new_kv)
+            torch.testing.assert_close(got[live].float(),
+                                       want[live].float(), rtol=_tol(dtype),
+                                       atol=_tol(dtype))
+            assert bool((got[~live] == 0).all())
+    base = paged_attn_kernel.paged_decode_attention(
+        q, ka, va, tables, lens, new_kv=nk)
+    ka[0], va[0] = float("nan"), float("nan")
+    for _ in range(2):
+        assert torch.equal(base, paged_attn_kernel.paged_decode_attention(
+            q, ka, va, tables, lens, new_kv=nk))
+
+
 def test_flash_attention_kernel_refuses_bad_inputs(dev):
     def z(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, device=dev)
