@@ -12,7 +12,7 @@ Phases, each printing one JSON line:
      tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
      in the attention libraries (``cuobjdump -sass``; the run fails
      without HMMA and LDGSTS in ``flash_attention`` and LDGSTS in
-     ``paged_decode_attention``);
+     ``paged_decode_attention`` and ``cascade_prefix_attention``);
   3. each kernel held against its plain PyTorch version on the same CUDA
      tensors — the SC kernels and ``scatter_kv_rows`` bit for bit, the
      attention kernels (``paged_decode_attention`` and the cascade's
@@ -20,7 +20,10 @@ Phases, each printing one JSON line:
      and ``merge_attn_states``) within 2e-5 (float32) / 2e-2 (bfloat16),
      the cascade's empty state exactly; the cascade kernels also at load
      (c)'s shapes (a 1,024-position chain, eight lanes, 8-block suffixes,
-     a NaN trash block); ``flash_attention`` within 2e-5 / 2e-2 on the TPU
+     a NaN trash block), each at three forced plans of
+     ``cascade_split_plan`` (one split, as planned, one block per split),
+     with the NaN trash block bitwise and every row that attends nothing
+     exactly the empty state; ``flash_attention`` within 2e-5 / 2e-2 on the TPU
      kernel's five cases (also against its oracle), the fold's chunks (16
      and 7 queries at offsets 0, 512 and 1,072), the one-shot prefill at
      1,000 and a window of 8 with GQA 4:1, a repeated call bitwise; the
@@ -34,7 +37,9 @@ Phases, each printing one JSON line:
      bitwise) — and timed at the main paths' shapes beside it
      (``flash_attention`` at a fold chunk and at the one-shot prefill,
      beside SDPA), each timing with its launch's splits and CTAs and the
-     kernel's ``ptxas`` registers and spills;
+     kernel's ``ptxas`` registers and spills; the cascade passes also at
+     one split and at more splits, with the host's time to issue a call
+     at each plan and the device time of the pass and its combine;
   4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
@@ -88,6 +93,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import re
 import statistics
@@ -140,6 +146,27 @@ LM_SLOTS, LM_MAX_LEN, LM_BLOCK = 8, 1536, 16
 # load (c): a shared 1,024-token prompt (64 full blocks), a 64-token tail per
 # request, 32 new tokens each
 SHARED_PROMPT, OWN_TAIL, NEW_TOKENS_C = 1024, 64, 32
+
+
+# the timing's plans of the cascade's two passes: two of
+# ``paged_attn.CASCADE_FORCED_PLANS`` and twice the CTAs, in runs down to
+# one 64-position ring chunk (16 splits of the prefix pass at load (c), 2
+# of the suffix)
+TIMING_PLANS = ("planned", "one split", "more splits")
+MORE_SPLITS = {"MIN_CTAS": 4 * 132, "MIN_SPLIT_POSITIONS": 64}
+
+
+@contextlib.contextmanager
+def cascade_plan(name: str):
+    """Put the plan ``name`` of ``paged_attn.CASCADE_FORCED_PLANS``, or
+    "more splits", in force through the planner's module constants."""
+    from repro_torch.kernels import paged_attn as paged_k
+    consts = MORE_SPLITS if name == "more splits" else \
+        paged_k.CASCADE_FORCED_PLANS[name]
+    with contextlib.ExitStack() as stack:
+        for const, value in consts.items():
+            stack.enter_context(mock.patch.object(paged_k, const, value))
+        yield
 
 
 def emit(obj: dict) -> None:
@@ -223,6 +250,34 @@ def issue_us(fn, plans: dict, sleep_cycles: int, reps: int = 11,
     return {key: statistics.median(t) for key, t in times.items()}
 
 
+def kernel_us(prof, n: int) -> dict[str, float]:
+    """Device microseconds per step by kernel in the ``torch.profiler``
+    trace ``prof`` of ``n`` steps: the device's own events (kernels,
+    copies); a host operator's device time repeats its kernels', so only
+    these are summed."""
+    from torch.autograd import DeviceType
+    out: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            out[ev.name] = out.get(ev.name, 0) + ev.device_time_total / n
+    return out
+
+
+def device_us(fn, n: int = 20) -> dict[str, float]:
+    """Device microseconds per call of ``fn`` by kernel (``torch.profiler``
+    over ``n`` calls after one), names cut to 60 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {name[:60]: us for name, us in kernel_us(prof, n).items()}
+
+
 def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, int]:
     """How many SASS instructions of each opcode the built library of
     ``csrc/<source>.cu`` holds (``cuobjdump -sass``, beside ``nvcc``)."""
@@ -237,7 +292,8 @@ def sass_counts(source: str, opcodes: tuple[str, ...]) -> dict[str, int]:
 
 def ptxas_of(source: str, *needles: str) -> list[str]:
     """The ``-Xptxas -v`` lines (registers, spills) of the entry functions
-    of ``csrc/<source>.cu`` whose mangled name holds every needle."""
+    of ``csrc/<source>.cu`` whose mangled name holds every needle, each
+    after that name from its first needle on (its template arguments)."""
     from repro_torch.kernels import build
     log = build.library_path(source).with_suffix(".log").read_text()
     out, entry = [], None
@@ -246,7 +302,8 @@ def ptxas_of(source: str, *needles: str) -> list[str]:
             entry = ln.split("'")[1]
         elif entry and all(n in entry for n in needles) and (
                 "registers" in ln or "spill" in ln):
-            out.append(ln.strip())
+            out.append(f"{entry[entry.find(needles[0]):][:48]}: "
+                       f"{ln.strip()}")
     return out
 
 
@@ -554,57 +611,63 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
             ka, va = arr((25, bs, Hkv, 80), dtype), arr((25, bs, Hkv, 80),
                                                         dtype)
             nk = (arr((5, Hkv, 80), dtype), arr((5, Hkv, 80), dtype))
-            for window in (0, 8, 2):
-                case = {"case": label, "dtype": str(dtype), "window": window}
-                states = {}
-                for trash in (1e9, float("nan")):
-                    ka[0], va[0] = trash, -trash
-                    pre = (q[lanes].contiguous(), ka, va,
-                           meta["group_tables"], meta["group_len"],
-                           cl[lanes].contiguous())
-                    suf = (q, ka, va, meta["suffix_tables"], cl)
-                    got_p = paged_k.cascade_prefix_attention(*pre,
-                                                             window=window)
-                    got_s = paged_k.paged_decode_attention_with_state(
-                        *suf, window=window, q0=meta["lane_q0"], new_kv=nk)
-                    states[trash != trash] = got_p + got_s
-                want_p = ref.cascade_prefix_attention(*pre, window)
-                want_s = ref.paged_decode_attention_with_state(
-                    *suf, window, meta["lane_q0"], nk)
-                torch.cuda.synchronize()
-                check("cascade_prefix_attention", got_p, want_p, tol, **case)
-                check("paged_decode_attention_with_state", got_s, want_s,
-                      tol, **case)
-                checks.append({
-                    "kernel": "cascade", **case, "nan_trash_bitwise": True,
-                    "ok": all(torch.equal(a, b) for a, b in
-                              zip(states[False], states[True]))})
-                # lane 4's suffix is empty: the empty state, exactly
-                acc, m, l = got_s
-                checks.append({
-                    "kernel": "paged_decode_attention_with_state", **case,
-                    "empty_state_exact": True,
-                    "ok": bool((acc[4] == 0).all() and (l[4] == 0).all()
-                               and (m[4] == ref.NEG_INF).all())
-                    and all(torch.equal(g[4], w[4])
-                            for g, w in zip(got_s, want_s))})
-                # the merge against its plain version on the states the
-                # cascade hands it, and the whole cascade against flat
-                # attention over lanes 0-3 (the plain flat version gets a
-                # clean trash block, since it multiplies those rows by 0)
-                states = attention.place_group_states(meta, *got_p, 5) + \
-                    got_s
-                check("merge_attn_states",
-                      (paged_k.merge_attn_states(*states),),
-                      (ref.merge_attn_states(*states),), 2e-5, **case)
-                out = attention.attend_decode_cascade(
-                    q[:, None], ka, va, meta, cl, window=window, new_kv=nk)
-                ka[0], va[0] = 0, 0
-                flat = ref.paged_decode_attention(
-                    q[:4], ka, va, flat_tables, cl[:4], window,
-                    (nk[0][:4], nk[1][:4]))
-                check("cascade_vs_flat", (out[:4, 0].float(),),
-                      (flat.float(),), tol, **case)
+            for window, plan in itertools.product(
+                    (0, 8, 2), paged_k.CASCADE_FORCED_PLANS):
+                with cascade_plan(plan):
+                    case = {"case": label, "dtype": str(dtype),
+                            "window": window, "plan": plan, "splits": [
+                                paged_k.cascade_split_plan(1, Hkv, 4, bs)[0],
+                                paged_k.cascade_split_plan(5, Hkv, 4, bs)[0]]}
+                    states = {}
+                    for trash in (1e9, float("nan")):
+                        ka[0], va[0] = trash, -trash
+                        pre = (q[lanes].contiguous(), ka, va,
+                               meta["group_tables"], meta["group_len"],
+                               cl[lanes].contiguous())
+                        suf = (q, ka, va, meta["suffix_tables"], cl)
+                        got_p = paged_k.cascade_prefix_attention(*pre,
+                                                                 window=window)
+                        got_s = paged_k.paged_decode_attention_with_state(
+                            *suf, window=window, q0=meta["lane_q0"], new_kv=nk)
+                        states[trash != trash] = got_p + got_s
+                    want_p = ref.cascade_prefix_attention(*pre, window)
+                    want_s = ref.paged_decode_attention_with_state(
+                        *suf, window, meta["lane_q0"], nk)
+                    torch.cuda.synchronize()
+                    check("cascade_prefix_attention", got_p, want_p, tol,
+                          **case)
+                    check("paged_decode_attention_with_state", got_s, want_s,
+                          tol, **case)
+                    checks.append({
+                        "kernel": "cascade", **case, "nan_trash_bitwise": True,
+                        "ok": all(torch.equal(a, b) for a, b in
+                                  zip(states[False], states[True]))})
+                    # lane 4's suffix is empty: the empty state, exactly
+                    acc, m, l = got_s
+                    checks.append({
+                        "kernel": "paged_decode_attention_with_state", **case,
+                        "empty_state_exact": True,
+                        "ok": bool((acc[4] == 0).all() and (l[4] == 0).all()
+                                   and (m[4] == ref.NEG_INF).all())
+                        and all(torch.equal(g[4], w[4])
+                                for g, w in zip(got_s, want_s))})
+                    # the merge against its plain version on the states the
+                    # cascade hands it, and the whole cascade against flat
+                    # attention over lanes 0-3 (the plain flat version gets a
+                    # clean trash block, since it multiplies those rows by 0)
+                    states = attention.place_group_states(meta, *got_p, 5) + \
+                        got_s
+                    check("merge_attn_states",
+                          (paged_k.merge_attn_states(*states),),
+                          (ref.merge_attn_states(*states),), 2e-5, **case)
+                    out = attention.attend_decode_cascade(
+                        q[:, None], ka, va, meta, cl, window=window, new_kv=nk)
+                    ka[0], va[0] = 0, 0
+                    flat = ref.paged_decode_attention(
+                        q[:4], ka, va, flat_tables, cl[:4], window,
+                        (nk[0][:4], nk[1][:4]))
+                    check("cascade_vs_flat", (out[:4, 0].float(),),
+                          (flat.float(),), tol, **case)
     # the merge against its plain version, and an empty side exactly
     B, Hq, D = 8, 32, 80
 
@@ -651,33 +714,84 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         ka = arr((num_blocks, LM_BLOCK, H, D), dtype)
         va = arr((num_blocks, LM_BLOCK, H, D), dtype)
         nk = (arr((Lc, H, D), dtype), arr((Lc, H, D), dtype))
-        for window in (0, 700, 2):
-            case = {"case": "load (c) shapes", "dtype": str(dtype),
-                    "window": window}
-            ka[0], va[0] = float("nan"), float("nan")
-            pre = (q[big["group_lanes"]], ka, va, gt, big["group_len"],
-                   big["lane_lens"])
-            sfx = (q, ka, va, st, lens)
-            got_p = paged_k.cascade_prefix_attention(*pre, window=window)
-            got_s = paged_k.paged_decode_attention_with_state(
-                *sfx, window=window, q0=big["lane_q0"], new_kv=nk)
-            check("cascade_prefix_attention", got_p,
-                  ref.cascade_prefix_attention(*pre, window), tol, **case)
-            check("paged_decode_attention_with_state", got_s,
-                  ref.paged_decode_attention_with_state(
-                      *sfx, window, big["lane_q0"], nk), tol, **case)
-            states = attention.place_group_states(big, *got_p, Lc) + got_s
-            check("merge_attn_states",
-                  (paged_k.merge_attn_states(*states),),
-                  (ref.merge_attn_states(*states),), 2e-5, **case)
-            out = attention.attend_decode_cascade(
-                q[:, None], ka, va, big, lens, window=window, new_kv=nk)
-            ka[0], va[0] = 0, 0
-            flat = ref.paged_decode_attention(q, ka, va, flat_tables, lens,
-                                              window, nk)
-            check("cascade_vs_flat", (out[:, 0].float(),), (flat.float(),),
-                  tol, **case)
+        for window, plan in itertools.product((0, 700, 2),
+                                              paged_k.CASCADE_FORCED_PLANS):
+            with cascade_plan(plan):
+                case = {"case": "load (c) shapes", "dtype": str(dtype),
+                        "window": window, "plan": plan, "splits": [
+                            paged_k.cascade_split_plan(1, H, npre,
+                                                       LM_BLOCK)[0],
+                            paged_k.cascade_split_plan(Lc, H, nsuf,
+                                                       LM_BLOCK)[0]]}
+                pre = (q[big["group_lanes"]], ka, va, gt, big["group_len"],
+                       big["lane_lens"])
+                sfx = (q, ka, va, st, lens)
+                got = {}
+                for trash in (1e9, float("nan")):
+                    ka[0], va[0] = trash, -trash
+                    got[trash != trash] = (
+                        paged_k.cascade_prefix_attention(*pre, window=window),
+                        paged_k.paged_decode_attention_with_state(
+                            *sfx, window=window, q0=big["lane_q0"],
+                            new_kv=nk))
+                got_p, got_s = got[True]
+                want_p = ref.cascade_prefix_attention(*pre, window)
+                want_s = ref.paged_decode_attention_with_state(
+                    *sfx, window, big["lane_q0"], nk)
+                check("cascade_prefix_attention", got_p, want_p, tol, **case)
+                check("paged_decode_attention_with_state", got_s, want_s,
+                      tol, **case)
+                checks.append({
+                    "kernel": "cascade", **case, "nan_trash_bitwise": True,
+                    "ok": all(torch.equal(a, b) for a, b in
+                              zip(sum(got[False], ()), got_p + got_s))})
+                # the rows that attend no position: exactly the empty state
+                empty = [w[1] == ref.NEG_INF for w in (want_p, want_s)]
+                checks.append({
+                    "kernel": "cascade", **case, "empty_state_exact": True,
+                    "empty_rows": [int(e.sum()) for e in empty],
+                    "ok": all(torch.equal(g[e], w[e])
+                              for got_x, want_x, e in zip(
+                                  (got_p, got_s), (want_p, want_s), empty)
+                              for g, w in zip(got_x, want_x))})
+                states = attention.place_group_states(big, *got_p, Lc) + got_s
+                check("merge_attn_states",
+                      (paged_k.merge_attn_states(*states),),
+                      (ref.merge_attn_states(*states),), 2e-5, **case)
+                out = attention.attend_decode_cascade(
+                    q[:, None], ka, va, big, lens, window=window, new_kv=nk)
+                ka[0], va[0] = 0, 0
+                flat = ref.paged_decode_attention(q, ka, va, flat_tables, lens,
+                                                  window, nk)
+                check("cascade_vs_flat", (out[:, 0].float(),), (flat.float(),),
+                      tol, **case)
         del q, ka, va, nk
+    # groups whose queries overflow one CTA's shared memory, swept in tiles
+    # of queries: 64 stablelm-3b lanes (MHA, D = 80), and 16 lanes at GQA
+    # 8:1 and D = 128 (deepseek-67b's attention), each over a 128-position
+    # chain ending 5 short of its last block, at its plan, windows 0 and
+    # 100 (lanes ending up to 63 positions past the chain)
+    for label, Lg, Hqg, Hkg, Dg in (("64 lanes, MHA D=80", 64, 32, 32, 80),
+                                  ("16 lanes, GQA 8:1 D=128", 16, 64, 8,
+                                   128)):
+        gt = torch.arange(1, 9, **i32)[None]
+        glen = torch.tensor([8 * LM_BLOCK - 5], **i32)
+        ll = glen + torch.randint(0, 64, (1, Lg), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            qg = arr((1, Lg, Hqg, Dg), dtype)
+            ka, va = arr((9, LM_BLOCK, Hkg, Dg), dtype), \
+                arr((9, LM_BLOCK, Hkg, Dg), dtype)
+            for window in (0, 100):
+                pre = (qg, ka, va, gt, glen, ll)
+                check("cascade_prefix_attention",
+                      paged_k.cascade_prefix_attention(*pre, window=window),
+                      ref.cascade_prefix_attention(*pre, window), tol,
+                      case=label, dtype=str(dtype), window=window,
+                      smem_bytes=paged_k._cascade_lib()
+                      .cascade_prefix_smem_bytes(Lg, Hqg // Hkg, Dg,
+                                                 paged_k.DTYPES[dtype]))
     torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
 
@@ -704,14 +818,45 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     nk = (arr((Lc, H, D), bf), arr((Lc, H, D), bf))
     row = H * D * 2                                   # bytes per K or V row
     timing = {}
-    pre_ms = time_ms(lambda: paged_k.cascade_prefix_attention(
-        qg, ka, va, gt, glen, ll), 5, 20, sleep)
+    # each pass at its plan, at one split and at more splits: the kernel's
+    # time and the host's time to issue one call (plan, scratch, launches),
+    # the plans in turns; at its plan, the device time by kernel (the pass
+    # and its combine)
+    plans = {key: functools.partial(cascade_plan, key)
+             for key in TIMING_PLANS}
+
+    def prefix():
+        return paged_k.cascade_prefix_attention(qg, ka, va, gt, glen, ll)
+
+    def suffix():
+        return paged_k.paged_decode_attention_with_state(
+            q, ka, va, st, lens, q0=q0s, new_kv=nk)
+
+    def at_plans(fn, rows, nb, ctas) -> dict:
+        host = issue_us(fn, plans, sleep)
+        out = {}
+        for key, plan in plans.items():
+            with plan():
+                splits, bps = paged_k.cascade_split_plan(rows, H, nb,
+                                                         LM_BLOCK)
+                out[key] = {"splits": splits, "blocks_per_split": bps,
+                            "ctas": ctas * splits,
+                            "combine_ctas": Lc * H if splits > 1 else 0,
+                            "ms": time_ms(fn, 5, 20, sleep)[0],
+                            "host_issue_us": host[key]}
+        return {**{k: v for k, v in out["planned"].items() if k != "ms"},
+                "plans": out, "device_us_by_kernel": device_us(fn)}
+    pre_ms = time_ms(prefix, 5, 20, sleep)
     kd = ka[gt.long()].reshape(1, -1, H, D)[:, :n_pre].transpose(1, 2)
     vd = va[gt.long()].reshape(1, -1, H, D)[:, :n_pre].transpose(1, 2)
     kd, vd = kd.contiguous(), vd.contiguous()
     timing["cascade_prefix_attention"] = {
         "shape": f"qg (1, {Lc}, {H}, {D}) bf16, {n_pre}-position chain, "
                  f"group_tables (1, {npre}), lane_lens {n_len}",
+        **at_plans(prefix, 1, npre, H),
+        "ptxas": ptxas_of("cascade_attn", "cascade_prefix_kernel")
+        + ptxas_of("cascade_attn", "combine_states_kernelIf"),
+        "sass": sass_counts("cascade_attn", ("LDGSTS", "HMMA")),
         "ms": pre_ms[0], "back_to_back_ms": pre_ms[1],
         "plain_ms": time_ms(lambda: ref.cascade_prefix_attention(
             qg, ka, va, gt, glen, ll), 3, 3, sleep)[0],
@@ -723,15 +868,16 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         "bytes_ms": (2 * n_pre * row + Lc * H * D * 2 + Lc * H * (D + 2) * 4
                      + 4 * (npre + 1 + Lc)) / PEAK_BYTES_PER_S * 1e3,
         "ops_ms": 4 * Lc * H * n_pre * D / F32_FLOPS * 1e3}
-    suf_ms = time_ms(lambda: paged_k.paged_decode_attention_with_state(
-        q, ka, va, st, lens, q0=q0s, new_kv=nk), 5, 20, sleep)
+    suf_ms = time_ms(suffix, 5, 20, sleep)
     ks = ka[st.long()].reshape(Lc, -1, H, D)[:, :n_suf].transpose(1, 2)
     vs = va[st.long()].reshape(Lc, -1, H, D)[:, :n_suf].transpose(1, 2)
     ks, vs = ks.contiguous(), vs.contiguous()
     timing["paged_decode_attention_with_state"] = {
         "shape": f"q ({Lc}, {H}, {D}) bf16, {n_suf} suffix positions per "
                  f"lane from q0 {n_pre}, tables ({Lc}, {nsuf}), splice on",
-        "splits": 1, "ctas": H * Lc,
+        **at_plans(suffix, Lc, nsuf, H * Lc),
+        "ptxas": ptxas_of("paged_attn", "paged_attn_kernel", "nv_bfloat16")
+        + ptxas_of("paged_attn", "combine_states_kernelIf"),
         "ms": suf_ms[0], "back_to_back_ms": suf_ms[1],
         "plain_ms": time_ms(lambda: ref.paged_decode_attention_with_state(
             q, ka, va, st, lens, None, q0s, nk), 3, 3, sleep)[0],
@@ -743,6 +889,39 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
                      + Lc * H * (D + 2) * 4 + 4 * (Lc * nsuf + 2 * Lc))
         / PEAK_BYTES_PER_S * 1e3,
         "ops_ms": 4 * Lc * H * n_suf * D / F32_FLOPS * 1e3}
+    # kernel 5 where its plan splits: agent lanes with 1,024-token own tails
+    # after the shared prompt (tables (8, 64), 1,024 suffix positions each)
+    nlong = 64
+    stl = perm[npre:npre + Lc * nlong].reshape(Lc, nlong).contiguous()
+    lens_l = torch.full((Lc,), n_pre + nlong * LM_BLOCK, **i32)
+
+    def long_suffix():
+        return paged_k.paged_decode_attention_with_state(
+            q, ka, va, stl, lens_l, q0=q0s, new_kv=nk)
+    timing["paged_decode_attention_with_state"]["long_suffix"] = {
+        "shape": f"q ({Lc}, {H}, {D}) bf16, {nlong * LM_BLOCK} suffix "
+                 f"positions per lane from q0 {n_pre}, tables ({Lc}, "
+                 f"{nlong}), splice on",
+        **at_plans(long_suffix, Lc, nlong, H * Lc),
+        "bytes_ms": (2 * Lc * nlong * LM_BLOCK * row + Lc * H * D * 2
+                     + Lc * H * (D + 2) * 4 + 4 * (Lc * nlong + 2 * Lc))
+        / PEAK_BYTES_PER_S * 1e3}
+    # kernel 6 at a group too large for one CTA's shared memory: 64 lanes
+    # over the same chain, swept in tiles of queries
+    qg64 = arr((1, 64, H, D), bf)
+    ll64 = torch.full((1, 64), n_len, **i32)
+    big_ms = time_ms(lambda: paged_k.cascade_prefix_attention(
+        qg64, ka, va, gt, glen, ll64), 5, 20, sleep)
+    timing["cascade_prefix_attention"]["large_group"] = {
+        "shape": f"qg (1, 64, {H}, {D}) bf16, {n_pre}-position chain",
+        "splits": paged_k.cascade_split_plan(1, H, npre, LM_BLOCK)[0],
+        "smem_bytes": paged_k._cascade_lib().cascade_prefix_smem_bytes(
+            64, 1, D, paged_k.DTYPES[bf]),
+        "ms": big_ms[0],
+        "bytes_ms": (2 * n_pre * row + 64 * H * D * 2
+                     + 64 * H * (D + 2) * 4 + 4 * (npre + 1 + 64))
+        / PEAK_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * 64 * H * n_pre * D / F32_FLOPS * 1e3}
     a, b = state(), state()
     mg_ms = time_ms(lambda: paged_k.merge_attn_states(*a, *b), 5, 20, sleep)
     timing["merge_attn_states"] = {
@@ -962,7 +1141,6 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     operations with the most self time.  Busy time is None when the trace
     holds no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -970,13 +1148,7 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
         for _ in range(n):
             batcher.step()
         torch.cuda.synchronize()
-    # the device's own events (kernels, copies); a host operator's device
-    # time repeats its kernels', so only these are summed
-    dev_us: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and \
-                not getattr(ev, "is_user_annotation", False):
-            dev_us[ev.name] = dev_us.get(ev.name, 0) + ev.device_time_total
+    dev_us = kernel_us(prof, n)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     host_out = {
         "host_launches_per_tick": sum(
@@ -987,18 +1159,29 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     if not dev_us:
         return {"device_busy_ms_per_tick": None, "device_idle_share": None,
                 "top_device_ms_per_tick": None, **host_out}
-    busy = sum(dev_us.values()) / 1e3 / n
+    busy = sum(dev_us.values()) / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    def ms_of(*needles: str) -> float:
+        return sum(us for name, us in dev_us.items()
+                   if any(x in name for x in needles)) / 1e3
     # the paged sweep (kernels 3 and 5 share paged_attn_kernel) and the
-    # combine launch that merges its splits
-    paged = sum(us for name, us in dev_us.items()
-                if "paged_attn_kernel" in name
-                or "combine_states_kernel" in name) / 1e3 / n
+    # bf16 combine that normalizes kernel 3's splits; the cascade's prefix
+    # pass; the float32 combines (kernel 5's and 6's split states, and
+    # kernel 7's merge)
+    # (the trace's names demangled or not)
+    paged = ms_of("paged_attn_kernel", "combine_states_kernel<__nv_bfloat16",
+                  "combine_states_kernelI13__nv_bfloat16")
+    prefix = ms_of("cascade_prefix_kernel")
+    combine_f32 = ms_of("combine_states_kernel<float",
+                        "combine_states_kernelIf")
     return {"device_busy_ms_per_tick": busy,
             "device_idle_share": max(0.0, 1.0 - busy / tick_ms),
             "paged_attn_ms_per_tick": paged,
             "paged_attn_share_of_busy": paged / busy if busy else None,
-            "top_device_ms_per_tick": {k[:80]: v / 1e3 / n for k, v in top},
+            "cascade_prefix_ms_per_tick": prefix,
+            "cascade_prefix_share_of_busy": prefix / busy if busy else None,
+            "combine_f32_ms_per_tick": combine_f32,
+            "top_device_ms_per_tick": {k[:80]: v / 1e3 for k, v in top},
             **host_out}
 
 
@@ -1478,6 +1661,8 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
               "bf16_tokens_equal_flat": casc["tokens"] == flat["tokens"],
               "bf16_token_agreement": agree / (LM_SLOTS * NEW_TOKENS_C),
               "bf16_first_differences": diffs,
+              "bf16_near_tie_max_abs_dlogit": max(
+                  (d["max_abs_dlogit"] for d in diffs), default=None),
               "f32_depth4_tokens_equal_flat":
                   casc4["tokens"] == flat4["tokens"],
               "f32_depth4_max_abs_dlogit": f32_c,
@@ -1746,10 +1931,11 @@ def main() -> int:
     # the redesigned attention kernels' instructions: tensor-core products
     # (HMMA), asynchronous copies (LDGSTS, cp.async) and ldmatrix (LDSM)
     sass = {name: sass_counts(name, ("HMMA", "LDGSTS", "LDSM"))
-            for name in ("flash_attn", "paged_attn")}
+            for name in ("flash_attn", "paged_attn", "cascade_attn")}
     emit({"sass": sass})
     if not (sass["flash_attn"]["HMMA"] and sass["flash_attn"]["LDGSTS"]
-            and sass["paged_attn"]["LDGSTS"]):
+            and sass["paged_attn"]["LDGSTS"]
+            and sass["cascade_attn"]["LDGSTS"]):
         raise SystemExit(f"the attention kernels lack tensor-core or "
                          f"asynchronous-copy instructions: {sass}")
 

@@ -577,9 +577,11 @@ cudaError_t run(Kernel kernel, const Args& a, int BQ, int threads,
       a.split_lo, a.split_keys);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !split) return e;
+  const long long R = (long long)a.B * a.Sq * a.Hq;
   return attn::combine_states<T>(
-      (const float*)a.acc, (const float*)a.m, (const float*)a.l, (T*)a.out,
-      a.splits, (long long)a.B * a.Sq * a.Hq, a.D, stream);
+      attn::stacked_states((const float*)a.acc, (const float*)a.m,
+                           (const float*)a.l, R, a.D),
+      a.splits, R, a.D, (T*)a.out, stream);
 }
 
 template <int KS>

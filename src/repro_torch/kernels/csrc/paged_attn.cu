@@ -49,13 +49,21 @@
 //   reproducible.
 //
 // paged_attn_state_launch (the cascade's per-lane suffix pass)
-//   The same CTA loop with one split: the table names lane b's
-//   divergent-suffix blocks, entry j holding absolute positions
-//   q0[b] + j*bs + i, so the sweep covers [max(q0, lens - win),
-//   min(lens, q0 + nb*bs)).  It writes the float32 online-softmax state
-//   acc (B, Hq, D), m, l (B, Hq) unnormalized instead of out; a sweep with
-//   no valid position leaves the empty state (acc 0, m -1e30, l 0), which
-//   the cascade merge drops exactly.
+//   The same CTA loop: the table names lane b's divergent-suffix blocks,
+//   entry j holding absolute positions q0[b] + j*bs + i, so the sweep
+//   covers [max(q0, lens - win), min(lens, q0 + nb*bs)), split z the run
+//   [q0 + z*bps*bs, q0 + (z+1)*bps*bs) of it.  It writes the float32
+//   online-softmax state acc (B, Hq, D), m, l (B, Hq) unnormalized instead
+//   of out: at one split the CTAs write it themselves; with splits > 1
+//   they write their states to scratch and the combine launch merges them
+//   in split order into the state (attn::combine_states, the state
+//   epilogue), normalizing nothing.  The plan (the wrapper's
+//   cascade_split_plan) is a function of the shapes: runs of at least two
+//   64-position ring chunks until B * Hkv * splits fills the card (a run
+//   of one chunk saves less than its combine launch costs), so a decode
+//   tick's short suffixes (8 blocks at load (c)) run at one split.  A
+//   sweep with no valid position leaves the empty state (acc 0, m -1e30,
+//   l 0), which the combine and the cascade merge drop exactly.
 //
 // scatter_rows_launch
 //   arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D), wbids and
@@ -294,14 +302,17 @@ scatter_rows_kernel(T* __restrict__ ka, T* __restrict__ va,
   }
 }
 
+// out != nullptr: the flat sweep, normalized into out; otherwise the state
+// sweep into st_acc, st_m, st_l.  With splits > 1 the CTAs write their
+// states to the scratch acc, m, l and the combine launch merges them.
 template <typename T>
 cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         const void* tables, const void* lens, const void* k1,
                         const void* v1, void* out, const void* q0s,
-                        void* acc_out, void* m_out, void* l_out, int B,
-                        int num_blocks, int bs, int nb, int Hkv, int n_rep,
-                        int D, int win, int splits, int P,
-                        cudaStream_t stream) {
+                        void* acc, void* m, void* l, void* st_acc,
+                        void* st_m, void* st_l, int B, int num_blocks,
+                        int bs, int nb, int Hkv, int n_rep, int D, int win,
+                        int splits, int P, cudaStream_t stream) {
   const size_t smem = attn_smem_bytes(sizeof(T), D, n_rep);
   const bool wide = D * (int)sizeof(T) > 16 * 16;  // more than 16 vectors
   const auto kernel =
@@ -311,18 +322,23 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const bool direct = out != nullptr && splits == 1;
+  const bool state = out == nullptr, direct = splits == 1;
   kernel<<<dim3(Hkv, B, splits), kThreads, smem, stream>>>(
       (const T*)q, (const T*)ka, (const T*)va, (const int32_t*)tables,
       (const int32_t*)lens, (const T*)k1, (const T*)v1,
-      direct ? (T*)out : nullptr, (const int32_t*)q0s, (float*)acc_out,
-      (float*)m_out, (float*)l_out, num_blocks, bs, nb, Hkv, n_rep, D, win,
+      direct && !state ? (T*)out : nullptr, (const int32_t*)q0s,
+      (float*)(direct ? st_acc : acc), (float*)(direct ? st_m : m),
+      (float*)(direct ? st_l : l), num_blocks, bs, nb, Hkv, n_rep, D, win,
       P);
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || direct || out == nullptr) return e;
-  return attn::combine_states<T>((const float*)acc_out, (const float*)m_out,
-                                 (const float*)l_out, (T*)out, splits,
-                                 (long long)B * Hkv * n_rep, D, stream);
+  if (e != cudaSuccess || direct) return e;
+  const long long R = (long long)B * Hkv * n_rep;
+  const attn::States parts = attn::stacked_states(
+      (const float*)acc, (const float*)m, (const float*)l, R, D);
+  if (state)
+    return attn::combine_to_state(parts, splits, R, D, (float*)st_acc,
+                                  (float*)st_m, (float*)st_l, stream);
+  return attn::combine_states<T>(parts, splits, R, D, (T*)out, stream);
 }
 
 bool attn_args_ok(int B, int num_blocks, int bs, int nb, int Hkv, int n_rep,
@@ -334,15 +350,22 @@ bool attn_args_ok(int B, int num_blocks, int bs, int nb, int Hkv, int n_rep,
          (dtype == 0 || dtype == 1);
 }
 
+// The chain is swept in `splits` runs of `bps` table entries (splits * bps
+// >= nb, no run wholly past nb); with splits > 1, acc (splits, B, Hq, D),
+// m, l (splits, B, Hq) float32 are the scratch the combine launch reads.
+bool plan_ok(int nb, int splits, int bps, const void* acc, const void* m,
+             const void* l) {
+  return splits > 0 && splits <= 65535 && bps > 0 &&
+         (long long)splits * bps >= nb && (long long)(splits - 1) * bps < nb &&
+         (splits == 1 || (acc != nullptr && m != nullptr && l != nullptr));
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  k1/v1 may be null (no splice).  Rows
 // of D elements must be whole 16-byte vectors (at most 32 of them) and
-// every pointer 16-byte aligned (the wrapper checks).  The chain is swept
-// in `splits` runs of `bps` table entries (splits * bps >= nb); with
-// splits > 1, acc (splits, B, Hq, D), m, l (splits, B, Hq) float32 are the
-// scratch the combine launch reads.  Returns cudaGetLastError() after the
-// last launch.
+// every pointer 16-byte aligned (the wrapper checks).  Returns
+// cudaGetLastError() after the last launch.
 extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
                                  const void* tables, const void* lens,
                                  const void* k1, const void* v1, void* out,
@@ -351,40 +374,44 @@ extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
                                  int n_rep, int D, int win, int splits,
                                  int bps, int dtype, void* stream) {
   if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype) ||
-      splits <= 0 || splits > 65535 || bps <= 0 ||
-      (long long)splits * bps < nb || (long long)(splits - 1) * bps >= nb ||
-      (splits > 1 && (acc == nullptr || m == nullptr || l == nullptr)))
+      !plan_ok(nb, splits, bps, acc, m, l))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int P = bps * bs;
   if (dtype == 0)
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out,
-                                   nullptr, acc, m, l, B, num_blocks, bs, nb,
-                                   Hkv, n_rep, D, win, splits, P, s);
-  return (int)attn_launch<__nv_bfloat16>(q, ka, va, tables, lens, k1, v1,
-                                         out, nullptr, acc, m, l, B,
-                                         num_blocks, bs, nb, Hkv, n_rep, D,
-                                         win, splits, P, s);
+                                   nullptr, acc, m, l, nullptr, nullptr,
+                                   nullptr, B, num_blocks, bs, nb, Hkv, n_rep,
+                                   D, win, splits, P, s);
+  return (int)attn_launch<__nv_bfloat16>(
+      q, ka, va, tables, lens, k1, v1, out, nullptr, acc, m, l, nullptr,
+      nullptr, nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P,
+      s);
 }
 
-// The suffix pass of the cascade: as paged_attn_launch with one split, with
-// q0 (B,) int32 and the float32 state acc (B, Hq, D), m, l (B, Hq) in place
-// of out.
+// The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32
+// and the float32 state acc_out (B, Hq, D), m_out, l_out (B, Hq) in place
+// of out; acc, m, l the scratch of a split plan.
 extern "C" int paged_attn_state_launch(
     const void* q, const void* ka, const void* va, const void* tables,
     const void* lens, const void* q0s, const void* k1, const void* v1,
-    void* acc_out, void* m_out, void* l_out, int B, int num_blocks, int bs,
-    int nb, int Hkv, int n_rep, int D, int win, int dtype, void* stream) {
-  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype))
+    void* acc_out, void* m_out, void* l_out, void* acc, void* m, void* l,
+    int B, int num_blocks, int bs, int nb, int Hkv, int n_rep, int D,
+    int win, int splits, int bps, int dtype, void* stream) {
+  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype) ||
+      !plan_ok(nb, splits, bps, acc, m, l) || acc_out == nullptr ||
+      m_out == nullptr || l_out == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int P = bps * bs;
   if (dtype == 0)
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, nullptr,
-                                   q0s, acc_out, m_out, l_out, B, num_blocks,
-                                   bs, nb, Hkv, n_rep, D, win, 1, nb * bs, s);
+                                   q0s, acc, m, l, acc_out, m_out, l_out, B,
+                                   num_blocks, bs, nb, Hkv, n_rep, D, win,
+                                   splits, P, s);
   return (int)attn_launch<__nv_bfloat16>(
-      q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc_out, m_out, l_out,
-      B, num_blocks, bs, nb, Hkv, n_rep, D, win, 1, nb * bs, s);
+      q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc, m, l, acc_out,
+      m_out, l_out, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P, s);
 }
 
 // Shared-memory bytes paged_attn_launch asks for at these sizes (the wrapper

@@ -29,13 +29,12 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.paged_attn import (DTYPES, MAX_SMEM_BYTES, _check,
-                                            _ptrs, _raise_on, _scratch,
-                                            _window)
+from repro_torch.kernels.paged_attn import (DTYPES, MAX_SMEM_BYTES, MIN_CTAS,
+                                            _check, _ptrs, _raise_on,
+                                            _scratch, _window)
 
 MAX_D = 128
 TILE_K = 64                # keys per tile of the kernel
-MIN_CTAS = 2 * 132         # two CTAs per SM of the H100
 
 
 def tile_q(Sq: int) -> int:

@@ -21,6 +21,13 @@ Each replaces the TPU kernel of the same name in
   chain, each chain row read once per group of lanes;
 - ``merge_attn_states``: the log-sum-exp merge of two states, normalized.
 
+The two cascade passes split their sweep across CTAs by
+:func:`cascade_split_plan` (runs of whole blocks until the grid fills the
+card, a function of the shapes alone, so neither wrapper reads
+``group_len``, ``lane_lens`` or ``lens`` on the host); with more than one
+split each CTA writes a float32 partial state and a second launch merges
+the splits in order into the state itself, normalizing nothing.
+
 All are bound by bytes on the H100 (see the sources for the design).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
@@ -37,6 +44,7 @@ from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 227 * 1024        # per-block shared memory on the H100
+MIN_CTAS = 2 * 132                 # two CTAs per SM of the H100
 
 
 @functools.cache
@@ -47,7 +55,7 @@ def _lib():
     lib.paged_attn_launch.restype = i
     lib.paged_attn_smem_bytes.argtypes = [i] * 3
     lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
-    lib.paged_attn_state_launch.argtypes = [p] * 11 + [i] * 9 + [p]
+    lib.paged_attn_state_launch.argtypes = [p] * 14 + [i] * 11 + [p]
     lib.paged_attn_state_launch.restype = i
     lib.scatter_rows_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.scatter_rows_launch.restype = i
@@ -58,9 +66,9 @@ def _lib():
 def _cascade_lib():
     lib = build.load("cascade_attn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cascade_prefix_launch.argtypes = [p] * 9 + [i] * 10 + [p]
+    lib.cascade_prefix_launch.argtypes = [p] * 12 + [i] * 12 + [p]
     lib.cascade_prefix_launch.restype = i
-    lib.cascade_prefix_smem_bytes.argtypes = [i] * 5
+    lib.cascade_prefix_smem_bytes.argtypes = [i] * 4
     lib.cascade_prefix_smem_bytes.restype = ctypes.c_longlong
     lib.merge_states_launch.argtypes = [p] * 7 + [ctypes.c_longlong, i, p]
     lib.merge_states_launch.restype = i
@@ -181,6 +189,39 @@ def paged_split_plan(nb: int, bs: int) -> tuple[int, int]:
     return -(-nb // bps), bps
 
 
+# a cascade split holds at least two of the kernels' 64-position ring
+# chunks: a run of one saves less than the combine launch it adds (H100)
+MIN_SPLIT_POSITIONS = 128
+
+
+def cascade_split_plan(rows: int, Hkv: int, nb: int, bs: int
+                       ) -> tuple[int, int]:
+    """(splits, blocks per split bps) of the cascade's two passes:
+    ``cascade_prefix_attention`` (rows = G groups, nb = npre chain
+    entries) and ``paged_decode_attention_with_state`` (rows = B lanes, nb
+    suffix table entries).  Split z sweeps table entries ``[z * bps, (z +
+    1) * bps)``, whole blocks of at least ``MIN_SPLIT_POSITIONS``
+    positions (or the whole table), and the splits cover the ``nb``
+    entries exactly once; they are the fewest that bring ``rows * Hkv *
+    splits`` CTAs up to ``MIN_CTAS``.  A function of the shapes alone: the
+    wrappers never read ``group_len``, ``lane_lens`` or ``lens`` on the
+    host, and a split that holds no attended position writes the empty
+    state."""
+    ctas = rows * Hkv
+    want = -(-MIN_CTAS // ctas) if ctas < MIN_CTAS else 1
+    bps = max(1, min(nb, max(-(-nb // want),
+                             -(-MIN_SPLIT_POSITIONS // bs))))
+    return -(-nb // bps), bps
+
+
+# values of cascade_split_plan's module constants that force a plan of the
+# cascade passes, for checks that patch them (``mock.patch.object``): one
+# split, as planned, and one block per split
+CASCADE_FORCED_PLANS = {"one split": {"MIN_CTAS": 0}, "planned": {},
+                        "one block": {"MIN_CTAS": 1 << 30,
+                                      "MIN_SPLIT_POSITIONS": 1}}
+
+
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
                            v_arena: torch.Tensor, tables: torch.Tensor,
                            lens: torch.Tensor, *, window: int | None = None,
@@ -248,11 +289,17 @@ def paged_decode_attention_with_state(
     l = torch.empty_like(m)
     if B == 0:
         return acc, m, l
+    splits, bps = cascade_split_plan(B, args[4], args[3], args[2])
+    if splits > 65535:
+        raise ValueError(f"{name}: {splits} splits are too many for one "
+                         "launch")
+    _buf, sacc, sm, sl = _scratch(splits, B * Hq, D, q.device)
     k1, v1 = new_kv if new_kv is not None else (None, None)
     with torch.cuda.device(q.device):
         err = _lib().paged_attn_state_launch(
             *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1, acc, m, l),
-            *args, torch.cuda.current_stream().cuda_stream)
+            sacc, sm, sl, *args[:8], splits, bps, args[8],
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     paged_decode_attention_with_state.launches += 1
     return acc, m, l
@@ -297,12 +344,13 @@ def cascade_prefix_attention(
                               ("lane_lens", lane_lens, torch.int32, False)):
         _check(arg, t, dev, want, vec)
     lib = _cascade_lib()
-    if lib.cascade_prefix_smem_bytes(bs, Lc, Hq // Hkv, D, DTYPES[dt]) > \
-            MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {Lc} lanes x {Hq // Hkv} queries per KV "
-                         f"head at D={D} need more shared memory than a "
-                         "block has")
-    if G > 65535 or Hkv > 65535 or \
+    # a group whose queries overflow a block is swept in tiles of queries;
+    # only a row too wide for one query's buffers is refused
+    if lib.cascade_prefix_smem_bytes(max(Lc, 1), Hq // Hkv, D,
+                                     DTYPES[dt]) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: one query at D={D} needs more shared "
+                         "memory than a block has")
+    if G > 65535 or Hkv > 65535 or npre * bs >= 1 << 30 or \
             max(qg.numel(), k_arena.numel()) >= 1 << 62:
         raise ValueError(f"{name}: too large for one launch")
     acc = torch.empty((G, Lc, Hq, D), dtype=torch.float32, device=dev)
@@ -310,11 +358,17 @@ def cascade_prefix_attention(
     l = torch.empty_like(m)
     if G == 0 or Lc == 0:
         return acc, m, l
+    splits, bps = cascade_split_plan(G, Hkv, npre, bs)
+    if splits > 65535:
+        raise ValueError(f"{name}: {splits} splits are too many for one "
+                         "launch")
+    _buf, sacc, sm, sl = _scratch(splits, G * Lc * Hq, D, dev)
     with torch.cuda.device(dev):
         err = lib.cascade_prefix_launch(
             *_ptrs(qg, k_arena, v_arena, group_tables, group_len, lane_lens,
                    acc, m, l),
-            G, num_blocks, bs, npre, Lc, Hkv, Hq // Hkv, D, win, DTYPES[dt],
+            sacc, sm, sl, G, num_blocks, bs, npre, Lc, Hkv, Hq // Hkv, D,
+            win, splits, bps, DTYPES[dt],
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     cascade_prefix_attention.launches += 1

@@ -399,3 +399,47 @@ def test_make_gateway_cascade_matches_plain_and_reference(pair):
             assert gw.batcher.adapter.last_groups == 1
     assert out["cascade"] == out["plain"] == out["reference"]
     assert sorted(out["cascade"]) == [0, 1, 2]
+
+
+N_TIGHT = 12
+
+
+@pytest.mark.parametrize("backend", ["plain", "cascade"])
+def test_batcher_under_a_tight_arena_matches_reference(pair, backend):
+    """Eviction pressure: three slots over an arena of 12 blocks of 4
+    tokens, twelve requests in pairs from five families that share prompt prefixes,
+    so finished chains stay indexed and later admissions evict them.  The
+    port's batcher equals the reference's in tokens, ``kv_blocks``,
+    prefix-hit blocks and ``pool_stats`` (evictions included)."""
+    jcfg, jparams, cfg, params = pair
+    kw = dict(block_size=BS, num_blocks=12, chunked=False)
+    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24,
+                              paged=True, backend=backend, **kw)
+    # the reference names the port's plain tick "xla"
+    jref = JPagedKVSlotAdapter(jcfg, jparams, 3, 24, backend={
+        "plain": "xla"}.get(backend, backend), **kw)
+
+    def requests(mod):
+        rng = np.random.default_rng(41)
+        bases = [rng.integers(1, cfg.vocab, 9) for _ in range(5)]
+        return [mod.Request(uid=uid, prompt=np.concatenate(
+            [bases[uid // 2 % 5][:8 + uid % 2],
+             rng.integers(1, cfg.vocab, uid % 3)]).astype(np.int32),
+            max_new_tokens=3 + uid % 2) for uid in range(N_TIGHT)]
+    tb, jb = slots.ContinuousBatcher(port), jslots.ContinuousBatcher(jref)
+    for r in requests(slots):
+        tb.submit(r)
+    for r in requests(jslots):
+        jb.submit(r)
+    done = {r.uid: r for r in tb.run()}
+    jdone = {r.uid: r for r in jb.run()}
+    assert done.keys() == jdone.keys() == set(range(N_TIGHT))
+    for uid, r in done.items():
+        j = jdone[uid]
+        assert (list(map(int, r.generated)), r.kv_blocks,
+                r.prefix_hit_blocks) == \
+            (list(map(int, j.generated)), j.kv_blocks, j.prefix_hit_blocks)
+    stats = port.pool_stats()
+    assert stats == jref.pool_stats()
+    assert stats["evictions"] > 0
+    assert sum(r.prefix_hit_blocks for r in done.values()) > 0

@@ -227,6 +227,112 @@ def test_cascade_kernels_match_plain(dev, Hq, Hkv, D, dtype, window):
                                atol=tol)
 
 
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_kernels_forced_plans(monkeypatch, dev, plan, Hq, Hkv,
+                                      dtype):
+    """``cascade_prefix_attention`` over a 19-block chain in a 20-entry
+    table (the last entry trash, so a one-block split lies past
+    ``group_len``) and ``paged_decode_attention_with_state`` over 8-entry
+    suffix tables from q0 = 304 (lens from q0 to q0 + 64, so later splits
+    hold no position of short lanes), windows 0, 100 (clipping inside the
+    chain) and 2 (most prefix states empty), at each forced plan against
+    the plain versions; empty states exactly; the NaN trash block bitwise;
+    one launch per call and no host synchronization."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    gen = torch.Generator().manual_seed(Hq * 7 + Hkv)
+    bs, npre, nsuf, D, q0 = 16, 20, 8, 80, 304
+    Lc, B = 4, 5
+    num_blocks = npre + B * nsuf + 1
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ka, va = arr(num_blocks, bs, Hkv, D), arr(num_blocks, bs, Hkv, D)
+    perm = (torch.randperm(num_blocks - 1, generator=gen) + 1).to(dev)
+    gt = perm[:npre].to(torch.int32)[None].contiguous()
+    gt[0, -1] = 0
+    suf = torch.tensor([0, 1, 17, 40, 64], **i32)
+    lens = q0 + suf
+    st = perm[npre:npre + B * nsuf].to(torch.int32).reshape(B, nsuf)
+    st[torch.arange(nsuf, device=dev)[None] * bs >= suf[:, None]] = 0
+    q, nk = arr(B, Hq, D), (arr(B, Hkv, D), arr(B, Hkv, D))
+    pre = (q[1:].contiguous()[None], ka, va, gt,
+           torch.tensor([q0], **i32), lens[1:].contiguous()[None])
+    sfx = (q, ka, va, st.contiguous(), lens)
+    q0s = torch.full((B,), q0, **i32)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for window in (0, 100, 2):
+        got = {}
+        for trash in (1e9, float("nan")):
+            ka[0], va[0] = trash, -trash
+            counts = (
+                paged_attn_kernel.cascade_prefix_attention.launches,
+                paged_attn_kernel.paged_decode_attention_with_state.launches)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got[trash == trash] = paged_attn_kernel \
+                    .cascade_prefix_attention(*pre, window=window) + \
+                    paged_attn_kernel.paged_decode_attention_with_state(
+                        *sfx, window=window, q0=q0s, new_kv=nk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert (paged_attn_kernel.cascade_prefix_attention.launches,
+                    paged_attn_kernel.paged_decode_attention_with_state
+                    .launches) == (counts[0] + 1, counts[1] + 1)
+        want = ref.cascade_prefix_attention(*pre, window) + \
+            ref.paged_decode_attention_with_state(*sfx, window, q0s, nk)
+        for g, w in zip(got[True], want):
+            assert g.dtype == torch.float32 and not torch.isnan(g).any()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))
+        for acc, m, l in (got[True][:3], got[True][3:]):
+            empty = m == ref.NEG_INF
+            assert bool((l[empty] == 0).all() and (acc[empty] == 0).all())
+        # lane 0's suffix is empty at every window
+        assert bool((got[True][4][0] == ref.NEG_INF).all())
+        if window == 2:           # lanes 2-4 attend no prefix position
+            assert bool((got[True][1][0, 1:] == ref.NEG_INF).all())
+
+
+@pytest.mark.parametrize("Lc,Hq,Hkv,D", [(64, 32, 32, 80), (16, 64, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_prefix_kernel_large_groups(dev, Lc, Hq, Hkv, D, dtype):
+    """Groups whose queries overflow one CTA's shared memory, swept in
+    tiles of queries: 64 stablelm-3b lanes (MHA, D = 80) and 16 lanes at
+    GQA 8:1 and D = 128, over a 128-position chain ending 5 short of its
+    last block, lanes ending up to 63 positions past it, windows 0 and 100,
+    against the plain version; one launch per call."""
+    gen = torch.Generator().manual_seed(Lc + D)
+    bs = 16
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ka, va = arr(9, bs, Hkv, D), arr(9, bs, Hkv, D)
+    gt = torch.arange(1, 9, **i32)[None]
+    glen = torch.tensor([8 * bs - 5], **i32)
+    ll = (glen.cpu() + torch.randint(0, 64, (1, Lc), generator=gen,
+                                     dtype=torch.int32)).to(dev)
+    pre = (arr(1, Lc, Hq, D), ka, va, gt, glen, ll)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    lib = paged_attn_kernel._cascade_lib()
+    assert lib.cascade_prefix_smem_bytes(Lc, Hq // Hkv, D,
+                                         paged_attn_kernel.DTYPES[dtype]) \
+        <= paged_attn_kernel.MAX_SMEM_BYTES
+    for window in (0, 100):
+        n = paged_attn_kernel.cascade_prefix_attention.launches
+        got = paged_attn_kernel.cascade_prefix_attention(*pre, window=window)
+        assert paged_attn_kernel.cascade_prefix_attention.launches == n + 1
+        want = ref.cascade_prefix_attention(*pre, window)
+        for g, w in zip(got, want):
+            assert not torch.isnan(g).any()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
 def test_merge_attn_states_kernel(dev):
     gen = torch.Generator().manual_seed(3)
     B, Hq, D = 8, 32, 80

@@ -1,15 +1,19 @@
 """The split designs of the ``flash_attention`` and ``paged_decode_attention``
-kernels, on the CPU: their split planners (plain Python functions of the
-shapes) cover the key band or the chain exactly once, the paged splits fall
-on block boundaries, and a fold's chunk j launches the same plan cold and
-resumed; a plain emulation of split + combine (each split's state from
-``ref.softmax_state``, merged in split order by
-``ref.merge_softmax_states``, then normalized) equals the unsplit plain
-version within 1e-6 in float32, and the reference's Pallas kernels in
-interpret mode (2e-5 float32, 2e-2 bfloat16, their own tolerances),
-including splits in which some rows' keys are all masked and the first-tile
-quirk.  The kernels themselves are held against the plain versions with
-forced splits on the card (``tests/test_torch_cuda.py``,
+kernels, and of the cascade's two passes (``cascade_prefix_attention``,
+``paged_decode_attention_with_state``), on the CPU: their split planners
+(plain Python functions of the shapes) cover the key band or the chain
+exactly once, the paged and cascade splits fall on block boundaries, and a
+fold's chunk j launches the same plan cold and resumed; a plain emulation
+of split + combine (each split's state from ``ref.softmax_state`` or from
+the plain pass over the split's run of blocks, merged in split order by
+``ref.merge_softmax_states`` then normalized, or by the kernels' state
+combine) equals the unsplit plain version within 1e-6 in float32, and the
+reference's Pallas kernels in interpret mode (2e-5 float32, 2e-2
+bfloat16, their own tolerances; the cascade passes 2e-6), including splits
+in which some rows' keys are all masked, a split past ``group_len``, and
+the first-tile quirk; a state combine of all-empty splits is exactly the
+empty state.  The kernels themselves are held against the plain versions
+with forced splits on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 from unittest import mock
 
@@ -23,6 +27,7 @@ from repro.kernels import paged_attn as jpaged
 from repro.nn import attention as jattn
 from repro_torch.kernels import flash_attn, paged_attn, ref
 from repro_torch.nn import attention
+from test_torch_cascade import TOL, _fixture
 from test_torch_chunked import BS, _empty, _fold
 from test_torch_lm import smoke_pair
 
@@ -360,3 +365,172 @@ def test_paged_split_emulation_matches_pallas_kernel(B, nb, bs, Hq, Hkv, D,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
+
+
+# -- the cascade's split plan and state combine ---------------------------------
+
+def forced_cascade_plan(rows, Hkv, nb, bs, bps):
+    """``cascade_split_plan`` at its own constants (``bps`` None) or forced
+    to runs of ``bps`` blocks through them, as the card checks force it."""
+    if bps is None:
+        return paged_attn.cascade_split_plan(rows, Hkv, nb, bs)
+    with mock.patch.object(paged_attn, "MIN_CTAS", 1 << 30), \
+            mock.patch.object(paged_attn, "MIN_SPLIT_POSITIONS", bps * bs):
+        return paged_attn.cascade_split_plan(rows, Hkv, nb, bs)
+
+
+# (rows, Hkv, nb, bs, forced blocks per split): load (c)'s prefix pass and
+# its suffix pass, the smoke fixture's group and suffix tables, a chain
+# that does not divide evenly, one block per split
+CASCADE_PLANS = [(1, 32, 64, 16, None), (8, 32, 8, 16, None),
+                 (1, 2, 4, 4, None), (4, 4, 4, 4, None), (2, 8, 37, 16, None),
+                 (1, 8, 37, 16, 5), (1, 2, 4, 4, 1), (3, 1, 9, 8, 2)]
+
+
+@pytest.mark.parametrize("rows,Hkv,nb,bs,bps", CASCADE_PLANS)
+def test_cascade_split_plan_covers_the_chain_on_block_boundaries(
+        rows, Hkv, nb, bs, bps):
+    splits, per = forced_cascade_plan(rows, Hkv, nb, bs, bps)
+    if bps is not None:
+        assert per == min(bps, nb)
+    entries = np.zeros(splits * per, np.int64)
+    for z in range(splits):
+        entries[z * per:(z + 1) * per] += 1      # whole table entries
+    assert (entries[:nb] == 1).all() and (splits - 1) * per < nb
+    # the fewest splits that fill the card, each of two ring chunks or
+    # the whole table
+    if bps is None:
+        assert per * bs >= paged_attn.MIN_SPLIT_POSITIONS or per == nb
+        assert splits == 1 or \
+            rows * Hkv * (splits - 1) < paged_attn.MIN_CTAS
+    # a function of the shapes: lens and group_len never enter it
+    assert forced_cascade_plan(rows, Hkv, nb, bs, bps) == (splits, per)
+
+
+def test_cascade_split_plan_at_load_c():
+    """Load (c)'s last tick: the prefix pass over 64 blocks in 8 runs of 8
+    (256 CTAs), the suffix pass over 8-entry tables in one run (a split of
+    one 64-position chunk measured slower than none on the card)."""
+    assert paged_attn.cascade_split_plan(1, 32, 64, 16) == (8, 8)
+    assert paged_attn.cascade_split_plan(8, 32, 8, 16) == (1, 8)
+    with mock.patch.object(paged_attn, "MIN_CTAS", 0):
+        assert paged_attn.cascade_split_plan(1, 32, 64, 16) == (1, 64)
+
+
+def state_combine_emulation(states):
+    """The kernels' state combine (``attn::combine_states``, state
+    epilogue) in plain PyTorch: M = max of m, then l and acc weighted by
+    exp(m_s - M), summed in split order."""
+    M = states[0][1]
+    for _, m, _ in states[1:]:
+        M = torch.maximum(M, m)
+    acc = torch.zeros_like(states[0][0])
+    l = torch.zeros_like(states[0][2])
+    for a, m, ls in states:
+        w = torch.exp(m - M)
+        acc = acc + w[..., None] * a
+        l = l + w * ls
+    return acc, M, l
+
+
+def test_state_combine_of_empty_splits_is_the_empty_state_exactly():
+    empty = (torch.zeros((2, 3, 8)), torch.full((2, 3), ref.NEG_INF),
+             torch.zeros((2, 3)))
+    for n in (1, 2, 8):
+        acc, m, l = state_combine_emulation([empty] * n)
+        assert torch.equal(acc, empty[0]) and torch.equal(l, empty[2])
+        assert torch.equal(m, empty[1])
+    # an empty split drops out of a real one exactly
+    rng = np.random.default_rng(0)
+    real = (torch.from_numpy(rng.normal(size=(2, 3, 8)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(1, 2, (2, 3)).astype(np.float32)))
+    for states in ([empty, real], [real, empty, empty]):
+        for g, w in zip(state_combine_emulation(states), real):
+            assert torch.equal(g, w)
+
+
+def prefix_split_emulation(qg, ka, va, gt, glen, ll, window, plan):
+    """Split z of the prefix pass is the plain pass over table entries
+    ``[z * bps, (z + 1) * bps)``, its positions shifted by the run's first
+    (``group_len`` and ``lane_lens`` shifted alike); the splits' states
+    merged by the state combine."""
+    splits, bps = plan
+    bs = ka.shape[1]
+    states = []
+    for z in range(splits):
+        off = z * bps * bs
+        states.append(ref.cascade_prefix_attention(
+            qg, ka, va, gt[:, z * bps:(z + 1) * bps].contiguous(),
+            glen - off, ll - off, window))
+    return state_combine_emulation(states)
+
+
+def suffix_split_emulation(q, ka, va, tables, lens, window, q0, new_kv,
+                           plan):
+    """Split z of the suffix pass is the plain sweep over table entries
+    ``[z * bps, (z + 1) * bps)`` from ``q0 + z * bps * bs``."""
+    splits, bps = plan
+    bs = ka.shape[1]
+    states = [ref.paged_decode_attention_with_state(
+        q, ka, va, tables[:, z * bps:(z + 1) * bps].contiguous(), lens,
+        window, q0 + z * bps * bs, new_kv) for z in range(splits)]
+    return state_combine_emulation(states)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("window", [0, 8, 2])
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4)])
+@pytest.mark.parametrize("bps", [1, 2, None])
+def test_prefix_split_emulation_matches_unsplit_and_pallas(window, heads,
+                                                          bps):
+    """``tests/test_cascade.py``'s fixture: a 3-block chain in a 4-entry
+    table whose last entry is trash, so at one block per split the last
+    split lies wholly past ``group_len``; window 2 leaves every lane's
+    prefix empty, window 8 clips lane 1's."""
+    q, ka, va, _, cl, _, meta = _fixture(seed=1, Hq=heads[0], Hkv=heads[1])
+    lanes = meta["group_lanes"]
+    args = (q[:, 0][lanes], ka, va, meta["group_tables"], meta["group_len"],
+            cl[lanes])
+    plan = forced_cascade_plan(1, heads[1], 4, ka.shape[1], bps)
+    got = prefix_split_emulation(*map(_t, args), window, plan)
+    want = ref.cascade_prefix_attention(*map(_t, args), window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    pallas = jpaged.cascade_prefix_attention(
+        *map(jnp.asarray, args), window=window, interpret=True)
+    for g, w in zip(got, pallas):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("window", [0, 8, 2])
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4)])
+@pytest.mark.parametrize("splice", [False, True])
+@pytest.mark.parametrize("bps", [1, 3])
+def test_suffix_split_emulation_matches_unsplit_and_pallas(window, heads,
+                                                          splice, bps):
+    """The fixture's suffix tables from ``q0`` (12 for the grouped lanes,
+    0 for lane 3), the new row spliced in or not; later splits hold no
+    position of the short lanes."""
+    q, ka, va, _, cl, nk, meta = _fixture(Hq=heads[0], Hkv=heads[1])
+    st, q0 = meta["suffix_tables"], meta["lane_q0"]
+    args = (q[:, 0], ka, va, st, cl)
+    plan = forced_cascade_plan(4, heads[1], st.shape[1], ka.shape[1], bps)
+    assert plan[0] > 1
+    tnk = tuple(map(_t, nk)) if splice else None
+    got = suffix_split_emulation(*map(_t, args), window, _t(q0), tnk, plan)
+    want = ref.paged_decode_attention_with_state(*map(_t, args), window,
+                                                 _t(q0), tnk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    pallas = jpaged.paged_decode_attention_with_state(
+        *map(jnp.asarray, args), window=window, q0=jnp.asarray(q0),
+        new_kv=tuple(map(jnp.asarray, nk)) if splice else None,
+        interpret=True)
+    for g, w in zip(got, pallas):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL)
