@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --sc-compare <parent checkout>
+                                   # the SC kernels' timing, parent and
+                                   # this checkout in turns (P C C P)
 
 Phases, each printing one JSON line:
 
@@ -12,9 +15,19 @@ Phases, each printing one JSON line:
      tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
      in the attention libraries (``cuobjdump -sass``; the run fails
      without HMMA and LDGSTS in ``flash_attention`` and LDGSTS in
-     ``paged_decode_attention`` and ``cascade_prefix_attention``);
+     ``paged_decode_attention`` and ``cascade_prefix_attention``); the SC
+     kernels' POPC, LDGSTS and BMMA (b1 tensor-core) counts and every SC
+     function's ``ptxas`` stack frame (the run fails unless all are 0
+     bytes, or without POPC, LDGSTS and BMMA in ``sc_dot``);
   3. each kernel held against its plain PyTorch version on the same CUDA
-     tensors — the SC kernels and ``scatter_kv_rows`` bit for bit, the
+     tensors — the SC kernels and ``scatter_kv_rows`` bit for bit (the SC
+     kernels over every precision, LFSR codes, levels outside [0, N],
+     unaligned levels, K from 1 to 1,024, O from 1 to 200, Wd 1 to 8,
+     paired leaves at N <= 16, both routes at N = 256 and the two weight
+     banks as one operand), then timed at the frame path's shapes (bits 4 and 8, O = 64
+     and 16, K = 25 and 32; ms, back-to-back ms, the host's issue µs, the
+     bound, against the b1 tensor cores' rate measured on its own line, and
+     the popcount bound and the first port's bound beside it), the
      attention kernels (``paged_decode_attention`` and the cascade's
      ``paged_decode_attention_with_state``, ``cascade_prefix_attention``
      and ``merge_attn_states``) within 2e-5 (float32) / 2e-2 (bfloat16),
@@ -44,7 +57,10 @@ Phases, each printing one JSON line:
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
      each run, one batch's payload held byte for byte against the plain path
-     on the card and on the CPU, and its logits within 1e-4;
+     on the card and on the CPU, and its logits within 1e-4; the SC
+     launches of one bucket-32 sensor stage and a ``torch.profiler``
+     window over ten of them (device busy ms, idle share, device ms by
+     kernel, device operations per stage);
   5. the prompt path: ``make_gateway`` serving stablelm-3b at its published
      width and depth (bf16, random weights from a seeded generator) over
      paged KV slots with one-shot prefill (``chunked=False``), on (a) the
@@ -1877,13 +1893,372 @@ def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
     return {name: nb[name] + nc[name] for name in wrappers}
 
 
+# -- the SC kernels (phase 3) -------------------------------------------------
+
+# bucket 32 of the full LeNet-5 conv1: windows of 5 x 5 = 25 leaves
+SC_M, SC_K = 32 * 784, 25
+# the timing's shapes: bits, O (the full LeNet-5's 2 x 32 and the gateway's
+# default FrontendSpec's 2 x 8), K (as the layer has it, and a power of two)
+SC_TIMING = [(bits, O, K) for bits in (4, 8) for O in (64, 16)
+             for K in (SC_K, 32)]
+
+
+def stack_frames(source: str) -> dict[str, int]:
+    """Bytes of stack frame ``ptxas`` reports for each function of
+    ``csrc/<source>.cu``, by mangled name."""
+    from repro_torch.kernels import build
+    log = build.library_path(source).with_suffix(".log").read_text()
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        elif fn and "bytes stack frame" in ln:
+            out[fn] = int(ln.split("bytes stack frame")[0].split()[-1])
+            fn = None
+    return out
+
+
+def b1_mma_peak(dev, sleep_cycles: int) -> dict:
+    """The card's b1 AND-POPC rate: ``csrc/sc_dot.cu``'s probe, 8 independent
+    m16n8k256 products per warp and round, no loads, 4 CTAs of 256 threads
+    per SM, CUDA events around 5 launches (median of 5)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    fn = build.load("sc_dot").sc_dot_b1_peak_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas, threads, iters = 4 * sms, 256, 4096
+    out = torch.empty(ctas * threads, dtype=torch.int32, device=dev)
+
+    def launch():
+        err = fn(out.data_ptr(), ctas, threads, iters,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"b1 peak probe failed: CUDA error {err}")
+    ms, _ = time_ms(launch, 5, 5, sleep_cycles)
+    mmas = ctas * threads // 32 * iters * 8
+    per_s = mmas / (ms * 1e-3)
+    # an m16n8k256 product: 16 x 8 x 256 ANDs and as many adds
+    return {"mma_per_s": per_s, "ms": ms, "mmas": mmas,
+            "and_popc_tops": per_s * 2 * 16 * 8 * 256 / 1e12}
+
+
+def stream_words(gen, shape, N: int):
+    """Random packed streams of ``N`` bits: words with the bits at and
+    above N zero."""
+    import torch
+    w = torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int64,
+                      device=gen.device)
+    if N < 32:
+        w &= (1 << N) - 1
+    return w.to(torch.int32)
+
+
+def sc_bounds(kernel: str, M: int, K: int, O: int, N: int, clk_sm: float,
+              mma_per_s: float | None) -> dict:
+    """The least time of the function at these shapes on this card (the
+    larger of bytes / 3.35 TB/s and operations / peak), and the first
+    port's bound beside it.  sng_pack: one table of (N + 1) x N compares,
+    then 4 bytes in and N / 8 bytes out per level (the first port counted
+    M x K x N compares).  sc_dot: each (window, output) needs a count per
+    pair of leaves at N <= 16 (the TFF tree's first level takes only the
+    pair's sum; zero leaves need none) and a count per leaf and 256 bits
+    above.  Where the b1 tensor cores' measured rate ``mma_per_s`` is
+    given, the fastest unit that makes these counts is one m16n8k256
+    AND-POPC: 16 x 8 counts of up to 256 bits each (a pair of 16-bit
+    streams fits one k256 row).  Without it the counts are ``__popc`` at
+    16 per clock per SM (``popc_bound_ms``).  The first port counted M x Kp x O x Wd popcounts."""
+    import math
+    Wd = max(1, N // 32)
+    if kernel == "sng_pack":
+        n = M * K
+        bytes_ms = (4 * n + 4 * N + 4 * n * Wd) / PEAK_BYTES_PER_S * 1e3
+        ops_ms = (N + 1) * N / (INT32_PER_CLK_SM * clk_sm) * 1e3
+        old = max(bytes_ms, n * N / (INT32_PER_CLK_SM * clk_sm) * 1e3)
+        extra = {}
+    else:
+        bytes_ms = 4 * (M * K * Wd + K * O * Wd + M * O) \
+            / PEAK_BYTES_PER_S * 1e3
+        counts = M * O * (math.ceil(K / 2) if N <= 16 else K)
+        popc_ms = M * O * (math.ceil(K / 2) if N <= 16 else K * Wd) \
+            / (POPC_PER_CLK_SM * clk_sm) * 1e3
+        ops_ms = popc_ms
+        if mma_per_s:
+            per_k = math.ceil(K / 2) if N <= 16 else K * math.ceil(N / 256)
+            ops_ms = math.ceil(M / 16) * math.ceil(O / 8) * per_k \
+                / mma_per_s * 1e3
+        kp = 1 << max(1, (K - 1).bit_length())
+        old = max(bytes_ms, M * kp * O * Wd / (POPC_PER_CLK_SM * clk_sm) * 1e3)
+        extra = {"counts": counts, "popc_bound_ms": max(bytes_ms, popc_ms)}
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "first_bound_ms": old,
+            **extra}
+
+
+def sc_timing(dev, sleep: int, clk_sm: float) -> dict:
+    """``sng_pack`` and ``sc_dot`` at the main path's shapes (``SC_TIMING``)
+    for the checkout whose ``repro_torch`` is imported (this one, or a
+    parent's under ``--sc-timing``): ms (the kernel alone), back-to-back ms,
+    the host's issue µs per call and the bounds.  The redesigned ``sc_dot``
+    is timed on both routes at N = 256; the parent's takes K = 25 through
+    ``ops.sc_dot``, which pads K to 32 first.  Both are also timed through
+    ``ops.sc_dot_posneg`` with two banks of O / 2, as the SC layer calls it
+    (the redesign takes them as one operand; the parent pads X and both
+    banks and concatenates the banks).  The popcount route at N = 256 is
+    forced by patching ``MMA_MAX_LEAVES`` to 0."""
+    import inspect
+    import torch
+    from repro_torch.core import sng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    gen = torch.Generator(device=dev).manual_seed(1)
+    redesigned = "length" in inspect.signature(sc_dot_k.sc_dot).parameters
+    peak = b1_mma_peak(dev, sleep) if redesigned else None
+    if peak:
+        emit({"b1_mma_peak": peak})
+    once = {"call": contextlib.nullcontext}
+    rows = []
+    for bits in (4, 8):
+        N = 1 << bits
+        Wd = max(1, N // 32)
+        codes = sng.codes_tensors("ramp_lowdisc", bits, dev)[0]
+        lv = torch.randint(0, N + 1, (SC_M, SC_K), generator=gen,
+                           dtype=torch.int32, device=dev)
+        fn = functools.partial(sng_pack_k.sng_pack, lv, codes, N)
+        ms, b2b = time_ms(fn, 5, 20, sleep)
+        rows.append({"kernel": "sng_pack", "bits": bits,
+                     "shape": f"levels ({SC_M}, {SC_K}), N={N}", "ms": ms,
+                     "back_to_back_ms": b2b,
+                     "issue_us": issue_us(fn, once, sleep)["call"],
+                     **sc_bounds("sng_pack", SC_M, SC_K, 0, N, clk_sm,
+                                 None)})
+        for b, O, K in SC_TIMING:
+            if b != bits:
+                continue
+            x = stream_words(gen, (SC_M, K, Wd), N)
+            w = stream_words(gen, (K, O, Wd), N)
+            if redesigned:
+                calls = {route: functools.partial(
+                    sc_dot_k.sc_dot, x, w, "alt", "tff", length=N)
+                    for route in (("mma", "popc") if Wd == 8 else ("popc",))}
+                calls["posneg"] = functools.partial(
+                    ops.sc_dot_posneg, x, w, length=N)
+            else:
+                wp = w[:, :O // 2].contiguous()
+                wn = w[:, O // 2:].contiguous()
+                calls = {("kernel" if K & (K - 1) == 0 else "ops"):
+                         functools.partial(ops.sc_dot, x, w),
+                         "posneg": functools.partial(ops.sc_dot_posneg, x,
+                                                     wp, wn)}
+            for route, fn in calls.items():
+                patch = mock.patch.object(sc_dot_k, "MMA_MAX_LEAVES", 0) \
+                    if redesigned and route == "popc" \
+                    else contextlib.nullcontext()
+                with patch:
+                    ms, b2b = time_ms(fn, 5, 20, sleep)
+                    issue = issue_us(fn, once, sleep)["call"]
+                rows.append({
+                    "kernel": "sc_dot", "bits": bits, "O": O, "K": K,
+                    "route": route, "shape": f"x ({SC_M}, {K}, {Wd}), "
+                    f"w ({K}, {O}, {Wd})", "ms": ms, "back_to_back_ms": b2b,
+                    "issue_us": issue,
+                    **sc_bounds("sc_dot", SC_M, K, O, N, clk_sm,
+                                peak and peak["mma_per_s"])})
+    return {"redesigned": redesigned, "rows": rows,
+            "b1_mma_per_s": peak and peak["mma_per_s"]}
+
+
+def sc_kernel_checks(dev, gen) -> tuple[dict, list]:
+    """``sng_pack`` and ``sc_dot`` held bit for bit against their plain
+    versions on the card: every precision N = 4..256 and lengths 5, 100;
+    the ramp, LFSR and two-LFSR codes; levels outside [0, N] (-1, N + 1,
+    the int32 extremes); levels off 16-byte alignment (the level-by-level
+    kernel); ``sc_dot`` at K = 1, 2, 3, 25, 32, 33, 64, 1,000, 1,024, O =
+    1, 16, 33, 37, 64, 200, Wd = 1 .. 8, M not a multiple of any tile, every
+    s0 mode and both adders, packed streams of N = 4, 8, 16 bits (leaves
+    paired per popcount), both routes at N = 256 (the popcounts forced by
+    patching ``MMA_MAX_LEAVES`` to 0), and the two weight banks of
+    ``ops.sc_dot_posneg``."""
+    import torch
+    from repro_torch.core import sng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    err = {"sng_pack": 0, "sc_dot": 0}
+    checks = []
+    for N in (4, 8, 16, 32, 64, 128, 256, 5, 100):
+        bits = max(2, (N - 1).bit_length())
+        for scheme in ("ramp_lowdisc", "lfsr_shared", "lfsr_pair"):
+            for codes in sng.codes_tensors(scheme, bits, dev):
+                codes = codes[:N].contiguous()
+                lv = torch.randint(-3, N + 4, (3001, 25), generator=gen,
+                                   dtype=torch.int32, device=dev)
+                lv.view(-1)[:4] = torch.tensor(
+                    [-1, N + 1, -2**31, 2**31 - 1], dtype=torch.int32)
+                for levels in (lv, lv.view(-1)[1:]):
+                    got = sng_pack_k.sng_pack(levels, codes, N)
+                    want = ref.sng_pack(levels, codes, N)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(got, want)
+                    err["sng_pack"] = max(err["sng_pack"], int(
+                        (got.long() - want.long()).abs().max()))
+                    checks.append({"kernel": "sng_pack", "N": N,
+                                   "scheme": scheme, "n": levels.numel(),
+                                   "bitwise": ok})
+    modes = ("zero", "one", "alt", "ideal")
+    cases = [(1000, K, 37, Wd, mode, None, 0)
+             for K in (2, 32, 64) for Wd in (1, 8) for mode in modes]
+    cases += [(517, K, 37, Wd, mode, None, 0) for K in (1, 3, 25, 1000)
+              for Wd in (1, 2, 3, 8) for mode in modes]
+    cases += [(300, K, 16, 1, mode, N, 0) for N in (4, 8, 16)
+              for K in (1, 3, 25, 33, 1000) for mode in modes]
+    cases += [(1001, 25, O, Wd, "alt", N, 0) for O in (1, 16, 33, 64, 200)
+              for Wd, N in ((1, 16), (5, 160), (8, 256))]
+    cases += [(129, 1024, 40, 8, "alt", None, 0), (77, 25, 40, 4, "one", 128, 0),
+              (SC_M, 32, 64, 1, "alt", None, 0),
+              (SC_M, 32, 64, 8, "alt", None, 0)]
+    # the main path's calls: two banks of O / 2, K = 25, packed streams
+    cases += [(SC_M, SC_K, O, Wd, "alt", N, O // 2) for O in (64, 16)
+              for Wd, N in ((1, 16), (8, 256))]
+    for M, K, O, Wd, mode, N, split in cases:
+        x = stream_words(gen, (M, K, Wd), N or 32)
+        w = stream_words(gen, (K, O, Wd), N or 32)
+        s0, adder = ("alt", "ideal") if mode == "ideal" else (mode, "tff")
+        want = ref.sc_dot(x, w, s0, adder)
+        for mma in ((True, False) if Wd == 8 else (True,)):
+            patch = contextlib.nullcontext() if mma else \
+                mock.patch.object(sc_dot_k, "MMA_MAX_LEAVES", 0)
+            with patch:
+                if split:
+                    got = torch.cat(ops.sc_dot_posneg(
+                        x, w, s0_mode=s0, adder=adder, length=N), dim=1)
+                else:
+                    got = sc_dot_k.sc_dot(x, w, s0, adder, length=N)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            err["sc_dot"] = max(err["sc_dot"], int((got - want).abs().max()))
+            checks.append({"kernel": "sc_dot", "M": M, "K": K, "O": O,
+                           "Wd": Wd, "mode": mode, "length": N,
+                           "banks": 2 if split else 1,
+                           "route": "mma" if mma and Wd == 8 else "popc",
+                           "bitwise": ok})
+    return err, checks
+
+
+def profile_stages(stage, n: int) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``stage`` (a frame-path stage,
+    ending in a synchronize): device busy ms per stage, the idle share of
+    the stage's host time (timed without the profiler), device ms by kernel
+    and the device operations (kernels, copies) per stage."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    stage_ms = host_ms(stage, reps=n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            stage()
+        torch.cuda.synchronize()
+    dev_us = kernel_us(prof, n)
+    ops = sum(1 for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and
+              not getattr(ev, "is_user_annotation", False)) / n
+    busy = sum(dev_us.values()) / 1e3
+    return {"stage_ms": stage_ms,
+            "device_busy_ms_per_stage": busy if dev_us else None,
+            "device_idle_share": max(0.0, 1 - busy / stage_ms)
+            if dev_us else None,
+            "device_ops_per_stage": ops,
+            "device_ms_by_kernel": {
+                k[:80]: v / 1e3 for k, v in
+                sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]}}
+
+
+def sc_timing_main(root: Path) -> int:
+    """``--sc-timing <checkout>``: phase 3's SC timing for the checkout at
+    ``root`` (its kernels built from its own sources), one JSON line."""
+    import torch
+    from repro_torch.kernels import build
+    build.build_all(("sng_pack", "sc_dot"))
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda")
+    sc = sc_timing(dev, int(0.05 * clock_mhz * 1e6), clock_mhz * 1e6 * sms)
+    emit({"sc_timing": str(root), "gpu": nvidia_smi("name,power.limit"),
+          "frame_stage_bucket32": frame_stage_profiles(dev), **sc})
+    return 0
+
+
+def frame_stage_profiles(dev) -> dict:
+    """The bucket-32 sensor stage of the full LeNet-5 SC frame path at bits
+    4 and 8 (random weights from seed 0, random frames): host ms and
+    :func:`profile_stages`."""
+    import torch
+    from repro_torch.models import lenet
+    from repro_torch.serve.gateway import frontend as fe
+    cfg = lenet.LeNetConfig()
+    params = lenet.init(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    frames = torch.randint(0, 256, (32, 28, 28, 1), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    out = {}
+    for bits in (4, 8):
+        spec = fe.FrontendSpec(mode="sc", bits=bits, lenet=cfg)
+        out[f"bits{bits}"] = profile_stages(
+            lambda: fe.sensor_stage(params, frames, spec), 10)
+    return out
+
+
+def sc_compare(parent: Path) -> int:
+    """``--sc-compare <parent checkout>``: the SC timing of the parent and of
+    this checkout in turns (parent, change, change, parent), each in its own
+    process, then each row's ms side by side."""
+    runs = []
+    for label, root in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--sc-timing",
+             str(root)], capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            print(proc.stdout[-4000:])
+            return proc.returncode
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **out}), flush=True)
+        runs.append((label, out))
+    table = {}
+    for label, out in runs:
+        for row in out["rows"]:
+            key = " ".join(str(row.get(k, "")) for k in
+                           ("kernel", "bits", "O", "K", "route"))
+            table.setdefault(key, []).append(
+                (label, row["ms"], row["issue_us"]))
+        for bits, prof in out["frame_stage_bucket32"].items():
+            table.setdefault(f"sensor_stage {bits}", []).append(
+                (label, prof["stage_ms"], prof["device_busy_ms_per_stage"],
+                 prof["device_ops_per_stage"]))
+    emit({"sc_compare": table})
+    return 0
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--sc-compare"]:
+        return sc_compare(Path(args[1]).resolve())
+    if args[:1] == ["--sc-timing"]:
+        sys.path.insert(0, str(Path(args[1]).resolve() / "src"))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
+    if args[:1] == ["--sc-timing"]:
+        return sc_timing_main(Path(args[1]).resolve())
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -1938,85 +2313,55 @@ def main() -> int:
             and sass["cascade_attn"]["LDGSTS"]):
         raise SystemExit(f"the attention kernels lack tensor-core or "
                          f"asynchronous-copy instructions: {sass}")
+    # the SC kernels: popcounts, cp.async, b1 tensor-core products (BMMA),
+    # and every function's stack frame, which must be 0 bytes: the TFF tree
+    # and the stream table live in registers and shared memory
+    sc_sass = {"sc_dot": sass_counts("sc_dot", ("POPC", "LDGSTS", "BMMA")),
+               "sng_pack": sass_counts("sng_pack", ("VOTE", "POPC"))}
+    frames = {name: stack_frames(name) for name in ("sc_dot", "sng_pack")}
+    framed = {fn: b for f in frames.values() for fn, b in f.items() if b}
+    emit({"sc_sass": sc_sass,
+          "stack_frames": {name: {"functions": len(f),
+                                  "bytes": sorted(set(f.values()))}
+                           for name, f in frames.items()},
+          "ptxas": {name: ptxas_of(name, "_kernel") for name in frames}})
+    if not (sc_sass["sc_dot"]["POPC"] and sc_sass["sc_dot"]["LDGSTS"] and
+            sc_sass["sc_dot"]["BMMA"]):
+        raise SystemExit(f"sc_dot lacks its instructions: {sc_sass}")
+    if not all(frames.values()) or framed:
+        raise SystemExit(f"an SC kernel keeps a stack frame: {framed}")
 
     # -- 3. each kernel against its plain version ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def words(*shape):
-        return torch.randint(-2**31, 2**31, shape, generator=gen,
-                             dtype=torch.int64, device=dev).to(torch.int32)
-
-    err = {name: 0 for name in sc_kernels}
-    checks = []
-    for N in (4, 16, 32, 256):
-        bits = N.bit_length() - 1
-        lv = torch.randint(0, N + 1, (3001, 25), generator=gen,
-                           dtype=torch.int32, device=dev)
-        for codes in sng.codes_tensors("ramp_lowdisc", bits, dev):
-            got = sng_pack_k.sng_pack(lv, codes, N)
-            want = ref.sng_pack(lv, codes, N)
-            torch.cuda.synchronize()
-            ok = torch.equal(got, want)
-            err["sng_pack"] = max(err["sng_pack"], int(
-                (got.long() - want.long()).abs().max()))
-            checks.append({"kernel": "sng_pack", "N": N, "bitwise": ok})
-    sc_cases = [(1000, K, 37, Wd, mode)
-                for K in (2, 32, 64) for Wd in (1, 8)
-                for mode in ("zero", "one", "alt", "ideal")]
-    sc_cases += [(129, 1024, 40, 8, "alt"), (25088, 32, 64, 1, "alt"),
-                 (25088, 32, 64, 8, "alt")]
-    for M, K, O, Wd, mode in sc_cases:
-        x, w = words(M, K, Wd), words(K, O, Wd)
-        s0, adder = ("alt", "ideal") if mode == "ideal" else (mode, "tff")
-        got = sc_dot_k.sc_dot(x, w, s0, adder)
-        want = ref.sc_dot(x, w, s0, adder)
-        torch.cuda.synchronize()
-        ok = torch.equal(got, want)
-        err["sc_dot"] = max(err["sc_dot"], int((got - want).abs().max()))
-        checks.append({"kernel": "sc_dot", "M": M, "K": K, "O": O, "Wd": Wd,
-                       "mode": mode, "bitwise": ok})
+    err, checks = sc_kernel_checks(dev, gen)
     bad = [c for c in checks if not c["bitwise"]]
-
-    # timing at the main path's shapes: bucket 32 of the full LeNet-5 conv1
-    M, K, Kp, O = 32 * 784, 25, 32, 2 * 32
     sleep = int(0.05 * clock_mhz * 1e6)     # 50 ms of the SM clock
-    timing = {}
+    sc = sc_timing(dev, sleep, clk_sm)
+    # the plain versions at the main path's shapes (K = 25, two banks of 32)
+    plain = {}
     for bits in (4, 8):
         N = 1 << bits
         Wd = max(1, N // 32)
-        lv = torch.randint(0, N + 1, (M, K), generator=gen, dtype=torch.int32,
-                           device=dev)
+        lv = torch.randint(0, N + 1, (SC_M, SC_K), generator=gen,
+                           dtype=torch.int32, device=dev)
         codes = sng.codes_tensors("ramp_lowdisc", bits, dev)[0]
-        x, w = words(M, Kp, Wd), words(Kp, O, Wd)
-        n_lv = M * K
-        sng_ms, sng_b2b = time_ms(lambda: sng_pack_k.sng_pack(lv, codes, N),
-                                  5, 20, sleep)
-        dot_ms, dot_b2b = time_ms(lambda: sc_dot_k.sc_dot(x, w, "alt", "tff"),
-                                  5, 20, sleep)
-        timing[("sng_pack", bits)] = {
-            "shape": f"levels ({M}, {K}), N={N}",
-            "ms": sng_ms, "back_to_back_ms": sng_b2b,
-            "plain_ms": time_ms(lambda: ref.sng_pack(lv, codes, N), 3, 2,
-                                sleep)[0],
-            "bytes_ms": (4 * n_lv + 4 * N + 4 * n_lv * Wd)
-            / PEAK_BYTES_PER_S * 1e3,
-            "ops_ms": n_lv * N / (INT32_PER_CLK_SM * clk_sm) * 1e3}
-        timing[("sc_dot", bits)] = {
-            "shape": f"x ({M}, {Kp}, {Wd}), w ({Kp}, {O}, {Wd})",
-            "ms": dot_ms, "back_to_back_ms": dot_b2b,
-            "plain_ms": time_ms(lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1,
-                                sleep)[0],
-            "bytes_ms": 4 * (M * Kp * Wd + Kp * O * Wd + M * O)
-            / PEAK_BYTES_PER_S * 1e3,
-            "ops_ms": M * Kp * O * Wd / (POPC_PER_CLK_SM * clk_sm) * 1e3}
-    for t in timing.values():
-        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
-            "operations"
+        x = stream_words(gen, (SC_M, SC_K, Wd), N)
+        w = stream_words(gen, (SC_K, 64, Wd), N)
+        plain[("sng_pack", bits)] = time_ms(
+            lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep)[0]
+        plain[("sc_dot", bits)] = time_ms(
+            lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep)[0]
+    # the path's own rows: bits 4, the full LeNet-5's O = 64, K = 25, the
+    # kernel as the SC layer calls it (two banks)
+    timing = {(row["kernel"], row["bits"]):
+              dict(row, plain_ms=plain[(row["kernel"], row["bits"])])
+              for row in sc["rows"] if row["kernel"] == "sng_pack" or (
+                  row["O"] == 64 and row["K"] == SC_K and
+                  row["route"] == "posneg")}
     emit({"phase": "kernel_checks", "checks": len(checks), "failed": bad,
-          "max_abs_err": err,
-          "timing": [{"kernel": k, "bits": b, **v}
-                     for (k, b), v in timing.items()]})
+          "max_abs_err": err, "b1_mma_per_s": sc["b1_mma_per_s"],
+          "timing": sc["rows"],
+          "plain_ms": {f"{k}_bits{b}": v for (k, b), v in plain.items()}})
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     paged_err, paged_timing = paged_kernel_checks(dev, gen, sleep)
@@ -2061,8 +2406,10 @@ def main() -> int:
         x = frames.to(dev)
         payload = fe.sensor_stage(gw.params, x, spec)
         logits = fe.gateway_stage(gw.params, payload, spec)
+        def plain_sc_dot(x, w, s0_mode="alt", adder="tff", *, length=None):
+            return ref.sc_dot(x, w, s0_mode, adder)
         with mock.patch.object(sng_pack_k, "sng_pack", ref.sng_pack), \
-                mock.patch.object(sc_dot_k, "sc_dot", ref.sc_dot):
+                mock.patch.object(sc_dot_k, "sc_dot", plain_sc_dot):
             plain_payload = fe.sensor_stage(gw.params, x, spec)
         cpu_params = {k: {n: t.cpu() for n, t in v.items()}
                       for k, v in gw.params.items()}
@@ -2086,6 +2433,16 @@ def main() -> int:
                                                              spec)),
                 "gateway_ms": host_ms(lambda: fe.gateway_stage(gw.params, pb,
                                                                spec))}
+        # the device under bucket-32 sensor stages, and the SC launches of
+        # one stage (the parent also launched the pad and concatenation
+        # copies around sc_dot)
+        xb = x[:32].contiguous()
+        for fn in wrappers.values():
+            fn.launches = 0
+        fe.sensor_stage(gw.params, xb, spec)
+        stage_launches = {name: wrappers[name].launches for name in sc_kernels}
+        profile = profile_stages(lambda: fe.sensor_stage(gw.params, xb, spec),
+                                 10)
         rep = tel.report(TRACE_SECONDS)
         emit({"phase": "main_path", "bits": bits, "frames": len(trace),
               "served": len(tel.records), "dropped": len(tel.dropped),
@@ -2098,7 +2455,9 @@ def main() -> int:
               "link_bytes_per_frame": rep.get("link_bytes_per_req"),
               "p50_latency_ms": rep.get("p50_latency_ms"),
               "p99_latency_ms": rep.get("p99_latency_ms"),
-              "stage_ms_by_bucket": stage_ms})
+              "stage_ms_by_bucket": stage_ms,
+              "sc_launches_per_stage": stage_launches,
+              "profile_bucket32": profile})
         if not (same_plain and same_cpu and close and finite):
             raise SystemExit(f"bits={bits}: the served output disagrees with "
                              "the plain path")

@@ -8,8 +8,9 @@ two counters convert them to binary, and a comparator gives the sign.
 The reference (``repro.core.sc_layer``) has three bit-identical routes:
 lookup table, materialized streams, and its Pallas kernels.  The port has
 one: the streams are generated by the ``sng_pack`` kernel and reduced by the
-``sc_dot`` kernel (``ops.sc_dot_posneg`` reads X once for both weight
-banks), at every supported precision, N = 4..256.  ``counts_via_table`` of
+``sc_dot`` kernel (both weight banks are one operand, streamed in one
+``sng_pack`` and read in one ``ops.sc_dot_posneg``, so X is read once), at
+every supported precision, N = 4..256.  ``counts_via_table`` of
 the reference is the oracle it is held to bit for bit.
 
 Rounding and float32 order of operations follow the reference so the
@@ -49,9 +50,10 @@ def quantize_levels(x01: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clip(torch.round(x01 * N), 0, N).to(torch.int32)
 
 
-def quantize_weights(w: torch.Tensor, bits: int, scale: bool = True
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Split ``w`` (..., K, O) into (pos_levels, neg_levels, per-kernel scale);
+def weight_bank_levels(w: torch.Tensor, bits: int, scale: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``w`` (..., K, O) as one (..., K, 2 O) tensor of levels, the positive
+    bank's O columns then the negative bank's, and the per-kernel scale;
     weight scaling normalizes each output kernel to the range [-1, 1]."""
     N = 1 << bits
     if scale:
@@ -62,9 +64,18 @@ def quantize_weights(w: torch.Tensor, bits: int, scale: bool = True
         s = torch.ones((1,) * (w.ndim - 1) + (w.shape[-1],), dtype=w.dtype,
                        device=w.device)
     wn = w / s
-    pos = torch.clip(torch.round(torch.clamp(wn, min=0) * N), 0, N)
-    neg = torch.clip(torch.round(torch.clamp(-wn, min=0) * N), 0, N)
-    return pos.to(torch.int32), neg.to(torch.int32), s.reshape(s.shape[-1])
+    both = torch.cat([torch.clamp(wn, min=0), torch.clamp(-wn, min=0)], -1)
+    levels = torch.clip(torch.round(both * N), 0, N).to(torch.int32)
+    return levels, s.reshape(s.shape[-1])
+
+
+def quantize_weights(w: torch.Tensor, bits: int, scale: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split ``w`` (..., K, O) into (pos_levels, neg_levels, per-kernel scale)
+    (views of :func:`weight_bank_levels`' one tensor)."""
+    levels, s = weight_bank_levels(w, bits, scale)
+    O = w.shape[-1]
+    return levels[..., :O], levels[..., O:], s
 
 
 def _sign(diff: torch.Tensor, soft_threshold: float) -> torch.Tensor:
@@ -85,12 +96,12 @@ def sc_dot_sign(x01: torch.Tensor, w: torch.Tensor, cfg: SCConfig
     N = cfg.length
     lead, k = x01.shape[:-1], x01.shape[-1]
     x_lvl = quantize_levels(x01, cfg.bits).reshape(-1, k)
-    pos, neg, _scale = quantize_weights(w, cfg.bits, cfg.weight_scale)
+    banks, _scale = weight_bank_levels(w, cfg.bits, cfg.weight_scale)
     codes_a, codes_b = sng.codes_tensors(cfg.scheme, cfg.bits, x01.device)
     x_stream = sng.generate(x_lvl, codes_a, N)            # (M, K, Wd)
     c_pos, c_neg = ops.sc_dot_posneg(
-        x_stream, sng.generate(pos, codes_b, N), sng.generate(neg, codes_b, N),
-        s0_mode=cfg.s0_mode, adder=cfg.adder)
+        x_stream, sng.generate(banks, codes_b, N),        # (K, 2 O, Wd)
+        s0_mode=cfg.s0_mode, adder=cfg.adder, length=N)
     # Undo the tree's 2^-depth scale and the 1/N stream scale -> value units.
     diff = (c_pos - c_neg).to(torch.float32) * (2.0 ** tree_depth(k)) / N
     return _sign(diff, cfg.soft_threshold).reshape(lead + (w.shape[-1],))

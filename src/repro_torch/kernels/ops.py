@@ -1,5 +1,5 @@
-"""The wrappers the SC layer calls: K padding, the level -> stream -> dot
-composition, and the fused pos/neg dot product.
+"""The wrappers the SC layer calls: the level -> stream -> dot composition
+and the fused pos/neg dot product.
 
 There is no interpret flag: the device of the tensors decides.  A CUDA
 tensor goes through the hand-written kernels (``sng_pack.cu``, ``sc_dot.cu``)
@@ -10,38 +10,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import sng
-from repro_torch.core.arith import tree_depth
 from repro_torch.kernels import sc_dot as sc_dot_kernel
 from repro_torch.kernels import sng_pack as sng_pack_kernel
 
 BITS = range(2, 9)          # supported precisions: N = 4 .. 256
 
 
-def _next_pow2(k: int) -> int:
-    return 1 << tree_depth(k)
-
-
-def _pad_axis(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
-    """Zero-pad ``axis`` of ``x`` up to ``size`` (zero streams)."""
-    if x.shape[axis] == size:
-        return x.contiguous()
-    shape = list(x.shape)
-    shape[axis] = size - x.shape[axis]
-    return torch.cat([x, x.new_zeros(shape)], dim=axis)
-
-
 def sc_dot(x_packed: torch.Tensor, w_packed: torch.Tensor, *,
-           s0_mode: str = "alt", adder: str = "tff") -> torch.Tensor:
+           s0_mode: str = "alt", adder: str = "tff",
+           length: int | None = None) -> torch.Tensor:
     """Stochastic dot product on packed streams.
 
     x_packed: (M, K, Wd) int32;  w_packed: (K, O, Wd) int32.
-    Returns (M, O) int32 TFF-tree root counts.  K is zero-padded to the next
-    power of two: all-zero streams are exactly the fixed tree's unused
-    leaves, so the result is bit-identical to a tree over K leaves.
+    Returns (M, O) int32 TFF-tree root counts.  K need not be a power of
+    two: the tree's leaves past K are zero streams, exactly the fixed tree's
+    unused leaves, so nothing is padded here.  ``length`` is a contract on
+    the words, not checked: they are packed streams of N = ``length`` bits,
+    as :func:`sng_pack` writes them, with every bit at and above N zero.
+    The kernel then pairs leaves per popcount at N <= 16; words with stray
+    high bits give wrong counts.  Leave it None for any other words.
     """
-    Kp = _next_pow2(x_packed.shape[1])
-    return sc_dot_kernel.sc_dot(_pad_axis(x_packed, 1, Kp),
-                                _pad_axis(w_packed, 0, Kp), s0_mode, adder)
+    return sc_dot_kernel.sc_dot(x_packed.contiguous(), w_packed.contiguous(),
+                                s0_mode, adder, length=length)
 
 
 def sng_pack(levels: torch.Tensor, codes: torch.Tensor, length: int
@@ -65,18 +55,26 @@ def sc_dot_from_levels(x_lvl: torch.Tensor, w_lvl: torch.Tensor, bits: int, *,
     N = 1 << bits
     codes_a, codes_b = sng.codes_tensors(scheme, bits, x_lvl.device)
     return sc_dot(sng_pack(x_lvl, codes_a, N), sng_pack(w_lvl, codes_b, N),
-                  s0_mode=s0_mode, adder=adder)
+                  s0_mode=s0_mode, adder=adder, length=N)
 
 
-def sc_dot_posneg(x_packed: torch.Tensor, w_pos: torch.Tensor,
-                  w_neg: torch.Tensor, **kw) -> tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """Both halves of the split-weight design in one kernel call: the two
-    weight banks are concatenated along O, so every X word is read once
-    for ``x∘w_pos`` and ``x∘w_neg``.
+def sc_dot_posneg(x_packed: torch.Tensor, w_banks: torch.Tensor, *,
+                  s0_mode: str = "alt", adder: str = "tff",
+                  length: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both halves of the split-weight design in one kernel launch.
 
-    Returns (counts_pos, counts_neg), each (M, O) int32.
+    w_banks: (K, 2 O, Wd), the positive bank's O columns then the negative
+    bank's, as the SC layer makes them in one ``sng_pack``; every X word is
+    read once for ``x∘w_pos`` and ``x∘w_neg``.  ``length``: as for
+    :func:`sc_dot`, the same contract.
+    Returns (counts_pos, counts_neg), each (M, O) int32 (views of one
+    (M, 2 O) result).
     """
-    O = w_pos.shape[1]
-    out = sc_dot(x_packed, torch.cat([w_pos, w_neg], dim=1), **kw)
+    if w_banks.shape[1] % 2:
+        raise ValueError(f"w_banks has {w_banks.shape[1]} columns: two banks "
+                         "of O each")
+    O = w_banks.shape[1] // 2
+    out = sc_dot(x_packed, w_banks, s0_mode=s0_mode, adder=adder,
+                 length=length)
     return out[:, :O], out[:, O:]

@@ -38,22 +38,33 @@ def _words(gen, *shape, dev):
 
 @pytest.mark.parametrize("bits", [2, 4, 5, 8])
 def test_sng_pack_kernel_bitwise(dev, bits):
+    """Both LFSR schemes (codes that skip 0; ``lfsr_shared`` rolls), levels
+    outside [0, N] (direct comparison), and a level tensor off 16-byte
+    alignment (the level-by-level kernel)."""
     N = 1 << bits
     gen = torch.Generator().manual_seed(bits)
-    lv = torch.randint(0, N + 1, (517, 25), generator=gen,
-                       dtype=torch.int32).to(dev)
+    lv = torch.randint(-2, N + 3, (517, 25), generator=gen,
+                       dtype=torch.int32)
+    lv.view(-1)[:4] = torch.tensor([-1, N + 1, -2**31, 2**31 - 1])
+    lv = lv.to(dev)
     before = sng_pack_kernel.sng_pack.launches
-    for codes in sng.codes_tensors("lfsr_pair", bits, dev):
-        got = ops.sng_pack(lv, codes, N)
-        assert torch.equal(got, ref.sng_pack(lv, codes, N))
-    assert sng_pack_kernel.sng_pack.launches == before + 2
+    for scheme in ("lfsr_pair", "lfsr_shared"):
+        for codes in sng.codes_tensors(scheme, bits, dev):
+            for levels in (lv, lv.view(-1)[3:]):
+                got = ops.sng_pack(levels, codes, N)
+                assert torch.equal(got, ref.sng_pack(levels, codes, N))
+    assert sng_pack_kernel.sng_pack.launches == before + 8
 
 
-@pytest.mark.parametrize("M,K,O,Wd", [(1, 2, 1, 1), (77, 25, 40, 1),
-                                      (300, 64, 33, 8), (9, 1024, 5, 2)])
+@pytest.mark.parametrize("M,K,O,Wd", [
+    (1, 2, 1, 1), (77, 25, 40, 1), (300, 64, 33, 8), (9, 1024, 5, 2),
+    (517, 1, 16, 3), (1001, 3, 200, 8), (333, 1000, 64, 5), (2049, 25, 16, 4),
+    (130, 33, 1, 6), (65, 25, 64, 7)])
 @pytest.mark.parametrize("s0_mode,adder", [
     ("zero", "tff"), ("one", "tff"), ("alt", "tff"), ("alt", "ideal")])
 def test_sc_dot_kernel_bitwise(dev, M, K, O, Wd, s0_mode, adder):
+    """K not a power of two (no pad: the kernel's zero leaves), every Wd
+    from 1 to 8, O from 1 to 200, M off every tile."""
     gen = torch.Generator().manual_seed(M + K)
     x, w = _words(gen, M, K, Wd, dev=dev), _words(gen, K, O, Wd, dev=dev)
     before = sc_dot_kernel.sc_dot.launches
@@ -63,11 +74,80 @@ def test_sc_dot_kernel_bitwise(dev, M, K, O, Wd, s0_mode, adder):
                                        adder=adder).to(dev))
 
 
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("K", [1, 3, 25, 1000])
+@pytest.mark.parametrize("s0_mode,adder", [
+    ("zero", "tff"), ("one", "tff"), ("alt", "tff"), ("alt", "ideal")])
+def test_sc_dot_kernel_packed_streams_bitwise(dev, N, K, s0_mode, adder):
+    """Streams of N <= 16 bits with their length stated: two leaves (the
+    ideal adder 32 / N) per popcount."""
+    gen = torch.Generator().manual_seed(N * K)
+    x = _words(gen, 301, K, 1, dev=dev) & ((1 << N) - 1)
+    w = _words(gen, K, 16, 1, dev=dev) & ((1 << N) - 1)
+    got = ops.sc_dot(x, w, s0_mode=s0_mode, adder=adder, length=N)
+    assert torch.equal(got, ref.sc_dot(x, w, s0_mode, adder))
+
+
+@pytest.mark.parametrize("mma", [True, False])
+@pytest.mark.parametrize("K,O", [(25, 64), (25, 16), (33, 37), (512, 9)])
+def test_sc_dot_kernel_routes_bitwise(dev, mma, K, O, monkeypatch):
+    """N = 256 on the b1 tensor cores and on the popcounts (the tensor-core
+    route's leaf limit patched to 0, as the timing does), and the two weight
+    banks of the split-weight layer as one operand; K = 512 and an X off
+    16-byte alignment take the popcounts in any case."""
+    if not mma:
+        monkeypatch.setattr(sc_dot_kernel, "MMA_MAX_LEAVES", 0)
+    gen = torch.Generator().manual_seed(K + O)
+    x, w = _words(gen, 1000, K, 8, dev=dev), _words(gen, K, O, 8, dev=dev)
+    want = ref.sc_dot(x, w, "alt", "tff")
+    assert torch.equal(sc_dot_kernel.sc_dot(x, w, length=256), want)
+    if O % 2 == 0:
+        pos, neg = ops.sc_dot_posneg(x, w, length=256)
+        h = O // 2
+        assert torch.equal(pos, want[:, :h]) and torch.equal(neg, want[:, h:])
+    shifted = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+    x_off = shifted[1:].view(x.shape)
+    x_off.copy_(x)
+    assert torch.equal(sc_dot_kernel.sc_dot(x_off, w, length=256), want)
+
+
+def test_sc_kernels_never_reach_ref_on_card(dev, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain versions are
+    not called, and nothing moves to the CPU."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    gen = torch.Generator().manual_seed(3)
+    x, w = _words(gen, 64, 25, 1, dev=dev), _words(gen, 25, 8, 1, dev=dev)
+    lv = torch.randint(0, 17, (64, 25), generator=gen,
+                       dtype=torch.int32).to(dev)
+    codes = sng.codes_tensors("ramp_lowdisc", 4, dev)[0]
+    monkeypatch.setattr(ref, "sc_dot", refuse)
+    monkeypatch.setattr(ref, "sng_pack", refuse)
+    assert ops.sng_pack(lv, codes, 16).is_cuda
+    assert ops.sc_dot(x, w).is_cuda
+    assert all(t.is_cuda for t in ops.sc_dot_posneg(x, w, length=16))
+    with pytest.raises(ValueError):
+        sc_dot_kernel.sc_dot(x, torch.zeros((25, 3, 2), dtype=torch.int32,
+                                            device=dev))
+
+
 def test_sc_dot_kernel_refuses_bad_shapes(dev):
+    """Any K in [1, 1024] is taken now; mismatched K or Wd, K past 1,024
+    and Wd past 8 are refused."""
     x = torch.zeros((4, 24, 1), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        sc_dot_kernel.sc_dot(x, torch.zeros((24, 3, 1), dtype=torch.int32,
+        sc_dot_kernel.sc_dot(x, torch.zeros((23, 3, 1), dtype=torch.int32,
                                             device=dev))
+    with pytest.raises(ValueError):
+        sc_dot_kernel.sc_dot(torch.zeros((4, 1025, 1), dtype=torch.int32,
+                                         device=dev),
+                             torch.zeros((1025, 3, 1), dtype=torch.int32,
+                                         device=dev))
+    with pytest.raises(ValueError):
+        sc_dot_kernel.sc_dot(torch.zeros((4, 2, 9), dtype=torch.int32,
+                                         device=dev),
+                             torch.zeros((2, 3, 9), dtype=torch.int32,
+                                         device=dev))
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -128,7 +128,9 @@ def test_sc_dot_posneg_vs_reference(s0_mode, counters):
     rng = np.random.default_rng(3)
     x, wp = _packed(rng, 21, 25, 7, 2, 64)
     _, wn = _packed(rng, 1, 25, 7, 2, 64)
-    got_p, got_n = ops.sc_dot_posneg(_i32(x), _i32(wp), _i32(wn),
+    # the port takes both banks as one (K, 2 O, Wd) operand
+    got_p, got_n = ops.sc_dot_posneg(_i32(x),
+                                     _i32(np.concatenate([wp, wn], axis=1)),
                                      s0_mode=s0_mode)
     want_p, want_n = jops.sc_dot_posneg(jnp.asarray(x), jnp.asarray(wp),
                                         jnp.asarray(wn), s0_mode=s0_mode)
