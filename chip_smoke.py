@@ -5,6 +5,10 @@
     python3 chip_smoke.py --sc-compare <parent checkout>
                                    # the SC kernels' timing, parent and
                                    # this checkout in turns (P C C P)
+    python3 chip_smoke.py --cascade-compare <parent checkout>
+                                   # load (c)'s cascade tick profile and
+                                   # row write, parent and this checkout
+                                   # in turns (P C C P)
 
 Phases, each printing one JSON line:
 
@@ -52,7 +56,10 @@ Phases, each printing one JSON line:
      beside SDPA), each timing with its launch's splits and CTAs and the
      kernel's ``ptxas`` registers and spills; the cascade passes also at
      one split and at more splits, with the host's time to issue a call
-     at each plan and the device time of the pass and its combine;
+     at each plan and the device time of the pass and its combine, and the
+     fused merge's cost (the suffix pass with and without the prefix
+     states, in turns); ``scatter_kv_rows`` from stacked rows, from one
+     tensor per layer, and after stacking them (the parent's tick write);
   4. the frame path: ``MicroBatchGateway`` serving the full-width LeNet-5
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
@@ -75,7 +82,11 @@ Phases, each printing one JSON line:
   6. the cascade tick: ``make_gateway(..., backend="cascade")`` serving
      load (c), eight requests that share a 1,024-token prompt, each with its
      own 64-token tail and 32 new tokens, with one group of eight lanes on
-     every tick and the three cascade kernels launched 32 times per tick;
+     every tick, the prefix pass and the suffix pass (the merge fused into
+     its epilogue, counted as fused merges) launched 32 times per tick,
+     the standalone merge never, and no stack of the layers' rows before
+     the row write (``aten::stack`` in the profiled ticks, here and on the
+     flat tick);
      the same load through the flat ``"cuda"`` gateway, in turns with the
      cascade one, for the tick times and the tokens: equal at float32 and
      depth 4 with logits within 2e-4, and in bf16 at full depth equal up to
@@ -139,6 +150,10 @@ KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows",
            "merge_attn_states", "flash_attention")
 CASCADE = ("paged_decode_attention_with_state", "cascade_prefix_attention",
            "merge_attn_states")
+# the cascade tick's merge runs in the suffix pass's epilogue: the calls of
+# paged_decode_attention_with_state that merged (its wrapper's
+# ``fused_merges``), counted beside the wrappers' launches
+FUSED_MERGE = "merge_attn_states (fused)"
 TRACE_SECONDS = 1.0             # ~330 frames from the default 64-sensor fleet
 # The bf16 kernel tick differs from the plain tick only in rounding: the
 # plain path casts the softmax probabilities to bf16 before the value
@@ -183,6 +198,24 @@ def cascade_plan(name: str):
         for const, value in consts.items():
             stack.enter_context(mock.patch.object(paged_k, const, value))
         yield
+
+
+def reset_counts(wrappers: dict) -> None:
+    """Every wrapper's launch count, and the fused merges, to 0."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    if "paged_decode_attention_with_state" in wrappers:
+        wrappers["paged_decode_attention_with_state"].fused_merges = 0
+
+
+def read_counts(wrappers: dict) -> dict:
+    """Every wrapper's launch count and, under ``FUSED_MERGE``, the fused
+    merges (0 where the wrapper has no such counter)."""
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    if "paged_decode_attention_with_state" in wrappers:
+        out[FUSED_MERGE] = getattr(
+            wrappers["paged_decode_attention_with_state"], "fused_merges", 0)
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -431,27 +464,50 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
             checks.append({"kernel": "paged_decode_attention", "case": label,
                            "dtype": str(dtype), "nan_trash_bitwise": True,
                            "ok": torch.equal(base, nan)})
-    for dtype in (torch.float32, torch.bfloat16):
-        L, nbk, bs, H, D, S = 4, 40, 16, 32, 80, 8
-        ka, va = arr((L, nbk, 1, bs, H, D), dtype), \
+    # the row write, stacked rows (the reference's form) and one tensor per
+    # layer (the tick's), each against the plain version and the two forms
+    # against each other, bit for bit: 4 layers at stablelm-3b's rows, 130
+    # layers (two launches of at most 128 layers' pointers) at narrow ones
+    for (L, H, D), dtype in itertools.product(((4, 32, 80), (130, 2, 16)),
+                                              (torch.float32,
+                                               torch.bfloat16)):
+        nbk, bs, S = 40, 16, 8
+        base = arr((L, nbk, 1, bs, H, D), dtype), \
             arr((L, nbk, 1, bs, H, D), dtype)
         kr, vr = arr((L, S, H, D), dtype), arr((L, S, H, D), dtype)
+        layers = ([r.clone() for r in kr], [r.clone() for r in vr])
         w = (torch.randperm(nbk - 1, generator=gen, device=dev)[:S] + 1
              ).to(torch.int32)
         w[5:] = 0                                 # trash lanes, colliding
         o = torch.randint(0, bs, (S,), generator=gen, device=dev,
                           dtype=torch.int32)
         o[5:] = 3
-        rk, rv = ref.scatter_kv_rows(ka.clone(), va.clone(), kr, vr, w, o)
-        paged_k.scatter_kv_rows(ka, va, kr, vr, w, o)
+        rk, rv = ref.scatter_kv_rows(base[0].clone(), base[1].clone(), kr,
+                                     vr, w, o)
+        out = {}
+        for form, rows in (("stacked", (kr, vr)), ("layers", layers)):
+            ka, va = base[0].clone(), base[1].clone()
+            paged_k.scatter_kv_rows(ka, va, *rows, w, o)
+            out[form] = (ka, va)
         torch.cuda.synchronize()
-        ok = torch.equal(ka[:, 1:], rk[:, 1:]) and \
-            torch.equal(va[:, 1:], rv[:, 1:])
-        e = max(float((ka[:, 1:].float() - rk[:, 1:].float()).abs().max()),
-                float((va[:, 1:].float() - rv[:, 1:].float()).abs().max()))
-        err["scatter_kv_rows"] = max(err["scatter_kv_rows"], e)
+        for form, (ka, va) in out.items():
+            ok = torch.equal(ka[:, 1:], rk[:, 1:]) and \
+                torch.equal(va[:, 1:], rv[:, 1:])
+            e = max(float((ka[:, 1:].float() - rk[:, 1:].float()).abs()
+                          .max()),
+                    float((va[:, 1:].float() - rv[:, 1:].float()).abs()
+                          .max()))
+            err["scatter_kv_rows"] = max(err["scatter_kv_rows"], e)
+            checks.append({"kernel": "scatter_kv_rows", "dtype": str(dtype),
+                           "layers": L, "rows": form,
+                           "bitwise_non_trash": ok, "ok": ok})
+        # (the trash block 0 takes the colliding lanes in either order)
+        same = all(torch.equal(a[:, 1:], b[:, 1:])
+                   for a, b in zip(out["stacked"], out["layers"]))
         checks.append({"kernel": "scatter_kv_rows", "dtype": str(dtype),
-                       "bitwise_non_trash": ok, "ok": ok})
+                       "layers": L, "layers_bitwise_stacked": same,
+                       "ok": same})
+        del base, out, kr, vr, layers
     # forced splits of the chain (the planner's run length patched): lens
     # 0, 1, a partial block, exactly nb*bs and a lane longer than one split,
     # GQA 4:1 at d_head 80, split one block per CTA, four and all twelve
@@ -520,10 +576,27 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     kaL = torch.empty((L, num_blocks, 1, bs, H, D), dtype=bf, device=dev)
     vaL = torch.empty_like(kaL)
     kr, vr = arr((L, S, H, D), bf), arr((L, S, H, D), bf)
+    # the tick's own rows: one tensor per layer, as the layers made them
+    k_layers = [arr((S, H, D), bf) for _ in range(L)]
+    v_layers = [arr((S, H, D), bf) for _ in range(L)]
     w = tables[:, 64].contiguous()
     o = torch.full((S,), n_pos % bs, dtype=torch.int32, device=dev)
     sc_ms, sc_b2b = time_ms(lambda: paged_k.scatter_kv_rows(
         kaL, vaL, kr, vr, w, o), 5, 20, sleep)
+    sc_layers = time_ms(lambda: paged_k.scatter_kv_rows(
+        kaL, vaL, k_layers, v_layers, w, o), 5, 20, sleep)
+    # the parent's write of the tick: both stacks, then the stacked form
+    sc_stacked_write = time_ms(lambda: paged_k.scatter_kv_rows(
+        kaL, vaL, torch.stack(k_layers), torch.stack(v_layers), w, o), 5,
+        20, sleep)
+    # the host's time to issue each write: the kernel from the layers'
+    # rows, and both stacks with the kernel from stacked rows
+    sc_issue = issue_us(lambda: paged_k.scatter_kv_rows(
+        kaL, vaL, k_layers, v_layers, w, o),
+        {"layers": contextlib.nullcontext}, sleep)["layers"]
+    sc_stack_issue = issue_us(lambda: paged_k.scatter_kv_rows(
+        kaL, vaL, torch.stack(k_layers), torch.stack(v_layers), w, o),
+        {"stacked": contextlib.nullcontext}, sleep)["stacked"]
     sc_plain = time_ms(lambda: ref.scatter_kv_rows(kaL, vaL, kr, vr, w, o),
                        3, 5, sleep)[0]
     idx = (torch.arange(L, device=dev)[:, None], w.long()[None, :],
@@ -532,7 +605,7 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     sc_lib = time_ms(lambda: (kaL.index_put_(idx, kr),
                               vaL.index_put_(idx, vr)), 5, 20, sleep)[0]
     sc_bytes = 2 * 2 * L * S * row + 2 * S * 4        # rows in + out, ids
-    del kaL, vaL
+    del kaL, vaL, k_layers, v_layers
     torch.cuda.empty_cache()
     splits, bps = paged_k.paged_split_plan(nb, bs)
     timing = {
@@ -553,8 +626,14 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
             "ops_ms": attn_ops / F32_FLOPS * 1e3},
         "scatter_kv_rows": {
             "shape": f"arenas ({L}, {num_blocks}, 1, {bs}, {H}, {D}) bf16, "
-                     f"rows ({L}, {S}, {H}, {D})",
-            "ms": sc_ms, "back_to_back_ms": sc_b2b, "plain_ms": sc_plain,
+                     f"rows {L} x ({S}, {H}, {D}), one tensor per layer",
+            "ms": sc_layers[0], "back_to_back_ms": sc_layers[1],
+            "stacked_rows_ms": sc_ms, "stacked_rows_back_to_back_ms": sc_b2b,
+            "stack_and_scatter_ms": sc_stacked_write[0],
+            "stack_and_scatter_back_to_back_ms": sc_stacked_write[1],
+            "host_issue_us": sc_issue,
+            "stack_and_scatter_host_issue_us": sc_stack_issue,
+            "plain_ms": sc_plain,
             "library_ms": sc_lib,
             "library": "index_put_ on the K and V arenas",
             "bytes_ms": sc_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": 0.0}}
@@ -596,6 +675,35 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         checks.append({"kernel": name, **case, "max_abs_err": e,
                        "ok": all(torch.allclose(g, w, rtol=tol, atol=tol)
                                  for g, w in zip(got, want))})
+
+    def fused(prefix, meta, suffix, win, q0, nk, tol, **case):
+        """The suffix pass with the merge fused in, on the prefix states
+        ``prefix`` (group layout): bit for bit the three-launch composition
+        (the state, the placed group states, the standalone merge, the
+        cast), and within ``tol`` of its plain version; one wrapper call
+        and one fused merge.  Returns the fused output."""
+        wrap = paged_k.paged_decode_attention_with_state
+        counts = (wrap.launches, wrap.fused_merges)
+        got = wrap(*suffix, window=win, q0=q0, new_kv=nk,
+                   prefix=prefix + (meta["lane_slot"],))
+        ok_counts = (wrap.launches, wrap.fused_merges) == \
+            (counts[0] + 1, counts[1] + 1)
+        state = wrap(*suffix, window=win, q0=q0, new_kv=nk)
+        B = suffix[0].shape[0]
+        comp = paged_k.merge_attn_states(
+            *attention.place_group_states(meta, *prefix, B), *state
+        ).to(got.dtype)
+        plain = ref.paged_decode_attention_merged(
+            *suffix, win, q0, nk, prefix + (meta["lane_slot"],))
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, comp)
+        checks.append({"kernel": "merge_attn_states", "fused": True, **case,
+                       "bitwise_composition": bitwise,
+                       "ok": bitwise and ok_counts
+                       and not bool(torch.isnan(got).any())})
+        check("merge_attn_states", (got.float(),), (plain.float(),), tol,
+              fused=True, vs="plain", **case)
+        return got
 
 
     # tests/test_cascade.py's fixture at 16-token blocks and full-width
@@ -676,6 +784,22 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
                     check("merge_attn_states",
                           (paged_k.merge_attn_states(*states),),
                           (ref.merge_attn_states(*states),), 2e-5, **case)
+                    # the merge fused into the suffix pass: padded slots,
+                    # lane 3 in no group, lane 4's empty suffix, window 2's
+                    # empty prefixes; then lane 3 at length 0, both sides
+                    # empty, exactly 0
+                    fused(got_p, meta, suf, window, meta["lane_q0"], nk, tol,
+                          **case)
+                    cl0 = cl.clone()
+                    cl0[3] = 0
+                    out0 = fused(got_p, meta, (q, ka, va,
+                                               meta["suffix_tables"], cl0),
+                                 window, meta["lane_q0"], nk, tol,
+                                 lane_3="both sides empty", **case)
+                    checks.append({"kernel": "merge_attn_states",
+                                   "fused": True, **case,
+                                   "both_sides_empty_exactly_0": True,
+                                   "ok": bool((out0[3] == 0).all())})
                     out = attention.attend_decode_cascade(
                         q[:, None], ka, va, meta, cl, window=window, new_kv=nk)
                     ka[0], va[0] = 0, 0
@@ -774,6 +898,8 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
                 check("merge_attn_states",
                       (paged_k.merge_attn_states(*states),),
                       (ref.merge_attn_states(*states),), 2e-5, **case)
+                fused(got_p, big, sfx, window, big["lane_q0"], nk, tol,
+                      **case)
                 out = attention.attend_decode_cascade(
                     q[:, None], ka, va, big, lens, window=window, new_kv=nk)
                 ka[0], va[0] = 0, 0
@@ -787,6 +913,9 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
     # 8:1 and D = 128 (deepseek-67b's attention), each over a 128-position
     # chain ending 5 short of its last block, at its plan, windows 0 and
     # 100 (lanes ending up to 63 positions past the chain)
+    # The fused suffix pass on the same groups: each lane's suffix from q0
+    # = the chain's length, up to 63 positions in 4-entry tables of its
+    # own blocks, at every forced plan
     for label, Lg, Hqg, Hkg, Dg in (("64 lanes, MHA D=80", 64, 32, 32, 80),
                                   ("16 lanes, GQA 8:1 D=128", 16, 64, 8,
                                    128)):
@@ -794,20 +923,34 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         glen = torch.tensor([8 * LM_BLOCK - 5], **i32)
         ll = glen + torch.randint(0, 64, (1, Lg), generator=gen, device=dev,
                                   dtype=torch.int32)
+        grp = attention.with_lane_meta(
+            {"group_lanes": torch.arange(Lg, **i32)[None],
+             "group_mask": torch.ones((1, Lg), dtype=torch.bool, device=dev)},
+            ll[0])
+        st = torch.arange(9, 9 + 4 * Lg, **i32).reshape(Lg, 4)
+        q0g = glen.expand(Lg).contiguous()
         for dtype in (torch.float32, torch.bfloat16):
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             qg = arr((1, Lg, Hqg, Dg), dtype)
-            ka, va = arr((9, LM_BLOCK, Hkg, Dg), dtype), \
-                arr((9, LM_BLOCK, Hkg, Dg), dtype)
+            ka, va = arr((9 + 4 * Lg, LM_BLOCK, Hkg, Dg), dtype), \
+                arr((9 + 4 * Lg, LM_BLOCK, Hkg, Dg), dtype)
+            nkg = (arr((Lg, Hkg, Dg), dtype), arr((Lg, Hkg, Dg), dtype))
             for window in (0, 100):
                 pre = (qg, ka, va, gt, glen, ll)
-                check("cascade_prefix_attention",
-                      paged_k.cascade_prefix_attention(*pre, window=window),
+                got_p = paged_k.cascade_prefix_attention(*pre, window=window)
+                check("cascade_prefix_attention", got_p,
                       ref.cascade_prefix_attention(*pre, window), tol,
                       case=label, dtype=str(dtype), window=window,
                       smem_bytes=paged_k._cascade_lib()
                       .cascade_prefix_smem_bytes(Lg, Hqg // Hkg, Dg,
                                                  paged_k.DTYPES[dtype]))
+                for plan in paged_k.CASCADE_FORCED_PLANS:
+                    with cascade_plan(plan):
+                        fused(got_p, grp, (qg[0], ka, va, st, ll[0]),
+                              window, q0g, nkg, tol, case=label,
+                              dtype=str(dtype), window=window, plan=plan,
+                              splits=paged_k.cascade_split_plan(
+                                  Lg, Hkg, 4, LM_BLOCK)[0])
     torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
 
@@ -940,16 +1083,41 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         "ops_ms": 4 * 64 * H * n_pre * D / F32_FLOPS * 1e3}
     a, b = state(), state()
     mg_ms = time_ms(lambda: paged_k.merge_attn_states(*a, *b), 5, 20, sleep)
+    # the merge as the tick runs it: in the suffix pass's epilogue, on the
+    # prefix pass's states of the 8 lanes; its cost is what the fused call
+    # takes beyond the state alone, the two timed in turns
+    pstates = prefix() + (torch.arange(Lc, **i32),)
+
+    def suffix_merged():
+        return paged_k.paged_decode_attention_with_state(
+            q, ka, va, st, lens, q0=q0s, new_kv=nk, prefix=pstates)
+    state_ms, merged_ms = [], []
+    for _ in range(3):
+        state_ms.append(time_ms(suffix, 5, 20, sleep)[0])
+        merged_ms.append(time_ms(suffix_merged, 5, 20, sleep)[0])
+    fused_ms = {"ms": statistics.median(merged_ms)
+                - statistics.median(state_ms),
+                "with_prefix_ms": statistics.median(merged_ms),
+                "state_ms": statistics.median(state_ms),
+                "ms_runs": {"with_prefix": merged_ms, "state": state_ms},
+                "host_issue_us": issue_us(
+                    suffix_merged, {"planned": contextlib.nullcontext},
+                    sleep)["planned"],
+                "device_us_by_kernel": device_us(suffix_merged)}
     timing["merge_attn_states"] = {
-        "shape": f"2 x (acc ({B}, {Hq}, {D}), m, l ({B}, {Hq})) float32",
-        "ms": mg_ms[0], "back_to_back_ms": mg_ms[1],
+        "shape": f"2 x (acc ({B}, {Hq}, {D}), m, l ({B}, {Hq})) float32; "
+                 f"fused: the suffix pass at load (c)'s last tick with the "
+                 f"prefix states of its {Lc} lanes",
+        "ms": fused_ms["ms"], "fused": fused_ms,
+        "fused_into": "paged_decode_attention_with_state",
+        "standalone_ms": mg_ms[0], "back_to_back_ms": mg_ms[1],
         "plain_ms": time_ms(lambda: ref.merge_attn_states(*a, *b), 3, 5,
                             sleep)[0],
         "library_ms": None,
         "bytes_ms": 4 * (3 * B * Hq * D + 4 * B * Hq) / PEAK_BYTES_PER_S
         * 1e3,
         "ops_ms": 8 * B * Hq * D / F32_FLOPS * 1e3}
-    del ka, va, kd, vd, ks, vs
+    del ka, va, kd, vd, ks, vs, pstates
     torch.cuda.empty_cache()
     for t in timing.values():
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
@@ -1170,6 +1338,10 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
         "host_launches_per_tick": sum(
             e.count for e in host
             if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")) / n,
+        # stacks on the tick: the layers' K/V rows stacked before the row
+        # write, where the engine does that
+        "stack_ops_per_tick": sum(e.count for e in host
+                                  if e.key == "aten::stack") / n,
         "top_host_self_ms_per_tick": {
             e.key[:60]: e.self_cpu_time_total / 1e3 / n for e in host[:6]}}
     if not dev_us:
@@ -1180,16 +1352,17 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     def ms_of(*needles: str) -> float:
         return sum(us for name, us in dev_us.items()
                    if any(x in name for x in needles)) / 1e3
-    # the paged sweep (kernels 3 and 5 share paged_attn_kernel) and the
-    # bf16 combine that normalizes kernel 3's splits; the cascade's prefix
-    # pass; the float32 combines (kernel 5's and 6's split states, and
-    # kernel 7's merge)
+    # the paged sweep (kernels 3 and 5 share paged_attn_kernel, kernel 5
+    # with kernel 7's merge in its epilogue) and the bf16 combines of their
+    # splits; the cascade's prefix pass; the float32 combines (kernel 5's
+    # and 6's split states); kernel 7's standalone merge
     # (the trace's names demangled or not)
     paged = ms_of("paged_attn_kernel", "combine_states_kernel<__nv_bfloat16",
                   "combine_states_kernelI13__nv_bfloat16")
     prefix = ms_of("cascade_prefix_kernel")
     combine_f32 = ms_of("combine_states_kernel<float",
                         "combine_states_kernelIf")
+    merge = ms_of("merge_states_kernel")
     return {"device_busy_ms_per_tick": busy,
             "device_idle_share": max(0.0, 1.0 - busy / tick_ms),
             "paged_attn_ms_per_tick": paged,
@@ -1197,6 +1370,7 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
             "cascade_prefix_ms_per_tick": prefix,
             "cascade_prefix_share_of_busy": prefix / busy if busy else None,
             "combine_f32_ms_per_tick": combine_f32,
+            "merge_ms_per_tick": merge,
             "top_device_ms_per_tick": {k[:80]: v / 1e3 for k, v in top},
             **host_out}
 
@@ -1322,8 +1496,7 @@ def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
     ad.insert = timed_insert
     for i, p in enumerate(prompts):
         batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     chunks0 = ad.prefill_chunks_total
     t0 = time.perf_counter()
     batcher.step()
@@ -1338,7 +1511,7 @@ def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
     timed = probe.times[1:5] + probe.times[8 if profile else 5:]
     out = {"backend": backend, "chunked": chunked, "run_s": run_s,
            "ticks": len(probe.times), "tick_ms": timed, "profile": device,
-           "launches": {name: fn.launches for name, fn in wrappers.items()},
+           "launches": read_counts(wrappers),
            "chunks": ad.prefill_chunks_total - chunks0,
            "logits_finite": probe.finite, "logits": logits, "slot": slot,
            "prefill": {uid: admitted[s] for uid, s in slot.items()},
@@ -1422,8 +1595,7 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     failures = []
 
     def count(run):
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_counts(wrappers)
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
@@ -1580,8 +1752,12 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     proxy = casc["proxy"]
     if not proxy["cascade"] < proxy["inplace"] < proxy["gather"]:
         failures.append(f"load (c): tick_bytes_proxy order {proxy}")
-    want = {name: 0 for name in wrappers}
-    want.update({name: cfg.n_layers * grouped for name in CASCADE})
+    # per grouped tick and layer: the prefix pass and the suffix pass with
+    # the merge fused in; the standalone merge never
+    want = {name: 0 for name in casc["launches"]}
+    want.update({name: cfg.n_layers * grouped
+                 for name in ("paged_decode_attention_with_state",
+                              "cascade_prefix_attention", FUSED_MERGE)})
     want["paged_decode_attention"] = cfg.n_layers * (ticks - grouped)
     want["scatter_kv_rows"] = ticks
     # the eight one-shot prefills: one launch per layer each
@@ -1589,12 +1765,17 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     if casc["launches"] != want:
         failures.append(f"load (c) cascade launches {casc['launches']}, "
                         f"expected {want}")
-    want_flat = {name: 0 for name in wrappers}
+    want_flat = {name: 0 for name in flat["launches"]}
     want_flat.update(paged_decode_attention=cfg.n_layers * flat["ticks"],
                      scatter_kv_rows=flat["ticks"],
                      flash_attention=cfg.n_layers * LM_SLOTS)
     if flat["launches"] != want_flat:
         failures.append(f"load (c) flat launches {flat['launches']}")
+    # the tick writes the layers' rows where they lie: no stack
+    stacks = [r["profile"]["stack_ops_per_tick"] for r in runs[:2]]
+    if any(stacks):
+        failures.append(f"load (c): {stacks} torch.stack per tick "
+                        "(cascade, flat) before the row write")
     if runs[3]["tokens"] != casc["tokens"] or \
             runs[2]["tokens"] != flat["tokens"]:
         failures.append("load (c): a second run of the same gateway "
@@ -1763,10 +1944,12 @@ def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
                             f"launches {run['launches']['flash_attention']}")
     nb, nc = b_ch["launches"], c_ch["launches"]
     if not (nb["paged_decode_attention"] and nb["scatter_kv_rows"]) or \
-            any(nb[name] for name in CASCADE):
+            any(nb[name] for name in CASCADE + (FUSED_MERGE,)):
         failures.append(f"load (b) chunked launches {nb}")
     grouped = sum(g > 0 for g in c_ch["groups"])
-    if grouped == 0 or any(nc[name] != L * grouped for name in CASCADE) or \
+    if grouped == 0 or any(nc[name] != L * grouped for name in (
+            "paged_decode_attention_with_state", "cascade_prefix_attention",
+            FUSED_MERGE)) or nc["merge_attn_states"] or \
             nc["scatter_kv_rows"] != c_ch["ticks"]:
         failures.append(f"load (c) chunked launches {nc}, grouped {grouped}")
     for run in (b_ch, b_os, c_ch, c_os):
@@ -1890,7 +2073,7 @@ def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
           "failures": failures})
     if failures:
         raise SystemExit(f"chunked path: {failures}")
-    return {name: nb[name] + nc[name] for name in wrappers}
+    return {name: nb[name] + nc[name] for name in nb}
 
 
 # -- the SC kernels (phase 3) -------------------------------------------------
@@ -2245,11 +2428,117 @@ def sc_compare(parent: Path) -> int:
     return 0
 
 
+def cascade_timing_main(root: Path) -> int:
+    """``--cascade-timing <checkout>``: load (c) through the cascade gateway
+    of the checkout at ``root`` (its kernels built from its own sources),
+    stablelm-3b at full width and depth with seed-0 random weights, with
+    :func:`profile_ticks` over three of its ticks; then the tick's row
+    write alone, as that checkout's engine writes it (the layers' rows
+    stacked first, or passed per layer).  One JSON line."""
+    import inspect
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    build.build_all(("paged_attn", "cascade_attn", "flash_attn"))
+    dev = torch.device("cuda")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sleep = int(0.05 * clock_mhz * 1e6)
+    cfg = configs.config("stablelm-3b")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    wrappers = {"paged_decode_attention": paged_k.paged_decode_attention,
+                "scatter_kv_rows": paged_k.scatter_kv_rows,
+                **{name: getattr(paged_k, name) for name in CASCADE},
+                "flash_attention": flash_k.flash_attention}
+    run = serve_load(dev, wrappers, cfg, params,
+                     load_c_prompts(cfg.vocab)[0], backend="cascade",
+                     chunked=False, new_tokens=NEW_TOKENS_C, profile=True)
+    del params
+    torch.cuda.empty_cache()
+    # the write at load (c)'s width: 32 layers' rows of 8 lanes
+    L, S, H, D = cfg.n_layers, LM_SLOTS, cfg.n_kv_heads, cfg.d_head
+    num_blocks = LM_SLOTS * (LM_MAX_LEN // LM_BLOCK) + 1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ka = torch.empty((L, num_blocks, 1, LM_BLOCK, H, D), dtype=cfg.dtype,
+                     device=dev)
+    va = torch.empty_like(ka)
+    rows = [[torch.randn((S, H, D), generator=gen, device=dev).to(cfg.dtype)
+             for _ in range(L)] for _ in range(2)]
+    w = torch.randperm(num_blocks - 1, generator=gen, device=dev)[:S] + 1
+    w = w.to(torch.int32)
+    o = torch.full((S,), 5, dtype=torch.int32, device=dev)
+    stacked = "torch.stack(k_rows)" in inspect.getsource(
+        engine.decode_step_paged)
+
+    def write():
+        if stacked:
+            return paged_k.scatter_kv_rows(ka, va, torch.stack(rows[0]),
+                                           torch.stack(rows[1]), w, o)
+        return paged_k.scatter_kv_rows(ka, va, *rows, w, o)
+    write_ms = time_ms(write, 5, 20, sleep)
+    emit({"cascade_timing": str(root), "gpu": nvidia_smi("name,power.limit"),
+          "tick_ms_median": statistics.median(run["tick_ms"]),
+          "ticks": run["ticks"], "launches": run["launches"],
+          "profile": run["profile"],
+          "tick_write": {"rows": "stacked" if stacked else "per layer",
+                         "ms": write_ms[0], "back_to_back_ms": write_ms[1]}})
+    return 0
+
+
+def cascade_compare(parent: Path) -> int:
+    """``--cascade-compare <parent checkout>``: :func:`cascade_timing_main`
+    for the parent and for this checkout in turns (parent, change, change,
+    parent), each in its own process, then the cascade tick's device busy
+    ms, host launches and stacks per tick, host ms and the row write side
+    by side."""
+    runs = []
+    for label, root in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--cascade-timing", str(root)], capture_output=True, text=True,
+            timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            print(proc.stdout[-4000:])
+            return proc.returncode
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **out}), flush=True)
+        runs.append((label, out))
+    keys = ("device_busy_ms_per_tick", "device_idle_share",
+            "host_launches_per_tick", "stack_ops_per_tick")
+    table = {key: [(label, out["profile"][key]) for label, out in runs]
+             for key in keys}
+    table["tick_ms_median"] = [(label, out["tick_ms_median"])
+                               for label, out in runs]
+    table["tick_write_ms"] = [(label, out["tick_write"]["rows"],
+                               out["tick_write"]["ms"]) for label, out in runs]
+
+    def side(key, label):
+        return statistics.median(out["profile"][key] for lab, out in runs
+                                 if lab == label)
+    emit({"cascade_compare": table,
+          "host_launches_per_tick_drop":
+              side("host_launches_per_tick", "parent")
+              - side("host_launches_per_tick", "change"),
+          "device_busy_ms_per_tick_drop":
+              side("device_busy_ms_per_tick", "parent")
+              - side("device_busy_ms_per_tick", "change")})
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--sc-compare"]:
         return sc_compare(Path(args[1]).resolve())
-    if args[:1] == ["--sc-timing"]:
+    if args[:1] == ["--cascade-compare"]:
+        return cascade_compare(Path(args[1]).resolve())
+    if args[:1] in (["--sc-timing"], ["--cascade-timing"]):
         sys.path.insert(0, str(Path(args[1]).resolve() / "src"))
     import numpy as np
     import torch
@@ -2259,6 +2548,8 @@ def main() -> int:
         return 2
     if args[:1] == ["--sc-timing"]:
         return sc_timing_main(Path(args[1]).resolve())
+    if args[:1] == ["--cascade-timing"]:
+        return cascade_timing_main(Path(args[1]).resolve())
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -2501,18 +2792,29 @@ def main() -> int:
     results.update(cascade_timing)
     # the chunked path's own shape: a fold chunk
     results["flash_attention"] = flash_timing["fold_chunk"]
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1],
-         "launches": paths[HOME_PATH[name]][name],
-         "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
-         "max_abs_err": err[name], "ms": results[name]["ms"],
-         "plain_ms": results[name]["plain_ms"],
-         "bound_ms": results[name]["bound_ms"],
-         "bound_by": results[name]["bound_by"],
-         "library_ms": results[name]["library_ms"],
-         "shape": results[name]["shape"]}
-        for name in KERNELS]})
+
+    def row(name: str) -> dict:
+        # kernel 7 runs on the path fused into kernel 5's epilogue: its
+        # launches are the fused merges, its ms their marginal cost
+        count = FUSED_MERGE if name == "merge_attn_states" else name
+        out = {"name": name, "route": "cuda", "source": sources[name][0],
+               "replaces": sources[name][1],
+               "launches": paths[HOME_PATH[name]][count],
+               "launches_by_path": {p: c.get(count, 0)
+                                    for p, c in paths.items()},
+               "max_abs_err": err[name], "ms": results[name]["ms"],
+               "plain_ms": results[name]["plain_ms"],
+               "bound_ms": results[name]["bound_ms"],
+               "bound_by": results[name]["bound_by"],
+               "library_ms": results[name]["library_ms"],
+               "shape": results[name]["shape"]}
+        if count != name:
+            out.update(fused_into=results[name]["fused_into"],
+                       standalone_ms=results[name]["standalone_ms"],
+                       standalone_launches_by_path={
+                           p: c.get(name, 0) for p, c in paths.items()})
+        return out
+    emit({"kernels": [row(name) for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

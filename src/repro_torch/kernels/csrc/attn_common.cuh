@@ -1,21 +1,34 @@
 // Helpers shared by csrc/paged_attn.cu, csrc/cascade_attn.cu and
-// csrc/flash_attn.cu: dtype conversions, warp reductions, cp.async, and the
-// combine kernel that merges float32 partial softmax states.
+// csrc/flash_attn.cu: dtype conversions, warp reductions, cp.async, the
+// two-state merge, and the combine kernel that merges float32 partial
+// softmax states.
+//
+// merge_two
+//   The cascade's log-sum-exp merge of two states over disjoint key sets,
+//   prefix first, normalized: m = max(m1, m2), c = exp(m_side - m), out =
+//   (c1 a1 + c2 a2) / max(c1 l1 + c2 l2, 1e-30), each product and sum
+//   rounded on its own (the intrinsics keep nvcc from contracting them
+//   into FMAs), as the reference's plain merge computes it.  Every merge
+//   of the port calls it: the standalone merge_attn_states kernel, the
+//   one-split suffix pass's merging epilogue and the combine's, so the
+//   fused suffix pass is bit for bit the three-launch composition (state,
+//   then the standalone merge, then the cast).  An empty side (m = -1e30,
+//   l = 0, a = 0) drops out exactly; two empty sides give 0.
 //
 // combine_states_kernel
 //   S partial online-softmax states of R rows, unnormalized float32 (one
-//   per split of a key range): a split launch's scratch acc (S, R, D), m,
-//   l (S, R), or two states that lie apart (acc (R, D), m, l (R) each),
-//   so the cascade's two-state merge takes the same kernel.  The
-//   log-sum-exp merge, in split order (fixed, so a call is reproducible
-//   bit for bit): M = max_s m_s, l = sum_s exp(m_s - M) l_s, acc = sum_s
-//   exp(m_s - M) acc_s.  Two epilogues (a template flag): combine_states
-//   writes acc / max(l, 1e-30) to out (R, D) in T; combine_to_state writes
-//   the float32 state (acc, M, l) itself.  A split whose keys are all
-//   masked for a row (m_s = -1e30, l_s = 0, acc_s = 0) drops out exactly
-//   once any split has a real key (exp(-1e30 - M) is 0), and an all-empty
-//   row gives exactly the empty state (acc 0, m -1e30, l 0: exp(0) = 1
-//   times zeros), or 0 normalized.
+//   per split of a key range), stacked: a split launch's scratch acc (S,
+//   R, D), m, l (S, R).  The log-sum-exp merge, in split order (fixed, so
+//   a call is reproducible bit for bit): M = max_s m_s, l = sum_s exp(m_s
+//   - M) l_s, acc = sum_s exp(m_s - M) acc_s.  Three epilogues (a template
+//   argument): combine_states writes acc / max(l, 1e-30) to out (R, D) in
+//   T; combine_to_state writes the float32 state (acc, M, l) itself;
+//   combine_merge computes that same state and merges each row's prefix
+//   state into it (merge_two, the Prefix below), writing out (R, D) in T.
+//   A split whose keys are all masked for a row (m_s = -1e30, l_s = 0,
+//   acc_s = 0) drops out exactly once any split has a real key (exp(-1e30
+//   - M) is 0), and an all-empty row gives exactly the empty state (acc 0,
+//   m -1e30, l 0: exp(0) = 1 times zeros), or 0 normalized.
 #pragma once
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -65,75 +78,102 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-constexpr int kCombineThreads = 128;
-
-// The S states a combine reads: split 0, then split 1 (and, stacked after
-// it, splits 2 .. S-1).
-struct States {
-  const float *acc0, *m0, *l0;
-  const float *acc1, *m1, *l1;
-};
-
-// The states of a split launch's scratch: acc (S, R, D), m, l (S, R).
-inline States stacked_states(const float* acc, const float* m,
-                             const float* l, long long R, int D) {
-  return {acc, m, l, acc + R * D, m + R, l + R};
+// The cascade's two-state merge, normalized (see the top of the file).
+__device__ __forceinline__ float merge_two(float m1, float l1, float a1,
+                                           float m2, float l2, float a2) {
+  const float m = fmaxf(m1, m2);
+  const float c1 = expf(m1 - m), c2 = expf(m2 - m);
+  const float a = __fadd_rn(__fmul_rn(c1, a1), __fmul_rn(c2, a2));
+  const float l = __fadd_rn(__fmul_rn(c1, l1), __fmul_rn(c2, l2));
+  return __fdiv_rn(a, fmaxf(l, 1e-30f));
 }
 
-// kS > 0 fixes S at compile time (the two-state merge, and the prefix
-// pass's 8 splits at a decode tick), so the loops unroll and every load of
-// a row is issued before the arithmetic that waits on it.  Split s of row
-// r lies at s*R rows from split 0 (the stacked layout), except that the
-// two-state form (kS == 2) reads its second state from acc1, m1, l1.
-// kState picks the epilogue: the state itself, or acc / max(l, 1e-30).
-template <typename T, int kS, bool kState>
+// The prefix pass's states in group layout, for a merging epilogue: acc
+// (slots * Hq, D), m, l (slots * Hq) float32, slots = G * Lc; lane_slot
+// (B,) int32 names lane b's flat slot g * Lc + c.  A slot outside [0,
+// slots) (-1: a lane in no group) stands for the empty state, which the
+// merge still takes, as the composition does.  lane_slot == nullptr: no
+// prefix.
+struct Prefix {
+  const float *acc, *m, *l;
+  const int32_t* lane_slot;
+  long long slots;
+  int Hq;
+};
+
+// Lane b's merged, normalized output at query head hq, column d, given its
+// suffix state's a2 (that column), m2 and l2.
+__device__ __forceinline__ float merge_prefix(const Prefix& p, long long b,
+                                              int hq, int d, int D, float m2,
+                                              float l2, float a2) {
+  const long long s = p.lane_slot[b];
+  if (s < 0 || s >= p.slots) return merge_two(kNegInf, 0.f, 0.f, m2, l2, a2);
+  const long long row = s * p.Hq + hq;
+  return merge_two(p.m[row], p.l[row], p.acc[row * D + d], m2, l2, a2);
+}
+
+constexpr int kCombineThreads = 128;
+
+// The S stacked states a combine reads: acc (S, R, D), m, l (S, R).
+struct States {
+  const float *acc, *m, *l;
+};
+
+inline States stacked_states(const float* acc, const float* m,
+                             const float* l) {
+  return {acc, m, l};
+}
+
+enum Epilogue { kNormalize, kState, kMerge };
+
+// kS > 0 fixes S at compile time (2 splits, and the prefix pass's 8 splits
+// at a decode tick), so the loops unroll and every load of a row is issued
+// before the arithmetic that waits on it.  Split s of row r lies s*R rows
+// after split 0.  kEpi picks the epilogue; pre is read only by kMerge.
+template <typename T, int kS, int kEpi>
 __global__ void __launch_bounds__(kCombineThreads)
-combine_states_kernel(const float* __restrict__ acc0,
-                      const float* __restrict__ m0,
-                      const float* __restrict__ l0,
-                      const float* __restrict__ acc1,
-                      const float* __restrict__ m1,
-                      const float* __restrict__ l1, int S_arg, long long R,
+combine_states_kernel(const float* __restrict__ acc,
+                      const float* __restrict__ m,
+                      const float* __restrict__ l, int S_arg, long long R,
                       int D, T* __restrict__ out, float* __restrict__ m_out,
-                      float* __restrict__ l_out) {
+                      float* __restrict__ l_out, const Prefix pre) {
   const int S = kS > 0 ? kS : S_arg;
   const long long r = blockIdx.x;
-  auto m_of = [&](int s) { return kS == 2 && s ? m1[r] : m0[s * R + r]; };
-  auto l_of = [&](int s) { return kS == 2 && s ? l1[r] : l0[s * R + r]; };
   float M = kNegInf;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, m_of(s));
+  for (int s = 0; s < S; ++s) M = fmaxf(M, m[s * R + r]);
   float L = 0.f;
-  for (int s = 0; s < S; ++s) L += expf(m_of(s) - M) * l_of(s);
+  for (int s = 0; s < S; ++s) L += expf(m[s * R + r] - M) * l[s * R + r];
   const float lf = fmaxf(L, 1e-30f);
+  const long long b = kEpi == kMerge ? r / pre.Hq : 0;
+  const int hq = kEpi == kMerge ? (int)(r - b * pre.Hq) : 0;
   for (int d = threadIdx.x; d < D; d += kCombineThreads) {
     float a = 0.f;
     for (int s = 0; s < S; ++s)
-      a += expf(m_of(s) - M) *
-           (kS == 2 && s ? acc1[r * D + d] : acc0[(s * R + r) * D + d]);
-    out[r * D + d] = from_f32<T>(kState ? a : a / lf);
+      a += expf(m[s * R + r] - M) * acc[(s * R + r) * D + d];
+    if (kEpi == kMerge)
+      out[r * D + d] = from_f32<T>(merge_prefix(pre, b, hq, d, D, M, L, a));
+    else
+      out[r * D + d] = from_f32<T>(kEpi == kState ? a : a / lf);
   }
-  if (kState && threadIdx.x == 0) {
+  if (kEpi == kState && threadIdx.x == 0) {
     m_out[r] = M;
     l_out[r] = L;
   }
 }
 
-// One CTA per row.  Two states may lie anywhere; more must be stacked
-// (stacked_states).
-template <typename T, bool kState>
+// One CTA per row.
+template <typename T, int kEpi>
 cudaError_t launch_combine(const States& in, int S, long long R, int D,
                            T* out, float* m_out, float* l_out,
-                           cudaStream_t stream) {
-  if (R <= 0 || R > 0x7fffffffLL ||
-      (S != 2 && (in.acc1 != in.acc0 + R * D || in.m1 != in.m0 + R ||
-                  in.l1 != in.l0 + R)))
+                           const Prefix& pre, cudaStream_t stream) {
+  if (R <= 0 || R > 0x7fffffffLL || S < 2 ||
+      (kEpi == kMerge && (pre.lane_slot == nullptr || pre.Hq <= 0)))
     return cudaErrorInvalidValue;
-  const auto kernel = S == 2   ? combine_states_kernel<T, 2, kState>
-                      : S == 8 ? combine_states_kernel<T, 8, kState>
-                               : combine_states_kernel<T, 0, kState>;
+  const auto kernel = S == 2   ? combine_states_kernel<T, 2, kEpi>
+                      : S == 8 ? combine_states_kernel<T, 8, kEpi>
+                               : combine_states_kernel<T, 0, kEpi>;
   kernel<<<(unsigned)R, kCombineThreads, 0, stream>>>(
-      in.acc0, in.m0, in.l0, in.acc1, in.m1, in.l1, S, R, D, out, m_out,
-      l_out);
+      in.acc, in.m, in.l, S, R, D, out, m_out, l_out, pre);
   return cudaGetLastError();
 }
 
@@ -141,15 +181,26 @@ cudaError_t launch_combine(const States& in, int S, long long R, int D,
 template <typename T>
 cudaError_t combine_states(const States& in, int S, long long R, int D,
                            T* out, cudaStream_t stream) {
-  return launch_combine<T, false>(in, S, R, D, out, nullptr, nullptr,
-                                  stream);
+  return launch_combine<T, kNormalize>(in, S, R, D, out, nullptr, nullptr,
+                                       Prefix{}, stream);
 }
 
 // The merged state itself: acc (R, D), m, l (R) float32.
 inline cudaError_t combine_to_state(const States& in, int S, long long R,
                                     int D, float* acc, float* m, float* l,
                                     cudaStream_t stream) {
-  return launch_combine<float, true>(in, S, R, D, acc, m, l, stream);
+  return launch_combine<float, kState>(in, S, R, D, acc, m, l, Prefix{},
+                                       stream);
+}
+
+// The merged state, computed as combine_to_state computes it, merged with
+// each row's prefix state (row r = b * Hq + hq) and normalized: out (R, D)
+// in T.
+template <typename T>
+cudaError_t combine_merge(const States& in, int S, long long R, int D,
+                          const Prefix& pre, T* out, cudaStream_t stream) {
+  return launch_combine<T, kMerge>(in, S, R, D, out, nullptr, nullptr, pre,
+                                   stream);
 }
 
 }  // namespace attn

@@ -67,11 +67,14 @@
 // merge_states_launch
 //   acc1, acc2 (rows, D) and m1, l1, m2, l2 (rows,) float32:
 //   out = (c1 acc1 + c2 acc2) / max(c1 l1 + c2 l2, 1e-30), with
-//   m = max(m1, m2), c = exp(m_side - m): the S = 2 case of
-//   attn::combine_states, normalizing, reading the two states where they
-//   lie.  An empty side (m = -1e30, l = 0, acc = 0) drops out exactly; two
-//   empty sides give zeros.  Bound: bytes (about 0.25 MB at stablelm-3b's
-//   eight lanes), so its time is the launch.
+//   m = max(m1, m2), c = exp(m_side - m) (attn::merge_two), one thread per
+//   element.  An empty side (m = -1e30, l = 0, acc = 0) drops out exactly;
+//   two empty sides give zeros.  Bound: bytes (about 0.25 MB at
+//   stablelm-3b's eight lanes), so its time is the launch.  The cascade
+//   tick does not launch it: its merge runs in the epilogue of the suffix
+//   pass (paged_attn.cu, paged_attn_merge_launch), through the same
+//   attn::merge_two, so this kernel, the TPU function's own API, gives the
+//   fused pass's values bit for bit.
 #include "attn_common.cuh"
 
 namespace {
@@ -438,8 +441,24 @@ cudaError_t prefix_launch(const void* qg, const void* ka, const void* va,
   const long long R = (long long)G * Lc * Hkv * n_rep;
   return attn::combine_to_state(
       attn::stacked_states((const float*)acc, (const float*)m,
-                           (const float*)l, R, D),
+                           (const float*)l),
       splits, R, D, (float*)acc_out, (float*)m_out, (float*)l_out, stream);
+}
+
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+merge_states_kernel(const float* __restrict__ acc1,
+                    const float* __restrict__ m1,
+                    const float* __restrict__ l1,
+                    const float* __restrict__ acc2,
+                    const float* __restrict__ m2,
+                    const float* __restrict__ l2, float* __restrict__ out,
+                    long long n, int D) {
+  const long long i = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+  if (i >= n) return;
+  const long long r = i / D;
+  out[i] = attn::merge_two(m1[r], l1[r], acc1[i], m2[r], l2[r], acc2[i]);
 }
 
 }  // namespace
@@ -493,10 +512,13 @@ extern "C" int merge_states_launch(const void* acc1, const void* m1,
                                    const void* l1, const void* acc2,
                                    const void* m2, const void* l2, void* out,
                                    long long rows, int D, void* stream) {
-  if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const attn::States in = {(const float*)acc1, (const float*)m1,
-                           (const float*)l1,   (const float*)acc2,
-                           (const float*)m2,   (const float*)l2};
-  return (int)attn::combine_states<float>(in, 2, rows, D, (float*)out,
-                                          (cudaStream_t)stream);
+  if (rows <= 0 || D <= 0 || rows * D > 0x7fffffffLL * kMergeThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long n = rows * D;
+  merge_states_kernel<<<(unsigned)((n + kMergeThreads - 1) / kMergeThreads),
+                        kMergeThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)acc1, (const float*)m1, (const float*)l1,
+      (const float*)acc2, (const float*)m2, (const float*)l2, (float*)out, n,
+      D);
+  return (int)cudaGetLastError();
 }

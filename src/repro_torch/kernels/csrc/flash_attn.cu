@@ -580,7 +580,7 @@ cudaError_t run(Kernel kernel, const Args& a, int BQ, int threads,
   const long long R = (long long)a.B * a.Sq * a.Hq;
   return attn::combine_states<T>(
       attn::stacked_states((const float*)a.acc, (const float*)a.m,
-                           (const float*)a.l, R, a.D),
+                           (const float*)a.l),
       a.splits, R, a.D, (T*)a.out, stream);
 }
 

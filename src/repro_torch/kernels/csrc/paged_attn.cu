@@ -4,9 +4,15 @@
 // Replaces the TPU kernels in src/repro/kernels/paged_attn.py:
 //   paged_decode_attention (_paged_kernel)   -> paged_attn_launch
 //   paged_decode_attention_with_state
-//                    (_paged_state_kernel)   -> paged_attn_state_launch
+//                    (_paged_state_kernel)   -> paged_attn_state_launch,
+//                                               and merged with the
+//                                               cascade's prefix states
+//                                               (merge_attn_states,
+//                                               _merge_kernel, fused)
+//                                               -> paged_attn_merge_launch
 //   scatter_kv_rows        (_scatter_kernel) -> scatter_rows_launch
-// All are templated on float and __nv_bfloat16 (the arena's dtype).
+// The attention kernels are templated on float and __nv_bfloat16 (the
+// arena's dtype); the scatter copies 16-byte vectors of either.
 //
 // paged_attn_launch
 //   q (B, Hq, D); arenas (num_blocks, bs, Hkv, D); tables (B, nb) int32;
@@ -65,12 +71,43 @@
 //   sweep with no valid position leaves the empty state (acc 0, m -1e30,
 //   l 0), which the combine and the cascade merge drop exactly.
 //
+// paged_attn_merge_launch (the cascade's suffix pass with the merge fused)
+//   The suffix pass above, whose epilogue merges each lane's prefix state
+//   (the prefix pass's output in group layout, read through lane_slot:
+//   attn::Prefix) into the suffix state and normalizes, writing out (B,
+//   Hq, D) in the arena's dtype: at one split the CTA merges its own state
+//   (acc summed over the warps, m, l) in its epilogue; with splits > 1 the
+//   combine launch computes the suffix state as the state epilogue does
+//   and merges it (attn::combine_merge).  Either way the merge is
+//   attn::merge_two, the function the standalone merge_attn_states kernel
+//   calls, on the same float32 values the three-launch composition passes
+//   through device memory (state, place_group_states, merge_attn_states),
+//   so the output is that composition's, cast to the arena's dtype, bit
+//   for bit.  The launches are the suffix pass's own (the sweep, and the
+//   combine when split): the placement of the group states, the merge and
+//   the cast are gone from the tick.  A lane in no group merges the empty
+//   state, as the composition does.
+//
 // scatter_rows_launch
-//   arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D), wbids and
-//   offs (S,) int32: arena[l, wbids[b], 0, offs[b]] = rows[l, b], in place.
-//   Grid (S, L); each CTA copies one K row and one V row of Hkv*D elements.
-//   No other byte of the arenas is written; a lane whose block or offset is
-//   out of range writes nothing.  Bound: bytes, a copy.
+//   arenas (L, num_blocks, 1, bs, Hkv, D); the rows of layer l at kr[l],
+//   vr[l], each (S, Hkv, D): per-layer pointers, so the tick passes the
+//   rows its layers made and no stacked copy of them is written; wbids
+//   and offs (S,) int32: arena[l, wbids[b], 0, offs[b]] = rows[l][b], in
+//   place.  No other byte of the arenas is written; a lane whose block or
+//   offset is out of range writes nothing.
+//
+//   Bound on the H100: bytes, a copy (at stablelm-3b's 32 layers x 8
+//   lanes, 2.6 MB read and 2.6 MB written, 1.57 us at 3.35 TB/s), short
+//   enough that the load latency and the launch decide the time.  Design:
+//   the row pointers travel by value in the kernel's parameters (a
+//   __grid_constant__ struct of up to kScatterLayers layers, 2 KB; more
+//   layers launch in chunks); grid (2 * row chunks, S, layers), each CTA
+//   one chunk of one K or V row of one (lane, layer), each thread
+//   kScatterVecs 16-byte vectors at a stride of the CTA's width, all
+//   loaded (fixed trip count, unrolled, no division) before the lane's
+//   block and offset are checked and the vectors stored.  At stablelm-3b's
+//   rows of 320 vectors that is 512 CTAs of 128 threads, 2-3 vectors a
+//   thread.
 #include "attn_common.cuh"
 
 namespace {
@@ -95,9 +132,11 @@ size_t attn_smem_bytes(int elem, int D, int n_rep) {
 
 // Split z of lane b sweeps positions [q0 + z*P, q0 + (z+1)*P) of its table
 // (q0 = q0s[b], or 0 without q0s).  out != nullptr: one split, write
-// acc / max(l, 1e-30) to out; otherwise write the state of split z at
-// acc_out + z*B*Hq*D, m_out + z*B*Hq, l_out + z*B*Hq.  G: the lanes that
-// score one position (a power of two >= the row's 16-byte vectors).
+// acc / max(l, 1e-30) to out, or, with a prefix (pre.lane_slot !=
+// nullptr), the state merged with the lane's prefix state and normalized;
+// otherwise write the state of split z at acc_out + z*B*Hq*D, m_out +
+// z*B*Hq, l_out + z*B*Hq.  G: the lanes that score one position (a power
+// of two >= the row's 16-byte vectors).
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
@@ -107,7 +146,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
                   const int32_t* __restrict__ q0s,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int num_blocks, int bs, int nb,
-                  int Hkv, int n_rep, int D, int win, int P) {
+                  int Hkv, int n_rep, int D, int win, int P,
+                  const attn::Prefix pre) {
   constexpr int kVec = 16 / sizeof(T);           // elements per 16 bytes
   constexpr int kGroups = kThreads / G;          // positions scored at once
   extern __shared__ __align__(16) unsigned char smem[];
@@ -268,10 +308,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += accw[w * RD + e];
-    if (out != nullptr)
-      out[row0 * D + e] = from_f32<T>(a / fmaxf(ls[e / D], 1e-30f));
-    else
+    if (out == nullptr) {
       acc_out[((size_t)z * B * Hq + row0) * D + e] = a;
+      continue;
+    }
+    const int r = e / D;
+    out[row0 * D + e] = from_f32<T>(
+        pre.lane_slot != nullptr
+            ? attn::merge_prefix(pre, b, h * n_rep + r, e - r * D, D, ms[r],
+                                 ls[r], a)
+            : a / fmaxf(ls[r], 1e-30f));
   }
   if (out == nullptr) {
     for (int r = tid; r < n_rep; r += kThreads) {
@@ -281,30 +327,49 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_kernel(T* __restrict__ ka, T* __restrict__ va,
-                    const T* __restrict__ kr, const T* __restrict__ vr,
+constexpr int kScatterThreads = 128;
+constexpr int kScatterVecs = 4;      // 16-byte vectors a thread moves a row
+constexpr int kScatterLayers = 128;  // layers a launch takes (2 KB of params)
+
+struct LayerRows {
+  const uint4* k[kScatterLayers];
+  const uint4* v[kScatterLayers];
+};
+
+// Grid (2 * chunks, S, layers): x = 2 * chunk + (0: K, 1: V).  ka, va point
+// at the launch's first layer; rows of nvec 16-byte vectors.
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_rows_kernel(uint4* __restrict__ ka, uint4* __restrict__ va,
+                    const __grid_constant__ LayerRows rows,
                     const int32_t* __restrict__ wbids,
                     const int32_t* __restrict__ offs, int num_blocks, int bs,
-                    int S, int row) {
-  const int b = blockIdx.x, l = blockIdx.y;
+                    int nvec) {
+  const int side = blockIdx.x & 1, b = blockIdx.y, l = blockIdx.z;
+  const int v0 =
+      (blockIdx.x >> 1) * kScatterThreads * kScatterVecs + threadIdx.x;
+  const uint4* src = (side ? rows.v[l] : rows.k[l]) + (size_t)b * nvec;
+  uint4 x[kScatterVecs];
+#pragma unroll
+  for (int i = 0; i < kScatterVecs; ++i) {
+    const int v = v0 + i * kScatterThreads;
+    if (v < nvec) x[i] = __ldg(src + v);
+  }
   const int wb = wbids[b], off = offs[b];
   if (wb < 0 || wb >= num_blocks || off < 0 || off >= bs) return;
-  const size_t dst = (((size_t)l * num_blocks + wb) * bs + off) * row;
-  const size_t src = ((size_t)l * S + b) * row;
-  const int nvec = row * (int)sizeof(T) / 16;    // whole 16-byte vectors
-  for (int i = threadIdx.x; i < 2 * nvec; i += kThreads) {
-    const int which = i / nvec, v = i - which * nvec;
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(
-                              (which ? vr : kr) + src) + v);
-    reinterpret_cast<uint4*>((which ? va : ka) + dst)[v] = x;
+  uint4* dst = (side ? va : ka) +
+               (((size_t)l * num_blocks + wb) * bs + off) * nvec;
+#pragma unroll
+  for (int i = 0; i < kScatterVecs; ++i) {
+    const int v = v0 + i * kScatterThreads;
+    if (v < nvec) dst[v] = x[i];
   }
 }
 
-// out != nullptr: the flat sweep, normalized into out; otherwise the state
-// sweep into st_acc, st_m, st_l.  With splits > 1 the CTAs write their
-// states to the scratch acc, m, l and the combine launch merges them.
+// out != nullptr: the flat sweep, normalized into out, or with a prefix
+// (pre.lane_slot != nullptr) the suffix sweep merged with the prefix
+// states into out; otherwise the state sweep into st_acc, st_m, st_l.
+// With splits > 1 the CTAs write their states to the scratch acc, m, l and
+// the combine launch merges them.
 template <typename T>
 cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         const void* tables, const void* lens, const void* k1,
@@ -312,7 +377,8 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         void* acc, void* m, void* l, void* st_acc,
                         void* st_m, void* st_l, int B, int num_blocks,
                         int bs, int nb, int Hkv, int n_rep, int D, int win,
-                        int splits, int P, cudaStream_t stream) {
+                        int splits, int P, const attn::Prefix& pre,
+                        cudaStream_t stream) {
   const size_t smem = attn_smem_bytes(sizeof(T), D, n_rep);
   const bool wide = D * (int)sizeof(T) > 16 * 16;  // more than 16 vectors
   const auto kernel =
@@ -329,15 +395,17 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
       direct && !state ? (T*)out : nullptr, (const int32_t*)q0s,
       (float*)(direct ? st_acc : acc), (float*)(direct ? st_m : m),
       (float*)(direct ? st_l : l), num_blocks, bs, nb, Hkv, n_rep, D, win,
-      P);
+      P, pre);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || direct) return e;
   const long long R = (long long)B * Hkv * n_rep;
   const attn::States parts = attn::stacked_states(
-      (const float*)acc, (const float*)m, (const float*)l, R, D);
+      (const float*)acc, (const float*)m, (const float*)l);
   if (state)
     return attn::combine_to_state(parts, splits, R, D, (float*)st_acc,
                                   (float*)st_m, (float*)st_l, stream);
+  if (pre.lane_slot != nullptr)
+    return attn::combine_merge<T>(parts, splits, R, D, pre, (T*)out, stream);
   return attn::combine_states<T>(parts, splits, R, D, (T*)out, stream);
 }
 
@@ -382,11 +450,11 @@ extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out,
                                    nullptr, acc, m, l, nullptr, nullptr,
                                    nullptr, B, num_blocks, bs, nb, Hkv, n_rep,
-                                   D, win, splits, P, s);
+                                   D, win, splits, P, attn::Prefix{}, s);
   return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, out, nullptr, acc, m, l, nullptr,
       nullptr, nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P,
-      s);
+      attn::Prefix{}, s);
 }
 
 // The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32
@@ -408,10 +476,42 @@ extern "C" int paged_attn_state_launch(
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, nullptr,
                                    q0s, acc, m, l, acc_out, m_out, l_out, B,
                                    num_blocks, bs, nb, Hkv, n_rep, D, win,
-                                   splits, P, s);
+                                   splits, P, attn::Prefix{}, s);
   return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc, m, l, acc_out,
-      m_out, l_out, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P, s);
+      m_out, l_out, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P,
+      attn::Prefix{}, s);
+}
+
+// The suffix pass merged with the prefix pass's states: as
+// paged_attn_state_launch, with the prefix states pacc (slots * Hq, D),
+// pm, pl (slots * Hq) float32 and lane_slot (B,) int32 (attn::Prefix), and
+// out (B, Hq, D) in the arena's dtype in place of the state.
+extern "C" int paged_attn_merge_launch(
+    const void* q, const void* ka, const void* va, const void* tables,
+    const void* lens, const void* q0s, const void* k1, const void* v1,
+    const void* pacc, const void* pm, const void* pl, const void* lane_slot,
+    long long slots, void* out, void* acc, void* m, void* l, int B,
+    int num_blocks, int bs, int nb, int Hkv, int n_rep, int D, int win,
+    int splits, int bps, int dtype, void* stream) {
+  if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype) ||
+      !plan_ok(nb, splits, bps, acc, m, l) || out == nullptr ||
+      lane_slot == nullptr || slots < 0 ||
+      (slots > 0 && (pacc == nullptr || pm == nullptr || pl == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const attn::Prefix pre = {(const float*)pacc, (const float*)pm,
+                            (const float*)pl, (const int32_t*)lane_slot,
+                            slots, Hkv * n_rep};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int P = bps * bs;
+  if (dtype == 0)
+    return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out, q0s,
+                                   acc, m, l, nullptr, nullptr, nullptr, B,
+                                   num_blocks, bs, nb, Hkv, n_rep, D, win,
+                                   splits, P, pre, s);
+  return (int)attn_launch<__nv_bfloat16>(
+      q, ka, va, tables, lens, k1, v1, out, q0s, acc, m, l, nullptr, nullptr,
+      nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P, pre, s);
 }
 
 // Shared-memory bytes paged_attn_launch asks for at these sizes (the wrapper
@@ -420,26 +520,34 @@ extern "C" long long paged_attn_smem_bytes(int n_rep, int D, int dtype) {
   return (long long)attn_smem_bytes(dtype == 0 ? 4 : 2, D, n_rep);
 }
 
-// row = Hkv * D elements; row bytes must be whole 16-byte vectors.
-extern "C" int scatter_rows_launch(void* ka, void* va, const void* kr,
-                                   const void* vr, const void* wbids,
+// kr, vr: host arrays of L pointers, layer l's rows (S, Hkv, D), each
+// 16-byte aligned; row_bytes = Hkv * D * element size, whole 16-byte
+// vectors.  Layers launch in chunks of kScatterLayers.
+extern "C" int scatter_rows_launch(void* ka, void* va, const void* const* kr,
+                                   const void* const* vr, const void* wbids,
                                    const void* offs, int L, int num_blocks,
-                                   int bs, int S, int row, int dtype,
+                                   int bs, int S, int row_bytes,
                                    void* stream) {
-  const int elem = dtype == 0 ? 4 : 2;
-  if (L <= 0 || L > 65535 || S <= 0 || num_blocks <= 0 || bs <= 0 ||
-      row <= 0 || (row * elem) % 16 != 0 || (dtype != 0 && dtype != 1))
+  if (L <= 0 || S <= 0 || S > 65535 || num_blocks <= 0 || bs <= 0 ||
+      row_bytes <= 0 || row_bytes % 16 != 0 || kr == nullptr || vr == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(S, L);
-  if (dtype == 0)
-    scatter_rows_kernel<float><<<grid, kThreads, 0, s>>>(
-        (float*)ka, (float*)va, (const float*)kr, (const float*)vr,
-        (const int32_t*)wbids, (const int32_t*)offs, num_blocks, bs, S, row);
-  else
-    scatter_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (__nv_bfloat16*)ka, (__nv_bfloat16*)va, (const __nv_bfloat16*)kr,
-        (const __nv_bfloat16*)vr, (const int32_t*)wbids,
-        (const int32_t*)offs, num_blocks, bs, S, row);
-  return (int)cudaGetLastError();
+  const int nvec = row_bytes / 16;
+  const int chunks = (nvec + kScatterThreads * kScatterVecs - 1) /
+                     (kScatterThreads * kScatterVecs);
+  const size_t layer = (size_t)num_blocks * bs * nvec;  // vectors a layer
+  LayerRows rows;
+  for (int l0 = 0; l0 < L; l0 += kScatterLayers) {
+    const int n = L - l0 < kScatterLayers ? L - l0 : kScatterLayers;
+    for (int i = 0; i < n; ++i) {
+      rows.k[i] = (const uint4*)kr[l0 + i];
+      rows.v[i] = (const uint4*)vr[l0 + i];
+    }
+    scatter_rows_kernel<<<dim3(2 * chunks, S, n), kScatterThreads, 0, s>>>(
+        (uint4*)ka + l0 * layer, (uint4*)va + l0 * layer, rows,
+        (const int32_t*)wbids, (const int32_t*)offs, num_blocks, bs, nvec);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

@@ -13,13 +13,16 @@ Each replaces the TPU kernel of the same name in
   writes a float32 partial state, and a second launch merges the splits in
   order and normalizes (flash-decoding);
 - ``scatter_kv_rows``: the decode tick's in-place write of one K and one V
-  row per (layer, lane);
+  row per (layer, lane), from the layers' own row tensors;
 - ``paged_decode_attention_with_state``: the same sweep restarted at an
   absolute offset ``q0``, returning its unnormalized float32 softmax state
-  (the cascade's per-lane suffix pass);
+  (the cascade's per-lane suffix pass), or, given the prefix pass's
+  states, merged with them and normalized in its epilogue (the cascade
+  tick's ``merge_attn_states``, fused: no launch of its own);
 - ``cascade_prefix_attention``: one multi-query pass per shared prefix
   chain, each chain row read once per group of lanes;
-- ``merge_attn_states``: the log-sum-exp merge of two states, normalized.
+- ``merge_attn_states``: the log-sum-exp merge of two states, normalized
+  (the TPU function's own API, bit for bit the fused merge).
 
 The two cascade passes split their sweep across CTAs by
 :func:`cascade_split_plan` (runs of whole blocks until the grid fills the
@@ -57,7 +60,10 @@ def _lib():
     lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
     lib.paged_attn_state_launch.argtypes = [p] * 14 + [i] * 11 + [p]
     lib.paged_attn_state_launch.restype = i
-    lib.scatter_rows_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.paged_attn_merge_launch.argtypes = \
+        [p] * 12 + [ctypes.c_longlong] + [p] * 4 + [i] * 11 + [p]
+    lib.paged_attn_merge_launch.restype = i
+    lib.scatter_rows_launch.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.scatter_rows_launch.restype = i
     return lib
 
@@ -266,13 +272,26 @@ def paged_decode_attention_with_state(
         q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
         tables: torch.Tensor, lens: torch.Tensor, *,
         window: int | None = None, q0: torch.Tensor | None = None,
-        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None
-        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+        prefix: tuple | None = None):
     """The flat sweep over each lane's suffix table, positions starting at
     ``q0`` (B,) int32 (None: 0).  Operands as :func:`paged_decode_attention`.
     Returns the float32 state (acc (B, Hq, D), m (B, Hq), l (B, Hq)), see
-    :func:`repro_torch.kernels.ref.paged_decode_attention_with_state`."""
+    :func:`repro_torch.kernels.ref.paged_decode_attention_with_state`.
+
+    ``prefix`` = (acc (G, Lc, Hq, D), m, l (G, Lc, Hq) float32, lane_slot
+    (B,) int32): the prefix pass's states in group layout and each lane's
+    flat slot ``g * Lc + c`` (-1: in no group).  The kernel's epilogue then
+    merges them into the suffix state (``merge_attn_states``, fused) and
+    normalizes, and the call returns (B, Hq, D) in the arena's dtype: bit
+    for bit the state, placed group states, ``merge_attn_states`` and the
+    cast, in the launches of the state alone (see
+    :func:`repro_torch.kernels.ref.paged_decode_attention_merged`)."""
     if not q.is_cuda:
+        if prefix is not None:
+            return ref.paged_decode_attention_merged(
+                q, k_arena, v_arena, tables, lens, window, q0, new_kv,
+                prefix)
         return ref.paged_decode_attention_with_state(
             q, k_arena, v_arena, tables, lens, window, q0, new_kv)
     name = "paged_decode_attention_with_state"
@@ -284,28 +303,65 @@ def paged_decode_attention_with_state(
     _check("q0", q0, q.device, torch.int32, False)
     if q0.shape != (B,):
         raise ValueError(f"q0 has shape {tuple(q0.shape)}, expected {(B,)}")
-    acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    if prefix is not None:
+        slots = _prefix_args(name, prefix, B, Hq, D, q.device)
+        out = torch.empty((B, Hq, D), dtype=k_arena.dtype, device=q.device)
+    else:
+        acc = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+        m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     if B == 0:
-        return acc, m, l
+        return out if prefix is not None else (acc, m, l)
     splits, bps = cascade_split_plan(B, args[4], args[3], args[2])
     if splits > 65535:
         raise ValueError(f"{name}: {splits} splits are too many for one "
                          "launch")
     _buf, sacc, sm, sl = _scratch(splits, B * Hq, D, q.device)
     k1, v1 = new_kv if new_kv is not None else (None, None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _lib().paged_attn_state_launch(
-            *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1, acc, m, l),
-            sacc, sm, sl, *args[:8], splits, bps, args[8],
-            torch.cuda.current_stream().cuda_stream)
+        if prefix is not None:
+            err = _lib().paged_attn_merge_launch(
+                *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1,
+                       *prefix), slots, out.data_ptr(), sacc, sm, sl,
+                *args[:8], splits, bps, args[8], stream)
+        else:
+            err = _lib().paged_attn_state_launch(
+                *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1, acc, m,
+                       l), sacc, sm, sl, *args[:8], splits, bps, args[8],
+                stream)
     _raise_on(err, name)
     paged_decode_attention_with_state.launches += 1
-    return acc, m, l
+    if prefix is None:
+        return acc, m, l
+    paged_decode_attention_with_state.fused_merges += 1
+    return out
 
 
 paged_decode_attention_with_state.launches = 0
+# calls that merged the prefix states in the epilogue: the cascade tick's
+# merge_attn_states, fused
+paged_decode_attention_with_state.fused_merges = 0
+
+
+def _prefix_args(name: str, prefix: tuple, B: int, Hq: int, D: int,
+                 dev: torch.device) -> int:
+    """The checks of a fused suffix pass's prefix states; returns the group
+    slots G * Lc."""
+    acc, m, l, lane_slot = prefix
+    G, Lc = acc.shape[:2] if acc.dim() == 4 else (-1, -1)
+    if (acc.shape != (G, Lc, Hq, D) or m.shape != (G, Lc, Hq)
+            or l.shape != m.shape or lane_slot.shape != (B,)):
+        raise ValueError(
+            f"{name}: prefix shapes acc {tuple(acc.shape)}, m "
+            f"{tuple(m.shape)}, l {tuple(l.shape)}, lane_slot "
+            f"{tuple(lane_slot.shape)} for {B} lanes of {Hq} x {D}")
+    for arg, t, want in (("prefix acc", acc, torch.float32),
+                         ("prefix m", m, torch.float32),
+                         ("prefix l", l, torch.float32),
+                         ("lane_slot", lane_slot, torch.int32)):
+        _check(arg, t, dev, want, False)
+    return G * Lc
 
 
 def cascade_prefix_attention(
@@ -412,13 +468,37 @@ def merge_attn_states(acc1: torch.Tensor, m1: torch.Tensor,
 merge_attn_states.launches = 0
 
 
-def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
-                    k_rows: torch.Tensor, v_rows: torch.Tensor,
-                    wbids: torch.Tensor, offs: torch.Tensor
+def _layer_rows(name: str, rows, L: int, shape: tuple, dev: torch.device,
+                dtype) -> list[int]:
+    """Pointers to the L layers' rows, each ``shape``: of a stacked (L,
+    *shape) tensor, or of a sequence of L tensors."""
+    if isinstance(rows, torch.Tensor):
+        if rows.shape != (L, *shape):
+            raise ValueError(f"{name} has shape {tuple(rows.shape)}, "
+                             f"expected {(L, *shape)}")
+        _check(name, rows, dev, dtype)
+        step = rows[0].numel() * rows.element_size() if L else 0
+        return [rows.data_ptr() + i * step for i in range(L)]
+    rows = list(rows)
+    if len(rows) != L:
+        raise ValueError(f"{name} holds {len(rows)} layers, expected {L}")
+    for i, t in enumerate(rows):
+        if t.shape != shape:
+            raise ValueError(f"{name}[{i}] has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        _check(f"{name}[{i}]", t, dev, dtype)
+    return [t.data_ptr() for t in rows]
+
+
+def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor, k_rows,
+                    v_rows, wbids: torch.Tensor, offs: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l, b]`` for arenas
-    (L, num_blocks, 1, bs, Hkv, D) and rows (L, S, Hkv, D); wbids, offs
-    (S,) int32.  Returns the two arenas (the same tensors)."""
+    """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l][b]`` for arenas
+    (L, num_blocks, 1, bs, Hkv, D); ``k_rows`` and ``v_rows`` each stacked
+    (L, S, Hkv, D) or a sequence of L tensors (S, Hkv, D), the tick's rows
+    as its layers made them (the kernel takes the layers' pointers, so no
+    stacked copy is written); wbids, offs (S,) int32.  Returns the two
+    arenas (the same tensors)."""
     if not k_arena.is_cuda:
         return ref.scatter_kv_rows(k_arena, v_arena, k_rows, v_rows, wbids,
                                    offs)
@@ -428,33 +508,32 @@ def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
                         f"got {dt}")
     L, num_blocks, one, bs, Hkv, D = k_arena.shape
     S = wbids.shape[0] if wbids.dim() == 1 else -1
-    if (one != 1 or v_arena.shape != k_arena.shape
-            or k_rows.shape != (L, S, Hkv, D) or v_rows.shape != k_rows.shape
-            or offs.shape != (S,)):
+    if one != 1 or v_arena.shape != k_arena.shape or offs.shape != (S,):
         raise ValueError(
-            f"shape mismatch: arenas {tuple(k_arena.shape)}, rows "
-            f"{tuple(k_rows.shape)}/{tuple(v_rows.shape)}, wbids "
-            f"{tuple(wbids.shape)}, offs {tuple(offs.shape)}")
-    if (Hkv * D * k_arena.element_size()) % 16:
+            f"shape mismatch: arenas {tuple(k_arena.shape)}/"
+            f"{tuple(v_arena.shape)}, wbids {tuple(wbids.shape)}, offs "
+            f"{tuple(offs.shape)}")
+    row_bytes = Hkv * D * k_arena.element_size()
+    if row_bytes % 16:
         raise ValueError("scatter_kv_rows needs rows of whole 16-byte "
                          "vectors")
     for name, t, want, vec in (("k_arena", k_arena, dt, True),
                                ("v_arena", v_arena, dt, True),
-                               ("k_rows", k_rows, dt, True),
-                               ("v_rows", v_rows, dt, True),
                                ("wbids", wbids, torch.int32, False),
                                ("offs", offs, torch.int32, False)):
         _check(name, t, dev, want, vec)
-    if L > 65535 or S > 1 << 30:
+    kp = _layer_rows("k_rows", k_rows, L, (S, Hkv, D), dev, dt)
+    vp = _layer_rows("v_rows", v_rows, L, (S, Hkv, D), dev, dt)
+    if S > 65535 or row_bytes >= 1 << 31:
         raise ValueError("scatter_kv_rows: too large for one launch")
-    if S == 0:
+    if S == 0 or L == 0:
         return k_arena, v_arena
     with torch.cuda.device(dev):
         err = _lib().scatter_rows_launch(
-            k_arena.data_ptr(), v_arena.data_ptr(), k_rows.data_ptr(),
-            v_rows.data_ptr(), wbids.data_ptr(), offs.data_ptr(), L,
-            num_blocks, bs, S, Hkv * D, DTYPES[dt],
-            torch.cuda.current_stream().cuda_stream)
+            k_arena.data_ptr(), v_arena.data_ptr(),
+            (ctypes.c_void_p * L)(*kp), (ctypes.c_void_p * L)(*vp),
+            wbids.data_ptr(), offs.data_ptr(), L, num_blocks, bs, S,
+            row_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "scatter_kv_rows")
     scatter_kv_rows.launches += 1
     return k_arena, v_arena

@@ -132,14 +132,16 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     return out.reshape(B, Hq, D).to(v_arena.dtype)
 
 
-def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
-                    k_rows: torch.Tensor, v_rows: torch.Tensor,
-                    wbids: torch.Tensor, offs: torch.Tensor
+def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor, k_rows,
+                    v_rows, wbids: torch.Tensor, offs: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l, b]`` for both
-    arenas (L, num_blocks, 1, bs, Hkv, D), rows (L, S, Hkv, D).  No other
-    row changes; lanes that collide (only trash-routed ones may) land in
-    some order.  Returns the two arenas."""
+    """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l][b]`` for both
+    arenas (L, num_blocks, 1, bs, Hkv, D), rows stacked (L, S, Hkv, D) or
+    a sequence of L tensors (S, Hkv, D).  No other row changes; lanes that
+    collide (only trash-routed ones may) land in some order.  Returns the
+    two arenas."""
+    if not isinstance(k_rows, torch.Tensor):
+        k_rows, v_rows = torch.stack(list(k_rows)), torch.stack(list(v_rows))
     w, o = wbids.long(), offs.long()
     k_arena[:, w, 0, o] = k_rows.to(k_arena.dtype)
     v_arena[:, w, 0, o] = v_rows.to(v_arena.dtype)
@@ -252,6 +254,35 @@ def merge_attn_states(acc1, m1, l1, acc2, m2, l2) -> torch.Tensor:
     normalize: ``acc / max(l, 1e-30)``, float32."""
     acc, _, l = merge_softmax_states(acc1, m1, l1, acc2, m2, l2)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_decode_attention_merged(
+        q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+        tables: torch.Tensor, lens: torch.Tensor, window: int | None,
+        q0: torch.Tensor | None,
+        new_kv: tuple[torch.Tensor, torch.Tensor] | None, prefix: tuple
+        ) -> torch.Tensor:
+    """The suffix sweep with the cascade's merge fused, as the kernel
+    computes it: :func:`paged_decode_attention_with_state`'s state, each
+    lane's prefix state gathered from the group layout through its slot,
+    :func:`merge_attn_states` (prefix first) and the cast.
+
+    ``prefix`` = (acc (G, Lc, Hq, D), m, l (G, Lc, Hq) float32, lane_slot
+    (B,) int32): lane b reads slot ``lane_slot[b]`` of the G * Lc flat
+    slots; a slot outside ``[0, G * Lc)`` (-1: in no group) reads the empty
+    state.  Returns (B, Hq, D) in v_arena's dtype."""
+    acc2, m2, l2 = paged_decode_attention_with_state(
+        q, k_arena, v_arena, tables, lens, window, q0, new_kv)
+    acc, m, l, lane_slot = prefix
+    G, Lc, Hq, D = acc.shape
+    n = G * Lc
+    slot = lane_slot.long()
+    slot = torch.where((slot >= 0) & (slot < n), slot, n)   # n: the empty row
+    acc1 = torch.cat([acc.reshape(n, Hq, D), acc.new_zeros((1, Hq, D))])
+    m1 = torch.cat([m.reshape(n, Hq), m.new_full((1, Hq), NEG_INF)])
+    l1 = torch.cat([l.reshape(n, Hq), l.new_zeros((1, Hq))])
+    return merge_attn_states(acc1[slot], m1[slot], l1[slot], acc2, m2,
+                             l2).to(v_arena.dtype)
 
 
 # --------------------------------------------------------------------------

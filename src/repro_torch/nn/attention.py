@@ -128,12 +128,15 @@ def attend_decode_cascade(q: torch.Tensor, k_arena: torch.Tensor,
     """Two-level decode attention over shared radix prefixes (one layer).
 
     Lanes that share an indexed prefix chain attend it once as a group: one
-    multi-query pass over the chain (``cascade_prefix_attention``), one pass
-    per lane over its divergent suffix from the absolute offset ``lane_q0``
-    (``paged_decode_attention_with_state``), and a log-sum-exp merge of the
-    two float32 states (``merge_attn_states``).  The three run as the CUDA
-    kernels on CUDA tensors and as their plain versions on CPU tensors.
-    ``cascade`` holds the host-built metadata (pow2-padded shapes):
+    multi-query pass over the chain (``cascade_prefix_attention``), then one
+    pass per lane over its divergent suffix from the absolute offset
+    ``lane_q0`` (``paged_decode_attention_with_state``) whose epilogue
+    merges the lane's prefix state into its own float32 state by
+    log-sum-exp and normalizes (``merge_attn_states``, fused: bit for bit
+    the state, :func:`place_group_states`, the merge and the cast).  Both
+    run as the CUDA kernels on CUDA tensors and as their plain versions on
+    CPU tensors.  ``cascade`` holds the host-built metadata (pow2-padded
+    shapes):
 
       group_tables  (G, npre)  int32  chain block ids, trash-padded
       group_len     (G,)       int32  chain tokens (0 for a padded group)
@@ -143,8 +146,9 @@ def attend_decode_cascade(q: torch.Tensor, k_arena: torch.Tensor,
       suffix_tables (B, nsuf)  int32  per-lane suffix block ids
       lane_lens     (G, Lc)    int32  cache_len[group_lanes]
       group_dest    (G*Lc,)    int32  each slot's lane, B for a padded slot
+      lane_slot     (B,)       int32  each lane's slot g*Lc + c, -1 if none
 
-The last two are the same in every layer of a tick, so the adapter builds
+The last three are the same in every layer of a tick, so the adapter builds
 them on the host with the rest (:func:`with_lane_meta` derives them from
 the first six on the device).
     Positions ``[0, lane_q0)`` come from the group pass and ``[lane_q0,
@@ -153,18 +157,15 @@ the first six on the device).
     normalizes inside one sweep and this one after the merge, so the two
     agree to float32 rounding, not bit for bit.  Returns (B, 1, Hq, D) in
     v_arena's dtype."""
-    B = q.shape[0]
     q1 = q[:, 0]
-    acc1g, m1g, l1g = paged_kernels.cascade_prefix_attention(
+    prefix = paged_kernels.cascade_prefix_attention(
         q1[cascade["group_lanes"]], k_arena, v_arena,
         cascade["group_tables"], cascade["group_len"], cascade["lane_lens"],
         window=window)
-    acc2, m2, l2 = paged_kernels.paged_decode_attention_with_state(
+    return paged_kernels.paged_decode_attention_with_state(
         q1.contiguous(), k_arena, v_arena, cascade["suffix_tables"],
-        cache_len, window=window, q0=cascade["lane_q0"], new_kv=new_kv)
-    out = paged_kernels.merge_attn_states(
-        *place_group_states(cascade, acc1g, m1g, l1g, B), acc2, m2, l2)
-    return out[:, None].to(v_arena.dtype)
+        cache_len, window=window, q0=cascade["lane_q0"], new_kv=new_kv,
+        prefix=prefix + (cascade["lane_slot"],))[:, None]
 
 
 def place_group_states(cascade: dict, acc: torch.Tensor, m: torch.Tensor,
@@ -173,7 +174,10 @@ def place_group_states(cascade: dict, acc: torch.Tensor, m: torch.Tensor,
     """The group pass's states (acc (G, Lc, Hq, D), m and l (G, Lc, Hq)) on
     their lanes: (B, Hq, D), (B, Hq), (B, Hq).  Real slots name distinct
     lanes, so this is a plain indexed copy; padded slots go to a spare row
-    that is dropped, and a lane in no group keeps the empty state."""
+    that is dropped, and a lane in no group keeps the empty state.  The
+    tick does not run it (its merge reads the group layout through
+    ``lane_slot``); it builds the unfused composition that checks hold the
+    fused merge against."""
     G, Lc, Hq, D = acc.shape
     dest = cascade["group_dest"]
     acc1 = acc.new_zeros((B + 1, Hq, D))
@@ -186,9 +190,14 @@ def place_group_states(cascade: dict, acc: torch.Tensor, m: torch.Tensor,
 
 
 def with_lane_meta(cascade: dict, cache_len: torch.Tensor) -> dict:
-    """``cascade`` with ``lane_lens`` and ``group_dest`` added, computed on
-    the device from the six keys the reference's metadata holds."""
+    """``cascade`` with ``lane_lens``, ``group_dest`` and ``lane_slot``
+    added, computed on the device from the six keys the reference's
+    metadata holds."""
+    B = cache_len.shape[0]
     lanes = cascade["group_lanes"].long()
-    dest = torch.where(cascade["group_mask"], lanes, cache_len.shape[0])
+    dest = torch.where(cascade["group_mask"], lanes, B).reshape(-1)
+    slot = torch.full((B + 1,), -1, dtype=torch.int32, device=dest.device)
+    slot[dest] = torch.arange(dest.numel(), dtype=torch.int32,
+                              device=dest.device)
     return {**cascade, "lane_lens": cache_len[lanes].to(torch.int32),
-            "group_dest": dest.reshape(-1).to(torch.int32)}
+            "group_dest": dest.to(torch.int32), "lane_slot": slot[:B]}

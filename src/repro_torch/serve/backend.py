@@ -9,10 +9,11 @@
                        ``"pallas"``
     backend="cascade"  the in-place tick with shared-prefix cascade
                        attention: lanes sharing an indexed radix chain
-                       attend it once per group (``cascade_prefix_attention``,
-                       ``paged_decode_attention_with_state`` and
-                       ``merge_attn_states`` in every layer: the kernels on
-                       a CUDA device, their plain versions on the CPU); a
+                       attend it once per group (``cascade_prefix_attention``
+                       and ``paged_decode_attention_with_state``, which
+                       merges the two states in its epilogue, in every
+                       layer: the kernels on a CUDA device, their plain
+                       versions on the CPU); a
                        tick with no chain shared by two lanes runs the
                        device's flat tick (:func:`auto_backend`)
 

@@ -122,7 +122,8 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
             derives it from the table, routing lanes past the table to 0.
     backend ``"plain"`` (gather + masked softmax, indexed write),
             ``"cuda"`` (the ``paged_decode_attention`` kernel in every
-            layer and one ``scatter_kv_rows`` launch after the layer loop)
+            layer and one ``scatter_kv_rows`` launch after the layer loop,
+            from the layers' rows)
             or ``"cascade"`` (shared-prefix cascade attention in every
             layer from the group metadata ``cascade``, see
             :func:`repro_torch.nn.attention.attend_decode_cascade`; the
@@ -155,10 +156,10 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         k_rows.append(k1)
         v_rows.append(v1)
     # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,
-    # landed after the layer loop so every layer read the arena as it was
-    rows = (torch.stack(k_rows), torch.stack(v_rows))
+    # landed after the layer loop so every layer read the arena as it was;
+    # the kernel takes the layers' rows where they lie (no stacked copy)
     wbids, offs = wbids.to(torch.int32), offs.to(torch.int32)
     scatter = ref.scatter_kv_rows if backend == "plain" else \
         paged_kernels.scatter_kv_rows
-    scatter(arena["k"], arena["v"], *rows, wbids, offs)
+    scatter(arena["k"], arena["v"], k_rows, v_rows, wbids, offs)
     return lm.logits(cfg, params, x)[:, 0]

@@ -19,8 +19,9 @@ Cascade tick (``backend="cascade"``)
     After the copy-on-write loop, the live lanes are grouped by the longest
     chain of shared, indexed full blocks they hold in common
     (:meth:`BlockPool.shared_chains`); each group's chain is attended once
-    per layer for all its lanes, each lane's remaining suffix on its own,
-    and the two softmax states merged (``nn.attention.attend_decode_cascade``).
+    per layer for all its lanes, and each lane's remaining suffix on its
+    own by a pass that merges the two softmax states in its epilogue
+    (``nn.attention.attend_decode_cascade``).
     The group metadata is built on the host with pow2-padded shapes and
     reaches the device in one copy that does not wait for it.  A tick with
     no chain shared by two lanes runs the device's flat tick unchanged.
@@ -470,14 +471,18 @@ class PagedKVSlotAdapter:
             row = self.tables[s, q0b[s]:q0b[s] + nsuf]
             st[s, :len(row)] = row
         # per-lane keys every layer of the tick shares: the lanes' cache_len
-        # (the engine's lens + 1) and where each group slot's state lands
+        # (the engine's lens + 1), where each group slot's state lands, and
+        # each lane's slot (its inverse; -1 for a lane in no group)
+        dest = np.where(gmask != 0, lanes, self.n_slots).reshape(-1)
+        slot = np.full(self.n_slots + 1, -1, np.int32)
+        slot[dest] = np.arange(dest.size, dtype=np.int32)
         meta = self._to_device({
             "group_tables": gt, "group_len": gl, "group_lanes": lanes,
             "group_mask": gmask, "lane_q0": q0b * self.bs,
             "suffix_tables": st,
             "lane_lens": self.lens.astype(np.int32)[lanes] + 1,
-            "group_dest": np.where(gmask != 0, lanes, self.n_slots
-                                   ).reshape(-1).astype(np.int32)})
+            "group_dest": dest.astype(np.int32),
+            "lane_slot": slot[:self.n_slots]})
         meta["group_mask"] = meta["group_mask"] != 0
         return meta
 

@@ -9,6 +9,8 @@ against the reference's over forced ticks (tokens equal, logits within
 2e-4, grouping statistics equal), the degrade rule bit for bit, the
 shared-chain eligibility rules, and ``make_gateway(backend="cascade")``
 token for token."""
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -250,6 +252,96 @@ def test_attend_decode_cascade_empty_suffix_lane():
     _close(got, flat.numpy())
 
 
+# -- the suffix pass with the merge fused ----------------------------------
+
+# lane 0's suffix empty (its length is the group prefix); lane 3, in no
+# group, of length 0, so both of its sides are empty
+FUSED_LENS = {"fixture": [18, 15, 23, 14], "empty suffix": [12, 15, 23, 14],
+              "both empty": [18, 15, 23, 0]}
+
+
+@pytest.mark.parametrize("case", list(FUSED_LENS))
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_fused_suffix_pass_bitwise_to_composition(case, window, dtype):
+    """The plain fused suffix pass (the kernel's plain version: the prefix
+    states gathered through ``lane_slot``) is bit for bit the composition
+    it replaces: the state, the group states placed on their lanes through
+    ``group_dest``, ``merge_attn_states`` and the cast, with padded group
+    slots, a lane in no group, windows that empty lanes' prefixes (2), an
+    empty suffix and both sides empty."""
+    q, ka, va, _, _, nk, meta = _fixture(seed=7)
+    cl = _t(np.array(FUSED_LENS[case], np.int32))
+    meta = attention.with_lane_meta({k: _t(v) for k, v in meta.items()}, cl)
+    q, ka, va = (_t(x).to(dtype) for x in (q[:, 0], ka, va))
+    nk = tuple(_t(x).to(dtype) for x in nk)
+    lanes = meta["group_lanes"].long()
+    pre = ref.cascade_prefix_attention(
+        q[lanes], ka, va, meta["group_tables"], meta["group_len"],
+        meta["lane_lens"], window)
+    suf = (q, ka, va, meta["suffix_tables"], cl)
+    state = ref.paged_decode_attention_with_state(*suf, window,
+                                                  meta["lane_q0"], nk)
+    want = ref.merge_attn_states(
+        *attention.place_group_states(meta, *pre, 4), *state).to(dtype)
+    got = paged_attn.paged_decode_attention_with_state(
+        *suf, window=window, q0=meta["lane_q0"], new_kv=nk,
+        prefix=pre + (meta["lane_slot"],))
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert not torch.isnan(got).any()
+    if case == "both empty":
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+    # a grouped lane whose window holds no prefix position: its suffix
+    # alone (every grouped lane at window 2, but lane 0 without a suffix)
+    empty = (pre[1] == ref.NEG_INF).all(-1)[0]
+    alone = (state[0] / torch.clamp(state[2], min=1e-30)[..., None]
+             ).to(dtype)
+    for c in range(3):
+        assert not empty[c] or torch.equal(got[c], alone[c])
+    assert bool(empty[:3].all()) == (window == 2 and case != "empty suffix")
+
+
+def test_lane_slot_inverts_group_dest():
+    """``with_lane_meta``'s ``lane_slot`` names each grouped lane's flat
+    slot and -1 for the rest, the inverse of ``group_dest`` on the real
+    slots, with a padded group as well as padded slots."""
+    *_, cl, _, meta = _fixture()
+    meta = {k: _t(v) for k, v in meta.items()}
+    meta["group_lanes"] = torch.cat([meta["group_lanes"],
+                                     torch.zeros_like(meta["group_lanes"])])
+    meta["group_mask"] = torch.cat([meta["group_mask"],
+                                    torch.zeros_like(meta["group_mask"])])
+    got = attention.with_lane_meta(meta, _t(cl))
+    dest, slot = got["group_dest"].long(), got["lane_slot"].long()
+    assert got["lane_slot"].dtype == torch.int32
+    assert slot.tolist() == [0, 1, 2, -1]
+    real = dest < cl.shape[0]
+    assert torch.equal(slot[dest[real]], torch.nonzero(real)[:, 0])
+    assert torch.equal(dest[slot[slot >= 0]], torch.nonzero(slot >= 0)[:, 0])
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_attend_decode_cascade_takes_the_fused_route(window):
+    """``attend_decode_cascade`` runs the prefix pass and the fused suffix
+    pass and nothing else (no placement of the group states, no separate
+    merge), and holds to the reference's cascade with the Pallas kernels
+    in interpret mode and without them."""
+    q, ka, va, _, cl, nk, meta = _fixture(seed=3)
+
+    def gone(*args, **kwargs):
+        raise AssertionError("the fused route must not call this")
+    with mock.patch.object(attention, "place_group_states", gone), \
+            mock.patch.object(paged_attn, "merge_attn_states", gone):
+        got = _port_cascade(q, ka, va, meta, cl, window, nk)
+    assert got.shape == (4, 1, 4, 8) and got.dtype == torch.float32
+    jargs = (jnp.asarray(q), jnp.asarray(ka), jnp.asarray(va),
+             {k: jnp.asarray(v) for k, v in meta.items()}, jnp.asarray(cl))
+    for kernel in (False, True):
+        _close(got, jattn.attend_decode_cascade(
+            *jargs, window=window, new_kv=tuple(map(jnp.asarray, nk)),
+            kernel=kernel, interpret=True))
+
+
 # -- the cascade adapter ----------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -313,14 +405,14 @@ def test_cascade_meta_matches_reference(pair):
     groups = port._cascade_plan(range(4))
     assert groups == jref._cascade_plan(range(4))
     got, want = port._cascade_meta(groups), jref._cascade_meta(groups)
-    # the port adds the two per-lane keys every layer of the tick shares;
+    # the port adds the three per-lane keys every layer of the tick shares;
     # they are what attend_decode_cascade would derive from the other six
     # with the tick's cache_len (the lengths + 1)
     derived = attention.with_lane_meta(
         {k: _t(np.asarray(v)) for k, v in want.items()},
         _t(port.lens.astype(np.int32) + 1))
     assert got.keys() == derived.keys() == \
-        set(want) | {"lane_lens", "group_dest"}
+        set(want) | {"lane_lens", "group_dest", "lane_slot"}
     for key in got:
         np.testing.assert_array_equal(got[key].numpy(),
                                       derived[key].numpy())

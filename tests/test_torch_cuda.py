@@ -222,6 +222,39 @@ def test_scatter_kv_rows_kernel_bitwise(dev):
                                                              rv[:, 1:])
 
 
+@pytest.mark.parametrize("L,H,D", [(32, 32, 80), (130, 2, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kv_rows_kernel_from_layers_bitwise(dev, L, H, D, dtype):
+    """The rows as the tick passes them, one (S, Hkv, D) tensor per layer:
+    bit for bit the stacked form and the plain version, at stablelm-3b's
+    32 layers and at 130 (two launches of at most 128 layers' pointers);
+    one wrapper call each."""
+    gen = torch.Generator().manual_seed(L)
+    nbk, bs, S = 9, 16, 5
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    ka, va = arr(L, nbk, 1, bs, H, D), arr(L, nbk, 1, bs, H, D)
+    kr, vr = arr(L, S, H, D), arr(L, S, H, D)
+    layers = ([r.clone() for r in kr], [r.clone() for r in vr])
+    wbids = torch.tensor([3, 0, 7, 0, 1], dtype=torch.int32, device=dev)
+    offs = torch.tensor([0, 5, 15, 5, 9], dtype=torch.int32, device=dev)
+    rk, rv = ref.scatter_kv_rows(ka.clone(), va.clone(), kr, vr, wbids, offs)
+    out = {}
+    for form, rows in (("stacked", (kr, vr)), ("layers", layers)):
+        a, b = ka.clone(), va.clone()
+        n = paged_attn_kernel.scatter_kv_rows.launches
+        paged_attn_kernel.scatter_kv_rows(a, b, *rows, wbids, offs)
+        assert paged_attn_kernel.scatter_kv_rows.launches == n + 1
+        out[form] = (a, b)
+    for a, b in out.values():
+        assert torch.equal(a[:, 1:], rk[:, 1:]) and \
+            torch.equal(b[:, 1:], rv[:, 1:])
+    # the trash block 0 takes colliding lanes in either order
+    assert all(torch.equal(x[:, 1:], y[:, 1:])
+               for x, y in zip(out["stacked"], out["layers"]))
+
+
 def test_paged_kernels_refuse_bad_inputs(dev):
     q = torch.zeros((2, 4, 20), dtype=torch.bfloat16, device=dev)
     a = torch.zeros((5, 4, 4, 20), dtype=torch.bfloat16, device=dev)
@@ -411,6 +444,107 @@ def test_cascade_prefix_kernel_large_groups(dev, Lc, Hq, Hkv, D, dtype):
         for g, w in zip(got, want):
             assert not torch.isnan(g).any()
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def _fused_against_composition(prefix, meta, suffix, window, q0, nk, tol):
+    """The suffix pass with the merge fused in, on the prefix states
+    ``prefix``: one wrapper call and one fused merge, no standalone merge
+    launch and no host synchronization; bit for bit the state, the placed
+    group states, ``merge_attn_states`` and the cast; within ``tol`` of
+    its plain version."""
+    wrap = paged_attn_kernel.paged_decode_attention_with_state
+    counts = (wrap.launches, wrap.fused_merges,
+              paged_attn_kernel.merge_attn_states.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wrap(*suffix, window=window, q0=q0, new_kv=nk,
+                   prefix=prefix + (meta["lane_slot"],))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (wrap.launches, wrap.fused_merges,
+            paged_attn_kernel.merge_attn_states.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2])
+    state = wrap(*suffix, window=window, q0=q0, new_kv=nk)
+    want = paged_attn_kernel.merge_attn_states(
+        *attention.place_group_states(meta, *prefix, suffix[0].shape[0]),
+        *state).to(got.dtype)
+    assert got.dtype == suffix[1].dtype and torch.equal(got, want)
+    plain = ref.paged_decode_attention_merged(
+        *suffix, window, q0, nk, prefix + (meta["lane_slot"],))
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_fused_merge_bitwise_forced_plans(monkeypatch, dev, plan, Hq,
+                                                  Hkv, dtype):
+    """The merge fused into the suffix pass's epilogue, at each forced plan
+    of the pass, on the fixture: padded group slots, lane 3 in no group,
+    lane 4's empty suffix, windows 0, 8 and 2 (2 empties the lanes'
+    prefixes), and lane 3 at length 0 (both sides empty: exactly 0)."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    gen = torch.Generator().manual_seed(Hq * 5 + Hkv)
+    q, ka, va, cl, nk, meta = _cascade_case(gen, Hq, Hkv, 80, dtype, dev)
+    meta = attention.with_lane_meta(meta, cl)
+    lanes = meta["group_lanes"].long()
+    cl0 = cl.clone()
+    cl0[3] = 0
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for window in (0, 8, 2):
+        prefix = paged_attn_kernel.cascade_prefix_attention(
+            q[lanes].contiguous(), ka, va, meta["group_tables"],
+            meta["group_len"], meta["lane_lens"], window=window)
+        for lens in (cl, cl0):
+            got = _fused_against_composition(
+                prefix, meta, (q, ka, va, meta["suffix_tables"], lens),
+                window, meta["lane_q0"], nk, tol)
+            assert not torch.isnan(got).any()
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("Lc,Hq,Hkv,D", [(64, 32, 32, 80), (16, 64, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_fused_merge_large_groups(monkeypatch, dev, plan, Lc, Hq,
+                                          Hkv, D, dtype):
+    """The fused merge on the groups of
+    ``test_cascade_prefix_kernel_large_groups`` (64 stablelm-3b lanes; GQA
+    8:1 at D = 128), each lane's suffix from the chain's end up to 63
+    positions on in its own 4-entry table, windows 0 and 100, at each
+    forced plan: bit for bit the composition."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    gen = torch.Generator().manual_seed(Lc * 3 + D)
+    bs = 16
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ka, va = arr(9 + 4 * Lc, bs, Hkv, D), arr(9 + 4 * Lc, bs, Hkv, D)
+    gt = torch.arange(1, 9, **i32)[None]
+    glen = torch.tensor([8 * bs - 5], **i32)
+    ll = (glen.cpu() + torch.randint(0, 64, (1, Lc), generator=gen,
+                                     dtype=torch.int32)).to(dev)
+    meta = attention.with_lane_meta(
+        {"group_lanes": torch.arange(Lc, **i32)[None],
+         "group_mask": torch.ones((1, Lc), dtype=torch.bool, device=dev)},
+        ll[0])
+    qg = arr(1, Lc, Hq, D)
+    nk = (arr(Lc, Hkv, D), arr(Lc, Hkv, D))
+    st = torch.arange(9, 9 + 4 * Lc, **i32).reshape(Lc, 4)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for window in (0, 100):
+        prefix = paged_attn_kernel.cascade_prefix_attention(
+            qg, ka, va, gt, glen, ll, window=window)
+        _fused_against_composition(
+            prefix, meta, (qg[0], ka, va, st, ll[0]), window,
+            glen.expand(Lc).contiguous(), nk, tol)
 
 
 def test_merge_attn_states_kernel(dev):
@@ -675,14 +809,22 @@ def test_cascade_tick_matches_plain_tick_float32(dev):
         first = [ad.insert(s, p, max_new=7) for s, p in enumerate(prompts)]
         active = np.ones(len(prompts), bool)
         toks, logits = [], []
-        counts = paged_attn_kernel.cascade_prefix_attention.launches
+        wrap = paged_attn_kernel.paged_decode_attention_with_state
+        counts = (paged_attn_kernel.cascade_prefix_attention.launches,
+                  wrap.launches, wrap.fused_merges,
+                  paged_attn_kernel.merge_attn_states.launches)
         for row in forced:
             toks.append(ad.decode(row, active))
             logits.append(ad.last_logits.clone())
             assert backend == "plain" or ad.last_groups == 1
         if backend == "cascade":
-            assert paged_attn_kernel.cascade_prefix_attention.launches == \
-                counts + len(forced) * cfg.n_layers
+            # per tick and layer: the prefix pass and the suffix pass with
+            # the merge fused in; the standalone merge never
+            n = len(forced) * cfg.n_layers
+            assert (paged_attn_kernel.cascade_prefix_attention.launches,
+                    wrap.launches, wrap.fused_merges,
+                    paged_attn_kernel.merge_attn_states.launches) == \
+                (counts[0] + n, counts[1] + n, counts[2] + n, counts[3])
         out[backend] = (first, np.stack(toks), torch.stack(logits))
     assert out["cascade"][0] == out["plain"][0]
     np.testing.assert_array_equal(out["cascade"][1], out["plain"][1])

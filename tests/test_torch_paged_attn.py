@@ -153,7 +153,11 @@ def _to_torch(a):
     ([2, 5, 1, 3], [1, 3, 0, 2]),          # unique targets
     ([0, 0, 2, 0], [1, 1, 3, 2]),          # trash-routed lanes collide
 ])
-def test_plain_scatter_matches_pallas_interpret_bitwise(dtype, wbids, offs):
+@pytest.mark.parametrize("form", ["stacked", "layers"])
+def test_plain_scatter_matches_pallas_interpret_bitwise(dtype, wbids, offs,
+                                                        form):
+    """The rows stacked (L, S, Hkv, D), as the reference takes them, or as
+    the tick passes them, one (S, Hkv, D) tensor per layer."""
     rng = np.random.default_rng(7)
     L, nb, bs, H, D, S = 3, 6, 4, 2, 8, 4
     ka, va, kr, vr = _scatter_case(rng, L, nb, bs, H, D, S, dtype)
@@ -162,8 +166,11 @@ def test_plain_scatter_matches_pallas_interpret_bitwise(dtype, wbids, offs):
                                     jnp.asarray(o), interpret=True)
     tk, tv = _to_torch(ka), _to_torch(va)
     before = (tk.clone(), tv.clone())
-    out = paged_attn.scatter_kv_rows(tk, tv, _to_torch(kr), _to_torch(vr),
-                                     torch.from_numpy(w), torch.from_numpy(o))
+    rows = (_to_torch(kr), _to_torch(vr))
+    if form == "layers":
+        rows = tuple([r[i].clone() for i in range(L)] for r in rows)
+    out = paged_attn.scatter_kv_rows(tk, tv, *rows, torch.from_numpy(w),
+                                     torch.from_numpy(o))
     assert out[0] is tk and out[1] is tv            # in place
     real = [b for b in range(1, nb)]                 # every non-trash block
     for got, want in ((tk, nk), (tv, nv)):
