@@ -64,10 +64,16 @@ Phases, each printing one JSON line:
      (conv1 32@5x5, conv2 64@5x5, dense 512) SC frame path at bits 4 and 8
      over a seeded sensor trace, with the kernels' launch counts read around
      each run, one batch's payload held byte for byte against the plain path
-     on the card and on the CPU, and its logits within 1e-4; the SC
-     launches of one bucket-32 sensor stage and a ``torch.profiler``
-     window over ten of them (device busy ms, idle share, device ms by
-     kernel, device operations per stage);
+     on the card and on the CPU, and its logits within 1e-4; the gateway's
+     captured steps (``serve/capture.py``: 2 per bucket after ``warmup``,
+     unchanged by the trace); the captured bucket-32 stages against their
+     eager calls on the same frames (payload and logits bit for bit, the
+     same launches); each bucket's stages timed on the host, captured
+     against eager in turns (``HOST_RUNS`` runs a side); the SC launches
+     of one captured bucket-32 sensor stage and a ``torch.profiler``
+     window over ten of them, captured and eager (device busy ms, idle
+     share, device ms by kernel, device operations, the host's kernel
+     launches and graph launches per stage: one graph when captured);
   5. the prompt path: ``make_gateway`` serving stablelm-3b at its published
      width and depth (bf16, random weights from a seeded generator) over
      paged KV slots with one-shot prefill (``chunked=False``), on (a) the
@@ -75,7 +81,8 @@ Phases, each printing one JSON line:
      prefix hit and a copy-on-write, with the launch counts of the paged
      kernels and of ``flash_attention`` (every prefill) read around each
      load; the decode
-     tick timed at 8 lanes x 1k context; then the kernel tick held against
+     tick timed at 8 lanes x 1k context (one captured flat tick over the
+     three loads, one graph launch per tick); then the kernel tick held against
      the plain tick on the same card and weights: float32 at full width and
      depth 4 (tokens equal, logits within 2e-4) and bf16 at full depth
      (max |logit difference| within ``BF16_LOGIT_BOUND``);
@@ -87,6 +94,7 @@ Phases, each printing one JSON line:
      the standalone merge never, and no stack of the layers' rows before
      the row write (``aten::stack`` in the profiled ticks, here and on the
      flat tick);
+     one captured cascade tick per metadata bucket the load visits;
      the same load through the flat ``"cuda"`` gateway, in turns with the
      cascade one, for the tick times and the tokens: equal at float32 and
      depth 4 with logits within 2e-4, and in bf16 at full depth equal up to
@@ -108,7 +116,19 @@ Phases, each printing one JSON line:
      bf16 at full depth up to each stream's first difference, a near tie;
      the host-clock prefill time per prompt (cold fold, resumed fold,
      one-shot) and a 1,000-token one-shot prefill with attention through
-     the kernel and through its plain version.
+     the kernel and through its plain version;
+  8. the captured ticks (``capture`` line): the flat tick at 8 lanes x 1k
+     and load (c)'s cascade tick, each right after its capture, replayed
+     against the step's ``fn`` called eagerly on the same static inputs
+     from the same arena (logits and the whole arena bit for bit, launch
+     counts equal), one captured step each, and the host ms per tick
+     captured against eager in turns (``HOST_RUNS`` runs a side) with a
+     profile of each (device busy, idle share, kernel and graph launches
+     per tick: one graph and at most ``MAX_CAPTURED_TICK_LAUNCHES``
+     kernels when captured).
+
+Every served step on the card runs captured: the eager calls above reach
+``CapturedStep.fn`` explicitly, for the comparison.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches on the path that
 brought it, and on every path in ``launches_by_path``) and, last,
@@ -200,22 +220,19 @@ def cascade_plan(name: str):
         yield
 
 
-def reset_counts(wrappers: dict) -> None:
-    """Every wrapper's launch count, and the fused merges, to 0."""
-    for fn in wrappers.values():
-        fn.launches = 0
-    if "paged_decode_attention_with_state" in wrappers:
-        wrappers["paged_decode_attention_with_state"].fused_merges = 0
+def reset_counts() -> None:
+    """Every launch counter of the wrappers, the fused merges included, to
+    0 (``repro_torch.kernels.COUNTERS``, the list the captured steps add
+    their launches to on every replay)."""
+    from repro_torch import kernels
+    kernels.reset_counts()
 
 
-def read_counts(wrappers: dict) -> dict:
-    """Every wrapper's launch count and, under ``FUSED_MERGE``, the fused
-    merges (0 where the wrapper has no such counter)."""
-    out = {name: fn.launches for name, fn in wrappers.items()}
-    if "paged_decode_attention_with_state" in wrappers:
-        out[FUSED_MERGE] = getattr(
-            wrappers["paged_decode_attention_with_state"], "fused_merges", 0)
-    return out
+def read_counts() -> dict:
+    """Every launch counter of ``repro_torch.kernels.COUNTERS`` by name;
+    the fused merges under ``FUSED_MERGE``."""
+    from repro_torch import kernels
+    return kernels.read_counts()
 
 
 def emit(obj: dict) -> None:
@@ -1317,13 +1334,28 @@ class TickProbe:
         return out
 
 
+# the host's launch calls a profile counts: kernels one by one (through
+# either CUDA entry point), and whole captured graphs
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCHES = ("cudaGraphLaunch",)
+
+
+def host_launches(host_events, n: int, per: str) -> dict:
+    """Kernel launches and graph launches the host issued per ``per`` over
+    ``n`` of them, from a profile's ``key_averages()``."""
+    def count(keys):
+        return sum(e.count for e in host_events if e.key in keys) / n
+    return {f"host_launches_per_{per}": count(KERNEL_LAUNCHES),
+            f"graph_launches_per_{per}": count(GRAPH_LAUNCHES)}
+
+
 def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     """Device time of ``n`` batcher steps (decode ticks, nothing to admit)
     from ``torch.profiler``: busy ms per tick, the idle share of a tick of
     ``tick_ms`` (timed without the profiler), the kernels that take the
-    most device time, and on the host the kernel launches per tick and the
-    operations with the most self time.  Busy time is None when the trace
-    holds no device time."""
+    most device time, and on the host the kernel launches and graph
+    launches per tick and the operations with the most self time.  Busy
+    time is None when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1335,9 +1367,7 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
     dev_us = kernel_us(prof, n)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     host_out = {
-        "host_launches_per_tick": sum(
-            e.count for e in host
-            if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx")) / n,
+        **host_launches(host, n, "tick"),
         # stacks on the tick: the layers' K/V rows stacked before the row
         # write, where the engine does that
         "stack_ops_per_tick": sum(e.count for e in host
@@ -1378,19 +1408,30 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
 class CascadeProbe(TickProbe):
     """A :class:`TickProbe` that also records each tick's grouping: the
     adapter's ``cascade_stats()`` before the tick, its ``last_groups``
-    after, and ``tick_bytes_proxy()`` at the first tick (all outside the
-    timed call)."""
+    after, ``tick_bytes_proxy()`` at the first tick and, under cascade,
+    the metadata bucket (the shapes of the group metadata the tick's
+    active lanes form, None without a group; all outside the timed
+    call)."""
 
     def __init__(self, adapter):
         super().__init__(adapter)
         self.stats: list[dict] = []
         self.groups: list[int] = []
+        self.buckets: list = []
         self.proxy = None
 
     def __call__(self, tokens, active):
+        ad = self.adapter
         if self.proxy is None:
-            self.proxy = self.adapter.tick_bytes_proxy()
-        self.stats.append(self.adapter.cascade_stats())
+            self.proxy = ad.tick_bytes_proxy()
+        self.stats.append(ad.cascade_stats())
+        if ad.backend == "cascade":
+            groups = ad._cascade_plan(
+                [s for s in range(ad.n_slots)
+                 if active[s] and not ad.at_capacity(s)])
+            self.buckets.append(tuple(
+                v.shape for v in ad._cascade_meta(groups).values())
+                if groups else None)
         out = super().__call__(tokens, active)
         self.groups.append(self.adapter.last_groups)
         return out
@@ -1444,7 +1485,7 @@ def load_c_prompts(vocab: int):
                            ).astype(np.int32) for _ in range(LM_SLOTS)], rng
 
 
-def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
+def serve_load(dev, cfg, params, prompts, *, backend: str,
                chunked: bool, new_tokens: int, profile: bool = False,
                keep_blocks: bool = False) -> dict:
     """One load through ``make_gateway`` (8 lanes of 1,536 tokens): the
@@ -1496,7 +1537,7 @@ def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
     ad.insert = timed_insert
     for i, p in enumerate(prompts):
         batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
-    reset_counts(wrappers)
+    reset_counts()
     chunks0 = ad.prefill_chunks_total
     t0 = time.perf_counter()
     batcher.step()
@@ -1511,13 +1552,16 @@ def serve_load(dev, wrappers: dict, cfg, params, prompts, *, backend: str,
     timed = probe.times[1:5] + probe.times[8 if profile else 5:]
     out = {"backend": backend, "chunked": chunked, "run_s": run_s,
            "ticks": len(probe.times), "tick_ms": timed, "profile": device,
-           "launches": read_counts(wrappers),
+           "launches": read_counts(),
            "chunks": ad.prefill_chunks_total - chunks0,
            "logits_finite": probe.finite, "logits": logits, "slot": slot,
            "prefill": {uid: admitted[s] for uid, s in slot.items()},
            "tokens": {r.uid: list(map(int, r.generated)) for r in done},
            "groups": probe.groups, "stats": probe.stats,
-           "proxy": probe.proxy}
+           "proxy": probe.proxy,
+           "buckets": len({b for b in probe.buckets if b is not None}),
+           "captures": {name: fn._cache_size()
+                        for name, fn in ad.jit_fns().items()}}
     del gw, ad, batcher, probe
     torch.cuda.empty_cache()
     return out
@@ -1550,7 +1594,7 @@ def first_differences(a: dict, b: dict) -> list[dict]:
     return out
 
 
-def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
+def lm_main_path(dev, attn_ms: float) -> tuple:
     """Phase 5: the prompt path at stablelm-3b's full width and depth.
     Returns (the paged kernels' launches, cfg, params); raises SystemExit
     on a failed check."""
@@ -1595,12 +1639,12 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     failures = []
 
     def count(run):
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        counts = {name: wrappers[name].launches for name in paged}
+        counts = {name: read_counts()[name] for name in paged}
         if not all(counts.values()):
             failures.append(f"a kernel of the path never launched: {counts}")
         return out, s, counts
@@ -1661,6 +1705,11 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     tick_ms = statistics.median(probe.times[1:])
     device = profile_ticks(batcher, 3, tick_ms)
     batcher.run()
+    # every tick of the three loads replayed one captured flat tick
+    captures = {name: fn._cache_size() for name, fn in ad.jit_fns().items()}
+    if captures != {"decode": 1} or device["graph_launches_per_tick"] != 1:
+        failures.append(f"captured steps {captures}, graph launches per "
+                        f"tick {device['graph_launches_per_tick']}")
     launches = {n: counts_a[n] + counts_b[n] for n in paged}
     del gw, ad, batcher, probe
     torch.cuda.empty_cache()
@@ -1699,6 +1748,7 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
           "arena_bytes": arena_bytes, "load_a_fleet": load_a,
           "load_b_shared_prefix": load_b,
           "decode_tick_ms_8x1k": tick_ms, "profile_8x1k": device,
+          "captures": captures,
           "weight_stream_bound_ms": 2 * n_params / PEAK_BYTES_PER_S * 1e3,
           "attention_share_8x1k": cfg.n_layers * attn_ms / tick_ms,
           "plain_tick_ms_8x1k_bf16": statistics.median(ms_p[1:]),
@@ -1714,7 +1764,7 @@ def lm_main_path(dev, wrappers: dict, attn_ms: float) -> tuple:
     return launches, cfg, params
 
 
-def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
+def cascade_main_path(dev, cfg, params) -> dict:
     """Phase 6: the cascade tick at stablelm-3b's full width and depth.
     Returns the launches of load (c); raises SystemExit on a failed
     check."""
@@ -1729,7 +1779,7 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     failures = []
 
     def serve(cfg, params, backend: str, profile: bool) -> dict:
-        return serve_load(dev, wrappers, cfg, params, prompts,
+        return serve_load(dev, cfg, params, prompts,
                           backend=backend, chunked=False,
                           new_tokens=NEW_TOKENS_C, profile=profile)
 
@@ -1771,6 +1821,14 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
                      flash_attention=cfg.n_layers * LM_SLOTS)
     if flat["launches"] != want_flat:
         failures.append(f"load (c) flat launches {flat['launches']}")
+    # one captured flat tick, one captured cascade tick per metadata
+    # bucket the load visited
+    for r in runs:
+        want_cap = {"decode": 1} if r["backend"] == "cuda" else \
+            {"decode": 0, "decode_cascade": r["buckets"]}
+        if r["captures"] != want_cap:
+            failures.append(f"load (c) {r['backend']}: captured steps "
+                            f"{r['captures']}, expected {want_cap}")
     # the tick writes the layers' rows where they lie: no stack
     stacks = [r["profile"]["stack_ops_per_tick"] for r in runs[:2]]
     if any(stacks):
@@ -1864,6 +1922,8 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
                   casc4["tokens"] == flat4["tokens"],
               "f32_depth4_max_abs_dlogit": f32_c,
               "runs": [{"backend": r["backend"], "run_s": r["run_s"],
+                        "captures": r["captures"],
+                        "buckets_visited": r["buckets"],
                         "tick_ms_median": statistics.median(r["tick_ms"]),
                         "prefill_ms_median": r["prefill_ms"],
                         "profile": r["profile"]} for r in runs],
@@ -1887,7 +1947,7 @@ def cascade_main_path(dev, wrappers: dict, cfg, params) -> dict:
     return casc["launches"]
 
 
-def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
+def chunked_main_path(dev, cfg, params) -> dict:
     """Phase 7: the chunked prefill fold (``ServeSpec(paged=True)``, the
     reference's default ``chunked=True``) at stablelm-3b's full width and
     depth: load (b) through ``backend="cuda"`` and load (c) through
@@ -1913,7 +1973,7 @@ def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
     L = cfg.n_layers
 
     def serve(cfg, params, prompts, backend, chunked, **kw):
-        return serve_load(dev, wrappers, cfg, params, prompts,
+        return serve_load(dev, cfg, params, prompts,
                           backend=backend, chunked=chunked,
                           new_tokens=32, **kw)
 
@@ -2074,6 +2134,126 @@ def chunked_main_path(dev, wrappers: dict, cfg, params) -> dict:
     if failures:
         raise SystemExit(f"chunked path: {failures}")
     return {name: nb[name] + nc[name] for name in nb}
+
+
+# -- the captured ticks (phase 8) ---------------------------------------------
+
+# a captured tick issues its graph, the logits' copy and argmax, and the
+# tokens' copy to the host: at most this many kernel launches one by one
+MAX_CAPTURED_TICK_LAUNCHES = 8
+
+
+def tick_replay_check(ad, tokens, active) -> dict:
+    """The adapter's next tick at its current state through its captured
+    step and through the step's ``fn`` eagerly on the same static inputs,
+    each from the same arena (restored after, so the state does not
+    advance): logits and the whole arena bit for bit, launch counts
+    equal, and the arena rows the tick wrote."""
+    import torch
+    step, inputs, _ = ad._tick_inputs(tokens, active)
+    start = {k: a.clone() for k, a in ad.arena.items()}
+    out = {}
+    for side in ("replay", "eager"):
+        for key, a in ad.arena.items():
+            a.copy_(start[key])
+        reset_counts()
+        logits = step(*inputs).clone() if side == "replay" else \
+            step.fn(*step.load(*inputs))
+        torch.cuda.synchronize()
+        out[side] = (logits, {k: a.clone() for k, a in ad.arena.items()},
+                     read_counts())
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    rows = {k: int((ar[k] != start[k]).flatten(-2).any(-1).sum())
+            for k in ar}
+    for key, a in ad.arena.items():
+        a.copy_(start[key])
+    out = {"logits_bitwise": bool(torch.equal(lr, le)),
+           "logits_finite": bool(torch.isfinite(lr).all()),
+           "arena_bitwise": all(torch.equal(ar[k], ae[k]) for k in ar),
+           "rows_written": rows, "launches_equal": cr == ce,
+           "launches": {k: v for k, v in cr.items() if v}}
+    del start, ar, ae
+    torch.cuda.empty_cache()
+    return out
+
+
+def tick_timing(ad, tokens, active) -> dict:
+    """Host ms of the adapter's next tick at its current state (its host
+    side, the step, the logits' copy and the tokens on the host; the state
+    does not advance), captured and eager in turns (:func:`turns`), and
+    :func:`profile_ticks` over three ticks of each."""
+    from types import SimpleNamespace
+
+    def tick(eager: bool):
+        step, inputs, _ = ad._tick_inputs(tokens, active)
+        logits = step.fn(*step.load(*inputs)) if eager else step(*inputs)
+        return logits.clone().argmax(-1).cpu()
+    sides = {"captured": lambda: tick(False), "eager": lambda: tick(True)}
+    ms = turns(sides)
+    return {"host_ms": ms, "profile": {
+        name: profile_ticks(SimpleNamespace(step=fn), 3, ms[name]["median"])
+        for name, fn in sides.items()}}
+
+
+def capture_main_path(dev, cfg, params) -> dict:
+    """Phase 8: the captured ticks at stablelm-3b's full width and depth:
+    the flat tick at 8 lanes x 1,024 positions (``backend="cuda"``) and
+    load (c)'s cascade tick, each right after the first tick (its
+    capture): replay against the eager step bit for bit, launch counts,
+    captured steps, and host ms per tick captured against eager in turns,
+    with a profile of each.  Raises SystemExit on a failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    rng = np.random.default_rng(17)
+    loads = {"flat_8x1k": ("cuda", [rng.integers(0, cfg.vocab, 1024)
+                                    .astype(np.int32)
+                                    for _ in range(LM_SLOTS)]),
+             "cascade_load_c": ("cascade", load_c_prompts(cfg.vocab)[0])}
+    out, failures = {}, []
+    for name, (backend, prompts) in loads.items():
+        gw = make_gateway(cfg, params, ServeSpec(
+            n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+            block_size=LM_BLOCK, chunked=False, backend=backend,
+            max_new_tokens=NEW_TOKENS_C), device=dev)
+        ad, batcher = gw.batcher.adapter, gw.batcher
+        for i, p in enumerate(prompts):
+            batcher.submit(Request(uid=i, prompt=p,
+                                   max_new_tokens=NEW_TOKENS_C))
+        batcher.step()          # admits all eight; the first tick captures
+        tokens = batcher.last_token.copy()
+        active = np.asarray([r is not None for r in batcher.active])
+        check = tick_replay_check(ad, tokens, active)
+        timing = tick_timing(ad, tokens, active)
+        captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
+        want = {"decode": 1} if backend == "cuda" else \
+            {"decode": 0, "decode_cascade": 1}
+        prof = timing["profile"]["captured"]
+        out[name] = {"backend": backend, "groups": ad.last_groups,
+                     "captures": captures, "replay": check, **timing}
+        if not (check["logits_bitwise"] and check["arena_bitwise"]
+                and check["launches_equal"] and check["logits_finite"]
+                and all(check["rows_written"].values())):
+            failures.append(f"{name}: the replayed tick differs from the "
+                            f"eager step: {check}")
+        if captures != want:
+            failures.append(f"{name}: captured steps {captures}, expected "
+                            f"{want}")
+        if prof["graph_launches_per_tick"] != 1 or \
+                prof["host_launches_per_tick"] > MAX_CAPTURED_TICK_LAUNCHES:
+            failures.append(f"{name}: a captured tick issued "
+                            f"{prof['graph_launches_per_tick']} graphs and "
+                            f"{prof['host_launches_per_tick']} kernels")
+        del gw, ad, batcher
+        torch.cuda.empty_cache()
+    emit({"phase": "capture", "model": cfg.name, **out,
+          "failures": failures})
+    if failures:
+        raise SystemExit(f"captured ticks: {failures}")
+    return out
 
 
 # -- the SC kernels (phase 3) -------------------------------------------------
@@ -2332,11 +2512,73 @@ def sc_kernel_checks(dev, gen) -> tuple[dict, list]:
     return err, checks
 
 
+# runs a side of a captured-against-eager host-clock comparison, each the
+# median of HOST_REPS calls; the sides take turns, each run starting with
+# the other side than the run before, since the host clock drifts within a
+# call (PERF.md)
+HOST_RUNS, HOST_REPS = 9, 5
+
+
+def turns(sides: dict, runs: int = HOST_RUNS, reps: int = HOST_REPS
+          ) -> dict:
+    """Host ms of each of ``sides`` (name -> a call ending in a
+    synchronize) over ``runs`` runs a side in turns: each run's median of
+    ``reps`` calls, then the median, least and most of the runs."""
+    times = {name: [] for name in sides}
+    order = list(sides)
+    for r in range(runs):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(host_ms(sides[name], reps=reps))
+    return {name: {"median": statistics.median(t), "min": min(t),
+                   "max": max(t), "runs": t} for name, t in times.items()}
+
+
+def frame_replay_check(gw, frames) -> dict:
+    """The bucket of ``frames`` (a numpy batch) through ``gw``'s captured
+    stages and through their ``fn`` eagerly on the same static inputs:
+    payload and logits bit for bit, launch counts equal.  Returns the
+    checks and the replayed payload (``payload``)."""
+    import torch
+    bs = frames.shape[0]
+    sensor, gate = gw._sensor_fns[bs], gw._gateway_fns[bs]
+    reset_counts()
+    payload = sensor(frames).clone()
+    logits = gate(payload).clone()
+    torch.cuda.synchronize()
+    replayed = read_counts()
+    reset_counts()
+    payload_e = sensor.fn(*sensor.load(frames))
+    logits_e = gate.fn(*gate.load(payload_e))
+    torch.cuda.synchronize()
+    eager = read_counts()
+    return {"bucket": bs,
+            "payload_bitwise": bool(torch.equal(payload, payload_e)),
+            "logits_bitwise": bool(torch.equal(logits, logits_e)),
+            "launches_equal": replayed == eager,
+            "launches": {k: v for k, v in replayed.items() if v},
+            "payload": payload}
+
+
+def frame_stage_turns(gw, frames) -> dict:
+    """Host ms of each stage of the bucket of ``frames`` (a numpy batch),
+    captured and eager in turns (:func:`turns`); the gateway stage from the
+    sensor stage's payload on the card."""
+    bs = frames.shape[0]
+    sensor, gate = gw._sensor_fns[bs], gw._gateway_fns[bs]
+    payload = sensor(frames).clone()
+    return {
+        "sensor": turns({"captured": lambda: sensor(frames),
+                         "eager": lambda: sensor.fn(*sensor.load(frames))}),
+        "gateway": turns({"captured": lambda: gate(payload),
+                          "eager": lambda: gate.fn(*gate.load(payload))})}
+
+
 def profile_stages(stage, n: int) -> dict:
     """``torch.profiler`` over ``n`` calls of ``stage`` (a frame-path stage,
     ending in a synchronize): device busy ms per stage, the idle share of
-    the stage's host time (timed without the profiler), device ms by kernel
-    and the device operations (kernels, copies) per stage."""
+    the stage's host time (timed without the profiler), device ms by
+    kernel, the device operations (kernels, copies) per stage and the
+    host's kernel and graph launches per stage."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2352,6 +2594,7 @@ def profile_stages(stage, n: int) -> dict:
               not getattr(ev, "is_user_annotation", False)) / n
     busy = sum(dev_us.values()) / 1e3
     return {"stage_ms": stage_ms,
+            **host_launches(prof.key_averages(), n, "stage"),
             "device_busy_ms_per_stage": busy if dev_us else None,
             "device_idle_share": max(0.0, 1 - busy / stage_ms)
             if dev_us else None,
@@ -2441,7 +2684,6 @@ def cascade_timing_main(root: Path) -> int:
 
     from repro_torch import configs
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attn as flash_k
     from repro_torch.kernels import paged_attn as paged_k
     from repro_torch.models import lm
     from repro_torch.serve import engine
@@ -2451,11 +2693,7 @@ def cascade_timing_main(root: Path) -> int:
     sleep = int(0.05 * clock_mhz * 1e6)
     cfg = configs.config("stablelm-3b")
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
-    wrappers = {"paged_decode_attention": paged_k.paged_decode_attention,
-                "scatter_kv_rows": paged_k.scatter_kv_rows,
-                **{name: getattr(paged_k, name) for name in CASCADE},
-                "flash_attention": flash_k.flash_attention}
-    run = serve_load(dev, wrappers, cfg, params,
+    run = serve_load(dev, cfg, params,
                      load_c_prompts(cfg.vocab)[0], backend="cascade",
                      chunked=False, new_tokens=NEW_TOKENS_C, profile=True)
     del params
@@ -2553,8 +2791,6 @@ def main() -> int:
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels import flash_attn as flash_k
-    from repro_torch.kernels import paged_attn as paged_k
     from repro_torch.kernels import sc_dot as sc_dot_k
     from repro_torch.kernels import sng_pack as sng_pack_k
     from repro_torch.models.lenet import LeNetConfig
@@ -2564,11 +2800,6 @@ def main() -> int:
     from repro_torch.serve.gateway.sensors import FleetConfig, SensorFleet
 
     dev = torch.device("cuda")
-    wrappers = {"sng_pack": sng_pack_k.sng_pack, "sc_dot": sc_dot_k.sc_dot,
-                "paged_decode_attention": paged_k.paged_decode_attention,
-                "scatter_kv_rows": paged_k.scatter_kv_rows,
-                **{name: getattr(paged_k, name) for name in CASCADE},
-                "flash_attention": flash_k.flash_attention}
     sc_kernels = ("sng_pack", "sc_dot")
 
     # -- 1. the card ---------------------------------------------------------
@@ -2669,18 +2900,25 @@ def main() -> int:
         spec = fe.FrontendSpec(mode="sc", bits=bits, lenet=LeNetConfig())
         gw = MicroBatchGateway(GatewayConfig(), spec, seed=0, device="cuda")
         gw.warmup()
-        for fn in wrappers.values():
-            fn.launches = 0
+        captured = gw.compile_counts()
+        reset_counts()
         t0 = time.perf_counter()
         tel = gw.run(trace)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {name: wrappers[name].launches for name in sc_kernels}
+        counts = {name: read_counts()[name] for name in sc_kernels}
         for name in sc_kernels:
             paths["frame"][name] += counts[name]
         if not all(counts.values()):
             raise SystemExit(f"bits={bits}: a kernel of the main path never "
                              f"launched: {counts}")
+        # two captured steps per bucket after warmup, none added by traffic
+        captures = {"after_warmup": captured,
+                    "after_trace": gw.compile_counts()}
+        if any(v != 2 for v in captured.values()) or \
+                captures["after_trace"] != captured:
+            raise SystemExit(f"bits={bits}: capture counts {captures}, "
+                             "expected 2 per bucket, unchanged by the trace")
         # every frame is served or dropped, each charged the same frame +
         # link energy and payload bytes as the reference charges
         per_frame = fe.frame_energy_nj(spec) + \
@@ -2715,25 +2953,27 @@ def main() -> int:
         finite = bool(torch.isfinite(logits).all()) and \
             tuple(logits.shape) == (32, spec.lenet.classes)
 
-        stage_ms = {}
-        for bs in gw.cfg.bucket_sizes:
-            xb = x[:bs].contiguous()
-            pb = fe.sensor_stage(gw.params, xb, spec)
-            stage_ms[bs] = {
-                "sensor_ms": host_ms(lambda: fe.sensor_stage(gw.params, xb,
-                                                             spec)),
-                "gateway_ms": host_ms(lambda: fe.gateway_stage(gw.params, pb,
-                                                               spec))}
-        # the device under bucket-32 sensor stages, and the SC launches of
-        # one stage (the parent also launched the pad and concatenation
-        # copies around sc_dot)
-        xb = x[:32].contiguous()
-        for fn in wrappers.values():
-            fn.launches = 0
-        fe.sensor_stage(gw.params, xb, spec)
-        stage_launches = {name: wrappers[name].launches for name in sc_kernels}
-        profile = profile_stages(lambda: fe.sensor_stage(gw.params, xb, spec),
-                                 10)
+        # the captured bucket-32 stages against their eager calls on the
+        # same frames: payload byte for byte, logits bit for bit, the same
+        # launches
+        replay = frame_replay_check(gw, frames.numpy())
+        replay["payload_equal_eager_stage"] = bool(torch.equal(
+            replay.pop("payload"), payload))
+        # host ms per stage and bucket, captured (a replay) and eager (the
+        # step's fn on the same static inputs), in turns
+        stage_ms = {bs: frame_stage_turns(gw, frames[:bs].numpy())
+                    for bs in gw.cfg.bucket_sizes}
+        # the device under bucket-32 sensor stages, captured and eager, and
+        # the SC launches of one captured stage
+        f32 = frames[:32].numpy()
+        sensor = gw._sensor_fns[32]
+        reset_counts()
+        sensor(f32)
+        torch.cuda.synchronize()
+        stage_launches = {name: read_counts()[name] for name in sc_kernels}
+        profile = profile_stages(lambda: sensor(f32), 10)
+        profile_eager = profile_stages(
+            lambda: sensor.fn(*sensor.load(f32)), 10)
         rep = tel.report(TRACE_SECONDS)
         emit({"phase": "main_path", "bits": bits, "frames": len(trace),
               "served": len(tel.records), "dropped": len(tel.dropped),
@@ -2746,22 +2986,36 @@ def main() -> int:
               "link_bytes_per_frame": rep.get("link_bytes_per_req"),
               "p50_latency_ms": rep.get("p50_latency_ms"),
               "p99_latency_ms": rep.get("p99_latency_ms"),
+              "captures": captures, "replay_bucket32": replay,
               "stage_ms_by_bucket": stage_ms,
               "sc_launches_per_stage": stage_launches,
-              "profile_bucket32": profile})
+              "profile_bucket32": profile,
+              "profile_bucket32_eager": profile_eager})
         if not (same_plain and same_cpu and close and finite):
             raise SystemExit(f"bits={bits}: the served output disagrees with "
                              "the plain path")
+        if not all(replay[k] for k in ("payload_bitwise", "logits_bitwise",
+                                       "launches_equal",
+                                       "payload_equal_eager_stage")):
+            raise SystemExit(f"bits={bits}: a replayed stage differs from "
+                             f"its eager call: {replay}")
+        if profile["graph_launches_per_stage"] != 1:
+            raise SystemExit(f"bits={bits}: a captured stage issued "
+                             f"{profile['graph_launches_per_stage']} graph "
+                             "launches")
 
     # -- 5. the prompt path -------------------------------------------------
     paths["prompt"], lm_cfg, lm_params = lm_main_path(
-        dev, wrappers, paged_timing["paged_decode_attention"]["ms"])
+        dev, paged_timing["paged_decode_attention"]["ms"])
 
     # -- 6. the cascade tick ---------------------------------------------------
-    paths["cascade"] = cascade_main_path(dev, wrappers, lm_cfg, lm_params)
+    paths["cascade"] = cascade_main_path(dev, lm_cfg, lm_params)
 
     # -- 7. the chunked prefill fold ----------------------------------------
-    paths["chunked"] = chunked_main_path(dev, wrappers, lm_cfg, lm_params)
+    paths["chunked"] = chunked_main_path(dev, lm_cfg, lm_params)
+
+    # -- 8. the captured ticks against their eager steps ------------------
+    capture_main_path(dev, lm_cfg, lm_params)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

@@ -29,7 +29,13 @@
 //   acc_s = 0) drops out exactly once any split has a real key (exp(-1e30
 //   - M) is 0), and an all-empty row gives exactly the empty state (acc 0,
 //   m -1e30, l 0: exp(0) = 1 times zeros), or 0 normalized.
+//
+// allow_max_smem
+//   Lifts a kernel's dynamic shared memory limit to the most a block can
+//   take, once per device and process, so that a later launch, one being
+//   captured into a CUDA graph included, makes no attribute call.
 #pragma once
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +43,23 @@
 namespace attn {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxSmemPerBlock = 227 * 1024;   // H100: 232,448 bytes
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel>
+cudaError_t allow_max_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmemPerBlock);
+  if (e == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(true, std::memory_order_release);
+  return e;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

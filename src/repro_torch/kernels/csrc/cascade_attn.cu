@@ -422,9 +422,7 @@ cudaError_t prefix_launch(const void* qg, const void* ka, const void* va,
     return cudaErrorInvalidValue;
   const size_t smem = prefix_smem_bytes((int)sizeof(T), D, qt, n_rep);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cascade_prefix_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t e = attn::allow_max_smem<cascade_prefix_kernel<T>>();
     if (e != cudaSuccess) return e;
   }
   const bool direct = splits == 1;

@@ -384,8 +384,9 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
   const auto kernel =
       wide ? paged_attn_kernel<T, 32> : paged_attn_kernel<T, 16>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = wide
+        ? attn::allow_max_smem<paged_attn_kernel<T, 32>>()
+        : attn::allow_max_smem<paged_attn_kernel<T, 16>>();
     if (e != cudaSuccess) return e;
   }
   const bool state = out == nullptr, direct = splits == 1;

@@ -168,7 +168,9 @@ def _scratch(splits: int, rows: int, D: int, dev: torch.device) -> tuple:
     """(buffer, acc, m, l): the float32 partial states of a split launch,
     acc (splits, rows, D) then m and l (splits, rows), as pointers into one
     allocation that the caller keeps alive across its launches; Nones for
-    one split (the kernel then writes the output itself)."""
+    one split (the kernel then writes the output itself).  Under a CUDA
+    graph capture it comes from the graph's pool and is released after
+    the sweep and its combine are both recorded."""
     if splits == 1:
         return None, None, None, None
     n = splits * rows
@@ -222,7 +224,9 @@ def cascade_split_plan(rows: int, Hkv: int, nb: int, bs: int
 
 # values of cascade_split_plan's module constants that force a plan of the
 # cascade passes, for checks that patch them (``mock.patch.object``): one
-# split, as planned, and one block per split
+# split, as planned, and one block per split.  A captured tick
+# (``serve/capture.py``) froze the plan of its capture, so these checks
+# call the wrappers directly, never a captured step.
 CASCADE_FORCED_PLANS = {"one split": {"MIN_CTAS": 0}, "planned": {},
                         "one block": {"MIN_CTAS": 1 << 30,
                                       "MIN_SPLIT_POSITIONS": 1}}
@@ -471,7 +475,9 @@ merge_attn_states.launches = 0
 def _layer_rows(name: str, rows, L: int, shape: tuple, dev: torch.device,
                 dtype) -> list[int]:
     """Pointers to the L layers' rows, each ``shape``: of a stacked (L,
-    *shape) tensor, or of a sequence of L tensors."""
+    *shape) tensor, or of a sequence of L tensors.  The launch takes them
+    by value, so a captured tick replays the addresses of its capture:
+    right because the tick's rows are allocated inside its graph."""
     if isinstance(rows, torch.Tensor):
         if rows.shape != (L, *shape):
             raise ValueError(f"{name} has shape {tuple(rows.shape)}, "

@@ -14,9 +14,12 @@ difference is what the paper claims: energy and bytes moved.  The charges
 are the reference's, float for float, so the two ledgers agree exactly.
 
 The SC first layer quantizes and packs the conv1 weight streams on every
-call (two small ``sng_pack`` launches next to the one for the frame
+call (one small ``sng_pack`` launch next to the one for the frame
 streams); they depend only on the parameters and could be packed once at
 load, which is left for the PRs that make the path fast.
+
+Both stages make nothing on the host per call, so the gateway captures
+each bucket's stage into a CUDA graph (``serve/capture.py``).
 """
 from __future__ import annotations
 
@@ -120,8 +123,9 @@ def unpack_ternary(packed: torch.Tensor, shape: tuple[int, ...]
                    ) -> torch.Tensor:
     """Inverse of :func:`pack_ternary` -> float32 values in {-1,0,1}."""
     B = packed.shape[0]
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
-                          device=packed.device)
+    # made on the device: a table built from a host list is a copy from
+    # pageable memory, which a captured stage may not hold
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
     vals = (packed[..., None] >> shifts) & 3             # (B, n/4, 4)
     n = 1
     for d in shape:

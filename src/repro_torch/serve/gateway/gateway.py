@@ -13,6 +13,10 @@ either measured on the device (``service_model="measured"``) or pinned
   3. runs the two pipeline stages (the at-sensor stage feeds the link; the
      host stage occupies the server) and charges per-request telemetry.
 
+Each bucket's two stages are captured steps (``serve/capture.py``), the
+reference's per-bucket jitted entry points: :meth:`MicroBatchGateway.warmup`
+captures them all, and a batch refills and replays them.
+
 The admission, flush and charging order is the reference's
 (``repro.serve.gateway.gateway.MicroBatchGateway``), so on a shared trace
 with a fixed service time both ledgers agree field for field.
@@ -34,6 +38,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lenet
+from repro_torch.serve import capture
 from repro_torch.serve.gateway import frontend as fe
 from repro_torch.serve.gateway.sensors import Arrival
 from repro_torch.serve.gateway.slots import ContinuousBatcher, Request
@@ -66,6 +71,21 @@ class MicroBatchGateway:
         self.device = resolve_device(device)
         self.params = params if params is not None else \
             lenet.init(seed, spec.lenet, device=self.device)
+        # one captured step per bucket and stage (the reference's jitted
+        # entry points), all on one graph memory pool: a stage's outputs
+        # are read before the next stage replays
+        pool = capture.GraphPool(self.device)
+        self._sensor_fns = {
+            bs: capture.CapturedStep(
+                lambda x, _p=self.params, _s=spec: fe.sensor_stage(_p, x, _s),
+                self.device, pool)
+            for bs in cfg.bucket_sizes}
+        self._gateway_fns = {
+            bs: capture.CapturedStep(
+                lambda x, _p=self.params, _s=spec: fe.gateway_stage(_p, x,
+                                                                    _s),
+                self.device, pool)
+            for bs in cfg.bucket_sizes}
         self._frame_energy_nj = fe.frame_energy_nj(spec)
         self._link_bytes = fe.link_bytes_per_frame(spec)
         self._sensor_lat = fe.sensor_latency_s(spec)
@@ -76,16 +96,32 @@ class MicroBatchGateway:
             torch.cuda.synchronize(self.device)
 
     def warmup(self) -> None:
-        """Run every bucket once, so the kernels are built and loaded and the
-        libraries' one-time set-up never lands in a measured service time."""
+        """Capture every bucket's two stages up front (the first call of a
+        step runs it eagerly, then captures it), so steady state never
+        captures and kernel builds never land in a measured service
+        time."""
         ln = self.spec.lenet
         for bs in self.cfg.bucket_sizes:
-            x = torch.zeros((bs, ln.image_size, ln.image_size, ln.channels),
-                            dtype=torch.uint8, device=self.device)
-            fe.gateway_stage(self.params,
-                             fe.sensor_stage(self.params, x, self.spec),
-                             self.spec)
+            x = np.zeros((bs, ln.image_size, ln.image_size, ln.channels),
+                         np.uint8)
+            self._gateway_fns[bs](self._sensor_fns[bs](x))
         self._sync()
+
+    def compile_counts(self) -> dict[int, int]:
+        """Captured keys per bucket, sensor and gateway stage together (2
+        after :meth:`warmup`, and no traffic adds one)."""
+        return {bs: self._sensor_fns[bs]._cache_size()
+                + self._gateway_fns[bs]._cache_size()
+                for bs in self.cfg.bucket_sizes}
+
+    def jit_fns(self) -> dict[str, capture.CapturedStep]:
+        """Named captured steps, for ``obs.RecompileDetector.track`` (the
+        reference's names)."""
+        fns: dict[str, capture.CapturedStep] = {}
+        for bs in self.cfg.bucket_sizes:
+            fns[f"sensor_b{bs}"] = self._sensor_fns[bs]
+            fns[f"gateway_b{bs}"] = self._gateway_fns[bs]
+        return fns
 
     def _bucket_for(self, n: int) -> int:
         for bs in self.cfg.bucket_sizes:
@@ -95,11 +131,11 @@ class MicroBatchGateway:
 
     def _serve_batch(self, frames: np.ndarray) -> tuple[np.ndarray, float]:
         """Returns (predictions, host_service_seconds)."""
-        x = torch.from_numpy(frames).to(self.device)
-        payload = fe.sensor_stage(self.params, x, self.spec)  # at-sensor
+        bs = frames.shape[0]
+        payload = self._sensor_fns[bs](frames)                # at-sensor
         self._sync()
         t0 = time.perf_counter()
-        logits = fe.gateway_stage(self.params, payload, self.spec)
+        logits = self._gateway_fns[bs](payload)
         self._sync()
         svc = time.perf_counter() - t0
         if self.cfg.service_model == "fixed":
@@ -258,6 +294,12 @@ class PromptGateway:
             else fe.FrontendSpec()
         self._token_energy_nj = fe.lm_token_energy_nj(
             self.energy_spec, batcher.adapter.cfg.d_model)
+
+    def jit_fns(self) -> dict:
+        """The adapter's named captured steps, for
+        ``obs.RecompileDetector.track``."""
+        fns = getattr(self.batcher.adapter, "jit_fns", None)
+        return fns() if fns is not None else {}
 
     def warmup(self, prompt_lens: tuple[int, ...], vocab: int = 2) -> None:
         """Drain one all-zero request per prompt length through the batcher

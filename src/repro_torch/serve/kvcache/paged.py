@@ -22,9 +22,18 @@ Cascade tick (``backend="cascade"``)
     per layer for all its lanes, and each lane's remaining suffix on its
     own by a pass that merges the two softmax states in its epilogue
     (``nn.attention.attend_decode_cascade``).
-    The group metadata is built on the host with pow2-padded shapes and
-    reaches the device in one copy that does not wait for it.  A tick with
-    no chain shared by two lanes runs the device's flat tick unchanged.
+    The group metadata is built on the host with pow2-padded shapes.  A
+    tick with no chain shared by two lanes runs the device's flat tick
+    unchanged.
+
+Captured ticks
+    Each tick is a captured step (``serve/capture.py``), the reference's
+    jitted ``_decode`` and ``_decode_cascade``: one CUDA graph for the flat
+    tick and one per cascade metadata bucket (the pow2-padded group, chain,
+    lane and suffix counts), replayed with the tick's host inputs (tokens,
+    tables, lengths, write targets and the group metadata) refilled by one
+    copy from pinned memory.  The copy-on-write copy, the prompt writes,
+    the fold and one-shot prefill stay eager, on the same stream.
 
 Chunked prefill (``chunked=True``, the default): prefix-hit compute
 skipping
@@ -61,14 +70,55 @@ slices (ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.models.lm import LMConfig
-from repro_torch.serve import engine
+from repro_torch.serve import capture, engine
 from repro_torch.serve.backend import auto_backend, resolve_backend
 from repro_torch.serve.kvcache.pool import (TRASH_BLOCK, BlockPool,
                                             PoolExhausted)
+
+
+# the cascade tick's group metadata, in the order its captured step takes
+# it after the flat tick's inputs (see nn.attention.attend_decode_cascade)
+CASCADE_META = ("group_tables", "group_len", "group_lanes", "group_mask",
+                "lane_q0", "suffix_tables", "lane_lens", "group_dest",
+                "lane_slot")
+
+# the reference adapter's jitted entry points that the port runs eagerly
+# or inside a captured tick, so ``jit_fns`` does not name them
+NOT_CAPTURED = {
+    "prefill": "eager: one-shot prefill, shapes change per prompt",
+    "chunk_fold": "eager: the fold, shapes change per chunk; its resume "
+                  "stays bitwise",
+    "gather_prefix": "eager: a resumed fold's prefix, per prompt",
+    "scatter": "eager: a prompt's block writes, per prompt",
+    "copy": "eager: the copy-on-write copy, on the tick's stream",
+    "write_block": "eager: block writes (no caller in the port yet)",
+    "cascade_prefix": "inside the captured cascade tick",
+    "cascade_suffix": "inside the captured cascade tick",
+    "cascade_merge": "inside the captured cascade tick (fused into the "
+                     "suffix pass)",
+}
+
+
+def _flat_tick(cfg, params, arena, backend, tokens, tables, lens, wbids):
+    """The flat tick's captured body: :func:`engine.decode_step_paged`."""
+    return engine.decode_step_paged(cfg, params, tokens, tables=tables,
+                                    lens=lens, arena=arena, wbids=wbids,
+                                    backend=backend)
+
+
+def _cascade_tick(cfg, params, arena, tokens, tables, lens, wbids, *meta):
+    """The cascade tick's captured body: :func:`engine.decode_step_paged`
+    with the group metadata, :data:`CASCADE_META` in order."""
+    return engine.decode_step_paged(cfg, params, tokens, tables=tables,
+                                    lens=lens, arena=arena, wbids=wbids,
+                                    backend="cascade",
+                                    cascade=dict(zip(CASCADE_META, meta)))
 
 
 class PagedKVSlotAdapter:
@@ -126,6 +176,16 @@ class PagedKVSlotAdapter:
         self.peak_bytes_saved = 0
         self.last_logits = None
         self.last_prefill_logits = None     # the latest insert's logits
+        # the captured ticks (the steps close over the arena and weights,
+        # never over the adapter), on one graph memory pool
+        pool = capture.GraphPool(self.device)
+        self._decode = capture.CapturedStep(
+            functools.partial(_flat_tick, cfg, params, self.arena,
+                              self.flat_backend), self.device, pool)
+        if self.backend == "cascade":
+            self._decode_cascade = capture.CapturedStep(
+                functools.partial(_cascade_tick, cfg, params, self.arena),
+                self.device, pool)
 
     # -- device work ---------------------------------------------------------
 
@@ -443,24 +503,24 @@ class PagedKVSlotAdapter:
     def _pow2(n: int) -> int:
         return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
-    def _cascade_meta(self, groups) -> dict[str, torch.Tensor]:
-        """The metadata of :func:`nn.attention.attend_decode_cascade` on the
-        adapter's device, padded to next-pow-2 shapes as the reference pads
-        them; ungrouped lanes get ``q0 = 0`` and their whole chain as the
-        suffix."""
+    def _cascade_meta(self, groups) -> dict[str, np.ndarray]:
+        """The metadata of :func:`nn.attention.attend_decode_cascade` as host
+        arrays (:data:`CASCADE_META`, int32 and the bool ``group_mask``),
+        padded to next-pow-2 shapes as the reference pads them; ungrouped
+        lanes get ``q0 = 0`` and their whole chain as the suffix."""
         G = self._pow2(len(groups))
         npre = self._pow2(max(len(c) for c, _ in groups))
         lc = self._pow2(max(len(ls) for _, ls in groups))
         gt = np.full((G, npre), TRASH_BLOCK, np.int32)
         gl = np.zeros(G, np.int32)
         lanes = np.zeros((G, lc), np.int32)
-        gmask = np.zeros((G, lc), np.int32)
+        gmask = np.zeros((G, lc), bool)
         q0b = np.zeros(self.n_slots, np.int32)         # prefix blocks
         for g, (chain, ls) in enumerate(groups):
             gt[g, :len(chain)] = chain
             gl[g] = len(chain) * self.bs
             lanes[g, :len(ls)] = ls
-            gmask[g, :len(ls)] = 1
+            gmask[g, :len(ls)] = True
             q0b[ls] = len(chain)
         # suffix tables cover [q0 blocks, the block holding the new row)
         need = [max(1, -(-(int(self.lens[s]) + 1) // self.bs) - int(q0b[s]))
@@ -473,34 +533,15 @@ class PagedKVSlotAdapter:
         # per-lane keys every layer of the tick shares: the lanes' cache_len
         # (the engine's lens + 1), where each group slot's state lands, and
         # each lane's slot (its inverse; -1 for a lane in no group)
-        dest = np.where(gmask != 0, lanes, self.n_slots).reshape(-1)
+        dest = np.where(gmask, lanes, self.n_slots).reshape(-1)
         slot = np.full(self.n_slots + 1, -1, np.int32)
         slot[dest] = np.arange(dest.size, dtype=np.int32)
-        meta = self._to_device({
-            "group_tables": gt, "group_len": gl, "group_lanes": lanes,
-            "group_mask": gmask, "lane_q0": q0b * self.bs,
-            "suffix_tables": st,
-            "lane_lens": self.lens.astype(np.int32)[lanes] + 1,
-            "group_dest": dest.astype(np.int32),
-            "lane_slot": slot[:self.n_slots]})
-        meta["group_mask"] = meta["group_mask"] != 0
-        return meta
-
-    def _to_device(self, arrays: dict[str, np.ndarray]
-                   ) -> dict[str, torch.Tensor]:
-        """int32 host arrays as views of one device buffer, filled by one
-        copy from pinned memory that does not make the host wait for the
-        device (a copy from pageable memory would)."""
-        host = torch.from_numpy(np.concatenate(
-            [a.reshape(-1) for a in arrays.values()]))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        buf = host.to(self.device, non_blocking=True)
-        out, i = {}, 0
-        for key, a in arrays.items():
-            out[key] = buf[i:i + a.size].view(a.shape)
-            i += a.size
-        return out
+        return {"group_tables": gt, "group_len": gl, "group_lanes": lanes,
+                "group_mask": gmask, "lane_q0": q0b * self.bs,
+                "suffix_tables": st,
+                "lane_lens": self.lens.astype(np.int32)[lanes] + 1,
+                "group_dest": dest.astype(np.int32),
+                "lane_slot": slot[:self.n_slots]}
 
     def cascade_stats(self) -> dict:
         """The groups the next tick would form over the live lanes, and the
@@ -547,9 +588,11 @@ class PagedKVSlotAdapter:
         return bool(self.slot_bids[slot]) and \
             int(self.lens[slot]) >= self.max_len
 
-    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
-        """One tick over every lane; returns the greedy token per lane
-        (garbage for inactive lanes, whose lengths stay as they are)."""
+    def _tick_inputs(self, tokens: np.ndarray, active: np.ndarray
+                     ) -> tuple[capture.CapturedStep, tuple, np.ndarray]:
+        """The host side of a tick: copy-on-write and write targets, then
+        (cascade) the grouping.  Returns the captured step the tick runs,
+        its host inputs and the lanes that write."""
         active = np.asarray(active, bool).copy()
         wbids = np.full(self.n_slots, TRASH_BLOCK, np.int32)
         for slot in np.nonzero(active)[0]:
@@ -575,7 +618,9 @@ class PagedKVSlotAdapter:
                 self.pool.drop_partial(bid)
                 self.partial_reg[slot] = None
             wbids[slot] = bid
-        meta = None
+        step = self._decode
+        inputs = (np.asarray(tokens, np.int32)[:, None], self.tables,
+                  self.lens.astype(np.int32), wbids)
         if self.backend == "cascade":
             # grouping runs after the copy-on-write and write-target loop,
             # so a block resolved this tick is never both read by a group
@@ -584,18 +629,33 @@ class PagedKVSlotAdapter:
             self.last_groups = len(groups)
             if groups:
                 meta = self._cascade_meta(groups)
-        dev = self.device
-        logits = engine.decode_step_paged(
-            self.cfg, self.params,
-            torch.from_numpy(np.asarray(tokens, np.int32)[:, None]).to(dev),
-            tables=torch.from_numpy(self.tables).to(dev),
-            lens=torch.from_numpy(self.lens.astype(np.int32)).to(dev),
-            arena=self.arena, wbids=torch.from_numpy(wbids).to(dev),
-            backend=self.flat_backend if meta is None else "cascade",
-            cascade=meta)
+                step = self._decode_cascade
+                inputs += tuple(meta[key] for key in CASCADE_META)
+        return step, inputs, active
+
+    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One tick over every lane; returns the greedy token per lane
+        (garbage for inactive lanes, whose lengths stay as they are).
+        ``last_logits`` is this tick's (n_slots, vocab_padded) float32
+        logits, a copy that later ticks leave as it is."""
+        step, inputs, active = self._tick_inputs(tokens, active)
+        logits = step(*inputs)
         self.lens[active] += 1
-        self.last_logits = logits           # (n_slots, vocab) — parity tests
-        return logits.argmax(-1).cpu().numpy()
+        # the step's output is overwritten by its next replay
+        self.last_logits = logits.clone()
+        return self.last_logits.argmax(-1).cpu().numpy()
+
+    def jit_fns(self) -> dict[str, capture.CapturedStep]:
+        """Named captured steps, for ``obs.RecompileDetector.track``: the
+        reference's ``decode`` and, under cascade, ``decode_cascade``.  The
+        reference's other entry points run eagerly here or inside the
+        cascade tick's graph (its ``cascade_prefix``, ``cascade_suffix`` and
+        ``cascade_merge`` jits), and are not counted on their own
+        (:data:`NOT_CAPTURED`)."""
+        fns = {"decode": self._decode}
+        if self.backend == "cascade":
+            fns["decode_cascade"] = self._decode_cascade
+        return fns
 
     # -- telemetry -----------------------------------------------------------
 

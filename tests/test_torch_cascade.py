@@ -414,10 +414,9 @@ def test_cascade_meta_matches_reference(pair):
     assert got.keys() == derived.keys() == \
         set(want) | {"lane_lens", "group_dest", "lane_slot"}
     for key in got:
-        np.testing.assert_array_equal(got[key].numpy(),
-                                      derived[key].numpy())
-        assert got[key].dtype == (torch.bool if key == "group_mask"
-                                  else torch.int32)
+        np.testing.assert_array_equal(got[key], derived[key].numpy())
+        assert got[key].dtype == (np.bool_ if key == "group_mask"
+                                  else np.int32)
 
 
 def test_cascade_degrades_to_the_plain_tick_bitwise(pair):

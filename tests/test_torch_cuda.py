@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, bit for
-bit, and the frame stages on the card against the CPU.  Without a CUDA
-device every test here skips; on a card run them with
+bit, the frame stages on the card against the CPU, and the captured steps
+(frame buckets, the flat and cascade ticks) against their eager calls.
+Without a CUDA device every test here skips; on a card run them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
@@ -8,7 +9,7 @@ import torch
 
 import dataclasses
 
-from repro_torch import configs
+from repro_torch import configs, kernels
 from repro_torch.core import sng
 from repro_torch.kernels import flash_attn as flash_kernel
 from repro_torch.kernels import ops, ref
@@ -17,7 +18,9 @@ from repro_torch.kernels import sc_dot as sc_dot_kernel
 from repro_torch.kernels import sng_pack as sng_pack_kernel
 from repro_torch.models import lenet, lm
 from repro_torch.nn import attention
+from repro_torch.serve import capture
 from repro_torch.serve.gateway import frontend as fe
+from repro_torch.serve.gateway.gateway import GatewayConfig, MicroBatchGateway
 from repro_torch.serve.gateway.slots import Request, make_adapter
 from repro_torch.serve.spec import ServeSpec, make_gateway
 
@@ -891,3 +894,116 @@ def test_chunked_resume_bitwise_and_matches_oneshot_float32(dev):
                                       one.decode(row, active))
         torch.testing.assert_close(warm.last_logits, one.last_logits,
                                    rtol=2e-4, atol=2e-4)
+
+
+# -- captured steps (serve/capture.py) on the card ------------------------------
+
+def _counted(run):
+    """(run's result, the launch counters' change over it)."""
+    before = kernels.read_counts()
+    out = run()
+    torch.cuda.synchronize()
+    after = kernels.read_counts()
+    return out, {name: after[name] - before[name] for name in after}
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_frame_stages_replay_bitwise_to_eager(dev, bits):
+    """A captured frame bucket: the payload byte for byte and the logits
+    bit for bit the stages' eager call on the same frames, with the same
+    launch counts; two captured steps per bucket."""
+    spec = fe.FrontendSpec(mode="sc", bits=bits, lenet=lenet.LeNetConfig())
+    g = MicroBatchGateway(GatewayConfig(bucket_sizes=(8,)), spec)
+    g.warmup()
+    assert g.compile_counts() == {8: 2}
+    frames = np.random.default_rng(bits).integers(0, 256, (8, 28, 28, 1),
+                                                  dtype=np.uint8)
+    sensor, gate = g._sensor_fns[8], g._gateway_fns[8]
+    def replay():
+        payload = sensor(frames).clone()
+        return payload, gate(payload).clone()
+
+    def eager():
+        payload = sensor.fn(*sensor.load(frames))
+        return payload, gate.fn(*gate.load(payload))
+    (payload, logits), replayed = _counted(replay)
+    (payload_e, logits_e), eagerly = _counted(eager)
+    assert torch.equal(payload, payload_e) and torch.equal(logits, logits_e)
+    assert replayed == eagerly and replayed["sc_dot"] == 1 and \
+        replayed["sng_pack"] == 2
+    assert g.compile_counts() == {8: 2}
+
+
+def _tick_replay_and_eager(ad, forced, active):
+    """One tick's (logits, arena) through the adapter's captured step and
+    through its ``fn`` called eagerly on the same static inputs, from the
+    same arena, each with its launch counts."""
+    step, inputs, _ = ad._tick_inputs(forced, active)
+    start = {k: a.clone() for k, a in ad.arena.items()}
+    out = {}
+    for name, run in (("replay", lambda: step(*inputs).clone()),
+                      ("eager", lambda: step.fn(*step.load(*inputs)))):
+        for key, a in ad.arena.items():
+            a.copy_(start[key])
+        logits, counts = _counted(run)
+        out[name] = (logits, {k: a.clone() for k, a in ad.arena.items()},
+                     counts)
+    return step, out
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cascade"])
+def test_tick_replay_bitwise_to_eager(dev, backend):
+    """The flat tick and a cascade bucket at small depth: logits and the
+    arena rows the tick wrote bit for bit the eager step's, launch counts
+    equal under replay."""
+    cfg, params = _smoke_lm(dev, "bfloat16")
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)]
+                              ).astype(np.int32) for n in (3, 9, 17, 30)]
+    ad = make_adapter(cfg, params, n_slots=4, max_len=96, paged=True,
+                      block_size=16, chunked=False, backend=backend)
+    for s, p in enumerate(prompts):
+        ad.insert(s, p, max_new=8)
+    active = np.ones(4, bool)
+    forced = rng.integers(0, cfg.vocab, (3, 4)).astype(np.int32)
+    ad.decode(forced[0], active)                     # captures the tick
+    step, out = _tick_replay_and_eager(ad, forced[1], active)
+    assert step._cache_size() == 1
+    assert step is (ad._decode_cascade if backend == "cascade"
+                    else ad._decode)
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    assert torch.equal(lr, le) and bool(torch.isfinite(lr).all())
+    for key in ar:
+        assert torch.equal(ar[key], ae[key])
+    assert cr == ce
+    layers = cfg.n_layers
+    if backend == "cascade":
+        assert cr["cascade_prefix_attention"] == \
+            cr["merge_attn_states (fused)"] == layers
+    else:
+        assert cr["paged_decode_attention"] == layers
+    assert cr["scatter_kv_rows"] == 1
+
+
+def test_capture_raises_on_a_host_sync(dev):
+    """A step that reads a value back on the host inside ``fn`` runs its
+    eager first call, then fails its capture: the call raises (nothing
+    falls back to running eagerly), no key is counted, the caller's stream
+    is current again and the owner's pool is renewed, on which a
+    well-formed step then captures and replays."""
+    pool = capture.GraphPool(dev)
+    failed = pool.handle
+    stream = torch.cuda.current_stream()
+    syncing = capture.CapturedStep(lambda x: x * float(x.sum().item()), dev,
+                                   pool)
+    with pytest.raises(RuntimeError):
+        syncing(np.ones(4, np.float32))
+    assert syncing._cache_size() == 0
+    assert torch.cuda.current_stream() == stream
+    assert pool.handle != failed
+    step = capture.CapturedStep(lambda x: x * 2, dev, pool)
+    for i in range(3):
+        got = step(np.full(4, i, np.float32))
+        assert torch.equal(got.cpu(), torch.full((4,), 2.0 * i))
+    assert step._cache_size() == 1

@@ -47,13 +47,16 @@ def test_files_found():
     assert "src/repro_torch/kernels/paged_attn.py" in rel
     assert "src/repro_torch/serve/kvcache/paged.py" in rel
     assert "src/repro_torch/serve/spec.py" in rel
+    assert "src/repro_torch/serve/capture.py" in rel
+    assert "src/repro_torch/serve/obs/recompile.py" in rel
 
 
 def test_gateway_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serve.gateway.gateway, "
             "repro_torch.convert, repro_torch.kernels.ops, "
             "repro_torch.serve.spec, repro_torch.serve.kvcache.paged, "
-            "repro_torch.configs.stablelm_3b\n"
+            "repro_torch.configs.stablelm_3b, repro_torch.serve.capture, "
+            "repro_torch.serve.obs.recompile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "assert not bad, bad\n")
