@@ -9,6 +9,9 @@
                                    # load (c)'s cascade tick profile and
                                    # row write, parent and this checkout
                                    # in turns (P C C P)
+    python3 chip_smoke.py --table3-full
+                                   # phase 9 on the reference's full
+                                   # Table 3 protocol alone
 
 Phases, each printing one JSON line:
 
@@ -125,7 +128,25 @@ Phases, each printing one JSON line:
      captured against eager in turns (``HOST_RUNS`` runs a side) with a
      profile of each (device busy, idle share, kernel and graph launches
      per tick: one graph and at most ``MAX_CAPTURED_TICK_LAUNCHES``
-     kernels when captured).
+     kernels when captured);
+  9. the retraining pipeline (``table3`` line): the reference's fast Table
+     3 protocol (``benchmarks/table3_accuracy.py``) through
+     ``core/hybrid.py`` at full-width LeNet-5 (conv1 32@5x5, conv2 64@5x5,
+     dense 512, dropout 0.5) on the port's synthetic digits: 3,000 / 800
+     images, 250 float pretraining steps at batch 64, then for bits 2, 4
+     and 8 the binary design, new SC (``ramp_lowdisc``, TFF tree) and, at
+     bits <= 4, old SC (``lfsr_pair``, MUX tree), each caching 2,500
+     training and every test image's features, retraining the tail 150
+     steps at batch 128 and evaluated from its cache: misclassification
+     beside the paper's, the float baseline, the three relative claims,
+     ms per pretraining step, per retraining step and per cached batch, the
+     SC launches of each design (2 ``sng_pack`` per batch, 1 ``sc_dot`` per
+     TFF batch), and ``torch.profiler`` windows over 10 retraining steps
+     and 10 caching batches of each SC design.  It fails unless every SC
+     design's features on 256 images equal the plain versions' on the same
+     CUDA tensors and on 32 the CPU's, the float accuracy is above 0.8,
+     every design's accuracy after retraining is at least its accuracy
+     before less 0.02, and new SC errs more at 2 bits than at 4.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -2575,6 +2596,7 @@ def frame_stage_turns(gw, frames) -> dict:
 
 def profile_stages(stage, n: int) -> dict:
     """``torch.profiler`` over ``n`` calls of ``stage`` (a frame-path stage,
+    or phase 9's retraining step or caching batch; each call is timed
     ending in a synchronize): device busy ms per stage, the idle share of
     the stage's host time (timed without the profiler), device ms by
     kernel, the device operations (kernels, copies) per stage and the
@@ -2602,6 +2624,264 @@ def profile_stages(stage, n: int) -> dict:
             "device_ms_by_kernel": {
                 k[:80]: v / 1e3 for k, v in
                 sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]}}
+
+
+# -- the retraining pipeline, Table 3 (phase 9) --------------------------------
+
+# the paper's Table 3 misclassification (%), bits -> (binary, old SC, this
+# work), as benchmarks/table3_accuracy.py quotes it
+PAPER_MISCLASS = {
+    8: (0.89, 2.22, 0.94), 7: (0.86, 3.91, 0.99), 6: (0.89, 1.30, 1.04),
+    5: (0.74, 1.55, 1.12), 4: (0.79, 1.63, 1.04), 3: (0.79, 2.71, 2.20),
+    2: (1.30, 4.89, 43.82),
+}
+# the reference's Table 3 protocols (benchmarks/table3_accuracy.py): images,
+# float pretraining steps at batch 64, retraining steps at batch 128 on the
+# first n_retrain training images' features, the precisions; old SC at
+# bits <= 4 in the fast mode
+TABLE3_FAST = dict(n_train=3000, n_test=800, steps=250, retrain_steps=150,
+                   n_retrain=2500, bits=(2, 4, 8), old_sc_max_bits=4)
+TABLE3_FULL = dict(n_train=8000, n_test=2000, steps=600, retrain_steps=400,
+                   n_retrain=6000, bits=tuple(range(2, 9)), old_sc_max_bits=8)
+CACHE_BATCH = 64                # cache_first_layer's batch
+# the features checked bit for bit against the plain versions on the card
+# and, for 32 of them, against the CPU
+FEATURE_CHECK_IMAGES, CPU_CHECK_IMAGES = 256, 32
+# a design whose error before retraining is above RETRAIN_LARGE_ERR must
+# end at least RETRAIN_MIN_DROP lower (fractions of the test set)
+RETRAIN_LARGE_ERR, RETRAIN_MIN_DROP = 0.05, 0.03
+
+
+def table3_designs(bits: int, old_sc_max_bits: int) -> dict:
+    """The reference's three designs at ``bits``: binary (k-bit weights),
+    new SC (ramp + low-discrepancy SNGs, TFF tree) and old SC (LFSR-pair
+    SNGs, MUX tree, the stream route)."""
+    from repro_torch.core import hybrid
+    from repro_torch.core.sc_layer import SCConfig
+    out = {"binary": hybrid.HybridConfig(mode="binary", bits=bits),
+           "new_sc": hybrid.HybridConfig(mode="sc", sc=SCConfig(
+               bits=bits, adder="tff"))}
+    if bits <= old_sc_max_bits:
+        out["old_sc"] = hybrid.HybridConfig(mode="sc", sc=SCConfig(
+            bits=bits, scheme="lfsr_pair", adder="mux"), sc_impl="streams")
+    return out
+
+
+def retrain_main_path(dev, protocol: dict, cfg=None) -> dict:
+    """Phase 9: the reference's Table 3 protocol through the port's
+    ``core/hybrid.py`` at full-width LeNet-5: float pretraining, then for
+    each precision and design the first layer's features cached (2,500
+    training and every test image in the fast protocol), the tail retrained
+    and the design evaluated from its cache.  The SC launches are read
+    around the whole run (the path's own), per design as deltas.  Then,
+    outside the counted run: every SC design's features on 256 images bit
+    for bit against the plain versions on the same CUDA tensors, and on 32
+    against the CPU; the reference test's thresholds; profiles.  Prints
+    the ``table3`` line and returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hybrid
+    from repro_torch.data import mnist_synth
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    from repro_torch.models import lenet
+    from repro_torch.train import optim
+    sc_kernels = ("sng_pack", "sc_dot")
+    p = protocol
+    cfg = cfg or lenet.LeNetConfig()
+    t_phase = time.perf_counter()
+    xtr, ytr, xte, yte = mnist_synth.dataset(p["n_train"], p["n_test"])
+    data_s = time.perf_counter() - t_phase
+    n_cache = p["n_retrain"], p["n_test"]
+    batches = sum(-(-n // CACHE_BATCH) for n in n_cache)
+
+    # -- the main path, counted ------------------------------------------
+    reset_counts()
+    params = lenet.init(0, cfg, device=dev)
+    opt_cfg = optim.AdamWConfig(lr=1e-3)
+    opt = optim.init(params, opt_cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.as_tensor(xtr).to(dev)
+    labels = torch.as_tensor(ytr).to(dev)
+    idx = torch.as_tensor(mnist_synth.batch_indices(len(xtr), 64, 0,
+                                                    p["steps"]), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(p["steps"]):
+        params, opt, loss = hybrid.float_train_step(
+            params, opt, images[idx[step]].to(torch.float32) / 255.0,
+            labels[idx[step]], gen, cfg, opt_cfg)
+    torch.cuda.synchronize()
+    pretrain_ms = (time.perf_counter() - t0) * 1e3 / p["steps"]
+    float_acc = hybrid.evaluate(params, xte, yte, cfg,
+                                hybrid.HybridConfig(mode="float"))
+    rows, feats = {}, {}
+    for bits in p["bits"]:
+        for name, h in table3_designs(bits, p["old_sc_max_bits"]).items():
+            key = f"{name}_{bits}"
+            before_counts = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ftr = hybrid.cache_first_layer(params, xtr[:p["n_retrain"]], h)
+            fte = hybrid.cache_first_layer(params, xte, h)
+            torch.cuda.synchronize()
+            cache_ms = (time.perf_counter() - t0) * 1e3 / batches
+            launches = {k: read_counts()[k] - before_counts[k]
+                        for k in sc_kernels}
+            before = hybrid.evaluate_cached(params, fte, yte, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            retrained = hybrid.retrain_tail(
+                params, ftr, ytr[:p["n_retrain"]], cfg,
+                steps=p["retrain_steps"], batch=128)
+            torch.cuda.synchronize()
+            retrain_ms = (time.perf_counter() - t0) * 1e3 / \
+                p["retrain_steps"]
+            after = hybrid.evaluate_cached(retrained, fte, yte, cfg)
+            rows[key] = {"bits": bits, "design": name,
+                         "misclass_pct": 100 * (1 - after),
+                         "misclass_before_retrain_pct": 100 * (1 - before),
+                         "acc": after, "acc_before": before,
+                         "ms_per_cached_batch": cache_ms,
+                         "ms_per_retrain_step": retrain_ms,
+                         "launches": launches}
+            if h.mode == "sc":
+                feats[key] = (h, fte)
+    torch.cuda.synchronize()
+    counts = {k: read_counts()[k] for k in sc_kernels}
+    path_s = time.perf_counter() - t_phase
+
+    # -- launches: 2 sng_pack (X, both banks) per SC batch, 1 sc_dot per
+    # TFF batch, none for the binary design
+    bad_launches = {}
+    for key, row in rows.items():
+        sc = row["design"] != "binary"
+        want = {"sng_pack": 2 * batches if sc else 0,
+                "sc_dot": batches if row["design"] == "new_sc" else 0}
+        if row["launches"] != want:
+            bad_launches[key] = (row["launches"], want)
+
+    # -- features: the kernel route against the plain versions on the same
+    # CUDA tensors, and against the CPU's plain path
+    def plain_sc_dot(x, w, s0_mode="alt", adder="tff", *, length=None):
+        return ref.sc_dot(x, w, s0_mode, adder)
+    cpu_params = {k: {n: t.cpu() for n, t in v.items()}
+                  for k, v in params.items()}
+    feature_checks = {}
+    for key, (h, fte) in feats.items():
+        sub = xte[:FEATURE_CHECK_IMAGES]
+        with mock.patch.object(sng_pack_k, "sng_pack", ref.sng_pack), \
+                mock.patch.object(sc_dot_k, "sc_dot", plain_sc_dot):
+            plain = hybrid.cache_first_layer(params, sub, h)
+        cpu = hybrid.cache_first_layer(cpu_params, sub[:CPU_CHECK_IMAGES], h)
+        feature_checks[key] = {
+            "plain_on_card_bitwise": bool(torch.equal(
+                fte[:FEATURE_CHECK_IMAGES], plain)),
+            "cpu_bitwise": bool(torch.equal(
+                fte[:CPU_CHECK_IMAGES].cpu(), cpu))}
+
+    # -- the reference test's thresholds, at full width
+    # and, so that a retraining that changes nothing fails: every design
+    # above RETRAIN_LARGE_ERR before retraining ends RETRAIN_MIN_DROP lower
+    err = {k: 1 - r["acc"] for k, r in rows.items()}
+    thresholds = {
+        "float_acc_gt_0.8": float_acc > 0.8,
+        "after_ge_before_minus_0.02": all(
+            r["acc"] >= r["acc_before"] - 0.02 for r in rows.values()),
+        "retraining_lowers_large_errors": all(
+            r["acc"] - r["acc_before"] >= RETRAIN_MIN_DROP for r in
+            rows.values() if 1 - r["acc_before"] > RETRAIN_LARGE_ERR),
+        "new_sc_err2_gt_err4": err.get("new_sc_2", 0) > err.get("new_sc_4", 1)}
+
+    # -- profiles: 10 retraining steps (new SC at 4 bits, or the first SC
+    # design), 10 caching batches of each SC design
+    prof_key = "new_sc_4" if "new_sc_4" in feats else next(iter(feats))
+    ftr4 = hybrid.cache_first_layer(params, xtr[:p["n_retrain"]],
+                                    feats[prof_key][0])
+    feats_tr = ftr4.to(torch.float32)
+    y_dev = torch.as_tensor(ytr[:p["n_retrain"]]).to(dev)
+    ridx = torch.as_tensor(mnist_synth.batch_indices(
+        ftr4.shape[0], 128, 0, 32), device=dev)
+    sub = {k: params[k] for k in hybrid.TRAINABLE}
+    state = {"params": params, "opt": optim.init(sub, opt_cfg), "i": 0}
+    rgen = torch.Generator(device=dev).manual_seed(0)
+
+    def retrain_step():
+        i = state["i"] % ridx.shape[0]
+        state["params"], state["opt"], _ = hybrid.tail_train_step(
+            state["params"], state["opt"], feats_tr[ridx[i]], y_dev[ridx[i]],
+            rgen, cfg, opt_cfg)
+        state["i"] += 1
+    profiles = {"retrain_step": profile_stages(retrain_step, 10)}
+    batch_dev = torch.as_tensor(xte[:CACHE_BATCH]).to(dev)
+    for key, (h, _) in feats.items():
+        profiles[f"cache_batch_{key}"] = profile_stages(
+            lambda h=h: hybrid.cache_first_layer(params, batch_dev, h), 10)
+
+    by_bits = {}
+    for bits in p["bits"]:
+        pb, po, pn = PAPER_MISCLASS[bits]
+        by_bits[bits] = {
+            **{d: rows[f"{d}_{bits}"]["misclass_pct"] for d in
+               ("binary", "new_sc", "old_sc") if f"{d}_{bits}" in rows},
+            "paper": {"binary": pb, "old_sc": po, "new_sc": pn}}
+    b4 = by_bits.get(4, {})
+    claims = {
+        "gap_4bit_hybrid_minus_binary_pp":
+            b4["new_sc"] - b4["binary"] if "binary" in b4 else None,
+        "gap_4bit_paper_pp": 0.25,
+        "old_minus_new_4bit_pp":
+            b4["old_sc"] - b4["new_sc"] if "old_sc" in b4 else None,
+        "old_minus_new_4bit_paper_pp": 0.59,
+        "err_2bit_pct": by_bits.get(2, {}).get("new_sc"),
+        "err_4bit_pct": b4.get("new_sc"),
+        "paper_err_2bit_vs_4bit_pct": [43.82, 1.04]}
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "table3", "protocol": {k: list(v) if isinstance(v, tuple)
+                                          else v for k, v in p.items()},
+          "lenet": {"conv1": cfg.conv1_filters, "conv2": cfg.conv2_filters,
+                    "dense": cfg.dense, "dropout": cfg.dropout},
+          "float_misclass_pct": 100 * (1 - float_acc),
+          "misclass_pct_by_bits": by_bits, "claims": claims,
+          "ms_per_pretrain_step": pretrain_ms,
+          "ms_per_retrain_step": {k: r["ms_per_retrain_step"]
+                                  for k, r in rows.items()},
+          "ms_per_cached_batch": {k: r["ms_per_cached_batch"]
+                                  for k, r in rows.items()},
+          "cached_batches_per_design": batches,
+          "misclass_before_retrain_pct": {
+              k: r["misclass_before_retrain_pct"] for k, r in rows.items()},
+          "launches": counts,
+          "launches_by_design": {k: r["launches"] for k, r in rows.items()},
+          "feature_checks": feature_checks, "thresholds": thresholds,
+          "profiles": profiles, "data_s": data_s, "path_s": path_s,
+          "phase_s": phase_s})
+    if bad_launches:
+        raise SystemExit(f"table3: SC launches per design off: {bad_launches}")
+    if not all(c for f in feature_checks.values() for c in f.values()):
+        raise SystemExit(f"table3: features differ from the plain path: "
+                         f"{feature_checks}")
+    if not all(thresholds.values()):
+        raise SystemExit(f"table3: a threshold fails: {thresholds}")
+    if not all(counts.values()):
+        raise SystemExit(f"table3: an SC kernel never launched: {counts}")
+    return counts
+
+
+def table3_full_main() -> int:
+    """``--table3-full``: the card's line and phase 9 on the reference's
+    full Table 3 protocol (bits 2-8, 8,000 / 2,000 images, 600 / 400
+    steps, old SC at every precision)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi("name,power.limit"), flush=True)
+    retrain_main_path(torch.device("cuda"), TABLE3_FULL)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 def sc_timing_main(root: Path) -> int:
@@ -2788,6 +3068,8 @@ def main() -> int:
         return sc_timing_main(Path(args[1]).resolve())
     if args[:1] == ["--cascade-timing"]:
         return cascade_timing_main(Path(args[1]).resolve())
+    if args[:1] == ["--table3-full"]:
+        return table3_full_main()
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -3016,6 +3298,9 @@ def main() -> int:
 
     # -- 8. the captured ticks against their eager steps ------------------
     capture_main_path(dev, lm_cfg, lm_params)
+
+    # -- 9. the retraining pipeline (Table 3) ---------------------------------
+    paths["retrain"] = retrain_main_path(dev, TABLE3_FAST)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

@@ -1,5 +1,5 @@
-"""Analytical gate-level energy model (numpy copy of the parts of
-``repro.core.energy`` the gateway charges).
+"""Analytical gate-level energy model (a copy of ``repro.core.energy``: the
+parts the gateway charges and the SC power's component shares).
 
 Calibrated to the paper's Table 3 (65nm): SC energy ``P_sc(b) * T(b)`` with
 ``T(b) = T(8) * 2^(b-8)``; binary energy quadratic in the datapath width.
@@ -24,6 +24,9 @@ A_SC0, A_SC1 = 0.9666, 0.0437
 N_UNITS = 784            # parallel dot-product units (one per output pixel)
 N_KERNELS = 32           # first-layer kernels (weight passes per frame)
 K_WINDOW = 25            # 5x5 window -> K products per dot product
+# nominal 65nm switching energies (fJ per gate per cycle): relative weights
+# that split the SC power into component shares
+_FJ = {"and": 1.0, "tff": 6.0, "counter_bit": 4.0, "sng_bit": 5.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,11 @@ class EnergyReport:
     bin_energy_nj: float
     sc_area_mm2: float
     bin_area_mm2: float
+
+    @property
+    def efficiency_gain(self) -> float:
+        """Binary-over-SC energy ratio (paper: 9.8x at 4-bit, ~1x at 8-bit)."""
+        return self.bin_energy_nj / self.sc_energy_nj
 
 
 def frame_time_us(bits: int) -> float:
@@ -79,6 +87,23 @@ def report(bits: int) -> EnergyReport:
         sc_area_mm2=sc_area_mm2(bits),
         bin_area_mm2=bin_area_mm2(bits),
     )
+
+
+def component_shares(bits: int) -> dict[str, float]:
+    """Split SC power into gate-class shares (relative 65nm weights)."""
+    depth_leaves = 1 << (K_WINDOW - 1).bit_length()   # the tree's leaves
+    n_and = 2 * K_WINDOW * N_UNITS
+    n_tff = 2 * (depth_leaves - 1) * N_UNITS
+    n_cnt_bits = 2 * bits * N_UNITS
+    n_sng_bits = bits * (K_WINDOW + 1)      # weight SNG bank, amortized
+    raw = {
+        "and_multipliers": n_and * _FJ["and"],
+        "tff_adders": n_tff * _FJ["tff"],
+        "counters": n_cnt_bits * _FJ["counter_bit"],
+        "sng_bank": n_sng_bits * _FJ["sng_bit"],
+    }
+    total = sum(raw.values())
+    return {k: v / total for k, v in raw.items()}
 
 
 def scaled_report(bits: int, k_window: int, n_units: int, n_kernels: int

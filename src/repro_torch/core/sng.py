@@ -108,3 +108,15 @@ def generate(level: torch.Tensor, codes: np.ndarray | torch.Tensor,
     from repro_torch.kernels import ops      # deferred: ops imports sng
     codes = torch.as_tensor(codes, dtype=torch.int32, device=level.device)
     return ops.sng_pack(level.to(torch.int32), codes, length)
+
+
+def ramp_stream(level: torch.Tensor, length: int) -> torch.Tensor:
+    """Thermometer-coded stream (the ramp-compare A2S converter model)."""
+    bits = length.bit_length() - 1
+    return generate(level, ramp_sequence(bits), length)
+
+
+def vdc_stream(level: torch.Tensor, length: int) -> torch.Tensor:
+    """Low-discrepancy (van der Corput) stream, the paper's weight source."""
+    bits = length.bit_length() - 1
+    return generate(level, vdc_sequence(bits), length)

@@ -90,11 +90,20 @@ def dataset(n_train: int = 8000, n_test: int = 2000, seed: int = 0
     return (imgs[:n_train], labels[:n_train], imgs[n_train:], labels[n_train:])
 
 
+def batch_indices(n: int, batch: int, seed: int, steps: int) -> np.ndarray:
+    """(steps, batch) int64: row ``step`` holds the indices that
+    ``np.random.default_rng((seed, step))`` draws from ``range(n)``, so any
+    (seed, step) is recomputable and a whole run's draws go to a device in
+    one copy."""
+    out = np.empty((steps, batch), dtype=np.int64)
+    for step in range(steps):
+        out[step] = np.random.default_rng((seed, step)).integers(0, n,
+                                                                 size=batch)
+    return out
+
+
 def batches(x: np.ndarray, y: np.ndarray, batch: int, seed: int, steps: int):
     """Deterministic stateless batch iterator: any (seed, step) is recomputable,
     which is what makes straggler recovery / elastic restart trivial."""
-    n = x.shape[0]
-    for step in range(steps):
-        rng = np.random.default_rng((seed, step))
-        idx = rng.integers(0, n, size=batch)
+    for idx in batch_indices(x.shape[0], batch, seed, steps):
         yield x[idx].astype(np.float32) / 255.0, y[idx]

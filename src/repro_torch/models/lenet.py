@@ -1,8 +1,8 @@
-"""LeNet-5 (Keras-library variant, paper Fig. 3) for inference in PyTorch.
+"""LeNet-5 (Keras-library variant, paper Fig. 3) in PyTorch.
 
 Topology: conv 32@5x5 (SAME) -> maxpool 2x2 -> conv 64@5x5 (SAME) ->
-maxpool 2x2 -> dense 512 -> dense 10 (dropout only matters in training,
-which comes with the retraining port).
+maxpool 2x2 -> dense 512 -> dropout 0.5 (training only, drawn from a
+``torch.Generator``) -> dense 10.
 
 The public layout is the reference's: activations NHWC, conv weights HWIO,
 dense weights (in, out), parameters a nested dict
@@ -79,7 +79,8 @@ def _maxpool(x: torch.Tensor) -> torch.Tensor:
 
 def first_layer(params, x: torch.Tensor, mode: str = "float",
                 sc_cfg: SCConfig | None = None, bits: int = 8,
-                soft_threshold: float = 0.0) -> torch.Tensor:
+                soft_threshold: float = 0.0, sc_impl: str = "table"
+                ) -> torch.Tensor:
     """First-layer feature maps (B, 28, 28, conv1_filters).
 
     x: (B, H, W, C) in [0, 1].  The quantized and stochastic modes have no
@@ -93,24 +94,40 @@ def first_layer(params, x: torch.Tensor, mode: str = "float",
     if mode == "sc":
         if sc_cfg is None:
             raise ValueError("mode='sc' needs an SCConfig")
-        return sc_layer.sc_conv2d_sign(x, w, sc_cfg)
+        return sc_layer.sc_conv2d_sign(x, w, sc_cfg, impl=sc_impl)
     raise ValueError(f"unknown first-layer mode {mode}")
 
 
-def tail(params, h1: torch.Tensor) -> torch.Tensor:
-    """Everything after the first layer, the binary-domain remainder.
-    h1: (B, 28, 28, conv1_filters) -> logits (B, classes)."""
+def tail(params, h1: torch.Tensor, cfg: LeNetConfig = LeNetConfig(), *,
+         train: bool = False, generator: torch.Generator | None = None
+         ) -> torch.Tensor:
+    """Everything after the first layer, the binary-domain remainder that
+    the paper retrains.  h1: (B, 28, 28, conv1_filters) -> logits
+    (B, classes).  With ``train`` the dense layer's units are kept with
+    probability ``1 - cfg.dropout`` (the mask drawn from ``generator``, on
+    h1's device) and the kept ones scaled by ``1 / keep``."""
     h = _maxpool(h1)
     h = torch.relu(_conv(h, params["conv2"]["w"], params["conv2"]["b"]))
     h = _maxpool(h)
     h = h.reshape(h.shape[0], -1)                  # NHWC order, as dense1's rows
     h = torch.relu(h @ params["dense1"]["w"] + params["dense1"]["b"])
+    if train and cfg.dropout > 0:
+        keep = 1.0 - cfg.dropout
+        mask = torch.rand(h.shape, generator=generator,
+                          device=h.device) < keep
+        h = torch.where(mask, h / keep, 0.0)
     return h @ params["dense2"]["w"] + params["dense2"]["b"]
 
 
-def apply(params, x: torch.Tensor, *, mode: str = "float",
-          sc_cfg: SCConfig | None = None, bits: int = 8,
-          soft_threshold: float = 0.0) -> torch.Tensor:
-    """Inference: first layer then tail.  x: (B, H, W, C) in [0, 1]."""
-    return tail(params, first_layer(params, x, mode, sc_cfg, bits,
-                                    soft_threshold))
+def apply(params, x: torch.Tensor, cfg: LeNetConfig = LeNetConfig(), *,
+          mode: str = "float", sc_cfg: SCConfig | None = None, bits: int = 8,
+          soft_threshold: float = 0.0, train: bool = False,
+          generator: torch.Generator | None = None, sc_impl: str = "table"
+          ) -> torch.Tensor:
+    """First layer then tail.  x: (B, H, W, C) in [0, 1].  Outside the
+    float mode the first layer is frozen (detached), as the reference's
+    ``stop_gradient``."""
+    h1 = first_layer(params, x, mode, sc_cfg, bits, soft_threshold, sc_impl)
+    if mode != "float":
+        h1 = h1.detach()
+    return tail(params, h1, cfg, train=train, generator=generator)

@@ -1007,3 +1007,95 @@ def test_capture_raises_on_a_host_sync(dev):
         got = step(np.full(4, i, np.float32))
         assert torch.equal(got.cpu(), torch.full((4,), 2.0 * i))
     assert step._cache_size() == 1
+
+
+# -- the retraining pipeline (core/hybrid.py) --------------------------------
+
+HYBRID_DESIGNS = {
+    "sc2": dict(mode="sc", sc=dict(bits=2)),
+    "sc4": dict(mode="sc", sc=dict(bits=4)),
+    "sc8": dict(mode="sc", sc=dict(bits=8)),
+    "binary4": dict(mode="binary", bits=4),
+    "old_sc2": dict(mode="sc", sc=dict(bits=2, scheme="lfsr_pair",
+                                       adder="mux"), sc_impl="streams"),
+    "old_sc4": dict(mode="sc", sc=dict(bits=4, scheme="lfsr_pair",
+                                       adder="mux"), sc_impl="streams"),
+}
+
+
+def _hybrid_config(mode, sc=None, **kw):
+    from repro_torch.core import hybrid
+    from repro_torch.core.sc_layer import SCConfig
+    return hybrid.HybridConfig(mode=mode, sc=SCConfig(**(sc or {})), **kw)
+
+
+@pytest.mark.parametrize("design", HYBRID_DESIGNS)
+def test_cache_first_layer_on_card_matches_cpu(dev, design):
+    """Full-width conv1, 136 images (two whole batches and a partial one):
+    the card's features (the kernels; the MUX tree in plain PyTorch) bit for
+    bit the CPU's plain path, with 2 ``sng_pack`` and, for the TFF designs,
+    1 ``sc_dot`` launch per batch."""
+    from repro_torch.core import hybrid
+    from repro_torch.data import mnist_synth
+    cfg = lenet.LeNetConfig()
+    images = mnist_synth.dataset(136, 0, seed=11)[0]
+    params = lenet.init(0, cfg, device="cpu")
+    h = _hybrid_config(**HYBRID_DESIGNS[design])
+    kernels.reset_counts()
+    got = hybrid.cache_first_layer(
+        {l: {k: t.to(dev) for k, t in d.items()} for l, d in params.items()},
+        images, h)
+    torch.cuda.synchronize()
+    counts = kernels.read_counts()
+    assert got.is_cuda and got.dtype == torch.int8
+    assert torch.equal(got.cpu(), hybrid.cache_first_layer(params, images, h))
+    sc = h.mode == "sc"
+    assert counts["sng_pack"] == (6 if sc else 0)
+    assert counts["sc_dot"] == (3 if sc and h.sc.adder != "mux" else 0)
+
+
+def test_tail_train_step_on_card_matches_cpu(dev):
+    """One step at dropout 0 from the same weights and features: the loss
+    within 1e-5 and the gradients within 1e-5 x max|g| of the CPU's, and
+    the step's parameters within 1e-6 of AdamW on the CPU given the card's
+    gradients."""
+    from repro_torch.core import hybrid
+    from repro_torch.train import optim
+    cfg = lenet.LeNetConfig(dropout=0.0)
+    params = lenet.init(1, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    h1 = torch.from_numpy(rng.integers(-1, 2, (128, 28, 28, 32))
+                          .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 128))
+    on = {l: {k: t.to(dev) for k, t in d.items()} for l, d in params.items()}
+
+    def grads(ps, h, labels):
+        sub = {l: {k: t.detach().requires_grad_() for k, t in ps[l].items()}
+               for l in hybrid.TRAINABLE}
+        # float32 forward and backward, as tail_train_step computes them
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            loss = hybrid.loss_fn(lenet.tail({**ps, **sub}, h, cfg,
+                                             train=True), labels)
+            g = torch.autograd.grad(loss, optim.leaves(sub))
+        return loss, optim.unflatten(sub, list(g))
+    loss_cpu, g_cpu = grads(params, h1, y)
+    loss_card, g_card = grads(on, h1.to(dev), y.to(dev))
+    assert abs(loss_card.item() - loss_cpu.item()) <= 1e-5
+    for l in hybrid.TRAINABLE:
+        for k in ("w", "b"):
+            assert torch.allclose(g_card[l][k].cpu(), g_cpu[l][k], rtol=0,
+                                  atol=1e-5 * float(g_cpu[l][k].abs().max()))
+    opt_cfg = optim.AdamWConfig()
+    sub = {l: params[l] for l in hybrid.TRAINABLE}
+    card, state, loss = hybrid.tail_train_step(
+        on, optim.init({l: on[l] for l in hybrid.TRAINABLE}, opt_cfg),
+        h1.to(dev), y.to(dev), None, cfg, opt_cfg)
+    assert abs(loss.item() - loss_cpu.item()) <= 1e-5
+    want, _ = optim.apply(sub, {l: {k: t.cpu() for k, t in d.items()}
+                                for l, d in g_card.items()},
+                          optim.init(sub, opt_cfg), opt_cfg)
+    for l in hybrid.TRAINABLE:
+        for k in ("w", "b"):
+            assert torch.allclose(card[l][k].cpu(), want[l][k], rtol=0,
+                                  atol=1e-6)
+    assert torch.equal(card["conv1"]["w"].cpu(), params["conv1"]["w"])

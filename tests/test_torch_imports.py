@@ -1,6 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
-imports JAX or the reference package, and importing the port's gateway
-leaves JAX unloaded."""
+"""The port stands alone: nothing under src/repro_torch/, chip_smoke.py or the
+port's example imports JAX or the reference package, and importing the
+port's gateway and training modules leaves JAX unloaded."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "near_sensor_lenet_torch.py"]
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -49,6 +49,10 @@ def test_files_found():
     assert "src/repro_torch/serve/spec.py" in rel
     assert "src/repro_torch/serve/capture.py" in rel
     assert "src/repro_torch/serve/obs/recompile.py" in rel
+    assert "src/repro_torch/train/optim.py" in rel
+    assert "src/repro_torch/core/hybrid.py" in rel
+    assert "src/repro_torch/core/bipolar.py" in rel
+    assert "examples/near_sensor_lenet_torch.py" in rel
 
 
 def test_gateway_import_leaves_jax_unloaded():
@@ -56,7 +60,8 @@ def test_gateway_import_leaves_jax_unloaded():
             "repro_torch.convert, repro_torch.kernels.ops, "
             "repro_torch.serve.spec, repro_torch.serve.kvcache.paged, "
             "repro_torch.configs.stablelm_3b, repro_torch.serve.capture, "
-            "repro_torch.serve.obs.recompile\n"
+            "repro_torch.serve.obs.recompile, repro_torch.core.hybrid, "
+            "repro_torch.core.bipolar, repro_torch.train.optim\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "assert not bad, bad\n")

@@ -11,7 +11,7 @@ from repro.core import sc_layer as jsc
 from repro.core import sng as jsng
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.core import sng
+from repro_torch.core import bitstream, sng
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sc_dot as sc_dot_kernel
@@ -44,8 +44,10 @@ def test_popcount32_and_bit_patterns():
     words[:4] = [0, 1, 2**31, 2**32 - 1]
     got = ref.popcount32(_i32(words)).numpy()
     np.testing.assert_array_equal(got, np.bitwise_count(words))
-    back = ref.to_int32_bits(torch.from_numpy(words.astype(np.int64)))
-    np.testing.assert_array_equal(_u32(back), words)
+    # the words' bits unpacked and packed again: the same bit patterns
+    back = bitstream.pack_bits(bitstream.unpack_bits(_i32(words)[:, None],
+                                                     32))
+    np.testing.assert_array_equal(_u32(back[:, 0]), words)
 
 
 @pytest.mark.parametrize("bits", [5, 6, 7, 8])
