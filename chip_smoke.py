@@ -29,12 +29,18 @@ Phases, each printing one JSON line:
   3. each kernel held against its plain PyTorch version on the same CUDA
      tensors — the SC kernels and ``scatter_kv_rows`` bit for bit (the SC
      kernels over every precision, LFSR codes, levels outside [0, N],
-     unaligned levels, K from 1 to 1,024, O from 1 to 200, Wd 1 to 8,
+     unaligned levels, K from 1 to 1,024 and past it (1,025, 1,536,
+     2,048, 2,560, 4,096: subtrees of 1,024 leaves and their fold, every
+     s0 mode and both adders at Wd 1 and 8), O from 1 to 200, Wd 1 to 8,
      paired leaves at N <= 16, both routes at N = 256 and the two weight
      banks as one operand), then timed at the frame path's shapes (bits 4 and 8, O = 64
      and 16, K = 25 and 32; ms, back-to-back ms, the host's issue µs, the
      bound, against the b1 tensor cores' rate measured on its own line, and
-     the popcount bound and the first port's bound beside it), the
+     the popcount bound and the first port's bound beside it) and at the
+     SC LM frontend's on a 1,000-token stablelm-3b prompt at bits 4
+     (``sc_frontend_timing`` line: ``sng_pack`` of the levels and of both
+     banks, ``sc_dot_posneg`` at K = 2,560 and 2 x 2,560 outputs, each
+     beside its plain version and its bound), the
      attention kernels (``paged_decode_attention`` and the cascade's
      ``paged_decode_attention_with_state``, ``cascade_prefix_attention``
      and ``merge_attn_states``) within 2e-5 (float32) / 2e-2 (bfloat16),
@@ -146,7 +152,25 @@ Phases, each printing one JSON line:
      design's features on 256 images equal the plain versions' on the same
      CUDA tensors and on 32 the CPU's, the float accuracy is above 0.8,
      every design's accuracy after retraining is at least its accuracy
-     before less 0.02, and new SC errs more at 2 bits than at 4.
+     before less 0.02, and new SC errs more at 2 bits than at 4;
+ 10. the dense path (``dense_main_path`` line) at stablelm-3b's full
+     width: ``make_gateway(cfg, params)`` with the default ``ServeSpec()``
+     (dense KV slots, 4 lanes of 128 positions) serving six prompts of 1
+     to 112 tokens, so two slots are cleared and reused (``flash_attention``
+     32 times per prefill, one captured tick); the captured dense tick
+     against its ``fn`` called eagerly from the same cache (logits, the
+     whole cache and the lengths bit for bit) and timed captured against
+     eager in turns, one graph launch per tick; the same load through the
+     paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways: dense against
+     ``"cuda"``, gather against ``"plain"`` and against ``"cuda"``, tokens
+     equal with logits within 2e-4 at float32 depth 4 and, in bf16 at full
+     depth, up to each stream's first difference, a near tie; then
+     ``first_layer_mode="sc"`` at bits 4: the SC frontend's output for a
+     100-token prompt (``sng_pack`` twice and ``sc_dot`` at K = 2,560)
+     bit for bit the plain versions' on the same CUDA tensors, and the
+     load served through the dense gateway, the one-shot paged gateway and
+     the chunked fold (the frontend on every prompt or chunk, its launches
+     counted; dense against paged in bf16 under the near-tie rule).
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -2164,29 +2188,32 @@ def chunked_main_path(dev, cfg, params) -> dict:
 MAX_CAPTURED_TICK_LAUNCHES = 8
 
 
-def tick_replay_check(ad, tokens, active) -> dict:
+def tick_replay_check(ad, tokens, active, state=None) -> dict:
     """The adapter's next tick at its current state through its captured
     step and through the step's ``fn`` eagerly on the same static inputs,
-    each from the same arena (restored after, so the state does not
-    advance): logits and the whole arena bit for bit, launch counts
-    equal, and the arena rows the tick wrote."""
+    each from the same ``state`` (the paged arena, or the dense cache
+    with its lengths; restored after, so the state does not advance):
+    logits and the whole state bit for bit, launch counts equal, and the
+    rows (lengths) the tick wrote."""
     import torch
+    state = ad.arena if state is None else state
     step, inputs, _ = ad._tick_inputs(tokens, active)
-    start = {k: a.clone() for k, a in ad.arena.items()}
+    start = {k: a.clone() for k, a in state.items()}
     out = {}
     for side in ("replay", "eager"):
-        for key, a in ad.arena.items():
+        for key, a in state.items():
             a.copy_(start[key])
         reset_counts()
         logits = step(*inputs).clone() if side == "replay" else \
             step.fn(*step.load(*inputs))
         torch.cuda.synchronize()
-        out[side] = (logits, {k: a.clone() for k, a in ad.arena.items()},
+        out[side] = (logits, {k: a.clone() for k, a in state.items()},
                      read_counts())
     (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
     rows = {k: int((ar[k] != start[k]).flatten(-2).any(-1).sum())
+            if ar[k].dim() > 2 else int((ar[k] != start[k]).sum())
             for k in ar}
-    for key, a in ad.arena.items():
+    for key, a in state.items():
         a.copy_(start[key])
     out = {"logits_bitwise": bool(torch.equal(lr, le)),
            "logits_finite": bool(torch.isfinite(lr).all()),
@@ -2198,16 +2225,19 @@ def tick_replay_check(ad, tokens, active) -> dict:
     return out
 
 
-def tick_timing(ad, tokens, active) -> dict:
+def tick_timing(ad, tokens, active, after=None) -> dict:
     """Host ms of the adapter's next tick at its current state (its host
     side, the step, the logits' copy and the tokens on the host; the state
-    does not advance), captured and eager in turns (:func:`turns`), and
-    :func:`profile_ticks` over three ticks of each."""
+    does not advance: a paged tick rewrites its rows, and ``after``, where
+    given, puts back what the tick advanced), captured and eager in turns
+    (:func:`turns`), and :func:`profile_ticks` over three ticks of each."""
     from types import SimpleNamespace
 
     def tick(eager: bool):
         step, inputs, _ = ad._tick_inputs(tokens, active)
         logits = step.fn(*step.load(*inputs)) if eager else step(*inputs)
+        if after is not None:
+            after()
         return logits.clone().argmax(-1).cpu()
     sides = {"captured": lambda: tick(False), "eager": lambda: tick(True)}
     ms = turns(sides)
@@ -2277,6 +2307,299 @@ def capture_main_path(dev, cfg, params) -> dict:
     return out
 
 
+# -- the dense path, the gather oracle, the SC frontend (phase 10) -------------
+
+# the default ServeSpec()'s load: 4 slots of 128 positions and 16 new tokens,
+# so prompts of up to 112 tokens; six requests, so two slots are cleared and
+# reused
+DENSE_PROMPT_LENS = (100, 7, 64, 33, 112, 1)
+
+
+def dense_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(19)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in DENSE_PROMPT_LENS]
+
+
+def serve_spec_load(dev, cfg, params, prompts, spec) -> dict:
+    """``prompts`` (all arriving at t = 0) through ``make_gateway(cfg,
+    params, spec)`` and its ``run``: per request (uid = index) the
+    generated tokens, the first token's logits and the logits of every tick
+    it decoded in (float32 copies); host ms per tick (ending in the tokens'
+    copy to the host); every kernel's launches over the run; the captured
+    steps; the ledger's records."""
+    import torch
+
+    from repro_torch.serve.gateway.sensors import Arrival
+    from repro_torch.serve.spec import make_gateway
+
+    gw = make_gateway(cfg, params, spec, device=dev)
+    ad, batcher = gw.batcher.adapter, gw.batcher
+    prefill, rows, tokens, times = [], {}, {}, []
+    finite = [True]
+    insert, decode, step = ad.insert, ad.decode, batcher.step
+
+    def keep_insert(slot, prompt, max_new=None):
+        tok = insert(slot, prompt, max_new)
+        prefill.append(ad.last_prefill_logits[0].float().clone())
+        return tok
+
+    def keep_decode(toks, active):
+        lanes = {r.uid: s for s, r in enumerate(batcher.active)
+                 if r is not None}
+        t0 = time.perf_counter()
+        out = decode(toks, active)
+        times.append((time.perf_counter() - t0) * 1e3)
+        logits = ad.last_logits.float()
+        finite[0] &= bool(torch.isfinite(logits).all())
+        for uid, s in lanes.items():
+            rows.setdefault(uid, []).append(logits[s].clone())
+        return out
+
+    def keep_step():
+        fin = step()
+        for r in fin:
+            tokens[r.uid] = list(map(int, r.generated))
+        return fin
+    ad.insert, ad.decode, batcher.step = keep_insert, keep_decode, keep_step
+    arrivals = [Arrival(uid=i, t=0.0, endpoint=0, kind="prompt", payload=p)
+                for i, p in enumerate(prompts)]
+    reset_counts()
+    t0 = time.perf_counter()
+    tel = gw.run(arrivals)
+    torch.cuda.synchronize()
+    out = {"adapter": type(ad).__name__,
+           "backend": getattr(ad, "backend", None),
+           "run_s": time.perf_counter() - t0, "tokens": tokens,
+           # admission is first in, first out: the k-th insert is uid k
+           "prefill": dict(enumerate(prefill)), "rows": rows,
+           "tick_ms": times, "finite": finite[0],
+           "launches": read_counts(), "served": len(tel.records),
+           "dropped": len(tel.dropped),
+           "captures": {n: f._cache_size() for n, f in ad.jit_fns().items()}}
+    del gw, ad, batcher
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_differences(a: dict, b: dict) -> dict:
+    """Two :func:`serve_spec_load` runs of one load: whether every request's
+    tokens are equal, the max |logit difference| over every logit row that
+    both runs computed on the same history (the first token's and each
+    tick's, up to each request's first differing token), and per request
+    whose streams differ, the first differing token k with ``b``'s margin
+    for its own token over ``a``'s next to the two rows' |difference|: a
+    near tie has margin <= difference <= NEAR_TIE_BOUND."""
+    worst, diffs = 0.0, []
+    for uid, ta in a["tokens"].items():
+        tb = b["tokens"][uid]
+        k = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 None)
+        pairs = [(a["prefill"][uid], b["prefill"][uid])] + list(
+            zip(a["rows"].get(uid, []), b["rows"].get(uid, [])))
+        same = pairs if k is None else pairs[:k + 1]
+        for la, lb in same:
+            worst = max(worst, float((la - lb).abs().max()))
+        if k is None:
+            continue
+        la, lb = pairs[k]
+        d = float((la - lb).abs().max())
+        margin = float(lb.max() - lb[ta[k]])
+        diffs.append({"uid": uid, "token": k, "margin": margin,
+                      "max_abs_dlogit": d,
+                      "near_tie": margin <= d <= NEAR_TIE_BOUND})
+    return {"tokens_equal": a["tokens"] == b["tokens"],
+            "max_abs_dlogit": worst, "first_differences": diffs}
+
+
+def dense_main_path(dev, cfg, params) -> dict:
+    """Phase 10: the dense KV path (the default ``ServeSpec()`` gateway),
+    the gather-tick oracle and the SC LM frontend at stablelm-3b's full
+    width.  Returns the kernels' launches on the default gateway's load
+    ("dense") and on the SC gateways' ("sc"); raises SystemExit on a
+    failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    from repro_torch.models import lm
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    failures = []
+    prompts = dense_prompts(cfg.vocab)
+    n_req = len(prompts)
+    default = ServeSpec()
+    new = default.max_new_tokens
+
+    def paged(backend, **kw):
+        return ServeSpec(paged=True, chunked=False, backend=backend, **kw)
+
+    def served_all(run) -> bool:
+        return run["served"] == n_req and run["finite"] and \
+            sorted(map(len, run["tokens"].values())) == [new] * n_req
+
+    # (1) the default gateway (dense slots), bf16 at full depth
+    dense = serve_spec_load(dev, cfg, params, prompts, default)
+    want = {name: 0 for name in dense["launches"]}
+    want["flash_attention"] = cfg.n_layers * n_req     # one per prefill
+    if dense["adapter"] != "KVSlotAdapter" or not served_all(dense) or \
+            dense["launches"] != want or dense["captures"] != {"decode": 1}:
+        failures.append(f"default gateway: adapter {dense['adapter']}, "
+                        f"served {dense['served']}, finite "
+                        f"{dense['finite']}, launches {dense['launches']}, "
+                        f"captures {dense['captures']}")
+
+    # (2) the captured dense tick against its eager step, four lanes mid
+    # stream: logits and the whole cache bit for bit, then host ms per
+    # tick in turns (the lengths put back after every tick)
+    gw = make_gateway(cfg, params, default, device=dev)
+    ad, batcher = gw.batcher.adapter, gw.batcher
+    for i, p in enumerate(prompts[:default.n_slots]):
+        batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new))
+    batcher.step()              # admits four; the first tick captures
+    toks = batcher.last_token.copy()
+    active = np.asarray([r is not None for r in batcher.active])
+    replay = tick_replay_check(ad, toks, active, state=ad.cache)
+    len0 = ad.cache["len"].clone()
+    timing = tick_timing(ad, toks, active,
+                         after=lambda: ad.cache["len"].copy_(len0))
+    prof = timing["profile"]["captured"]
+    if not (replay["logits_bitwise"] and replay["arena_bitwise"]
+            and replay["launches_equal"] and replay["logits_finite"]
+            and replay["rows_written"]["len"] == default.n_slots):
+        failures.append(f"dense tick: the replay differs from the eager "
+                        f"step: {replay}")
+    if prof["graph_launches_per_tick"] != 1:
+        failures.append(f"dense tick: {prof['graph_launches_per_tick']} "
+                        "graph launches per tick")
+    del gw, ad, batcher
+    torch.cuda.empty_cache()
+
+    # (3) the paged gateways on the same load, bf16 full depth: the flat
+    # kernel tick, the in-place plain tick and the gather oracle
+    runs = {b: serve_spec_load(dev, cfg, params, prompts, paged(b))
+            for b in ("cuda", "plain", "gather")}
+    bf16 = {"dense_vs_cuda": stream_differences(runs["cuda"], dense),
+            "gather_vs_plain": stream_differences(runs["plain"],
+                                                  runs["gather"]),
+            "gather_vs_cuda": stream_differences(runs["cuda"],
+                                                 runs["gather"])}
+    for name, r in runs.items():
+        if not served_all(r) or r["captures"] != {"decode": 1}:
+            failures.append(f"paged {name}: served {r['served']}, finite "
+                            f"{r['finite']}, captures {r['captures']}")
+    for name, d in bf16.items():
+        if not all(x["near_tie"] for x in d["first_differences"]):
+            failures.append(f"bf16 {name}: a difference that is not a near "
+                            f"tie: {d['first_differences']}")
+
+    # (4) float32 at depth 4: tokens equal, logits within 2e-4
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    dense4 = serve_spec_load(dev, cfg4, params4, prompts, default)
+    runs4 = {b: serve_spec_load(dev, cfg4, params4, prompts, paged(b))
+             for b in ("cuda", "plain", "gather")}
+    f32 = {"dense_vs_cuda": stream_differences(runs4["cuda"], dense4),
+           "gather_vs_plain": stream_differences(runs4["plain"],
+                                                 runs4["gather"]),
+           "gather_vs_cuda": stream_differences(runs4["cuda"],
+                                                runs4["gather"])}
+    for name, d in f32.items():
+        if not (d["tokens_equal"] and d["max_abs_dlogit"] <= 2e-4):
+            failures.append(f"float32 depth 4 {name}: tokens equal "
+                            f"{d['tokens_equal']}, max |dlogit| "
+                            f"{d['max_abs_dlogit']}")
+    del params4
+    torch.cuda.empty_cache()
+
+    # (5) the SC frontend at bits 4 on the full-width weights: one prompt's
+    # output bit for bit the plain versions' on the same CUDA tensors
+    # (sng_pack and sc_dot at K = 2,560, two banks of 2,560), then the
+    # load through the dense gateway and the paged ones (one-shot, and the
+    # chunked fold: the frontend runs on every chunk)
+    cfg_sc = dataclasses.replace(cfg, first_layer_mode="sc", sc_bits=4)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params_sc = dict(params, sc_frontend=lm.init(
+        dataclasses.replace(cfg_sc, n_layers=1), gen)["sc_frontend"])
+    x = lm.token_rows(params, torch.from_numpy(prompts[0][None]).to(dev))
+    reset_counts()
+    got = lm.sc_frontend(cfg_sc, params_sc["sc_frontend"], x)
+    torch.cuda.synchronize()
+    call_launches = {n: read_counts()[n] for n in ("sng_pack", "sc_dot")}
+
+    def plain_sc_dot(x, w, s0_mode="alt", adder="tff", *, length=None):
+        return ref.sc_dot(x, w, s0_mode, adder)
+    with mock.patch.object(sng_pack_k, "sng_pack", ref.sng_pack), \
+            mock.patch.object(sc_dot_k, "sc_dot", plain_sc_dot):
+        plain = lm.sc_frontend(cfg_sc, params_sc["sc_frontend"], x)
+    torch.cuda.synchronize()
+    frontend_bitwise = bool(torch.equal(got, plain))
+    gamma = params_sc["sc_frontend"]["gamma"].float()
+    ternary = set(torch.unique(torch.round(got.float() / gamma, decimals=2))
+                  .tolist()) <= {-1.0, 0.0, 1.0}
+    if not frontend_bitwise or not ternary or \
+            call_launches != {"sng_pack": 2, "sc_dot": 1}:
+        failures.append(f"SC frontend: bitwise vs plain {frontend_bitwise}, "
+                        f"ternary {ternary}, launches {call_launches}")
+    sc_runs = {"dense": serve_spec_load(dev, cfg_sc, params_sc, prompts,
+                                        default),
+               "paged_oneshot": serve_spec_load(dev, cfg_sc, params_sc,
+                                                prompts, paged("cuda")),
+               "paged_chunked": serve_spec_load(
+                   dev, cfg_sc, params_sc, prompts,
+                   ServeSpec(paged=True, backend="cuda"))}
+    chunks = sum(-(-len(p) // ServeSpec().block_size) for p in prompts)
+    for name, r in sc_runs.items():
+        calls = chunks if name == "paged_chunked" else n_req
+        if not served_all(r) or r["launches"]["sc_dot"] != calls or \
+                r["launches"]["sng_pack"] != 2 * calls:
+            failures.append(f"sc {name}: served {r['served']}, finite "
+                            f"{r['finite']}, launches {r['launches']}, "
+                            f"expected {calls} frontend calls")
+    sc_vs = stream_differences(sc_runs["paged_oneshot"], sc_runs["dense"])
+    if not all(x["near_tie"] for x in sc_vs["first_differences"]):
+        failures.append(f"sc bf16 dense vs paged: a difference that is not "
+                        f"a near tie: {sc_vs['first_differences']}")
+    sc_launches = {n: sum(r["launches"][n] for r in sc_runs.values())
+                   for n in ("sng_pack", "sc_dot", "flash_attention")}
+    dense_launches = {"flash_attention":
+                      dense["launches"]["flash_attention"]}
+
+    def summary(r):
+        return {"adapter": r["adapter"], "backend": r["backend"],
+                "run_s": r["run_s"], "served": r["served"],
+                "ticks": len(r["tick_ms"]),
+                "tick_ms_median": statistics.median(r["tick_ms"]),
+                "captures": r["captures"],
+                "launches": {k: v for k, v in r["launches"].items() if v}}
+    emit({"phase": "dense_main_path", "model": cfg.name,
+          "spec": {"n_slots": default.n_slots, "max_len": default.max_len,
+                   "max_new_tokens": new},
+          "prompt_lens": list(DENSE_PROMPT_LENS),
+          "default_gateway": summary(dense),
+          "dense_tick": {"replay": replay, **timing},
+          "paged_runs": {b: summary(r) for b, r in runs.items()},
+          "bf16": bf16, "f32_depth4": f32,
+          "sc": {"bits": 4, "frontend_bitwise_vs_plain": frontend_bitwise,
+                 "frontend_ternary": ternary,
+                 "frontend_launches_per_call": call_launches,
+                 "prompt_tokens": int(prompts[0].size),
+                 "fold_chunks": chunks,
+                 "runs": {n: summary(r) for n, r in sc_runs.items()},
+                 "dense_vs_paged_bf16": sc_vs},
+          "launches": {"dense": dense_launches, "sc": sc_launches},
+          "failures": failures})
+    if failures:
+        raise SystemExit(f"dense path: {failures}")
+    return dense_launches, sc_launches
+
+
 # -- the SC kernels (phase 3) -------------------------------------------------
 
 # bucket 32 of the full LeNet-5 conv1: windows of 5 x 5 = 25 leaves
@@ -2285,6 +2608,12 @@ SC_M, SC_K = 32 * 784, 25
 # default FrontendSpec's 2 x 8), K (as the layer has it, and a power of two)
 SC_TIMING = [(bits, O, K) for bits in (4, 8) for O in (64, 16)
              for K in (SC_K, 32)]
+# trees past one of 1,024 leaves: a subtree and a leaf more, 1.5 and 2
+# subtrees, stablelm-3b's d_model, four subtrees
+SC_BIG_K = (1025, 1536, 2048, 2560, 4096)
+# the SC LM frontend on a stablelm-3b prompt: d_model leaves, a prompt of
+# 1,000 tokens (load (b)'s length)
+FRONTEND_D, FRONTEND_M = 2560, 1000
 
 
 def stack_frames(source: str) -> dict[str, int]:
@@ -2466,7 +2795,10 @@ def sc_kernel_checks(dev, gen) -> tuple[dict, list]:
     s0 mode and both adders, packed streams of N = 4, 8, 16 bits (leaves
     paired per popcount), both routes at N = 256 (the popcounts forced by
     patching ``MMA_MAX_LEAVES`` to 0), and the two weight banks of
-    ``ops.sc_dot_posneg``."""
+    ``ops.sc_dot_posneg``; then past one tree of 1,024 leaves
+    (``SC_BIG_K``: subtrees and their fold), every s0 mode and both adders
+    at Wd 1 (packed 16-bit streams and full words) and Wd 8, alone and as
+    two banks in one operand."""
     import torch
     from repro_torch.core import sng
     from repro_torch.kernels import ops, ref
@@ -2530,7 +2862,77 @@ def sc_kernel_checks(dev, gen) -> tuple[dict, list]:
                            "banks": 2 if split else 1,
                            "route": "mma" if mma and Wd == 8 else "popc",
                            "bitwise": ok})
+    # K past 1,024 leaves: the subtrees' pass and the fold (popcounts)
+    for K in SC_BIG_K:
+        for Wd, N in ((1, 16), (1, None), (8, 256)):
+            for mode in modes:
+                for split in (0, 12):
+                    x = stream_words(gen, (67, K, Wd), N or 32)
+                    w = stream_words(gen, (K, 24, Wd), N or 32)
+                    s0, adder = ("alt", "ideal") if mode == "ideal" else \
+                        (mode, "tff")
+                    want = ref.sc_dot(x, w, s0, adder)
+                    got = torch.cat(ops.sc_dot_posneg(
+                        x, w, s0_mode=s0, adder=adder, length=N), dim=1) \
+                        if split else sc_dot_k.sc_dot(x, w, s0, adder,
+                                                      length=N)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(got, want)
+                    err["sc_dot"] = max(err["sc_dot"],
+                                        int((got - want).abs().max()))
+                    checks.append({"kernel": "sc_dot", "M": 67, "K": K,
+                                   "O": 24, "Wd": Wd, "mode": mode,
+                                   "length": N, "banks": 2 if split else 1,
+                                   "route": "popc", "subtrees":
+                                   sc_dot_k.subtrees(K), "bitwise": ok})
     return err, checks
+
+
+def sc_frontend_timing(dev, sleep: int, clk_sm: float,
+                       mma_per_s: float) -> list[dict]:
+    """The SC kernels at the shapes of the SC LM frontend on a stablelm-3b
+    prompt of ``FRONTEND_M`` tokens at bits 4: ``sng_pack`` of the
+    prompt's levels (M, 2,560) and of both weight banks (2,560, 2 x 2,560),
+    and ``sc_dot_posneg`` at K = 2,560 with the banks as one operand (three
+    subtrees of leaves and their fold); ms, back-to-back ms, the host's
+    issue µs, the plain versions' ms on the same tensors and the bounds
+    (no single PyTorch call computes either function: ``library_ms``
+    null)."""
+    import torch
+    from repro_torch.core import sng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    gen = torch.Generator(device=dev).manual_seed(5)
+    N, d, M = 16, FRONTEND_D, FRONTEND_M
+    codes_a, codes_b = sng.codes_tensors("ramp_lowdisc", 4, dev)
+    once = {"call": contextlib.nullcontext}
+    rows = []
+    for name, shape, codes in (("levels", (M, d), codes_a),
+                               ("banks", (d, 2 * d), codes_b)):
+        lv = torch.randint(0, N + 1, shape, generator=gen, dtype=torch.int32,
+                           device=dev)
+        fn = functools.partial(sng_pack_k.sng_pack, lv, codes, N)
+        ms, b2b = time_ms(fn, 5, 10, sleep)
+        plain = time_ms(lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep)[0]
+        rows.append({"kernel": "sng_pack", "bits": 4, "operand": name,
+                     "shape": f"levels {shape}, N={N}", "ms": ms,
+                     "back_to_back_ms": b2b,
+                     "issue_us": issue_us(fn, once, sleep)["call"],
+                     "plain_ms": plain, "library_ms": None,
+                     **sc_bounds("sng_pack", shape[0], shape[1], 0, N,
+                                 clk_sm, None)})
+    x = stream_words(gen, (M, d, 1), N)
+    w = stream_words(gen, (d, 2 * d, 1), N)
+    fn = functools.partial(ops.sc_dot_posneg, x, w, length=N)
+    ms, b2b = time_ms(fn, 5, 5, sleep)
+    plain = time_ms(lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep)[0]
+    rows.append({"kernel": "sc_dot", "bits": 4, "K": d, "O": 2 * d,
+                 "route": "posneg", "shape": f"x ({M}, {d}, 1), "
+                 f"w ({d}, {2 * d}, 1)", "ms": ms, "back_to_back_ms": b2b,
+                 "issue_us": issue_us(fn, once, sleep)["call"],
+                 "plain_ms": plain, "library_ms": None,
+                 **sc_bounds("sc_dot", M, d, 2 * d, N, clk_sm, mma_per_s)})
+    return rows
 
 
 # runs a side of a captured-against-eager host-clock comparison, each the
@@ -3168,6 +3570,8 @@ def main() -> int:
           "plain_ms": {f"{k}_bits{b}": v for (k, b), v in plain.items()}})
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    emit({"sc_frontend_timing": sc_frontend_timing(dev, sleep, clk_sm,
+                                                   sc["b1_mma_per_s"])})
     paged_err, paged_timing = paged_kernel_checks(dev, gen, sleep)
     err.update(paged_err)
     cascade_err, cascade_timing = cascade_kernel_checks(dev, gen, sleep)
@@ -3301,6 +3705,9 @@ def main() -> int:
 
     # -- 9. the retraining pipeline (Table 3) ---------------------------------
     paths["retrain"] = retrain_main_path(dev, TABLE3_FAST)
+
+    # -- 10. the dense path, the gather oracle and the SC frontend ---------
+    paths["dense"], paths["sc"] = dense_main_path(dev, lm_cfg, lm_params)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

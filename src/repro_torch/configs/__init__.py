@@ -18,7 +18,7 @@ def get(arch: str):
     if mod not in ARCHS:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ported: {ARCHS}); see "
-            "ROADMAP.md §1 item 11")
+            "ROADMAP.md §1, the other families")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -9,9 +9,9 @@
 //
 // Shapes: x (M, K, Wd) 32-bit words; w (K, O, Wd) (the split-weight layer
 // passes both weight banks as one, side by side along O); out (M, O) int32.
-// K in [1, 1024]:
-// leaves from K up to the next power of two (at least 2) are zero leaves,
-// as the plain version pads them.  Wd in [1, 8] (streams of up to 256 bits).
+// Any K >= 1: leaves from K up to the next power of two (at least 2) are
+// zero leaves, as the plain version pads them.  Wd in [1, 8] (streams of up
+// to 256 bits).
 //
 // Bound on the H100: bytes, at the main path's shapes.  Each output needs a
 // count per pair of leaves (N <= 16) or per leaf; on __popc (16 results per
@@ -54,6 +54,17 @@
 //   is exactly one k256 step.  Every thread holds the same (window, output)
 //   positions for every leaf, so the tree folds in its own registers.
 //   Fragments come from ldmatrix over XOR-swizzled shared memory.
+// * K > 1,024: the tree splits into subtrees of 1,024 leaves.  One launch
+//   reduces them all (blockIdx.z picks the subtree, grid.z up to 65,535 per
+//   launch) into a plane of partial roots each, then sc_dot_fold_kernel
+//   folds the roots through the upper levels, 10 up to the tree's depth.
+//   Every s0 takes the node's global index: within a subtree the parity of
+//   a level-<= 8 index is the global one, but the subtree's own last merge
+//   (level 9) makes node j, the subtree's number, so the chunks' global
+//   index (c0 + c) drives the upper stack.  Subtrees past K are all-zero
+//   leaves, whose roots are 0, and are not launched; their parents above
+//   still add their s0 in the fold.  The ideal adder writes raw sums, and
+//   the fold shifts their total by the whole tree's depth.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -63,7 +74,9 @@ constexpr int kRm = 4, kRo = 4;    // popc route: a thread's windows, outputs
 constexpr int kVals = 16;          // values per thread: 4 x 4, or 4 MMA tiles x 4
 constexpr int kChunk = 32;         // leaves per X stage: a subtree of depth 5
 constexpr int kChunkDepth = 5;
-constexpr int kMaxDepth = 10;      // K <= 1024
+constexpr int kMaxDepth = 10;      // one tree of up to 1,024 leaves
+constexpr int kMaxFold = 21;       // levels above the subtrees: K < 2^31
+constexpr int kMaxGridZ = 65535;
 constexpr int kUp = kMaxDepth - kChunkDepth + 1;   // levels 5..10 of the roots
 constexpr int kMaxThreads = 256;
 constexpr int kSmemMax = 232448;   // 227 KB, the most a block can take
@@ -74,10 +87,15 @@ enum Mode { kZero = 0, kOne = 1, kAlt = 2, kIdeal = 3 };
 struct Args {
   const uint32_t* x;
   const uint32_t* w;
-  int32_t* out;
-  int M, K, O, Wd;
+  int32_t* out;        // (M, O), or the (subtrees, M, O) partial roots
+  int M, K, O, Wd;     // K: the leaves of this block's tree
+  int kx;              // leaves per X row: the operand's K
   int s_even, s_odd;   // TFF s0 of a node whose (index + level) is even / odd
-  int depth;           // levels of the tree over K leaves
+  int depth;           // levels of the block's tree (10 for a subtree)
+  int shift;           // ideal adder: its sum >> shift (0 for a subtree)
+  int sub;             // 1: blocks reduce subtrees of 1,024 leaves
+  int z0;              // the launch's first subtree
+  int c0;              // global index of the block's first chunk
   // the plan (sc_dot_plan)
   int ot;              // output columns per CTA (padded to the thread tiling)
   int groups;          // popc: window groups per tile; mma: warps along M
@@ -132,6 +150,23 @@ __device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
         "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
+}
+
+// The block's view of the operands: with ``sub``, subtree j = z0 +
+// blockIdx.z, its leaves of X and W, its plane of partial roots and the
+// global index of its first chunk.
+__device__ __forceinline__ Args subtree(const Args& g) {
+  Args a = g;
+  if (a.sub) {
+    const int j = a.z0 + (int)blockIdx.z;
+    const int k0 = j << kMaxDepth;
+    a.x += (long long)k0 * a.Wd;
+    a.w += (long long)k0 * a.O * a.Wd;
+    a.out += (long long)j * a.M * a.O;
+    a.K = min(a.kx - k0, 1 << kMaxDepth);
+    a.c0 = j << (kMaxDepth - kChunkDepth);
+  }
+  return a;
 }
 
 // Word pointer of leaf k of output column o, or null past K or O.
@@ -255,12 +290,14 @@ __device__ __forceinline__ void sum_units(const Src& src,
   }
 }
 
-// Chunk c's root (level 5, index c) joins the roots before it.  The carry
+// Chunk c's root (level 5, index c in the block's tree, cg in the whole
+// tree) joins the roots before it.  The carry follows c; s0 takes the
+// parity of the merged node's global index, (cg >> 1) + level.  The carry
 // runs a fixed number of steps, predicated (no early exit), so every level
 // of the upper stack keeps a compile-time index.
 template <int B>
-__device__ __forceinline__ void fold_root(Tree<B>& t, int c, uint32_t s_even,
-                                          uint32_t s_odd) {
+__device__ __forceinline__ void fold_root(Tree<B>& t, int c, int cg,
+                                          uint32_t s_even, uint32_t s_odd) {
   constexpr int V = Lanes<B>::V;
   uint32_t node[V];
 #pragma unroll
@@ -273,11 +310,12 @@ __device__ __forceinline__ void fold_root(Tree<B>& t, int c, uint32_t s_even,
       for (int k = 0; k < V; ++k) t.up[L][k] = node[k];
       carry = false;
     } else if (carry) {
-      const uint32_t s = (((c >> 1) + kChunkDepth + L) & 1) ? s_odd : s_even;
+      const uint32_t s = (((cg >> 1) + kChunkDepth + L) & 1) ? s_odd : s_even;
 #pragma unroll
       for (int k = 0; k < V; ++k)
         node[k] = ((t.up[L][k] + node[k] + s) >> 1) & Lanes<B>::MASK;
       c >>= 1;
+      cg >>= 1;
     }
   }
 }
@@ -412,8 +450,9 @@ struct PopcSrc {
 // (2, 4, 8 only at Wd = 1); CHUNKED: K > 32 (the TFF tree's upper stack).
 template <int WD, int PACK, bool IDEAL, bool CHUNKED>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-sc_dot_popc_kernel(const Args a) {
+sc_dot_popc_kernel(const Args args) {
   extern __shared__ __align__(16) uint32_t smem[];
+  const Args a = subtree(args);
   const int wd = WD ? WD : a.Wd;
   const int lo = a.ot / kRo;              // output groups (lanes per window group)
   const int g = threadIdx.x / lo, q = threadIdx.x - g * lo;
@@ -436,12 +475,12 @@ sc_dot_popc_kernel(const Args a) {
     const int c = it & ((1 << nch_log) - 1);
     const int m0 = ((int)blockIdx.x + (it >> nch_log) * (int)gridDim.x) * a.tm;
     const int k0 = c * kChunk;
-    const int words = min(a.K - k0, kChunk) * wd;
+    const int words = max(0, min(a.K - k0, kChunk)) * wd;
     const int rows = min(a.tm, a.M - m0);
     uint32_t* xs = xs0 + (it & 1) * a.stage_words;
     for (int r = warp; r < rows; r += nwarps) {
       uint32_t* dst = xs + r * a.x_stride;
-      const uint32_t* src = a.x + ((long long)(m0 + r) * a.K + k0) * wd;
+      const uint32_t* src = a.x + ((long long)(m0 + r) * a.kx + k0) * wd;
       if (vec16) {
         for (int p = 4 * lane; p < words; p += 128) cp_async16(dst + p, src + p);
       } else {
@@ -513,13 +552,13 @@ sc_dot_popc_kernel(const Args a) {
       } else {
         const uint32_t s4 = (c & 1) ? s_odd : s_even;
         fold_units<PACK, 0, NU>(src, tree, live, stop, s_even, s_odd, s4);
-        if constexpr (CHUNKED) fold_root(tree, c, s_even, s_odd);
+        if constexpr (CHUNKED) fold_root(tree, c, a.c0 + c, s_even, s_odd);
       }
       if (c == (1 << nch_log) - 1) {
         uint32_t res[kVals];
         if constexpr (IDEAL) {
 #pragma unroll
-          for (int k = 0; k < kVals; ++k) res[k] = sum[k] >> a.depth;
+          for (int k = 0; k < kVals; ++k) res[k] = sum[k] >> a.shift;
         } else {
           tree_root<CHUNKED>(tree, a.depth, res);
         }
@@ -593,8 +632,9 @@ struct MmaSrc {
 
 template <int NT, bool IDEAL, bool CHUNKED>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-sc_dot_mma_kernel(const Args a) {
+sc_dot_mma_kernel(const Args args) {
   extern __shared__ __align__(16) uint32_t smem[];
+  const Args a = subtree(args);
   constexpr int MT = 4 / NT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
@@ -614,13 +654,13 @@ sc_dot_mma_kernel(const Args a) {
     const int c = it & ((1 << nch_log) - 1);
     const int m0 = ((int)blockIdx.x + (it >> nch_log) * (int)gridDim.x) * a.tm;
     const int k0 = c * kChunk;
-    const int live = min(a.K - k0, kChunk);
+    const int live = max(0, min(a.K - k0, kChunk));
     const int rows = min(a.tm, a.M - m0);
     unsigned char* xs =
         reinterpret_cast<unsigned char*>(xs0 + (it & 1) * a.stage_words);
     for (int r = warp; r < rows; r += nwarps) {
       unsigned char* dst = xs + r * cl * 32;
-      const uint32_t* src = a.x + ((long long)(m0 + r) * a.K + k0) * 8;
+      const uint32_t* src = a.x + ((long long)(m0 + r) * a.kx + k0) * 8;
       for (int p = lane; p < 2 * cl; p += 32) {
         void* d = dst + ((p ^ (r & 7)) * 16);
         if (p < 2 * live) cp_async16(d, src + 4 * p);
@@ -685,7 +725,7 @@ sc_dot_mma_kernel(const Args a) {
         const uint32_t s4 = (c & 1) ? s_odd : s_even;
         const int stop = min(kp, kChunk);
         fold_units<1, 0, kChunk>(src, tree, live, stop, s_even, s_odd, s4);
-        if constexpr (CHUNKED) fold_root(tree, c, s_even, s_odd);
+        if constexpr (CHUNKED) fold_root(tree, c, a.c0 + c, s_even, s_odd);
       }
       if (c == (1 << nch_log) - 1) {
         uint32_t res[kVals];
@@ -693,7 +733,7 @@ sc_dot_mma_kernel(const Args a) {
 #pragma unroll
           for (int t = 0; t < 4; ++t)
 #pragma unroll
-            for (int f = 0; f < 4; ++f) res[4 * t + f] = acc[t][f] >> a.depth;
+            for (int f = 0; f < 4; ++f) res[4 * t + f] = acc[t][f] >> a.shift;
         } else {
           tree_root<CHUNKED>(tree, a.depth, res);
         }
@@ -746,10 +786,58 @@ __global__ void b1_peak_kernel(int32_t* out, int iters) {
   out[blockIdx.x * blockDim.x + t] = sum;
 }
 
+// The upper levels of a tree of more than 1,024 leaves: part holds the
+// roots of its ``live`` leading subtrees, one (M, O) plane each (n = M * O
+// values); the ``1 << levels`` subtrees sit at level 10, and root j is node
+// j there.  Each thread folds one output's roots as they stream in, with a
+// stack of pending left siblings whose levels are compile-time indices
+// (the carry runs predicated, as in fold_root); subtrees past ``live`` are
+// zero roots.  The ideal adder (shift >= 0) sums the partial sums instead
+// and shifts by the whole tree's depth.
+__global__ void __launch_bounds__(256)
+sc_dot_fold_kernel(const int32_t* __restrict__ part, int32_t* __restrict__ out,
+                   long long n, int live, int levels, int s_even, int s_odd,
+                   int shift) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (shift >= 0) {
+    uint32_t sum = 0u;
+    for (int j = 0; j < live; ++j) sum += (uint32_t)part[j * n + i];
+    out[i] = (int32_t)(sum >> shift);
+    return;
+  }
+  int up[kMaxFold + 1];
+#pragma unroll
+  for (int L = 0; L <= kMaxFold; ++L) up[L] = 0;
+  for (int j = 0; j < (1 << levels); ++j) {
+    int node = j < live ? part[j * n + i] : 0;
+    int c = j;
+    bool carry = true;
+#pragma unroll
+    for (int L = 0; L <= kMaxFold; ++L) {
+      if (carry && !(c & 1)) {
+        up[L] = node;
+        carry = false;
+      } else if (carry) {
+        const int s = (((c >> 1) + kMaxDepth + L) & 1) ? s_odd : s_even;
+        node = (up[L] + node + s) >> 1;
+        c >>= 1;
+      }
+    }
+  }
+  int root = 0;
+#pragma unroll
+  for (int L = 0; L <= kMaxFold; ++L)
+    if (L == levels) root = up[L];
+  out[i] = root;
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
+// One launch of ``kernel``, or with ``a.sub`` one per 65,535 subtrees
+// (grid.z), on ``grid``'s x and y.
 template <class Kernel>
 cudaError_t run(Kernel kernel, const Args& a, dim3 grid, int threads,
                 int smem, cudaStream_t s, bool& ready) {
@@ -759,8 +847,19 @@ cudaError_t run(Kernel kernel, const Args& a, dim3 grid, int threads,
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  kernel<<<grid, threads, smem, s>>>(a);
-  return cudaGetLastError();
+  if (!a.sub) {
+    kernel<<<grid, threads, smem, s>>>(a);
+    return cudaGetLastError();
+  }
+  const int live = (a.kx + (1 << kMaxDepth) - 1) >> kMaxDepth;
+  Args b = a;
+  for (b.z0 = 0; b.z0 < live; b.z0 += kMaxGridZ) {
+    grid.z = min(kMaxGridZ, live - b.z0);
+    kernel<<<grid, threads, smem, s>>>(b);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <int WD, int PACK, bool IDEAL, bool CHUNKED>
@@ -824,16 +923,23 @@ enum PlanField { kThreads, kGridX, kGridY, kOt, kGroups, kTm, kXStride,
 // mode: 0 = tff s0 zero, 1 = tff s0 one, 2 = tff s0 alt, 3 = ideal adder.
 // pack: leaves per popcount (2 only for Wd = 1 streams of N <= 16 bits; the
 // ideal adder also 4, 8); mma: 1 for the tensor-core route (Wd = 8, every
-// operand 16-byte aligned).  Returns cudaGetLastError() after the launch.
-extern "C" int sc_dot_launch(const void* x, const void* w, void* out, int M,
-                             int K, int O, int Wd, int mode, int pack,
-                             int mma_route, const int* plan, void* stream) {
+// operand 16-byte aligned, K <= 1,024).  K > 1,024 takes ``part``, room for
+// ceil(K / 1,024) planes of M x O int32 partial roots, and a plan made for
+// K = 1,024; the subtrees' launch is followed by the fold's.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int sc_dot_launch(const void* x, const void* w, void* out,
+                             void* part, int M, int K, int O, int Wd,
+                             int mode, int pack, int mma_route,
+                             const int* plan, void* stream) {
   int depth = 1;
   while ((1 << depth) < K) ++depth;
+  const bool sub = depth > kMaxDepth;
   const int nt = plan[kNt];
-  const bool bad_shape = M <= 0 || K < 1 || K > (1 << kMaxDepth) || O <= 0 ||
-                         Wd < 1 || Wd > kMaxWd || mode < kZero ||
-                         mode > kIdeal;
+  const bool bad_shape = M <= 0 || K < 1 || O <= 0 || Wd < 1 || Wd > kMaxWd ||
+                         mode < kZero || mode > kIdeal ||
+                         depth > kMaxDepth + kMaxFold ||
+                         (sub && (part == nullptr || mma_route)) ||
+                         (long long)M * O >= (1ll << 31);
   const bool bad_pack = pack != 1 && (Wd != 1 || (mode != kIdeal && pack != 2) ||
                                       (pack != 2 && pack != 4 && pack != 8));
   const bool bad_plan =
@@ -854,11 +960,17 @@ extern "C" int sc_dot_launch(const void* x, const void* w, void* out, int M,
   Args a;
   a.x = (const uint32_t*)x;
   a.w = (const uint32_t*)w;
-  a.out = (int32_t*)out;
-  a.M = M; a.K = K; a.O = O; a.Wd = Wd;
+  a.out = (int32_t*)(sub ? part : out);
+  a.M = M; a.O = O; a.Wd = Wd;
+  a.K = sub ? 1 << kMaxDepth : K;
+  a.kx = K;
   a.s_even = mode == kOne ? 1 : 0;
   a.s_odd = mode == kZero ? 0 : 1;
-  a.depth = depth;
+  a.depth = sub ? kMaxDepth : depth;
+  a.shift = sub ? 0 : depth;
+  a.sub = sub;
+  a.z0 = 0;
+  a.c0 = 0;
   a.ot = plan[kOt];
   a.groups = plan[kGroups];
   a.tm = plan[kTm];
@@ -871,16 +983,26 @@ extern "C" int sc_dot_launch(const void* x, const void* w, void* out, int M,
   const int threads = plan[kThreads], smem = plan[kSmem];
   const cudaStream_t s = (cudaStream_t)stream;
   const bool ideal = mode == kIdeal;
+  cudaError_t e;
   if (mma_route) {
     switch (nt) {
-      case 1: return (int)mma_mode<1>(a, ideal, grid, threads, smem, s);
-      case 2: return (int)mma_mode<2>(a, ideal, grid, threads, smem, s);
-      default: return (int)mma_mode<4>(a, ideal, grid, threads, smem, s);
+      case 1: e = mma_mode<1>(a, ideal, grid, threads, smem, s); break;
+      case 2: e = mma_mode<2>(a, ideal, grid, threads, smem, s); break;
+      default: e = mma_mode<4>(a, ideal, grid, threads, smem, s); break;
     }
+  } else if (ideal) {
+    e = popc_ideal(a, pack, grid, threads, smem, s);
+  } else {
+    e = a.depth > kChunkDepth ? popc_tff<true>(a, pack, grid, threads, smem, s)
+                              : popc_tff<false>(a, pack, grid, threads, smem, s);
   }
-  if (ideal) return (int)popc_ideal(a, pack, grid, threads, smem, s);
-  return depth > kChunkDepth ? (int)popc_tff<true>(a, pack, grid, threads, smem, s)
-                             : (int)popc_tff<false>(a, pack, grid, threads, smem, s);
+  if (e != cudaSuccess || !sub) return (int)e;
+  const long long n = (long long)M * O;
+  const int live = (K + (1 << kMaxDepth) - 1) >> kMaxDepth;
+  sc_dot_fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      (const int32_t*)part, (int32_t*)out, n, live, depth - kMaxDepth,
+      a.s_even, a.s_odd, ideal ? depth : -1);
+  return (int)cudaGetLastError();
 }
 
 // The b1 rate probe: ``ctas`` x ``threads`` threads, ``iters`` rounds of 8

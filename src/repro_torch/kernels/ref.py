@@ -53,19 +53,24 @@ def sc_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
 
     x_packed: (M, K, Wd) int32;  w_packed: (K, O, Wd) int32.
     Returns (M, O) int32 root counts.  K is padded to a power of two with
-    zero leaves; ``adder="ideal"`` returns ``sum >> depth`` instead.
+    zero leaves; ``adder="ideal"`` returns ``sum >> depth`` instead.  Rows
+    of X go through in chunks, each reduced to its roots before the next,
+    so no (M, K, O) tensor of counts is held.
     """
+    if adder not in ("tff", "ideal"):
+        raise ValueError(f"unknown adder {adder!r}")
     M, K, Wd = x_packed.shape
     O = w_packed.shape[1]
     rows = max(1, _CHUNK_ELEMS[x_packed.device.type] // max(1, K * O * Wd))
-    counts = torch.cat([                                  # (M, K, O)
-        popcount32(x_packed[i:i + rows, :, None, :] & w_packed[None])
-        .sum(-1, dtype=torch.int32) for i in range(0, M, rows)])
-    if adder == "ideal":
-        return counts.sum(1, dtype=torch.int32) >> arith.tree_depth(K)
-    if adder != "tff":
-        raise ValueError(f"unknown adder {adder!r}")
-    return arith.tff_tree_counts(counts.transpose(1, 2), s0_mode)
+
+    def roots(x: torch.Tensor) -> torch.Tensor:          # (rows, O)
+        counts = popcount32(x[:, :, None, :] & w_packed[None]).sum(
+            -1, dtype=torch.int32)                        # (rows, K, O)
+        if adder == "ideal":
+            return counts.sum(1, dtype=torch.int32) >> arith.tree_depth(K)
+        return arith.tff_tree_counts(counts.transpose(1, 2), s0_mode)
+    return torch.cat([roots(x_packed[i:i + rows])
+                      for i in range(0, M, rows)])
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,11 @@ the b1 tensor cores).  Persistent CTAs keep W in shared memory and stream X
 through a two-stage ``cp.async`` ring; each thread owns 4 windows x 4
 outputs and folds their TFF trees in registers; streams of N <= 16 bits pair
 two leaves per popcount; N = 256 runs on the b1 tensor cores (see the source
-for the design).  :func:`sc_dot_plan` is the launch plan, a function of the shapes
-and the SM count that the CPU tests check.
+for the design).  A tree of more than 1,024 leaves is reduced as subtrees of
+1,024 (one launch, a plane of partial roots each), whose roots a second
+small kernel folds through the upper levels.  :func:`sc_dot_plan` is the
+launch plan, a function of the shapes and the SM count that the CPU tests
+check.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from repro_torch.kernels import build, ref
 
 MODES = {"zero": 0, "one": 1, "alt": 2}
 IDEAL = 3
-MAX_K = 1024
+SUB_LEAVES = 1024             # leaves of one tree in registers; K above it
+                              # reduces subtrees of this size, then folds
 MAX_WD = 8
 # Wd = 8 (N = 256) runs on the b1 tensor cores (mma.sync m16n8k256 AND-POPC),
 # the faster of the two routes there (PERF.md), for trees of up to this many
@@ -145,23 +149,34 @@ def sc_dot_plan(M: int, K: int, O: int, Wd: int, pack: int, mma: bool,
                 w_bytes // 4, stage_bytes // 4, smem, nt, mma, m_tiles)
 
 
+def subtrees(K: int) -> int:
+    """Subtrees of ``SUB_LEAVES`` leaves that hold K's leaves when the tree
+    is larger than one (0: one tree)."""
+    return -(-K // SUB_LEAVES) if K > SUB_LEAVES else 0
+
+
 @functools.cache
 def _launch_plan(M: int, K: int, O: int, Wd: int, adder: str,
                  length: int | None, aligned: bool, index: int,
                  mma_max_leaves: int) -> tuple[int, int, ctypes.Array]:
     """(leaves per popcount, tensor-core route, the plan's ints) of a call,
     made once per shape: the host's cost per call stays a dictionary
-    lookup."""
+    lookup.  K above ``SUB_LEAVES`` is planned as its subtrees, which share
+    the SMs."""
     pack = leaves_per_popcount(length, Wd, adder)
-    mma = Wd == 8 and aligned and 1 << tree_depth(K) <= mma_max_leaves
+    sub = subtrees(K)
+    k_tree = SUB_LEAVES if sub else K
+    mma = Wd == 8 and aligned and not sub and \
+        1 << tree_depth(k_tree) <= mma_max_leaves
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return pack, int(mma), sc_dot_plan(M, K, O, Wd, pack, mma, sms).ints
+    return pack, int(mma), sc_dot_plan(M, k_tree, O, Wd, pack, mma,
+                                       max(1, sms // max(1, sub))).ints
 
 
 @functools.cache
 def _launcher():
     fn = build.load("sc_dot").sc_dot_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
         [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -177,9 +192,11 @@ def sc_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
     contract, not checked: every word's bits at and above N must be zero,
     as ``sng_pack`` writes streams of N bits; at N <= 16 the kernel then
     pairs leaves per popcount, and stray high bits would be counted into
-    the neighbouring leaf.  A CUDA tensor launches the kernel (K in
-    [1, 1024], Wd <= 8); a CPU tensor runs
-    :func:`repro_torch.kernels.ref.sc_dot`."""
+    the neighbouring leaf.  A CUDA tensor launches the kernel (any K >= 1,
+    Wd <= 8; above ``SUB_LEAVES`` leaves the subtrees' pass and its fold,
+    one count); a CPU tensor runs :func:`repro_torch.kernels.ref.sc_dot`.
+    Operands whose int32 offsets would overflow, M x max(K x Wd, O) >=
+    2**31, run as launches over slices of M."""
     if not x_packed.is_cuda:
         return ref.sc_dot(x_packed, w_packed, s0_mode, adder)
     if adder == "ideal":
@@ -200,23 +217,34 @@ def sc_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
     if w_packed.shape[0] != K or w_packed.shape[2] != Wd:
         raise ValueError(f"shape mismatch: x {tuple(x_packed.shape)}, "
                          f"w {tuple(w_packed.shape)}")
-    if not 1 <= K <= MAX_K or not 1 <= Wd <= MAX_WD:
-        raise ValueError(f"sc_dot kernel needs 1 <= K <= {MAX_K} and "
-                         f"1 <= Wd <= {MAX_WD}; got K={K}, Wd={Wd}")
+    if K < 1 or not 1 <= Wd <= MAX_WD:
+        raise ValueError(f"sc_dot kernel needs K >= 1 and 1 <= Wd <= "
+                         f"{MAX_WD}; got K={K}, Wd={Wd}")
     if length is not None and not 1 <= length <= 32 * Wd:
         raise ValueError(f"length {length} does not fit {Wd} words")
-    if M * max(K * Wd, O) >= 1 << 31:
-        raise ValueError("sc_dot: operands too large for one launch")
+    rows = ((1 << 31) - 1) // max(K * Wd, O)
+    if rows < 1:
+        raise ValueError(f"sc_dot: one window of K={K}, Wd={Wd} or O={O} "
+                         "outputs overflows int32 offsets")
+    if M > rows:
+        return torch.cat([sc_dot(x_packed[m:m + rows], w_packed, s0_mode,
+                                 adder, length=length)
+                          for m in range(0, M, rows)])
     out = torch.empty((M, O), dtype=torch.int32, device=dev)
     if M == 0 or O == 0:
         return out
+    sub = subtrees(K)
+    part = torch.empty((sub, M, O), dtype=torch.int32, device=dev) \
+        if sub else None
     xp, wp = x_packed.data_ptr(), w_packed.data_ptr()
     pack, mma, ints = _launch_plan(M, K, O, Wd, adder, length,
                                    (xp | wp) % 16 == 0, dev.index,
                                    MMA_MAX_LEAVES)
     with torch.cuda.device(dev):
-        err = _launcher()(xp, wp, out.data_ptr(), M, K, O, Wd, mode, pack,
-                          mma, ints, torch.cuda.current_stream().cuda_stream)
+        err = _launcher()(xp, wp, out.data_ptr(),
+                          0 if part is None else part.data_ptr(), M, K, O,
+                          Wd, mode, pack, mma, ints,
+                          torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sc_dot kernel launch failed: CUDA error {err}")
     sc_dot.launches += 1

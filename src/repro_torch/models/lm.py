@@ -1,14 +1,18 @@
 """The LM decoder family (llama-style pre-norm blocks, RoPE, SwiGLU) for
-inference in PyTorch: configuration, parameters, prefill blocks and the
-paged single-token decode attention.
+inference in PyTorch: configuration, parameters, the SC frontend, prefill
+blocks and the single-token decode attention, dense and paged.
 
 The public layout is the reference's: parameters are a nested dict of
 tensors with the per-layer ones stacked on a leading layer axis
 (``params["blocks"]["attn"]["wq"]`` is (L, d, Hq*Dh)), dense weights are
 (in, out), activations (B, S, d).  Layers run as a Python loop over that
-axis.  Only the decoder family is ported; the other families, the SC
-frontend (``first_layer_mode="sc"``) and the int8 KV cache come in later
-slices (ROADMAP.md).
+axis.  Only the decoder family is ported; the other families and the int8
+KV cache come in later slices (ROADMAP.md).
+
+``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
+as a residual projection (:func:`sc_frontend`), on the prompt's tokens
+only: the decode ticks embed their token without it, as the reference's
+do (``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.core import sc_layer
 from repro_torch.nn import attention, mlp as mlp_lib, norms, rope
 
 _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
@@ -45,7 +50,8 @@ class LMConfig:
     param_dtype: str = "bfloat16"     # "bfloat16" | "float32"
     q_chunk: int = 512
     kv_chunk: int = 1024
-    first_layer_mode: str = "none"    # "none" | "sc" (not ported yet)
+    first_layer_mode: str = "none"    # "none" | "sc" (the SC frontend)
+    sc_bits: int = 4
 
     @property
     def dtype(self) -> torch.dtype:
@@ -65,14 +71,10 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.first_layer_mode == "sc":
-        raise NotImplementedError(
-            "first_layer_mode='sc' (lm.sc_frontend) is not ported yet: "
-            "ROADMAP.md §1 item 6, the SC LM frontend")
     if cfg.family != "decoder":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md §1 "
-            "item 11, the other families")
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
+            "the other families")
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r}: only swiglu "
                                   "is ported (decoder family)")
@@ -139,6 +141,10 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = _dense(gen, (d, V), cfg.dtype)
     p["final_norm"] = _norm_params(cfg, (), dev)
+    if cfg.first_layer_mode == "sc":
+        p["sc_frontend"] = {"w": _dense(gen, (d, d), cfg.dtype),
+                            "gamma": torch.ones((d,), dtype=cfg.dtype,
+                                                device=dev)}
     p["blocks"] = {"ln1": _norm_params(cfg, (L,), dev),
                    "attn": _attn_params(gen, cfg, L),
                    "ln2": _norm_params(cfg, (L,), dev),
@@ -248,6 +254,44 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     return out, k1, v1
 
 
+def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos: torch.Tensor, *, window: int = 0,
+                active: torch.Tensor | None = None) -> torch.Tensor:
+    """One-token decode attention for a batch of lanes against one layer
+    of the dense cache, each lane at its own position.
+
+    x1: (B, 1, d) normed activations; cache_k, cache_v: (B, Smax, Hkv, Dh),
+    **updated in place**; pos: (B,) int32 lengths (the new token's row).
+    Each lane's post-RoPE K/V row lands at ``pos`` (clamped to Smax - 1,
+    where the reference's ``dynamic_update_slice`` clamps it) and attention
+    reads ``pos + 1`` positions.  With ``active`` (B,) bool, an inactive
+    lane's row is put back as it was after the read: the cache is then
+    bitwise the reference's masked tick, which selects every inactive
+    lane's old cache.  Returns (B, 1, d)."""
+    B = x1.shape[0]
+    q = _proj(x1, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.d_head)
+    k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
+    v1 = _proj(x1, p["wv"], p.get("bv")).reshape(B, 1, cfg.n_kv_heads,
+                                                 cfg.d_head)
+    posb = pos[:, None]
+    q = rope.apply_rope(q, posb, cfg.rope_theta)
+    k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
+    lanes = torch.arange(B, device=x1.device)
+    at = pos.clamp(max=cache_k.shape[1] - 1).long()
+    kept = None if active is None else \
+        (cache_k[lanes, at].clone(), cache_v[lanes, at].clone())
+    cache_k[lanes, at] = k1[:, 0].to(cache_k.dtype)
+    cache_v[lanes, at] = v1[:, 0].to(cache_v.dtype)
+    o = attention.attend_decode(q, cache_k, cache_v, pos + 1, window=window)
+    if kept is not None:
+        keep = active[:, None, None]
+        cache_k[lanes, at] = torch.where(keep, cache_k[lanes, at], kept[0])
+        cache_v[lanes, at] = torch.where(keep, cache_v[lanes, at], kept[1])
+    return _proj(o.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"],
+                 p.get("bo"))
+
+
 def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   q_offset: int = 0, causal: bool = True,
@@ -262,14 +306,44 @@ def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
     return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x)), kv
 
 
+def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The paper's SC layer as the LM's first projection: each token's
+    activations normalized into [0, 1] (per vector, with the reference's
+    1e-6 floor, in x's dtype, then float32), the split-weight SC dot
+    product and sign against ``p["w"]`` (d, d) at ``cfg.sc_bits``
+    (``core.sc_layer.sc_dot_sign``: ``sng_pack`` and ``sc_dot`` on a CUDA
+    tensor), with a straight-through estimator (forward the SC output,
+    backward the linear surrogate ``x01 @ w``), scaled by ``p["gamma"]``.
+    x (B, S, d) -> (B, S, d) in x's dtype."""
+    lo = x.amin(-1, keepdim=True)
+    hi = x.amax(-1, keepdim=True)
+    x01 = ((x - lo) / torch.clamp(hi - lo, min=1e-6)).to(torch.float32)
+    w = p["w"].to(torch.float32)
+    sc_out = sc_layer.sc_dot_sign(x01, w, sc_layer.SCConfig(bits=cfg.sc_bits))
+    lin = torch.einsum("bsd,df->bsf", x01, w)
+    out = (sc_out - lin).detach() + lin
+    return (out * p["gamma"].to(torch.float32)).to(x.dtype)
+
+
+def token_rows(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``: what a decode tick embeds (the
+    reference's ticks index ``params["embed"]`` and skip the SC
+    frontend)."""
+    return params["embed"][tokens.long()]
+
+
 def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                  pos_offset: int = 0) -> torch.Tensor:
-    """tokens (B, S) integer -> (B, S, d) embedding rows.  ``pos_offset``
-    is the absolute position of tokens[:, 0]; the decoder family encodes
-    positions by RoPE inside attention, so its embedding does not read it
-    (the reference's sinusoidal families do)."""
+    """tokens (B, S) integer -> (B, S, d) embedding rows, plus the SC
+    frontend's output under ``first_layer_mode="sc"`` (a residual insert).
+    ``pos_offset`` is the absolute position of tokens[:, 0]; the decoder
+    family encodes positions by RoPE inside attention, so its embedding
+    does not read it (the reference's sinusoidal families do)."""
     check_supported(cfg)
-    return params["embed"][tokens.long()]
+    x = token_rows(params, tokens)
+    if cfg.first_layer_mode == "sc":
+        x = x + sc_frontend(cfg, params["sc_frontend"], x)
+    return x
 
 
 def logits(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Attention: chunked online-softmax prefill, dense single-token decode and
-paged single-token decode, flat or cascaded over shared prefixes.
+"""Attention: chunked online-softmax prefill, dense single-token decode (a
+length per lane) and paged single-token decode, flat or cascaded over
+shared prefixes.
 
 ``attend_chunked`` is the reference's flash-style prefill (float32 online
 softmax, forward only) through the ``flash_attention`` kernel, or its plain
@@ -38,17 +39,23 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cache_len: int, *,
+                  v_cache: torch.Tensor, cache_len: int | torch.Tensor, *,
                   window: int = 0) -> torch.Tensor:
     """One-token decode attention against a dense cache.
 
-    q: (B, 1, Hq, D); k_cache, v_cache: (B, Smax, Hkv, D); the new token's
-    K/V already written at ``cache_len - 1``."""
+    q: (B, 1, Hq, D); k_cache, v_cache: (B, Smax, Hkv, D); ``cache_len``
+    the valid positions, one for every lane (an int or a 0-d tensor) or a
+    (B,) tensor of each lane's, with the new token's K/V already written
+    at ``cache_len - 1``.  The operations are the plain paged read's
+    (:func:`attend_decode_paged`), so a cache that holds a lane's chain
+    gives its bits."""
     B, _, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     qh = q[:, 0].reshape(B, Hkv, Hq // Hkv, D).float()
     s = torch.einsum("bhrd,bshd->bhrs", qh, k_cache.float()) * D ** -0.5
     pos = torch.arange(Smax, device=q.device)
+    if isinstance(cache_len, torch.Tensor) and cache_len.dim():
+        cache_len = cache_len.long()[:, None, None, None]
     valid = pos < cache_len
     if window:
         valid &= pos >= cache_len - window

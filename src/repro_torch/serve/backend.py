@@ -16,16 +16,17 @@
                        versions on the CPU); a
                        tick with no chain shared by two lanes runs the
                        device's flat tick (:func:`auto_backend`)
-
-The reference's ``"gather"`` (the gather-tick parity oracle) comes with its
-own slice.
+    backend="gather"   the gather-tick parity oracle: each lane's whole
+                       table gathered into the dense layout, the dense
+                       tick (``engine.decode_step``), and the block holding
+                       each lane's new row scattered back; plain PyTorch on
+                       every device, as the reference's is XLA
 """
 from __future__ import annotations
 
 import torch
 
-BACKENDS = ("plain", "cuda", "cascade")
-LATER = {"gather": "ROADMAP.md §1 item 8 (the gather-tick oracle)"}
+BACKENDS = ("plain", "cuda", "cascade", "gather")
 
 
 def auto_backend(device: str | torch.device) -> str:
@@ -38,9 +39,6 @@ def resolve_backend(backend: str | None, device: str | torch.device) -> str:
     :func:`auto_backend`."""
     if backend is None:
         return auto_backend(device)
-    if backend in LATER:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: {LATER[backend]}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")

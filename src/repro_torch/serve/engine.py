@@ -1,17 +1,20 @@
 """Serving engine of the port, decoder family: one-shot prefill, the
-chunked prefill fold's step and the batched single-token decode tick
-against the paged block arena.
+chunked prefill fold's step and the batched single-token decode ticks,
+against the dense cache and against the paged block arena.
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
-``len``.  The paged arena splices a ``num_blocks`` axis in just before the
-batch axis of a B=1, ``block_size``-long cache: (L, num_blocks, 1, bs,
-Hkv, Dh), layer-leading, so one layer's slice is exactly what the paged
-attention reads.
+``len``, a scalar or, in the dense tick, one length per lane.  The paged
+arena splices a ``num_blocks`` axis in just before the batch axis of a
+B=1, ``block_size``-long cache: (L, num_blocks, 1, bs, Hkv, Dh),
+layer-leading, so one layer's slice is exactly what the paged attention
+reads.
 
 Unlike the reference, which rebuilds arrays functionally (and lets XLA
-donate them), the decode tick here writes the arena **in place**: the new
-token's K/V row per layer and lane lands where the block table says, and no
-other row changes.
+donate them), the decode ticks here write the cache and the arena **in
+place**: the new token's K/V row per layer and lane lands at its position
+(dense) or where the block table says (paged), and no other row changes.
+The ticks embed their token without the SC frontend, as the reference's
+do; prefill and every fold chunk run it (``lm.embed_tokens``).
 """
 from __future__ import annotations
 
@@ -105,6 +108,38 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     return new_cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
 
 
+def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, active: torch.Tensor | None = None):
+    """One batched decode tick against the dense cache, each lane at its own
+    position: the reference's ``decode_step`` vmapped over B=1 caches, as
+    one batched step.
+
+    cache   k/v (L, B, Smax, Hkv, Dh) and ``len`` (B,) int32 (or a scalar
+            for every lane), **updated in place**: per layer and lane one
+            K/V row at ``len``, and ``len + 1``.
+    tokens  (B, 1) integer.
+    active  optional (B,) bool: an inactive lane still decodes (its logits
+            are computed) but its rows and length stay as they were, as the
+            reference's adapter selects them.
+
+    Returns (cache, logits (B, vocab_padded) float32)."""
+    lm.check_supported(cfg)
+    B = tokens.shape[0]
+    pos = cache["len"].to(torch.int32).expand(B)
+    x = lm.token_rows(params, tokens)                      # (B, 1, d)
+    for i in range(cfg.n_layers):
+        lp = lm.layer_params(params["blocks"], i)
+        x = x + lm.attn_decode(cfg, lp["attn"],
+                               lm._norm_apply(cfg, lp["ln1"], x),
+                               cache["k"][i], cache["v"][i], pos,
+                               window=lm.layer_window(cfg, i), active=active)
+        x = x + lm._mlp_apply(cfg, lp["mlp"],
+                              lm._norm_apply(cfg, lp["ln2"], x))
+    step = 1 if active is None else active.to(cache["len"].dtype)
+    cache["len"] += step
+    return cache, lm.logits(cfg, params, x)[:, 0]
+
+
 def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                       *, tables: torch.Tensor, lens: torch.Tensor,
                       arena: dict, wbids: torch.Tensor | None = None,
@@ -132,6 +167,7 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
 
     The decoder family has no slot state besides ``lens`` (the caller's).
     Returns the logits (S, vocab_padded) float32."""
+    lm.check_supported(cfg)
     if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
     bs = arena["k"].shape[-3]
@@ -141,7 +177,7 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     if wbids is None:
         blk = tables.gather(1, (pos // bs).clamp(max=nb - 1).long()[:, None])
         wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
-    x = lm.embed_tokens(cfg, params, tokens)               # (S, 1, d)
+    x = lm.token_rows(params, tokens)                      # (S, 1, d)
     k_rows, v_rows = [], []
     for i in range(cfg.n_layers):
         lp = lm.layer_params(params["blocks"], i)

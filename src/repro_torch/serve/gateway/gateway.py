@@ -284,8 +284,8 @@ class PromptGateway:
         if any(v is not None for v in obs.values()):
             raise NotImplementedError(
                 f"{[k for k, v in obs.items() if v is not None]}: the "
-                "observability hooks are not ported yet (ROADMAP.md §1 "
-                "item 13)")
+                "observability hooks are not ported yet (ROADMAP.md §1, "
+                "observability)")
         self.batcher = batcher
         self.max_new_tokens = max_new_tokens
         self.bytes_per_token = bytes_per_token

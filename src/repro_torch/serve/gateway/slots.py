@@ -1,10 +1,11 @@
-"""Continuous batching over slot adapters: the request record, the adapter
-factory and the family-agnostic scheduler loop.
+"""Continuous batching over slot adapters: the request record, the dense
+KV slots, the adapter factory and the family-agnostic scheduler loop.
 
-So far the port has one adapter, the paged KV slots of the decoder family
-(``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The dense
-``KVSlotAdapter`` and the rwkv ``StateSlotAdapter`` come with later
-slices.
+Two adapters of the decoder family so far: :class:`KVSlotAdapter`, each
+slot a dense cache of ``max_len`` positions with its own length (the
+reference's default), and the paged KV slots (``serve/kvcache/paged.py``),
+with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
+the other families.
 
 The batcher discovers paging hooks by presence: ``can_admit`` (queue while
 the pool cannot cover a request's worst-case block demand),
@@ -15,11 +16,14 @@ the pool cannot cover a request's worst-case block demand),
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
 
 import numpy as np
+import torch
 
 from repro_torch.models.lm import LMConfig
+from repro_torch.serve import capture, engine
 from repro_torch.serve.kvcache.pool import PoolExhausted
 
 
@@ -52,21 +56,115 @@ class Request:
         return len(self.generated) >= self.max_new_tokens
 
 
+def _dense_tick(cfg, params, cache, tokens, active):
+    """The dense tick's captured body: :func:`engine.decode_step` with the
+    active-lane mask."""
+    return engine.decode_step(cfg, params, cache, tokens, active)[1]
+
+
+class KVSlotAdapter:
+    """Dense KV slots, each lane's length its own: the cache holds k/v
+    (L, n_slots, max_len, Hkv, Dh) and ``len`` (n_slots,) on the params'
+    device.  ``insert`` prefills one prompt (B=1, one-shot) and writes its
+    rows into the slot, the rest of the slot zeros as the reference's
+    padded write leaves it; ``clear`` sets the slot's length to 0 (its rows
+    stay, stale but unread); ``decode`` runs one batched tick over every
+    lane (:func:`engine.decode_step`), in which an inactive lane's rows and
+    length stay as they were.
+
+    The tick is one captured step (``serve/capture.py``) over fixed
+    ``(n_slots, max_len)`` shapes, the reference's jitted ``decode``; its
+    inputs are the tokens and the active mask, copied from pinned memory.
+    Prefill runs eagerly, as in the paged adapter (``paged.NOT_CAPTURED``).
+    """
+
+    # cache keys whose axis -3 is the sequence axis (the decoder family's)
+    SEQ_KEYS = ("k", "v")
+
+    def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
+                 max_len: int):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.n_slots = n_slots
+        self.max_len = max_len
+        if self.device.type == "cuda":
+            # float32 matrix products in full float32, as the reference
+            # computes them (TF32 would keep about three digits)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.cache = engine.init_cache(cfg, n_slots, max_len, self.device)
+        self.cache["len"] = torch.zeros(n_slots, dtype=torch.int32,
+                                        device=self.device)
+        self.last_logits = None
+        self.last_prefill_logits = None     # the latest insert's logits
+        self._decode = capture.CapturedStep(
+            functools.partial(_dense_tick, cfg, params, self.cache),
+            self.device)
+
+    def insert(self, slot: int, prompt: np.ndarray,
+               max_new: int | None = None) -> int:
+        """Prefill ``prompt`` into ``slot``; returns the first generated
+        token."""
+        P = len(prompt)
+        if P > self.max_len:
+            raise ValueError(f"prompt length {P} exceeds slot capacity "
+                             f"{self.max_len}")
+        tokens = torch.from_numpy(np.asarray(prompt, np.int32)[None]
+                                  ).to(self.device)
+        cache1, logits = engine.prefill(self.cfg, self.params, tokens)
+        for key in self.SEQ_KEYS:
+            self.cache[key][:, slot, :P] = cache1[key][:, 0]
+            self.cache[key][:, slot, P:] = 0
+        self.cache["len"][slot] = P
+        self.last_prefill_logits = logits
+        return int(logits[0].argmax())
+
+    def clear(self, slot: int) -> None:
+        # length 0 masks the slot: nothing reads past ``len``, and the next
+        # admission overwrites every row
+        self.cache["len"][slot] = 0
+
+    def _tick_inputs(self, tokens: np.ndarray, active: np.ndarray
+                     ) -> tuple[capture.CapturedStep, tuple, np.ndarray]:
+        """The tick's captured step, its host inputs (tokens (n_slots, 1)
+        int32 and the active mask) and the lanes that write."""
+        active = np.asarray(active, bool)
+        return self._decode, (np.asarray(tokens, np.int32)[:, None],
+                              active), active
+
+    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One tick over every lane; returns the greedy token per lane
+        (garbage for inactive lanes).  ``last_logits`` is this tick's
+        (n_slots, vocab_padded) float32 logits, a copy that later ticks
+        leave as it is."""
+        step, inputs, _ = self._tick_inputs(tokens, active)
+        # the step's output is overwritten by its next replay
+        self.last_logits = step(*inputs).clone()
+        return self.last_logits.argmax(-1).cpu().numpy()
+
+    def jit_fns(self) -> dict[str, capture.CapturedStep]:
+        """Named captured steps, for ``obs.RecompileDetector.track``: the
+        reference's ``decode``; its ``prefill`` runs eagerly here."""
+        return {"decode": self._decode}
+
+
 def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg``.  Ported so far: ``paged=True`` for
-    the decoder family, admitting prompts through the chunked prefill fold
+    """The slot adapter for ``cfg`` (decoder family): dense KV slots
+    (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
+    paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot
-    (``chunked=False``, storage-only prefix sharing); ``backend`` picks the
-    decode tick's attention ("plain" | "cuda" | "cascade", the last
-    grouping lanes over shared prefix chains; None: "cuda" on a CUDA
-    device, else "plain")."""
+    (``chunked=False``, storage-only prefix sharing); ``backend`` (paged
+    only) picks the decode tick's attention ("plain" | "cuda" | "cascade",
+    the last grouping lanes over shared prefix chains, or "gather", the
+    gather-tick oracle; None: "cuda" on a CUDA device, else "plain")."""
     if not paged:
-        raise NotImplementedError(
-            "the dense KVSlotAdapter is not ported yet: ROADMAP.md §1 "
-            "item 8; pass paged=True")
+        if backend is not None:
+            raise ValueError(f"backend={backend!r} selects the paged decode "
+                             "tick's attention; it requires paged=True")
+        return KVSlotAdapter(cfg, params, n_slots, max_len)
     from repro_torch.serve.kvcache.paged import PagedKVSlotAdapter
     return PagedKVSlotAdapter(cfg, params, n_slots, max_len,
                               block_size=block_size, num_blocks=num_blocks,

@@ -64,9 +64,17 @@ Admission control
     copy-on-write spares it obliges (see ``_admission_demand``).  It admits
     only when the pool's free + evictable supply covers the demand.
 
+Gather tick (``backend="gather"``)
+    The reference's parity oracle for the in-place ticks: every lane's
+    whole ``nb_max`` table is gathered into the dense layout, the dense
+    tick runs on that copy (:func:`engine.decode_step`), and the block
+    holding each lane's new row is scattered back to its write target
+    (lanes out of range to the trash block).  Plain PyTorch on every
+    device, captured like the flat tick.
+
 The reference's hybrid boundary-state snapshots and encdec cross K/V (other
-families), gather tick, mesh placement and obs hooks come with later
-slices (ROADMAP.md).
+families), mesh placement and obs hooks come with later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -110,6 +118,31 @@ def _flat_tick(cfg, params, arena, backend, tokens, tables, lens, wbids):
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
                                     backend=backend)
+
+
+def _gather_tick(cfg, params, arena, tokens, tables, lens, wbids):
+    """The gather tick's captured body (the reference's ``_tick_impl``):
+    gather each lane's chain into a dense cache (L, S, nb_max * bs, Hkv,
+    Dh), run :func:`engine.decode_step` on it, and write the block that
+    holds each lane's new row to ``wbids`` (a lane whose length is past
+    its table writes the trash block, from offset 0)."""
+    S, nb = tables.shape
+    bs = arena["k"].shape[-3]
+    max_len = nb * bs
+    idx = tables.long()
+    cache = {"len": lens.clone()}
+    for key in engine.PAGED_SEQ_KEYS:
+        g = arena[key][:, idx, 0]                # (L, S, nb, bs, Hkv, Dh)
+        cache[key] = g.reshape(g.shape[0], S, max_len, *g.shape[4:])
+    _, logits = engine.decode_step(cfg, params, cache, tokens)
+    oor = lens >= max_len
+    start = torch.where(oor, 0, lens // bs * bs).long()
+    wbids = torch.where(oor, TRASH_BLOCK, wbids).long()
+    rows = start[:, None] + torch.arange(bs, device=start.device)  # (S, bs)
+    lanes = torch.arange(S, device=start.device)[:, None]
+    for key in engine.PAGED_SEQ_KEYS:
+        arena[key][:, wbids, 0] = cache[key][:, lanes, rows]
+    return logits
 
 
 def _cascade_tick(cfg, params, arena, tokens, tables, lens, wbids, *meta):
@@ -179,9 +212,11 @@ class PagedKVSlotAdapter:
         # the captured ticks (the steps close over the arena and weights,
         # never over the adapter), on one graph memory pool
         pool = capture.GraphPool(self.device)
-        self._decode = capture.CapturedStep(
+        tick = functools.partial(_gather_tick, cfg, params, self.arena) \
+            if self.backend == "gather" else \
             functools.partial(_flat_tick, cfg, params, self.arena,
-                              self.flat_backend), self.device, pool)
+                              self.flat_backend)
+        self._decode = capture.CapturedStep(tick, self.device, pool)
         if self.backend == "cascade":
             self._decode_cascade = capture.CapturedStep(
                 functools.partial(_cascade_tick, cfg, params, self.arena),

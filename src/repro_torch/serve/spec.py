@@ -2,11 +2,12 @@
 
 ``ServeSpec`` names the configuration of a prompt gateway once, as a frozen
 dataclass, and ``make_gateway`` validates it and builds the gateway it
-describes.  Ported so far: the colocated gateway over paged KV slots
-(``paged=True``), admitting prompts through the chunked prefill fold (the
-reference's default ``chunked=True``) or one-shot (``chunked=False``), with
-the flat decode tick (``backend`` "plain" | "cuda") or the shared-prefix
-cascade tick (``backend="cascade"``).  ``mesh``/``roles`` (sharded and
+describes.  Ported so far: the colocated gateway over dense KV slots (the
+reference's default ``paged=False``) or paged KV slots (``paged=True``),
+admitting prompts through the chunked prefill fold (the reference's
+default ``chunked=True``) or one-shot (``chunked=False``), with the flat
+decode tick (``backend`` "plain" | "cuda"), the shared-prefix cascade tick
+(``backend="cascade"``) or the gather-tick oracle (``backend="gather"``).  ``mesh``/``roles`` (sharded and
 disaggregated serving) and the observability attachments raise until their
 slices.
 """
@@ -24,8 +25,8 @@ class ServeSpec:
     """Slot/cache geometry: ``n_slots`` decode lanes of ``max_len`` tokens;
     ``paged`` KV in ``block_size``-token blocks, ``num_blocks`` of them
     (None: dense-equivalent); ``chunked`` prefill.  ``backend`` picks the
-    decode tick's attention ("plain" | "cuda" | "cascade"; None: "cuda" on
-    a CUDA device, "plain" on the CPU).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
+    decode tick's attention ("plain" | "cuda" | "cascade" | "gather"; None:
+    "cuda" on a CUDA device, "plain" on the CPU).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
     ``max_queue``; ``energy_spec`` prices tokens for the energy ledger."""
     n_slots: int = 4
     max_len: int = 128
@@ -67,10 +68,11 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
     if spec.mesh is not None or spec.roles is not None:
         raise NotImplementedError(
             "mesh/roles (sharded and disaggregated serving) are not ported "
-            "yet: ROADMAP.md §1 item 12")
+            "yet: ROADMAP.md §1, sharded and disaggregated serving")
     if spec.flight is not None or spec.incident_dir is not None:
         raise NotImplementedError(
-            "flight/incident_dir are not ported yet: ROADMAP.md §1 item 13")
+            "flight/incident_dir are not ported yet: ROADMAP.md §1, "
+            "observability")
     if spec.backend is not None and not spec.paged:
         raise ValueError(f"backend={spec.backend!r} selects the paged decode "
                          "tick's attention; it requires paged=True")

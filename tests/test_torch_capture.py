@@ -215,7 +215,8 @@ def test_jit_fns_keys_match_reference(pair):
                                     jfe.FrontendSpec())
     assert list(frames.jit_fns()) == list(jframes.jit_fns()) == \
         ["sensor_b1", "gateway_b1", "sensor_b4", "gateway_b4"]
-    for backend, jbackend in (("plain", "xla"), ("cascade", "cascade")):
+    for backend, jbackend in (("plain", "xla"), ("gather", "gather"),
+                              ("cascade", "cascade")):
         port = paged.PagedKVSlotAdapter(cfg, params, 2, 16, block_size=BS,
                                         backend=backend)
         ref = JPagedKVSlotAdapter(jcfg, jparams, 2, 16, block_size=BS,

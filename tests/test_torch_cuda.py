@@ -135,22 +135,42 @@ def test_sc_kernels_never_reach_ref_on_card(dev, monkeypatch):
 
 
 def test_sc_dot_kernel_refuses_bad_shapes(dev):
-    """Any K in [1, 1024] is taken now; mismatched K or Wd, K past 1,024
-    and Wd past 8 are refused."""
+    """Any K is taken now (K = 1,025 as the plain version computes it);
+    mismatched K or Wd and Wd past 8 are refused."""
     x = torch.zeros((4, 24, 1), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         sc_dot_kernel.sc_dot(x, torch.zeros((23, 3, 1), dtype=torch.int32,
                                             device=dev))
-    with pytest.raises(ValueError):
-        sc_dot_kernel.sc_dot(torch.zeros((4, 1025, 1), dtype=torch.int32,
-                                         device=dev),
-                             torch.zeros((1025, 3, 1), dtype=torch.int32,
-                                         device=dev))
+    gen = torch.Generator().manual_seed(1025)
+    x, w = _words(gen, 4, 1025, 1, dev=dev), _words(gen, 1025, 3, 1, dev=dev)
+    assert torch.equal(sc_dot_kernel.sc_dot(x, w),
+                       ref.sc_dot(x, w, "alt", "tff"))
     with pytest.raises(ValueError):
         sc_dot_kernel.sc_dot(torch.zeros((4, 2, 9), dtype=torch.int32,
                                          device=dev),
                              torch.zeros((2, 3, 9), dtype=torch.int32,
                                          device=dev))
+
+
+@pytest.mark.parametrize("K,Wd,N", [(1025, 1, 16), (2560, 1, 16),
+                                    (2560, 1, None), (2560, 8, 256),
+                                    (4096, 2, None)])
+@pytest.mark.parametrize("s0_mode,adder", [
+    ("zero", "tff"), ("one", "tff"), ("alt", "tff"), ("alt", "ideal")])
+def test_sc_dot_kernel_beyond_1024_bitwise(dev, K, Wd, N, s0_mode, adder):
+    """K > 1,024 (subtrees of 1,024 leaves, then the fold): stablelm-3b's
+    d_model K = 2,560 as the SC frontend calls it, both banks as one
+    operand, and a power of two; one launch count per call."""
+    gen = torch.Generator().manual_seed(K + Wd)
+    x, w = _words(gen, 37, K, Wd, dev=dev), _words(gen, K, 10, Wd, dev=dev)
+    if N is not None and N < 32:
+        x, w = x & ((1 << N) - 1), w & ((1 << N) - 1)
+    want = ref.sc_dot(x, w, s0_mode, adder)
+    before = sc_dot_kernel.sc_dot.launches
+    pos, neg = ops.sc_dot_posneg(x, w, s0_mode=s0_mode, adder=adder,
+                                 length=N)
+    assert sc_dot_kernel.sc_dot.launches == before + 1
+    assert torch.equal(torch.cat([pos, neg], 1), want)
 
 
 @pytest.mark.parametrize("bits", [4, 8])

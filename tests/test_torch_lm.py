@@ -70,10 +70,21 @@ def test_layer_window_matches_reference(window, global_every):
 
 
 def test_sc_frontend_and_other_families_raise():
+    """``first_layer_mode="sc"`` is ported: ``lm.init`` builds the
+    frontend's (d, d) weights and ones for ``gamma``, in the reference's
+    place in the tree; the other families still raise."""
     cfg = configs.smoke_config(ARCH)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init(dataclasses.replace(cfg, first_layer_mode="sc"), gen)
+    params = lm.init(dataclasses.replace(cfg, first_layer_mode="sc"), gen)
+    jparams, _ = jlm.init(jax.random.key(0), dataclasses.replace(
+        jconfigs.smoke_config(ARCH), first_layer_mode="sc"), {})
+    assert list(params) == list(jparams)
+    d = cfg.d_model
+    assert params["sc_frontend"]["w"].shape == (d, d)
+    assert params["sc_frontend"]["w"].dtype == cfg.dtype
+    assert torch.equal(params["sc_frontend"]["gamma"],
+                       torch.ones(d, dtype=cfg.dtype))
+    assert "sc_frontend" not in lm.init(cfg, gen)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init(dataclasses.replace(cfg, family="moe"), gen)
     with pytest.raises(NotImplementedError):

@@ -218,14 +218,15 @@ def test_prompt_gateway_matches_reference(pair):
 
 
 def test_spec_refuses_what_is_not_ported(pair):
+    """Sharded serving and the observability hooks are refused, and so are
+    names the enum does not hold; the dense slots (``paged=False``) and
+    ``backend="gather"`` are ported (``tests/test_torch_dense.py``)."""
     _, _, cfg, params = pair
-    for kw, err in ((dict(paged=False), NotImplementedError),
-                    (dict(paged=True, mesh=object()),          # chunked
+    for kw, err in ((dict(paged=True, mesh=object()),          # chunked
                      NotImplementedError),
                     (dict(paged=True, chunked=False, mesh=object()),
                      NotImplementedError),
-                    (dict(paged=True, chunked=False, backend="gather"),
-                     NotImplementedError),
+                    (dict(mesh=object()), NotImplementedError),  # dense
                     (dict(paged=True, chunked=False, backend="xla"),
                      ValueError),
                     (dict(paged=False, chunked=False, backend="plain"),

@@ -33,16 +33,21 @@ def _popcount(v: np.ndarray) -> np.ndarray:
     return np.bitwise_count(v.astype(np.uint32)).astype(np.int64)
 
 
-def emulate_sc_dot(x, w, s0_mode, adder, length=None):
+def emulate_sc_dot(x, w, s0_mode, adder, length=None, *, depth=None,
+                   c0=0):
     """``sc_dot.cu``'s arithmetic on numpy uint32 words x (M, K, Wd), w (K, O,
     Wd): leaves in chunks of 32 (zero past K), ``pack`` leaves per popcount
     32 / pack bits apart, the TFF tree folded as the units stream in with a
     stack of pending nodes, several outputs' nodes in the lanes of one
-    register, the chunk roots folded into an upper stack."""
+    register, the chunk roots folded into an upper stack.  A subtree of a
+    larger tree (``depth`` 10, its first chunk ``c0`` of the whole tree)
+    takes s0 in the upper stack by the global index and, for the ideal
+    adder, returns the raw sum."""
     M, K, Wd = x.shape
     pack = sc_dot_kernel.leaves_per_popcount(length, Wd, adder)
     shift = 32 // pack
-    depth = tree_depth(K)
+    subtree = depth is not None
+    depth = tree_depth(K) if depth is None else depth
     kp = 1 << depth
     s_even, s_odd = S0[s0_mode]
     n_chunks = max(1, kp // 32)
@@ -119,16 +124,51 @@ def emulate_sc_dot(x, w, s0_mode, adder, length=None):
             continue
         if n_chunks == 1:
             return unlanes(pend[depth])
-        node, idx, level = pend[5], c, 0
+        # the carry follows the block's chunk index, s0 the global one
+        node, idx, gidx, level = pend[5], c, c0 + c, 0
         while idx & 1:
-            s = s_odd if ((idx >> 1) + 5 + level) & 1 else s_even
+            s = s_odd if ((gidx >> 1) + 5 + level) & 1 else s_even
             node = step(up[level] + node, s)
             idx >>= 1
+            gidx >>= 1
             level += 1
         up[level] = node
     if adder == "ideal":
-        return (total >> depth).astype(np.int32)
+        return (total >> (0 if subtree else depth)).astype(np.int64)
     return unlanes(up[depth - 5])
+
+
+def emulate_sc_dot_subtrees(x, w, s0_mode, adder, length=None):
+    """``sc_dot.cu`` at K > 1,024: each subtree of 1,024 leaves (zero past
+    K) reduced on its own, as one block of the subtrees' launch reduces it
+    (:func:`emulate_sc_dot` at depth 10 from its global first chunk), then
+    ``sc_dot_fold_kernel``: the roots at level 10, node j the subtree j,
+    folded with a stack of pending left siblings, zero roots past the
+    subtrees that hold leaves; the ideal adder's sums added and shifted by
+    the whole tree's depth."""
+    K = x.shape[1]
+    sub = sc_dot_kernel.SUB_LEAVES
+    live = sc_dot_kernel.subtrees(K)
+    assert live > 1
+    depth = tree_depth(K)
+    roots = [emulate_sc_dot(x[:, j * sub:(j + 1) * sub],
+                            w[j * sub:(j + 1) * sub], s0_mode, adder, length,
+                            depth=10, c0=j * sub // 32) for j in range(live)]
+    if adder == "ideal":
+        return (sum(roots) >> depth).astype(np.int32)
+    s_even, s_odd = S0[s0_mode]
+    up = {}
+    for j in range(1 << (depth - 10)):
+        node = roots[j].astype(np.int64) if j < live else \
+            np.zeros_like(roots[0], np.int64)
+        c, level = j, 0
+        while c & 1:
+            s = s_odd if ((c >> 1) + 10 + level) & 1 else s_even
+            node = (up[level] + node + s) >> 1
+            c >>= 1
+            level += 1
+        up[level] = node
+    return up[depth - 10].astype(np.int32)
 
 
 def _streams(rng, M, K, O, Wd, N):
@@ -175,6 +215,58 @@ def test_chunked_tree_vs_pallas(N, K, s0_mode, adder):
     want_k = np.asarray(jops.sc_dot(jnp.asarray(x), jnp.asarray(w),
                                     s0_mode=s0_mode, adder=adder))
     np.testing.assert_array_equal(got, want_k)
+
+
+@pytest.mark.parametrize("K", [1025, 2560])
+@pytest.mark.parametrize("N", [16, 32])
+@pytest.mark.parametrize("s0_mode,adder", CASES)
+def test_subtree_fold_vs_reference(K, N, s0_mode, adder):
+    """K > 1,024: the subtrees and the fold against the reference's oracle
+    and its Pallas kernel in interpret mode.  K = 2,560 has three subtrees
+    of leaves (the last one half full) and a fourth of zero leaves, so
+    subtrees 1 and 3 are odd: their last merge (level 9) makes node 1 and
+    3, whose alt s0 differs from that of a tree of 1,024 leaves alone."""
+    rng = np.random.default_rng(K + N)
+    x, w = _streams(rng, 3, K, 2, max(1, N // 32), N)
+    got = emulate_sc_dot_subtrees(x, w, s0_mode, adder, length=N)
+    np.testing.assert_array_equal(got, _reference(x, w, s0_mode, adder))
+    want_k = np.asarray(jops.sc_dot(jnp.asarray(x), jnp.asarray(w),
+                                    s0_mode=s0_mode, adder=adder))
+    np.testing.assert_array_equal(got, want_k)
+
+
+@pytest.mark.parametrize("K", [1025, 2560])
+@pytest.mark.parametrize("s0_mode,adder", CASES)
+def test_plain_sc_dot_beyond_1024_vs_pallas(K, s0_mode, adder):
+    """The plain version the kernel is held against on the card
+    (``kernels/ref.py``, through ``ops.sc_dot`` and ``sc_dot_posneg`` on
+    CPU tensors) at K > 1,024 against the reference's Pallas kernel in
+    interpret mode, every s0 mode and both adders."""
+    rng = np.random.default_rng(K)
+    x, w = _streams(rng, 4, K, 6, 1, 16)
+    want = np.asarray(jops.sc_dot(jnp.asarray(x), jnp.asarray(w),
+                                  s0_mode=s0_mode, adder=adder))
+    xt, wt = torch.from_numpy(x.view(np.int32)), torch.from_numpy(
+        w.view(np.int32))
+    got = ops.sc_dot(xt, wt, s0_mode=s0_mode, adder=adder, length=16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    pos, neg = ops.sc_dot_posneg(xt, wt, s0_mode=s0_mode, adder=adder,
+                                 length=16)
+    np.testing.assert_array_equal(torch.cat([pos, neg], 1).numpy(), want)
+
+
+def test_subtree_root_takes_the_global_index():
+    """The level-9 trap: subtree 1's root computed as a tree of 1,024
+    leaves alone (node 0 at its last merge) differs, in mode alt, from the
+    same subtree at its global index, which the fold needs."""
+    rng = np.random.default_rng(9)
+    x, w = _streams(rng, 16, 1024, 8, 1, 16)
+    alone = emulate_sc_dot(x, w, "alt", "tff", 16)
+    at_one = emulate_sc_dot(x, w, "alt", "tff", 16, depth=10, c0=32)
+    assert (alone != at_one).any()
+    np.testing.assert_array_equal(
+        emulate_sc_dot(x, w, "one", "tff", 16),
+        emulate_sc_dot(x, w, "one", "tff", 16, depth=10, c0=32))
 
 
 def test_pairing_needs_the_stream_length():
