@@ -12,6 +12,7 @@
     python3 chip_smoke.py --table3-full
                                    # phase 9 on the reference's full
                                    # Table 3 protocol alone
+    python3 chip_smoke.py --moe    # phase 11 alone
 
 Phases, each printing one JSON line:
 
@@ -170,7 +171,24 @@ Phases, each printing one JSON line:
      bit for bit the plain versions' on the same CUDA tensors, and the
      load served through the dense gateway, the one-shot paged gateway and
      the chunked fold (the frontend on every prompt or chunk, its launches
-     counted; dense against paged in bf16 under the near-tie rule).
+     counted; dense against paged in bf16 under the near-tie rule);
+ 11. the moe family (``moe_main_path`` line): deepseek-moe-16b at its
+     published width and depth (28 layers, d_model 2,048, 16 heads of
+     128, 64 routed experts of 1,408 top-6 and 2 shared, dense layer 0
+     of 10,944, vocabulary 102,400; bf16, random weights drawn on the
+     card after phases 5-10's stablelm-3b weights are freed; prefill
+     routed dropless): the attention kernels at 16 heads of 128 against
+     their plain versions in both dtypes and timed beside their bounds
+     (``moe_shapes_timing`` line), then phase 10's four gateways (float32
+     at depth 4 strict, the gather tick bit for bit the plain tick, and
+     the least top-6/top-7 router gap of the streams; bf16 at full depth
+     under the near-tie rule, which a first difference meets on the
+     logits or, past ``NEAR_TIE_BOUND`` there, on the router's logits at
+     the first routing difference of the two gateways' eager replays,
+     ``trace_routing``), phase 6's load (c) through the cascade
+     tick, phase 7's load (b) chunked with its resumed fold bit for bit
+     the cold fold, and phase 8's captured ticks bit for bit their
+     eager steps, one graph launch per tick, with the same helpers.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -1530,6 +1548,14 @@ def load_c_prompts(vocab: int):
                            ).astype(np.int32) for _ in range(LM_SLOTS)], rng
 
 
+def load_spec(backend: str, chunked: bool, new_tokens: int):
+    """The ``ServeSpec`` of :func:`serve_load`'s gateways."""
+    from repro_torch.serve.spec import ServeSpec
+    return ServeSpec(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+                     block_size=LM_BLOCK, chunked=chunked, backend=backend,
+                     max_new_tokens=new_tokens)
+
+
 def serve_load(dev, cfg, params, prompts, *, backend: str,
                chunked: bool, new_tokens: int, profile: bool = False,
                keep_blocks: bool = False) -> dict:
@@ -1546,10 +1572,8 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
     from repro_torch.serve.gateway.slots import Request
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
-    gw = make_gateway(cfg, params, ServeSpec(
-        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
-        block_size=LM_BLOCK, chunked=chunked, backend=backend,
-        max_new_tokens=new_tokens), device=dev)
+    gw = make_gateway(cfg, params, load_spec(backend, chunked, new_tokens),
+                      device=dev)
     ad, batcher = gw.batcher.adapter, gw.batcher
     probe = CascadeProbe(ad)
     logits = []
@@ -1633,8 +1657,8 @@ def first_differences(a: dict, b: dict) -> list[dict]:
         la, lb = la.float(), lb.float()
         d = float((la - lb).abs().max())
         margin = float(lb.max() - lb[ta[k]])
-        out.append({"uid": uid, "token": k, "margin": margin,
-                    "max_abs_dlogit": d,
+        out.append({"uid": uid, "token": k, "b_token": tb[k],
+                    "margin": margin, "max_abs_dlogit": d,
                     "near_tie": margin <= d <= NEAR_TIE_BOUND})
     return out
 
@@ -1893,6 +1917,10 @@ def cascade_main_path(dev, cfg, params) -> dict:
     # where they differ, the flat tick must rate the cascade's token within
     # the two ticks' logit difference on the same history
     diffs = first_differences(casc, flat)
+    trace_routing(cfg, params, diffs,
+                  (load_spec("cascade", False, NEW_TOKENS_C),
+                   load_spec("cuda", False, NEW_TOKENS_C)), casc, prompts,
+                  whole_load=True)
     if not all(d["near_tie"] for d in diffs):
         failures.append(f"load (c) bf16: a difference from the flat "
                         f"gateway that is not a near tie: {diffs}")
@@ -1992,15 +2020,17 @@ def cascade_main_path(dev, cfg, params) -> dict:
     return casc["launches"]
 
 
-def chunked_main_path(dev, cfg, params) -> dict:
+def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     """Phase 7: the chunked prefill fold (``ServeSpec(paged=True)``, the
-    reference's default ``chunked=True``) at stablelm-3b's full width and
+    reference's default ``chunked=True``) at the config's full width and
     depth: load (b) through ``backend="cuda"`` and load (c) through
-    ``backend="cascade"``, each beside the one-shot gateway on the same
-    load; a resumed admission held bitwise against a cold one in a fresh
-    gateway; float32 at depth 4 against one-shot; the prefill host time per
-    prompt.  Returns the chunked runs' launches; raises SystemExit on a
-    failed check."""
+    ``backend="cascade"`` (those of ``loads``), each beside the one-shot
+    gateway on the same load; load (b)'s resumed admission held bitwise
+    against a cold one in a fresh gateway; float32 at depth 4 against
+    one-shot; the prefill host time per prompt.  Returns the chunked runs'
+    launches ("launches"), the one-shot prefill ms of a 1,000-token prompt
+    and the cold fold's ms per chunk; raises SystemExit on a failed
+    check."""
     import dataclasses
     from types import SimpleNamespace
 
@@ -2014,7 +2044,12 @@ def chunked_main_path(dev, cfg, params) -> dict:
 
     failures = []
     pb, _ = load_b_prompts(cfg.vocab)
-    pc, _ = load_c_prompts(cfg.vocab)
+    # each load: its prompts, backend, the fold's chunks (from the
+    # adapter's own count) and the prefill tokens each request skips
+    spec = {"b": (pb, "cuda", 63 + 31 + 1 + 63, [0, 512, 992, 0]),
+            "c": (load_c_prompts(cfg.vocab)[0], "cascade", 68 + 7 * 4,
+                  [0] + [SHARED_PROMPT] * 7)}
+    spec = {key: spec[key] for key in loads}
     L = cfg.n_layers
 
     def serve(cfg, params, prompts, backend, chunked, **kw):
@@ -2023,19 +2058,19 @@ def chunked_main_path(dev, cfg, params) -> dict:
                           new_tokens=32, **kw)
 
     # bf16 at full depth: each load chunked, then one-shot
-    b_ch = serve(cfg, params, pb, "cuda", True, keep_blocks=True)
-    b_os = serve(cfg, params, pb, "cuda", False)
-    c_ch = serve(cfg, params, pc, "cascade", True)
-    c_os = serve(cfg, params, pc, "cascade", False)
+    ch, os_ = {}, {}
+    for key, (prompts, backend, _, _) in spec.items():
+        ch[key] = serve(cfg, params, prompts, backend, True,
+                        keep_blocks=key == "b")
+        os_[key] = serve(cfg, params, prompts, backend, False)
 
     def skipped(run):
         return [run["prefill"][uid]["skipped"] for uid in sorted(run["slot"])]
 
-    # what the folds ran, from the adapter's own count of chunks
-    want_chunks = {"b": 63 + 31 + 1 + 63, "c": 68 + 7 * 4}
-    for key, run, want_skip in (("b", b_ch, [0, 512, 992, 0]),
-                                ("c", c_ch, [0] + [SHARED_PROMPT] * 7)):
-        if run["chunks"] != want_chunks[key] or skipped(run) != want_skip:
+    grouped = None
+    for key, (prompts, backend, want_chunks, want_skip) in spec.items():
+        run = ch[key]
+        if run["chunks"] != want_chunks or skipped(run) != want_skip:
             failures.append(f"load ({key}) chunked: {run['chunks']} chunks, "
                             f"skipped {skipped(run)}")
         n = run["launches"]
@@ -2043,36 +2078,44 @@ def chunked_main_path(dev, cfg, params) -> dict:
             failures.append(f"load ({key}) chunked: flash_attention launched "
                             f"{n['flash_attention']} times for "
                             f"{run['chunks']} chunks x {L} layers")
-    for key, run, n_prompts in (("b", b_os, len(pb)), ("c", c_os, len(pc))):
-        if run["launches"]["flash_attention"] != L * n_prompts:
+        if os_[key]["launches"]["flash_attention"] != L * len(prompts):
             failures.append(f"load ({key}) one-shot: flash_attention "
-                            f"launches {run['launches']['flash_attention']}")
-    nb, nc = b_ch["launches"], c_ch["launches"]
-    if not (nb["paged_decode_attention"] and nb["scatter_kv_rows"]) or \
-            any(nb[name] for name in CASCADE + (FUSED_MERGE,)):
-        failures.append(f"load (b) chunked launches {nb}")
-    grouped = sum(g > 0 for g in c_ch["groups"])
-    if grouped == 0 or any(nc[name] != L * grouped for name in (
-            "paged_decode_attention_with_state", "cascade_prefix_attention",
-            FUSED_MERGE)) or nc["merge_attn_states"] or \
-            nc["scatter_kv_rows"] != c_ch["ticks"]:
-        failures.append(f"load (c) chunked launches {nc}, grouped {grouped}")
-    for run in (b_ch, b_os, c_ch, c_os):
-        if not run["logits_finite"] or \
-                sorted(len(t) for t in run["tokens"].values()) != \
-                [32] * len(run["tokens"]):
-            failures.append("a tick was not finite, or a request was not "
-                            "served")
-    # bf16: equal up to each stream's first difference, a near tie
-    diffs = {"b": first_differences(b_ch, b_os),
-             "c": first_differences(c_ch, c_os)}
+                            f"launches "
+                            f"{os_[key]['launches']['flash_attention']}")
+        if backend == "cuda" and (
+                not (n["paged_decode_attention"] and n["scatter_kv_rows"])
+                or any(n[name] for name in CASCADE + (FUSED_MERGE,))):
+            failures.append(f"load ({key}) chunked launches {n}")
+        if backend == "cascade":
+            grouped = sum(g > 0 for g in run["groups"])
+            if grouped == 0 or any(n[name] != L * grouped for name in (
+                    "paged_decode_attention_with_state",
+                    "cascade_prefix_attention", FUSED_MERGE)) or \
+                    n["merge_attn_states"] or \
+                    n["scatter_kv_rows"] != run["ticks"]:
+                failures.append(f"load ({key}) chunked launches {n}, "
+                                f"grouped {grouped}")
+        for r in (run, os_[key]):
+            if not r["logits_finite"] or \
+                    sorted(len(t) for t in r["tokens"].values()) != \
+                    [32] * len(r["tokens"]):
+                failures.append("a tick was not finite, or a request was "
+                                "not served")
+    # bf16: equal up to each stream's first difference, a near tie (for
+    # the moe family, in the logits or traced to the router)
+    diffs = {key: first_differences(ch[key], os_[key]) for key in spec}
+    for key, (prompts, backend, _, _) in spec.items():
+        trace_routing(cfg, params, diffs[key],
+                      (load_spec(backend, True, 32),
+                       load_spec(backend, False, 32)), ch[key], prompts,
+                      whole_load=backend == "cascade")
     if not all(d["near_tie"] for ds in diffs.values() for d in ds):
         failures.append(f"bf16 chunked vs one-shot: a difference that is "
                         f"not a near tie: {diffs}")
 
     # load (b)'s r1 (a 512-token hit, resumed at block 32) against the same
     # prompt admitted cold into a fresh gateway: bitwise
-    warm = b_ch["prefill"][1]
+    warm = ch["b"]["prefill"][1]
     gw_cold = make_gateway(cfg, params, ServeSpec(
         n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
         block_size=LM_BLOCK), device=dev)
@@ -2092,7 +2135,7 @@ def chunked_main_path(dev, cfg, params) -> dict:
             resume_bitwise["cold_skipped"] != 0:
         failures.append(f"resumed vs cold admission: {resume_bitwise}")
     del gw_cold, ad, cold_logits, warm
-    for run in (b_ch, b_os, c_ch, c_os):
+    for run in ch.values():
         for rec in run["prefill"].values():
             rec.pop("blocks", None)
     torch.cuda.empty_cache()
@@ -2117,52 +2160,55 @@ def chunked_main_path(dev, cfg, params) -> dict:
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     f32 = {}
-    for key, prompts, backend in (("b", pb, "cuda"), ("c", pc, "cascade")):
-        ch = serve(cfg4, params4, prompts, backend, True)
-        os_ = serve(cfg4, params4, prompts, backend, False)
+    for key, (prompts, backend, _, _) in spec.items():
+        c4 = serve(cfg4, params4, prompts, backend, True)
+        o4 = serve(cfg4, params4, prompts, backend, False)
         err = max([float((a - b).abs().max())
-                   for a, b in zip(ch["logits"], os_["logits"])]
-                  + [float((ch["prefill"][u]["logits"]
-                            - os_["prefill"][u]["logits"]).abs().max())
-                     for u in ch["slot"]])
-        f32[key] = {"tokens_equal": ch["tokens"] == os_["tokens"],
-                    "max_abs_dlogit": err, "chunks": ch["chunks"]}
+                   for a, b in zip(c4["logits"], o4["logits"])]
+                  + [float((c4["prefill"][u]["logits"]
+                            - o4["prefill"][u]["logits"]).abs().max())
+                     for u in c4["slot"]])
+        f32[key] = {"tokens_equal": c4["tokens"] == o4["tokens"],
+                    "max_abs_dlogit": err, "chunks": c4["chunks"]}
         if not f32[key]["tokens_equal"] or not err <= 2e-4:
             failures.append(f"float32 depth 4, load ({key}): chunked vs "
                             f"one-shot {f32[key]}")
     del params4
     torch.cuda.empty_cache()
 
-    def prefill_ms(run, pick):
-        return [run["prefill"][u]["ms"] for u in sorted(run["slot"])
-                if pick(run["prefill"][u]["skipped"])]
+    def prefill_ms(runs, pick):
+        return [r["prefill"][u]["ms"] for r in runs for u in sorted(r["slot"])
+                if pick(r["prefill"][u]["skipped"])]
     # a model, not a measurement: the bytes a cold fold of a 1,000-token
     # prompt writes re-concatenating the prefix (k and v in every layer)
     # and stacking the layers again, chunk after chunk
     row = cfg.n_kv_heads * cfg.d_head * params["embed"].element_size()
     fold_copy_bytes = sum(2 * 2 * L * min(q + LM_BLOCK, 1000) * row
                           for q in range(0, 1000, LM_BLOCK))
-    times = {"cold_fold": prefill_ms(b_ch, lambda k: k == 0)
-             + prefill_ms(c_ch, lambda k: k == 0),
-             "resumed_fold": prefill_ms(b_ch, lambda k: k > 0)
-             + prefill_ms(c_ch, lambda k: k > 0),
-             "oneshot": prefill_ms(b_os, lambda k: True)
-             + prefill_ms(c_os, lambda k: True)}
+    cold_lens = [len(p) for key, (ps, _, _, _) in spec.items()
+                 for u, p in enumerate(ps)
+                 if ch[key]["prefill"][u]["skipped"] == 0]
+    times = {"cold_fold": prefill_ms(ch.values(), lambda k: k == 0),
+             "resumed_fold": prefill_ms(ch.values(), lambda k: k > 0),
+             "oneshot": prefill_ms(os_.values(), lambda k: True)}
+    launches = {name: sum(r["launches"][name] for r in ch.values())
+                for name in ch["b"]["launches"]}
     emit({"phase": "chunked_main_path", "model": cfg.name,
           "spec": {"n_slots": LM_SLOTS, "max_len": LM_MAX_LEN,
                    "block_size": LM_BLOCK, "chunked": True},
-          "load_b": {"chunks": b_ch["chunks"], "skipped": skipped(b_ch),
-                     "launches": nb, "ticks": b_ch["ticks"]},
-          "load_c": {"chunks": c_ch["chunks"], "skipped": skipped(c_ch),
-                     "launches": nc, "ticks": c_ch["ticks"],
-                     "grouped_ticks": grouped},
+          **{f"load_{key}": {"chunks": ch[key]["chunks"],
+                             "skipped": skipped(ch[key]),
+                             "launches": ch[key]["launches"],
+                             "ticks": ch[key]["ticks"],
+                             **({"grouped_ticks": grouped} if key == "c"
+                                else {})} for key in spec},
           "resume_bitwise": resume_bitwise,
           "bf16_first_differences": diffs,
           "bf16_token_agreement": {
-              key: sum(x == y for u, t in a["tokens"].items()
-                       for x, y in zip(t, b["tokens"][u]))
-              / sum(len(t) for t in a["tokens"].values())
-              for key, a, b in (("b", b_ch, b_os), ("c", c_ch, c_os))},
+              key: sum(x == y for u, t in ch[key]["tokens"].items()
+                       for x, y in zip(t, os_[key]["tokens"][u]))
+              / sum(len(t) for t in ch[key]["tokens"].values())
+              for key in spec},
           "f32_depth4": f32,
           "prefill_ms": times,
           "prefill_ms_median": {k: statistics.median(v)
@@ -2173,12 +2219,14 @@ def chunked_main_path(dev, cfg, params) -> dict:
           "tick_ms_median": {
               f"{key}_{'chunked' if r['chunked'] else 'oneshot'}":
                   statistics.median(r["tick_ms"])
-              for key, r in (("b", b_ch), ("b", b_os), ("c", c_ch),
-                             ("c", c_os))},
+              for key in spec for r in (ch[key], os_[key])},
           "failures": failures})
     if failures:
-        raise SystemExit(f"chunked path: {failures}")
-    return {name: nb[name] + nc[name] for name in nb}
+        raise SystemExit(f"chunked path ({cfg.name}): {failures}")
+    return {"launches": launches,
+            "oneshot_prefill_1000_ms": prefill_kernel_ms,
+            "cold_fold_ms_per_chunk": sum(times["cold_fold"]) / sum(
+                -(-n // LM_BLOCK) for n in cold_lens)}
 
 
 # -- the captured ticks (phase 8) ---------------------------------------------
@@ -2225,12 +2273,14 @@ def tick_replay_check(ad, tokens, active, state=None) -> dict:
     return out
 
 
-def tick_timing(ad, tokens, active, after=None) -> dict:
+def tick_timing(ad, tokens, active, after=None, runs: int | None = None
+                ) -> dict:
     """Host ms of the adapter's next tick at its current state (its host
     side, the step, the logits' copy and the tokens on the host; the state
     does not advance: a paged tick rewrites its rows, and ``after``, where
     given, puts back what the tick advanced), captured and eager in turns
-    (:func:`turns`), and :func:`profile_ticks` over three ticks of each."""
+    (:func:`turns`, ``runs`` a side, default ``HOST_RUNS``), and
+    :func:`profile_ticks` over three ticks of each."""
     from types import SimpleNamespace
 
     def tick(eager: bool):
@@ -2240,19 +2290,20 @@ def tick_timing(ad, tokens, active, after=None) -> dict:
             after()
         return logits.clone().argmax(-1).cpu()
     sides = {"captured": lambda: tick(False), "eager": lambda: tick(True)}
-    ms = turns(sides)
+    ms = turns(sides, runs or HOST_RUNS)
     return {"host_ms": ms, "profile": {
         name: profile_ticks(SimpleNamespace(step=fn), 3, ms[name]["median"])
         for name, fn in sides.items()}}
 
 
-def capture_main_path(dev, cfg, params) -> dict:
-    """Phase 8: the captured ticks at stablelm-3b's full width and depth:
+def capture_main_path(dev, cfg, params, runs: int | None = None) -> dict:
+    """Phase 8: the captured ticks at the config's full width and depth:
     the flat tick at 8 lanes x 1,024 positions (``backend="cuda"``) and
     load (c)'s cascade tick, each right after the first tick (its
     capture): replay against the eager step bit for bit, launch counts,
     captured steps, and host ms per tick captured against eager in turns,
-    with a profile of each.  Raises SystemExit on a failed check."""
+    with a profile of each (``runs`` a side, :func:`tick_timing`).  Raises
+    SystemExit on a failed check."""
     import numpy as np
     import torch
 
@@ -2278,7 +2329,7 @@ def capture_main_path(dev, cfg, params) -> dict:
         tokens = batcher.last_token.copy()
         active = np.asarray([r is not None for r in batcher.active])
         check = tick_replay_check(ad, tokens, active)
-        timing = tick_timing(ad, tokens, active)
+        timing = tick_timing(ad, tokens, active, runs=runs)
         captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
         want = {"decode": 1} if backend == "cuda" else \
             {"decode": 0, "decode_cascade": 1}
@@ -2406,19 +2457,177 @@ def stream_differences(a: dict, b: dict) -> dict:
         la, lb = pairs[k]
         d = float((la - lb).abs().max())
         margin = float(lb.max() - lb[ta[k]])
-        diffs.append({"uid": uid, "token": k, "margin": margin,
-                      "max_abs_dlogit": d,
+        diffs.append({"uid": uid, "token": k, "b_token": tb[k],
+                      "margin": margin, "max_abs_dlogit": d,
                       "near_tie": margin <= d <= NEAR_TIE_BOUND})
     return {"tokens_equal": a["tokens"] == b["tokens"],
             "max_abs_dlogit": worst, "first_differences": diffs}
 
 
-def dense_main_path(dev, cfg, params) -> dict:
+# -- routing near ties (the moe family in bf16) --------------------------------
+
+class RouterTrace:
+    """The router's float32 logits for every (request, MoE layer, position)
+    an adapter computes while observed (``with trace:`` patches
+    ``nn.moe.router``), filed by the step that computed them: an admission
+    (:meth:`prefill`: the fold's chunks or the one-shot prompt, from the
+    skipped prefix on) or a tick (:meth:`tick`: one row per lane)."""
+
+    def __init__(self, n_moe: int):
+        self.n_moe, self.rows, self.events = n_moe, {}, []
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        inner = moe.router
+
+        def observed(x, w, m):
+            self.events.append((x.float() @ w.float()).cpu())
+            return inner(x, w, m)
+        self._patch = mock.patch.object(moe, "router", observed)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def prefill(self, uid: int, q0: int) -> None:
+        pos, chunk = q0, 0
+        for i, ev in enumerate(self.events):
+            rows = ev.reshape(-1, ev.shape[-1])
+            if i % self.n_moe == 0:             # the fold's next chunk
+                pos, chunk = pos + chunk, rows.shape[0]
+            for j in range(rows.shape[0]):
+                self.rows[(uid, i % self.n_moe, pos + j)] = rows[j]
+        self.events.clear()
+
+    def tick(self, lanes: dict) -> None:
+        """``lanes``: slot -> (uid, the position its token takes)."""
+        for layer, ev in enumerate(self.events):
+            for slot, (uid, pos) in lanes.items():
+                self.rows[(uid, layer, pos)] = ev[slot, 0]
+        self.events.clear()
+
+
+def replay_routing(cfg, params, spec, admit, streams, n_ticks: int):
+    """Replays admissions ``admit`` [(uid, slot, prompt)] in order through a
+    fresh ``make_gateway(cfg, params, spec)`` adapter, then ``n_ticks``
+    ticks that feed each lane the tokens of ``streams[uid]``, every step
+    eager (bit for bit the captured step, as phases 8 and 10 check) with
+    the router observed.  A lane's arithmetic does not read the other
+    lanes' rows (the cascade's grouping does read their prompts, so load
+    replays admit the whole load).  Returns (the :class:`RouterTrace`
+    rows, per uid the logits of its prefill and of each tick)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.spec import make_gateway
+
+    gw = make_gateway(cfg, params, spec, device=params["embed"].device)
+    ad = gw.batcher.adapter
+    for name, step in ad.jit_fns().items():
+        setattr(ad, f"_{name}",
+                lambda *inputs, step=step: step.fn(*step.load(*inputs)))
+    trace, logits = RouterTrace(cfg.n_layers - 1), {}
+    with trace, torch.no_grad():
+        for uid, slot, prompt in admit:
+            ad.insert(slot, prompt, max_new=n_ticks + 1)
+            stats = ad.slot_stats(slot) if hasattr(ad, "slot_stats") else {}
+            trace.prefill(uid, stats.get("prefill_tokens_skipped", 0))
+            logits[uid] = [ad.last_prefill_logits[0].float().cpu()]
+        for t in range(n_ticks):
+            tokens = np.zeros(ad.n_slots, np.int32)
+            active = np.zeros(ad.n_slots, bool)
+            lanes = {}
+            for uid, slot, prompt in admit:
+                tokens[slot], active[slot] = streams[uid][t], True
+                lanes[slot] = (uid, len(prompt) + t)
+            ad.decode(tokens, active)
+            trace.tick(lanes)
+            for uid, slot, _ in admit:
+                logits[uid].append(ad.last_logits[slot].float().cpu())
+    del gw, ad
+    torch.cuda.empty_cache()
+    return trace.rows, logits
+
+
+def routing_near_tie(cfg, uid: int, k: int, ta, tb, a: tuple, b: tuple
+                     ) -> dict:
+    """Replays ``a`` and ``b`` (:func:`replay_routing`'s results) of one
+    request whose streams first differ at token ``k``: whether each replay
+    reproduces its run's token k, and the first (position, layer) of the
+    shared history at which the two route the token to other experts, with
+    ``b``'s margin for its experts over ``a``'s in router logits beside the
+    two rows' max |difference|.  The difference is a routing near tie when
+    both replays reproduce it and margin <= difference <= NEAR_TIE_BOUND,
+    the near-tie rule on the router's logits."""
+    import torch
+
+    (rows_a, logits_a), (rows_b, logits_b) = a, b
+    reproduced = int(logits_a[uid][k].argmax()) == ta[k] and \
+        int(logits_b[uid][k].argmax()) == tb[k]
+    out = {"reproduced": reproduced, "layer": None, "near_tie": False}
+    keys = sorted((key for key in rows_a if key[0] == uid and key in rows_b),
+                  key=lambda key: (key[2], key[1]))
+    for key in keys:
+        la, lb = rows_a[key], rows_b[key]
+        ea, eb = (set(torch.sort(r, descending=True, stable=True)
+                      .indices[:cfg.top_k].tolist()) for r in (la, lb))
+        if ea == eb:
+            continue
+        d = float((la - lb).abs().max())
+        margin = max(float(lb[e] - lb[f]) for e in eb - ea for f in ea - eb)
+        # layer 0 is the dense one: the MoE blocks are layers 1 on
+        out.update(layer=key[1] + 1, position=key[2], margin=margin,
+                   max_abs_drouter_logit=d,
+                   near_tie=reproduced and margin <= d <= NEAR_TIE_BOUND)
+        break
+    return out
+
+
+def trace_routing(cfg, params, diffs: list, specs: tuple, a_run: dict,
+                  prompts, whole_load: bool) -> None:
+    """For the moe family, each first difference in ``diffs`` (of runs
+    ``a_run`` and b, made with ``specs`` (a's, b's)) that is not a near tie
+    in the logits is traced to the router (:func:`routing_near_tie`) and
+    counts as a near tie when it is one there; ``diffs`` is updated in
+    place (each traced entry gains "routing").  ``whole_load`` replays
+    every request in its run's slot (the cascade groups lanes), else the
+    traced requests alone, a slot each."""
+    bad = [d for d in diffs if not d["near_tie"]]
+    if cfg.family != "moe" or not bad:
+        return
+    tokens = a_run["tokens"]
+    if whole_load:
+        groups = [[(u, a_run["slot"][u], prompts[u]) for u in sorted(tokens)]]
+    else:
+        n = specs[0].n_slots
+        uids = [d["uid"] for d in bad]
+        groups = [[(u, j, prompts[u]) for j, u in enumerate(uids[i:i + n])]
+                  for i in range(0, len(uids), n)]
+    for admit in groups:
+        here = [d for d in bad if d["uid"] in {u for u, _, _ in admit}]
+        n_ticks = max(d["token"] for d in here)
+        a, b = (replay_routing(cfg, params, spec, admit, tokens, n_ticks)
+                for spec in specs)
+        for d in here:
+            # the token a's stream has where b's differs: b's stream is
+            # a's up to k, then b's token
+            tb = tokens[d["uid"]][:d["token"]] + [d["b_token"]]
+            d["routing"] = routing_near_tie(cfg, d["uid"], d["token"],
+                                            tokens[d["uid"]], tb, a, b)
+            d["near_tie"] = d["routing"]["near_tie"]
+
+
+def dense_main_path(dev, cfg, params, *, sc: bool = True,
+                    runs: int | None = None) -> dict:
     """Phase 10: the dense KV path (the default ``ServeSpec()`` gateway),
-    the gather-tick oracle and the SC LM frontend at stablelm-3b's full
-    width.  Returns the kernels' launches on the default gateway's load
-    ("dense") and on the SC gateways' ("sc"); raises SystemExit on a
-    failed check."""
+    the gather-tick oracle and (``sc``) the SC LM frontend at the config's
+    full width; for the moe family also the router gaps of the default
+    gateway's streams (:func:`router_gaps`), in bf16 at full depth and in
+    float32 at depth 4.  Returns the kernels' launches on the default
+    gateway's load ("dense") and on the SC gateways' ("sc", None without
+    ``sc``); ``runs``: the tick timing's runs a side (:func:`tick_timing`).
+    Raises SystemExit on a failed check."""
     import dataclasses
 
     import numpy as np
@@ -2468,7 +2677,7 @@ def dense_main_path(dev, cfg, params) -> dict:
     replay = tick_replay_check(ad, toks, active, state=ad.cache)
     len0 = ad.cache["len"].clone()
     timing = tick_timing(ad, toks, active,
-                         after=lambda: ad.cache["len"].copy_(len0))
+                         after=lambda: ad.cache["len"].copy_(len0), runs=runs)
     prof = timing["profile"]["captured"]
     if not (replay["logits_bitwise"] and replay["arena_bitwise"]
             and replay["launches_equal"] and replay["logits_finite"]
@@ -2485,11 +2694,19 @@ def dense_main_path(dev, cfg, params) -> dict:
     # kernel tick, the in-place plain tick and the gather oracle
     runs = {b: serve_spec_load(dev, cfg, params, prompts, paged(b))
             for b in ("cuda", "plain", "gather")}
+    gaps = {"bf16": router_gaps(cfg, params, prompts, dense["tokens"])} \
+        if cfg.moe else {}
     bf16 = {"dense_vs_cuda": stream_differences(runs["cuda"], dense),
             "gather_vs_plain": stream_differences(runs["plain"],
                                                   runs["gather"]),
             "gather_vs_cuda": stream_differences(runs["cuda"],
                                                  runs["gather"])}
+    for name, (a, b) in {"dense_vs_cuda": ("cuda", None),
+                         "gather_vs_plain": ("plain", "gather"),
+                         "gather_vs_cuda": ("cuda", "gather")}.items():
+        trace_routing(cfg, params, bf16[name]["first_differences"],
+                      (paged(a), paged(b) if b else default), runs[a],
+                      prompts, whole_load=False)
     for name, r in runs.items():
         if not served_all(r) or r["captures"] != {"decode": 1}:
             failures.append(f"paged {name}: served {r['served']}, finite "
@@ -2515,8 +2732,42 @@ def dense_main_path(dev, cfg, params) -> dict:
             failures.append(f"float32 depth 4 {name}: tokens equal "
                             f"{d['tokens_equal']}, max |dlogit| "
                             f"{d['max_abs_dlogit']}")
+    # the gather oracle runs the in-place plain tick's arithmetic on a
+    # gathered copy: bit for bit
+    if f32["gather_vs_plain"]["max_abs_dlogit"] != 0:
+        failures.append(f"float32 depth 4: the gather tick is not bit for "
+                        f"bit the plain tick: {f32['gather_vs_plain']}")
+    if cfg.moe:
+        gaps["f32_depth4"] = router_gaps(cfg4, params4, prompts,
+                                         dense4["tokens"])
     del params4
     torch.cuda.empty_cache()
+
+    dense_launches = {"flash_attention":
+                      dense["launches"]["flash_attention"]}
+
+    def summary(r):
+        return {"adapter": r["adapter"], "backend": r["backend"],
+                "run_s": r["run_s"], "served": r["served"],
+                "ticks": len(r["tick_ms"]),
+                "tick_ms_median": statistics.median(r["tick_ms"]),
+                "captures": r["captures"],
+                "launches": {k: v for k, v in r["launches"].items() if v}}
+    line = {"phase": "dense_main_path", "model": cfg.name,
+            "spec": {"n_slots": default.n_slots, "max_len": default.max_len,
+                     "max_new_tokens": new},
+            "prompt_lens": list(DENSE_PROMPT_LENS),
+            "default_gateway": summary(dense),
+            "dense_tick": {"replay": replay, **timing},
+            "paged_runs": {b: summary(r) for b, r in runs.items()},
+            "bf16": bf16, "f32_depth4": f32,
+            "router_gap_k_to_k_plus_1": gaps}
+    if not sc:
+        emit({**line, "launches": {"dense": dense_launches},
+              "failures": failures})
+        if failures:
+            raise SystemExit(f"dense path ({cfg.name}): {failures}")
+        return dense_launches, None
 
     # (5) the SC frontend at bits 4 on the full-width weights: one prompt's
     # output bit for bit the plain versions' on the same CUDA tensors
@@ -2568,24 +2819,7 @@ def dense_main_path(dev, cfg, params) -> dict:
                         f"a near tie: {sc_vs['first_differences']}")
     sc_launches = {n: sum(r["launches"][n] for r in sc_runs.values())
                    for n in ("sng_pack", "sc_dot", "flash_attention")}
-    dense_launches = {"flash_attention":
-                      dense["launches"]["flash_attention"]}
-
-    def summary(r):
-        return {"adapter": r["adapter"], "backend": r["backend"],
-                "run_s": r["run_s"], "served": r["served"],
-                "ticks": len(r["tick_ms"]),
-                "tick_ms_median": statistics.median(r["tick_ms"]),
-                "captures": r["captures"],
-                "launches": {k: v for k, v in r["launches"].items() if v}}
-    emit({"phase": "dense_main_path", "model": cfg.name,
-          "spec": {"n_slots": default.n_slots, "max_len": default.max_len,
-                   "max_new_tokens": new},
-          "prompt_lens": list(DENSE_PROMPT_LENS),
-          "default_gateway": summary(dense),
-          "dense_tick": {"replay": replay, **timing},
-          "paged_runs": {b: summary(r) for b, r in runs.items()},
-          "bf16": bf16, "f32_depth4": f32,
+    emit({**line,
           "sc": {"bits": 4, "frontend_bitwise_vs_plain": frontend_bitwise,
                  "frontend_ternary": ternary,
                  "frontend_launches_per_call": call_launches,
@@ -2598,6 +2832,326 @@ def dense_main_path(dev, cfg, params) -> dict:
     if failures:
         raise SystemExit(f"dense path: {failures}")
     return dense_launches, sc_launches
+
+
+# -- the moe family: deepseek-moe-16b (phase 11) -----------------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+# deepseek-moe-16b's attention: 16 heads of 128 (MHA), 28 layers
+MOE_H, MOE_D = 16, 128
+# phase 11's captured-against-eager tick timings take this many runs a side
+# (an eager tick takes 90-160 ms on an H100 at this width, PERF.md), so
+# that the phase stays near two minutes
+MOE_HOST_RUNS = 3
+
+
+def moe_kernel_checks(dev, gen, sleep: int, n_layers: int) -> dict:
+    """Phase 11's kernel checks at 16 heads of 128 (MHA), each kernel
+    against its plain version in float32 and bf16 (within 2e-5 / 2e-2; the
+    row write bit for bit): ``paged_decode_attention`` at 8 lanes x 1,024
+    to 1,031 positions in the tick's (8, 96) tables, split as planned and
+    in one split; ``scatter_kv_rows`` at ``n_layers`` layers from one tensor
+    per layer; ``flash_attention`` at a fold chunk (16 queries at 512) and
+    a 1,000-token one-shot prompt, a repeated call bitwise; the cascade's
+    prefix pass and its suffix pass with the merge fused, load (c)'s eight
+    lanes sharing a 1,024-position chain with 65-position suffixes.  Then
+    each timed in bf16 beside its plain version and its bound (bytes /
+    3.35 TB/s; prompt attention also operations / the bf16 peak).  Returns
+    the ``moe_shapes_timing`` line's rows; raises SystemExit on a failed
+    check."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.kernels import ref
+    from repro_torch.nn import attention
+
+    H, D, bs, B = MOE_H, MOE_D, LM_BLOCK, LM_SLOTS
+    nb, n_pos = LM_MAX_LEN // bs, 1024
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def arr(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def case(dtype):
+        """Every kernel's inputs at these shapes, and a call of each."""
+        num_blocks = B * nb + 1
+        perm = torch.randperm(num_blocks - 1, generator=gen,
+                              device=dev) + 1
+        used = -(-(n_pos + B) // bs)
+        tables = torch.zeros((B, nb), **i32)
+        tables[:, :used] = perm[:B * used].reshape(B, used).to(torch.int32)
+        lens = torch.arange(n_pos, n_pos + B, **i32)
+        q, ka, va = arr((B, H, D), dtype), arr((num_blocks, bs, H, D),
+                                                dtype), \
+            arr((num_blocks, bs, H, D), dtype)
+        nk = (arr((B, H, D), dtype), arr((B, H, D), dtype))
+        rows = ([arr((B, H, D), dtype) for _ in range(n_layers)],
+                [arr((B, H, D), dtype) for _ in range(n_layers)])
+        # the row write into an arena of its own, one block per lane
+        wb, offs = torch.arange(1, B + 1, **i32), lens % bs
+        # load (c)'s group: the chain is the first 64 blocks of lane 0's
+        # table, each lane's suffix its own 5 blocks (64 tail positions and
+        # the new token's)
+        npre = SHARED_PROMPT // bs
+        gt = tables[:1, :npre].contiguous()
+        st = perm[B * used:B * used + B * 5].reshape(B, 5).to(torch.int32)
+        glen = torch.tensor([SHARED_PROMPT], **i32)
+        cl = SHARED_PROMPT + OWN_TAIL + torch.arange(B, **i32) % 2
+        meta = attention.with_lane_meta(
+            {"group_lanes": torch.arange(B, **i32)[None],
+             "group_mask": torch.ones((1, B), dtype=torch.bool,
+                                      device=dev)}, cl)
+        q0 = glen.expand(B).contiguous()
+        fold = (arr((1, 16, H, D), dtype), arr((1, 528, H, D), dtype),
+                arr((1, 528, H, D), dtype))
+        one = tuple(arr((1, 1000, H, D), dtype) for _ in range(3))
+        L = n_layers
+        ka_l = torch.zeros((L, B + 1, 1, bs, H, D), dtype=dtype,
+                           device=dev)
+        va_l = torch.zeros_like(ka_l)
+        return {
+            "paged_decode_attention": (
+                lambda: paged_k.paged_decode_attention(
+                    q, ka, va, tables, lens, new_kv=nk),
+                lambda: ref.paged_decode_attention(q, ka, va, tables, lens,
+                                                   None, nk),
+                2 * B * n_pos * H * D * ka.element_size()
+                + 2 * q.numel() * q.element_size() + tables.numel() * 4,
+                4 * B * H * n_pos * D, F32_FLOPS),
+            "scatter_kv_rows": (
+                lambda: paged_k.scatter_kv_rows(ka_l, va_l, *rows, wb, offs)
+                or (ka_l, va_l),
+                lambda: ref.scatter_kv_rows(ka_l.clone(), va_l.clone(),
+                                            torch.stack(rows[0]),
+                                            torch.stack(rows[1]), wb, offs),
+                2 * 2 * L * B * H * D * ka.element_size() + 2 * B * 4, 0,
+                F32_FLOPS),
+            "flash_attention fold chunk": (
+                lambda: flash_k.flash_attention(*fold, q_offset=512),
+                lambda: ref.flash_attention_chunked(*fold, True, None, 512),
+                sum(t.numel() for t in fold) * fold[0].element_size()
+                + fold[0].numel() * fold[0].element_size(),
+                4 * H * D * sum(513 + i for i in range(16)), BF16_FLOPS),
+            "flash_attention one-shot": (
+                lambda: flash_k.flash_attention(*one),
+                lambda: ref.flash_attention_chunked(*one, True, None, 0),
+                4 * one[0].numel() * one[0].element_size(),
+                4 * H * D * sum(i + 1 for i in range(1000)), BF16_FLOPS),
+            "cascade_prefix_attention": (
+                lambda: paged_k.cascade_prefix_attention(
+                    q[None], ka, va, gt, glen, cl[None]),
+                lambda: ref.cascade_prefix_attention(
+                    q[None], ka, va, gt, glen, cl[None], None),
+                2 * SHARED_PROMPT * H * D * ka.element_size()
+                + q.numel() * q.element_size() + B * H * (D + 2) * 4,
+                4 * B * H * SHARED_PROMPT * D, F32_FLOPS),
+            "paged_decode_attention_with_state (merge fused)": (
+                lambda: paged_k.paged_decode_attention_with_state(
+                    q, ka, va, st, cl, q0=q0, new_kv=nk,
+                    prefix=prefix[dtype] + (meta["lane_slot"],)),
+                lambda: ref.paged_decode_attention_merged(
+                    q, ka, va, st, cl, None, q0, nk,
+                    prefix[dtype] + (meta["lane_slot"],)),
+                2 * B * (OWN_TAIL + 1) * H * D * ka.element_size()
+                + 2 * q.numel() * q.element_size() + B * H * (D + 2) * 4,
+                4 * B * H * (OWN_TAIL + 1) * D, F32_FLOPS)}
+
+    checks, err, prefix, timing = [], {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        calls = case(dtype)
+        prefix[dtype] = calls["cascade_prefix_attention"][0]()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        for name, (kernel, plain, _, _, _) in calls.items():
+            plans = {"": contextlib.nullcontext}
+            if name == "paged_decode_attention":
+                plans = {" (split)": contextlib.nullcontext,
+                         " (one split)": functools.partial(
+                             mock.patch.object, paged_k, "SPLIT_POSITIONS",
+                             nb * bs)}
+            for label, plan in plans.items():
+                with plan():
+                    got, want = kernel(), plain()
+                    again = kernel()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                again = again if isinstance(again, tuple) else (again,)
+                bitwise = name == "scatter_kv_rows"
+                if bitwise:             # the trash block 0 takes collisions
+                    got, want = (g[:, 1:] for g in got), \
+                        (w[:, 1:] for w in want)
+                e = max(float((g.float() - w.float()).abs().max())
+                        for g, w in zip(got, want))
+                ok = e == 0 if bitwise else all(
+                    torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+                    for g, w in zip(got, want))
+                ok &= bitwise or all(torch.equal(g, a)
+                                     for g, a in zip(got, again))
+                checks.append({"kernel": name + label, "dtype": str(dtype),
+                               "max_abs_err": e, "ok": bool(ok)})
+                key = name.split(" ")[0]
+                err[key] = max(err.get(key, 0.0), e)
+        if dtype == torch.bfloat16:
+            for name, (kernel, plain, n_bytes, ops, peak) in calls.items():
+                ms, b2b = time_ms(kernel, 5, 20, sleep)
+                plain_ms = time_ms(plain, 3, 3, sleep)[0]
+                bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+                ops_ms = ops / peak * 1e3
+                timing[name] = {
+                    "ms": ms, "back_to_back_ms": b2b, "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "bytes_ms": bytes_ms,
+                    "ops_ms": ops_ms}
+            timing["paged_decode_attention"]["splits"] = \
+                paged_k.paged_split_plan(nb, bs)[0]
+        del calls
+        torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    emit({"phase": "moe_kernel_checks", "heads": f"{H} x {D} (MHA)",
+          "checks": len(checks), "failed": bad, "max_abs_err": err,
+          "cases": checks})
+    emit({"moe_shapes_timing": timing,
+          "shapes": f"bf16; paged: q ({B}, {H}, {D}), {n_pos}..."
+                    f"{n_pos + B - 1} positions, tables ({B}, {nb}), splice "
+                    f"on; scatter: {n_layers} layers x ({B}, {H}, {D}) rows; "
+                    f"flash: 16 queries at 512, 1,000-token prompt; cascade:"
+                    f" {B} lanes on a {SHARED_PROMPT}-position chain, "
+                    f"{OWN_TAIL + 1}-position suffixes"})
+    if bad:
+        raise SystemExit(f"a kernel disagrees with its plain version at "
+                         f"{H} heads of {D}: {bad}")
+    return timing
+
+
+def router_gaps(cfg, params, prompts, tokens) -> dict:
+    """The least gap between the top_k-th and the next router probability
+    over every token and MoE layer of the served streams (each prompt and
+    its generated tokens, less the last, through one eager prefill with
+    the router observed, :class:`RouterTrace`): a first difference between
+    two streams can then be traced to a routing near tie."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import engine
+
+    with RouterTrace(cfg.n_layers - 1) as trace, torch.no_grad():
+        for uid, prompt in enumerate(prompts):
+            seq = np.concatenate([prompt, tokens[uid][:-1]]).astype(np.int32)
+            engine.prefill(cfg, params, torch.from_numpy(seq[None]).to(
+                params["embed"].device))
+            trace.prefill(uid, 0)
+    top = torch.stack(list(trace.rows.values())).softmax(-1).topk(
+        cfg.top_k + 1, dim=-1).values
+    gap = top[:, -2] - top[:, -1]
+    return {"min": float(gap.min()),
+            "below_1e-4": int((gap < 1e-4).sum()),
+            "below_1e-3": int((gap < 1e-3).sum()),
+            "token_layers": int(gap.numel())}
+
+
+def moe_main_path(dev, sleep: int) -> dict:
+    """Phase 11: the moe family at deepseek-moe-16b's published width and
+    depth (28 layers, d_model 2,048, 16 heads of 128, 64 routed experts of
+    1,408 top-6 and 2 shared, dense layer 0 of 10,944, vocabulary 102,400;
+    bf16, random weights drawn on the card, routed dropless in prefill as
+    the reference serves it) through every serving path, with the earlier
+    phases' helpers: the attention kernels at 16 heads of 128
+    (:func:`moe_kernel_checks`); the default ``ServeSpec()`` dense gateway
+    and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
+    at depth 4 (dense layer 0 and 3 MoE layers at full width) and bf16 at
+    full depth (:func:`dense_main_path`, with :func:`router_gaps`); load
+    (c) through the cascade tick against the flat tick
+    (:func:`cascade_main_path`); load (b) chunked, the resumed fold bit for
+    bit the cold one (:func:`chunked_main_path`); the captured ticks
+    against their eager steps (:func:`capture_main_path`; the tick timings
+    at ``MOE_HOST_RUNS`` runs a side).  In bf16 a first difference between
+    two gateways' streams may also be a near tie of the router's logits
+    (:func:`trace_routing`).  Returns the kernels' launches over the path;
+    raises SystemExit on a failed check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.config(MOE_ARCH),
+                              moe_dropless_prefill=True)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    n_params = sum(sizes.values())
+    routed = sum(n for k, n in sizes.items()
+                 if k.startswith("blocks.moe.w_"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    seconds, launches = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    timing = timed("kernel_checks", moe_kernel_checks, dev, gen, sleep,
+                   cfg.n_layers)
+    dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
+                     sc=False, runs=MOE_HOST_RUNS)
+    add(dense)
+    add(timed("cascade_path", cascade_main_path, dev, cfg, params))
+    chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
+                    loads="b")
+    add(chunked["launches"])
+    capture = timed("capture", capture_main_path, dev, cfg, params,
+                    runs=MOE_HOST_RUNS)
+    flat = capture["flat_8x1k"]
+    # a model of the tick's bytes, not a measurement: every bf16 weight but
+    # the embedding read once (the routed experts all, as the reference's
+    # einsum reads them), lm_head's float32 copy written and read, and the
+    # K and V rows of 8 lanes x 1,024 positions
+    kv_bytes = 2 * cfg.n_layers * MOE_H * MOE_D * 2 * LM_SLOTS * 1024
+    tick_bytes = 2 * (n_params - sizes["embed"]) + \
+        8 * sizes["lm_head"] + kv_bytes
+    emit({"phase": "moe_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
+              "n_experts", "top_k", "n_shared", "d_expert",
+              "first_dense_ff", "vocab", "moe_dropless_prefill",
+              "param_dtype")},
+          "params": n_params, "routed_expert_params": routed,
+          "init_s": init_s,
+          "tick_8x1k_host_ms": {s: flat["host_ms"][s]["median"]
+                                for s in ("captured", "eager")},
+          "tick_8x1k_device_busy_ms":
+              flat["profile"]["captured"]["device_busy_ms_per_tick"],
+          "tick_8x1k_top_device_ms":
+              flat["profile"]["captured"]["top_device_ms_per_tick"],
+          "tick_bytes_model": tick_bytes,
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "oneshot_prefill_1000_ms": chunked["oneshot_prefill_1000_ms"],
+          "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
+          "launches": launches, "kernel_ms": {
+              k: v["ms"] for k, v in timing.items()},
+          "seconds": seconds,
+          "phase_s": time.perf_counter() - t_phase})
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- the SC kernels (phase 3) -------------------------------------------------
@@ -3087,11 +3641,12 @@ def retrain_main_path(dev, protocol: dict, cfg=None) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels import sc_dot as sc_dot_k
     from repro_torch.kernels import sng_pack as sng_pack_k
+    from repro_torch import configs
     from repro_torch.models import lenet
     from repro_torch.train import optim
     sc_kernels = ("sng_pack", "sc_dot")
     p = protocol
-    cfg = cfg or lenet.LeNetConfig()
+    cfg = cfg or configs.config("lenet5")
     t_phase = time.perf_counter()
     xtr, ytr, xte, yte = mnist_synth.dataset(p["n_train"], p["n_test"])
     data_s = time.perf_counter() - t_phase
@@ -3286,6 +3841,27 @@ def table3_full_main() -> int:
     return 0
 
 
+def moe_main() -> int:
+    """``--moe``: the card's line, the attention kernels' build and phase 11
+    alone (deepseek-moe-16b through every serving path)."""
+    import torch
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    build.build_all(("paged_attn", "cascade_attn", "flash_attn"))
+    emit({"build_s": time.perf_counter() - t0})
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    launches = moe_main_path(torch.device("cuda"),
+                             int(0.05 * clock_mhz * 1e6))
+    emit({"launches_by_path": {"moe": launches}})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def sc_timing_main(root: Path) -> int:
     """``--sc-timing <checkout>``: phase 3's SC timing for the checkout at
     ``root`` (its kernels built from its own sources), one JSON line."""
@@ -3306,9 +3882,10 @@ def frame_stage_profiles(dev) -> dict:
     4 and 8 (random weights from seed 0, random frames): host ms and
     :func:`profile_stages`."""
     import torch
+    from repro_torch import configs
     from repro_torch.models import lenet
     from repro_torch.serve.gateway import frontend as fe
-    cfg = lenet.LeNetConfig()
+    cfg = configs.config("lenet5")
     params = lenet.init(0, cfg, device=dev)
     gen = torch.Generator().manual_seed(2)
     frames = torch.randint(0, 256, (32, 28, 28, 1), generator=gen,
@@ -3472,12 +4049,14 @@ def main() -> int:
         return cascade_timing_main(Path(args[1]).resolve())
     if args[:1] == ["--table3-full"]:
         return table3_full_main()
+    if args[:1] == ["--moe"]:
+        return moe_main()
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import sc_dot as sc_dot_k
     from repro_torch.kernels import sng_pack as sng_pack_k
-    from repro_torch.models.lenet import LeNetConfig
+    from repro_torch import configs
     from repro_torch.serve.gateway import frontend as fe
     from repro_torch.serve.gateway.gateway import (GatewayConfig,
                                                    MicroBatchGateway)
@@ -3583,7 +4162,8 @@ def main() -> int:
     trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
     paths = {"frame": {name: 0 for name in sc_kernels}}
     for bits in (4, 8):
-        spec = fe.FrontendSpec(mode="sc", bits=bits, lenet=LeNetConfig())
+        spec = fe.FrontendSpec(mode="sc", bits=bits,
+                               lenet=configs.config("lenet5"))
         gw = MicroBatchGateway(GatewayConfig(), spec, seed=0, device="cuda")
         gw.warmup()
         captured = gw.compile_counts()
@@ -3698,7 +4278,7 @@ def main() -> int:
     paths["cascade"] = cascade_main_path(dev, lm_cfg, lm_params)
 
     # -- 7. the chunked prefill fold ----------------------------------------
-    paths["chunked"] = chunked_main_path(dev, lm_cfg, lm_params)
+    paths["chunked"] = chunked_main_path(dev, lm_cfg, lm_params)["launches"]
 
     # -- 8. the captured ticks against their eager steps ------------------
     capture_main_path(dev, lm_cfg, lm_params)
@@ -3708,6 +4288,11 @@ def main() -> int:
 
     # -- 10. the dense path, the gather oracle and the SC frontend ---------
     paths["dense"], paths["sc"] = dense_main_path(dev, lm_cfg, lm_params)
+
+    # -- 11. the moe family: deepseek-moe-16b ------------------------------
+    del lm_params
+    torch.cuda.empty_cache()
+    paths["moe"] = moe_main_path(dev, sleep)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

@@ -1,16 +1,17 @@
 """Architecture registry of the port: the reference's configurations for
-the archs that are ported (the reference's ``configs/__init__.py`` imports
-JAX, so this is its own small copy).
+the archs that are ported and the paper's LeNet-5 (the reference's
+``configs/__init__.py`` imports JAX, so this is its own small copy).
 
 Each ``<arch>.py`` exposes ``config()`` (the published configuration) and
-``smoke_config()`` (a reduced same-family config for CPU tests).
+``smoke_config()`` (a reduced same-family config for CPU tests); ``lenet5``
+also ``sc_config(bits)``.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("stablelm_3b",)
-ALIASES = {"stablelm-3b": "stablelm_3b"}
+ARCHS = ("stablelm_3b", "deepseek_moe_16b", "moonshot_v1_16b_a3b", "lenet5")
+ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
 def get(arch: str):

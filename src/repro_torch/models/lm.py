@@ -1,13 +1,16 @@
-"""The LM decoder family (llama-style pre-norm blocks, RoPE, SwiGLU) for
-inference in PyTorch: configuration, parameters, the SC frontend, prefill
-blocks and the single-token decode attention, dense and paged.
+"""The LM decoder and moe families (llama-style pre-norm blocks, RoPE,
+SwiGLU; the moe family a dense layer 0 and routed-expert FFNs after it)
+for inference in PyTorch: configuration, parameters, the SC frontend,
+prefill blocks and the single-token decode attention, dense and paged.
 
 The public layout is the reference's: parameters are a nested dict of
 tensors with the per-layer ones stacked on a leading layer axis
 (``params["blocks"]["attn"]["wq"]`` is (L, d, Hq*Dh)), dense weights are
-(in, out), activations (B, S, d).  Layers run as a Python loop over that
-axis.  Only the decoder family is ported; the other families and the int8
-KV cache come in later slices (ROADMAP.md).
+(in, out), activations (B, S, d).  The moe family keeps its dense layer 0
+in ``params["dense0"]`` (a leading axis of 1) and its ``n_layers - 1``
+MoE blocks in ``params["blocks"]`` (``"moe"`` in place of ``"mlp"``).
+Layers run as a Python loop (:func:`layers`).  The other families and
+the int8 KV cache come in later slices (ROADMAP.md).
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -22,14 +25,16 @@ import math
 import torch
 
 from repro_torch.core import sc_layer
-from repro_torch.nn import attention, mlp as mlp_lib, norms, rope
+from repro_torch.nn import attention, mlp as mlp_lib, moe as moe_lib
+from repro_torch.nn import norms, rope
 
 _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that the decoder family reads."""
+    """The reference's ``LMConfig`` fields that the decoder and moe
+    families read."""
     name: str = "lm"
     family: str = "decoder"
     n_layers: int = 4
@@ -45,6 +50,18 @@ class LMConfig:
     norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_expert: int = 0
+    first_dense_ff: int = 0           # layer-0 dense FFN width (moe family)
+    moe_group_size: int = 2048
+    moe_impl: str = "einsum"
+    capacity_factor: float = 1.25
+    # serving prefill routes dropless (see decoder_block): required for
+    # prefix-cache resumption; off by default, as in the reference
+    moe_dropless_prefill: bool = False
     window: int = 0                   # sliding-window size (0 = full attn)
     global_every: int = 0             # every k-th layer is full attention
     param_dtype: str = "bfloat16"     # "bfloat16" | "float32"
@@ -56,6 +73,14 @@ class LMConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    @property
+    def moe(self) -> moe_lib.MoEConfig | None:
+        if self.n_experts == 0:
+            return None
+        return moe_lib.MoEConfig(self.n_experts, self.top_k, self.d_expert,
+                                 self.n_shared, self.capacity_factor,
+                                 self.moe_group_size, impl=self.moe_impl)
 
     @property
     def vocab_padded(self) -> int:
@@ -71,13 +96,15 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.family != "decoder":
+    if cfg.family not in ("decoder", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
             "the other families")
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r}: only swiglu "
-                                  "is ported (decoder family)")
+                                  "is ported (decoder and moe families)")
+    if cfg.family == "moe" and cfg.n_experts == 0:
+        raise ValueError("the moe family needs n_experts > 0")
 
 
 def layer_window(cfg: LMConfig, idx: int) -> int:
@@ -114,11 +141,33 @@ def _attn_params(gen, cfg: LMConfig, L: int) -> dict:
     return p
 
 
-def _mlp_params(gen, cfg: LMConfig, L: int) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_params(gen, cfg: LMConfig, L: int, f: int) -> dict:
+    d = cfg.d_model
     return {nm: _dense(gen, (L,) + shape, cfg.dtype)
             for nm, shape in (("w_gate", (d, f)), ("w_in", (d, f)),
                               ("w_out", (f, d)))}
+
+
+def _moe_params(gen, cfg: LMConfig, L: int) -> dict:
+    """The reference's MoE weights: the router (L, d, E), the routed
+    experts (L, E, d, f) / (L, E, f, d) and the shared experts (L, d,
+    n_shared * f) / (L, n_shared * f, d).  The experts are drawn one layer
+    at a time (at deepseek-moe-16b's width a layer's float32 draw is 0.74
+    GB, the whole stack's 20 GB)."""
+    m, d = cfg.moe, cfg.d_model
+    f, E = m.d_expert, m.n_experts
+    p = {"w_router": _dense(gen, (L, d, E), cfg.dtype)}
+    for nm, shape in (("w_gate", (E, d, f)), ("w_in", (E, d, f)),
+                      ("w_out", (E, f, d))):
+        p[nm] = torch.empty((L,) + shape, dtype=cfg.dtype, device=gen.device)
+        for i in range(L):
+            p[nm][i] = _dense(gen, shape, cfg.dtype)
+    if m.n_shared:
+        sf = m.n_shared * f
+        for nm, shape in (("shared_gate", (d, sf)), ("shared_in", (d, sf)),
+                          ("shared_out", (sf, d))):
+            p[nm] = _dense(gen, (L,) + shape, cfg.dtype)
+    return p
 
 
 def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
@@ -131,8 +180,8 @@ def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
 
 
 def init(cfg: LMConfig, gen: torch.Generator) -> dict:
-    """Random decoder-family parameters, drawn from ``gen`` on its device
-    in the reference's order and layout.  They are not the reference's
+    """Random decoder- or moe-family parameters, drawn from ``gen`` on its
+    device in the reference's order and layout.  They are not the reference's
     numbers for any seed; ``repro_torch.convert.lm_params_from_jax`` shares
     the reference's weights instead."""
     check_supported(cfg)
@@ -145,10 +194,21 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
         p["sc_frontend"] = {"w": _dense(gen, (d, d), cfg.dtype),
                             "gamma": torch.ones((d,), dtype=cfg.dtype,
                                                 device=dev)}
-    p["blocks"] = {"ln1": _norm_params(cfg, (L,), dev),
-                   "attn": _attn_params(gen, cfg, L),
-                   "ln2": _norm_params(cfg, (L,), dev),
-                   "mlp": _mlp_params(gen, cfg, L)}
+
+    def block(L: int, moe_layer: bool, ff: int) -> dict:
+        b = {"ln1": _norm_params(cfg, (L,), dev),
+             "attn": _attn_params(gen, cfg, L),
+             "ln2": _norm_params(cfg, (L,), dev)}
+        if moe_layer:
+            b["moe"] = _moe_params(gen, cfg, L)
+        else:
+            b["mlp"] = _mlp_params(gen, cfg, L, ff)
+        return b
+    if cfg.family == "moe":
+        p["dense0"] = block(1, False, cfg.first_dense_ff or cfg.d_ff)
+        p["blocks"] = block(L - 1, True, cfg.d_ff)
+    else:
+        p["blocks"] = block(L, False, cfg.d_ff)
     return p
 
 
@@ -156,6 +216,24 @@ def layer_params(params: dict, idx: int) -> dict:
     """Layer ``idx`` of the stacked ``params["blocks"]`` (views)."""
     return {k: layer_params(v, idx) if isinstance(v, dict) else v[idx]
             for k, v in params.items()}
+
+
+def layers(cfg: LMConfig, params: dict):
+    """The blocks in order, each as (its parameters, its window, whether
+    its FFN is the MoE one); the cache's layer axis follows this order.
+    The moe family runs ``params["dense0"]`` first, with no window, then
+    its ``n_layers - 1`` MoE blocks, whose windows count from 0 at the
+    first MoE block (the reference's scan index, not the absolute
+    layer)."""
+    if cfg.family == "moe":
+        yield layer_params(params["dense0"], 0), 0, False
+        for i in range(cfg.n_layers - 1):
+            yield layer_params(params["blocks"], i), layer_window(cfg, i), \
+                True
+    else:
+        for i in range(cfg.n_layers):
+            yield layer_params(params["blocks"], i), layer_window(cfg, i), \
+                False
 
 
 # ==========================================================================
@@ -177,6 +255,24 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
 
 def _mlp_apply(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp_lib.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+
+
+def moe_ffn_decode(cfg: LMConfig, moe_params: dict, z: torch.Tensor
+                   ) -> torch.Tensor:
+    """MoE FFN for a (B, 1, d) decode activation, each lane its own
+    dispatch group of one token (C = max(top_k, ...) = top_k, so nothing
+    drops): the reference's ticks vmap its ``moe_ffn_decode`` over B=1
+    lanes, so a lane's output never depends on the other lanes."""
+    m = dataclasses.replace(cfg.moe, group_size=1)
+    return moe_lib.moe_ffn(z, moe_params, m)[0]
+
+
+def ffn_decode(cfg: LMConfig, p: dict, z: torch.Tensor, moe_layer: bool
+               ) -> torch.Tensor:
+    """A block's FFN on a decode tick's (B, 1, d) activation."""
+    if moe_layer:
+        return moe_ffn_decode(cfg, p["moe"], z)
+    return _mlp_apply(cfg, p["mlp"], z)
 
 
 def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
@@ -295,15 +391,27 @@ def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
 def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   q_offset: int = 0, causal: bool = True,
-                  kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
+                  kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  moe_layer: bool = False, moe_dropless: bool = False):
     """Pre-norm transformer block.  Returns (x, (k, v)); with
     ``kv_prefix`` (a chunk of the prefill fold, see :func:`_attn_apply`)
-    k, v span prefix and chunk."""
+    k, v span prefix and chunk.  ``moe_layer`` runs the MoE FFN
+    (``p["moe"]``) in groups of ``cfg.moe_group_size`` tokens;
+    ``moe_dropless`` routes the whole (B, S) input as one group that drops
+    nothing, so a token's output does not depend on the other tokens'
+    routing (serving prefill, ``cfg.moe_dropless_prefill``)."""
     h, kv = _attn_apply(cfg, p["attn"], _norm_apply(cfg, p["ln1"], x),
                         positions, causal=causal, window=window,
                         q_offset=q_offset, kv_prefix=kv_prefix)
     x = x + h
-    return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x)), kv
+    z = _norm_apply(cfg, p["ln2"], x)
+    if not moe_layer:
+        return x + _mlp_apply(cfg, p["mlp"], z), kv
+    m = cfg.moe
+    if moe_dropless:
+        m = dataclasses.replace(m, group_size=z.shape[0] * z.shape[1],
+                                dropless=True)
+    return x + moe_lib.moe_ffn(z, p["moe"], m)[0], kv
 
 
 def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -24,10 +24,16 @@ paged arena), the values of Python-side state it reads (the kernels' split
 plans read module constants such as ``paged_attn.MIN_CTAS``), and the
 memory of its outputs, which the next replay of any step sharing the
 owner's memory pool overwrites.
+
+Python's cyclic garbage collector stays off while a graph is captured
+(after one collection just before): a dropped owner whose steps sit in a
+reference cycle would otherwise free its graphs in the middle of another
+capture, which CUDA refuses, invalidating that capture.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -172,6 +178,10 @@ class CapturedStep:
     def _capture(self, entry: _Entry) -> None:
         before = kernels.read_counts()
         graph = torch.cuda.CUDAGraph()
+        # graphs of dropped owners go now, not inside the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # the stream context restores the caller's stream however the
             # capture ends (``torch.cuda.graph`` leaves its capture stream
@@ -190,6 +200,8 @@ class CapturedStep:
             self.pool.renew()
             raise
         finally:
+            if collecting:
+                gc.enable()
             after = kernels.read_counts()
             delta = {name: after[name] - before[name] for name in after}
             kernels.add_counts({name: -n for name, n in delta.items()})

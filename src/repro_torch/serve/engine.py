@@ -1,6 +1,6 @@
-"""Serving engine of the port, decoder family: one-shot prefill, the
-chunked prefill fold's step and the batched single-token decode ticks,
-against the dense cache and against the paged block arena.
+"""Serving engine of the port, decoder and moe families: one-shot
+prefill, the chunked prefill fold's step and the batched single-token
+decode ticks, against the dense cache and against the paged block arena.
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
 ``len``, a scalar or, in the dense tick, one length per lane.  The paged
@@ -15,6 +15,12 @@ place**: the new token's K/V row per layer and lane lands at its position
 (dense) or where the block table says (paged), and no other row changes.
 The ticks embed their token without the SC frontend, as the reference's
 do; prefill and every fold chunk run it (``lm.embed_tokens``).
+
+The moe family runs its dense layer 0 first, then its MoE blocks
+(:func:`repro_torch.models.lm.layers`); the cache and the arena keep
+layer 0 for it.  Prefill and every fold chunk route with
+``moe_dropless=cfg.moe_dropless_prefill``; on a tick each lane routes as
+its own group of one token (``lm.moe_ffn_decode``).
 """
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ from repro_torch.kernels import paged_attn as paged_kernels
 from repro_torch.kernels import ref
 from repro_torch.models import lm
 
-# Cache keys whose axis -3 is the (paged) sequence axis; the decoder
-# family has only k and v.
+# Cache keys whose axis -3 is the (paged) sequence axis; the decoder and
+# moe families have only k and v.
 PAGED_SEQ_KEYS = ("k", "v")
 
 
@@ -78,7 +84,7 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     (L, B, q_offset, Hkv, Dh), the prefix's post-RoPE rows (zero-length for
     a cold fold).  Returns (cache covering prefix and chunk, len
     ``q_offset + S_chunk``; the chunk's last-token logits (B, vocab_padded)
-    float32).  Decoder family only (other families raise).
+    float32).  Decoder and moe families (other families raise).
 
     A radix prefix hit of H blocks resumes the fold at chunk H with the
     prefix gathered from the arena.  Chunk j runs the same operations on
@@ -95,11 +101,11 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     positions = torch.arange(q_offset, q_offset + S,
                              device=x.device).expand(B, S)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
+    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         x, (k, v) = lm.decoder_block(
-            cfg, lm.layer_params(params["blocks"], i), x, positions,
-            window=lm.layer_window(cfg, i), q_offset=q_offset,
-            kv_prefix=(cache["k"][i], cache["v"][i]))
+            cfg, lp, x, positions, window=window, q_offset=q_offset,
+            kv_prefix=(cache["k"][i], cache["v"][i]), moe_layer=moe_layer,
+            moe_dropless=cfg.moe_dropless_prefill)
         ks.append(k)
         vs.append(v)
     new_cache = {"len": torch.tensor(q_offset + S, dtype=torch.int32,
@@ -127,14 +133,13 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     B = tokens.shape[0]
     pos = cache["len"].to(torch.int32).expand(B)
     x = lm.token_rows(params, tokens)                      # (B, 1, d)
-    for i in range(cfg.n_layers):
-        lp = lm.layer_params(params["blocks"], i)
+    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         x = x + lm.attn_decode(cfg, lp["attn"],
                                lm._norm_apply(cfg, lp["ln1"], x),
                                cache["k"][i], cache["v"][i], pos,
-                               window=lm.layer_window(cfg, i), active=active)
-        x = x + lm._mlp_apply(cfg, lp["mlp"],
-                              lm._norm_apply(cfg, lp["ln2"], x))
+                               window=window, active=active)
+        x = x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
+                              moe_layer)
     step = 1 if active is None else active.to(cache["len"].dtype)
     cache["len"] += step
     return cache, lm.logits(cfg, params, x)[:, 0]
@@ -165,7 +170,8 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
             same write as ``"cuda"``, whose wrapper runs the plain write
             for CPU tensors).
 
-    The decoder family has no slot state besides ``lens`` (the caller's).
+    The decoder and moe families have no slot state besides ``lens``
+    (the caller's).
     Returns the logits (S, vocab_padded) float32."""
     lm.check_supported(cfg)
     if backend not in ("plain", "cuda", "cascade"):
@@ -179,16 +185,14 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
     x = lm.token_rows(params, tokens)                      # (S, 1, d)
     k_rows, v_rows = [], []
-    for i in range(cfg.n_layers):
-        lp = lm.layer_params(params["blocks"], i)
+    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         h, k1, v1 = lm.attn_decode_paged(
             cfg, lp["attn"], lm._norm_apply(cfg, lp["ln1"], x),
-            arena["k"][i], arena["v"][i], tables, pos,
-            window=lm.layer_window(cfg, i), backend=backend,
-            cascade=cascade)
+            arena["k"][i], arena["v"][i], tables, pos, window=window,
+            backend=backend, cascade=cascade)
         x = x + h
-        x = x + lm._mlp_apply(cfg, lp["mlp"],
-                              lm._norm_apply(cfg, lp["ln2"], x))
+        x = x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
+                              moe_layer)
         k_rows.append(k1)
         v_rows.append(v1)
     # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,

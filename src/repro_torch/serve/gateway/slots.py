@@ -1,10 +1,10 @@
 """Continuous batching over slot adapters: the request record, the dense
 KV slots, the adapter factory and the family-agnostic scheduler loop.
 
-Two adapters of the decoder family so far: :class:`KVSlotAdapter`, each
-slot a dense cache of ``max_len`` positions with its own length (the
-reference's default), and the paged KV slots (``serve/kvcache/paged.py``),
-with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
+Two adapters of the decoder and moe families so far:
+:class:`KVSlotAdapter`, each slot a dense cache of ``max_len`` positions
+with its own length (the reference's default), and the paged KV slots
+(``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
 the other families.
 
 The batcher discovers paging hooks by presence: ``can_admit`` (queue while
@@ -78,7 +78,8 @@ class KVSlotAdapter:
     Prefill runs eagerly, as in the paged adapter (``paged.NOT_CAPTURED``).
     """
 
-    # cache keys whose axis -3 is the sequence axis (the decoder family's)
+    # cache keys whose axis -3 is the sequence axis (the decoder and moe
+    # families')
     SEQ_KEYS = ("k", "v")
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
@@ -152,7 +153,7 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg`` (decoder family): dense KV slots
+    """The slot adapter for ``cfg`` (decoder or moe family): dense KV slots
     (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
     paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot

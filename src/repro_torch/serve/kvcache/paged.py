@@ -155,9 +155,9 @@ def _cascade_tick(cfg, params, arena, tokens, tables, lens, wbids, *meta):
 
 
 class PagedKVSlotAdapter:
-    """Paged KV slots for the decoder family, with the batcher surface
-    (``insert`` / ``decode`` / ``clear``) and the paging hooks the batcher
-    discovers by presence: ``can_admit``, ``validate_request``,
+    """Paged KV slots for the decoder and moe families, with the batcher
+    surface (``insert`` / ``decode`` / ``clear``) and the paging hooks the
+    batcher discovers by presence: ``can_admit``, ``validate_request``,
     ``at_capacity``, ``slot_stats``, ``pool_stats``."""
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
@@ -714,7 +714,7 @@ class PagedKVSlotAdapter:
         st["peak_bytes_saved_vs_dense"] = self.peak_bytes_saved
         st["prefill_tokens_total"] = self.prefill_tokens_total
         st["prefill_tokens_skipped"] = self.prefill_tokens_skipped_total
-        # the decoder family keeps no recurrent boundary states (the
-        # hybrid family's fold does)
+        # the decoder and moe families keep no recurrent boundary states
+        # (the hybrid family's fold does)
         st["boundary_state_bytes"] = 0
         return st

@@ -3,8 +3,9 @@ steps' static buffers and counts, the gateway's and the paged adapter's
 capture counts against the reference's jit cache sizes, the recompile
 detector on both, the captured tick bit for bit a direct
 ``engine.decode_step_paged`` call, and the launch-counter bookkeeping of a
-capture with a fake graph.  The graphs themselves run only on a card
-(``tests/test_torch_cuda.py``)."""
+capture with a fake graph; the paged adapter's counts and the captured
+tick also for the moe family (deepseek-moe-16b's smoke size).  The graphs
+themselves run only on a card (``tests/test_torch_cuda.py``)."""
 import contextlib
 
 import numpy as np
@@ -25,7 +26,7 @@ from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.obs import RecompileDetector
-from test_torch_lm import smoke_pair
+from test_torch_lm import MOE, smoke_pair
 
 BS = 4
 CPU = torch.device("cpu")
@@ -34,6 +35,11 @@ CPU = torch.device("cpu")
 @pytest.fixture(scope="module")
 def pair():
     return smoke_pair()
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return smoke_pair(arch=MOE)
 
 
 # -- CapturedStep ------------------------------------------------------------
@@ -165,6 +171,41 @@ def test_failed_capture_raises_and_leaves_counts_and_keys(monkeypatch):
 
 # -- the frame gateway -------------------------------------------------------
 
+def test_capture_collects_garbage_before_and_none_during(monkeypatch):
+    """Garbage in reference cycles (a dropped owner's graphs) is collected
+    just before a capture, and the cyclic collector stays off while ``fn``
+    is captured (freeing a graph inside a capture invalidates it on a
+    card); it is on again after, also when the capture fails."""
+    import gc
+
+    seen = []
+
+    class Dropped:                 # an owner whose steps sit in a cycle
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            seen.append("collected")
+
+    step = capture.CapturedStep(
+        lambda x: seen.append(("capturing", gc.isenabled())) or x + 1, CPU)
+    step(np.zeros(2, np.int32))
+    seen.clear()
+    Dropped()
+    assert gc.isenabled()
+    for fail in (None, RuntimeError("capture invalidated")):
+        _fake_capture(monkeypatch, fail=fail)
+        entry, = step._entries.values()
+        if fail is None:
+            step._capture(entry)
+        else:
+            with pytest.raises(RuntimeError):
+                step._capture(entry)
+        assert gc.isenabled()
+    assert seen[:2] == ["collected", ("capturing", False)]
+    assert seen[2:] == [("capturing", False)]
+
+
 def _frame_trace(arrival, n, dt=0.001, start=0.0):
     """``tests/test_gateway.py``'s fixed-rate trace, for either package."""
     rng = np.random.default_rng(0)
@@ -254,6 +295,10 @@ def test_prompt_gateway_zero_steady_state_recompiles(pair):
     tel = prompt.run(_prompt_arrivals(cfg, 4))
     assert len(tel.records) == 4
     assert det.steady_state_recompiles() == 0, det.report()
+
+
+def test_moe_prompt_gateway_zero_steady_state_recompiles(moe_pair):
+    test_prompt_gateway_zero_steady_state_recompiles(moe_pair)
 
 
 def test_recompile_detector_flags_a_new_key():
@@ -378,3 +423,8 @@ def test_captured_tick_bitwise_to_direct_decode_step(pair, backend):
     assert step._cache_size() == 1
     assert tuple(ad._cascade_meta(ad._cascade_plan(range(4)))) == \
         paged.CASCADE_META
+
+
+@pytest.mark.parametrize("backend", ["plain", "cascade"])
+def test_moe_captured_tick_bitwise_to_direct_decode_step(moe_pair, backend):
+    test_captured_tick_bitwise_to_direct_decode_step(moe_pair, backend)

@@ -8,7 +8,8 @@ Pallas) and the port's flat attention within 2e-6, the cascade adapter
 against the reference's over forced ticks (tokens equal, logits within
 2e-4, grouping statistics equal), the degrade rule bit for bit, the
 shared-chain eligibility rules, and ``make_gateway(backend="cascade")``
-token for token."""
+token for token; for the moe family (deepseek-moe-16b's smoke size) the
+cascade adapter against the port's flat tick."""
 from unittest import mock
 
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ from repro_torch.kernels import paged_attn, ref
 from repro_torch.nn import attention
 from repro_torch.serve import spec
 from repro_torch.serve.gateway import slots
-from test_torch_lm import smoke_pair
+from test_torch_lm import MOE, smoke_pair
 
 BS = 4
 TOL = 2e-6
@@ -349,6 +350,11 @@ def pair():
     return smoke_pair()
 
 
+@pytest.fixture(scope="module")
+def moe_pair():
+    return smoke_pair(arch=MOE)
+
+
 def _shared(ad, vocab, *, n_lanes=3, shared_len=5 * BS, tail=3, seed=11):
     """n_lanes lanes sharing a block-aligned prompt prefix, plus one lane
     with a disjoint prompt (``tests/test_cascade.py``'s admission)."""
@@ -393,6 +399,23 @@ def test_cascade_adapter_matches_reference(pair):
     assert st["prefix_rows_flat"] == 3 * st["prefix_rows"]
     proxy = port.tick_bytes_proxy()
     assert proxy["cascade"] < proxy["inplace"] < proxy["gather"]
+
+
+def test_moe_cascade_matches_the_flat_tick(moe_pair):
+    """``tests/test_cascade.py::test_cascade_adapter_matches_flat_tick`` for
+    the moe family on the port: the cascade tick emits the flat tick's
+    tokens, its logits within 2e-4, with one group every tick."""
+    cfg = moe_pair[2]
+    flat = _shared(_port_adapter(moe_pair, "plain"), cfg.vocab)
+    casc = _shared(_port_adapter(moe_pair, "cascade"), cfg.vocab)
+    rng = np.random.default_rng(22)
+    active = np.ones(4, bool)
+    for _ in range(4):
+        forced = rng.integers(0, cfg.vocab, size=4).astype(np.int32)
+        np.testing.assert_array_equal(casc.decode(forced, active),
+                                      flat.decode(forced, active))
+        assert casc.last_groups == 1
+        _close(casc.last_logits, flat.last_logits, 2e-4)
 
 
 def test_cascade_meta_matches_reference(pair):

@@ -6,7 +6,9 @@ the decoder cases of ``tests/test_chunked_prefill.py`` ported (fold resume
 bitwise, adapter resume bitwise against a cold insert, divergent writers
 isolated, admission demand equal to the actual allocations, the
 at-capacity slot), and the chunked adapter and gateway token for token with
-equal tables and pool statistics.
+equal tables and pool statistics; the fold, its resume and the adapter also
+for the moe family (deepseek-moe-16b's smoke size, routed dropless and
+not, windows counted from its first MoE block).
 
 The reference's two jit-recompile tests (``test_fold_steady_state_never_
 recompiles`` and ``test_fold_buckets_shared_process_wide``) are not ported:
@@ -26,7 +28,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache.pool import PoolExhausted
-from test_torch_lm import smoke_pair
+from test_torch_lm import MOE, smoke_pair
 
 BS = 4
 
@@ -34,6 +36,11 @@ BS = 4
 @pytest.fixture(scope="module")
 def pair():
     return smoke_pair()
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return smoke_pair(arch=MOE)
 
 
 def _empty(cfg):
@@ -81,10 +88,25 @@ def test_prefill_chunked_matches_reference(pair, window):
     one), cold and resumed at one block: logits and K/V within 1e-5 of the
     reference's fold; with a window of 5 the later chunks attend only the
     prefix's last 5 rows."""
+    _check_prefill_chunked(pair, window=window)
+
+
+@pytest.mark.parametrize("kw", [
+    {"moe_dropless_prefill": True}, {"moe_dropless_prefill": False},
+    {"moe_dropless_prefill": True, "window": 5, "global_every": 2}],
+    ids=["dropless", "capacity", "windows"])
+def test_moe_prefill_chunked_matches_reference(moe_pair, kw):
+    """The moe family's fold: dense layer 0 unwindowed, then the MoE
+    blocks, each chunk routed as one group, dropless or not; under
+    ``global_every=2`` the first MoE block is the global one (the
+    reference counts the window's index from it, not from layer 0)."""
+    _check_prefill_chunked(moe_pair, **kw)
+
+
+def _check_prefill_chunked(pair, **kw):
     jcfg, jparams, cfg, params = pair
-    if window:
-        jcfg = dataclasses.replace(jcfg, window=window)
-        cfg = dataclasses.replace(cfg, window=window)
+    jcfg = dataclasses.replace(jcfg, **kw)
+    cfg = dataclasses.replace(cfg, **kw)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, 11
                                                ).astype(np.int32)
     cache, logits = _fold(cfg, params, prompt, _empty(cfg), 0)
@@ -126,6 +148,10 @@ def test_engine_fold_resume_bitwise(pair):
         assert torch.equal(logits, cold_logits), H
         for key in ("k", "v"):
             assert torch.equal(got[key], cold[key]), (key, H)
+
+
+def test_moe_engine_fold_resume_bitwise(moe_pair):
+    test_engine_fold_resume_bitwise(moe_pair)
 
 
 def _adapter(pair, **kw):
@@ -324,6 +350,10 @@ def test_chunked_adapter_matches_reference(pair, backend):
         _same_state(ref, port)
 
 
+def test_moe_chunked_adapter_matches_reference(moe_pair):
+    test_chunked_adapter_matches_reference(moe_pair, "cuda")
+
+
 def test_chunked_gateway_matches_reference(pair):
     """``make_gateway`` with the reference's default ``chunked=True`` on a
     seeded trace, against the reference's gateway: per request the same
@@ -371,5 +401,5 @@ def test_default_spec_builds_the_chunked_gateway(pair):
                            device="cpu")
     assert gw.batcher.adapter.chunked
     with pytest.raises(NotImplementedError):
-        spec.make_gateway(dataclasses.replace(cfg, family="moe"), params,
+        spec.make_gateway(dataclasses.replace(cfg, family="hybrid"), params,
                           spec.ServeSpec(paged=True), device="cpu")

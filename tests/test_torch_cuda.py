@@ -763,6 +763,128 @@ def test_flash_attention_kernel_refuses_bad_inputs(dev):
                                      z(1, 4, 2, 16), z(1, 4, 2, 16))
 
 
+# -- the attention kernels at 16 heads of 128 (deepseek-moe-16b, MHA) ---------
+
+MOE_H, MOE_D, MOE_L = 16, 128, 28
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_kernel_moe_heads(monkeypatch, dev, split,
+                                                 dtype):
+    """The flat tick's call at 8 lanes x ~1k positions: split as planned
+    (512-position splits and their combine) and in one split, windows None
+    and 100, with the tick's new rows spliced in, against the plain
+    version."""
+    if not split:
+        monkeypatch.setattr(paged_attn_kernel, "SPLIT_POSITIONS", 1 << 20)
+    gen = torch.Generator().manual_seed(128 + split)
+    B, nb, bs = 8, 66, 16
+    q, ka, va, tables, lens, k1, v1 = _paged_case(
+        gen, B, nb, bs, MOE_H, MOE_H, MOE_D, dtype, dev)
+    lens = torch.arange(1024, 1024 + B, dtype=torch.int32, device=dev)
+    assert (paged_attn_kernel.paged_split_plan(nb, bs)[0] > 1) == split
+    for window in (None, 100):
+        n = paged_attn_kernel.paged_decode_attention.launches
+        got = paged_attn_kernel.paged_decode_attention(
+            q, ka, va, tables, lens, window=window, new_kv=(k1, v1))
+        assert paged_attn_kernel.paged_decode_attention.launches == n + 1
+        want = ref.paged_decode_attention(q, ka, va, tables, lens, window,
+                                          (k1, v1))
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kv_rows_kernel_moe_heads_bitwise(dev, dtype):
+    """The tick's write at 28 layers of 16 x 128 rows, one tensor per
+    layer, bit for bit the plain version; one wrapper call."""
+    gen = torch.Generator().manual_seed(28)
+    nbk, bs, S = 17, 16, 8
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    ka, va = (arr(MOE_L, nbk, 1, bs, MOE_H, MOE_D) for _ in range(2))
+    kr, vr = (arr(MOE_L, S, MOE_H, MOE_D) for _ in range(2))
+    wbids = torch.tensor([3, 0, 7, 16, 1, 9, 0, 12], dtype=torch.int32,
+                         device=dev)
+    offs = torch.tensor([0, 5, 15, 5, 9, 1, 2, 14], dtype=torch.int32,
+                        device=dev)
+    rk, rv = ref.scatter_kv_rows(ka.clone(), va.clone(), kr, vr, wbids, offs)
+    n = paged_attn_kernel.scatter_kv_rows.launches
+    paged_attn_kernel.scatter_kv_rows(ka, va, list(kr), list(vr), wbids,
+                                      offs)
+    assert paged_attn_kernel.scatter_kv_rows.launches == n + 1
+    assert torch.equal(ka[:, 1:], rk[:, 1:]) and torch.equal(va[:, 1:],
+                                                             rv[:, 1:])
+
+
+@pytest.mark.parametrize("Sq,q_offset", [(16, 512), (7, 1072), (1000, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_moe_heads(dev, Sq, q_offset, dtype):
+    """Fold chunks (16 queries at 512, a partial chunk at 1,072) and a
+    1,000-token one-shot prompt at 16 heads of 128, causal, against the
+    plain version; a second call bitwise."""
+    gen = torch.Generator().manual_seed(Sq + q_offset)
+    Sk = q_offset + Sq
+    q = torch.randn((1, Sq, MOE_H, MOE_D), generator=gen).to(dtype).to(dev)
+    k = torch.randn((1, Sk, MOE_H, MOE_D), generator=gen).to(dtype).to(dev)
+    v = torch.randn((1, Sk, MOE_H, MOE_D), generator=gen).to(dtype).to(dev)
+    n = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, q_offset=q_offset)
+    assert flash_kernel.flash_attention.launches == n + 1
+    want = ref.flash_attention_chunked(q, k, v, True, 0, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(
+        q, k, v, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_kernels_moe_heads(monkeypatch, dev, plan, dtype):
+    """Load (c)'s cascade tick at 16 heads of 128: eight lanes sharing a
+    1,024-position chain, each with its own suffix of 1 to 64 positions in
+    a 4-entry table, windows 0 and 100, at each forced plan: the prefix
+    pass against its plain version, the suffix pass with the merge fused
+    bit for bit the composition and within the tolerance of its plain
+    version."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    gen = torch.Generator().manual_seed(MOE_D)
+    bs, Lc, npre = 16, 8, 64
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    nblk = 1 + npre + 4 * Lc
+    ka, va = arr(nblk, bs, MOE_H, MOE_D), arr(nblk, bs, MOE_H, MOE_D)
+    gt = torch.arange(1, 1 + npre, **i32)[None]
+    glen = torch.tensor([npre * bs], **i32)
+    ll = glen + torch.tensor([[1, 7, 16, 17, 33, 48, 63, 64]], **i32)
+    meta = attention.with_lane_meta(
+        {"group_lanes": torch.arange(Lc, **i32)[None],
+         "group_mask": torch.ones((1, Lc), dtype=torch.bool, device=dev)},
+        ll[0])
+    qg = arr(1, Lc, MOE_H, MOE_D)
+    nk = (arr(Lc, MOE_H, MOE_D), arr(Lc, MOE_H, MOE_D))
+    st = torch.arange(1 + npre, nblk, **i32).reshape(Lc, 4)
+    tol = _tol(dtype)
+    for window in (0, 100):
+        n = paged_attn_kernel.cascade_prefix_attention.launches
+        prefix = paged_attn_kernel.cascade_prefix_attention(
+            qg, ka, va, gt, glen, ll, window=window)
+        assert paged_attn_kernel.cascade_prefix_attention.launches == n + 1
+        for g, w in zip(prefix, ref.cascade_prefix_attention(
+                qg, ka, va, gt, glen, ll, window)):
+            assert not torch.isnan(g).any()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        _fused_against_composition(
+            prefix, meta, (qg[0], ka, va, st, ll[0]), window,
+            glen.expand(Lc).contiguous(), nk, tol)
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):
@@ -1026,6 +1148,36 @@ def test_capture_raises_on_a_host_sync(dev):
     for i in range(3):
         got = step(np.full(4, i, np.float32))
         assert torch.equal(got.cpu(), torch.full((4,), 2.0 * i))
+    assert step._cache_size() == 1
+
+
+def test_capture_survives_garbage_collection(dev):
+    """Dropped owners whose captured steps sit in reference cycles, and a
+    collector that would run at every allocation: a new step still
+    captures (the collector stays off while it does) and replays as its
+    eager call."""
+    import gc
+
+    class Owner:
+        def __init__(self):
+            self.me = self
+            self.step = capture.CapturedStep(lambda x: x + 1, dev)
+            self.step(np.zeros(4, np.float32))
+
+    def garbage_making(x):
+        [[object()] for _ in range(64)]
+        return x * 3
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for _ in range(4):
+            Owner()
+        step = capture.CapturedStep(garbage_making, dev)
+        for i in range(3):
+            got = step(np.full(4, i, np.float32))
+            assert torch.equal(got.cpu(), torch.full((4,), 3.0 * i))
+    finally:
+        gc.set_threshold(*threshold)
     assert step._cache_size() == 1
 
 

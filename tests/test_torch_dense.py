@@ -7,7 +7,9 @@ cache within 1e-5 and lengths equal), the default ``ServeSpec()`` gateway
 on a seeded trace, ``backend="gather"`` against the reference's gather
 tick, and, under the reference's own contract
 (``tests/test_paged_decode.py``), the port's gather tick and dense adapter
-bit for bit against its in-place ``"plain"`` tick."""
+bit for bit against its in-place ``"plain"`` tick; the per-lane step, the
+adapter and the bitwise ticks also for the moe family (deepseek-moe-16b's
+smoke size)."""
 import numpy as np
 import pytest
 import jax
@@ -21,7 +23,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import smoke_pair
+from test_torch_lm import MOE, smoke_pair
 
 BS = 4
 
@@ -29,6 +31,11 @@ BS = 4
 @pytest.fixture(scope="module")
 def pair():
     return smoke_pair()
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return smoke_pair(arch=MOE)
 
 
 def _cache(cfg, rng, B, Smax):
@@ -107,6 +114,12 @@ def test_decode_step_per_lane_lengths_match_reference(pair):
                 np.testing.assert_array_equal(got[:, b], c[key][:, b])
 
 
+def test_moe_decode_step_per_lane_lengths_match_reference(moe_pair):
+    """The moe family: each lane routes as its own group of one token, as
+    in the reference's vmapped B=1 step."""
+    test_decode_step_per_lane_lengths_match_reference(moe_pair)
+
+
 def _same_cache(port, ref, tol=1e-5):
     np.testing.assert_array_equal(port.cache["len"].numpy(),
                                   np.asarray(ref.cache["len"]))
@@ -156,6 +169,10 @@ def test_dense_adapter_matches_reference(pair):
     assert port._decode._cache_size() == 1
     with pytest.raises(ValueError):
         port.insert(0, np.zeros(25, np.int32))
+
+
+def test_moe_dense_adapter_matches_reference(moe_pair):
+    test_dense_adapter_matches_reference(moe_pair)
 
 
 def _trace(mod):
@@ -277,6 +294,10 @@ def test_gather_tick_bitwise_vs_inplace_plain(pair, chunked):
             np.testing.assert_array_equal(a[key], b[key], err_msg=str(key))
 
 
+def test_moe_gather_tick_bitwise_vs_inplace_plain(moe_pair):
+    test_gather_tick_bitwise_vs_inplace_plain(moe_pair, True)
+
+
 def test_dense_adapter_bitwise_vs_inplace_plain(pair):
     """``tests/test_paged_decode.py::test_inplace_matches_dense_adapter_
     bitwise`` on the port: one-shot paged admission shares the dense
@@ -296,6 +317,10 @@ def test_dense_adapter_bitwise_vs_inplace_plain(pair):
         np.testing.assert_array_equal(pg.decode(forced, active),
                                       dense.decode(forced, active))
         assert torch.equal(pg.last_logits, dense.last_logits)
+
+
+def test_moe_dense_adapter_bitwise_vs_inplace_plain(moe_pair):
+    test_dense_adapter_bitwise_vs_inplace_plain(moe_pair)
 
 
 def test_gather_gateway_matches_plain_gateway(pair):

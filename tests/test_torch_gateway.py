@@ -1,12 +1,17 @@
 """The port's frame gateway against the reference's on one seeded sensor
 trace with shared weights and a fixed service time: every telemetry record
-is equal field for field, and so are the drops under a tight queue bound."""
+is equal field for field, and so are the drops under a tight queue bound.
+The slot batcher against the reference's single-request greedy oracle,
+for the decoder and moe families (``tests/test_gateway.py::test_decoder_
+family_slot_batcher_parity`` on the port)."""
 import dataclasses
+from unittest import mock
 
 import jax
 import numpy as np
 import pytest
 
+from repro.serve import engine as jengine
 from repro.serve.gateway import frontend as jfe
 from repro.serve.gateway import gateway as jgw
 from repro.serve.gateway import sensors as jsensors
@@ -14,6 +19,9 @@ from repro_torch.convert import lenet_params_from_jax
 from repro_torch.serve.gateway import frontend as fe
 from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors
+from repro_torch.serve.gateway import slots
+from conftest import sequential_decode_reference
+from test_torch_lm import MOE, smoke_pair
 
 
 def _fleet():
@@ -82,3 +90,31 @@ def test_warmup_and_bucket_padding():
     assert [port._bucket_for(n) for n in (1, 2, 3, 4, 9)] == [1, 2, 4, 4, 4]
     with pytest.raises(ValueError):
         gw.GatewayConfig(bucket_sizes=(4, 1))
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", MOE])
+def test_slot_batcher_matches_sequential_decode(arch):
+    """Three requests through two dense slots (one slot cleared and
+    reused): every request's greedy tokens equal the reference's prefill
+    and B=1 ``decode_step`` run alone on it."""
+    jcfg, jparams, cfg, params = smoke_pair(arch=arch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=s).astype(np.int32)
+               for s in (5, 9, 7)]
+    n_new, max_len = 4, 32
+    batcher = slots.ContinuousBatcher(
+        slots.make_adapter(cfg, params, n_slots=2, max_len=max_len))
+    for i, p in enumerate(prompts):
+        batcher.submit(slots.Request(uid=i, prompt=p, max_new_tokens=n_new))
+    got = {r.uid: r.generated for r in batcher.run()}
+    assert len(got) == len(prompts)
+    # the oracle's engine calls jitted (one decode executable for the three
+    # requests), as the reference's adapters run them
+    with mock.patch.object(jengine, "prefill",
+                           jax.jit(jengine.prefill, static_argnums=0)), \
+            mock.patch.object(jengine, "decode_step",
+                              jax.jit(jengine.decode_step, static_argnums=0)):
+        for i, p in enumerate(prompts):
+            want = sequential_decode_reference(jcfg, jparams, p, n_new,
+                                               max_len)
+            assert got[i] == want, (i, got[i], want)

@@ -2,7 +2,8 @@
 reference on the same inputs (numpy, seeded) and the same weights
 (``convert.lm_params_from_jax``), at the stablelm-3b smoke size in float32:
 norms, RoPE and SwiGLU within 1e-6, attention within 1e-5, prefill logits
-and the K/V cache within 1e-5."""
+and the K/V cache within 1e-5; the same prefill for the moe family
+(deepseek-moe-16b's smoke size, routed dropless and with drops)."""
 import dataclasses
 
 import jax
@@ -21,10 +22,11 @@ from repro.serve import engine as jengine
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import lm
-from repro_torch.nn import attention, mlp, norms, rope
+from repro_torch.nn import attention, mlp, moe, norms, rope
 from repro_torch.serve import engine
 
 ARCH = "stablelm_3b"
+MOE = "deepseek_moe_16b"
 
 
 def _t(a):
@@ -37,12 +39,14 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-def smoke_pair(dtype="float32"):
+def smoke_pair(dtype="float32", arch=ARCH, **kw):
     """(reference cfg, reference params, port cfg, port params) with the
-    reference's weights carried over."""
-    jcfg = dataclasses.replace(jconfigs.smoke_config(ARCH),
-                               param_dtype=dtype)
-    cfg = dataclasses.replace(configs.smoke_config(ARCH), param_dtype=dtype)
+    reference's weights carried over; ``kw`` replaces config fields on
+    both sides."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config(arch),
+                               param_dtype=dtype, **kw)
+    cfg = dataclasses.replace(configs.smoke_config(arch), param_dtype=dtype,
+                              **kw)
     jparams, _ = jlm.init(jax.random.key(0), jcfg, {})
     params = lm_params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                 "cpu")
@@ -86,7 +90,7 @@ def test_sc_frontend_and_other_families_raise():
                        torch.ones(d, dtype=cfg.dtype))
     assert "sc_frontend" not in lm.init(cfg, gen)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init(dataclasses.replace(cfg, family="moe"), gen)
+        lm.init(dataclasses.replace(cfg, family="hybrid"), gen)
     with pytest.raises(NotImplementedError):
         configs.config("llama3_405b")
 
@@ -172,10 +176,43 @@ def test_prefill_logits_and_cache_match_reference(S):
     assert int(cache["len"]) == int(jcache["len"]) == S
 
 
-def test_converted_params_give_reference_prefill_logits():
-    """lm_params_from_jax keeps every name, shape and value (bfloat16 bit
-    for bit), and the converted tree reproduces the reference's logits."""
-    jcfg, jparams, cfg, params = smoke_pair("bfloat16")
+@pytest.mark.parametrize("dropless", [True, False])
+@pytest.mark.parametrize("S", [9, 32])
+def test_moe_prefill_logits_and_cache_match_reference(S, dropless,
+                                                     monkeypatch):
+    """The moe family: dense layer 0, then MoE blocks routed as one
+    dropless group (serving) or in groups of 64 with capacity drops (the
+    reference's training routing); 2 x 32 tokens make one group of 64
+    that drops pairs."""
+    jcfg, jparams, cfg, params = smoke_pair(
+        arch=MOE, moe_dropless_prefill=dropless)
+    tokens = np.random.default_rng(S).integers(0, cfg.vocab, (2, S),
+                                               dtype=np.int32)
+    kept = []
+    slots = moe.slots
+
+    def recorded(*a):
+        out = slots(*a)
+        kept.append(bool(out[1].all()))
+        return out
+    monkeypatch.setattr(moe, "slots", recorded)
+    cache, logits = engine.prefill(cfg, params, _t(tokens))
+    assert len(kept) == cfg.n_layers - 1
+    if dropless:
+        assert all(kept)
+    elif S == 32:
+        assert not all(kept)
+    jcache, jlogits = jengine.prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(tokens)})
+    _close(logits, jlogits, 1e-5)
+    for key in ("k", "v"):
+        assert cache[key].shape == jcache[key].shape
+        assert cache[key].shape[0] == cfg.n_layers
+        _close(cache[key], jcache[key], 1e-5)
+
+
+def _check_converted(arch):
+    jcfg, jparams, cfg, params = smoke_pair("bfloat16", arch)
     flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
     assert len(flat) == len(jax.tree.leaves(
         {k: v for k, v in params.items()}))
@@ -194,6 +231,18 @@ def test_converted_params_give_reference_prefill_logits():
     _, logits = engine.prefill(f32, p32, _t(tokens))
     _, jlogits = jengine.prefill(jf32, jp32, {"tokens": jnp.asarray(tokens)})
     _close(logits, jlogits, 1e-5)
+
+
+def test_converted_params_give_reference_prefill_logits():
+    """lm_params_from_jax keeps every name, shape and value (bfloat16 bit
+    for bit), and the converted tree reproduces the reference's logits."""
+    _check_converted(ARCH)
+
+
+def test_moe_converted_params_give_reference_prefill_logits():
+    """The same for the moe family's tree: ``dense0`` and every block's
+    ``moe`` weights carried across."""
+    _check_converted(MOE)
 
 
 def test_init_is_seeded_and_shaped_like_reference():

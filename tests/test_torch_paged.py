@@ -4,7 +4,10 @@ tick (both backends: tokens equal, logits within 2e-4), the one-shot paged
 adapter over a scripted sequence that forces a radix hit, a copy-on-write
 and an at-capacity lane (tokens, tables, lens, slot and pool statistics
 equal), the continuous batcher, and the prompt gateway on a seeded trace
-(per request: generated tokens, energy, link bytes and KV blocks equal)."""
+(per request: generated tokens, energy, link bytes and KV blocks equal);
+the tick and the adapter also for the moe family (deepseek-moe-16b's smoke
+size, each lane routed as its own group as the reference's vmapped tick
+routes it)."""
 import dataclasses
 
 import jax
@@ -19,7 +22,7 @@ from repro.serve.gateway import sensors as jsensors
 from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import smoke_pair
+from test_torch_lm import MOE, smoke_pair
 
 BS = 4
 
@@ -27,6 +30,11 @@ BS = 4
 @pytest.fixture(scope="module")
 def pair():
     return smoke_pair()
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return smoke_pair(arch=MOE)
 
 
 def _adapters(pair, backend, n_slots=3, max_len=16):
@@ -84,6 +92,11 @@ def test_decode_tick_matches_reference(pair, backend):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_moe_decode_tick_matches_reference(moe_pair, backend):
+    test_decode_tick_matches_reference(moe_pair, backend)
+
+
 def _same_state(ref, port):
     np.testing.assert_array_equal(port.tables, np.asarray(ref.tables))
     np.testing.assert_array_equal(port.lens, np.asarray(ref.lens))
@@ -133,6 +146,10 @@ def test_adapter_sharing_cow_and_capacity_match_reference(pair, backend):
         port.clear(s)
         ref.clear(s)
         _same_state(ref, port)
+
+
+def test_moe_adapter_sharing_cow_and_capacity_match_reference(moe_pair):
+    test_adapter_sharing_cow_and_capacity_match_reference(moe_pair, "cuda")
 
 
 def test_adapter_admission_demand_matches_reference(pair):
