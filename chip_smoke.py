@@ -13,6 +13,7 @@
                                    # phase 9 on the reference's full
                                    # Table 3 protocol alone
     python3 chip_smoke.py --moe    # phase 11 alone
+    python3 chip_smoke.py --hymba  # phase 12 alone
 
 Phases, each printing one JSON line:
 
@@ -188,7 +189,25 @@ Phases, each printing one JSON line:
      ``trace_routing``), phase 6's load (c) through the cascade
      tick, phase 7's load (b) chunked with its resumed fold bit for bit
      the cold fold, and phase 8's captured ticks bit for bit their
-     eager steps, one graph launch per tick, with the same helpers.
+     eager steps, one graph launch per tick, with the same helpers;
+ 12. the hybrid family (``hymba_main_path`` line): hymba-1.5b at its
+     published width and depth (32 layers, d_model 1,600, 25 heads over
+     5 KV heads of 64, d_ff 5,504, SSM d_inner 3,200 and state 16, a
+     window of 1,024 with layers 0 and 16 global, vocabulary 32,001;
+     bf16, random weights drawn on the card after phase 11's are freed):
+     the attention kernels at 25 x 64 over 5 KV heads with windows 1,024
+     and none against their plain versions in both dtypes and timed
+     beside their bounds and ``F.scaled_dot_product_attention``
+     (``hymba_shapes_timing`` line), then phase 10's four gateways
+     (float32 at depth 4, layer 0 global and 1-3 sliding), phase 6's load
+     (c) admitted through the fold (the one-shot prefill refuses 1,088
+     tokens, as the reference's does), phase 7's load (b) chunked with its
+     resumed fold bit for bit the cold fold (also after the snapshotted
+     slot ticked on), the boundary states' bytes, a one-shot 1,000-token
+     admission refused and one-shot against chunked admission at 512 and
+     1,024 tokens, and phase 8's captured ticks (8 lanes of 1,200-token
+     contexts, and load (c)'s cascade tick) bit for bit their eager
+     steps, one graph launch per tick.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -1500,16 +1519,18 @@ class CascadeProbe(TickProbe):
         return out
 
 
-def forced_ticks(cfg, params, prompts, forced, backend: str):
-    """Admit ``prompts`` into fresh paged slots and run one tick per row of
-    ``forced`` tokens.  Returns (first tokens, per-tick tokens, per-tick
-    logits, per-tick host ms, per-tick cascade groups)."""
+def forced_ticks(cfg, params, prompts, forced, backend: str,
+                 chunked: bool = False):
+    """Admit ``prompts`` into fresh paged slots (one-shot, or through the
+    fold with ``chunked``) and run one tick per row of ``forced`` tokens.
+    Returns (first tokens, per-tick tokens, per-tick logits, per-tick host
+    ms, per-tick cascade groups)."""
     import numpy as np
     import torch
 
     from repro_torch.serve.gateway.slots import make_adapter
     ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=LM_MAX_LEN,
-                      paged=True, block_size=LM_BLOCK, chunked=False,
+                      paged=True, block_size=LM_BLOCK, chunked=chunked,
                       backend=backend)
     probe = TickProbe(ad)
     first = [ad.insert(s, p, max_new=len(forced) + 1)
@@ -1546,6 +1567,18 @@ def load_c_prompts(vocab: int):
     shared = rng.integers(0, vocab, SHARED_PROMPT)
     return [np.concatenate([shared, rng.integers(0, vocab, OWN_TAIL)]
                            ).astype(np.int32) for _ in range(LM_SLOTS)], rng
+
+
+def aligned_prompts(vocab: int):
+    """The hybrid family's one-shot comparison load: prompts of 512 and
+    1,024 tokens, the lengths its one-shot prefill admits (multiples of
+    hymba's ``ssm_chunk`` of 512); r1 extends r0 (a 32-block radix hit for
+    the fold), r3 is r2's first 512 tokens (a hit capped one block short,
+    so the fold computes the last token)."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    a, b = rng.integers(0, vocab, 1024), rng.integers(0, vocab, 1024)
+    return [p.astype(np.int32) for p in (a[:512], a, b, b[:512])]
 
 
 def load_spec(backend: str, chunked: bool, new_tokens: int):
@@ -1630,7 +1663,8 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
            "proxy": probe.proxy,
            "buckets": len({b for b in probe.buckets if b is not None}),
            "captures": {name: fn._cache_size()
-                        for name, fn in ad.jit_fns().items()}}
+                        for name, fn in ad.jit_fns().items()},
+           "pool": ad.pool_stats()}
     del gw, ad, batcher, probe
     torch.cuda.empty_cache()
     return out
@@ -1833,10 +1867,16 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
     return launches, cfg, params
 
 
-def cascade_main_path(dev, cfg, params) -> dict:
-    """Phase 6: the cascade tick at stablelm-3b's full width and depth.
-    Returns the launches of load (c); raises SystemExit on a failed
-    check."""
+def cascade_main_path(dev, cfg, params, chunked: bool = False,
+                      turns: bool = True) -> dict:
+    """Phase 6: the cascade tick at the config's full width and depth
+    (stablelm-3b in phase 6), its prompts admitted one-shot or, with
+    ``chunked``, through the fold (the hybrid family, whose one-shot
+    prefill refuses load (c)'s 1,088 tokens as the reference's does);
+    without ``turns`` load (c) is served once per gateway, not twice in
+    turns (the second pair only times the tick again and repeats its
+    tokens).  Returns the launches of load (c); raises SystemExit on a
+    failed check."""
     import dataclasses
 
     import numpy as np
@@ -1849,15 +1889,16 @@ def cascade_main_path(dev, cfg, params) -> dict:
 
     def serve(cfg, params, backend: str, profile: bool) -> dict:
         return serve_load(dev, cfg, params, prompts,
-                          backend=backend, chunked=False,
+                          backend=backend, chunked=chunked,
                           new_tokens=NEW_TOKENS_C, profile=profile)
 
     # bf16, full depth, the main path; runs in turns (cascade, flat, flat,
     # cascade) because the host clock drifts within a call
     runs = [serve(cfg, params, "cascade", True), serve(cfg, params, "cuda",
-                                                       True),
-            serve(cfg, params, "cuda", False),
-            serve(cfg, params, "cascade", False)]
+                                                       True)]
+    if turns:
+        runs += [serve(cfg, params, "cuda", False),
+                 serve(cfg, params, "cascade", False)]
     casc, flat = runs[0], runs[1]
     ticks = casc["ticks"]
     grouped = sum(g > 0 for g in casc["groups"])
@@ -1879,15 +1920,17 @@ def cascade_main_path(dev, cfg, params) -> dict:
                               "cascade_prefix_attention", FUSED_MERGE)})
     want["paged_decode_attention"] = cfg.n_layers * (ticks - grouped)
     want["scatter_kv_rows"] = ticks
-    # the eight one-shot prefills: one launch per layer each
-    want["flash_attention"] = cfg.n_layers * LM_SLOTS
+    # one launch per layer for each one-shot prefill or fold chunk
+    prefills = casc["chunks"] if chunked else LM_SLOTS
+    want["flash_attention"] = cfg.n_layers * prefills
     if casc["launches"] != want:
         failures.append(f"load (c) cascade launches {casc['launches']}, "
                         f"expected {want}")
     want_flat = {name: 0 for name in flat["launches"]}
     want_flat.update(paged_decode_attention=cfg.n_layers * flat["ticks"],
                      scatter_kv_rows=flat["ticks"],
-                     flash_attention=cfg.n_layers * LM_SLOTS)
+                     flash_attention=cfg.n_layers * (
+                         flat["chunks"] if chunked else LM_SLOTS))
     if flat["launches"] != want_flat:
         failures.append(f"load (c) flat launches {flat['launches']}")
     # one captured flat tick, one captured cascade tick per metadata
@@ -1903,8 +1946,8 @@ def cascade_main_path(dev, cfg, params) -> dict:
     if any(stacks):
         failures.append(f"load (c): {stacks} torch.stack per tick "
                         "(cascade, flat) before the row write")
-    if runs[3]["tokens"] != casc["tokens"] or \
-            runs[2]["tokens"] != flat["tokens"]:
+    if turns and (runs[3]["tokens"] != casc["tokens"] or
+                  runs[2]["tokens"] != flat["tokens"]):
         failures.append("load (c): a second run of the same gateway "
                         "generated other tokens")
     if not all(r["logits_finite"] for r in runs) or \
@@ -1918,8 +1961,8 @@ def cascade_main_path(dev, cfg, params) -> dict:
     # the two ticks' logit difference on the same history
     diffs = first_differences(casc, flat)
     trace_routing(cfg, params, diffs,
-                  (load_spec("cascade", False, NEW_TOKENS_C),
-                   load_spec("cuda", False, NEW_TOKENS_C)), casc, prompts,
+                  (load_spec("cascade", chunked, NEW_TOKENS_C),
+                   load_spec("cuda", chunked, NEW_TOKENS_C)), casc, prompts,
                   whole_load=True)
     if not all(d["near_tie"] for d in diffs):
         failures.append(f"load (c) bf16: a difference from the flat "
@@ -1958,9 +2001,9 @@ def cascade_main_path(dev, cfg, params) -> dict:
     forced = rng.integers(0, cfg.vocab, (8, len(fprompts))).astype(np.int32)
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     f_c, t_c, l_c, _, g4 = forced_ticks(cfg4, params4, fprompts, forced,
-                                        "cascade")
+                                        "cascade", chunked)
     f_p, t_p, l_p, _, _ = forced_ticks(cfg4, params4, fprompts, forced,
-                                       "plain")
+                                       "plain", chunked)
     f32_err = float((l_c - l_p).abs().max())
     f32_ok = f_c == f_p and np.array_equal(t_c, t_p) and \
         torch.allclose(l_c, l_p, rtol=2e-4, atol=2e-4) and \
@@ -1968,9 +2011,9 @@ def cascade_main_path(dev, cfg, params) -> dict:
     del params4
     torch.cuda.empty_cache()
     b_c, bt_c, bl_c, ms_c, gb = forced_ticks(cfg, params, fprompts, forced,
-                                             "cascade")
+                                             "cascade", chunked)
     b_p, bt_p, bl_p, ms_p, _ = forced_ticks(cfg, params, fprompts, forced,
-                                            "plain")
+                                            "plain", chunked)
     bf16_err = float((bl_c - bl_p).abs().max())
     if not f32_ok:
         failures.append(f"float32 depth 4: cascade tick vs plain tick max "
@@ -1981,6 +2024,7 @@ def cascade_main_path(dev, cfg, params) -> dict:
         failures.append(f"bf16 full depth: cascade tick max |dlogit| "
                         f"{bf16_err} > {BF16_LOGIT_BOUND}, groups {gb}")
     emit({"phase": "cascade_main_path", "model": cfg.name,
+          "admission": "chunked fold" if chunked else "one-shot",
           "load_c": {
               "requests": LM_SLOTS, "prompt_tokens": SHARED_PROMPT + OWN_TAIL,
               "shared_tokens": SHARED_PROMPT, "new_tokens": NEW_TOKENS_C,
@@ -2027,13 +2071,20 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     ``backend="cascade"`` (those of ``loads``), each beside the one-shot
     gateway on the same load; load (b)'s resumed admission held bitwise
     against a cold one in a fresh gateway; float32 at depth 4 against
-    one-shot; the prefill host time per prompt.  Returns the chunked runs'
-    launches ("launches"), the one-shot prefill ms of a 1,000-token prompt
-    and the cold fold's ms per chunk; raises SystemExit on a failed
-    check."""
+    one-shot; the prefill host time per prompt.  The hybrid family's
+    one-shot prefill admits only prompts of 512 or a multiple of 1,024
+    tokens here (hymba's ``ssm_chunk``, as the reference asserts): its
+    one-shot gateway must refuse a 1,000-token prompt, and chunked and
+    one-shot admission are compared on :func:`aligned_prompts` instead;
+    a resumed admission is also held bitwise after the slot whose fold
+    left the boundary states has ticked on.  Returns the chunked runs' launches ("launches"), the
+    one-shot prefill ms of a 1,000-token prompt (1,024 for the hybrid
+    family) and the cold fold's ms per chunk; raises SystemExit on a
+    failed check."""
     import dataclasses
     from types import SimpleNamespace
 
+    import numpy as np
     import torch
 
     from repro_torch.kernels import ref
@@ -2051,18 +2102,39 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
                   [0] + [SHARED_PROMPT] * 7)}
     spec = {key: spec[key] for key in loads}
     L = cfg.n_layers
+    hybrid = cfg.family == "hybrid"
+    aligned = aligned_prompts(cfg.vocab)
 
     def serve(cfg, params, prompts, backend, chunked, **kw):
         return serve_load(dev, cfg, params, prompts,
                           backend=backend, chunked=chunked,
                           new_tokens=32, **kw)
 
-    # bf16 at full depth: each load chunked, then one-shot
-    ch, os_ = {}, {}
+    # bf16 at full depth: each load chunked, then one-shot (the hybrid
+    # family: both on the aligned prompts as well)
+    ch, os_, cmp_ = {}, {}, {}
     for key, (prompts, backend, _, _) in spec.items():
         ch[key] = serve(cfg, params, prompts, backend, True,
                         keep_blocks=key == "b")
-        os_[key] = serve(cfg, params, prompts, backend, False)
+        cmp_[key] = serve(cfg, params, aligned, backend, True) \
+            if hybrid else ch[key]
+        os_[key] = serve(cfg, params, aligned if hybrid else prompts,
+                         backend, False)
+    refused = None
+    if hybrid:
+        # the reference's one-shot prefill asserts S % min(ssm_chunk, S)
+        # == 0; the port's raises
+        gw = make_gateway(cfg, params, load_spec("cuda", False, 32),
+                          device=dev)
+        try:
+            gw.batcher.adapter.insert(0, pb[0], max_new=32)
+        except ValueError as e:
+            refused = str(e)
+        if refused is None:
+            failures.append("one-shot admission of a 1,000-token prompt "
+                            "was not refused")
+        del gw
+        torch.cuda.empty_cache()
 
     def skipped(run):
         return [run["prefill"][uid]["skipped"] for uid in sorted(run["slot"])]
@@ -2078,7 +2150,8 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             failures.append(f"load ({key}) chunked: flash_attention launched "
                             f"{n['flash_attention']} times for "
                             f"{run['chunks']} chunks x {L} layers")
-        if os_[key]["launches"]["flash_attention"] != L * len(prompts):
+        if os_[key]["launches"]["flash_attention"] != \
+                L * len(os_[key]["slot"]):
             failures.append(f"load ({key}) one-shot: flash_attention "
                             f"launches "
                             f"{os_[key]['launches']['flash_attention']}")
@@ -2103,11 +2176,12 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
                                 "not served")
     # bf16: equal up to each stream's first difference, a near tie (for
     # the moe family, in the logits or traced to the router)
-    diffs = {key: first_differences(ch[key], os_[key]) for key in spec}
+    diffs = {key: first_differences(cmp_[key], os_[key]) for key in spec}
     for key, (prompts, backend, _, _) in spec.items():
         trace_routing(cfg, params, diffs[key],
                       (load_spec(backend, True, 32),
-                       load_spec(backend, False, 32)), ch[key], prompts,
+                       load_spec(backend, False, 32)), cmp_[key],
+                      aligned if hybrid else prompts,
                       whole_load=backend == "cascade")
     if not all(d["near_tie"] for ds in diffs.values() for d in ds):
         failures.append(f"bf16 chunked vs one-shot: a difference that is "
@@ -2130,9 +2204,35 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
         "logits": torch.equal(cold_logits, warm["logits"]),
         "blocks": all(torch.equal(a[:, bids], warm["blocks"][key])
                       for key, a in ad.arena.items())}
+    if hybrid:
+        # the same prompt again, resumed from the boundary states its own
+        # cold fold left, after its slot has ticked eight times (the
+        # slot's state and last block written in place each tick): the
+        # cold admission's logits, blocks and state bit for bit
+        blocks = {key: a[:, bids].clone() for key, a in ad.arena.items()}
+        state = {key: a[:, 0].clone() for key, a in ad.state.items()}
+        tok = int(cold_logits.argmax())
+        lane = np.zeros(LM_SLOTS, bool)
+        lane[0] = True
+        for _ in range(8):
+            tok = int(ad.decode(np.full(LM_SLOTS, tok, np.int32), lane)[0])
+        ad.insert(1, pb[1], max_new=32)
+        wb = torch.tensor(ad.slot_bids[1][:len(bids)], device=dev)
+        resume_bitwise["after_ticks"] = {
+            "skipped": ad.slot_stats(1)["prefill_tokens_skipped"],
+            "logits": torch.equal(cold_logits, ad.last_prefill_logits[0]),
+            "blocks": all(torch.equal(blocks[key], a[:, wb])
+                          for key, a in ad.arena.items()),
+            "state": all(torch.equal(state[key], a[:, 1])
+                         for key, a in ad.state.items()),
+            "boundary_state_bytes": ad.pool_stats()["boundary_state_bytes"]}
+        del blocks, state
     if not (resume_bitwise["logits"] and resume_bitwise["blocks"]) or \
             resume_bitwise["warm_skipped"] != 512 or \
-            resume_bitwise["cold_skipped"] != 0:
+            resume_bitwise["cold_skipped"] != 0 or (hybrid and not all(
+                resume_bitwise["after_ticks"][k]
+                for k in ("logits", "blocks", "state"))) or (
+            hybrid and resume_bitwise["after_ticks"]["skipped"] != 992):
         failures.append(f"resumed vs cold admission: {resume_bitwise}")
     del gw_cold, ad, cold_logits, warm
     for run in ch.values():
@@ -2140,9 +2240,11 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             rec.pop("blocks", None)
     torch.cuda.empty_cache()
 
-    # one-shot prefill of a 1,000-token prompt with attention through the
-    # kernel, and through its plain version (the loops it replaced)
-    tokens = torch.from_numpy(pb[3][None]).to(dev)
+    # one-shot prefill of a 1,000-token prompt (hybrid: 1,024) with
+    # attention through the kernel, and through its plain version (the
+    # loops it replaced)
+    one = aligned[2] if hybrid else pb[3]
+    tokens = torch.from_numpy(one[None]).to(dev)
     prefill_kernel_ms = host_ms(lambda: engine.prefill(cfg, params, tokens),
                                 reps=3)
 
@@ -2161,6 +2263,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     f32 = {}
     for key, (prompts, backend, _, _) in spec.items():
+        prompts = aligned if hybrid else prompts
         c4 = serve(cfg4, params4, prompts, backend, True)
         o4 = serve(cfg4, params4, prompts, backend, False)
         err = max([float((a - b).abs().max())
@@ -2196,18 +2299,24 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     emit({"phase": "chunked_main_path", "model": cfg.name,
           "spec": {"n_slots": LM_SLOTS, "max_len": LM_MAX_LEN,
                    "block_size": LM_BLOCK, "chunked": True},
+          **({"oneshot_compared_on": [len(p) for p in aligned],
+              "oneshot_1000_refused": refused} if hybrid else {}),
           **{f"load_{key}": {"chunks": ch[key]["chunks"],
                              "skipped": skipped(ch[key]),
                              "launches": ch[key]["launches"],
                              "ticks": ch[key]["ticks"],
+                             "boundary_state_bytes":
+                                 ch[key]["pool"]["boundary_state_bytes"],
+                             "prefill_tokens_skipped":
+                                 ch[key]["pool"]["prefill_tokens_skipped"],
                              **({"grouped_ticks": grouped} if key == "c"
                                 else {})} for key in spec},
           "resume_bitwise": resume_bitwise,
           "bf16_first_differences": diffs,
           "bf16_token_agreement": {
-              key: sum(x == y for u, t in ch[key]["tokens"].items()
+              key: sum(x == y for u, t in cmp_[key]["tokens"].items()
                        for x, y in zip(t, os_[key]["tokens"][u]))
-              / sum(len(t) for t in ch[key]["tokens"].values())
+              / sum(len(t) for t in cmp_[key]["tokens"].values())
               for key in spec},
           "f32_depth4": f32,
           "prefill_ms": times,
@@ -2216,6 +2325,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
           "fold_copy_bytes_written_cold_1000": fold_copy_bytes,
           "oneshot_prefill_1000_ms": {"kernel": prefill_kernel_ms,
                                       "plain_loops": prefill_plain_ms},
+          "oneshot_prefill_tokens": len(one),
           "tick_ms_median": {
               f"{key}_{'chunked' if r['chunked'] else 'oneshot'}":
                   statistics.median(r["tick_ms"])
@@ -2225,6 +2335,10 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
         raise SystemExit(f"chunked path ({cfg.name}): {failures}")
     return {"launches": launches,
             "oneshot_prefill_1000_ms": prefill_kernel_ms,
+            "oneshot_prefill_tokens": len(one),
+            "boundary_state_bytes": {
+                key: ch[key]["pool"]["boundary_state_bytes"] for key in spec},
+            "resume_bitwise": resume_bitwise,
             "cold_fold_ms_per_chunk": sum(times["cold_fold"]) / sum(
                 -(-n // LM_BLOCK) for n in cold_lens)}
 
@@ -2296,14 +2410,18 @@ def tick_timing(ad, tokens, active, after=None, runs: int | None = None
         for name, fn in sides.items()}}
 
 
-def capture_main_path(dev, cfg, params, runs: int | None = None) -> dict:
+def capture_main_path(dev, cfg, params, runs: int | None = None, *,
+                      flat_len: int = 1024, chunked: bool = False) -> dict:
     """Phase 8: the captured ticks at the config's full width and depth:
-    the flat tick at 8 lanes x 1,024 positions (``backend="cuda"``) and
-    load (c)'s cascade tick, each right after the first tick (its
-    capture): replay against the eager step bit for bit, launch counts,
-    captured steps, and host ms per tick captured against eager in turns,
-    with a profile of each (``runs`` a side, :func:`tick_timing`).  Raises
-    SystemExit on a failed check."""
+    the flat tick at 8 lanes x ``flat_len`` positions (``backend="cuda"``)
+    and load (c)'s cascade tick, prompts admitted one-shot or through the
+    fold (``chunked``; the flat load's lanes then share all but their last
+    block), each right after the first tick (its capture):
+    replay against the eager step bit for bit (the arena, and the hybrid
+    family's per-lane state), launch counts, captured steps, and host ms
+    per tick captured against eager in turns, with a profile of each
+    (``runs`` a side, :func:`tick_timing`).  Raises SystemExit on a failed
+    check."""
     import numpy as np
     import torch
 
@@ -2311,15 +2429,21 @@ def capture_main_path(dev, cfg, params, runs: int | None = None) -> dict:
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
     rng = np.random.default_rng(17)
-    loads = {"flat_8x1k": ("cuda", [rng.integers(0, cfg.vocab, 1024)
-                                    .astype(np.int32)
-                                    for _ in range(LM_SLOTS)]),
+    flat = "flat_8x1k" if flat_len == 1024 else f"flat_8x{flat_len}"
+    # through the fold the lanes share all but their last block, so that
+    # seven admissions resume (the flat tick reads every lane's whole chain
+    # all the same)
+    own = LM_BLOCK if chunked else flat_len
+    common = rng.integers(0, cfg.vocab, flat_len - own)
+    loads = {flat: ("cuda", [np.concatenate(
+        [common, rng.integers(0, cfg.vocab, own)]).astype(np.int32)
+        for _ in range(LM_SLOTS)]),
              "cascade_load_c": ("cascade", load_c_prompts(cfg.vocab)[0])}
     out, failures = {}, []
     for name, (backend, prompts) in loads.items():
         gw = make_gateway(cfg, params, ServeSpec(
             n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
-            block_size=LM_BLOCK, chunked=False, backend=backend,
+            block_size=LM_BLOCK, chunked=chunked, backend=backend,
             max_new_tokens=NEW_TOKENS_C), device=dev)
         ad, batcher = gw.batcher.adapter, gw.batcher
         for i, p in enumerate(prompts):
@@ -2328,7 +2452,8 @@ def capture_main_path(dev, cfg, params, runs: int | None = None) -> dict:
         batcher.step()          # admits all eight; the first tick captures
         tokens = batcher.last_token.copy()
         active = np.asarray([r is not None for r in batcher.active])
-        check = tick_replay_check(ad, tokens, active)
+        check = tick_replay_check(ad, tokens, active,
+                                  state={**ad.arena, **ad.state})
         timing = tick_timing(ad, tokens, active, runs=runs)
         captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
         want = {"decode": 1} if backend == "cuda" else \
@@ -2351,7 +2476,8 @@ def capture_main_path(dev, cfg, params, runs: int | None = None) -> dict:
                             f"{prof['host_launches_per_tick']} kernels")
         del gw, ad, batcher
         torch.cuda.empty_cache()
-    emit({"phase": "capture", "model": cfg.name, **out,
+    emit({"phase": "capture", "model": cfg.name,
+          "admission": "chunked fold" if chunked else "one-shot", **out,
           "failures": failures})
     if failures:
         raise SystemExit(f"captured ticks: {failures}")
@@ -2845,49 +2971,68 @@ MOE_H, MOE_D = 16, 128
 MOE_HOST_RUNS = 3
 
 
-def moe_kernel_checks(dev, gen, sleep: int, n_layers: int) -> dict:
-    """Phase 11's kernel checks at 16 heads of 128 (MHA), each kernel
-    against its plain version in float32 and bf16 (within 2e-5 / 2e-2; the
-    row write bit for bit): ``paged_decode_attention`` at 8 lanes x 1,024
-    to 1,031 positions in the tick's (8, 96) tables, split as planned and
-    in one split; ``scatter_kv_rows`` at ``n_layers`` layers from one tensor
-    per layer; ``flash_attention`` at a fold chunk (16 queries at 512) and
-    a 1,000-token one-shot prompt, a repeated call bitwise; the cascade's
-    prefix pass and its suffix pass with the merge fused, load (c)'s eight
-    lanes sharing a 1,024-position chain with 65-position suffixes.  Then
-    each timed in bf16 beside its plain version and its bound (bytes /
-    3.35 TB/s; prompt attention also operations / the bf16 peak).  Returns
-    the ``moe_shapes_timing`` line's rows; raises SystemExit on a failed
-    check."""
+def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
+                      hq: int, hkv: int, d: int, n_pos: int = 1024,
+                      fold_offset: int = 512, one_len: int = 1000,
+                      windows: tuple = (None,),
+                      cut_len: int | None = None) -> dict:
+    """The attention kernels at a config's head geometry (``hq`` query
+    heads over ``hkv`` KV heads of ``d``), each against its plain version
+    in float32 and bf16 (within 2e-5 / 2e-2; the row write bit for bit) at
+    every window of ``windows`` (None: no window): ``paged_decode_attention``
+    at 8 lanes of ``n_pos + 1`` to ``n_pos + 8`` positions (the new row
+    spliced in) in the tick's (8, 96) tables, split as planned and in one
+    split; ``scatter_kv_rows`` at ``n_layers`` layers from one tensor per
+    layer; ``flash_attention`` at a fold chunk (16 queries at
+    ``fold_offset``) and a ``one_len``-token one-shot prompt (and, with
+    ``cut_len``, a ``cut_len``-token prompt whose window cuts: a check,
+    not timed), a repeated call bitwise; the cascade's prefix pass and its
+    suffix pass with the merge fused, load (c)'s eight lanes sharing a
+    1,024-position chain with 65-position suffixes.  Then each timed in
+    bf16 at the first window beside its plain version, its bound (bytes /
+    3.35 TB/s, or operations / the peak of their type, for the positions
+    this window leaves) and ``F.scaled_dot_product_attention`` on the same
+    masked problem (``index_put_`` for the row write).  Prints the
+    ``<tag>_kernel_checks`` and ``<tag>_shapes_timing`` lines and returns
+    the timing rows; raises SystemExit on a failed check."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as flash_k
     from repro_torch.kernels import paged_attn as paged_k
     from repro_torch.kernels import ref
     from repro_torch.nn import attention
 
-    H, D, bs, B = MOE_H, MOE_D, LM_BLOCK, LM_SLOTS
-    nb, n_pos = LM_MAX_LEN // bs, 1024
+    H, D, bs, B = hq, d, LM_BLOCK, LM_SLOTS
+    nb = LM_MAX_LEN // bs
     i32 = dict(dtype=torch.int32, device=dev)
 
     def arr(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def case(dtype):
-        """Every kernel's inputs at these shapes, and a call of each."""
+    def band(lo, hi, n) -> torch.Tensor:
+        """(rows, n) bool: key j valid for row r when lo[r] <= j < hi[r]."""
+        j = torch.arange(n, device=dev)
+        return (j[None] >= lo[:, None]) & (j[None] < hi[:, None])
+
+    def case(dtype, window):
+        """Every kernel's inputs at these shapes and window, and per
+        kernel (kernel, plain, library, bytes, operations)."""
+        win = window or ref.NO_WINDOW
         num_blocks = B * nb + 1
         perm = torch.randperm(num_blocks - 1, generator=gen,
                               device=dev) + 1
         used = -(-(n_pos + B) // bs)
         tables = torch.zeros((B, nb), **i32)
         tables[:, :used] = perm[:B * used].reshape(B, used).to(torch.int32)
-        lens = torch.arange(n_pos, n_pos + B, **i32)
-        q, ka, va = arr((B, H, D), dtype), arr((num_blocks, bs, H, D),
-                                                dtype), \
-            arr((num_blocks, bs, H, D), dtype)
-        nk = (arr((B, H, D), dtype), arr((B, H, D), dtype))
-        rows = ([arr((B, H, D), dtype) for _ in range(n_layers)],
-                [arr((B, H, D), dtype) for _ in range(n_layers)])
+        lens = torch.arange(n_pos + 1, n_pos + B + 1, **i32)
+        q = arr((B, H, D), dtype)
+        ka, va = (arr((num_blocks, bs, hkv, D), dtype) for _ in range(2))
+        nk = (arr((B, hkv, D), dtype), arr((B, hkv, D), dtype))
+        rows = ([arr((B, hkv, D), dtype) for _ in range(n_layers)],
+                [arr((B, hkv, D), dtype) for _ in range(n_layers)])
+        el = ka.element_size()
+        row = hkv * D * el                      # bytes of one K or V row
         # the row write into an arena of its own, one block per lane
         wb, offs = torch.arange(1, B + 1, **i32), lens % bs
         # load (c)'s group: the chain is the first 64 blocks of lane 0's
@@ -2897,130 +3042,197 @@ def moe_kernel_checks(dev, gen, sleep: int, n_layers: int) -> dict:
         gt = tables[:1, :npre].contiguous()
         st = perm[B * used:B * used + B * 5].reshape(B, 5).to(torch.int32)
         glen = torch.tensor([SHARED_PROMPT], **i32)
-        cl = SHARED_PROMPT + OWN_TAIL + torch.arange(B, **i32) % 2
+        cl = SHARED_PROMPT + OWN_TAIL + 1 + torch.arange(B, **i32) % 2
         meta = attention.with_lane_meta(
             {"group_lanes": torch.arange(B, **i32)[None],
              "group_mask": torch.ones((1, B), dtype=torch.bool,
                                       device=dev)}, cl)
         q0 = glen.expand(B).contiguous()
-        fold = (arr((1, 16, H, D), dtype), arr((1, 528, H, D), dtype),
-                arr((1, 528, H, D), dtype))
-        one = tuple(arr((1, 1000, H, D), dtype) for _ in range(3))
+        Sk = fold_offset + 16
+        fold = (arr((1, 16, H, D), dtype), arr((1, Sk, hkv, D), dtype),
+                arr((1, Sk, hkv, D), dtype))
+        one = (arr((1, one_len, H, D), dtype),
+               arr((1, one_len, hkv, D), dtype),
+               arr((1, one_len, hkv, D), dtype))
         L = n_layers
-        ka_l = torch.zeros((L, B + 1, 1, bs, H, D), dtype=dtype,
+        ka_l = torch.zeros((L, B + 1, 1, bs, hkv, D), dtype=dtype,
                            device=dev)
         va_l = torch.zeros_like(ka_l)
-        return {
+        # the positions each pass reads at this window: this run's work
+        lo = torch.clamp(lens - win, min=0)
+        live = int((lens - lo).sum())
+        pre_lo = torch.clamp(cl - win, min=0)
+        pre_rows = int((SHARED_PROMPT - pre_lo).clamp(min=0).sum())
+        pre_keys = SHARED_PROMPT - min(int(pre_lo.min()), SHARED_PROMPT)
+        suf_lo = torch.maximum(q0, cl - win)
+        suf = int((cl - suf_lo).sum())
+        # the fold chunk's K/V rows inside some query's window
+        fold_rows = Sk - max(0, fold_offset - win + 1)
+
+        def pairs(Sq, off):
+            return sum(min(off + i + 1, win) for i in range(Sq))
+
+        def prompt_mask(Sq, Skk, off):
+            r = off + torch.arange(Sq, device=dev)[:, None] - \
+                torch.arange(Skk, device=dev)[None, :]
+            return (r >= 0) & (r < win)
+
+        def sdpa(qq, kk, vv, mask):
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+        # the library's problems on gathered views (the gather not timed)
+        n_max = n_pos + B
+        kd, vd = (a[tables.long()].reshape(B, nb * bs, hkv, D)[:, :n_max]
+                  .transpose(1, 2).contiguous() for a in (ka, va))
+        pmask = band(lo, lens, n_max)[:, None, None]
+        kc, vc = (a[gt.long()].reshape(1, -1, hkv, D).transpose(1, 2)
+                  .contiguous() for a in (ka, va))
+        cmask = band(pre_lo, torch.full_like(cl, SHARED_PROMPT),
+                     SHARED_PROMPT)[None, None]
+        ks, vs = (a[st.long()].reshape(B, -1, hkv, D).transpose(1, 2)
+                  .contiguous() for a in (ka, va))
+        smask = band(suf_lo - q0, cl - q0, ks.shape[2])[:, None, None]
+        idx = (torch.arange(L, device=dev)[:, None], wb.long()[None, :],
+               torch.zeros((1, 1), dtype=torch.long, device=dev),
+               offs.long()[None, :])
+        kr, vr = torch.stack(rows[0]), torch.stack(rows[1])
+        fm, om = prompt_mask(16, Sk, fold_offset), \
+            prompt_mask(one_len, one_len, 0)
+        ft = tuple(t.transpose(1, 2).contiguous() for t in fold)
+        ot = tuple(t.transpose(1, 2).contiguous() for t in one)
+        calls = {
             "paged_decode_attention": (
                 lambda: paged_k.paged_decode_attention(
-                    q, ka, va, tables, lens, new_kv=nk),
+                    q, ka, va, tables, lens, window=window, new_kv=nk),
                 lambda: ref.paged_decode_attention(q, ka, va, tables, lens,
-                                                   None, nk),
-                2 * B * n_pos * H * D * ka.element_size()
-                + 2 * q.numel() * q.element_size() + tables.numel() * 4,
-                4 * B * H * n_pos * D, F32_FLOPS),
+                                                   window, nk),
+                lambda: sdpa(q[:, :, None], kd, vd, pmask),
+                2 * live * row + 2 * q.numel() * el + tables.numel() * 4,
+                4 * H * live * D),
             "scatter_kv_rows": (
                 lambda: paged_k.scatter_kv_rows(ka_l, va_l, *rows, wb, offs)
                 or (ka_l, va_l),
                 lambda: ref.scatter_kv_rows(ka_l.clone(), va_l.clone(),
-                                            torch.stack(rows[0]),
-                                            torch.stack(rows[1]), wb, offs),
-                2 * 2 * L * B * H * D * ka.element_size() + 2 * B * 4, 0,
-                F32_FLOPS),
+                                            kr, vr, wb, offs),
+                lambda: (ka_l.index_put_(idx, kr), va_l.index_put_(idx, vr)),
+                2 * 2 * L * B * row + 2 * B * 4, 0),
             "flash_attention fold chunk": (
-                lambda: flash_k.flash_attention(*fold, q_offset=512),
-                lambda: ref.flash_attention_chunked(*fold, True, None, 512),
-                sum(t.numel() for t in fold) * fold[0].element_size()
-                + fold[0].numel() * fold[0].element_size(),
-                4 * H * D * sum(513 + i for i in range(16)), BF16_FLOPS),
+                lambda: flash_k.flash_attention(*fold, window=window,
+                                                q_offset=fold_offset),
+                lambda: ref.flash_attention_chunked(*fold, True, window,
+                                                    fold_offset),
+                lambda: sdpa(*ft, fm),
+                2 * fold[0].numel() * el + 2 * fold_rows * row,
+                4 * H * D * pairs(16, fold_offset)),
             "flash_attention one-shot": (
-                lambda: flash_k.flash_attention(*one),
-                lambda: ref.flash_attention_chunked(*one, True, None, 0),
-                4 * one[0].numel() * one[0].element_size(),
-                4 * H * D * sum(i + 1 for i in range(1000)), BF16_FLOPS),
+                lambda: flash_k.flash_attention(*one, window=window),
+                lambda: ref.flash_attention_chunked(*one, True, window, 0),
+                lambda: sdpa(*ot, om),
+                (2 * one[0].numel() + 2 * one[1].numel()) * el,
+                4 * H * D * pairs(one_len, 0)),
             "cascade_prefix_attention": (
                 lambda: paged_k.cascade_prefix_attention(
-                    q[None], ka, va, gt, glen, cl[None]),
+                    q[None], ka, va, gt, glen, cl[None], window=window),
                 lambda: ref.cascade_prefix_attention(
-                    q[None], ka, va, gt, glen, cl[None], None),
-                2 * SHARED_PROMPT * H * D * ka.element_size()
-                + q.numel() * q.element_size() + B * H * (D + 2) * 4,
-                4 * B * H * SHARED_PROMPT * D, F32_FLOPS),
+                    q[None], ka, va, gt, glen, cl[None], window),
+                lambda: sdpa(q.transpose(0, 1)[None], kc, vc, cmask),
+                2 * pre_keys * row + q.numel() * el + B * H * (D + 2) * 4,
+                4 * H * pre_rows * D),
             "paged_decode_attention_with_state (merge fused)": (
                 lambda: paged_k.paged_decode_attention_with_state(
-                    q, ka, va, st, cl, q0=q0, new_kv=nk,
-                    prefix=prefix[dtype] + (meta["lane_slot"],)),
+                    q, ka, va, st, cl, window=window, q0=q0, new_kv=nk,
+                    prefix=prefix[dtype, window] + (meta["lane_slot"],)),
                 lambda: ref.paged_decode_attention_merged(
-                    q, ka, va, st, cl, None, q0, nk,
-                    prefix[dtype] + (meta["lane_slot"],)),
-                2 * B * (OWN_TAIL + 1) * H * D * ka.element_size()
-                + 2 * q.numel() * q.element_size() + B * H * (D + 2) * 4,
-                4 * B * H * (OWN_TAIL + 1) * D, F32_FLOPS)}
+                    q, ka, va, st, cl, window, q0, nk,
+                    prefix[dtype, window] + (meta["lane_slot"],)),
+                lambda: sdpa(q[:, :, None], ks, vs, smask),
+                2 * suf * row + 2 * q.numel() * el + B * H * (D + 2) * 4,
+                4 * H * suf * D)}
+        if cut_len:
+            cut = tuple(arr((1, cut_len, h, D), dtype) for h in (H, hkv, hkv))
+            calls["flash_attention window cut"] = (
+                lambda: flash_k.flash_attention(*cut, window=window),
+                lambda: ref.flash_attention_chunked(*cut, True, window, 0),
+                None, 0, 0)
+        return calls
 
     checks, err, prefix, timing = [], {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        calls = case(dtype)
-        prefix[dtype] = calls["cascade_prefix_attention"][0]()
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        for name, (kernel, plain, _, _, _) in calls.items():
-            plans = {"": contextlib.nullcontext}
-            if name == "paged_decode_attention":
-                plans = {" (split)": contextlib.nullcontext,
-                         " (one split)": functools.partial(
-                             mock.patch.object, paged_k, "SPLIT_POSITIONS",
-                             nb * bs)}
-            for label, plan in plans.items():
-                with plan():
-                    got, want = kernel(), plain()
-                    again = kernel()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                again = again if isinstance(again, tuple) else (again,)
-                bitwise = name == "scatter_kv_rows"
-                if bitwise:             # the trash block 0 takes collisions
-                    got, want = (g[:, 1:] for g in got), \
-                        (w[:, 1:] for w in want)
-                e = max(float((g.float() - w.float()).abs().max())
+        for window in windows:
+            calls = case(dtype, window)
+            prefix[dtype, window] = calls["cascade_prefix_attention"][0]()
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            for name, (kernel, plain, *_) in calls.items():
+                plans = {"": contextlib.nullcontext}
+                if name == "paged_decode_attention":
+                    plans = {" (split)": contextlib.nullcontext,
+                             " (one split)": functools.partial(
+                                 mock.patch.object, paged_k,
+                                 "SPLIT_POSITIONS", nb * bs)}
+                for label, plan in plans.items():
+                    with plan():
+                        got, want = kernel(), plain()
+                        again = kernel()
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    again = again if isinstance(again, tuple) else (again,)
+                    bitwise = name == "scatter_kv_rows"
+                    if bitwise:         # the trash block 0 takes collisions
+                        got, want = (g[:, 1:] for g in got), \
+                            (w[:, 1:] for w in want)
+                    e = max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip(got, want))
+                    ok = e == 0 if bitwise else all(
+                        torch.allclose(g.float(), w.float(), rtol=tol,
+                                       atol=tol)
                         for g, w in zip(got, want))
-                ok = e == 0 if bitwise else all(
-                    torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
-                    for g, w in zip(got, want))
-                ok &= bitwise or all(torch.equal(g, a)
-                                     for g, a in zip(got, again))
-                checks.append({"kernel": name + label, "dtype": str(dtype),
-                               "max_abs_err": e, "ok": bool(ok)})
-                key = name.split(" ")[0]
-                err[key] = max(err.get(key, 0.0), e)
-        if dtype == torch.bfloat16:
-            for name, (kernel, plain, n_bytes, ops, peak) in calls.items():
-                ms, b2b = time_ms(kernel, 5, 20, sleep)
-                plain_ms = time_ms(plain, 3, 3, sleep)[0]
-                bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-                ops_ms = ops / peak * 1e3
-                timing[name] = {
-                    "ms": ms, "back_to_back_ms": b2b, "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", "bytes_ms": bytes_ms,
-                    "ops_ms": ops_ms}
-            timing["paged_decode_attention"]["splits"] = \
-                paged_k.paged_split_plan(nb, bs)[0]
-        del calls
-        torch.cuda.empty_cache()
+                    ok &= bitwise or all(torch.equal(g, a)
+                                         for g, a in zip(got, again))
+                    checks.append({"kernel": name + label,
+                                   "dtype": str(dtype), "window": window,
+                                   "max_abs_err": e, "ok": bool(ok)})
+                    key = name.split(" ")[0]
+                    err[key] = max(err.get(key, 0.0), e)
+            if dtype == torch.bfloat16 and window == windows[0]:
+                for name, (kernel, plain, lib, n_bytes,
+                           ops) in calls.items():
+                    if lib is None:
+                        continue
+                    ms, b2b = time_ms(kernel, 5, 20, sleep)
+                    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+                    ops_ms = ops / BF16_FLOPS * 1e3     # bf16 operands
+                    timing[name] = {
+                        "ms": ms, "back_to_back_ms": b2b,
+                        "plain_ms": time_ms(plain, 3, 3, sleep)[0],
+                        "library_ms": time_ms(lib, 5, 20, sleep)[0],
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations", "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms}
+                timing["paged_decode_attention"]["splits"] = \
+                    paged_k.paged_split_plan(nb, bs)[0]
+            del calls
+            torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
-    emit({"phase": "moe_kernel_checks", "heads": f"{H} x {D} (MHA)",
-          "checks": len(checks), "failed": bad, "max_abs_err": err,
-          "cases": checks})
-    emit({"moe_shapes_timing": timing,
-          "shapes": f"bf16; paged: q ({B}, {H}, {D}), {n_pos}..."
-                    f"{n_pos + B - 1} positions, tables ({B}, {nb}), splice "
-                    f"on; scatter: {n_layers} layers x ({B}, {H}, {D}) rows; "
-                    f"flash: 16 queries at 512, 1,000-token prompt; cascade:"
-                    f" {B} lanes on a {SHARED_PROMPT}-position chain, "
-                    f"{OWN_TAIL + 1}-position suffixes"})
+    heads = f"{H} x {D}" + (" (MHA)" if H == hkv else
+                            f" over {hkv} KV heads")
+    emit({"phase": f"{tag}_kernel_checks", "heads": heads,
+          "windows": list(windows), "checks": len(checks), "failed": bad,
+          "max_abs_err": err, "cases": checks})
+    emit({f"{tag}_shapes_timing": timing,
+          "shapes": f"bf16, window {windows[0]}; paged: q ({B}, {H}, {D}) "
+                    f"over {hkv} KV heads, {n_pos + 1}...{n_pos + B} "
+                    f"positions, tables ({B}, {nb}), splice on; scatter: "
+                    f"{n_layers} layers x ({B}, {hkv}, {D}) rows; flash: 16 "
+                    f"queries at {fold_offset}, {one_len}-token prompt; "
+                    f"cascade: {B} lanes on a {SHARED_PROMPT}-position "
+                    f"chain, {OWN_TAIL + 1}-position suffixes; library: "
+                    "F.scaled_dot_product_attention (enable_gqa, boolean "
+                    "window mask) on gathered views (the gather not "
+                    "timed), index_put_ for the row write"})
     if bad:
         raise SystemExit(f"a kernel disagrees with its plain version at "
-                         f"{H} heads of {D}: {bad}")
+                         f"{heads}: {bad}")
     return timing
 
 
@@ -3057,7 +3269,7 @@ def moe_main_path(dev, sleep: int) -> dict:
     bf16, random weights drawn on the card, routed dropless in prefill as
     the reference serves it) through every serving path, with the earlier
     phases' helpers: the attention kernels at 16 heads of 128
-    (:func:`moe_kernel_checks`); the default ``ServeSpec()`` dense gateway
+    (:func:`attn_shape_checks`); the default ``ServeSpec()`` dense gateway
     and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
     at depth 4 (dense layer 0 and 3 MoE layers at full width) and bf16 at
     full depth (:func:`dense_main_path`, with :func:`router_gaps`); load
@@ -3108,8 +3320,8 @@ def moe_main_path(dev, sleep: int) -> dict:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    timing = timed("kernel_checks", moe_kernel_checks, dev, gen, sleep,
-                   cfg.n_layers)
+    timing = timed("kernel_checks", attn_shape_checks, dev, gen, sleep,
+                   cfg.n_layers, tag="moe", hq=MOE_H, hkv=MOE_H, d=MOE_D)
     dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
                      sc=False, runs=MOE_HOST_RUNS)
     add(dense)
@@ -3145,6 +3357,138 @@ def moe_main_path(dev, sleep: int) -> dict:
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
           "oneshot_prefill_1000_ms": chunked["oneshot_prefill_1000_ms"],
           "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
+          "launches": launches, "kernel_ms": {
+              k: v["ms"] for k, v in timing.items()},
+          "seconds": seconds,
+          "phase_s": time.perf_counter() - t_phase})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- the hybrid family: hymba-1.5b (phase 12) ----------------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+# hymba-1.5b's attention: 25 query heads over 5 KV heads of 64 (GQA 5:1),
+# a window of 1,024 on 30 of its 32 layers (layers 0 and 16 global)
+HYMBA_HQ, HYMBA_HKV, HYMBA_D, HYMBA_WINDOW = 25, 5, 64, 1024
+# the captured flat tick's contexts: past the window, so that the sliding
+# layers' reads are cut by it
+HYMBA_CONTEXT = 1200
+# phase 12's captured-against-eager tick timings take this many runs a side
+HYMBA_HOST_RUNS = 3
+
+
+def hymba_main_path(dev, sleep: int) -> dict:
+    """Phase 12: the hybrid family at hymba-1.5b's published width and
+    depth (32 layers, d_model 1,600, 25 heads over 5 KV heads of 64, d_ff
+    5,504, SSM d_inner 3,200 and state 16, a window of 1,024 with layers 0
+    and 16 global, vocabulary 32,001; bf16, random weights drawn on the
+    card) through every serving path, with the earlier phases' helpers: the
+    attention kernels at 25 x 64 over 5 KV heads, windows 1,024 and none
+    (:func:`attn_shape_checks`); the default ``ServeSpec()`` dense gateway
+    and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
+    at depth 4 (layer 0 global, 1-3 sliding) and bf16 at full depth
+    (:func:`dense_main_path`); load (c) through the cascade tick against
+    the flat tick, admitted through the fold (the one-shot prefill refuses
+    1,088 tokens, as the reference's does; :func:`cascade_main_path`); load
+    (b) chunked, the resumed fold bit for bit the cold one, also after the
+    snapshotted slot ticked on, and one-shot against chunked admission at
+    512 and 1,024 tokens (:func:`chunked_main_path`), each fold chunk
+    costing ~0.15 s of host time at this width, so load (c) is served once
+    per gateway (no timing turns) and the flat capture load's lanes share
+    all but their last block; the captured flat
+    tick at 8 lanes of 1,200-token contexts and load (c)'s cascade tick
+    against their eager steps (:func:`capture_main_path`, ``HYMBA_HOST_RUNS``
+    runs a side).  Returns the kernels' launches over the path; raises
+    SystemExit on a failed check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = configs.config(HYMBA_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    n_params = sum(sizes.values())
+    gen = torch.Generator(device=dev).manual_seed(12)
+    seconds, launches = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    timing = timed("kernel_checks", attn_shape_checks, dev, gen, sleep,
+                   cfg.n_layers, tag="hymba", hq=HYMBA_HQ, hkv=HYMBA_HKV,
+                   d=HYMBA_D, n_pos=HYMBA_CONTEXT, fold_offset=1072,
+                   one_len=1024, windows=(HYMBA_WINDOW, None), cut_len=2048)
+    dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
+                     sc=False, runs=HYMBA_HOST_RUNS)
+    add(dense)
+    add(timed("cascade_path", cascade_main_path, dev, cfg, params,
+              chunked=True, turns=False))
+    chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
+                    loads="b")
+    add(chunked["launches"])
+    capture = timed("capture", capture_main_path, dev, cfg, params,
+                    runs=HYMBA_HOST_RUNS, flat_len=HYMBA_CONTEXT,
+                    chunked=True)
+    flat = capture[f"flat_8x{HYMBA_CONTEXT}"]
+    # a model of the tick's bytes, not a measurement: every bf16 weight but
+    # the embedding read once, lm_head's float32 copy written and read, the
+    # K and V rows each layer reads (8 lanes, 1,200 positions on the global
+    # layers, the window's 1,024 on the sliding ones) and every layer's
+    # conv taps and SSM state read and written
+    ctx = HYMBA_CONTEXT + 1
+    rows = sum(min(ctx, lm.layer_window(cfg, i) or ctx)
+               for i in range(cfg.n_layers))
+    kv_bytes = 2 * LM_SLOTS * rows * HYMBA_HKV * HYMBA_D * 2
+    state_bytes = 2 * cfg.n_layers * LM_SLOTS * (
+        cfg.inner * cfg.ssm_state * 4 + (cfg.conv_k - 1) * cfg.inner * 2)
+    weight_bytes = 2 * (n_params - sizes["embed"])
+    tick_bytes = weight_bytes + 8 * sizes["lm_head"] + kv_bytes + state_bytes
+    prof = flat["profile"]["captured"]
+    emit({"phase": "hymba_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
+              "d_ff", "d_inner", "ssm_state", "conv_k", "window",
+              "global_every", "ssm_chunk", "vocab", "param_dtype")},
+          "params": n_params, "init_s": init_s,
+          f"tick_8x{HYMBA_CONTEXT}_host_ms": {
+              s: flat["host_ms"][s]["median"] for s in ("captured", "eager")},
+          f"tick_8x{HYMBA_CONTEXT}_device_busy_ms":
+              prof["device_busy_ms_per_tick"],
+          f"tick_8x{HYMBA_CONTEXT}_idle_share": prof["device_idle_share"],
+          f"tick_8x{HYMBA_CONTEXT}_top_device_ms":
+              prof["top_device_ms_per_tick"],
+          "tick_bytes_model": {"weights": weight_bytes,
+                               "lm_head_f32": 8 * sizes["lm_head"],
+                               "kv": kv_bytes, "ssm_state": state_bytes,
+                               "total": tick_bytes},
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "oneshot_prefill_ms": chunked["oneshot_prefill_1000_ms"],
+          "oneshot_prefill_tokens": chunked["oneshot_prefill_tokens"],
+          "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
+          "boundary_state_bytes": chunked["boundary_state_bytes"],
+          "resume_bitwise": chunked["resume_bitwise"],
           "launches": launches, "kernel_ms": {
               k: v["ms"] for k, v in timing.items()},
           "seconds": seconds,
@@ -3841,9 +4185,10 @@ def table3_full_main() -> int:
     return 0
 
 
-def moe_main() -> int:
-    """``--moe``: the card's line, the attention kernels' build and phase 11
-    alone (deepseek-moe-16b through every serving path)."""
+def family_main(path: str, run) -> int:
+    """``--moe`` / ``--hymba``: the card's line, the attention kernels'
+    build and one family's phase alone (``run(dev, sleep)``, its launches
+    printed under ``path``)."""
     import torch
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3853,9 +4198,8 @@ def moe_main() -> int:
     build.build_all(("paged_attn", "cascade_attn", "flash_attn"))
     emit({"build_s": time.perf_counter() - t0})
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    launches = moe_main_path(torch.device("cuda"),
-                             int(0.05 * clock_mhz * 1e6))
-    emit({"launches_by_path": {"moe": launches}})
+    launches = run(torch.device("cuda"), int(0.05 * clock_mhz * 1e6))
+    emit({"launches_by_path": {path: launches}})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4050,7 +4394,9 @@ def main() -> int:
     if args[:1] == ["--table3-full"]:
         return table3_full_main()
     if args[:1] == ["--moe"]:
-        return moe_main()
+        return family_main("moe", moe_main_path)
+    if args[:1] == ["--hymba"]:
+        return family_main("hybrid", hymba_main_path)
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -4293,6 +4639,9 @@ def main() -> int:
     del lm_params
     torch.cuda.empty_cache()
     paths["moe"] = moe_main_path(dev, sleep)
+
+    # -- 12. the hybrid family: hymba-1.5b -----------------------------------
+    paths["hybrid"] = hymba_main_path(dev, sleep)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

@@ -1,7 +1,9 @@
-"""The LM decoder and moe families (llama-style pre-norm blocks, RoPE,
-SwiGLU; the moe family a dense layer 0 and routed-expert FFNs after it)
-for inference in PyTorch: configuration, parameters, the SC frontend,
-prefill blocks and the single-token decode attention, dense and paged.
+"""The LM decoder, moe and hybrid families (llama-style pre-norm blocks,
+RoPE, SwiGLU; the moe family a dense layer 0 and routed-expert FFNs after
+it; the hybrid family hymba's parallel GQA attention and Mamba heads per
+block, sliding windows with periodic global layers) for inference in
+PyTorch: configuration, parameters, the SC frontend, prefill blocks and
+the single-token decode attention, dense and paged.
 
 The public layout is the reference's: parameters are a nested dict of
 tensors with the per-layer ones stacked on a leading layer axis
@@ -9,8 +11,14 @@ tensors with the per-layer ones stacked on a leading layer axis
 (in, out), activations (B, S, d).  The moe family keeps its dense layer 0
 in ``params["dense0"]`` (a leading axis of 1) and its ``n_layers - 1``
 MoE blocks in ``params["blocks"]`` (``"moe"`` in place of ``"mlp"``).
-Layers run as a Python loop (:func:`layers`).  The other families and
-the int8 KV cache come in later slices (ROADMAP.md).
+The hybrid family's blocks add the SSM branch's weights beside
+``"attn"`` and ``"mlp"`` (:func:`_hymba_params`) and carry a recurrent
+state per layer, the conv taps (B, K-1, d_inner) in the model's dtype and
+the SSM state (B, d_inner, N) in float32 (:func:`hymba_block`).  Layers
+run as a Python loop (:func:`layers`) with static per-layer windows; the
+reference's grouped scan layout (``hybrid_grouped``) computes the same
+function.  The other families and the int8 KV cache come in later slices
+(ROADMAP.md).
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -26,15 +34,15 @@ import torch
 
 from repro_torch.core import sc_layer
 from repro_torch.nn import attention, mlp as mlp_lib, moe as moe_lib
-from repro_torch.nn import norms, rope
+from repro_torch.nn import norms, rope, ssm
 
 _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that the decoder and moe
-    families read."""
+    """The reference's ``LMConfig`` fields that the decoder, moe and
+    hybrid families read."""
     name: str = "lm"
     family: str = "decoder"
     n_layers: int = 4
@@ -62,11 +70,17 @@ class LMConfig:
     # serving prefill routes dropless (see decoder_block): required for
     # prefix-cache resumption; off by default, as in the reference
     moe_dropless_prefill: bool = False
+    # --- hybrid / ssm ---
+    ssm_state: int = 0
+    d_inner: int = 0                  # mamba inner width (2*d_model default)
+    dt_rank: int = 0                  # 0: max(16, d_model // 16)
+    conv_k: int = 4
     window: int = 0                   # sliding-window size (0 = full attn)
     global_every: int = 0             # every k-th layer is full attention
     param_dtype: str = "bfloat16"     # "bfloat16" | "float32"
     q_chunk: int = 512
     kv_chunk: int = 1024
+    ssm_chunk: int = 32               # the prompt scan's chunk (hybrid)
     first_layer_mode: str = "none"    # "none" | "sc" (the SC frontend)
     sc_bits: int = 4
 
@@ -86,6 +100,10 @@ class LMConfig:
     def vocab_padded(self) -> int:
         return -(-self.vocab // 128) * 128
 
+    @property
+    def inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
     def is_global_layer(self, idx: int) -> bool:
         if self.window == 0:
             return True
@@ -96,15 +114,18 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("decoder", "moe"):
+    if cfg.family not in ("decoder", "moe", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
             "the other families")
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r}: only swiglu "
-                                  "is ported (decoder and moe families)")
+                                  "is ported (decoder, moe and hybrid "
+                                  "families)")
     if cfg.family == "moe" and cfg.n_experts == 0:
         raise ValueError("the moe family needs n_experts > 0")
+    if cfg.family == "hybrid" and cfg.ssm_state == 0:
+        raise ValueError("the hybrid family needs ssm_state > 0")
 
 
 def layer_window(cfg: LMConfig, idx: int) -> int:
@@ -170,6 +191,38 @@ def _moe_params(gen, cfg: LMConfig, L: int) -> dict:
     return p
 
 
+def _hymba_params(gen, cfg: LMConfig, L: int) -> dict:
+    """The reference's hymba block (``_hymba_block_params``), same names,
+    shapes, fills and scales: the attention, the SSM branch (``in_proj``
+    (d, 2 di), the depthwise ``conv_w`` (K, di) at scale 0.5, ``x_proj``
+    (di, dt_rank + 2 N), ``dt_proj`` (dt_rank, di), ``dt_bias`` -4.6,
+    ``A_log`` log(1..N) on every row, ``D_skip`` 1, ``ssm_out`` (di, d)),
+    the two branch norms, ``beta`` 1 (L, 2) and the SwiGLU MLP."""
+    dev = gen.device
+    d, di, N = cfg.d_model, cfg.inner, cfg.ssm_state
+    dtr = cfg.dt_rank or max(16, d // 16)
+
+    def fill(shape, value):
+        return torch.full((L,) + shape, value, dtype=cfg.dtype, device=dev)
+    return {"ln1": _norm_params(cfg, (L,), dev),
+            "attn": _attn_params(gen, cfg, L),
+            "in_proj": _dense(gen, (L, d, 2 * di), cfg.dtype),
+            "conv_w": _dense(gen, (L, cfg.conv_k, di), cfg.dtype, scale=0.5),
+            "x_proj": _dense(gen, (L, di, dtr + 2 * N), cfg.dtype),
+            "dt_proj": _dense(gen, (L, dtr, di), cfg.dtype),
+            "dt_bias": fill((di,), -4.6),
+            "A_log": torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                            device=dev)).expand(L, di, N)
+            .to(cfg.dtype).contiguous(),
+            "D_skip": fill((di,), 1.0),
+            "ssm_out": _dense(gen, (L, di, d), cfg.dtype),
+            "norm_attn": _norm_params(cfg, (L,), dev),
+            "norm_ssm": _norm_params(cfg, (L,), dev),
+            "beta": fill((2,), 1.0),
+            "ln2": _norm_params(cfg, (L,), dev),
+            "mlp": _mlp_params(gen, cfg, L, cfg.d_ff)}
+
+
 def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
     p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=cfg.dtype,
                              device=device)}
@@ -180,10 +233,11 @@ def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
 
 
 def init(cfg: LMConfig, gen: torch.Generator) -> dict:
-    """Random decoder- or moe-family parameters, drawn from ``gen`` on its
-    device in the reference's order and layout.  They are not the reference's
-    numbers for any seed; ``repro_torch.convert.lm_params_from_jax`` shares
-    the reference's weights instead."""
+    """Random decoder-, moe- or hybrid-family parameters, drawn from
+    ``gen`` on its device in the reference's order and layout.  They are
+    not the reference's numbers for any seed;
+    ``repro_torch.convert.lm_params_from_jax`` shares the reference's
+    weights instead."""
     check_supported(cfg)
     dev, L, d, V = gen.device, cfg.n_layers, cfg.d_model, cfg.vocab_padded
     p: dict = {"embed": _dense(gen, (V, d), cfg.dtype, scale=0.02)}
@@ -207,6 +261,8 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
     if cfg.family == "moe":
         p["dense0"] = block(1, False, cfg.first_dense_ff or cfg.d_ff)
         p["blocks"] = block(L - 1, True, cfg.d_ff)
+    elif cfg.family == "hybrid":
+        p["blocks"] = _hymba_params(gen, cfg, L)
     else:
         p["blocks"] = block(L, False, cfg.d_ff)
     return p
@@ -280,8 +336,7 @@ def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
                 window: int = 0, q_offset: int = 0,
                 kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full-sequence attention (prefill).  Returns (out, (k, v)) with k, v
-    the post-RoPE (B, S, Hkv, Dh) cache rows.  A sliding window is applied
-    as a mask through ``attend_chunked``.
+    the post-RoPE (B, S, Hkv, Dh) cache rows.
 
     ``kv_prefix``: the post-RoPE (k, v) of a cache prefix of ``q_offset``
     positions (one chunk of the prefill fold).  Queries come from ``x`` at
@@ -412,6 +467,88 @@ def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
         m = dataclasses.replace(m, group_size=z.shape[0] * z.shape[1],
                                 dropless=True)
     return x + moe_lib.moe_ffn(z, p["moe"], m)[0], kv
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv: x (B, S, di), w (K, di), prev (B, K-1, di)
+    the taps before x[:, 0].  Returns (out (B, S, di), the last K-1 inputs
+    (B, K-1, di), the taps after x[:, -1]); the terms are summed in the
+    reference's order."""
+    K, S = w.shape[0], x.shape[1]
+    xp = torch.cat([prev, x], dim=1)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    return out, xp[:, -(K - 1):].contiguous()
+
+
+def _ssm_inputs(cfg: LMConfig, p: dict, z: torch.Tensor, conv: torch.Tensor):
+    """The SSM branch up to the scan: ``in_proj`` split into the stream
+    and its gate, the causal conv over the stream and SiLU, then dt
+    (softplus over ``dt_proj`` + ``dt_bias``, float32), B and C from
+    ``x_proj``.  Returns (xm, gate, dt, Bm, Cm, the new conv taps)."""
+    xm, gate = _proj(z, p["in_proj"]).chunk(2, dim=-1)
+    xm, conv = _causal_conv(xm, p["conv_w"], conv)
+    xm = torch.nn.functional.silu(xm.float()).to(z.dtype)
+    dtr, N = p["dt_proj"].shape[0], cfg.ssm_state
+    dbc = _proj(xm, p["x_proj"])
+    dt = _proj(dbc[..., :dtr], p["dt_proj"]).float() + p["dt_bias"].float()
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))         # softplus
+    return xm, gate, dt, dbc[..., dtr:dtr + N], dbc[..., dtr + N:], conv
+
+
+def _ssm_out(p: dict, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    y = y * torch.nn.functional.silu(gate.float()).to(y.dtype)
+    return _proj(y, p["ssm_out"])
+
+
+def hymba_mix(cfg: LMConfig, p: dict, x: torch.Tensor, att: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """The block's tail after its two branches: the attention and SSM
+    outputs normed, mixed by ``beta`` in float32 and halved, added to the
+    residual, then the SwiGLU MLP."""
+    beta = p["beta"].float()
+    mixed = (beta[0] * _norm_apply(cfg, p["norm_attn"], att).float()
+             + beta[1] * _norm_apply(cfg, p["norm_ssm"], y).float()) * 0.5
+    x = x + mixed.to(x.dtype)
+    return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+
+
+def hymba_block(cfg: LMConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor, state: dict, *, window: int,
+                q_offset: int = 0,
+                kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Parallel GQA attention and Mamba heads over a prompt or a fold
+    chunk, mixed by ``beta``, then the MLP.  ``state``: {"conv": (B, K-1,
+    di), "ssm": (B, di, N) float32}, the recurrent state at ``q_offset``
+    (zeros for a prompt from its start), read and never written.  Returns
+    (x, (k, v), the new state); the scan runs in chunks of
+    ``min(cfg.ssm_chunk, S)`` steps, so a prompt of S tokens must be a
+    multiple of that (``ssm.selective_scan`` raises otherwise, where the
+    reference asserts)."""
+    S = x.shape[1]
+    z = _norm_apply(cfg, p["ln1"], x)
+    att, kv = _attn_apply(cfg, p["attn"], z, positions, window=window,
+                          q_offset=q_offset, kv_prefix=kv_prefix)
+    xm, gate, dt, Bm, Cm, conv = _ssm_inputs(cfg, p, z, state["conv"])
+    y, h = ssm.selective_scan(xm, dt.to(x.dtype), p["A_log"], Bm, Cm,
+                              p["D_skip"], chunk=min(cfg.ssm_chunk, S),
+                              state0=state["ssm"])
+    x = hymba_mix(cfg, p, x, att, _ssm_out(p, y, gate))
+    return x, kv, {"conv": conv, "ssm": h}
+
+
+def ssm_decode(cfg: LMConfig, p: dict, z: torch.Tensor, conv: torch.Tensor,
+               h: torch.Tensor):
+    """A decode tick's SSM branch for a (B, 1, d) normed activation, from
+    the lanes' conv taps (B, K-1, di) and state (B, di, N).  Returns (y
+    (B, 1, d), the new taps, the new state); the inputs are not
+    written."""
+    xm, gate, dt, Bm, Cm, conv = _ssm_inputs(cfg, p, z, conv)
+    y1, h = ssm.selective_step(xm[:, 0], dt[:, 0].to(z.dtype), p["A_log"],
+                               Bm[:, 0], Cm[:, 0], p["D_skip"], h)
+    return _ssm_out(p, y1[:, None], gate), conv, h
 
 
 def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

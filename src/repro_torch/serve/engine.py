@@ -1,18 +1,22 @@
-"""Serving engine of the port, decoder and moe families: one-shot
+"""Serving engine of the port, decoder, moe and hybrid families: one-shot
 prefill, the chunked prefill fold's step and the batched single-token
 decode ticks, against the dense cache and against the paged block arena.
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
-``len``, a scalar or, in the dense tick, one length per lane.  The paged
+``len``, a scalar or, in the dense tick, one length per lane; the hybrid
+family adds its recurrent state, ``conv`` (L, B, K-1, d_inner) in the
+model's dtype and ``ssm`` (L, B, d_inner, N) in float32.  The paged
 arena splices a ``num_blocks`` axis in just before the batch axis of a
 B=1, ``block_size``-long cache: (L, num_blocks, 1, bs, Hkv, Dh),
 layer-leading, so one layer's slice is exactly what the paged attention
-reads.
+reads; the recurrent state is not a sequence key and stays out of it
+(the paged adapter keeps it per lane, (L, n_slots, ...)).
 
 Unlike the reference, which rebuilds arrays functionally (and lets XLA
-donate them), the decode ticks here write the cache and the arena **in
-place**: the new token's K/V row per layer and lane lands at its position
-(dense) or where the block table says (paged), and no other row changes.
+donate them), the decode ticks here write the cache, the arena and the
+recurrent state **in place**: the new token's K/V row per layer and lane
+lands at its position (dense) or where the block table says (paged), a
+lane's state is overwritten by its next state, and nothing else changes.
 The ticks embed their token without the SC frontend, as the reference's
 do; prefill and every fold chunk run it (``lm.embed_tokens``).
 
@@ -21,6 +25,11 @@ The moe family runs its dense layer 0 first, then its MoE blocks
 layer 0 for it.  Prefill and every fold chunk route with
 ``moe_dropless=cfg.moe_dropless_prefill``; on a tick each lane routes as
 its own group of one token (``lm.moe_ffn_decode``).
+
+The hybrid family scans a prompt or fold chunk of S tokens in chunks of
+``min(ssm_chunk, S)`` steps, so its one-shot prefill refuses a prompt
+that is not a multiple of that chunk, as the reference does; the fold
+takes any length, each chunk being one scan chunk.
 """
 from __future__ import annotations
 
@@ -30,19 +39,37 @@ from repro_torch.kernels import paged_attn as paged_kernels
 from repro_torch.kernels import ref
 from repro_torch.models import lm
 
-# Cache keys whose axis -3 is the (paged) sequence axis; the decoder and
-# moe families have only k and v.
+# Cache keys whose axis -3 is the (paged) sequence axis: k and v only (the
+# hybrid family's conv and ssm state is per lane, not per position).
 PAGED_SEQ_KEYS = ("k", "v")
+# the hybrid family's recurrent state, per layer and lane
+STATE_KEYS = ("conv", "ssm")
+
+
+def init_state(cfg: lm.LMConfig, batch: int,
+               device: str | torch.device = "cuda") -> dict:
+    """Zeroed recurrent state of the hybrid family: conv (L, B, K-1,
+    d_inner) in the model's dtype, ssm (L, B, d_inner, N) float32; an
+    empty dict for the other families."""
+    if cfg.family != "hybrid":
+        return {}
+    L = cfg.n_layers
+    return {"conv": torch.zeros((L, batch, cfg.conv_k - 1, cfg.inner),
+                                dtype=cfg.dtype, device=device),
+            "ssm": torch.zeros((L, batch, cfg.inner, cfg.ssm_state),
+                               dtype=torch.float32, device=device)}
 
 
 def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh) and ``len``."""
+    """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh), ``len`` and, for
+    the hybrid family, the recurrent state (:func:`init_state`)."""
     lm.check_supported(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            **init_state(cfg, batch, device)}
 
 
 def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
@@ -66,13 +93,25 @@ def arena_block_axis(a: torch.Tensor) -> int:
     return a.dim() - 5
 
 
+def _put(dst: torch.Tensor, new: torch.Tensor,
+         active: torch.Tensor | None) -> None:
+    """``dst`` (B, ...) overwritten in place by ``new``, an inactive
+    lane's row put back as it was."""
+    if active is not None:
+        new = torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                          new, dst)
+    dst.copy_(new)
+
+
 def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
-    """Process a whole prompt: one fold step from an empty prefix.  tokens
-    (B, S) -> (cache, last-token logits (B, vocab_padded) float32); cache
-    k/v (L, B, S, Hkv, Dh), len S."""
-    return prefill_chunked(cfg, params, tokens,
-                           init_cache(cfg, tokens.shape[0], 0, tokens.device),
-                           0)
+    """Process a whole prompt.  tokens (B, S) -> (cache, last-token logits
+    (B, vocab_padded) float32); cache k/v (L, B, S, Hkv, Dh), len S, and
+    the hybrid family's state after the prompt: one fold step from an
+    empty prefix (hybrid: a prompt of S tokens must be a multiple of
+    ``min(cfg.ssm_chunk, S)``, else ``ValueError``)."""
+    return prefill_chunked(
+        cfg, params, tokens,
+        init_cache(cfg, tokens.shape[0], 0, tokens.device), 0)
 
 
 def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
@@ -82,36 +121,70 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
 
     tokens (B, S_chunk): only the tokens past the prefix.  ``cache``: k/v
     (L, B, q_offset, Hkv, Dh), the prefix's post-RoPE rows (zero-length for
-    a cold fold).  Returns (cache covering prefix and chunk, len
-    ``q_offset + S_chunk``; the chunk's last-token logits (B, vocab_padded)
-    float32).  Decoder and moe families (other families raise).
+    a cold fold), and for the hybrid family conv / ssm, the recurrent
+    state at ``q_offset`` (zeros for a cold fold), read and not written.
+    Returns (cache covering prefix and chunk, len ``q_offset + S_chunk``,
+    with the state after the chunk; the chunk's last-token logits (B,
+    vocab_padded) float32).  Decoder, moe and hybrid families (other
+    families raise).
 
     A radix prefix hit of H blocks resumes the fold at chunk H with the
-    prefix gathered from the arena.  Chunk j runs the same operations on
-    the same inputs whether the fold started at 0 or at H <= j, so the
-    resumed fold reproduces the cold fold's K/V and logits bit for bit.
-    Every chunk concatenates the whole prefix in every layer and stacks the
+    prefix gathered from the arena (and, hybrid, the boundary state the
+    cold fold left there).  Chunk j runs the same operations on the same
+    inputs whether the fold started at 0 or at H <= j, so the resumed fold
+    reproduces the cold fold's K/V, state and logits bit for bit.  Every
+    chunk concatenates the whole prefix in every layer and stacks the
     layers again, as the reference does."""
     lm.check_supported(cfg)
     B, S = tokens.shape
     if cache["k"].shape[-3] != q_offset:
         raise ValueError(f"prefix holds {cache['k'].shape[-3]} positions, "
                          f"q_offset is {q_offset}")
+    hybrid = cfg.family == "hybrid"
     x = lm.embed_tokens(cfg, params, tokens, pos_offset=q_offset)
     positions = torch.arange(q_offset, q_offset + S,
                              device=x.device).expand(B, S)
-    ks, vs = [], []
+    out = {key: [] for key in PAGED_SEQ_KEYS + (STATE_KEYS if hybrid
+                                                 else ())}
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
-        x, (k, v) = lm.decoder_block(
-            cfg, lp, x, positions, window=window, q_offset=q_offset,
-            kv_prefix=(cache["k"][i], cache["v"][i]), moe_layer=moe_layer,
-            moe_dropless=cfg.moe_dropless_prefill)
-        ks.append(k)
-        vs.append(v)
+        prefix = (cache["k"][i], cache["v"][i])
+        if hybrid:
+            x, (k, v), st = lm.hymba_block(
+                cfg, lp, x, positions,
+                {key: cache[key][i] for key in STATE_KEYS}, window=window,
+                q_offset=q_offset, kv_prefix=prefix)
+        else:
+            x, (k, v) = lm.decoder_block(
+                cfg, lp, x, positions, window=window, q_offset=q_offset,
+                kv_prefix=prefix, moe_layer=moe_layer,
+                moe_dropless=cfg.moe_dropless_prefill)
+            st = {}
+        for key, t in (("k", k), ("v", v), *st.items()):
+            out[key].append(t)
     new_cache = {"len": torch.tensor(q_offset + S, dtype=torch.int32,
                                      device=x.device),
-                 "k": torch.stack(ks), "v": torch.stack(vs)}
+                 **{key: torch.stack(ts) for key, ts in out.items()}}
     return new_cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
+
+
+def _block_tail(cfg: lm.LMConfig, lp: dict, x: torch.Tensor,
+                z: torch.Tensor, att: torch.Tensor, moe_layer: bool,
+                state: dict, i: int, active: torch.Tensor | None
+                ) -> torch.Tensor:
+    """A decode tick's block after its attention ``att`` (from the normed
+    ``z``): the residual and the FFN, or for the hybrid family the SSM
+    branch from layer ``i`` of ``state`` (whose lanes' taps and state it
+    overwrites in place, an inactive lane's put back), the mix and the
+    MLP."""
+    if cfg.family != "hybrid":
+        x = x + att
+        return x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
+                                 moe_layer)
+    y, conv, h = lm.ssm_decode(cfg, lp, z, state["conv"][i],
+                               state["ssm"][i])
+    _put(state["conv"][i], conv, active)
+    _put(state["ssm"][i], h, active)
+    return lm.hymba_mix(cfg, lp, x, att, y)
 
 
 def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
@@ -120,13 +193,14 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     position: the reference's ``decode_step`` vmapped over B=1 caches, as
     one batched step.
 
-    cache   k/v (L, B, Smax, Hkv, Dh) and ``len`` (B,) int32 (or a scalar
-            for every lane), **updated in place**: per layer and lane one
-            K/V row at ``len``, and ``len + 1``.
+    cache   k/v (L, B, Smax, Hkv, Dh), ``len`` (B,) int32 (or a scalar
+            for every lane) and the hybrid family's conv / ssm, **updated
+            in place**: per layer and lane one K/V row at ``len``, the
+            lane's next state, and ``len + 1``.
     tokens  (B, 1) integer.
     active  optional (B,) bool: an inactive lane still decodes (its logits
-            are computed) but its rows and length stay as they were, as the
-            reference's adapter selects them.
+            are computed) but its rows, state and length stay as they
+            were, as the reference's adapter selects them.
 
     Returns (cache, logits (B, vocab_padded) float32)."""
     lm.check_supported(cfg)
@@ -134,12 +208,11 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     pos = cache["len"].to(torch.int32).expand(B)
     x = lm.token_rows(params, tokens)                      # (B, 1, d)
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
-        x = x + lm.attn_decode(cfg, lp["attn"],
-                               lm._norm_apply(cfg, lp["ln1"], x),
-                               cache["k"][i], cache["v"][i], pos,
-                               window=window, active=active)
-        x = x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
-                              moe_layer)
+        z = lm._norm_apply(cfg, lp["ln1"], x)
+        att = lm.attn_decode(cfg, lp["attn"], z, cache["k"][i],
+                             cache["v"][i], pos, window=window,
+                             active=active)
+        x = _block_tail(cfg, lp, x, z, att, moe_layer, cache, i, active)
     step = 1 if active is None else active.to(cache["len"].dtype)
     cache["len"] += step
     return cache, lm.logits(cfg, params, x)[:, 0]
@@ -148,8 +221,9 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
 def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                       *, tables: torch.Tensor, lens: torch.Tensor,
                       arena: dict, wbids: torch.Tensor | None = None,
-                      backend: str = "plain", cascade: dict | None = None
-                      ) -> torch.Tensor:
+                      backend: str = "plain", cascade: dict | None = None,
+                      state: dict | None = None,
+                      active: torch.Tensor | None = None) -> torch.Tensor:
     """One batched decode tick reading K/V in place from the block arena.
 
     tokens  (S, 1) int32, one per slot lane.
@@ -169,13 +243,19 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
             :func:`repro_torch.nn.attention.attend_decode_cascade`; the
             same write as ``"cuda"``, whose wrapper runs the plain write
             for CPU tensors).
+    state   the hybrid family's per-lane recurrent state, conv (L, S, K-1,
+            d_inner) and ssm (L, S, d_inner, N), **updated in place**;
+            ``active`` (S,) bool keeps an inactive lane's as it was, as
+            the reference's adapter selects it.  The decoder and moe
+            families have no slot state besides ``lens`` (the caller's).
 
-    The decoder and moe families have no slot state besides ``lens``
-    (the caller's).
     Returns the logits (S, vocab_padded) float32."""
     lm.check_supported(cfg)
     if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
+    if cfg.family == "hybrid" and state is None:
+        raise ValueError("the hybrid family's tick needs the lanes' "
+                         "recurrent state (state=)")
     bs = arena["k"].shape[-3]
     nb = tables.shape[1]
     pos = lens.to(torch.int32)
@@ -186,13 +266,11 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     x = lm.token_rows(params, tokens)                      # (S, 1, d)
     k_rows, v_rows = [], []
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
-        h, k1, v1 = lm.attn_decode_paged(
-            cfg, lp["attn"], lm._norm_apply(cfg, lp["ln1"], x),
-            arena["k"][i], arena["v"][i], tables, pos, window=window,
-            backend=backend, cascade=cascade)
-        x = x + h
-        x = x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
-                              moe_layer)
+        z = lm._norm_apply(cfg, lp["ln1"], x)
+        att, k1, v1 = lm.attn_decode_paged(
+            cfg, lp["attn"], z, arena["k"][i], arena["v"][i], tables, pos,
+            window=window, backend=backend, cascade=cascade)
+        x = _block_tail(cfg, lp, x, z, att, moe_layer, state, i, active)
         k_rows.append(k1)
         v_rows.append(v1)
     # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,

@@ -1,7 +1,7 @@
 """Continuous batching over slot adapters: the request record, the dense
 KV slots, the adapter factory and the family-agnostic scheduler loop.
 
-Two adapters of the decoder and moe families so far:
+Two adapters of the decoder, moe and hybrid families so far:
 :class:`KVSlotAdapter`, each slot a dense cache of ``max_len`` positions
 with its own length (the reference's default), and the paged KV slots
 (``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
@@ -64,13 +64,14 @@ def _dense_tick(cfg, params, cache, tokens, active):
 
 class KVSlotAdapter:
     """Dense KV slots, each lane's length its own: the cache holds k/v
-    (L, n_slots, max_len, Hkv, Dh) and ``len`` (n_slots,) on the params'
+    (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the hybrid
+    family's recurrent state, conv / ssm (L, n_slots, ...), on the params'
     device.  ``insert`` prefills one prompt (B=1, one-shot) and writes its
-    rows into the slot, the rest of the slot zeros as the reference's
-    padded write leaves it; ``clear`` sets the slot's length to 0 (its rows
-    stay, stale but unread); ``decode`` runs one batched tick over every
-    lane (:func:`engine.decode_step`), in which an inactive lane's rows and
-    length stay as they were.
+    rows and state into the slot, the rest of the slot zeros as the
+    reference's padded write leaves it; ``clear`` sets the slot's length to
+    0 (its rows and state stay, stale but unread); ``decode`` runs one
+    batched tick over every lane (:func:`engine.decode_step`), in which an
+    inactive lane's rows, state and length stay as they were.
 
     The tick is one captured step (``serve/capture.py``) over fixed
     ``(n_slots, max_len)`` shapes, the reference's jitted ``decode``; its
@@ -116,6 +117,9 @@ class KVSlotAdapter:
         for key in self.SEQ_KEYS:
             self.cache[key][:, slot, :P] = cache1[key][:, 0]
             self.cache[key][:, slot, P:] = 0
+        for key in engine.STATE_KEYS:
+            if key in self.cache:
+                self.cache[key][:, slot] = cache1[key][:, 0]
         self.cache["len"][slot] = P
         self.last_prefill_logits = logits
         return int(logits[0].argmax())
@@ -153,8 +157,8 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg`` (decoder or moe family): dense KV slots
-    (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
+    """The slot adapter for ``cfg`` (decoder, moe or hybrid family): dense
+    KV slots (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
     paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot
     (``chunked=False``, storage-only prefix sharing); ``backend`` (paged

@@ -31,8 +31,9 @@ Captured ticks
     jitted ``_decode`` and ``_decode_cascade``: one CUDA graph for the flat
     tick and one per cascade metadata bucket (the pow2-padded group, chain,
     lane and suffix counts), replayed with the tick's host inputs (tokens,
-    tables, lengths, write targets and the group metadata) refilled by one
-    copy from pinned memory.  The copy-on-write copy, the prompt writes,
+    tables, lengths, write targets, for the hybrid family the active
+    lanes, and the group metadata) refilled by one copy from pinned
+    memory.  The copy-on-write copy, the prompt writes,
     the fold and one-shot prefill stay eager, on the same stream.
 
 Chunked prefill (``chunked=True``, the default): prefix-hit compute
@@ -47,6 +48,19 @@ skipping
     same logits, same written blocks.  The trailing partial chunk is always
     recomputed into a block of the slot's own, so nothing is shared
     read-only and nothing is copied on write.
+
+Boundary states (the hybrid family)
+    An SSM stream resumes mid-prompt only from its recurrent state at the
+    resume point.  The fold snapshots the state (conv taps and SSM state
+    of every layer) at each full-block boundary whose chain key has none
+    yet (the chunk's own state tensors, which no later chunk, tick or
+    capture writes: each chunk stacks new ones), and commits the snapshots after the prompt's blocks are written.  They
+    live in an LRU capped at ``pool.capacity`` entries and leave with
+    their key when the pool unindexes it (``pool.on_unindex``); a resume
+    is capped at the deepest boundary whose snapshot is still held.
+    ``pool_stats()["boundary_state_bytes"]`` reports the bytes they hold.
+    Each lane's own state lives in ``state`` (L, n_slots, ...), which the
+    ticks overwrite in place (an inactive lane's put back bit for bit).
 
 Sharing / copy-on-write (one-shot prefill, ``chunked=False``)
     Admission walks the pool's radix index: full prompt blocks that match
@@ -72,13 +86,13 @@ Gather tick (``backend="gather"``)
     (lanes out of range to the trash block).  Plain PyTorch on every
     device, captured like the flat tick.
 
-The reference's hybrid boundary-state snapshots and encdec cross K/V (other
-families), mesh placement and obs hooks come with later slices
-(ROADMAP.md).
+The reference's encdec cross K/V (other families), mesh placement and obs
+hooks come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -113,28 +127,34 @@ NOT_CAPTURED = {
 }
 
 
-def _flat_tick(cfg, params, arena, backend, tokens, tables, lens, wbids):
-    """The flat tick's captured body: :func:`engine.decode_step_paged`."""
+def _flat_tick(cfg, params, arena, state, backend, tokens, tables, lens,
+               wbids, active=None):
+    """The flat tick's captured body: :func:`engine.decode_step_paged`
+    (``active``, the lanes whose state the tick advances, with the hybrid
+    family's state only)."""
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
-                                    backend=backend)
+                                    backend=backend, state=state,
+                                    active=active)
 
 
-def _gather_tick(cfg, params, arena, tokens, tables, lens, wbids):
+def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
+                 active=None):
     """The gather tick's captured body (the reference's ``_tick_impl``):
     gather each lane's chain into a dense cache (L, S, nb_max * bs, Hkv,
-    Dh), run :func:`engine.decode_step` on it, and write the block that
-    holds each lane's new row to ``wbids`` (a lane whose length is past
-    its table writes the trash block, from offset 0)."""
+    Dh), run :func:`engine.decode_step` on it (with the lanes' recurrent
+    state, advanced in place for the lanes that write), and write the
+    block that holds each lane's new row to ``wbids`` (a lane whose length
+    is past its table writes the trash block, from offset 0)."""
     S, nb = tables.shape
     bs = arena["k"].shape[-3]
     max_len = nb * bs
     idx = tables.long()
-    cache = {"len": lens.clone()}
+    cache = {"len": lens.clone(), **state}
     for key in engine.PAGED_SEQ_KEYS:
         g = arena[key][:, idx, 0]                # (L, S, nb, bs, Hkv, Dh)
         cache[key] = g.reshape(g.shape[0], S, max_len, *g.shape[4:])
-    _, logits = engine.decode_step(cfg, params, cache, tokens)
+    _, logits = engine.decode_step(cfg, params, cache, tokens, active)
     oor = lens >= max_len
     start = torch.where(oor, 0, lens // bs * bs).long()
     wbids = torch.where(oor, TRASH_BLOCK, wbids).long()
@@ -145,20 +165,25 @@ def _gather_tick(cfg, params, arena, tokens, tables, lens, wbids):
     return logits
 
 
-def _cascade_tick(cfg, params, arena, tokens, tables, lens, wbids, *meta):
+def _cascade_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
+                  *rest):
     """The cascade tick's captured body: :func:`engine.decode_step_paged`
-    with the group metadata, :data:`CASCADE_META` in order."""
+    with the group metadata, :data:`CASCADE_META` in order (after the
+    ``active`` lanes with the hybrid family's state)."""
+    active, meta = (rest[0], rest[1:]) if state else (None, rest)
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
                                     backend="cascade",
-                                    cascade=dict(zip(CASCADE_META, meta)))
+                                    cascade=dict(zip(CASCADE_META, meta)),
+                                    state=state, active=active)
 
 
 class PagedKVSlotAdapter:
-    """Paged KV slots for the decoder and moe families, with the batcher
-    surface (``insert`` / ``decode`` / ``clear``) and the paging hooks the
-    batcher discovers by presence: ``can_admit``, ``validate_request``,
-    ``at_capacity``, ``slot_stats``, ``pool_stats``."""
+    """Paged KV slots for the decoder, moe and hybrid families, with the
+    batcher surface (``insert`` / ``decode`` / ``clear``) and the paging
+    hooks the batcher discovers by presence: ``can_admit``,
+    ``validate_request``, ``at_capacity``, ``slot_stats``,
+    ``pool_stats``."""
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, *, block_size: int = 16,
@@ -189,6 +214,14 @@ class PagedKVSlotAdapter:
         self.arena = engine.init_paged_arena(cfg, num_blocks, block_size,
                                              self.device)
         self.seq_keys = tuple(self.arena)
+        # the hybrid family's per-lane recurrent state ({} otherwise)
+        self.state = engine.init_state(cfg, n_slots, self.device)
+        # the hybrid family's boundary states (see the module docstring),
+        # by chain key, least recently used first
+        self._boundary_states: OrderedDict[bytes, dict] = OrderedDict()
+        self._max_boundary_states = self.pool.capacity
+        self.pool.on_unindex = \
+            lambda bid, key: self._boundary_states.pop(key, None)
         self.prefill_tokens_total = 0
         self.prefill_tokens_skipped_total = 0
         self.prefill_chunks_total = 0       # fold steps run (chunked)
@@ -212,14 +245,16 @@ class PagedKVSlotAdapter:
         # the captured ticks (the steps close over the arena and weights,
         # never over the adapter), on one graph memory pool
         pool = capture.GraphPool(self.device)
-        tick = functools.partial(_gather_tick, cfg, params, self.arena) \
+        tick = functools.partial(_gather_tick, cfg, params, self.arena,
+                                 self.state) \
             if self.backend == "gather" else \
             functools.partial(_flat_tick, cfg, params, self.arena,
-                              self.flat_backend)
+                              self.state, self.flat_backend)
         self._decode = capture.CapturedStep(tick, self.device, pool)
         if self.backend == "cascade":
             self._decode_cascade = capture.CapturedStep(
-                functools.partial(_cascade_tick, cfg, params, self.arena),
+                functools.partial(_cascade_tick, cfg, params, self.arena,
+                                  self.state),
                 self.device, pool)
 
     # -- device work ---------------------------------------------------------
@@ -317,11 +352,17 @@ class PagedKVSlotAdapter:
         return insert(slot, prompt, n_total, n_full, hits, partial_hit,
                       keys, pkey)
 
-    def _resume_blocks(self, P: int, hits: list[int]) -> int:
+    def _resume_blocks(self, P: int, hits: list[int],
+                       keys: list[bytes]) -> int:
         """How many prefix blocks the fold skips: the hit chain, capped so
         that at least one prompt token remains (the fold must produce the
-        last token's logits)."""
-        return min(len(hits), (P - 1) // self.bs)
+        last token's logits) and, for the hybrid family, at the deepest
+        boundary whose state is still held."""
+        H = len(hits)
+        while H > 0 and (H * self.bs >= P or (
+                self.state and keys[H - 1] not in self._boundary_states)):
+            H -= 1
+        return H
 
     def _gather_prefix(self, bids: list[int]) -> dict[str, torch.Tensor]:
         """An H-block chain in the layout :func:`engine.prefill_chunked`
@@ -333,27 +374,57 @@ class PagedKVSlotAdapter:
             out[key] = g.reshape(g.shape[0], 1, -1, *g.shape[3:])
         return out
 
-    def _prefix_cache(self, bids: list[int]) -> dict[str, torch.Tensor]:
+    def _prefix_cache(self, bids: list[int], state: dict | None = None
+                      ) -> dict[str, torch.Tensor]:
         """The prefix cache a fold starts from: the gathered blocks
-        ``bids``, or an empty cache for a cold fold."""
+        ``bids`` with the boundary ``state`` (hybrid), or an empty cache
+        (zero state) for a cold fold."""
         if bids:
-            return self._gather_prefix(bids)
+            return {**self._gather_prefix(bids), **(state or {})}
         return engine.init_cache(self.cfg, 1, 0, self.device)
 
-    def _fold_prefill(self, prompt: np.ndarray, q0: int, cache: dict
-                      ) -> tuple[dict, torch.Tensor]:
+    def _fold_prefill(self, prompt: np.ndarray, q0: int, cache: dict,
+                      keys: list[bytes]
+                      ) -> tuple[dict, torch.Tensor, list[tuple]]:
         """Run the chunk fold over ``prompt[q0:]``, one block-size chunk per
-        step.  Returns (the final cache, the last token's logits)."""
+        step.  Returns (the final cache, the last token's logits, and for
+        the hybrid family a copy of the state at each full-block boundary
+        whose key ``keys[j]`` holds none yet, as (key, state) to commit
+        once the prompt's blocks are written)."""
         P = len(prompt)
+        n_full = P // self.bs
         tokens = torch.from_numpy(prompt[None]).to(self.device)
         q, logits = q0, None
+        snapshots: list[tuple[bytes, dict]] = []
         while q < P:
             c = min(self.bs, P - q)
             cache, logits = engine.prefill_chunked(
                 self.cfg, self.params, tokens[:, q:q + c], cache, q)
             self.prefill_chunks_total += 1
             q += c
-        return cache, logits
+            j = q // self.bs - 1
+            if (self.state and q % self.bs == 0 and j < n_full
+                    and keys[j] not in self._boundary_states):
+                # no copy: prefill_chunked stacks new state tensors every
+                # chunk and only reads the ones it is given, and
+                # _set_state copies into the slot's state
+                snapshots.append((keys[j], {
+                    key: cache[key] for key in engine.STATE_KEYS}))
+        return cache, logits, snapshots
+
+    def _commit_snapshots(self, snapshots: list[tuple]) -> None:
+        """Hold the fold's boundary states, most recent last, and drop the
+        least recently used past the cap."""
+        for key, st in snapshots:
+            self._boundary_states.setdefault(key, st)
+            self._boundary_states.move_to_end(key)
+        while len(self._boundary_states) > self._max_boundary_states:
+            self._boundary_states.popitem(last=False)
+
+    def _set_state(self, slot: int, cache: dict) -> None:
+        """The slot's recurrent state after its prefill (hybrid)."""
+        for key, a in self.state.items():
+            a[:, slot] = cache[key][:, 0]
 
     def _insert_chunked(self, slot: int, prompt: np.ndarray, n_total: int,
                         n_full: int, hits, partial_hit, keys, pkey) -> int:
@@ -389,10 +460,14 @@ class PagedKVSlotAdapter:
                 pool.release(b)
             raise
 
-        H = self._resume_blocks(P, hits)
+        H = self._resume_blocks(P, hits, keys)
         q0 = H * self.bs
-        cache, logits = self._fold_prefill(prompt, q0,
-                                           self._prefix_cache(bids[:H]))
+        state = None
+        if H and self.state:
+            state = self._boundary_states[keys[H - 1]]
+            self._boundary_states.move_to_end(keys[H - 1])   # LRU recency
+        cache, logits, snapshots = self._fold_prefill(
+            prompt, q0, self._prefix_cache(bids[:H], state), keys)
         self._scatter(cache, fresh)
         # index only after the contents exist (a failed insert must never
         # leave a key pointing at an unwritten block)
@@ -401,6 +476,8 @@ class PagedKVSlotAdapter:
                 pool.register(key, b, partial=j >= n_full)
                 if j >= n_full:
                     self.partial_reg[slot] = (j, b)
+        self._commit_snapshots(snapshots)
+        self._set_state(slot, cache)
         return self._admitted(slot, P, bids, n_total, hits, partial_hit, q0,
                               logits)
 
@@ -480,6 +557,7 @@ class PagedKVSlotAdapter:
             pool.register(key, b, partial=j >= n_full)
             if j >= n_full:
                 self.partial_reg[slot] = (j, b)
+        self._set_state(slot, cache)
         return self._admitted(slot, P, bids, n_total, hits, partial_hit, 0,
                               logits)
 
@@ -656,6 +734,11 @@ class PagedKVSlotAdapter:
         step = self._decode
         inputs = (np.asarray(tokens, np.int32)[:, None], self.tables,
                   self.lens.astype(np.int32), wbids)
+        if self.state:
+            # the lanes whose recurrent state the tick advances: the
+            # active ones, an at-capacity lane frozen above, as in the
+            # reference
+            inputs += (active,)
         if self.backend == "cascade":
             # grouping runs after the copy-on-write and write-target loop,
             # so a block resolved this tick is never both read by a group
@@ -714,7 +797,8 @@ class PagedKVSlotAdapter:
         st["peak_bytes_saved_vs_dense"] = self.peak_bytes_saved
         st["prefill_tokens_total"] = self.prefill_tokens_total
         st["prefill_tokens_skipped"] = self.prefill_tokens_skipped_total
-        # the decoder and moe families keep no recurrent boundary states
-        # (the hybrid family's fold does)
-        st["boundary_state_bytes"] = 0
+        st["boundary_state_bytes"] = sum(
+            a.numel() * a.element_size()
+            for state in self._boundary_states.values()
+            for a in state.values())
         return st

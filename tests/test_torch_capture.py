@@ -4,7 +4,8 @@ capture counts against the reference's jit cache sizes, the recompile
 detector on both, the captured tick bit for bit a direct
 ``engine.decode_step_paged`` call, and the launch-counter bookkeeping of a
 capture with a fake graph; the paged adapter's counts and the captured
-tick also for the moe family (deepseek-moe-16b's smoke size).  The graphs
+tick also for the moe family (deepseek-moe-16b's smoke size) and the
+hybrid family (hymba-1.5b's, the lanes' state bit for bit).  The graphs
 themselves run only on a card (``tests/test_torch_cuda.py``)."""
 import contextlib
 
@@ -26,7 +27,7 @@ from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.obs import RecompileDetector
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 BS = 4
 CPU = torch.device("cpu")
@@ -40,6 +41,11 @@ def pair():
 @pytest.fixture(scope="module")
 def moe_pair():
     return smoke_pair(arch=MOE)
+
+
+@pytest.fixture(scope="module")
+def hymba_pair():
+    return smoke_pair(arch=HYMBA)
 
 
 # -- CapturedStep ------------------------------------------------------------
@@ -301,6 +307,10 @@ def test_moe_prompt_gateway_zero_steady_state_recompiles(moe_pair):
     test_prompt_gateway_zero_steady_state_recompiles(moe_pair)
 
 
+def test_hymba_prompt_gateway_zero_steady_state_recompiles(hymba_pair):
+    test_prompt_gateway_zero_steady_state_recompiles(hymba_pair)
+
+
 def test_recompile_detector_flags_a_new_key():
     """``tests/test_obs.py``'s detector test, on captured steps."""
     f = capture.CapturedStep(lambda x: x + 1, CPU)
@@ -376,10 +386,17 @@ def test_cascade_bucket_crossing_counts_match_reference(pair):
     assert det.deltas()["cascade.decode"] == 0
 
 
+def test_hymba_cascade_bucket_crossing_counts_match_reference(hymba_pair):
+    """The hybrid family's cascade tick: the same captured keys as the
+    reference's jit cache entries, tick by tick."""
+    test_cascade_bucket_crossing_counts_match_reference(hymba_pair)
+
+
 def _direct_tick(ad, forced, active):
     """The tick's logits and arena from a direct
     ``engine.decode_step_paged`` call on a copy of the adapter's state."""
     arena = {k: a.clone() for k, a in ad.arena.items()}
+    state = {k: a.clone() for k, a in ad.state.items()}
     wbids = np.zeros(ad.n_slots, np.int32)
     for s in np.nonzero(active)[0]:
         wbids[s] = ad.tables[s, int(ad.lens[s]) // ad.bs]
@@ -392,8 +409,10 @@ def _direct_tick(ad, forced, active):
         tables=torch.from_numpy(ad.tables.copy()),
         lens=torch.from_numpy(ad.lens.astype(np.int32)), arena=arena,
         wbids=torch.from_numpy(wbids),
-        backend="cascade" if groups else ad.flat_backend, cascade=meta)
-    return logits, arena
+        backend="cascade" if groups else ad.flat_backend, cascade=meta,
+        state=state or None,
+        active=torch.from_numpy(active) if state else None)
+    return logits, arena, state
 
 
 @pytest.mark.parametrize("backend", ["plain", "cascade"])
@@ -409,12 +428,14 @@ def test_captured_tick_bitwise_to_direct_decode_step(pair, backend):
     kept = None
     for _ in range(3):
         forced = rng.integers(0, cfg.vocab, size=4).astype(np.int32)
-        want, arena = _direct_tick(ad, forced, active)
+        want, arena, state = _direct_tick(ad, forced, active)
         toks = ad.decode(forced, active)
         assert torch.equal(ad.last_logits, want)
         np.testing.assert_array_equal(toks, want.argmax(-1).numpy())
         for key in ad.seq_keys:
             assert torch.equal(ad.arena[key], arena[key])
+        for key in ad.state:
+            assert torch.equal(ad.state[key], state[key])
         if kept is not None:
             assert torch.equal(kept[0], kept[1])
         kept = (ad.last_logits, ad.last_logits.clone())
@@ -428,3 +449,11 @@ def test_captured_tick_bitwise_to_direct_decode_step(pair, backend):
 @pytest.mark.parametrize("backend", ["plain", "cascade"])
 def test_moe_captured_tick_bitwise_to_direct_decode_step(moe_pair, backend):
     test_captured_tick_bitwise_to_direct_decode_step(moe_pair, backend)
+
+
+@pytest.mark.parametrize("backend", ["plain", "cascade"])
+def test_hymba_captured_tick_bitwise_to_direct_decode_step(hymba_pair,
+                                                           backend):
+    """The hybrid family: the lanes' state, a static buffer the captured
+    tick writes in place, bit for bit the direct call's."""
+    test_captured_tick_bitwise_to_direct_decode_step(hymba_pair, backend)

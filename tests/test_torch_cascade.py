@@ -26,7 +26,7 @@ from repro_torch.kernels import paged_attn, ref
 from repro_torch.nn import attention
 from repro_torch.serve import spec
 from repro_torch.serve.gateway import slots
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 BS = 4
 TOL = 2e-6
@@ -355,6 +355,11 @@ def moe_pair():
     return smoke_pair(arch=MOE)
 
 
+@pytest.fixture(scope="module")
+def hymba_pair():
+    return smoke_pair(arch=HYMBA)
+
+
 def _shared(ad, vocab, *, n_lanes=3, shared_len=5 * BS, tail=3, seed=11):
     """n_lanes lanes sharing a block-aligned prompt prefix, plus one lane
     with a disjoint prompt (``tests/test_cascade.py``'s admission)."""
@@ -416,6 +421,16 @@ def test_moe_cascade_matches_the_flat_tick(moe_pair):
                                       flat.decode(forced, active))
         assert casc.last_groups == 1
         _close(casc.last_logits, flat.last_logits, 2e-4)
+
+
+def test_hymba_cascade_adapter_matches_reference(hymba_pair):
+    """The hybrid family's cascade tick (GQA 2:1, windows of 16 on the
+    odd layers) against the reference's, one group every tick."""
+    test_cascade_adapter_matches_reference(hymba_pair)
+
+
+def test_hymba_cascade_matches_the_flat_tick(hymba_pair):
+    test_moe_cascade_matches_the_flat_tick(hymba_pair)
 
 
 def test_cascade_meta_matches_reference(pair):

@@ -8,7 +8,11 @@ isolated, admission demand equal to the actual allocations, the
 at-capacity slot), and the chunked adapter and gateway token for token with
 equal tables and pool statistics; the fold, its resume and the adapter also
 for the moe family (deepseek-moe-16b's smoke size, routed dropless and
-not, windows counted from its first MoE block).
+not, windows counted from its first MoE block), and for the hybrid family
+(hymba-1.5b's smoke size: the adapter's resume, the chunked adapter with
+the lanes' state and the boundary states' bytes, a resume after the
+snapshotted slot ticked on, and the snapshots' LRU cap and their drop
+with an evicted key, against the reference's).
 
 The reference's two jit-recompile tests (``test_fold_steady_state_never_
 recompiles`` and ``test_fold_buckets_shared_process_wide``) are not ported:
@@ -28,7 +32,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache.pool import PoolExhausted
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 BS = 4
 
@@ -41,6 +45,11 @@ def pair():
 @pytest.fixture(scope="module")
 def moe_pair():
     return smoke_pair(arch=MOE)
+
+
+@pytest.fixture(scope="module")
+def hymba_pair():
+    return smoke_pair(arch=HYMBA)
 
 
 def _empty(cfg):
@@ -309,6 +318,9 @@ def _same_state(ref, port):
     for s in range(port.n_slots):
         assert port.slot_stats(s) == ref.slot_stats(s)
     assert port.pool_stats() == ref.pool_stats()
+    for key, a in port.state.items():      # the hybrid family's, per lane
+        want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
+        _close(a, want)
 
 
 @pytest.mark.parametrize("backend", ["plain", "cuda", "cascade"])
@@ -401,5 +413,92 @@ def test_default_spec_builds_the_chunked_gateway(pair):
                            device="cpu")
     assert gw.batcher.adapter.chunked
     with pytest.raises(NotImplementedError):
-        spec.make_gateway(dataclasses.replace(cfg, family="hybrid"), params,
+        spec.make_gateway(dataclasses.replace(cfg, family="rwkv"), params,
                           spec.ServeSpec(paged=True), device="cpu")
+
+
+def test_hymba_adapter_resume_matches_cold_insert(hymba_pair):
+    """``tests/test_chunked_prefill.py::test_adapter_resume_matches_cold_
+    insert`` for the hybrid family: the resume starts from the boundary
+    state the first admission's fold left."""
+    test_adapter_resume_matches_cold_insert(hymba_pair)
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda", "cascade"])
+def test_hymba_chunked_adapter_matches_reference(hymba_pair, backend):
+    """The scripted sequence with the lanes' state within 1e-5 of the
+    reference's and ``pool_stats()`` (``boundary_state_bytes`` among them)
+    equal, every step."""
+    test_chunked_adapter_matches_reference(hymba_pair, backend)
+
+
+def test_hymba_resume_after_the_snapshotted_slot_ticked(hymba_pair):
+    """Slot 0 admits a prompt cold, then ticks five times (its state and
+    rows written in place each tick); slot 1 then admits a prompt sharing
+    its two full blocks and resumes from the boundary state slot 0's fold
+    left: logits, blocks and state bit for bit the same prompt admitted
+    cold in a fresh adapter, and the held snapshots bit for bit as they
+    were committed."""
+    _, _, cfg, _ = hymba_pair
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab, 2 * BS).astype(np.int32)
+    pa = np.concatenate([prefix, rng.integers(0, cfg.vocab, 3)]
+                        ).astype(np.int32)
+    pb = np.concatenate([prefix, rng.integers(0, cfg.vocab, 5)]
+                        ).astype(np.int32)
+    warm = _adapter(hymba_pair)
+    tok = warm.insert(0, pa, max_new=8)
+    held = {k: {n: t.clone() for n, t in st.items()}
+            for k, st in warm._boundary_states.items()}
+    assert len(held) == 2
+    for _ in range(5):
+        tok = warm.decode(np.asarray([tok, 0], np.int32),
+                          np.asarray([True, False]))[0]
+    for k, st in warm._boundary_states.items():
+        for n, t in st.items():
+            assert torch.equal(t, held[k][n])
+    warm.insert(1, pb, max_new=4)
+    assert warm.slot_stats(1)["prefill_tokens_skipped"] == 2 * BS
+    cold = _adapter(hymba_pair)
+    cold.insert(0, pb, max_new=4)
+    assert torch.equal(warm.last_prefill_logits, cold.last_prefill_logits)
+    _same_blocks(_slot_blocks(cold, 0), _slot_blocks(warm, 1))
+    for key in ("conv", "ssm"):
+        assert torch.equal(warm.state[key][:, 1], cold.state[key][:, 0])
+    per = sum(a[:, 0].numel() * a.element_size()
+              for a in warm.state.values())
+    assert warm.pool_stats()["boundary_state_bytes"] == \
+        len(warm._boundary_states) * per
+
+
+def test_hymba_boundary_states_lru_and_eviction_match_reference(hymba_pair):
+    """The reference's boundary-state bookkeeping under pressure: the LRU
+    capped at 2 entries (patched into both adapters) and a 9-block arena
+    whose evictions unindex keys (their snapshots dropped through
+    ``pool.on_unindex``), so a resume is capped at the deepest held
+    snapshot or falls back to a cold fold.  Tokens, skipped tokens and
+    ``pool_stats()`` equal the reference's after every admission."""
+    jcfg, jparams, cfg, params = hymba_pair
+    ref = jslots.make_adapter(jcfg, jparams, n_slots=2, max_len=16,
+                              paged=True, block_size=BS, num_blocks=9)
+    port = slots.make_adapter(cfg, params, n_slots=2, max_len=16,
+                              paged=True, block_size=BS, num_blocks=9)
+    ref._max_boundary_states = port._max_boundary_states = 2
+    rng = np.random.default_rng(13)
+    p1 = rng.integers(0, cfg.vocab, 14).astype(np.int32)
+    p2 = np.concatenate([p1[:4], rng.integers(0, cfg.vocab, 10)]
+                        ).astype(np.int32)
+    p3 = np.concatenate([p1[:8], rng.integers(0, cfg.vocab, 6)]
+                        ).astype(np.int32)
+    p4 = rng.integers(0, cfg.vocab, 14).astype(np.int32)
+    skipped = []
+    for prompt in (p1, p2, p1, p3, p4, p1, p3):
+        assert port.insert(0, prompt, max_new=2) == \
+            ref.insert(0, prompt, max_new=2)
+        skipped.append(port.slot_stats(0)["prefill_tokens_skipped"])
+        _same_state(ref, port)
+        assert list(port._boundary_states) == list(ref._boundary_states)
+        port.clear(0)
+        ref.clear(0)
+    assert port.pool.evictions > 0
+    assert any(skipped) and not all(skipped[1:])

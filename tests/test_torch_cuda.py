@@ -885,6 +885,195 @@ def test_cascade_kernels_moe_heads(monkeypatch, dev, plan, dtype):
             glen.expand(Lc).contiguous(), nk, tol)
 
 
+# -- the attention kernels at 25 heads over 5 KV heads of 64 (hymba-1.5b) -----
+
+HY_HQ, HY_HKV, HY_D, HY_WIN = 25, 5, 64, 1024
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_kernel_hymba_heads(monkeypatch, dev, split,
+                                                   dtype):
+    """The hybrid flat tick's call at GQA 5:1: 8 lanes of 1,201 to 1,208
+    positions, split as planned and in one split, with the sliding
+    layers' window of 1,024 (which cuts every lane's chain, so a split
+    before it is empty) and without (the global layers), the new rows
+    spliced in, against the plain version."""
+    if not split:
+        monkeypatch.setattr(paged_attn_kernel, "SPLIT_POSITIONS", 1 << 20)
+    gen = torch.Generator().manual_seed(HY_D + split)
+    B, nb, bs = 8, 96, 16
+    q, ka, va, tables, _, k1, v1 = _paged_case(
+        gen, B, nb, bs, HY_HQ, HY_HKV, HY_D, dtype, dev)
+    lens = torch.arange(1201, 1201 + B, dtype=torch.int32, device=dev)
+    for window in (HY_WIN, None, lm._GLOBAL_WINDOW):
+        got = paged_attn_kernel.paged_decode_attention(
+            q, ka, va, tables, lens, window=window, new_kv=(k1, v1))
+        want = ref.paged_decode_attention(q, ka, va, tables, lens, window,
+                                          (k1, v1))
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("Sq,q_offset,window", [
+    (16, 1072, HY_WIN), (16, 1072, None), (7, 1184, HY_WIN),
+    (1024, 0, HY_WIN), (1024, 0, None), (2048, 0, HY_WIN)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_hymba_heads(dev, Sq, q_offset, window,
+                                            dtype):
+    """Fold chunks past the window (16 queries at 1,072, a partial chunk
+    at 1,184), one-shot prompts of 1,024 tokens and of 2,048 (where the
+    window cuts) at 25 query heads over 5 KV heads of 64, against the
+    plain version; a second call bitwise."""
+    gen = torch.Generator().manual_seed(Sq + q_offset)
+    Sk = q_offset + Sq
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    q, k, v = arr(1, Sq, HY_HQ, HY_D), arr(1, Sk, HY_HKV, HY_D), \
+        arr(1, Sk, HY_HKV, HY_D)
+    n = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, window=window,
+                                       q_offset=q_offset)
+    assert flash_kernel.flash_attention.launches == n + 1
+    want = ref.flash_attention_chunked(q, k, v, True, window, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(
+        q, k, v, window=window, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_kernels_hymba_heads(monkeypatch, dev, plan, dtype):
+    """Load (c)'s cascade tick at GQA 5:1 (8 lanes x 5 queries per KV
+    head in the prefix pass): eight lanes sharing a 1,024-position chain
+    with suffixes of 1 to 64 positions, windows 1,024 (which drops the
+    chain's first rows on the sliding layers) and none, at each forced
+    plan, as ``test_cascade_kernels_moe_heads`` holds them."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    gen = torch.Generator().manual_seed(HY_HQ)
+    bs, Lc, npre = 16, 8, 64
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    nblk = 1 + npre + 5 * Lc
+    ka, va = arr(nblk, bs, HY_HKV, HY_D), arr(nblk, bs, HY_HKV, HY_D)
+    gt = torch.arange(1, 1 + npre, **i32)[None]
+    glen = torch.tensor([npre * bs], **i32)
+    ll = glen + torch.tensor([[1, 7, 16, 17, 33, 48, 63, 64]], **i32) + 1
+    meta = attention.with_lane_meta(
+        {"group_lanes": torch.arange(Lc, **i32)[None],
+         "group_mask": torch.ones((1, Lc), dtype=torch.bool, device=dev)},
+        ll[0])
+    qg = arr(1, Lc, HY_HQ, HY_D)
+    nk = (arr(Lc, HY_HKV, HY_D), arr(Lc, HY_HKV, HY_D))
+    st = torch.arange(1 + npre, nblk, **i32).reshape(Lc, 5)
+    tol = _tol(dtype)
+    for window in (HY_WIN, None):
+        prefix = paged_attn_kernel.cascade_prefix_attention(
+            qg, ka, va, gt, glen, ll, window=window)
+        for g, w in zip(prefix, ref.cascade_prefix_attention(
+                qg, ka, va, gt, glen, ll, window)):
+            assert not torch.isnan(g).any()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        _fused_against_composition(
+            prefix, meta, (qg[0], ka, va, st, ll[0]), window,
+            glen.expand(Lc).contiguous(), nk, tol)
+
+
+def _hymba_lm(dev, dtype):
+    cfg = dataclasses.replace(configs.smoke_config("hymba-1.5b"),
+                              param_dtype=dtype)
+    return cfg, lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cascade"])
+def test_hymba_tick_replay_and_kernels_match_plain(dev, backend):
+    """The hybrid family on the card, float32 at its smoke size, chunked
+    admission of four prompts sharing 32 tokens: the captured tick (flat
+    or cascade) bit for bit its eager step in logits, arena and the lanes'
+    state, with the kernels launched; then ticks whose tokens equal the
+    plain tick's on the same admissions, logits within 2e-4."""
+    cfg, params = _hymba_lm(dev, "float32")
+    rng = np.random.default_rng(23)
+    shared = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)]
+                              ).astype(np.int32) for n in (3, 9, 17, 30)]
+
+    def adapter(b):
+        ad = make_adapter(cfg, params, n_slots=4, max_len=96, paged=True,
+                          block_size=16, backend=b)
+        for s, p in enumerate(prompts):
+            ad.insert(s, p, max_new=12)
+        return ad
+    ad, plain = adapter(backend), adapter("plain")
+    active = np.ones(4, bool)
+    forced = rng.integers(0, cfg.vocab, (6, 4)).astype(np.int32)
+    ad.decode(forced[0], active)                     # captures the tick
+    plain.decode(forced[0], active)
+    step, inputs, _ = ad._tick_inputs(forced[1], active)
+    state = {**ad.arena, **ad.state}
+    start = {k: a.clone() for k, a in state.items()}
+    out = {}
+    for name, run in (("replay", lambda: step(*inputs).clone()),
+                      ("eager", lambda: step.fn(*step.load(*inputs)))):
+        for key, a in state.items():
+            a.copy_(start[key])
+        logits, counts = _counted(run)
+        out[name] = (logits, {k: a.clone() for k, a in state.items()},
+                     counts)
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    assert torch.equal(lr, le) and cr == ce
+    for key in ar:
+        assert torch.equal(ar[key], ae[key]), key
+    name = "cascade_prefix_attention" if backend == "cascade" else \
+        "paged_decode_attention"
+    assert cr[name] == cfg.n_layers and cr["scatter_kv_rows"] == 1
+    for key, a in state.items():
+        a.copy_(start[key])
+    for row in forced[1:]:
+        np.testing.assert_array_equal(ad.decode(row, active),
+                                      plain.decode(row, active))
+        torch.testing.assert_close(ad.last_logits, plain.last_logits,
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_hymba_chunked_resume_bitwise_after_ticks(dev):
+    """On the card, bf16: a prompt resumed from another slot's boundary
+    state after that slot ticked on (its state written in place by six
+    captured ticks) gives the cold admission's logits, blocks and state
+    bit for bit."""
+    cfg, params = _hymba_lm(dev, "bfloat16")
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, cfg.vocab, 48)
+    pa, pb = (np.concatenate([prefix, rng.integers(0, cfg.vocab, 9)]
+                             ).astype(np.int32) for _ in range(2))
+
+    def adapter():
+        return make_adapter(cfg, params, n_slots=2, max_len=96, paged=True,
+                            block_size=16)
+    cold = adapter()
+    cold.insert(0, pb, max_new=8)
+    warm = adapter()
+    tok = warm.insert(0, pa, max_new=16)
+    lane = np.array([True, False])
+    for _ in range(6):
+        tok = warm.decode(np.array([tok, 0], np.int32), lane)[0]
+    warm.insert(1, pb, max_new=8)
+    assert warm.slot_stats(1)["prefill_tokens_skipped"] == 48
+    assert torch.equal(cold.last_prefill_logits, warm.last_prefill_logits)
+    for bc, bw in zip(cold.slot_bids[0], warm.slot_bids[1]):
+        for key in cold.seq_keys:
+            assert torch.equal(cold.arena_block(key, bc),
+                               warm.arena_block(key, bw))
+    for key in cold.state:
+        assert torch.equal(cold.state[key][:, 0], warm.state[key][:, 1])
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):

@@ -9,7 +9,8 @@ tick, and, under the reference's own contract
 (``tests/test_paged_decode.py``), the port's gather tick and dense adapter
 bit for bit against its in-place ``"plain"`` tick; the per-lane step, the
 adapter and the bitwise ticks also for the moe family (deepseek-moe-16b's
-smoke size)."""
+smoke size) and the hybrid family (hymba-1.5b's, the lanes' recurrent
+state held to the reference's and bit for bit across the ticks)."""
 import numpy as np
 import pytest
 import jax
@@ -23,7 +24,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 BS = 4
 
@@ -36,6 +37,11 @@ def pair():
 @pytest.fixture(scope="module")
 def moe_pair():
     return smoke_pair(arch=MOE)
+
+
+@pytest.fixture(scope="module")
+def hymba_pair():
+    return smoke_pair(arch=HYMBA)
 
 
 def _cache(cfg, rng, B, Smax):
@@ -123,8 +129,9 @@ def test_moe_decode_step_per_lane_lengths_match_reference(moe_pair):
 def _same_cache(port, ref, tol=1e-5):
     np.testing.assert_array_equal(port.cache["len"].numpy(),
                                   np.asarray(ref.cache["len"]))
-    for key in ("k", "v"):
-        want = np.asarray(ref.cache[key])[:, :, 0].transpose(1, 0, 2, 3, 4)
+    for key in ("k", "v") + tuple(engine.STATE_KEYS if "ssm" in port.cache
+                                  else ()):
+        want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
         np.testing.assert_allclose(port.cache[key].numpy(), want, rtol=tol,
                                    atol=tol)
 
@@ -173,6 +180,13 @@ def test_dense_adapter_matches_reference(pair):
 
 def test_moe_dense_adapter_matches_reference(moe_pair):
     test_dense_adapter_matches_reference(moe_pair)
+
+
+def test_hymba_dense_adapter_matches_reference(hymba_pair):
+    """The hybrid family: the lanes' conv taps and SSM state within 1e-5
+    of the reference's slot-stacked ones after every step, an inactive
+    lane's kept."""
+    test_dense_adapter_matches_reference(hymba_pair)
 
 
 def _trace(mod):
@@ -288,6 +302,8 @@ def test_gather_tick_bitwise_vs_inplace_plain(pair, chunked):
         assert torch.equal(ads[0].last_logits, ads[1].last_logits)
     np.testing.assert_array_equal(ads[0].lens, ads[1].lens)
     assert ads[0].slot_bids == ads[1].slot_bids
+    for key in ads[0].state:
+        assert torch.equal(ads[0].state[key], ads[1].state[key])
     for slot in range(2):
         a, b = _chain_blocks(ads[0], slot), _chain_blocks(ads[1], slot)
         for key in a:
@@ -296,6 +312,17 @@ def test_gather_tick_bitwise_vs_inplace_plain(pair, chunked):
 
 def test_moe_gather_tick_bitwise_vs_inplace_plain(moe_pair):
     test_gather_tick_bitwise_vs_inplace_plain(moe_pair, True)
+
+
+def test_hymba_gather_tick_matches_reference(hymba_pair):
+    test_gather_tick_matches_reference(hymba_pair)
+
+
+@pytest.mark.parametrize("chunked", [True, False])
+def test_hymba_gather_tick_bitwise_vs_inplace_plain(hymba_pair, chunked):
+    """The hybrid family, the lanes' state included: both ticks leave it
+    bit for bit equal, the inactive lane's as it was."""
+    test_gather_tick_bitwise_vs_inplace_plain(hymba_pair, chunked)
 
 
 def test_dense_adapter_bitwise_vs_inplace_plain(pair):
@@ -317,10 +344,16 @@ def test_dense_adapter_bitwise_vs_inplace_plain(pair):
         np.testing.assert_array_equal(pg.decode(forced, active),
                                       dense.decode(forced, active))
         assert torch.equal(pg.last_logits, dense.last_logits)
+        for key in pg.state:
+            assert torch.equal(pg.state[key], dense.cache[key])
 
 
 def test_moe_dense_adapter_bitwise_vs_inplace_plain(moe_pair):
     test_dense_adapter_bitwise_vs_inplace_plain(moe_pair)
+
+
+def test_hymba_dense_adapter_bitwise_vs_inplace_plain(hymba_pair):
+    test_dense_adapter_bitwise_vs_inplace_plain(hymba_pair)
 
 
 def test_gather_gateway_matches_plain_gateway(pair):

@@ -2,8 +2,8 @@
 trace with shared weights and a fixed service time: every telemetry record
 is equal field for field, and so are the drops under a tight queue bound.
 The slot batcher against the reference's single-request greedy oracle,
-for the decoder and moe families (``tests/test_gateway.py::test_decoder_
-family_slot_batcher_parity`` on the port)."""
+for the decoder, moe and hybrid families (``tests/test_gateway.py::
+test_decoder_family_slot_batcher_parity`` on the port)."""
 import dataclasses
 from unittest import mock
 
@@ -21,7 +21,7 @@ from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors
 from repro_torch.serve.gateway import slots
 from conftest import sequential_decode_reference
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 
 def _fleet():
@@ -92,7 +92,7 @@ def test_warmup_and_bucket_padding():
         gw.GatewayConfig(bucket_sizes=(4, 1))
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", MOE])
+@pytest.mark.parametrize("arch", ["stablelm_3b", MOE, HYMBA])
 def test_slot_batcher_matches_sequential_decode(arch):
     """Three requests through two dense slots (one slot cleared and
     reused): every request's greedy tokens equal the reference's prefill

@@ -27,6 +27,7 @@ from repro_torch.serve import engine
 
 ARCH = "stablelm_3b"
 MOE = "deepseek_moe_16b"
+HYMBA = "hymba_1_5b"
 
 
 def _t(a):
@@ -90,7 +91,7 @@ def test_sc_frontend_and_other_families_raise():
                        torch.ones(d, dtype=cfg.dtype))
     assert "sc_frontend" not in lm.init(cfg, gen)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init(dataclasses.replace(cfg, family="hybrid"), gen)
+        lm.init(dataclasses.replace(cfg, family="rwkv"), gen)
     with pytest.raises(NotImplementedError):
         configs.config("llama3_405b")
 

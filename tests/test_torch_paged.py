@@ -7,7 +7,8 @@ equal), the continuous batcher, and the prompt gateway on a seeded trace
 (per request: generated tokens, energy, link bytes and KV blocks equal);
 the tick and the adapter also for the moe family (deepseek-moe-16b's smoke
 size, each lane routed as its own group as the reference's vmapped tick
-routes it)."""
+routes it), and the adapter for the hybrid family (hymba-1.5b's smoke
+size, with the lanes' recurrent state)."""
 import dataclasses
 
 import jax
@@ -22,7 +23,7 @@ from repro.serve.gateway import sensors as jsensors
 from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import MOE, smoke_pair
+from test_torch_lm import HYMBA, MOE, smoke_pair
 
 BS = 4
 
@@ -35,6 +36,11 @@ def pair():
 @pytest.fixture(scope="module")
 def moe_pair():
     return smoke_pair(arch=MOE)
+
+
+@pytest.fixture(scope="module")
+def hymba_pair():
+    return smoke_pair(arch=HYMBA)
 
 
 def _adapters(pair, backend, n_slots=3, max_len=16):
@@ -105,6 +111,9 @@ def _same_state(ref, port):
     for s in range(port.n_slots):
         assert port.slot_stats(s) == ref.slot_stats(s)
     assert port.pool_stats() == ref.pool_stats()
+    for key, a in port.state.items():      # the hybrid family's, per lane
+        want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
+        np.testing.assert_allclose(a.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
@@ -150,6 +159,15 @@ def test_adapter_sharing_cow_and_capacity_match_reference(pair, backend):
 
 def test_moe_adapter_sharing_cow_and_capacity_match_reference(moe_pair):
     test_adapter_sharing_cow_and_capacity_match_reference(moe_pair, "cuda")
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_hymba_adapter_sharing_cow_and_capacity_match_reference(hymba_pair,
+                                                                backend):
+    """The hybrid family: the lanes' state within 1e-5 of the reference's
+    after every step, a lane at capacity (inactive) keeping its own."""
+    test_adapter_sharing_cow_and_capacity_match_reference(hymba_pair,
+                                                          backend)
 
 
 def test_adapter_admission_demand_matches_reference(pair):
