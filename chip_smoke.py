@@ -207,7 +207,25 @@ Phases, each printing one JSON line:
      admission refused and one-shot against chunked admission at 512 and
      1,024 tokens, and phase 8's captured ticks (8 lanes of 1,200-token
      contexts, and load (c)'s cascade tick) bit for bit their eager
-     steps, one graph launch per tick.
+     steps, one graph launch per tick;
+ 13. the encdec family (``whisper_main_path`` line): whisper-medium at its
+     published width and depth (24 encoder and 24 decoder layers, d_model
+     1,024, 16 heads of 64, d_ff 4,096 with GELU, biases, LayerNorm,
+     sinusoidal positions, vocabulary 51,865; bf16, random weights drawn
+     on the card after phase 12's are freed, a seeded (1, 1,500, 1,024)
+     frame embedding as every admission's ``extras``): the attention
+     kernels at 16 x 64 (MHA) in both dtypes, ``flash_attention`` also
+     non-causal at the encoder's 1,500 frames over themselves and at the
+     cross-attention's 1,000 and 16 queries over them (as planned,
+     unsplit and one tile per split), each timed beside its bound and
+     ``F.scaled_dot_product_attention`` (``whisper_shapes_timing`` line);
+     then phase 10's four gateways, phase 6's load (c) through the cascade
+     tick and phase 7's load (b) chunked, its resumed fold bit for bit the
+     cold fold in logits, blocks and cross K/V, with the strict float32
+     comparisons at full depth (whisper-medium fits whole in float32), and
+     phase 8's captured ticks (8 lanes of 1,024-token contexts and load
+     (c)'s cascade tick) bit for bit their eager steps, one graph launch
+     per tick.  ``python3 chip_smoke.py --whisper`` runs it alone.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -287,6 +305,44 @@ SHARED_PROMPT, OWN_TAIL, NEW_TOKENS_C = 1024, 64, 32
 # of the suffix)
 TIMING_PLANS = ("planned", "one split", "more splits")
 MORE_SPLITS = {"MIN_CTAS": 4 * 132, "MIN_SPLIT_POSITIONS": 64}
+
+
+# the encdec family's frame embeddings, by config name: the ``extras``
+# callable its adapters take (phase 13 registers whisper-medium's)
+FRAMES: dict = {}
+
+
+def extras_of(cfg):
+    """The ``extras`` callable of ``cfg``'s adapters: the frames of
+    :data:`FRAMES` for the encdec family, None for the others."""
+    return FRAMES.get(cfg.name) if cfg.family == "encdec" else None
+
+
+def prefill_kw(cfg) -> dict:
+    """The keywords ``engine.prefill`` takes for ``cfg``: the frame
+    embeddings for the encdec family."""
+    extras = extras_of(cfg)
+    return {} if extras is None else {"enc_embed": extras()["enc_embed"]}
+
+
+def flash_launches(cfg, prefills: int, admissions: int) -> int:
+    """``flash_attention``'s launches over ``prefills`` one-shot prompts or
+    fold chunks of ``admissions`` admissions: one per layer and prompt or
+    chunk, two for the encdec family (the self- and the cross-attention),
+    which also runs its encoder once per admission, one per encoder
+    layer."""
+    if cfg.family != "encdec":
+        return cfg.n_layers * prefills
+    return 2 * cfg.n_layers * prefills + cfg.enc_layers * admissions
+
+
+def strict_cfg(cfg):
+    """The float32 config of the strict comparisons: depth 4, or the whole
+    depth for the encdec family (whisper-medium fits in float32 whole)."""
+    import dataclasses
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, param_dtype="float32")
+    return dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
 
 
 @contextlib.contextmanager
@@ -1530,8 +1586,8 @@ def forced_ticks(cfg, params, prompts, forced, backend: str,
 
     from repro_torch.serve.gateway.slots import make_adapter
     ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=LM_MAX_LEN,
-                      paged=True, block_size=LM_BLOCK, chunked=chunked,
-                      backend=backend)
+                      extras=extras_of(cfg), paged=True, block_size=LM_BLOCK,
+                      chunked=chunked, backend=backend)
     probe = TickProbe(ad)
     first = [ad.insert(s, p, max_new=len(forced) + 1)
              for s, p in enumerate(prompts)]
@@ -1606,7 +1662,7 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
     gw = make_gateway(cfg, params, load_spec(backend, chunked, new_tokens),
-                      device=dev)
+                      extras=extras_of(cfg), device=dev)
     ad, batcher = gw.batcher.adapter, gw.batcher
     probe = CascadeProbe(ad)
     logits = []
@@ -1634,6 +1690,10 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
                                 device=dev)
             rec["blocks"] = {key: a[:, bids].clone()
                              for key, a in ad.arena.items()}
+            # the encdec family's cross K/V, per lane
+            rec["cross"] = {key: a[:, slot].clone()
+                            for key, a in ad.state.items()
+                            if key in ("xk", "xv")}
         admitted[slot] = rec
         return tok
     ad.insert = timed_insert
@@ -1877,8 +1937,6 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
     turns (the second pair only times the tick again and repeats its
     tokens).  Returns the launches of load (c); raises SystemExit on a
     failed check."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1922,15 +1980,16 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
     want["scatter_kv_rows"] = ticks
     # one launch per layer for each one-shot prefill or fold chunk
     prefills = casc["chunks"] if chunked else LM_SLOTS
-    want["flash_attention"] = cfg.n_layers * prefills
+    want["flash_attention"] = flash_launches(cfg, prefills, LM_SLOTS)
     if casc["launches"] != want:
         failures.append(f"load (c) cascade launches {casc['launches']}, "
                         f"expected {want}")
     want_flat = {name: 0 for name in flat["launches"]}
     want_flat.update(paged_decode_attention=cfg.n_layers * flat["ticks"],
                      scatter_kv_rows=flat["ticks"],
-                     flash_attention=cfg.n_layers * (
-                         flat["chunks"] if chunked else LM_SLOTS))
+                     flash_attention=flash_launches(
+                         cfg, flat["chunks"] if chunked else LM_SLOTS,
+                         LM_SLOTS))
     if flat["launches"] != want_flat:
         failures.append(f"load (c) flat launches {flat['launches']}")
     # one captured flat tick, one captured cascade tick per metadata
@@ -1969,8 +2028,9 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
                         f"gateway that is not a near tie: {diffs}")
     agree = sum(a == b for uid, t in casc["tokens"].items()
                 for a, b in zip(t, flat["tokens"][uid]))
-    # float32 at depth 4, where the reference's contract is exact tokens
-    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    # float32 at depth 4 (encdec: whole), where the reference's contract is
+    # exact tokens
+    cfg4 = strict_cfg(cfg)
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     casc4 = serve(cfg4, params4, "cascade", False)
     flat4 = serve(cfg4, params4, "cuda", False)
@@ -2081,7 +2141,6 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     one-shot prefill ms of a 1,000-token prompt (1,024 for the hybrid
     family) and the cold fold's ms per chunk; raises SystemExit on a
     failed check."""
-    import dataclasses
     from types import SimpleNamespace
 
     import numpy as np
@@ -2125,7 +2184,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
         # the reference's one-shot prefill asserts S % min(ssm_chunk, S)
         # == 0; the port's raises
         gw = make_gateway(cfg, params, load_spec("cuda", False, 32),
-                          device=dev)
+                          extras=extras_of(cfg), device=dev)
         try:
             gw.batcher.adapter.insert(0, pb[0], max_new=32)
         except ValueError as e:
@@ -2146,12 +2205,14 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             failures.append(f"load ({key}) chunked: {run['chunks']} chunks, "
                             f"skipped {skipped(run)}")
         n = run["launches"]
-        if n["flash_attention"] != L * run["chunks"]:
+        if n["flash_attention"] != flash_launches(cfg, run["chunks"],
+                                                  len(prompts)):
             failures.append(f"load ({key}) chunked: flash_attention launched "
                             f"{n['flash_attention']} times for "
                             f"{run['chunks']} chunks x {L} layers")
+        n_os = len(os_[key]["slot"])
         if os_[key]["launches"]["flash_attention"] != \
-                L * len(os_[key]["slot"]):
+                flash_launches(cfg, n_os, n_os):
             failures.append(f"load ({key}) one-shot: flash_attention "
                             f"launches "
                             f"{os_[key]['launches']['flash_attention']}")
@@ -2192,7 +2253,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     warm = ch["b"]["prefill"][1]
     gw_cold = make_gateway(cfg, params, ServeSpec(
         n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
-        block_size=LM_BLOCK), device=dev)
+        block_size=LM_BLOCK), extras=extras_of(cfg), device=dev)
     ad = gw_cold.batcher.adapter
     ad.insert(0, pb[1], max_new=32)
     bids = torch.tensor(ad.slot_bids[0][:-(-len(pb[1]) // LM_BLOCK)],
@@ -2203,7 +2264,10 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
         "cold_skipped": ad.slot_stats(0)["prefill_tokens_skipped"],
         "logits": torch.equal(cold_logits, warm["logits"]),
         "blocks": all(torch.equal(a[:, bids], warm["blocks"][key])
-                      for key, a in ad.arena.items())}
+                      for key, a in ad.arena.items()),
+        # the encdec family's cross K/V (its encoder run again on the hit)
+        "cross_kv": all(torch.equal(ad.state[key][:, 0], a)
+                        for key, a in warm["cross"].items())}
     if hybrid:
         # the same prompt again, resumed from the boundary states its own
         # cold fold left, after its slot has ticked eight times (the
@@ -2227,7 +2291,8 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
                          for key, a in ad.state.items()),
             "boundary_state_bytes": ad.pool_stats()["boundary_state_bytes"]}
         del blocks, state
-    if not (resume_bitwise["logits"] and resume_bitwise["blocks"]) or \
+    if not (resume_bitwise["logits"] and resume_bitwise["blocks"]
+            and resume_bitwise["cross_kv"]) or \
             resume_bitwise["warm_skipped"] != 512 or \
             resume_bitwise["cold_skipped"] != 0 or (hybrid and not all(
                 resume_bitwise["after_ticks"][k]
@@ -2238,6 +2303,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     for run in ch.values():
         for rec in run["prefill"].values():
             rec.pop("blocks", None)
+            rec.pop("cross", None)
     torch.cuda.empty_cache()
 
     # one-shot prefill of a 1,000-token prompt (hybrid: 1,024) with
@@ -2245,8 +2311,8 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     # loops it replaced)
     one = aligned[2] if hybrid else pb[3]
     tokens = torch.from_numpy(one[None]).to(dev)
-    prefill_kernel_ms = host_ms(lambda: engine.prefill(cfg, params, tokens),
-                                reps=3)
+    prefill_kernel_ms = host_ms(lambda: engine.prefill(
+        cfg, params, tokens, **prefill_kw(cfg)), reps=3)
 
     def plain(q, k, v, **kw):
         return ref.flash_attention_chunked(
@@ -2254,12 +2320,13 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             kw["q_chunk"], kw["kv_chunk"])
     with mock.patch.object(attention, "flash_kernels",
                            SimpleNamespace(flash_attention=plain)):
-        prefill_plain_ms = host_ms(lambda: engine.prefill(cfg, params,
-                                                          tokens), reps=3)
+        prefill_plain_ms = host_ms(lambda: engine.prefill(
+            cfg, params, tokens, **prefill_kw(cfg)), reps=3)
     torch.cuda.empty_cache()
 
-    # float32 at depth 4: tokens equal and logits within 2e-4
-    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    # float32 at depth 4 (encdec: whole): tokens equal and logits within
+    # 2e-4
+    cfg4 = strict_cfg(cfg)
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     f32 = {}
     for key, (prompts, backend, _, _) in spec.items():
@@ -2444,7 +2511,7 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
         gw = make_gateway(cfg, params, ServeSpec(
             n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
             block_size=LM_BLOCK, chunked=chunked, backend=backend,
-            max_new_tokens=NEW_TOKENS_C), device=dev)
+            max_new_tokens=NEW_TOKENS_C), extras=extras_of(cfg), device=dev)
         ad, batcher = gw.batcher.adapter, gw.batcher
         for i, p in enumerate(prompts):
             batcher.submit(Request(uid=i, prompt=p,
@@ -2461,9 +2528,13 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
         prof = timing["profile"]["captured"]
         out[name] = {"backend": backend, "groups": ad.last_groups,
                      "captures": captures, "replay": check, **timing}
+        # every arena key and recurrent state written, the encdec family's
+        # cross K/V read only
+        written = all(v == 0 if key in ("xk", "xv") else v
+                      for key, v in check["rows_written"].items())
         if not (check["logits_bitwise"] and check["arena_bitwise"]
                 and check["launches_equal"] and check["logits_finite"]
-                and all(check["rows_written"].values())):
+                and written):
             failures.append(f"{name}: the replayed tick differs from the "
                             f"eager step: {check}")
         if captures != want:
@@ -2511,7 +2582,7 @@ def serve_spec_load(dev, cfg, params, prompts, spec) -> dict:
     from repro_torch.serve.gateway.sensors import Arrival
     from repro_torch.serve.spec import make_gateway
 
-    gw = make_gateway(cfg, params, spec, device=dev)
+    gw = make_gateway(cfg, params, spec, extras=extras_of(cfg), device=dev)
     ad, batcher = gw.batcher.adapter, gw.batcher
     prefill, rows, tokens, times = [], {}, {}, []
     finite = [True]
@@ -2648,7 +2719,8 @@ def replay_routing(cfg, params, spec, admit, streams, n_ticks: int):
 
     from repro_torch.serve.spec import make_gateway
 
-    gw = make_gateway(cfg, params, spec, device=params["embed"].device)
+    gw = make_gateway(cfg, params, spec, extras=extras_of(cfg),
+                      device=params["embed"].device)
     ad = gw.batcher.adapter
     for name, step in ad.jit_fns().items():
         setattr(ad, f"_{name}",
@@ -2782,7 +2854,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     # (1) the default gateway (dense slots), bf16 at full depth
     dense = serve_spec_load(dev, cfg, params, prompts, default)
     want = {name: 0 for name in dense["launches"]}
-    want["flash_attention"] = cfg.n_layers * n_req     # one per prefill
+    want["flash_attention"] = flash_launches(cfg, n_req, n_req)
     if dense["adapter"] != "KVSlotAdapter" or not served_all(dense) or \
             dense["launches"] != want or dense["captures"] != {"decode": 1}:
         failures.append(f"default gateway: adapter {dense['adapter']}, "
@@ -2793,7 +2865,8 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     # (2) the captured dense tick against its eager step, four lanes mid
     # stream: logits and the whole cache bit for bit, then host ms per
     # tick in turns (the lengths put back after every tick)
-    gw = make_gateway(cfg, params, default, device=dev)
+    gw = make_gateway(cfg, params, default, extras=extras_of(cfg),
+                      device=dev)
     ad, batcher = gw.batcher.adapter, gw.batcher
     for i, p in enumerate(prompts[:default.n_slots]):
         batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new))
@@ -2842,8 +2915,9 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
             failures.append(f"bf16 {name}: a difference that is not a near "
                             f"tie: {d['first_differences']}")
 
-    # (4) float32 at depth 4: tokens equal, logits within 2e-4
-    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    # (4) float32 at depth 4 (encdec: whole): tokens equal, logits within
+    # 2e-4
+    cfg4 = strict_cfg(cfg)
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
     dense4 = serve_spec_load(dev, cfg4, params4, prompts, default)
     runs4 = {b: serve_spec_load(dev, cfg4, params4, prompts, paged(b))
@@ -2975,7 +3049,8 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
                       hq: int, hkv: int, d: int, n_pos: int = 1024,
                       fold_offset: int = 512, one_len: int = 1000,
                       windows: tuple = (None,),
-                      cut_len: int | None = None) -> dict:
+                      cut_len: int | None = None,
+                      noncausal: tuple = ()) -> dict:
     """The attention kernels at a config's head geometry (``hq`` query
     heads over ``hkv`` KV heads of ``d``), each against its plain version
     in float32 and bf16 (within 2e-5 / 2e-2; the row write bit for bit) at
@@ -2986,7 +3061,10 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
     layer; ``flash_attention`` at a fold chunk (16 queries at
     ``fold_offset``) and a ``one_len``-token one-shot prompt (and, with
     ``cut_len``, a ``cut_len``-token prompt whose window cuts: a check,
-    not timed), a repeated call bitwise; the cascade's prefix pass and its
+    not timed), and non-causal at each (label, queries, keys) of
+    ``noncausal`` (as planned, unsplit and one 64-key tile per split: the
+    checks force the plans), a repeated call bitwise; the cascade's prefix
+    pass and its
     suffix pass with the merge fused, load (c)'s eight lanes sharing a
     1,024-position chain with 65-position suffixes.  Then each timed in
     bf16 at the first window beside its plain version, its bound (bytes /
@@ -3148,6 +3226,16 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
                 lambda: sdpa(q[:, :, None], ks, vs, smask),
                 2 * suf * row + 2 * q.numel() * el + B * H * (D + 2) * 4,
                 4 * H * suf * D)}
+        for label, Sq, Skk in noncausal:
+            nc = (arr((1, Sq, H, D), dtype), arr((1, Skk, hkv, D), dtype),
+                  arr((1, Skk, hkv, D), dtype))
+            nct = tuple(t.transpose(1, 2).contiguous() for t in nc)
+            calls[f"flash_attention non-causal {label}"] = (
+                lambda nc=nc: flash_k.flash_attention(*nc, causal=False),
+                lambda nc=nc: ref.flash_attention_chunked(*nc, False),
+                lambda nct=nct: sdpa(*nct, None),
+                (2 * nc[0].numel() + 2 * nc[1].numel()) * el,
+                4 * H * D * Sq * Skk)
         if cut_len:
             cut = tuple(arr((1, cut_len, h, D), dtype) for h in (H, hkv, hkv))
             calls["flash_attention window cut"] = (
@@ -3169,6 +3257,13 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
                              " (one split)": functools.partial(
                                  mock.patch.object, paged_k,
                                  "SPLIT_POSITIONS", nb * bs)}
+                if "non-causal" in name:
+                    plans = {" (planned)": contextlib.nullcontext,
+                             " (unsplit)": functools.partial(
+                                 mock.patch.object, flash_k, "MIN_CTAS", 0),
+                             " (one tile per split)": functools.partial(
+                                 mock.patch.object, flash_k, "MIN_CTAS",
+                                 1 << 30)}
                 for label, plan in plans.items():
                     with plan():
                         got, want = kernel(), plain()
@@ -3226,7 +3321,10 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
                     f"{n_layers} layers x ({B}, {hkv}, {D}) rows; flash: 16 "
                     f"queries at {fold_offset}, {one_len}-token prompt; "
                     f"cascade: {B} lanes on a {SHARED_PROMPT}-position "
-                    f"chain, {OWN_TAIL + 1}-position suffixes; library: "
+                    f"chain, {OWN_TAIL + 1}-position suffixes; "
+                    + "".join(f"flash non-causal {lb}: {Sq} queries over "
+                              f"{Skk} keys; " for lb, Sq, Skk in noncausal)
+                    + "library: "
                     "F.scaled_dot_product_attention (enable_gqa, boolean "
                     "window mask) on gathered views (the gather not "
                     "timed), index_put_ for the row write"})
@@ -3494,6 +3592,154 @@ def hymba_main_path(dev, sleep: int) -> dict:
           "seconds": seconds,
           "phase_s": time.perf_counter() - t_phase})
     del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- the encdec family: whisper-medium (phase 13) -------------------------------
+
+WHISPER_ARCH = "whisper-medium"
+# whisper-medium's attention: 16 heads of 64 (MHA), 1,500 encoder frames
+WHISPER_H, WHISPER_D, WHISPER_FRAMES = 16, 64, 1500
+# phase 13's captured-against-eager tick timings take this many runs a side
+WHISPER_HOST_RUNS = 3
+
+
+def whisper_main_path(dev, sleep: int) -> dict:
+    """Phase 13: the encdec family at whisper-medium's published width and
+    depth (24 encoder and 24 decoder layers, d_model 1,024, 16 heads of 64,
+    d_ff 4,096 with GELU and biases, LayerNorm, sinusoidal positions,
+    vocabulary 51,865; bf16, random weights drawn on the card), a seeded
+    (1, 1,500, 1,024) frame embedding as every admission's ``extras``,
+    through every serving path with the earlier phases' helpers: the
+    attention kernels at 16 x 64, ``flash_attention`` also non-causal at
+    the encoder's and the cross-attention's shapes
+    (:func:`attn_shape_checks`); the default ``ServeSpec()`` dense gateway
+    and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways
+    (:func:`dense_main_path`); load (c) through the cascade tick against
+    the flat tick (:func:`cascade_main_path`); load (b) chunked, the
+    resumed fold bit for bit the cold fold in logits, blocks and cross K/V
+    (:func:`chunked_main_path`); the captured flat tick at 8 lanes of
+    1,024-token contexts and load (c)'s cascade tick against their eager
+    steps (:func:`capture_main_path`, ``WHISPER_HOST_RUNS`` runs a side).
+    The strict float32 comparisons run at full depth
+    (:func:`strict_cfg`).  Returns the kernels' launches over the path;
+    raises SystemExit on a failed check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    cfg = configs.config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    n_params = sum(sizes.values())
+    enc = torch.randn((1, cfg.enc_len, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(13))
+    FRAMES[cfg.name] = lambda: {"enc_embed": enc}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    seconds, launches = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    timing = timed("kernel_checks", attn_shape_checks, dev, gen, sleep,
+                   cfg.n_layers, tag="whisper", hq=WHISPER_H,
+                   hkv=WHISPER_H, d=WHISPER_D, n_pos=1024,
+                   fold_offset=1072, one_len=1000,
+                   noncausal=(("encoder", WHISPER_FRAMES, WHISPER_FRAMES),
+                              ("cross prompt", 1000, WHISPER_FRAMES),
+                              ("cross fold chunk", 16, WHISPER_FRAMES)))
+    # the encoder alone, once per admission: its launches and host ms
+    reset_counts()
+    xk, xv = engine.encode_cross(cfg, params, enc)
+    torch.cuda.synchronize()
+    enc_launches = {k: v for k, v in read_counts().items() if v}
+    encode_ms = host_ms(lambda: engine.encode_cross(cfg, params, enc),
+                        reps=5)
+    if enc_launches != {"flash_attention": cfg.enc_layers} or \
+            tuple(xk.shape) != (cfg.n_layers, 1, cfg.enc_len,
+                                cfg.n_kv_heads, cfg.d_head) or \
+            not bool(torch.isfinite(xk).all() and torch.isfinite(xv).all()):
+        raise SystemExit(f"encode_cross: launches {enc_launches}, xk "
+                         f"{tuple(xk.shape)}")
+    del xk, xv
+    dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
+                     sc=False, runs=WHISPER_HOST_RUNS)
+    add(dense)
+    add(timed("cascade_path", cascade_main_path, dev, cfg, params,
+              turns=False))
+    chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
+                    loads="b")
+    add(chunked["launches"])
+    capture = timed("capture", capture_main_path, dev, cfg, params,
+                    runs=WHISPER_HOST_RUNS)
+    flat = capture["flat_8x1k"]
+    # a model of the tick's bytes, not a measurement: the decoder's bf16
+    # weights and lm_head read once (not the encoder's, nor the
+    # embedding's), lm_head's float32 copy written and read, every
+    # decoder layer's self K/V rows of 8 lanes of 1,025 positions and the
+    # lanes' cross K/V over 1,500 frames
+    dec_weights = 2 * sum(v for k, v in sizes.items()
+                          if k.startswith("dec_blocks."))
+    head = 2 * sizes["lm_head"]
+    row = cfg.n_kv_heads * cfg.d_head * 2
+    kv_bytes = 2 * cfg.n_layers * LM_SLOTS * 1025 * row
+    cross_bytes = 2 * cfg.n_layers * LM_SLOTS * cfg.enc_len * row
+    tick_bytes = dec_weights + head + 8 * sizes["lm_head"] + kv_bytes + \
+        cross_bytes
+    prof = flat["profile"]["captured"]
+    emit({"phase": "whisper_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "enc_layers", "enc_len", "d_model", "n_heads",
+              "n_kv_heads", "d_head", "d_ff", "mlp_type", "use_bias",
+              "norm_type", "pos_embedding", "vocab", "param_dtype")},
+          "params": n_params, "init_s": init_s, "f32_layers":
+              strict_cfg(cfg).n_layers,
+          "encoder": {"launches_per_admission": enc_launches,
+                      "host_ms": encode_ms,
+                      "cross_kv_bytes_per_slot": cross_bytes // LM_SLOTS},
+          "tick_8x1k_host_ms": {
+              s: flat["host_ms"][s]["median"] for s in ("captured", "eager")},
+          "tick_8x1k_device_busy_ms": prof["device_busy_ms_per_tick"],
+          "tick_8x1k_idle_share": prof["device_idle_share"],
+          "tick_8x1k_top_device_ms": prof["top_device_ms_per_tick"],
+          "tick_bytes_model": {"decoder_weights": dec_weights,
+                               "lm_head": head,
+                               "lm_head_f32": 8 * sizes["lm_head"],
+                               "self_kv": kv_bytes, "cross_kv": cross_bytes,
+                               "total": tick_bytes},
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "oneshot_prefill_ms": chunked["oneshot_prefill_1000_ms"],
+          "oneshot_prefill_tokens": chunked["oneshot_prefill_tokens"],
+          "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
+          "resume_bitwise": chunked["resume_bitwise"],
+          "launches": launches, "kernel_ms": {
+              k: v["ms"] for k, v in timing.items()},
+          "seconds": seconds,
+          "phase_s": time.perf_counter() - t_phase})
+    FRAMES.pop(cfg.name)
+    del params, enc
     torch.cuda.empty_cache()
     return launches
 
@@ -3836,8 +4082,9 @@ def sc_frontend_timing(dev, sleep: int, clk_sm: float,
 # runs a side of a captured-against-eager host-clock comparison, each the
 # median of HOST_REPS calls; the sides take turns, each run starting with
 # the other side than the run before, since the host clock drifts within a
-# call (PERF.md)
-HOST_RUNS, HOST_REPS = 9, 5
+# call (PERF.md); 5 runs since phase 13 joined (9 before), to keep the
+# script near 700 s
+HOST_RUNS, HOST_REPS = 5, 5
 
 
 def turns(sides: dict, runs: int = HOST_RUNS, reps: int = HOST_REPS
@@ -4186,8 +4433,8 @@ def table3_full_main() -> int:
 
 
 def family_main(path: str, run) -> int:
-    """``--moe`` / ``--hymba``: the card's line, the attention kernels'
-    build and one family's phase alone (``run(dev, sleep)``, its launches
+    """``--moe`` / ``--hymba`` / ``--whisper``: the card's line, the
+    attention kernels' build and one family's phase alone (``run(dev, sleep)``, its launches
     printed under ``path``)."""
     import torch
     from repro_torch.kernels import build
@@ -4397,6 +4644,8 @@ def main() -> int:
         return family_main("moe", moe_main_path)
     if args[:1] == ["--hymba"]:
         return family_main("hybrid", hymba_main_path)
+    if args[:1] == ["--whisper"]:
+        return family_main("encdec", whisper_main_path)
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -4642,6 +4891,9 @@ def main() -> int:
 
     # -- 12. the hybrid family: hymba-1.5b -----------------------------------
     paths["hybrid"] = hymba_main_path(dev, sleep)
+
+    # -- 13. the encdec family: whisper-medium -------------------------------
+    paths["encdec"] = whisper_main_path(dev, sleep)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

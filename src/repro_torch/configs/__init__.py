@@ -11,7 +11,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("stablelm_3b", "deepseek_moe_16b", "moonshot_v1_16b_a3b",
-         "hymba_1_5b", "lenet5")
+         "hymba_1_5b", "whisper_medium", "lenet5")
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES["hymba-1.5b"] = "hymba_1_5b"     # the published name
 

@@ -1,9 +1,12 @@
-"""The LM decoder, moe and hybrid families (llama-style pre-norm blocks,
-RoPE, SwiGLU; the moe family a dense layer 0 and routed-expert FFNs after
-it; the hybrid family hymba's parallel GQA attention and Mamba heads per
-block, sliding windows with periodic global layers) for inference in
-PyTorch: configuration, parameters, the SC frontend, prefill blocks and
-the single-token decode attention, dense and paged.
+"""The LM decoder, moe, hybrid and encdec families (llama-style pre-norm
+blocks, RoPE, SwiGLU; the moe family a dense layer 0 and routed-expert FFNs
+after it; the hybrid family hymba's parallel GQA attention and Mamba heads
+per block, sliding windows with periodic global layers; the encdec family
+whisper's non-causal encoder over frame embeddings and a decoder of causal
+self-attention, gated cross-attention and a GELU MLP, with biases,
+LayerNorm and sinusoidal positions) for inference in PyTorch:
+configuration, parameters, the SC frontend, prefill blocks and the
+single-token decode attention, dense and paged.
 
 The public layout is the reference's: parameters are a nested dict of
 tensors with the per-layer ones stacked on a leading layer axis
@@ -17,8 +20,12 @@ state per layer, the conv taps (B, K-1, d_inner) in the model's dtype and
 the SSM state (B, d_inner, N) in float32 (:func:`hymba_block`).  Layers
 run as a Python loop (:func:`layers`) with static per-layer windows; the
 reference's grouped scan layout (``hybrid_grouped``) computes the same
-function.  The other families and the int8 KV cache come in later slices
-(ROADMAP.md).
+function.  The encdec family keeps its encoder in ``params["enc_blocks"]``
+and ``params["enc_norm"]`` and its decoder in ``params["dec_blocks"]``
+(``"ln_x"``, ``"xattn"`` and ``"gate_attn"`` beside a decoder block's
+weights; :func:`cross_block`); its frontend is a stub, as in the
+reference: the caller hands over frame embeddings.  The other families and
+the int8 KV cache come in later slices (ROADMAP.md).
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -41,8 +48,8 @@ _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that the decoder, moe and
-    hybrid families read."""
+    """The reference's ``LMConfig`` fields that the decoder, moe, hybrid
+    and encdec families read."""
     name: str = "lm"
     family: str = "decoder"
     n_layers: int = 4
@@ -52,9 +59,10 @@ class LMConfig:
     d_head: int = 64
     d_ff: int = 1024
     vocab: int = 1024
-    mlp_type: str = "swiglu"          # "swiglu" only, so far
-    use_bias: bool = False
+    mlp_type: str = "swiglu"          # "swiglu" | "gelu"
+    use_bias: bool = False            # whisper-style biases
     rope_theta: float = 500000.0
+    pos_embedding: str = "rope"       # "rope" | "sinusoidal"
     norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -70,6 +78,9 @@ class LMConfig:
     # serving prefill routes dropless (see decoder_block): required for
     # prefix-cache resumption; off by default, as in the reference
     moe_dropless_prefill: bool = False
+    # --- encdec ---
+    enc_layers: int = 0
+    enc_len: int = 1500               # encoder frames (cross-attention keys)
     # --- hybrid / ssm ---
     ssm_state: int = 0
     d_inner: int = 0                  # mamba inner width (2*d_model default)
@@ -114,18 +125,21 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("decoder", "moe", "hybrid"):
+    if cfg.family not in ("decoder", "moe", "hybrid", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
             "the other families")
-    if cfg.mlp_type != "swiglu":
+    if cfg.mlp_type not in ("swiglu", "gelu"):
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r}: only swiglu "
-                                  "is ported (decoder, moe and hybrid "
-                                  "families)")
+                                  "and gelu are ported")
+    if cfg.pos_embedding not in ("rope", "sinusoidal"):
+        raise NotImplementedError(f"pos_embedding {cfg.pos_embedding!r}")
     if cfg.family == "moe" and cfg.n_experts == 0:
         raise ValueError("the moe family needs n_experts > 0")
     if cfg.family == "hybrid" and cfg.ssm_state == 0:
         raise ValueError("the hybrid family needs ssm_state > 0")
+    if cfg.family == "encdec" and cfg.enc_layers == 0:
+        raise ValueError("the encdec family needs enc_layers > 0")
 
 
 def layer_window(cfg: LMConfig, idx: int) -> int:
@@ -163,10 +177,19 @@ def _attn_params(gen, cfg: LMConfig, L: int) -> dict:
 
 
 def _mlp_params(gen, cfg: LMConfig, L: int, f: int) -> dict:
+    """SwiGLU's ``w_gate``, ``w_in``, ``w_out`` or GELU's ``w_in``,
+    ``w_out`` (``cfg.mlp_type``), plus zero ``b_in`` and ``b_out`` for a
+    GELU MLP under ``cfg.use_bias``, as the reference's ``_mlp_params``."""
     d = cfg.d_model
-    return {nm: _dense(gen, (L,) + shape, cfg.dtype)
-            for nm, shape in (("w_gate", (d, f)), ("w_in", (d, f)),
-                              ("w_out", (f, d)))}
+    swiglu = cfg.mlp_type == "swiglu"
+    names = (("w_gate", (d, f)),) if swiglu else ()
+    p = {nm: _dense(gen, (L,) + shape, cfg.dtype)
+         for nm, shape in names + (("w_in", (d, f)), ("w_out", (f, d)))}
+    if cfg.use_bias and not swiglu:
+        for nm, width in (("b_in", f), ("b_out", d)):
+            p[nm] = torch.zeros((L, width), dtype=cfg.dtype,
+                                device=gen.device)
+    return p
 
 
 def _moe_params(gen, cfg: LMConfig, L: int) -> dict:
@@ -233,7 +256,7 @@ def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
 
 
 def init(cfg: LMConfig, gen: torch.Generator) -> dict:
-    """Random decoder-, moe- or hybrid-family parameters, drawn from
+    """Random decoder-, moe-, hybrid- or encdec-family parameters, drawn from
     ``gen`` on its device in the reference's order and layout.  They are
     not the reference's numbers for any seed;
     ``repro_torch.convert.lm_params_from_jax`` shares the reference's
@@ -263,6 +286,17 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
         p["blocks"] = block(L - 1, True, cfg.d_ff)
     elif cfg.family == "hybrid":
         p["blocks"] = _hymba_params(gen, cfg, L)
+    elif cfg.family == "encdec":
+        # the reference's encoder stack and its norm, then its decoder:
+        # each block a decoder block with the cross-attention's norm,
+        # weights and a tanh gate of 1 after it (_cross_block_params)
+        p["enc_blocks"] = block(cfg.enc_layers, False, cfg.d_ff)
+        p["enc_norm"] = _norm_params(cfg, (), dev)
+        p["dec_blocks"] = {**block(L, False, cfg.d_ff),
+                           "ln_x": _norm_params(cfg, (L,), dev),
+                           "xattn": _attn_params(gen, cfg, L),
+                           "gate_attn": torch.ones((L,), dtype=cfg.dtype,
+                                                   device=dev)}
     else:
         p["blocks"] = block(L, False, cfg.d_ff)
     return p
@@ -280,7 +314,13 @@ def layers(cfg: LMConfig, params: dict):
     The moe family runs ``params["dense0"]`` first, with no window, then
     its ``n_layers - 1`` MoE blocks, whose windows count from 0 at the
     first MoE block (the reference's scan index, not the absolute
-    layer)."""
+    layer).  The encdec family yields its decoder blocks
+    (``params["dec_blocks"]``); its encoder runs in
+    ``serve.engine.encode_cross``."""
+    if cfg.family == "encdec":
+        for i in range(cfg.n_layers):
+            yield layer_params(params["dec_blocks"], i), 0, False
+        return
     if cfg.family == "moe":
         yield layer_params(params["dense0"], 0), 0, False
         for i in range(cfg.n_layers - 1):
@@ -310,7 +350,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
 
 
 def _mlp_apply(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return mlp_lib.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+    """SwiGLU where the block has ``w_gate``, else the GELU MLP (with its
+    biases where it has them), as the reference picks."""
+    if "w_gate" in p:
+        return mlp_lib.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
+    return mlp_lib.gelu_mlp(x, p["w_in"], p.get("b_in"), p["w_out"],
+                            p.get("b_out"))
 
 
 def moe_ffn_decode(cfg: LMConfig, moe_params: dict, z: torch.Tensor
@@ -334,24 +379,38 @@ def ffn_decode(cfg: LMConfig, p: dict, z: torch.Tensor, moe_layer: bool
 def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
                 window: int = 0, q_offset: int = 0,
-                kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
+                kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None,
+                kv_override: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full-sequence attention (prefill).  Returns (out, (k, v)) with k, v
-    the post-RoPE (B, S, Hkv, Dh) cache rows.
+    the (B, S, Hkv, Dh) cache rows, post-RoPE where ``cfg.pos_embedding``
+    is ``"rope"``.
 
-    ``kv_prefix``: the post-RoPE (k, v) of a cache prefix of ``q_offset``
-    positions (one chunk of the prefill fold).  Queries come from ``x`` at
-    the absolute ``positions``, keys are the prefix followed by the chunk,
-    and the returned (k, v) cover prefix and chunk.  A layer whose static
+    ``kv_prefix``: the (k, v) of a cache prefix of ``q_offset`` positions
+    (one chunk of the prefill fold).  Queries come from ``x`` at the
+    absolute ``positions``, keys are the prefix followed by the chunk, and
+    the returned (k, v) cover prefix and chunk.  A layer whose static
     window is shorter than the prefix attends only the prefix's last
     ``window`` rows, with the offset shifted to match, as in the
+    reference.
+
+    ``kv_override``: the (k, v) to attend instead of projecting ``x``'s
+    (the encdec decoder's cross-attention over the encoder's K/V); RoPE
+    then goes on the queries only, and only when causal, as in the
     reference."""
     B, S, _ = x.shape
+    rope_on = cfg.pos_embedding == "rope"
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = _proj(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, cfg.n_kv_heads,
-                                               cfg.d_head)
-    q = rope.apply_rope(q, positions, cfg.rope_theta)
-    k = rope.apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = _proj(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+        v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, cfg.n_kv_heads,
+                                                   cfg.d_head)
+        if rope_on:
+            q = rope.apply_rope(q, positions, cfg.rope_theta)
+            k = rope.apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        if rope_on and causal:
+            q = rope.apply_rope(q, positions, cfg.rope_theta)
     cut = 0                 # leading key rows attention does not read
     if kv_prefix is not None:
         pk, pv = kv_prefix
@@ -360,7 +419,7 @@ def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
                              f"q_offset is {q_offset}")
         k = torch.cat([pk.to(k.dtype), k], dim=1)
         v = torch.cat([pv.to(v.dtype), v], dim=1)
-        if 0 < window < q_offset and causal:
+        if 0 < window < q_offset and causal and kv_override is None:
             cut = q_offset - window
     o = attention.attend_chunked(q, k[:, cut:].contiguous(),
                                  v[:, cut:].contiguous(), causal=causal,
@@ -392,9 +451,10 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
     v1 = _proj(x1, p["wv"], p.get("bv")).reshape(B, 1, cfg.n_kv_heads,
                                                  cfg.d_head)
-    posb = pos[:, None]
-    q = rope.apply_rope(q, posb, cfg.rope_theta)
-    k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
+    if cfg.pos_embedding == "rope":
+        posb = pos[:, None]
+        q = rope.apply_rope(q, posb, cfg.rope_theta)
+        k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
     k1, v1 = k1[:, 0].contiguous(), v1[:, 0].contiguous()
     o = attention.attend_decode_paged(q, k_blocks[:, 0], v_blocks[:, 0],
                                       tables, pos + 1, window=window,
@@ -414,7 +474,7 @@ def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
 
     x1: (B, 1, d) normed activations; cache_k, cache_v: (B, Smax, Hkv, Dh),
     **updated in place**; pos: (B,) int32 lengths (the new token's row).
-    Each lane's post-RoPE K/V row lands at ``pos`` (clamped to Smax - 1,
+    Each lane's K/V row (post-RoPE under RoPE) lands at ``pos`` (clamped to Smax - 1,
     where the reference's ``dynamic_update_slice`` clamps it) and attention
     reads ``pos + 1`` positions.  With ``active`` (B,) bool, an inactive
     lane's row is put back as it was after the read: the cache is then
@@ -425,9 +485,10 @@ def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
     v1 = _proj(x1, p["wv"], p.get("bv")).reshape(B, 1, cfg.n_kv_heads,
                                                  cfg.d_head)
-    posb = pos[:, None]
-    q = rope.apply_rope(q, posb, cfg.rope_theta)
-    k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
+    if cfg.pos_embedding == "rope":
+        posb = pos[:, None]
+        q = rope.apply_rope(q, posb, cfg.rope_theta)
+        k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
     lanes = torch.arange(B, device=x1.device)
     at = pos.clamp(max=cache_k.shape[1] - 1).long()
     kept = None if active is None else \
@@ -467,6 +528,47 @@ def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
         m = dataclasses.replace(m, group_size=z.shape[0] * z.shape[1],
                                 dropless=True)
     return x + moe_lib.moe_ffn(z, p["moe"], m)[0], kv
+
+
+def cross_block(cfg: LMConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor,
+                enc_kv: tuple[torch.Tensor, torch.Tensor], *,
+                q_offset: int = 0,
+                kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """The encdec decoder block: causal self-attention (resumed from
+    ``kv_prefix`` at ``q_offset`` in a fold chunk, see
+    :func:`_attn_apply`), then cross-attention over the encoder's K/V
+    ``enc_kv`` ((B, enc_len, Hkv, Dh) each, not causal, at offset 0, as the
+    reference passes it) scaled by tanh(``gate_attn``) in float32, then the
+    MLP.  Returns (x, (k, v)), the self-attention's rows."""
+    h, kv = _attn_apply(cfg, p["attn"], _norm_apply(cfg, p["ln1"], x),
+                        positions, causal=True, q_offset=q_offset,
+                        kv_prefix=kv_prefix)
+    x = x + h
+    hx, _ = _attn_apply(cfg, p["xattn"], _norm_apply(cfg, p["ln_x"], x),
+                        positions, causal=False, kv_override=enc_kv)
+    x = x + _gate(p, x) * hx
+    return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x)), kv
+
+
+def _gate(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """tanh(``gate_attn``) in float32, cast to x's dtype."""
+    return torch.tanh(p["gate_attn"].float()).to(x.dtype)
+
+
+def cross_decode(cfg: LMConfig, p: dict, x: torch.Tensor,
+                 xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """A decode tick's gated cross-attention for a (B, 1, d) activation
+    against each lane's encoder K/V ``xk``, ``xv`` (B, enc_len, Hkv, Dh):
+    ``ln_x``, the biased query, the plain single-token attention over every
+    frame (:func:`repro_torch.nn.attention.attend_decode`, as the
+    reference's tick attends in XLA), the biased output projection and the
+    gate.  Returns what the tick adds to x, (B, 1, d)."""
+    B, xa = x.shape[0], p["xattn"]
+    q = _proj(_norm_apply(cfg, p["ln_x"], x), xa["wq"], xa.get("bq")
+              ).reshape(B, 1, cfg.n_heads, cfg.d_head)
+    o = attention.attend_decode(q, xk, xv, xk.shape[1])
+    return _gate(p, x) * _proj(o.reshape(B, 1, -1), xa["wo"], xa.get("bo"))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: torch.Tensor
@@ -571,21 +673,51 @@ def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def token_rows(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``tokens``: what a decode tick embeds (the
-    reference's ticks index ``params["embed"]`` and skip the SC
-    frontend)."""
+    """The embedding rows of ``tokens``."""
     return params["embed"][tokens.long()]
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The reference's sinusoidal table at integer ``positions`` (any
+    shape): (..., d) float32, the sines of the angles pos / 10000^(i / d),
+    i = 0, 2, ..., d - 2, then their cosines, computed in float32 as the
+    reference computes them.  The prompt, the fold, the encoder and every
+    tick call this one function, so a position gets the same bits on every
+    path."""
+    i = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
+    ang = positions.float()[..., None] / torch.pow(10000.0, i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def add_positions(cfg: LMConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """x plus the sinusoidal table at ``positions`` (cast to x's dtype)
+    under ``pos_embedding="sinusoidal"``; x itself under RoPE, which
+    encodes positions inside attention."""
+    if cfg.pos_embedding != "sinusoidal":
+        return x
+    return x + sinusoidal(positions, cfg.d_model).to(x.dtype)
+
+
+def embed_tick(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """What a decode tick embeds: the rows of ``tokens`` (S, 1) at each
+    lane's position ``pos`` (S,), without the SC frontend, as the
+    reference's ticks index ``params["embed"]`` and skip it."""
+    return add_positions(cfg, token_rows(params, tokens), pos[:, None])
 
 
 def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                  pos_offset: int = 0) -> torch.Tensor:
-    """tokens (B, S) integer -> (B, S, d) embedding rows, plus the SC
-    frontend's output under ``first_layer_mode="sc"`` (a residual insert).
-    ``pos_offset`` is the absolute position of tokens[:, 0]; the decoder
-    family encodes positions by RoPE inside attention, so its embedding
-    does not read it (the reference's sinusoidal families do)."""
+    """tokens (B, S) integer -> (B, S, d): the embedding rows, the
+    sinusoidal table from position ``pos_offset`` (the absolute position of
+    tokens[:, 0]) under ``pos_embedding="sinusoidal"``, then the SC
+    frontend's output under ``first_layer_mode="sc"`` (a residual
+    insert)."""
     check_supported(cfg)
     x = token_rows(params, tokens)
+    x = add_positions(cfg, x, torch.arange(
+        pos_offset, pos_offset + tokens.shape[1], device=x.device))
     if cfg.first_layer_mode == "sc":
         x = x + sc_frontend(cfg, params["sc_frontend"], x)
     return x

@@ -1,16 +1,20 @@
-"""Serving engine of the port, decoder, moe and hybrid families: one-shot
-prefill, the chunked prefill fold's step and the batched single-token
-decode ticks, against the dense cache and against the paged block arena.
+"""Serving engine of the port, decoder, moe, hybrid and encdec families:
+one-shot prefill, the chunked prefill fold's step and the batched
+single-token decode ticks, against the dense cache and against the paged
+block arena.
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
 ``len``, a scalar or, in the dense tick, one length per lane; the hybrid
 family adds its recurrent state, ``conv`` (L, B, K-1, d_inner) in the
-model's dtype and ``ssm`` (L, B, d_inner, N) in float32.  The paged
-arena splices a ``num_blocks`` axis in just before the batch axis of a
-B=1, ``block_size``-long cache: (L, num_blocks, 1, bs, Hkv, Dh),
-layer-leading, so one layer's slice is exactly what the paged attention
-reads; the recurrent state is not a sequence key and stays out of it
-(the paged adapter keeps it per lane, (L, n_slots, ...)).
+model's dtype and ``ssm`` (L, B, d_inner, N) in float32; the encdec
+family adds the encoder's cross K/V of every decoder layer, ``xk`` and
+``xv`` (L, B, enc_len, Hkv, Dh) in the model's dtype
+(:func:`encode_cross`).  The paged arena splices a ``num_blocks`` axis in
+just before the batch axis of a B=1, ``block_size``-long cache: (L,
+num_blocks, 1, bs, Hkv, Dh), layer-leading, so one layer's slice is
+exactly what the paged attention reads; the recurrent state and the cross
+K/V are not sequence keys and stay out of it (the paged adapter keeps them
+per lane, (L, n_slots, ...): its lane state).
 
 Unlike the reference, which rebuilds arrays functionally (and lets XLA
 donate them), the decode ticks here write the cache, the arena and the
@@ -30,6 +34,12 @@ The hybrid family scans a prompt or fold chunk of S tokens in chunks of
 ``min(ssm_chunk, S)`` steps, so its one-shot prefill refuses a prompt
 that is not a multiple of that chunk, as the reference does; the fold
 takes any length, each chunk being one scan chunk.
+
+The encdec family runs its encoder once per admission
+(:func:`encode_cross`: the frame embeddings plus the sinusoidal table,
+the non-causal encoder blocks, the final norm, then each decoder layer's
+cross K and V); every chunk of a fold reads the same cross K/V, and a
+tick attends them in plain PyTorch, as the reference's tick does in XLA.
 """
 from __future__ import annotations
 
@@ -40,20 +50,28 @@ from repro_torch.kernels import ref
 from repro_torch.models import lm
 
 # Cache keys whose axis -3 is the (paged) sequence axis: k and v only (the
-# hybrid family's conv and ssm state is per lane, not per position).
+# hybrid family's conv and ssm state and the encdec family's cross K/V are
+# per lane, not per position).
 PAGED_SEQ_KEYS = ("k", "v")
 # the hybrid family's recurrent state, per layer and lane
 STATE_KEYS = ("conv", "ssm")
+# the encdec family's cross K/V, per layer and lane
+CROSS_KEYS = ("xk", "xv")
 
 
 def init_state(cfg: lm.LMConfig, batch: int,
                device: str | torch.device = "cuda") -> dict:
-    """Zeroed recurrent state of the hybrid family: conv (L, B, K-1,
-    d_inner) in the model's dtype, ssm (L, B, d_inner, N) float32; an
-    empty dict for the other families."""
+    """Zeroed lane state: the hybrid family's recurrent state, conv (L,
+    B, K-1, d_inner) in the model's dtype and ssm (L, B, d_inner, N)
+    float32; the encdec family's cross K/V, xk / xv (L, B, enc_len, Hkv,
+    Dh) in the model's dtype; an empty dict for the other families."""
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        shape = (L, batch, cfg.enc_len, cfg.n_kv_heads, cfg.d_head)
+        return {key: torch.zeros(shape, dtype=cfg.dtype, device=device)
+                for key in CROSS_KEYS}
     if cfg.family != "hybrid":
         return {}
-    L = cfg.n_layers
     return {"conv": torch.zeros((L, batch, cfg.conv_k - 1, cfg.inner),
                                 dtype=cfg.dtype, device=device),
             "ssm": torch.zeros((L, batch, cfg.inner, cfg.ssm_state),
@@ -62,14 +80,24 @@ def init_state(cfg: lm.LMConfig, batch: int,
 
 def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh), ``len`` and, for
-    the hybrid family, the recurrent state (:func:`init_state`)."""
+    """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh), ``len`` and the
+    lane state (:func:`init_state`)."""
     lm.check_supported(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             **init_state(cfg, batch, device)}
+
+
+def empty_cache(cfg: lm.LMConfig, batch: int,
+                device: str | torch.device = "cuda") -> dict:
+    """The prefix cache of a cold fold: k/v of no positions, ``len`` 0 and
+    the hybrid family's zero state; not the encdec family's cross K/V,
+    which each admission's :func:`encode_cross` provides."""
+    return {key: torch.zeros(a.shape, dtype=a.dtype, device=device)
+            for key, a in init_cache(cfg, batch, 0, "meta").items()
+            if key not in CROSS_KEYS}
 
 
 def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
@@ -103,15 +131,54 @@ def _put(dst: torch.Tensor, new: torch.Tensor,
     dst.copy_(new)
 
 
-def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
+def encode_cross(cfg: lm.LMConfig, params: dict, enc_embed: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encdec family's encoder pass and every decoder layer's cross K/V
+    projections: ``enc_embed`` (B, enc_len, d) frame embeddings, cast to
+    the model's dtype, plus the sinusoidal table from 0, through the
+    non-causal encoder blocks and ``enc_norm``.  Returns (xk, xv), each
+    (L, B, enc_len, Hkv, Dh) in the model's dtype; xv carries the
+    cross-attention's ``bv``, xk no bias, as in the reference.  One call
+    per admission feeds every chunk of its fold."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode_cross runs the encdec family's encoder, "
+                         f"not {cfg.family!r}'s")
+    B, T, _ = enc_embed.shape
+    t = torch.arange(T, device=enc_embed.device)
+    enc = enc_embed.to(cfg.dtype)
+    enc = enc + lm.sinusoidal(t, cfg.d_model).to(enc.dtype)
+    pos = t.expand(B, T)
+    for i in range(cfg.enc_layers):
+        enc, _ = lm.decoder_block(cfg, lm.layer_params(params["enc_blocks"],
+                                                       i), enc, pos,
+                                  causal=False)
+    enc = lm._norm_apply(cfg, params["enc_norm"], enc)
+    shape = (B, T, cfg.n_kv_heads, cfg.d_head)
+    xk, xv = [], []
+    for i in range(cfg.n_layers):
+        xa = lm.layer_params(params["dec_blocks"]["xattn"], i)
+        xk.append(lm._proj(enc, xa["wk"]).reshape(shape))
+        xv.append(lm._proj(enc, xa["wv"], xa.get("bv")).reshape(shape))
+    return torch.stack(xk), torch.stack(xv)
+
+
+def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor, *,
+            enc_embed: torch.Tensor | None = None):
     """Process a whole prompt.  tokens (B, S) -> (cache, last-token logits
     (B, vocab_padded) float32); cache k/v (L, B, S, Hkv, Dh), len S, and
-    the hybrid family's state after the prompt: one fold step from an
-    empty prefix (hybrid: a prompt of S tokens must be a multiple of
-    ``min(cfg.ssm_chunk, S)``, else ``ValueError``)."""
-    return prefill_chunked(
-        cfg, params, tokens,
-        init_cache(cfg, tokens.shape[0], 0, tokens.device), 0)
+    the lane state after the prompt: one fold step from an empty prefix
+    (hybrid: a prompt of S tokens must be a multiple of ``min(cfg.ssm_chunk,
+    S)``, else ``ValueError``).  The encdec family needs the frame
+    embeddings ``enc_embed`` (B, enc_len, d), which go through
+    :func:`encode_cross` first; the other families refuse them."""
+    lm.check_supported(cfg)
+    cache = empty_cache(cfg, tokens.shape[0], tokens.device)
+    if (enc_embed is None) != (cfg.family != "encdec"):
+        raise ValueError("prefill takes enc_embed for the encdec family "
+                         f"and only for it (family {cfg.family!r})")
+    if enc_embed is not None:
+        cache["xk"], cache["xv"] = encode_cross(cfg, params, enc_embed)
+    return prefill_chunked(cfg, params, tokens, cache, 0)
 
 
 def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
@@ -120,13 +187,13 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     the serving prefill fold.
 
     tokens (B, S_chunk): only the tokens past the prefix.  ``cache``: k/v
-    (L, B, q_offset, Hkv, Dh), the prefix's post-RoPE rows (zero-length for
-    a cold fold), and for the hybrid family conv / ssm, the recurrent
-    state at ``q_offset`` (zeros for a cold fold), read and not written.
+    (L, B, q_offset, Hkv, Dh), the prefix's rows (zero-length for a cold
+    fold); for the hybrid family conv / ssm, the recurrent state at
+    ``q_offset`` (zeros for a cold fold); for the encdec family xk / xv,
+    the admission's :func:`encode_cross`; all read and not written.
     Returns (cache covering prefix and chunk, len ``q_offset + S_chunk``,
-    with the state after the chunk; the chunk's last-token logits (B,
-    vocab_padded) float32).  Decoder, moe and hybrid families (other
-    families raise).
+    with the state after the chunk and the same xk / xv; the chunk's
+    last-token logits (B, vocab_padded) float32).
 
     A radix prefix hit of H blocks resumes the fold at chunk H with the
     prefix gathered from the arena (and, hybrid, the boundary state the
@@ -141,6 +208,7 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         raise ValueError(f"prefix holds {cache['k'].shape[-3]} positions, "
                          f"q_offset is {q_offset}")
     hybrid = cfg.family == "hybrid"
+    encdec = cfg.family == "encdec"
     x = lm.embed_tokens(cfg, params, tokens, pos_offset=q_offset)
     positions = torch.arange(q_offset, q_offset + S,
                              device=x.device).expand(B, S)
@@ -148,22 +216,28 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                                                  else ())}
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         prefix = (cache["k"][i], cache["v"][i])
+        st = {}
         if hybrid:
             x, (k, v), st = lm.hymba_block(
                 cfg, lp, x, positions,
                 {key: cache[key][i] for key in STATE_KEYS}, window=window,
+                q_offset=q_offset, kv_prefix=prefix)
+        elif encdec:
+            x, (k, v) = lm.cross_block(
+                cfg, lp, x, positions, (cache["xk"][i], cache["xv"][i]),
                 q_offset=q_offset, kv_prefix=prefix)
         else:
             x, (k, v) = lm.decoder_block(
                 cfg, lp, x, positions, window=window, q_offset=q_offset,
                 kv_prefix=prefix, moe_layer=moe_layer,
                 moe_dropless=cfg.moe_dropless_prefill)
-            st = {}
         for key, t in (("k", k), ("v", v), *st.items()):
             out[key].append(t)
     new_cache = {"len": torch.tensor(q_offset + S, dtype=torch.int32,
                                      device=x.device),
                  **{key: torch.stack(ts) for key, ts in out.items()}}
+    if encdec:
+        new_cache.update({key: cache[key] for key in CROSS_KEYS})
     return new_cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
 
 
@@ -172,12 +246,16 @@ def _block_tail(cfg: lm.LMConfig, lp: dict, x: torch.Tensor,
                 state: dict, i: int, active: torch.Tensor | None
                 ) -> torch.Tensor:
     """A decode tick's block after its attention ``att`` (from the normed
-    ``z``): the residual and the FFN, or for the hybrid family the SSM
-    branch from layer ``i`` of ``state`` (whose lanes' taps and state it
-    overwrites in place, an inactive lane's put back), the mix and the
-    MLP."""
+    ``z``): the residual, for the encdec family the gated cross-attention
+    over layer ``i`` of ``state``'s xk / xv, and the FFN; or for the
+    hybrid family the SSM branch from layer ``i`` of ``state`` (whose
+    lanes' taps and state it overwrites in place, an inactive lane's put
+    back), the mix and the MLP."""
     if cfg.family != "hybrid":
         x = x + att
+        if cfg.family == "encdec":
+            x = x + lm.cross_decode(cfg, lp, x, state["xk"][i],
+                                    state["xv"][i])
         return x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
                                  moe_layer)
     y, conv, h = lm.ssm_decode(cfg, lp, z, state["conv"][i],
@@ -194,9 +272,11 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     one batched step.
 
     cache   k/v (L, B, Smax, Hkv, Dh), ``len`` (B,) int32 (or a scalar
-            for every lane) and the hybrid family's conv / ssm, **updated
-            in place**: per layer and lane one K/V row at ``len``, the
-            lane's next state, and ``len + 1``.
+            for every lane) and the lane state (the hybrid family's conv /
+            ssm, the encdec family's xk / xv), **updated in place**: per
+            layer and lane one K/V row at ``len``, the lane's next
+            recurrent state, and ``len + 1`` (the cross K/V are read
+            only).
     tokens  (B, 1) integer.
     active  optional (B,) bool: an inactive lane still decodes (its logits
             are computed) but its rows, state and length stay as they
@@ -206,7 +286,7 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     lm.check_supported(cfg)
     B = tokens.shape[0]
     pos = cache["len"].to(torch.int32).expand(B)
-    x = lm.token_rows(params, tokens)                      # (B, 1, d)
+    x = lm.embed_tick(cfg, params, tokens, pos)            # (B, 1, d)
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)
         att = lm.attn_decode(cfg, lp["attn"], z, cache["k"][i],
@@ -243,19 +323,21 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
             :func:`repro_torch.nn.attention.attend_decode_cascade`; the
             same write as ``"cuda"``, whose wrapper runs the plain write
             for CPU tensors).
-    state   the hybrid family's per-lane recurrent state, conv (L, S, K-1,
-            d_inner) and ssm (L, S, d_inner, N), **updated in place**;
-            ``active`` (S,) bool keeps an inactive lane's as it was, as
-            the reference's adapter selects it.  The decoder and moe
+    state   the lanes' state (:func:`init_state` with S lanes): the
+            hybrid family's conv (L, S, K-1, d_inner) and ssm (L, S,
+            d_inner, N), **updated in place**, ``active`` (S,) bool
+            keeping an inactive lane's as it was, as the reference's
+            adapter selects it; the encdec family's cross K/V xk / xv (L,
+            S, enc_len, Hkv, Dh), read only.  The decoder and moe
             families have no slot state besides ``lens`` (the caller's).
 
     Returns the logits (S, vocab_padded) float32."""
     lm.check_supported(cfg)
     if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
-    if cfg.family == "hybrid" and state is None:
-        raise ValueError("the hybrid family's tick needs the lanes' "
-                         "recurrent state (state=)")
+    if cfg.family in ("hybrid", "encdec") and state is None:
+        raise ValueError(f"the {cfg.family} family's tick needs the "
+                         "lanes' state (state=)")
     bs = arena["k"].shape[-3]
     nb = tables.shape[1]
     pos = lens.to(torch.int32)
@@ -263,7 +345,7 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     if wbids is None:
         blk = tables.gather(1, (pos // bs).clamp(max=nb - 1).long()[:, None])
         wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
-    x = lm.token_rows(params, tokens)                      # (S, 1, d)
+    x = lm.embed_tick(cfg, params, tokens, pos)            # (S, 1, d)
     k_rows, v_rows = [], []
     for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)

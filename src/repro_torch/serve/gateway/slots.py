@@ -1,7 +1,7 @@
 """Continuous batching over slot adapters: the request record, the dense
 KV slots, the adapter factory and the family-agnostic scheduler loop.
 
-Two adapters of the decoder, moe and hybrid families so far:
+Two adapters of the decoder, moe, hybrid and encdec families so far:
 :class:`KVSlotAdapter`, each slot a dense cache of ``max_len`` positions
 with its own length (the reference's default), and the paged KV slots
 (``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
@@ -56,6 +56,27 @@ class Request:
         return len(self.generated) >= self.max_new_tokens
 
 
+def extras_kwargs(cfg: LMConfig, extras, device: torch.device) -> dict:
+    """The keywords ``engine.prefill`` takes from an adapter's ``extras``
+    callable, the reference's per-family modality stub: for the encdec
+    family the frame embeddings ``{"enc_embed": (1, enc_len, d)}`` it
+    returns (numpy or a tensor), on ``device``; nothing for the other
+    families, which take none."""
+    if cfg.family != "encdec":
+        return {}
+    return {"enc_embed": torch.as_tensor(extras()["enc_embed"],
+                                         device=device)}
+
+
+def check_extras(cfg: LMConfig, extras) -> None:
+    """The encdec family needs ``extras``; the other families take none."""
+    if (extras is None) == (cfg.family == "encdec"):
+        raise ValueError(f"extras= (a callable returning the frame "
+                         f"embeddings {{'enc_embed': (1, enc_len, d)}}) is "
+                         f"required for the encdec family and taken by no "
+                         f"other (family {cfg.family!r})")
+
+
 def _dense_tick(cfg, params, cache, tokens, active):
     """The dense tick's captured body: :func:`engine.decode_step` with the
     active-lane mask."""
@@ -64,10 +85,12 @@ def _dense_tick(cfg, params, cache, tokens, active):
 
 class KVSlotAdapter:
     """Dense KV slots, each lane's length its own: the cache holds k/v
-    (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the hybrid
-    family's recurrent state, conv / ssm (L, n_slots, ...), on the params'
-    device.  ``insert`` prefills one prompt (B=1, one-shot) and writes its
-    rows and state into the slot, the rest of the slot zeros as the
+    (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the lane state
+    (the hybrid family's recurrent state, conv / ssm, the encdec family's
+    cross K/V, xk / xv; (L, n_slots, ...)), on the params' device.
+    ``insert`` prefills one prompt (B=1, one-shot; for the encdec family
+    with the frame embeddings ``extras()`` returns) and writes its rows and
+    state into the slot in place, the rest of the slot zeros as the
     reference's padded write leaves it; ``clear`` sets the slot's length to
     0 (its rows and state stay, stale but unread); ``decode`` runs one
     batched tick over every lane (:func:`engine.decode_step`), in which an
@@ -84,8 +107,10 @@ class KVSlotAdapter:
     SEQ_KEYS = ("k", "v")
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
-                 max_len: int):
+                 max_len: int, extras=None):
+        check_extras(cfg, extras)
         self.cfg = cfg
+        self.extras = extras
         self.params = params
         self.device = params["embed"].device
         self.n_slots = n_slots
@@ -113,11 +138,14 @@ class KVSlotAdapter:
                              f"{self.max_len}")
         tokens = torch.from_numpy(np.asarray(prompt, np.int32)[None]
                                   ).to(self.device)
-        cache1, logits = engine.prefill(self.cfg, self.params, tokens)
+        cache1, logits = engine.prefill(
+            self.cfg, self.params, tokens,
+            **extras_kwargs(self.cfg, self.extras, self.device))
         for key in self.SEQ_KEYS:
             self.cache[key][:, slot, :P] = cache1[key][:, 0]
             self.cache[key][:, slot, P:] = 0
-        for key in engine.STATE_KEYS:
+        # in place: the captured tick reads these very tensors
+        for key in engine.STATE_KEYS + engine.CROSS_KEYS:
             if key in self.cache:
                 self.cache[key][:, slot] = cache1[key][:, 0]
         self.cache["len"][slot] = P
@@ -154,10 +182,12 @@ class KVSlotAdapter:
 
 
 def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
-                 max_len: int = 128, *, paged: bool = False,
+                 max_len: int = 128, extras=None, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg`` (decoder, moe or hybrid family): dense
+    """The slot adapter for ``cfg`` (decoder, moe, hybrid or encdec family,
+    the last with ``extras``, a callable returning ``{"enc_embed": (1,
+    enc_len, d)}`` for each admission, as the reference's): dense
     KV slots (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
     paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot
@@ -169,11 +199,12 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
         if backend is not None:
             raise ValueError(f"backend={backend!r} selects the paged decode "
                              "tick's attention; it requires paged=True")
-        return KVSlotAdapter(cfg, params, n_slots, max_len)
+        return KVSlotAdapter(cfg, params, n_slots, max_len, extras)
     from repro_torch.serve.kvcache.paged import PagedKVSlotAdapter
     return PagedKVSlotAdapter(cfg, params, n_slots, max_len,
                               block_size=block_size, num_blocks=num_blocks,
-                              chunked=chunked, backend=backend)
+                              extras=extras, chunked=chunked,
+                              backend=backend)
 
 
 class ContinuousBatcher:

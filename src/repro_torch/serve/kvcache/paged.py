@@ -33,8 +33,10 @@ Captured ticks
     lane and suffix counts), replayed with the tick's host inputs (tokens,
     tables, lengths, write targets, for the hybrid family the active
     lanes, and the group metadata) refilled by one copy from pinned
-    memory.  The copy-on-write copy, the prompt writes,
-    the fold and one-shot prefill stay eager, on the same stream.
+    memory.  The copy-on-write copy, the prompt writes, the encoder,
+    the fold and one-shot prefill stay eager, on the same stream.  The
+    graphs read the lane state (``state``) where it lies, so an admission
+    copies its state into the slot in place, never rebinding a tensor.
 
 Chunked prefill (``chunked=True``, the default): prefix-hit compute
 skipping
@@ -62,6 +64,14 @@ Boundary states (the hybrid family)
     Each lane's own state lives in ``state`` (L, n_slots, ...), which the
     ticks overwrite in place (an inactive lane's put back bit for bit).
 
+Cross K/V (the encdec family)
+    Each admission runs the encoder on the frame embeddings ``extras()``
+    returns (:func:`engine.encode_cross`), a prefix hit too: the radix
+    index keys on tokens alone and a hit skips decoder work only, as in
+    the reference.  Every chunk of the fold reads that one encoding, and
+    the lane keeps it in ``state["xk"]`` / ``state["xv"]`` (L, n_slots,
+    enc_len, Hkv, Dh), which the ticks read.
+
 Sharing / copy-on-write (one-shot prefill, ``chunked=False``)
     Admission walks the pool's radix index: full prompt blocks that match
     an earlier request's chain are referenced instead of written (their
@@ -86,8 +96,8 @@ Gather tick (``backend="gather"``)
     (lanes out of range to the trash block).  Plain PyTorch on every
     device, captured like the flat tick.
 
-The reference's encdec cross K/V (other families), mesh placement and obs
-hooks come with later slices (ROADMAP.md).
+The reference's vlm family, mesh placement and obs hooks come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -100,6 +110,7 @@ import torch
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import capture, engine
 from repro_torch.serve.backend import auto_backend, resolve_backend
+from repro_torch.serve.gateway.slots import check_extras, extras_kwargs
 from repro_torch.serve.kvcache.pool import (TRASH_BLOCK, BlockPool,
                                             PoolExhausted)
 
@@ -120,6 +131,7 @@ NOT_CAPTURED = {
     "scatter": "eager: a prompt's block writes, per prompt",
     "copy": "eager: the copy-on-write copy, on the tick's stream",
     "write_block": "eager: block writes (no caller in the port yet)",
+    "encode": "eager: the encoder, once per admission (encdec)",
     "cascade_prefix": "inside the captured cascade tick",
     "cascade_suffix": "inside the captured cascade tick",
     "cascade_merge": "inside the captured cascade tick (fused into the "
@@ -130,8 +142,8 @@ NOT_CAPTURED = {
 def _flat_tick(cfg, params, arena, state, backend, tokens, tables, lens,
                wbids, active=None):
     """The flat tick's captured body: :func:`engine.decode_step_paged`
-    (``active``, the lanes whose state the tick advances, with the hybrid
-    family's state only)."""
+    (``active``, the lanes whose state the tick advances, for the hybrid
+    family only)."""
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
                                     backend=backend, state=state,
@@ -145,7 +157,8 @@ def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
     Dh), run :func:`engine.decode_step` on it (with the lanes' recurrent
     state, advanced in place for the lanes that write), and write the
     block that holds each lane's new row to ``wbids`` (a lane whose length
-    is past its table writes the trash block, from offset 0)."""
+    is past its table writes the trash block, from offset 0); the encdec
+    family's lanes read their cross K/V from ``state``."""
     S, nb = tables.shape
     bs = arena["k"].shape[-3]
     max_len = nb * bs
@@ -169,8 +182,9 @@ def _cascade_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
                   *rest):
     """The cascade tick's captured body: :func:`engine.decode_step_paged`
     with the group metadata, :data:`CASCADE_META` in order (after the
-    ``active`` lanes with the hybrid family's state)."""
-    active, meta = (rest[0], rest[1:]) if state else (None, rest)
+    ``active`` lanes for the hybrid family)."""
+    active, meta = (rest[0], rest[1:]) if cfg.family == "hybrid" else \
+        (None, rest)
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
                                     backend="cascade",
@@ -179,7 +193,8 @@ def _cascade_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
 
 
 class PagedKVSlotAdapter:
-    """Paged KV slots for the decoder, moe and hybrid families, with the
+    """Paged KV slots for the decoder, moe, hybrid and encdec families (the
+    last with ``extras``, see ``slots.make_adapter``), with the
     batcher surface (``insert`` / ``decode`` / ``clear``) and the paging
     hooks the batcher discovers by presence: ``can_admit``,
     ``validate_request``, ``at_capacity``, ``slot_stats``,
@@ -187,9 +202,12 @@ class PagedKVSlotAdapter:
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, *, block_size: int = 16,
-                 num_blocks: int | None = None, chunked: bool = True,
-                 backend: str | None = None):
+                 num_blocks: int | None = None, extras=None,
+                 chunked: bool = True, backend: str | None = None):
+        check_extras(cfg, extras)
         self.cfg = cfg
+        self.extras = extras
+        self.hybrid = cfg.family == "hybrid"
         self.chunked = chunked
         self.params = params
         self.device = params["embed"].device
@@ -214,7 +232,8 @@ class PagedKVSlotAdapter:
         self.arena = engine.init_paged_arena(cfg, num_blocks, block_size,
                                              self.device)
         self.seq_keys = tuple(self.arena)
-        # the hybrid family's per-lane recurrent state ({} otherwise)
+        # the lanes' state: the hybrid family's recurrent state, the encdec
+        # family's cross K/V ({} otherwise)
         self.state = engine.init_state(cfg, n_slots, self.device)
         # the hybrid family's boundary states (see the module docstring),
         # by chain key, least recently used first
@@ -360,7 +379,7 @@ class PagedKVSlotAdapter:
         boundary whose state is still held."""
         H = len(hits)
         while H > 0 and (H * self.bs >= P or (
-                self.state and keys[H - 1] not in self._boundary_states)):
+                self.hybrid and keys[H - 1] not in self._boundary_states)):
             H -= 1
         return H
 
@@ -374,14 +393,25 @@ class PagedKVSlotAdapter:
             out[key] = g.reshape(g.shape[0], 1, -1, *g.shape[3:])
         return out
 
+    def _encode(self) -> dict[str, torch.Tensor]:
+        """The encdec family's cross K/V for one admission, each (L, 1,
+        enc_len, Hkv, Dh), from the frame embeddings ``extras()`` returns;
+        {} for the other families."""
+        kw = extras_kwargs(self.cfg, self.extras, self.device)
+        if not kw:
+            return {}
+        return dict(zip(engine.CROSS_KEYS, engine.encode_cross(
+            self.cfg, self.params, kw["enc_embed"])))
+
     def _prefix_cache(self, bids: list[int], state: dict | None = None
                       ) -> dict[str, torch.Tensor]:
         """The prefix cache a fold starts from: the gathered blocks
         ``bids`` with the boundary ``state`` (hybrid), or an empty cache
-        (zero state) for a cold fold."""
-        if bids:
-            return {**self._gather_prefix(bids), **(state or {})}
-        return engine.init_cache(self.cfg, 1, 0, self.device)
+        (zero state) for a cold fold; for the encdec family with the
+        admission's cross K/V (the encoder runs on a hit too)."""
+        cache = {**self._gather_prefix(bids), **(state or {})} if bids \
+            else engine.empty_cache(self.cfg, 1, self.device)
+        return {**cache, **self._encode()}
 
     def _fold_prefill(self, prompt: np.ndarray, q0: int, cache: dict,
                       keys: list[bytes]
@@ -403,7 +433,7 @@ class PagedKVSlotAdapter:
             self.prefill_chunks_total += 1
             q += c
             j = q // self.bs - 1
-            if (self.state and q % self.bs == 0 and j < n_full
+            if (self.hybrid and q % self.bs == 0 and j < n_full
                     and keys[j] not in self._boundary_states):
                 # no copy: prefill_chunked stacks new state tensors every
                 # chunk and only reads the ones it is given, and
@@ -422,7 +452,9 @@ class PagedKVSlotAdapter:
             self._boundary_states.popitem(last=False)
 
     def _set_state(self, slot: int, cache: dict) -> None:
-        """The slot's recurrent state after its prefill (hybrid)."""
+        """The slot's lane state after its prefill (the hybrid family's
+        recurrent state, the encdec family's cross K/V), copied in place:
+        the captured ticks read these tensors."""
         for key, a in self.state.items():
             a[:, slot] = cache[key][:, 0]
 
@@ -463,7 +495,7 @@ class PagedKVSlotAdapter:
         H = self._resume_blocks(P, hits, keys)
         q0 = H * self.bs
         state = None
-        if H and self.state:
+        if H and self.hybrid:
             state = self._boundary_states[keys[H - 1]]
             self._boundary_states.move_to_end(keys[H - 1])   # LRU recency
         cache, logits, snapshots = self._fold_prefill(
@@ -549,7 +581,9 @@ class PagedKVSlotAdapter:
             raise
 
         tokens = torch.from_numpy(prompt[None]).to(self.device)
-        cache, logits = engine.prefill(self.cfg, self.params, tokens)
+        cache, logits = engine.prefill(
+            self.cfg, self.params, tokens,
+            **extras_kwargs(self.cfg, self.extras, self.device))
         self._scatter(cache, fresh)
         # index only after the contents exist (a failed insert must never
         # leave a key pointing at an unwritten block)
@@ -734,7 +768,7 @@ class PagedKVSlotAdapter:
         step = self._decode
         inputs = (np.asarray(tokens, np.int32)[:, None], self.tables,
                   self.lens.astype(np.int32), wbids)
-        if self.state:
+        if self.hybrid:
             # the lanes whose recurrent state the tick advances: the
             # active ones, an at-capacity lane frozen above, as in the
             # reference

@@ -52,9 +52,12 @@ class ServeSpec:
 
 
 def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
-                 device: str | torch.device = "cuda", **overrides):
+                 extras=None, device: str | torch.device = "cuda",
+                 **overrides):
     """Build the ``PromptGateway`` that ``spec`` (plus field ``overrides``)
-    describes, on ``device``, where ``params`` must already live."""
+    describes, on ``device``, where ``params`` must already live.
+    ``extras`` is the per-family modality stub ``make_adapter`` takes (the
+    encdec family's frame embeddings)."""
     from repro_torch.serve.gateway.gateway import PromptGateway
     from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 
@@ -78,7 +81,7 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
                          "tick's attention; it requires paged=True")
     adapter = make_adapter(
         cfg, params, n_slots=spec.n_slots, max_len=spec.max_len,
-        paged=spec.paged, block_size=spec.block_size,
+        extras=extras, paged=spec.paged, block_size=spec.block_size,
         num_blocks=spec.num_blocks, chunked=spec.chunked,
         backend=spec.backend)
     return PromptGateway(

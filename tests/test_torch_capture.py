@@ -4,9 +4,12 @@ capture counts against the reference's jit cache sizes, the recompile
 detector on both, the captured tick bit for bit a direct
 ``engine.decode_step_paged`` call, and the launch-counter bookkeeping of a
 capture with a fake graph; the paged adapter's counts and the captured
-tick also for the moe family (deepseek-moe-16b's smoke size) and the
-hybrid family (hymba-1.5b's, the lanes' state bit for bit).  The graphs
-themselves run only on a card (``tests/test_torch_cuda.py``)."""
+tick also for the moe family (deepseek-moe-16b's smoke size), the
+hybrid family (hymba-1.5b's, the lanes' state bit for bit) and the encdec
+family (whisper-medium's with the reference tests' frames: the lanes'
+cross K/V, written in place at each admission, so that a tick after a
+re-admission reads the new ones).  The graphs themselves run only on a
+card (``tests/test_torch_cuda.py``)."""
 import contextlib
 
 import numpy as np
@@ -27,7 +30,7 @@ from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.obs import RecompileDetector
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, frames, smoke_pair
 
 BS = 4
 CPU = torch.device("cpu")
@@ -46,6 +49,11 @@ def moe_pair():
 @pytest.fixture(scope="module")
 def hymba_pair():
     return smoke_pair(arch=HYMBA)
+
+
+@pytest.fixture(scope="module")
+def encdec_pair():
+    return smoke_pair(arch=ENCDEC)
 
 
 # -- CapturedStep ------------------------------------------------------------
@@ -253,8 +261,10 @@ def test_gateway_compile_counts_match_reference():
 
 def test_jit_fns_keys_match_reference(pair):
     """The port names the reference's entry points, less those it runs
-    eagerly or inside the cascade tick's graph (``NOT_CAPTURED``)."""
+    eagerly or inside the cascade tick's graph (``NOT_CAPTURED``; the
+    encoder's ``encode`` only for the encdec family)."""
     jcfg, jparams, cfg, params = pair
+    jx, px = extras_pair(cfg)
     kw = dict(bucket_sizes=(1, 4))
     frames = gw.MicroBatchGateway(gw.GatewayConfig(**kw), fe.FrontendSpec(),
                                   device="cpu")
@@ -265,9 +275,9 @@ def test_jit_fns_keys_match_reference(pair):
     for backend, jbackend in (("plain", "xla"), ("gather", "gather"),
                               ("cascade", "cascade")):
         port = paged.PagedKVSlotAdapter(cfg, params, 2, 16, block_size=BS,
-                                        backend=backend)
+                                        extras=px, backend=backend)
         ref = JPagedKVSlotAdapter(jcfg, jparams, 2, 16, block_size=BS,
-                                  backend=jbackend)
+                                  extras=jx, backend=jbackend)
         ours, theirs = set(port.jit_fns()), set(ref.jit_fns())
         assert ours <= theirs and not ours & set(paged.NOT_CAPTURED)
         assert theirs - ours <= set(paged.NOT_CAPTURED)
@@ -277,7 +287,8 @@ def test_jit_fns_keys_match_reference(pair):
         jprompt = jgw.PromptGateway(jslots.ContinuousBatcher(ref))
         assert set(prompt.jit_fns()) == ours
         assert set(jprompt.jit_fns()) - ours <= set(paged.NOT_CAPTURED)
-    assert theirs - ours == set(paged.NOT_CAPTURED)   # the cascade adapter
+    encoded = set() if cfg.family == "encdec" else {"encode"}
+    assert theirs - ours == set(paged.NOT_CAPTURED) - encoded  # cascade
 
 
 def _prompt_arrivals(cfg, n, plen=8, seed=0, dt=0.001):
@@ -291,7 +302,8 @@ def test_prompt_gateway_zero_steady_state_recompiles(pair):
     """``tests/test_obs.py::test_gateway_jit_fns_zero_steady_state_
     recompiles`` on the port."""
     cfg, params = pair[2], pair[3]
-    ad = slots.make_adapter(cfg, params, n_slots=2, max_len=16, paged=True,
+    ad = slots.make_adapter(cfg, params, n_slots=2, max_len=16,
+                            extras=extras_pair(cfg)[1], paged=True,
                             block_size=BS)
     prompt = gw.PromptGateway(slots.ContinuousBatcher(ad), max_new_tokens=3)
     prompt.warmup((8,))
@@ -309,6 +321,45 @@ def test_moe_prompt_gateway_zero_steady_state_recompiles(moe_pair):
 
 def test_hymba_prompt_gateway_zero_steady_state_recompiles(hymba_pair):
     test_prompt_gateway_zero_steady_state_recompiles(hymba_pair)
+
+
+def test_encdec_prompt_gateway_zero_steady_state_recompiles(encdec_pair):
+    test_prompt_gateway_zero_steady_state_recompiles(encdec_pair)
+
+
+def test_encdec_jit_fns_keys_match_reference(encdec_pair):
+    """The encdec adapters name the reference's entry points less
+    ``NOT_CAPTURED``, ``encode`` among them (the encoder runs eagerly,
+    once per admission)."""
+    test_jit_fns_keys_match_reference(encdec_pair)
+
+
+def test_encdec_capture_counts_match_reference_jit_caches(encdec_pair):
+    """The same admissions and ticks through the port's and the
+    reference's paged adapters: every captured step's keys equal the
+    reference's jit cache entries of the same name, and the reference's
+    one ``encode`` executable is the port's eager encoder, run once per
+    admission (a prefix hit included)."""
+    jcfg, jparams, cfg, params = encdec_pair
+    jx, px = extras_pair(cfg)
+    port = _shared(paged.PagedKVSlotAdapter(cfg, params, 4, 64, block_size=BS,
+                                            extras=px, backend="cascade"),
+                   cfg.vocab)
+    ref = _shared(JPagedKVSlotAdapter(jcfg, jparams, 4, 64, block_size=BS,
+                                      extras=jx, backend="cascade"),
+                  jcfg.vocab)
+    forced = np.random.default_rng(52).integers(0, cfg.vocab, 4
+                                                ).astype(np.int32)
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            port.decode(forced, np.ones(4, bool)),
+            np.asarray(ref.decode(forced, np.ones(4, bool))))
+    theirs = ref.jit_fns()
+    for name, step in port.jit_fns().items():
+        assert step._cache_size() == theirs[name]._cache_size(), name
+    assert theirs["encode"]._cache_size() == 1 and "encode" in \
+        paged.NOT_CAPTURED and "encode" not in port.jit_fns()
+    assert port.pool_stats()["prefill_tokens_skipped"] > 0
 
 
 def test_recompile_detector_flags_a_new_key():
@@ -411,7 +462,7 @@ def _direct_tick(ad, forced, active):
         wbids=torch.from_numpy(wbids),
         backend="cascade" if groups else ad.flat_backend, cascade=meta,
         state=state or None,
-        active=torch.from_numpy(active) if state else None)
+        active=torch.from_numpy(active) if ad.hybrid else None)
     return logits, arena, state
 
 
@@ -422,6 +473,7 @@ def test_captured_tick_bitwise_to_direct_decode_step(pair, backend):
     and ``last_logits`` of a tick is unchanged by the next tick."""
     cfg, params = pair[2], pair[3]
     ad = _shared(paged.PagedKVSlotAdapter(cfg, params, 4, 48, block_size=BS,
+                                          extras=extras_pair(cfg)[1],
                                           backend=backend), cfg.vocab)
     rng = np.random.default_rng(61)
     active = np.ones(4, bool)
@@ -457,3 +509,60 @@ def test_hymba_captured_tick_bitwise_to_direct_decode_step(hymba_pair,
     """The hybrid family: the lanes' state, a static buffer the captured
     tick writes in place, bit for bit the direct call's."""
     test_captured_tick_bitwise_to_direct_decode_step(hymba_pair, backend)
+
+
+@pytest.mark.parametrize("backend", ["plain", "cascade"])
+def test_encdec_captured_tick_bitwise_to_direct_decode_step(encdec_pair,
+                                                            backend):
+    """The encdec family: the captured tick reads the lanes' cross K/V, a
+    static tensor of the adapter's, and leaves it as the direct call
+    does."""
+    test_captured_tick_bitwise_to_direct_decode_step(encdec_pair, backend)
+
+
+@pytest.mark.parametrize("paged_slots", [True, False])
+def test_encdec_tick_after_readmission_reads_the_new_cross_kv(encdec_pair,
+                                                              paged_slots):
+    """A slot whose cross K/V an earlier tick read is cleared and admitted
+    again with other frames: the admission copies its cross K/V into the
+    lane's tensors in place (the captured step's, whose addresses do not
+    move), and the next tick is bit for bit the tick of an adapter that
+    admitted those frames first."""
+    cfg, params = encdec_pair[2], encdec_pair[3]
+    enc_a = torch.from_numpy(frames(cfg))
+    enc_b = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, tuple(enc_a.shape)).astype(np.float32))
+    rng = np.random.default_rng(8)
+    p0, p1, p2 = (rng.integers(0, cfg.vocab, n).astype(np.int32)
+                  for n in (6, 9, 7))
+    which = {"enc": enc_a}
+
+    def make():
+        return slots.make_adapter(
+            cfg, params, n_slots=2, max_len=24,
+            extras=lambda: {"enc_embed": which["enc"]}, paged=paged_slots,
+            block_size=BS)
+    ad = make()
+    lane = ad.state if paged_slots else ad.cache
+    ptrs = {k: lane[k].data_ptr() for k in engine.CROSS_KEYS}
+    ad.insert(0, p0, max_new=6)
+    ad.insert(1, p1, max_new=6)
+    active = np.ones(2, bool)
+    ad.decode(np.array([3, 4], np.int32), active)
+    ad.clear(0)
+    which["enc"] = enc_b
+    tok = ad.insert(0, p2, max_new=6)
+    got = ad.decode(np.array([tok, 5], np.int32), active)
+    assert {k: lane[k].data_ptr() for k in engine.CROSS_KEYS} == ptrs
+    fresh = make()
+    assert fresh.insert(0, p2, max_new=6) == tok
+    which["enc"] = enc_a
+    fresh.insert(1, p1, max_new=6)
+    fresh.decode(np.array([0, 4], np.int32), np.array([False, True]))
+    want = fresh.decode(np.array([tok, 5], np.int32), np.array([True, True]))
+    assert got[0] == want[0]
+    assert torch.equal(ad.last_logits[0], fresh.last_logits[0])
+    xk = lane["xk"]
+    fresh_lane = fresh.state if paged_slots else fresh.cache
+    assert torch.equal(xk[:, 0], fresh_lane["xk"][:, 0])
+    assert not torch.equal(xk[:, 0], xk[:, 1])

@@ -9,7 +9,9 @@ against the reference's over forced ticks (tokens equal, logits within
 2e-4, grouping statistics equal), the degrade rule bit for bit, the
 shared-chain eligibility rules, and ``make_gateway(backend="cascade")``
 token for token; for the moe family (deepseek-moe-16b's smoke size) the
-cascade adapter against the port's flat tick."""
+cascade adapter against the port's flat tick; for the hybrid and encdec
+families (hymba-1.5b's and whisper-medium's, the latter with the reference
+tests' frames as ``extras``) both."""
 from unittest import mock
 
 import jax.numpy as jnp
@@ -26,7 +28,7 @@ from repro_torch.kernels import paged_attn, ref
 from repro_torch.nn import attention
 from repro_torch.serve import spec
 from repro_torch.serve.gateway import slots
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 BS = 4
 TOL = 2e-6
@@ -360,6 +362,11 @@ def hymba_pair():
     return smoke_pair(arch=HYMBA)
 
 
+@pytest.fixture(scope="module")
+def encdec_pair():
+    return smoke_pair(arch=ENCDEC)
+
+
 def _shared(ad, vocab, *, n_lanes=3, shared_len=5 * BS, tail=3, seed=11):
     """n_lanes lanes sharing a block-aligned prompt prefix, plus one lane
     with a disjoint prompt (``tests/test_cascade.py``'s admission)."""
@@ -376,14 +383,15 @@ def _shared(ad, vocab, *, n_lanes=3, shared_len=5 * BS, tail=3, seed=11):
 def _port_adapter(pair, backend, n_slots=4, max_len=48):
     _, _, cfg, params = pair
     return slots.make_adapter(cfg, params, n_slots=n_slots, max_len=max_len,
-                              paged=True, block_size=BS, chunked=False,
-                              backend=backend)
+                              extras=extras_pair(cfg)[1], paged=True,
+                              block_size=BS, chunked=False, backend=backend)
 
 
 def test_cascade_adapter_matches_reference(pair):
     jcfg, jparams, cfg, _ = pair
     port = _shared(_port_adapter(pair, "cascade"), cfg.vocab)
     jref = _shared(JPagedKVSlotAdapter(jcfg, jparams, 4, 48, block_size=BS,
+                                       extras=extras_pair(cfg)[0],
                                        chunked=False, backend="cascade"),
                    jcfg.vocab)
     assert port.backend == "cascade" and port.flat_backend == "plain"
@@ -431,6 +439,17 @@ def test_hymba_cascade_adapter_matches_reference(hymba_pair):
 
 def test_hymba_cascade_matches_the_flat_tick(hymba_pair):
     test_moe_cascade_matches_the_flat_tick(hymba_pair)
+
+
+def test_encdec_cascade_adapter_matches_reference(encdec_pair):
+    """The encdec family's cascade tick (the self-attention grouped, the
+    cross-attention over each lane's own cross K/V) against the
+    reference's, one group every tick."""
+    test_cascade_adapter_matches_reference(encdec_pair)
+
+
+def test_encdec_cascade_matches_the_flat_tick(encdec_pair):
+    test_moe_cascade_matches_the_flat_tick(encdec_pair)
 
 
 def test_cascade_meta_matches_reference(pair):

@@ -12,7 +12,10 @@ not, windows counted from its first MoE block), and for the hybrid family
 (hymba-1.5b's smoke size: the adapter's resume, the chunked adapter with
 the lanes' state and the boundary states' bytes, a resume after the
 snapshotted slot ticked on, and the snapshots' LRU cap and their drop
-with an evicted key, against the reference's).
+with an evicted key, against the reference's), and for the encdec family
+(whisper-medium's smoke size with the reference tests' frames as
+``extras``: the adapter's resume, the lane's cross K/V bit for bit a cold
+insert's, and the chunked adapter).
 
 The reference's two jit-recompile tests (``test_fold_steady_state_never_
 recompiles`` and ``test_fold_buckets_shared_process_wide``) are not ported:
@@ -32,7 +35,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache.pool import PoolExhausted
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 BS = 4
 
@@ -50,6 +53,11 @@ def moe_pair():
 @pytest.fixture(scope="module")
 def hymba_pair():
     return smoke_pair(arch=HYMBA)
+
+
+@pytest.fixture(scope="module")
+def encdec_pair():
+    return smoke_pair(arch=ENCDEC)
 
 
 def _empty(cfg):
@@ -166,7 +174,8 @@ def test_moe_engine_fold_resume_bitwise(moe_pair):
 def _adapter(pair, **kw):
     _, _, cfg, params = pair
     kw = {"n_slots": 2, "max_len": 32, **kw}
-    return slots.make_adapter(cfg, params, paged=True, block_size=BS, **kw)
+    return slots.make_adapter(cfg, params, extras=extras_pair(cfg)[1],
+                              paged=True, block_size=BS, **kw)
 
 
 def _slot_blocks(ad, slot):
@@ -205,6 +214,9 @@ def test_adapter_resume_matches_cold_insert(pair):
     assert tok_warm == tok_cold
     assert torch.equal(warm.last_prefill_logits, cold.last_prefill_logits)
     _same_blocks(_slot_blocks(cold, 0), _slot_blocks(warm, 1))
+    for key in engine.CROSS_KEYS:       # the encdec family's, per lane
+        if key in warm.state:
+            assert torch.equal(warm.state[key][:, 1], cold.state[key][:, 0])
     # a hit ending mid-block: the fold recomputes the boundary chunk into
     # a block of its own
     warm.clear(1)
@@ -318,7 +330,8 @@ def _same_state(ref, port):
     for s in range(port.n_slots):
         assert port.slot_stats(s) == ref.slot_stats(s)
     assert port.pool_stats() == ref.pool_stats()
-    for key, a in port.state.items():      # the hybrid family's, per lane
+    for key, a in port.state.items():      # the lane state: the hybrid
+        # family's recurrent state, the encdec family's cross K/V
         want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
         _close(a, want)
 
@@ -333,9 +346,11 @@ def test_chunked_adapter_matches_reference(pair, backend):
     statistics, and the chunks the fold ran."""
     jcfg, jparams, cfg, params = pair
     jbackend = {"plain": "xla", "cuda": "xla", "cascade": "cascade"}[backend]
+    jx, px = extras_pair(cfg)
     ref = jslots.make_adapter(jcfg, jparams, n_slots=3, max_len=24,
-                              paged=True, block_size=BS, backend=jbackend)
-    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24,
+                              extras=jx, paged=True, block_size=BS,
+                              backend=jbackend)
+    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24, extras=px,
                               paged=True, block_size=BS, backend=backend)
     assert ref.chunked and port.chunked
     rng = np.random.default_rng(9)
@@ -372,15 +387,17 @@ def test_chunked_gateway_matches_reference(pair):
     tokens, energy, link bytes and KV blocks, and the same prefill tokens
     skipped."""
     jcfg, jparams, cfg, params = pair
+    jx, px = extras_pair(cfg)
     fleet = dict(n_endpoints=8, prompt_fraction=0.25, frame_rate_hz=6.0,
                  seed=3, image_pool=8)
     trace = sensors.SensorFleet(sensors.FleetConfig(**fleet)).events(1.0)
     jtrace = jsensors.SensorFleet(jsensors.FleetConfig(**fleet)).events(1.0)
     kw = dict(n_slots=2, max_len=32, paged=True, block_size=BS,
               max_new_tokens=6)
-    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), device="cpu")
+    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), extras=px,
+                           device="cpu")
     jgw = jspec.make_gateway(jcfg, jparams,
-                             jspec.ServeSpec(backend="xla", **kw))
+                             jspec.ServeSpec(backend="xla", **kw), extras=jx)
     assert gw.batcher.adapter.chunked and jgw.batcher.adapter.chunked
     gen = {}
     for g, out in ((gw, "port"), (jgw, "ref")):
@@ -415,6 +432,20 @@ def test_default_spec_builds_the_chunked_gateway(pair):
     with pytest.raises(NotImplementedError):
         spec.make_gateway(dataclasses.replace(cfg, family="rwkv"), params,
                           spec.ServeSpec(paged=True), device="cpu")
+
+
+def test_encdec_adapter_resume_matches_cold_insert(encdec_pair):
+    """The encdec family: a prefix hit still runs the encoder (the index
+    keys on tokens alone), and the resumed admission's logits, blocks and
+    cross K/V are the cold admission's bit for bit."""
+    test_adapter_resume_matches_cold_insert(encdec_pair)
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda", "cascade"])
+def test_encdec_chunked_adapter_matches_reference(encdec_pair, backend):
+    """The scripted sequence with the lanes' cross K/V within 1e-5 of the
+    reference's and ``prefill_tokens_skipped`` equal."""
+    test_chunked_adapter_matches_reference(encdec_pair, backend)
 
 
 def test_hymba_adapter_resume_matches_cold_insert(hymba_pair):

@@ -1074,6 +1074,202 @@ def test_hymba_chunked_resume_bitwise_after_ticks(dev):
         assert torch.equal(cold.state[key][:, 0], warm.state[key][:, 1])
 
 
+# -- the encdec family at 16 heads of 64 (whisper-medium) --------------------
+
+WH_H, WH_D, WH_ENC = 16, 64, 1500
+
+
+@pytest.mark.parametrize("Sq", [WH_ENC, 1000, 16, 7])
+@pytest.mark.parametrize("min_ctas", [None, 0, 1 << 30])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_noncausal_whisper(monkeypatch, dev, Sq,
+                                                  min_ctas, dtype):
+    """Non-causal prompt attention over whisper's 1,500 frames (23 whole
+    64-key tiles and a partial one of 28): the encoder's 1,500 queries over
+    themselves, the cross-attention of a 1,000-token prompt, of a 16-token
+    fold chunk and of a partial chunk, as planned (None), unsplit (0) and
+    one tile per split (1 << 30), so that the last split holds the partial
+    tile; against the plain version, a repeated call bitwise, and the
+    splits covering the band once."""
+    if min_ctas is not None:
+        monkeypatch.setattr(flash_kernel, "MIN_CTAS", min_ctas)
+    splits, lo, keys = flash_kernel.flash_split_plan(
+        1, Sq, WH_ENC, WH_H, 0, None, causal=False)
+    assert lo == 0 and (splits - 1) * keys < WH_ENC <= splits * keys
+    gen = torch.Generator().manual_seed(Sq + (min_ctas or 1))
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    q, k, v = arr(1, Sq, WH_H, WH_D), arr(1, WH_ENC, WH_H, WH_D), \
+        arr(1, WH_ENC, WH_H, WH_D)
+    n = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, causal=False)
+    assert flash_kernel.flash_attention.launches == n + 1
+    want = ref.flash_attention_chunked(q, k, v, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(q, k, v,
+                                                         causal=False))
+
+
+def _whisper_lm(dev, dtype):
+    cfg = dataclasses.replace(configs.smoke_config("whisper-medium"),
+                              param_dtype=dtype)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    # random biases, so that a misplaced one shows
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for blocks in (params["enc_blocks"], params["dec_blocks"]):
+        for part in ("attn", "mlp"):
+            for name, b in blocks[part].items():
+                if name.startswith("b"):
+                    b.copy_(0.1 * torch.randn(b.shape, generator=gen,
+                                              device=dev))
+    return cfg, params
+
+
+def _frames(cfg, dev, seed=99):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(0, 1, (1, cfg.enc_len, cfg.d_model))
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cascade"])
+def test_encdec_tick_replay_and_kernels_match_plain(dev, backend):
+    """The encdec family on the card, float32 at its smoke size, one-shot
+    admission of four prompts sharing 32 tokens: the captured tick (flat
+    or cascade) bit for bit its eager step in logits, arena and the lanes'
+    cross K/V, with the kernels launched; the admissions' prompt and
+    cross-attention through ``flash_attention`` (non-causal for the
+    encoder and the cross-attention); then ticks whose tokens equal the
+    plain tick's on the same admissions, logits within 2e-4."""
+    cfg, params = _whisper_lm(dev, "float32")
+    enc = _frames(cfg, dev)
+    rng = np.random.default_rng(23)
+    shared = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)]
+                              ).astype(np.int32) for n in (3, 9, 17, 30)]
+
+    def adapter(b):
+        ad = make_adapter(cfg, params, n_slots=4, max_len=96,
+                          extras=lambda: {"enc_embed": enc}, paged=True,
+                          block_size=16, chunked=False, backend=b)
+        for s, p in enumerate(prompts):
+            ad.insert(s, p, max_new=12)
+        return ad
+    (ad, plain), admit = _counted(lambda: (adapter(backend),
+                                           adapter("plain")))
+    # per admission: the encoder's layers, and each decoder layer's self-
+    # and cross-attention
+    assert admit["flash_attention"] == 2 * 4 * (cfg.enc_layers
+                                                + 2 * cfg.n_layers)
+    active = np.ones(4, bool)
+    forced = rng.integers(0, cfg.vocab, (6, 4)).astype(np.int32)
+    ad.decode(forced[0], active)                     # captures the tick
+    plain.decode(forced[0], active)
+    step, inputs, _ = ad._tick_inputs(forced[1], active)
+    state = {**ad.arena, **ad.state}
+    start = {k: a.clone() for k, a in state.items()}
+    out = {}
+    for name, run in (("replay", lambda: step(*inputs).clone()),
+                      ("eager", lambda: step.fn(*step.load(*inputs)))):
+        for key, a in state.items():
+            a.copy_(start[key])
+        logits, counts = _counted(run)
+        out[name] = (logits, {k: a.clone() for k, a in state.items()},
+                     counts)
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    assert torch.equal(lr, le) and cr == ce
+    for key in ar:
+        assert torch.equal(ar[key], ae[key]), key
+    for key in ("xk", "xv"):
+        assert torch.equal(ar[key], start[key])
+    name = "cascade_prefix_attention" if backend == "cascade" else \
+        "paged_decode_attention"
+    assert cr[name] == cfg.n_layers and cr["scatter_kv_rows"] == 1
+    assert cr["flash_attention"] == 0
+    for key, a in state.items():
+        a.copy_(start[key])
+    for row in forced[1:]:
+        np.testing.assert_array_equal(ad.decode(row, active),
+                                      plain.decode(row, active))
+        torch.testing.assert_close(ad.last_logits, plain.last_logits,
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_encdec_chunked_resume_bitwise(dev):
+    """On the card, bf16: a prompt resumed from another slot's prefix (the
+    encoder run again for it) gives the cold admission's logits, blocks
+    and cross K/V bit for bit, also after the first slot ticked on."""
+    cfg, params = _whisper_lm(dev, "bfloat16")
+    enc = _frames(cfg, dev)
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, cfg.vocab, 48)
+    pa, pb = (np.concatenate([prefix, rng.integers(0, cfg.vocab, 9)]
+                             ).astype(np.int32) for _ in range(2))
+
+    def adapter():
+        return make_adapter(cfg, params, n_slots=2, max_len=96,
+                            extras=lambda: {"enc_embed": enc}, paged=True,
+                            block_size=16)
+    cold = adapter()
+    cold.insert(0, pb, max_new=8)
+    warm = adapter()
+    tok = warm.insert(0, pa, max_new=16)
+    lane = np.array([True, False])
+    for _ in range(6):
+        tok = warm.decode(np.array([tok, 0], np.int32), lane)[0]
+    warm.insert(1, pb, max_new=8)
+    assert warm.slot_stats(1)["prefill_tokens_skipped"] == 48
+    assert torch.equal(cold.last_prefill_logits, warm.last_prefill_logits)
+    for bc, bw in zip(cold.slot_bids[0], warm.slot_bids[1]):
+        for key in cold.seq_keys:
+            assert torch.equal(cold.arena_block(key, bc),
+                               warm.arena_block(key, bw))
+    for key in cold.state:
+        assert torch.equal(cold.state[key][:, 0], warm.state[key][:, 1])
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_encdec_replay_after_readmission_reads_new_cross_kv(dev, paged):
+    """A captured tick (dense or paged flat) replayed after its slot was
+    cleared and admitted again with other frames: the graph reads the new
+    cross K/V (copied into the lane's tensors in place), so the tick
+    equals that of an adapter that admitted those frames first, bit for
+    bit."""
+    cfg, params = _whisper_lm(dev, "float32")
+    frames = {"enc": _frames(cfg, dev)}
+    other = _frames(cfg, dev, seed=7)
+    rng = np.random.default_rng(31)
+    p0, p1, p2 = (rng.integers(0, cfg.vocab, n).astype(np.int32)
+                  for n in (6, 19, 13))
+
+    def adapter():
+        return make_adapter(cfg, params, n_slots=2, max_len=48,
+                            extras=lambda: {"enc_embed": frames["enc"]},
+                            paged=paged, block_size=16)
+    ad = adapter()
+    ad.insert(0, p0, max_new=8)
+    ad.insert(1, p1, max_new=8)
+    both = np.ones(2, bool)
+    ad.decode(np.array([3, 4], np.int32), both)      # captures the tick
+    ad.decode(np.array([5, 6], np.int32), both)      # a replay
+    assert ad._decode._cache_size() == 1
+    ad.clear(0)
+    frames["enc"] = other
+    tok = ad.insert(0, p2, max_new=8)
+    got = ad.decode(np.array([tok, 7], np.int32), both)
+    assert ad._decode._cache_size() == 1
+    fresh = adapter()
+    assert fresh.insert(0, p2, max_new=8) == tok
+    lane = ad.state if paged else ad.cache
+    fresh_lane = fresh.state if paged else fresh.cache
+    for key in ("xk", "xv"):
+        assert torch.equal(lane[key][:, 0], fresh_lane[key][:, 0])
+    fresh.decode(np.array([tok, 7], np.int32), np.array([True, False]))
+    assert got[0] == int(fresh.last_logits[0].argmax())
+    assert torch.equal(ad.last_logits[0], fresh.last_logits[0])
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):

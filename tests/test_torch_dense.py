@@ -9,8 +9,11 @@ tick, and, under the reference's own contract
 (``tests/test_paged_decode.py``), the port's gather tick and dense adapter
 bit for bit against its in-place ``"plain"`` tick; the per-lane step, the
 adapter and the bitwise ticks also for the moe family (deepseek-moe-16b's
-smoke size) and the hybrid family (hymba-1.5b's, the lanes' recurrent
-state held to the reference's and bit for bit across the ticks)."""
+smoke size), the hybrid family (hymba-1.5b's, the lanes' recurrent
+state held to the reference's and bit for bit across the ticks) and the
+encdec family (whisper-medium's, with the reference tests' frames as
+``extras``; the lanes' cross K/V held to the reference's and bit for bit
+across the ticks)."""
 import numpy as np
 import pytest
 import jax
@@ -24,7 +27,7 @@ from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.kvcache import paged
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 BS = 4
 
@@ -42,6 +45,11 @@ def moe_pair():
 @pytest.fixture(scope="module")
 def hymba_pair():
     return smoke_pair(arch=HYMBA)
+
+
+@pytest.fixture(scope="module")
+def encdec_pair():
+    return smoke_pair(arch=ENCDEC)
 
 
 def _cache(cfg, rng, B, Smax):
@@ -129,8 +137,8 @@ def test_moe_decode_step_per_lane_lengths_match_reference(moe_pair):
 def _same_cache(port, ref, tol=1e-5):
     np.testing.assert_array_equal(port.cache["len"].numpy(),
                                   np.asarray(ref.cache["len"]))
-    for key in ("k", "v") + tuple(engine.STATE_KEYS if "ssm" in port.cache
-                                  else ()):
+    for key in ("k", "v") + tuple(k for k in engine.STATE_KEYS
+                                  + engine.CROSS_KEYS if k in port.cache):
         want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
         np.testing.assert_allclose(port.cache[key].numpy(), want, rtol=tol,
                                    atol=tol)
@@ -143,8 +151,10 @@ def test_dense_adapter_matches_reference(pair):
     lengths equal after every step; the tick is the captured step the
     reference's ``decode`` names."""
     jcfg, jparams, cfg, params = pair
-    ref = jslots.make_adapter(jcfg, jparams, n_slots=3, max_len=24)
-    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24)
+    jx, px = extras_pair(cfg)
+    ref = jslots.make_adapter(jcfg, jparams, n_slots=3, max_len=24,
+                              extras=jx)
+    port = slots.make_adapter(cfg, params, n_slots=3, max_len=24, extras=px)
     assert isinstance(port, slots.KVSlotAdapter)
     assert set(ref.jit_fns()) - set(port.jit_fns()) == {"prefill"} <= \
         set(paged.NOT_CAPTURED)
@@ -189,6 +199,13 @@ def test_hymba_dense_adapter_matches_reference(hymba_pair):
     test_dense_adapter_matches_reference(hymba_pair)
 
 
+def test_encdec_dense_adapter_matches_reference(encdec_pair):
+    """The encdec family: every admission encodes the frames, and the
+    lanes' cross K/V stay within 1e-5 of the reference's after every
+    step, a re-admitted slot's rewritten."""
+    test_dense_adapter_matches_reference(encdec_pair)
+
+
 def _trace(mod):
     fleet = dict(n_endpoints=8, prompt_fraction=0.25, frame_rate_hz=6.0,
                  seed=5, image_pool=8)
@@ -201,11 +218,13 @@ def test_default_gateway_matches_reference(pair):
     request the generated tokens, energy, link bytes, output and arrival
     equal."""
     jcfg, jparams, cfg, params = pair
+    jx, px = extras_pair(cfg)
     trace, jtrace = _trace(sensors), _trace(jsensors)
     assert 4 <= sum(a.kind == "prompt" for a in trace) <= 40
     kw = dict(n_slots=2, max_len=32, max_new_tokens=6)
-    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), device="cpu")
-    jgw = jspec.make_gateway(jcfg, jparams, jspec.ServeSpec(**kw))
+    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), extras=px,
+                           device="cpu")
+    jgw = jspec.make_gateway(jcfg, jparams, jspec.ServeSpec(**kw), extras=jx)
     assert not spec.ServeSpec().paged
     assert type(gw.batcher.adapter).__name__ == \
         type(jgw.batcher.adapter).__name__ == "KVSlotAdapter"
@@ -236,8 +255,8 @@ def test_default_gateway_matches_reference(pair):
 
 def _paged(cfg, params, backend, max_len=24, **kw):
     return slots.make_adapter(cfg, params, n_slots=2, max_len=max_len,
-                              paged=True, block_size=BS, backend=backend,
-                              **kw)
+                              extras=extras_pair(cfg)[1], paged=True,
+                              block_size=BS, backend=backend, **kw)
 
 
 def _chain_blocks(ad, slot):
@@ -252,7 +271,8 @@ def test_gather_tick_matches_reference(pair):
     block of the lanes' chains within 1e-5, and the same tables."""
     jcfg, jparams, cfg, params = pair
     ref = jslots.make_adapter(jcfg, jparams, n_slots=2, max_len=24,
-                              paged=True, block_size=BS, backend="gather")
+                              extras=extras_pair(cfg)[0], paged=True,
+                              block_size=BS, backend="gather")
     port = _paged(cfg, params, "gather")
     assert ref.backend == port.backend == "gather"
     rng = np.random.default_rng(3)
@@ -335,7 +355,8 @@ def test_dense_adapter_bitwise_vs_inplace_plain(pair):
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, s).astype(np.int32) for s in (6, 9)]
     pg = _paged(cfg, params, "plain", chunked=False)
-    dense = slots.make_adapter(cfg, params, n_slots=2, max_len=24)
+    dense = slots.make_adapter(cfg, params, n_slots=2, max_len=24,
+                               extras=extras_pair(cfg)[1])
     for slot, p in enumerate(prompts):
         assert pg.insert(slot, p, max_new=8) == dense.insert(slot, p)
     active = np.ones(2, bool)
@@ -354,6 +375,25 @@ def test_moe_dense_adapter_bitwise_vs_inplace_plain(moe_pair):
 
 def test_hymba_dense_adapter_bitwise_vs_inplace_plain(hymba_pair):
     test_dense_adapter_bitwise_vs_inplace_plain(hymba_pair)
+
+
+def test_encdec_gather_tick_matches_reference(encdec_pair):
+    test_gather_tick_matches_reference(encdec_pair)
+
+
+@pytest.mark.parametrize("chunked", [True, False])
+def test_encdec_gather_tick_bitwise_vs_inplace_plain(encdec_pair, chunked):
+    """``tests/test_paged_decode.py:56`` for the encdec family: the gather
+    tick reads the lanes' cross K/V from the adapter's state, as the
+    in-place tick does, bit for bit."""
+    test_gather_tick_bitwise_vs_inplace_plain(encdec_pair, chunked)
+
+
+def test_encdec_dense_adapter_bitwise_vs_inplace_plain(encdec_pair):
+    """``tests/test_paged_decode.py:90`` for the encdec family: the dense
+    cache's cross K/V equal the paged lanes' bit for bit, and so does
+    every tick."""
+    test_dense_adapter_bitwise_vs_inplace_plain(encdec_pair)
 
 
 def test_gather_gateway_matches_plain_gateway(pair):

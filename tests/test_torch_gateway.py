@@ -2,8 +2,9 @@
 trace with shared weights and a fixed service time: every telemetry record
 is equal field for field, and so are the drops under a tight queue bound.
 The slot batcher against the reference's single-request greedy oracle,
-for the decoder, moe and hybrid families (``tests/test_gateway.py::
-test_decoder_family_slot_batcher_parity`` on the port)."""
+for the decoder, moe, hybrid and encdec families (``tests/test_gateway.py::
+test_decoder_family_slot_batcher_parity`` on the port; the encdec family
+with the reference tests' frames as ``extras``)."""
 import dataclasses
 from unittest import mock
 
@@ -21,7 +22,7 @@ from repro_torch.serve.gateway import gateway as gw
 from repro_torch.serve.gateway import sensors
 from repro_torch.serve.gateway import slots
 from conftest import sequential_decode_reference
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 
 def _fleet():
@@ -92,7 +93,7 @@ def test_warmup_and_bucket_padding():
         gw.GatewayConfig(bucket_sizes=(4, 1))
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", MOE, HYMBA])
+@pytest.mark.parametrize("arch", ["stablelm_3b", MOE, HYMBA, ENCDEC])
 def test_slot_batcher_matches_sequential_decode(arch):
     """Three requests through two dense slots (one slot cleared and
     reused): every request's greedy tokens equal the reference's prefill
@@ -102,8 +103,10 @@ def test_slot_batcher_matches_sequential_decode(arch):
     prompts = [rng.integers(0, cfg.vocab, size=s).astype(np.int32)
                for s in (5, 9, 7)]
     n_new, max_len = 4, 32
+    jx, px = extras_pair(cfg)
     batcher = slots.ContinuousBatcher(
-        slots.make_adapter(cfg, params, n_slots=2, max_len=max_len))
+        slots.make_adapter(cfg, params, n_slots=2, max_len=max_len,
+                           extras=px))
     for i, p in enumerate(prompts):
         batcher.submit(slots.Request(uid=i, prompt=p, max_new_tokens=n_new))
     got = {r.uid: r.generated for r in batcher.run()}
@@ -116,5 +119,5 @@ def test_slot_batcher_matches_sequential_decode(arch):
                               jax.jit(jengine.decode_step, static_argnums=0)):
         for i, p in enumerate(prompts):
             want = sequential_decode_reference(jcfg, jparams, p, n_new,
-                                               max_len)
+                                               max_len, extras=jx)
             assert got[i] == want, (i, got[i], want)

@@ -28,6 +28,7 @@ from repro_torch.serve import engine
 ARCH = "stablelm_3b"
 MOE = "deepseek_moe_16b"
 HYMBA = "hymba_1_5b"
+ENCDEC = "whisper_medium"
 
 
 def _t(a):
@@ -52,6 +53,25 @@ def smoke_pair(dtype="float32", arch=ARCH, **kw):
     params = lm_params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                 "cpu")
     return jcfg, jparams, cfg, params
+
+
+def frames(cfg):
+    """The reference tests' frame embeddings for the encdec family
+    (``tests/test_paged_decode.py``): (1, enc_len, d) float32 from
+    ``np.random.default_rng(99)``."""
+    rng = np.random.default_rng(99)
+    return rng.normal(0, 1, (1, cfg.enc_len, cfg.d_model)).astype(np.float32)
+
+
+def extras_pair(cfg):
+    """(the reference's ``extras``, the port's) for ``cfg``'s family: the
+    frames of :func:`frames` for the encdec family, (None, None) for the
+    others."""
+    if cfg.family != "encdec":
+        return None, None
+    enc = frames(cfg)
+    return (lambda: {"enc_embed": jnp.asarray(enc)},
+            lambda: {"enc_embed": torch.from_numpy(enc)})
 
 
 @pytest.mark.parametrize("arch_fn", ["config", "smoke_config"])

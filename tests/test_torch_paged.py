@@ -7,8 +7,10 @@ equal), the continuous batcher, and the prompt gateway on a seeded trace
 (per request: generated tokens, energy, link bytes and KV blocks equal);
 the tick and the adapter also for the moe family (deepseek-moe-16b's smoke
 size, each lane routed as its own group as the reference's vmapped tick
-routes it), and the adapter for the hybrid family (hymba-1.5b's smoke
-size, with the lanes' recurrent state)."""
+routes it), the adapter for the hybrid family (hymba-1.5b's smoke
+size, with the lanes' recurrent state), and the adapter and the prompt
+gateway for the encdec family (whisper-medium's smoke size, the reference
+tests' frames as ``extras``, the lanes' cross K/V within 1e-5)."""
 import dataclasses
 
 import jax
@@ -23,7 +25,7 @@ from repro.serve.gateway import sensors as jsensors
 from repro.serve.gateway import slots as jslots
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
-from test_torch_lm import HYMBA, MOE, smoke_pair
+from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 BS = 4
 
@@ -43,14 +45,20 @@ def hymba_pair():
     return smoke_pair(arch=HYMBA)
 
 
+@pytest.fixture(scope="module")
+def encdec_pair():
+    return smoke_pair(arch=ENCDEC)
+
+
 def _adapters(pair, backend, n_slots=3, max_len=16):
     jcfg, jparams, cfg, params = pair
+    jx, px = extras_pair(cfg)
     ref = jslots.make_adapter(jcfg, jparams, n_slots=n_slots,
-                              max_len=max_len, paged=True, block_size=BS,
-                              chunked=False, backend="xla")
+                              max_len=max_len, extras=jx, paged=True,
+                              block_size=BS, chunked=False, backend="xla")
     port = slots.make_adapter(cfg, params, n_slots=n_slots, max_len=max_len,
-                              paged=True, block_size=BS, chunked=False,
-                              backend=backend)
+                              extras=px, paged=True, block_size=BS,
+                              chunked=False, backend=backend)
     return ref, port
 
 
@@ -111,7 +119,8 @@ def _same_state(ref, port):
     for s in range(port.n_slots):
         assert port.slot_stats(s) == ref.slot_stats(s)
     assert port.pool_stats() == ref.pool_stats()
-    for key, a in port.state.items():      # the hybrid family's, per lane
+    for key, a in port.state.items():      # the lane state: the hybrid
+        # family's recurrent state, the encdec family's cross K/V
         want = np.moveaxis(np.asarray(ref.cache[key])[:, :, 0], 0, 1)
         np.testing.assert_allclose(a.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -170,6 +179,15 @@ def test_hymba_adapter_sharing_cow_and_capacity_match_reference(hymba_pair,
                                                           backend)
 
 
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_encdec_adapter_sharing_cow_and_capacity_match_reference(encdec_pair,
+                                                                 backend):
+    """The encdec family: every admission encodes the frames (a radix hit
+    too), and the lanes' cross K/V stay within 1e-5 of the reference's."""
+    test_adapter_sharing_cow_and_capacity_match_reference(encdec_pair,
+                                                          backend)
+
+
 def test_adapter_admission_demand_matches_reference(pair):
     ref, port = _adapters(pair, "plain", n_slots=2, max_len=12)
     prompt = np.arange(6, dtype=np.int32)
@@ -214,6 +232,7 @@ def test_batcher_matches_reference(pair):
 
 def test_prompt_gateway_matches_reference(pair):
     jcfg, jparams, cfg, params = pair
+    jx, px = extras_pair(cfg)
     fleet = dict(n_endpoints=8, prompt_fraction=0.25, frame_rate_hz=6.0,
                  seed=3, image_pool=8)
     trace = sensors.SensorFleet(sensors.FleetConfig(**fleet)).events(1.0)
@@ -221,9 +240,10 @@ def test_prompt_gateway_matches_reference(pair):
     assert 4 <= sum(a.kind == "prompt" for a in trace) <= 40
     kw = dict(n_slots=2, max_len=32, paged=True, block_size=BS,
               chunked=False, max_new_tokens=6)
-    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), device="cpu")
+    gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw), extras=px,
+                           device="cpu")
     jgw = jspec.make_gateway(jcfg, jparams,
-                             jspec.ServeSpec(backend="xla", **kw))
+                             jspec.ServeSpec(backend="xla", **kw), extras=jx)
     assert gw.batcher.adapter.backend == "plain"
     gen = {}
     for g, out in ((gw, "port"), (jgw, "ref")):
@@ -250,6 +270,10 @@ def test_prompt_gateway_matches_reference(pair):
         assert 0 <= r.t_dequeue <= r.t_admit <= r.t_done
     assert tel.pool["prefill_tokens_total"] == \
         jtel.pool["prefill_tokens_total"]
+
+
+def test_encdec_prompt_gateway_matches_reference(encdec_pair):
+    test_prompt_gateway_matches_reference(encdec_pair)
 
 
 def test_spec_refuses_what_is_not_ported(pair):
