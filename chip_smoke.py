@@ -14,6 +14,9 @@
                                    # Table 3 protocol alone
     python3 chip_smoke.py --moe    # phase 11 alone
     python3 chip_smoke.py --hymba  # phase 12 alone
+    python3 chip_smoke.py --whisper
+                                   # phase 13 alone
+    python3 chip_smoke.py --obs    # phase 14 alone
 
 Phases, each printing one JSON line:
 
@@ -225,7 +228,30 @@ Phases, each printing one JSON line:
      comparisons at full depth (whisper-medium fits whole in float32), and
      phase 8's captured ticks (8 lanes of 1,024-token contexts and load
      (c)'s cascade tick) bit for bit their eager steps, one graph launch
-     per tick.  ``python3 chip_smoke.py --whisper`` runs it alone.
+     per tick.  ``python3 chip_smoke.py --whisper`` runs it alone;
+ 14. observability (``obs_main_path`` line; run right after phase 10, on
+     its stablelm-3b weights): the full LeNet-5 frame path at bits 4 over
+     the seeded trace, measured service, untraced and then with tracer,
+     metrics, SLO monitor, flight recorder and incident capture attached
+     (predictions and ledger equal to the untraced run's, the virtual
+     times aside, no obs call untraced, one ``request`` span per served
+     frame, span energies re-folding to the ledger bit for bit, a valid
+     Chrome trace and OpenMetrics exposition, every critical path exact,
+     the captured steps unchanged); stablelm-3b at full width and depth
+     (bf16) through the chunked gateway, load (b) on ``"cuda"`` and load
+     (c) on ``"cascade"``, each folded cold by a bare gateway and by one
+     built the same way with every attachment (``ServeSpec(flight=True,
+     incident_dir=...)``), then again resumed on the traced one: tokens
+     and pool counters bit for bit the bare run's, ``prefill_chunk`` spans
+     = chunks folded, ``prefix_resume`` instants = resumed admissions,
+     ``tick`` spans = steps, the bare run's captures and none more in the
+     traced runs, the cost model per stage at the
+     H100's ridge (``H100_RIDGE``), two validated incident bundles (load
+     (c)'s SLO monitor going critical, and ``capture_incident``); then the
+     host ms per captured tick, per cold fold chunk (the traced fold's
+     synchronize) and per bucket-32 frame batch, traced against untraced
+     in turns, with obs callbacks per tick and per batch.
+     ``python3 chip_smoke.py --obs`` runs it alone.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -239,6 +265,7 @@ repository beside it, or when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -3760,6 +3787,505 @@ SC_BIG_K = (1025, 1536, 2048, 2560, 4096)
 FRONTEND_D, FRONTEND_M = 2560, 1000
 
 
+# -- observability on the frame path and the prompt path (phase 14) -----
+
+# the H100 SXM's ridge point for the cost model's verdicts: dense bf16
+# tensor peak over HBM3 bandwidth (NVIDIA data sheet), in FLOPs per byte
+H100_RIDGE = BF16_FLOPS / PEAK_BYTES_PER_S
+OBS_HOST_RUNS = 3           # turns a side, traced against untraced
+OBS_TURN_TICKS = 8          # ticks per turn
+OBS_FOLDS = 1               # cold 1,000-token folds a side, per turn
+OBS_ATTACHMENTS = ("tracer", "metrics", "slo", "flight", "incident")
+
+
+def obs_frame_attachments(obs, out_dir: str | None = None) -> dict:
+    """The frame path's observability, wired as a user wires it: tracer,
+    metrics, SLO monitor, flight recorder and (with ``out_dir``) incident
+    capture."""
+    tr = obs.Tracer()
+    m = obs.MetricsRegistry(interval_s=0.01)
+    mon = obs.SLOMonitor(obs.SLOPolicy.default(
+        period_s=TRACE_SECONDS, queue_wait_s=0.05), tracer=tr, metrics=m)
+    fl = obs.FlightRecorder()
+    att = {"tracer": tr, "metrics": m, "slo": mon, "flight": fl}
+    if out_dir is not None:
+        att["incident"] = obs.IncidentCapture(out_dir, flight=fl, slo=mon,
+                                              metrics=m)
+    return att
+
+
+def obs_checks(obs, tr, tel, metrics, slo) -> dict:
+    """What every traced run must show: one ``request`` span per
+    completion, properly nested spans, the span energies re-folding to the
+    ledger bit for bit, a valid Chrome trace and OpenMetrics exposition,
+    and every critical path re-folding exactly."""
+    tr.assert_nested()
+    tr.assert_energy_conserved(tel)
+    chrome = obs.chrome_trace(tr, metrics)
+    text = obs.openmetrics_text(metrics, slo)
+    cps = obs.analyze_critical_paths(tr.events)
+    agg = obs.aggregate_critical_paths(cps)
+    out = {"request_spans": len(tr.request_spans()),
+           "records": len(tel.records),
+           "events": len(tr.events),
+           "chrome_trace_errors": obs.validate_chrome_trace(chrome),
+           "chrome_trace_bytes": len(json.dumps(chrome)),
+           "openmetrics_errors": obs.validate_openmetrics(text),
+           "openmetrics_bytes": len(text),
+           "critical_paths": len(cps),
+           "critical_paths_exact": all(obs.critpath.verify(cp)
+                                       for cp in cps),
+           "critical_path_ranking": agg.get("ranking"),
+           "slo_state": slo.state,
+           "slo_transitions": len(slo.transitions)}
+    bad = [k for k in ("chrome_trace_errors", "openmetrics_errors") if out[k]]
+    if bad or out["request_spans"] != out["records"] or \
+            out["critical_paths"] != out["records"] or \
+            not out["critical_paths_exact"]:
+        raise SystemExit(f"phase 14: a traced run fails its checks: {out}")
+    return out
+
+
+def ledger(tel) -> dict:
+    """A run's ledger by request: every field of each record but the
+    virtual times, which a measured service clock moves, and the dropped
+    uids."""
+    skip = ("t_done", "t_dequeue", "t_admit")
+    return {"records": {r.uid: {k: v for k, v in dataclasses.asdict(
+                r).items() if k not in skip} for r in tel.records},
+            "dropped": sorted(d[0] for d in tel.dropped)}
+
+
+def obs_frame_path(dev) -> dict:
+    """Phase 14, the frame path: the full LeNet-5 at bits 4 over the seeded
+    trace, measured service, untraced and then with tracer, metrics, SLO,
+    flight and incident attached: predictions and ledger bit for bit the
+    untraced run's (the virtual times aside, which the measured service
+    moves), the traced run's checks (:func:`obs_checks`), the captured
+    steps unchanged; then bucket-32 batches timed on the host, traced
+    against untraced in turns, with obs callbacks per batch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.serve import obs
+    from repro_torch.serve.gateway import frontend as fe
+    from repro_torch.serve.gateway.gateway import (GatewayConfig,
+                                                   MicroBatchGateway)
+    from repro_torch.serve.gateway.sensors import (Arrival, FleetConfig,
+                                                   SensorFleet)
+
+    trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
+    spec = fe.FrontendSpec(mode="sc", bits=4, lenet=configs.config("lenet5"))
+    gw = MicroBatchGateway(GatewayConfig(), spec, seed=0, device=dev)
+    gw.warmup()
+    captured = gw.compile_counts()
+    c0 = obs.callback_count()
+    bare = gw.run(trace)
+    zero = obs.callback_count() == c0
+    with tempfile.TemporaryDirectory() as out:
+        att = obs_frame_attachments(obs, out)
+        reset_counts()
+        tel = gw.run(trace, **att)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        checks = obs_checks(obs, att["tracer"], tel, att["metrics"],
+                            att["slo"])
+        bundles = len(att["incident"].captures)
+    same = ledger(tel) == ledger(bare)
+    if not (same and zero) or gw.compile_counts() != captured or \
+            not launches["sng_pack"] or not launches["sc_dot"]:
+        raise SystemExit(f"phase 14: the traced frame path differs from "
+                         f"the untraced one (ledger equal {same}, zero "
+                         f"callbacks untraced {zero}, captures "
+                         f"{gw.compile_counts()} vs {captured}, launches "
+                         f"{launches})")
+
+    # bucket-32 batches: groups of 32 frames arriving together
+    frames = [a.payload for a in trace[:32]]
+    bursts = [Arrival(t=0.05 * g, uid=32 * g + j, endpoint=j, kind="frame",
+                      payload=frames[j])
+              for g in range(16) for j in range(32)]
+    host: dict[str, list] = {"untraced": [], "traced": []}
+    calls = []
+    for _ in range(OBS_HOST_RUNS):
+        for side in host:
+            att = obs_frame_attachments(obs) if side == "traced" else {}
+            c0 = obs.callback_count()
+            t0 = time.perf_counter()
+            gw.run(bursts, **att)
+            torch.cuda.synchronize()
+            host[side].append((time.perf_counter() - t0) * 1e3 / 16)
+            if side == "traced":
+                calls.append((obs.callback_count() - c0) / 16)
+    return {"frames": len(trace), "served": len(tel.records),
+            "dropped": len(tel.dropped), "ledger_equal_untraced": same,
+            "untraced_callbacks_zero": zero, "captures": captured,
+            "launches": launches, "bundles": bundles, **checks,
+            "bucket32_batch_host_ms": {
+                side: {"median": statistics.median(v), "runs": v}
+                for side, v in host.items()},
+            "bucket32_obs_callbacks_per_batch": calls[0]}
+
+
+def obs_prompt_spec(backend: str, new_tokens: int, obs, out_dir: str,
+                    tight: bool):
+    """The chunked paged gateway's ``ServeSpec`` for phase 14's loads with
+    every attachment: tracer, metrics, an SLO monitor (``tight``: a TTFT
+    target of 1 us that every completion misses, so the monitor goes
+    critical and the capture pipeline writes a bundle), the default flight
+    recorder and incident bundles in ``out_dir``."""
+    tr = obs.Tracer()
+    m = obs.MetricsRegistry(interval_s=0.05)
+    if tight:
+        pol = obs.SLOPolicy(
+            objectives=(obs.SLObjective("ttft", target=1e-6, budget=0.5),),
+            windows=(obs.BurnWindow(1e3, 1e3, 1.5, "critical"),
+                     obs.BurnWindow(1e3, 1e3, 1.0, "warn")))
+    else:
+        pol = obs.SLOPolicy.default(period_s=600.0, ttft_s=2.0, tpot_s=0.2)
+    return load_spec(backend, True, new_tokens).replace(
+        tracer=tr, metrics=m, slo=obs.SLOMonitor(pol, tracer=tr, metrics=m),
+        flight=True, incident_dir=out_dir)
+
+
+def obs_tick_turns(gw, obs, prompts, new_tokens: int) -> dict:
+    """Host ms per captured tick, traced against untraced in turns: the
+    prompts (indexed already, so each admission resumes) decode
+    ``new_tokens`` tokens; after the admitting step, ``OBS_TURN_TICKS``
+    ticks a turn with the tracer wired into the batcher and adapter, then
+    as many without, ``OBS_HOST_RUNS`` turns a side, each tick ending in a
+    synchronize (the traced tick's own, the untraced tick's read of its
+    tokens)."""
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request
+
+    batcher, ad = gw.batcher, gw.batcher.adapter
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(uid=1000 + i, prompt=p,
+                               max_new_tokens=new_tokens))
+    batcher.step()
+    host: dict[str, list] = {"untraced": [], "traced": []}
+    calls = []
+    for _ in range(OBS_HOST_RUNS):
+        for side in host:
+            tr = obs.Tracer() if side == "traced" else None
+            batcher.tracer = ad.tracer = tr
+            c0 = obs.callback_count()
+            for _ in range(OBS_TURN_TICKS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batcher.step()
+                torch.cuda.synchronize()
+                host[side].append((time.perf_counter() - t0) * 1e3)
+            if tr is not None:
+                calls.append((obs.callback_count() - c0) / OBS_TURN_TICKS)
+                if len(tr.spans("tick")) != OBS_TURN_TICKS:
+                    raise SystemExit("phase 14: a traced tick left no span")
+    batcher.tracer = ad.tracer = None
+    if batcher.last_active != len(prompts):
+        raise SystemExit("phase 14: a lane retired during the tick turns")
+    batcher.run()
+    return {"lanes": len(prompts),
+            "host_ms": {side: {"median": statistics.median(v), "runs": v}
+                        for side, v in host.items()},
+            "obs_callbacks_per_tick": statistics.median(calls)}
+
+
+def obs_fold_turns(gw, obs, vocab: int) -> dict:
+    """The traced fold's synchronize per chunk: cold 1,000-token prompts
+    (fresh random tokens, 63 chunks each) admitted into slot 0 with and
+    without a tracer, in turns; host ms per chunk, each admission ending
+    in a synchronize, and in the traced folds the host ms spent waiting
+    in the chunks' synchronizes (the adapter's ``synchronize`` timed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.kvcache import paged
+
+    ad = gw.batcher.adapter
+    rng = np.random.default_rng(29)
+    per_chunk: dict[str, list] = {"untraced": [], "traced": []}
+    waits: list[float] = []
+    sync = paged.synchronize
+
+    def timed_sync(device):
+        t0 = time.perf_counter()
+        sync(device)
+        waits.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(OBS_HOST_RUNS):
+        for side in per_chunk:
+            ad.tracer = obs.Tracer() if side == "traced" else None
+            for _ in range(OBS_FOLDS):
+                prompt = rng.integers(0, vocab, 1000).astype(np.int32)
+                chunks = ad.prefill_chunks_total
+                torch.cuda.synchronize()
+                with mock.patch.object(paged, "synchronize", timed_sync):
+                    t0 = time.perf_counter()
+                    ad.insert(0, prompt, max_new=8)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                chunks = ad.prefill_chunks_total - chunks
+                per_chunk[side].append(dt * 1e3 / chunks)
+                ad.clear(0)
+    ad.tracer = None
+    med = {side: statistics.median(v) for side, v in per_chunk.items()}
+    if len(waits) != chunks * OBS_HOST_RUNS * OBS_FOLDS:
+        raise SystemExit(f"phase 14: {len(waits)} chunk synchronizes in "
+                         "the traced folds")
+    return {"chunks_per_fold": chunks,
+            "host_ms_per_chunk": {side: {"median": med[side], "runs": v}
+                                  for side, v in per_chunk.items()},
+            "traced_minus_untraced_ms_per_chunk":
+                med["traced"] - med["untraced"],
+            "sync_wait_ms_per_chunk": {
+                "median": statistics.median(waits),
+                "mean": statistics.fmean(waits), "max": max(waits)}}
+
+
+def obs_serve(gw, arrivals) -> dict:
+    """One run of ``arrivals`` through ``gw``, counting its steps, the
+    fold's chunks and the kernels' launches, and keeping each request's
+    tokens (by its place in ``arrivals``)."""
+    import torch
+
+    batcher, ad = gw.batcher, gw.batcher.adapter
+    place = {a.uid: i for i, a in enumerate(arrivals)}
+    streams: dict[int, list] = {}
+    steps = [0]
+    step = batcher.step
+
+    def counted():
+        steps[0] += 1
+        tokens = step()
+        for r in tokens:
+            streams[place[r.uid]] = list(map(int, r.generated))
+        return tokens
+    batcher.step = counted
+    chunks = ad.prefill_chunks_total
+    reset_counts()
+    try:
+        tel = gw.run(arrivals)
+        torch.cuda.synchronize()
+    finally:
+        batcher.step = step
+    return {"tel": tel, "streams": streams, "steps": steps[0],
+            "chunks": ad.prefill_chunks_total - chunks,
+            "launches": read_counts()}
+
+
+def obs_spans(tr, run: dict, before: dict | None = None) -> tuple:
+    """A traced run's spans (those recorded since ``before``) and the
+    adapter's counters they must equal: ``prefill_chunk`` spans = chunks
+    folded, ``prefix_resume`` instants = resumed admissions, ``tick``
+    spans = steps."""
+    spans = {"prefill_chunk": len(tr.spans("prefill_chunk")),
+             "prefix_resume": sum(e["name"] == "prefix_resume"
+                                  for e in tr.events),
+             "tick": len(tr.spans("tick"))}
+    for k, v in (before or {}).items():
+        spans[k] -= v
+    counters = {"prefill_chunk": run["chunks"],
+                "prefix_resume": sum(r.prefill_tokens_skipped > 0
+                                     for r in run["tel"].records),
+                "tick": run["steps"]}
+    return spans, counters
+
+
+def obs_prompt_load(dev, cfg, params, load: str) -> dict:
+    """Phase 14, one load through the chunked gateway with every
+    attachment: load (b) through ``"cuda"``, load (c) through
+    ``"cascade"``, all prompts arriving at once.  Two gateways built the
+    same way fold the load cold: one bare (no obs call), then one with
+    every attachment.  The traced run's tokens and pool counters bit for
+    bit the bare run's; its spans against the adapter's counters
+    (:func:`obs_spans`); its captured steps those of the bare run; the
+    cost model at the H100's ridge; then the load again on the traced
+    gateway, its prompts now indexed, so each admission resumes: the same
+    tokens, spans against counters, and no capture (``RecompileDetector``
+    from the cold traced run's end).  The incident bundles (load (c): one
+    from its SLO monitor going critical) and one from ``capture_incident``,
+    each reloaded through the validator; then the host ms per captured
+    tick and (load (b)) per fold chunk, traced against untraced."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.serve import obs
+    from repro_torch.serve.gateway.sensors import Arrival
+    from repro_torch.serve.spec import make_gateway
+
+    backend, new_tokens = {"b": ("cuda", 16), "c": ("cascade", 32)}[load]
+    prompts = load_b_prompts(cfg.vocab)[0] if load == "b" else \
+        load_c_prompts(cfg.vocab)[0]
+
+    def arrivals(uid0: int) -> list:
+        return [Arrival(t=0.0, uid=uid0 + i, endpoint=i, kind="prompt",
+                        payload=p) for i, p in enumerate(prompts)]
+    pool_keys = ("prefill_tokens_total", "prefill_tokens_skipped")
+
+    bare_gw = make_gateway(cfg, params, load_spec(backend, True, new_tokens),
+                           device=dev)
+    c0 = obs.callback_count()
+    bare = obs_serve(bare_gw, arrivals(0))
+    zero = obs.callback_count() == c0
+    bare_pool = {k: bare["tel"].pool[k] for k in pool_keys}
+    captured = {k: f._cache_size() for k, f in bare_gw.jit_fns().items()}
+    del bare_gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        gw = make_gateway(cfg, params, obs_prompt_spec(
+            backend, new_tokens, obs, out, tight=load == "c"), device=dev)
+        tr = gw.tracer
+        cold = obs_serve(gw, arrivals(0))
+        tel = cold["tel"]
+        same = cold["streams"] == bare["streams"] and \
+            len(bare["streams"]) == len(prompts)
+        pool = {k: tel.pool[k] for k in pool_keys}
+        checks = obs_checks(obs, tr, tel, gw.metrics, gw.slo)
+        spans, counters = obs_spans(tr, cold)
+        captured_traced = {k: f._cache_size()
+                           for k, f in gw.jit_fns().items()}
+        cost = obs.attribute(gw.cost_args(), tr, ridge=H100_RIDGE,
+                             telemetry=tel)
+
+        # the load again, resumed: fresh uids on the same tracer
+        det = obs.RecompileDetector()
+        det.track("gateway", gw.jit_fns())
+        det.snapshot()
+        before = obs_spans(tr, cold)[0]
+        resumed = obs_serve(gw, arrivals(len(prompts)))
+        r_spans, r_counters = obs_spans(tr, resumed, before)
+        r_same = resumed["streams"] == bare["streams"]
+        recompiles = det.steady_state_recompiles()
+
+        explicit = gw.capture_incident("obs_probe", extra={"load": load})
+        bundles = []
+        for cap in gw.incident.captures:
+            b = obs.load_incident_bundle(cap["path"])
+            bundles.append({"reason": cap["reason"], "t": cap["t"],
+                            "bytes": Path(cap["path"]).stat().st_size,
+                            "flight_spans": len(b["flight"]["spans"]),
+                            "slo_state": (b["slo"] or {}).get("state")})
+        ticks = obs_tick_turns(gw, obs, prompts, 4 + 2 * OBS_HOST_RUNS
+                               * OBS_TURN_TICKS)
+        folds = obs_fold_turns(gw, obs, cfg.vocab) if load == "b" else None
+    launches = cold["launches"]
+    auto = [b for b in bundles if b["reason"] == "slo_critical"]
+    out = {"load": load, "backend": backend, "requests": len(prompts),
+           "tokens_equal_untraced": same, "untraced_callbacks_zero": zero,
+           "pool_equal_untraced": pool == bare_pool,
+           "spans": spans, "counters": counters,
+           "resumed": {"tokens_equal_untraced": r_same, "spans": r_spans,
+                       "counters": r_counters,
+                       "steady_state_recompiles": recompiles},
+           "captures": captured, "captures_traced": captured_traced,
+           "launches": launches, **checks,
+           "cost_model": {"ridge_flops_per_byte": H100_RIDGE, "stages": {
+               name: {k: e.get(k) for k in (
+                   "source", "flops", "bytes", "intensity", "verdict",
+                   "calls", "measured_s", "achieved_bytes_per_s",
+                   "achieved_flops_per_s")}
+               for name, e in cost["stages"].items()},
+               "energy_conserved": cost["energy"]["conserved"]},
+           "bundles": bundles, "explicit_bundle": Path(explicit).name,
+           "pool": pool, "tick_turns": ticks, "fold_turns": folds}
+    fails = []
+    if not (same and zero and pool == bare_pool):
+        fails.append(f"against the untraced run: no obs call {zero}, "
+                     f"pool {pool} vs {bare_pool}, streams "
+                     f"{len(cold['streams'])} vs {len(bare['streams'])}, "
+                     f"differing {[i for i in bare['streams'] if cold['streams'].get(i) != bare['streams'][i]]}")
+    if spans != counters or spans["prefill_chunk"] <= len(prompts):
+        fails.append(f"cold: spans {spans} vs counters {counters}")
+    if not r_same or r_spans != r_counters or \
+            r_counters["prefix_resume"] != len(prompts):
+        fails.append(f"resumed: tokens equal {r_same}, spans {r_spans} "
+                     f"vs counters {r_counters}")
+    if recompiles or captured_traced != captured:
+        fails.append(f"the traced runs captured: {captured_traced} vs "
+                     f"{captured}, {recompiles}")
+    if not cost["energy"]["conserved"] or \
+            cost["stages"]["decode"]["verdict"] != "memory-bound":
+        fails.append(f"cost model: {out['cost_model']}")
+    if len(bundles) < 1 + (load == "c") or (load == "c" and not auto):
+        fails.append(f"incident bundles: {bundles}")
+    if not launches.get("flash_attention") or not any(
+            launches.get(k) for k in ("paged_decode_attention",
+                                      "paged_decode_attention_with_state")):
+        fails.append(f"launches: {launches}")
+    if fails:
+        raise SystemExit(f"phase 14, load ({load}): {fails}")
+    del gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_main_path(dev, cfg, params) -> dict:
+    """Phase 14: observability on the frame path and the prompt path
+    (``obs_main_path`` line).  Returns the phase's kernel launches."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    frame = obs_frame_path(dev)
+    launches = dict(frame["launches"])
+    loads = {}
+    for load in ("b", "c"):
+        loads[load] = obs_prompt_load(dev, cfg, params, load)
+        for k, v in loads[load]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": "obs_main_path", "gpu": nvidia_smi("name,power.limit"),
+          "frame": frame, "prompt": loads,
+          "overhead": {
+              "tick_host_ms": {
+                  load: {side: r["tick_turns"]["host_ms"][side]["median"]
+                         for side in ("untraced", "traced")}
+                  for load, r in loads.items()},
+              "obs_callbacks_per_tick": {
+                  load: r["tick_turns"]["obs_callbacks_per_tick"]
+                  for load, r in loads.items()},
+              "fold_ms_per_chunk": {
+                  side: loads["b"]["fold_turns"]["host_ms_per_chunk"][side][
+                      "median"] for side in ("untraced", "traced")},
+              "sync_wait_ms_per_chunk": loads["b"]["fold_turns"][
+                  "sync_wait_ms_per_chunk"],
+              "bucket32_batch_host_ms": {
+                  side: frame["bucket32_batch_host_ms"][side]["median"]
+                  for side in ("untraced", "traced")},
+              "bucket32_obs_callbacks_per_batch":
+                  frame["bucket32_obs_callbacks_per_batch"]},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def obs_main() -> int:
+    """``--obs``: the card's line, every kernel's build and phase 14 alone,
+    on stablelm-3b's random weights (seeded, as phase 5 draws them)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    build.build_all(SOURCES)
+    emit({"build_s": time.perf_counter() - t0})
+    dev = torch.device("cuda")
+    cfg = configs.config("stablelm-3b")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    emit({"launches_by_path": {"obs": obs_main_path(dev, cfg, params)}})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def stack_frames(source: str) -> dict[str, int]:
     """Bytes of stack frame ``ptxas`` reports for each function of
     ``csrc/<source>.cu``, by mangled name."""
@@ -4646,6 +5172,8 @@ def main() -> int:
         return family_main("hybrid", hymba_main_path)
     if args[:1] == ["--whisper"]:
         return family_main("encdec", whisper_main_path)
+    if args[:1] == ["--obs"]:
+        return obs_main()
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -4883,6 +5411,10 @@ def main() -> int:
 
     # -- 10. the dense path, the gather oracle and the SC frontend ---------
     paths["dense"], paths["sc"] = dense_main_path(dev, lm_cfg, lm_params)
+
+    # -- 14. observability on the frame path and the prompt path ---------
+    # (run here, while stablelm-3b's weights are on the card)
+    paths["obs"] = obs_main_path(dev, lm_cfg, lm_params)
 
     # -- 11. the moe family: deepseek-moe-16b ------------------------------
     del lm_params

@@ -19,3 +19,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -22,9 +22,11 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.device import synchronize
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import capture, engine
 from repro_torch.serve.kvcache.pool import PoolExhausted
+from repro_torch.serve.obs import costmodel
 
 
 @dataclasses.dataclass
@@ -180,6 +182,17 @@ class KVSlotAdapter:
         reference's ``decode``; its ``prefill`` runs eagerly here."""
         return {"decode": self._decode}
 
+    def cost_args(self, prompt_len: int = 8) -> dict[str, tuple]:
+        """The prefill and the tick with their analytic counts, for
+        ``obs.costmodel``: a ``prompt_len``-token prompt (the reference's
+        representative argument), and a tick whose attention reads every
+        lane's whole ``max_len`` cache, as the dense tick does."""
+        cfg, n = self.cfg, self.n_slots
+        return {"prefill": costmodel.lm_stage(
+                    cfg, costmodel.prompt_work(cfg, 0, prompt_len)),
+                "decode": costmodel.lm_stage(
+                    cfg, costmodel.tick_work(cfg, n, [self.max_len] * n))}
+
 
 def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, extras=None, *, paged: bool = False,
@@ -227,11 +240,12 @@ class ContinuousBatcher:
         self.last_token = np.zeros((self.n_slots,), np.int32)
         self.peak_active = 0            # max concurrent slots ever decoded
         self.last_active = 0            # slots decoding in the latest step
-        # observability hooks, wired by the prompt gateway for a run; all
-        # None by default and every use is guarded
+        # observability hooks (serve/obs/), wired by the prompt gateway for
+        # the length of a run; all None by default and every use is
+        # guarded, so a bare batcher makes zero obs calls
         self.clock = None               # SimClock for t_dequeue/t_admit
-        self.tracer = None              # span recorder (a later slice)
-        self.trace_pid = 1
+        self.tracer = None              # span recorder
+        self.trace_pid = 1              # engine track
 
     def submit(self, req: Request):
         if self.adapter.max_len is not None and \
@@ -261,6 +275,20 @@ class ContinuousBatcher:
     def busy(self) -> bool:
         return bool(self.pending) or any(r is not None for r in self.active)
 
+    def debug_state(self) -> dict:
+        """Occupancy snapshot for incident bundles (serve/obs/incident.py):
+        queue depth and per-slot uids only, never prompt or token payloads,
+        so a bundle can leave the machine."""
+        return {
+            "n_slots": self.n_slots,
+            "pending": len(self.pending),
+            "pending_uids": [r.uid for r in list(self.pending)[:16]],
+            "active_uids": [None if r is None else r.uid
+                            for r in self.active],
+            "last_active": self.last_active,
+            "peak_active": self.peak_active,
+        }
+
     def _now(self) -> float:
         """Virtual time for the stamps: the tracer's clock when tracing,
         the bare clock when only stamping, -1 (untracked) otherwise."""
@@ -277,8 +305,19 @@ class ContinuousBatcher:
                             args={"tokens": len(req.generated),
                                   "retire": reason})
 
+    def _end_tick(self, **args) -> None:
+        """Close the ``tick`` span once the tick's device work is done: the
+        span measures the work, not its issue.  Called only when a tracer
+        is attached, so an untraced tick adds no synchronize."""
+        synchronize(self.adapter.device)
+        self.tracer.end("tick", pid=self.trace_pid, tid=0, args=args)
+
     def step(self) -> list[Request]:
-        """Admit + one decode tick.  Returns requests completed this tick."""
+        """Admit + one decode tick.  Returns requests completed this tick.
+        The ``tick`` span wraps the captured tick from outside (an obs call
+        inside a captured step would run only at its capture).  The
+        reference's ``decode=False`` (the prefill role of disaggregated
+        serving) comes with sharded serving."""
         tr = self.tracer
         if tr is not None:
             tr.begin("tick", pid=self.trace_pid, tid=0)
@@ -347,8 +386,7 @@ class ContinuousBatcher:
         self.peak_active = max(self.peak_active, self.last_active)
         if not active.any():
             if tr is not None:
-                tr.end("tick", pid=self.trace_pid, tid=0,
-                       args={"active": 0, "finished": len(finished)})
+                self._end_tick(active=0, finished=len(finished))
             return finished
         toks = self.adapter.decode(self.last_token, active)
         for slot, req in enumerate(self.active):
@@ -365,9 +403,7 @@ class ContinuousBatcher:
                 self.adapter.clear(slot)
                 self.last_token[slot] = 0
         if tr is not None:
-            tr.end("tick", pid=self.trace_pid, tid=0,
-                   args={"active": self.last_active,
-                         "finished": len(finished)})
+            self._end_tick(active=self.last_active, finished=len(finished))
         return finished
 
     def run(self) -> list[Request]:

@@ -96,8 +96,16 @@ Gather tick (``backend="gather"``)
     (lanes out of range to the trash block).  Plain PyTorch on every
     device, captured like the flat tick.
 
-The reference's vlm family, mesh placement and obs hooks come with later
-slices (ROADMAP.md).
+Observability (``tracer``, wired by the prompt gateway for a run)
+    Each fold chunk is a ``prefill_chunk`` span (``q0``, ``tokens``,
+    ``prefix_hit``) on the admitting request's track, closed after a
+    synchronize so it measures the chunk's work; a resume that skips
+    blocks leaves a ``prefix_resume`` instant.  While a tracer is attached
+    ``work`` sums each stage's FLOP and byte counts for ``cost_args``.
+    Without one the adapter makes no obs call and no extra synchronize.
+
+The reference's vlm family and mesh placement come with later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -107,12 +115,14 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.device import synchronize
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import capture, engine
 from repro_torch.serve.backend import auto_backend, resolve_backend
 from repro_torch.serve.gateway.slots import check_extras, extras_kwargs
 from repro_torch.serve.kvcache.pool import (TRASH_BLOCK, BlockPool,
                                             PoolExhausted)
+from repro_torch.serve.obs import costmodel
 
 
 # the cascade tick's group metadata, in the order its captured step takes
@@ -244,6 +254,11 @@ class PagedKVSlotAdapter:
         self.prefill_tokens_total = 0
         self.prefill_tokens_skipped_total = 0
         self.prefill_chunks_total = 0       # fold steps run (chunked)
+        # obs span recorder, wired by the prompt gateway for the length of
+        # a run; every use is guarded, so a bare adapter makes zero obs
+        # calls.  The batcher points the tracer's lane at the admitting
+        # request before insert, so chunk spans land on it.
+        self.tracer = None
 
         # host-side paging state
         self.tables = np.zeros((n_slots, self.nb_max), np.int32)
@@ -428,8 +443,17 @@ class PagedKVSlotAdapter:
         snapshots: list[tuple[bytes, dict]] = []
         while q < P:
             c = min(self.bs, P - q)
+            if self.tracer is not None:
+                self.tracer.begin("prefill_chunk")
             cache, logits = engine.prefill_chunked(
                 self.cfg, self.params, tokens[:, q:q + c], cache, q)
+            if self.tracer is not None:
+                # the span closes on the chunk's finished work, not on
+                # its issue
+                synchronize(self.device)
+                self.tracer.end("prefill_chunk",
+                                args={"q0": q, "tokens": c,
+                                      "prefix_hit": False})
             self.prefill_chunks_total += 1
             q += c
             j = q // self.bs - 1
@@ -494,6 +518,12 @@ class PagedKVSlotAdapter:
 
         H = self._resume_blocks(P, hits, keys)
         q0 = H * self.bs
+        if H and self.tracer is not None:
+            # the H prefix-hit chunks are skipped, not folded: mark the
+            # resume point so the trace shows where compute was saved
+            self.tracer.instant("prefix_resume",
+                                args={"blocks": H, "tokens_skipped": q0,
+                                      "prefix_hit": True})
         state = None
         if H and self.hybrid:
             state = self._boundary_states[keys[H - 1]]
@@ -796,6 +826,20 @@ class PagedKVSlotAdapter:
         # the step's output is overwritten by its next replay
         self.last_logits = logits.clone()
         return self.last_logits.argmax(-1).cpu().numpy()
+
+    def cost_args(self) -> dict[str, tuple]:
+        """The serving stages with their analytic counts, for
+        ``obs.costmodel`` roofline attribution: ``(count, args)``, where
+        ``count(*args)`` gives a stage's FLOPs and bytes per call, at the
+        reference's representative calls: the decode tick of every lane
+        over a full table, one cold block-size chunk of the fold, a
+        one-block prefill and the copy-on-write block copy."""
+        cfg, n = self.cfg, self.n_slots
+        block = costmodel.lm_stage(cfg, costmodel.prompt_work(cfg, 0, self.bs))
+        return {"prefill": block, "chunk_fold": block,
+                "decode": costmodel.lm_stage(cfg, costmodel.tick_work(
+                    cfg, n, [self.max_len] * n)),
+                "copy": (costmodel.block_copy_cost, (cfg, self.bs))}
 
     def jit_fns(self) -> dict[str, capture.CapturedStep]:
         """Named captured steps, for ``obs.RecompileDetector.track``: the

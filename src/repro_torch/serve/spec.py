@@ -7,9 +7,10 @@ reference's default ``paged=False``) or paged KV slots (``paged=True``),
 admitting prompts through the chunked prefill fold (the reference's
 default ``chunked=True``) or one-shot (``chunked=False``), with the flat
 decode tick (``backend`` "plain" | "cuda"), the shared-prefix cascade tick
-(``backend="cascade"``) or the gather-tick oracle (``backend="gather"``).  ``mesh``/``roles`` (sharded and
-disaggregated serving) and the observability attachments raise until their
-slices.
+(``backend="cascade"``) or the gather-tick oracle (``backend="gather"``),
+with the observability attachments (``tracer``, ``metrics``, ``slo``,
+``shed_factor``, ``flight``, ``incident_dir``).  ``mesh``/``roles`` (sharded
+and disaggregated serving) raise until their slice.
 """
 from __future__ import annotations
 
@@ -26,8 +27,16 @@ class ServeSpec:
     ``paged`` KV in ``block_size``-token blocks, ``num_blocks`` of them
     (None: dense-equivalent); ``chunked`` prefill.  ``backend`` picks the
     decode tick's attention ("plain" | "cuda" | "cascade" | "gather"; None:
-    "cuda" on a CUDA device, "plain" on the CPU).  Scheduling: ``max_new_tokens``, ``bytes_per_token``,
-    ``max_queue``; ``energy_spec`` prices tokens for the energy ledger."""
+    "cuda" on a CUDA device, "plain" on the CPU).  Scheduling:
+    ``max_new_tokens``, ``bytes_per_token``, ``max_queue``,
+    ``shed_factor`` and the observability attachments (``tracer`` /
+    ``metrics`` / ``slo``) pass straight to the gateway; ``energy_spec``
+    prices tokens for the energy ledger.  Forensics: ``flight`` attaches
+    an always-on bounded flight recorder (``True`` builds a default
+    ``obs.FlightRecorder``, or pass one); ``incident_dir`` arms an
+    ``obs.IncidentCapture`` wired to ``slo``, ``flight`` and ``metrics``
+    that writes validated bundles into that directory on its triggers and
+    on ``gateway.capture_incident(reason)``."""
     n_slots: int = 4
     max_len: int = 128
     paged: bool = False
@@ -44,6 +53,7 @@ class ServeSpec:
     tracer: object = None
     metrics: object = None
     slo: object = None
+    shed_factor: int = 4
     flight: object = None
     incident_dir: str | None = None
 
@@ -72,13 +82,21 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
         raise NotImplementedError(
             "mesh/roles (sharded and disaggregated serving) are not ported "
             "yet: ROADMAP.md §1, sharded and disaggregated serving")
-    if spec.flight is not None or spec.incident_dir is not None:
-        raise NotImplementedError(
-            "flight/incident_dir are not ported yet: ROADMAP.md §1, "
-            "observability")
     if spec.backend is not None and not spec.paged:
         raise ValueError(f"backend={spec.backend!r} selects the paged decode "
                          "tick's attention; it requires paged=True")
+    # forensics: flight=True builds the default bounded ring;
+    # incident_dir arms the capture pipeline against slo + flight (the
+    # gateway hangs its debug_state off context_fn)
+    flight = spec.flight
+    if flight is True:
+        from repro_torch.serve.obs import FlightRecorder
+        flight = FlightRecorder()
+    incident = None
+    if spec.incident_dir is not None:
+        from repro_torch.serve.obs import IncidentCapture
+        incident = IncidentCapture(spec.incident_dir, flight=flight,
+                                   slo=spec.slo, metrics=spec.metrics)
     adapter = make_adapter(
         cfg, params, n_slots=spec.n_slots, max_len=spec.max_len,
         extras=extras, paged=spec.paged, block_size=spec.block_size,
@@ -88,4 +106,5 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
         ContinuousBatcher(adapter), max_new_tokens=spec.max_new_tokens,
         bytes_per_token=spec.bytes_per_token, max_queue=spec.max_queue,
         energy_spec=spec.energy_spec, tracer=spec.tracer,
-        metrics=spec.metrics, slo=spec.slo)
+        metrics=spec.metrics, slo=spec.slo, shed_factor=spec.shed_factor,
+        flight=flight, incident=incident)

@@ -277,9 +277,10 @@ def test_encdec_prompt_gateway_matches_reference(encdec_pair):
 
 
 def test_spec_refuses_what_is_not_ported(pair):
-    """Sharded serving and the observability hooks are refused, and so are
-    names the enum does not hold; the dense slots (``paged=False``) and
-    ``backend="gather"`` are ported (``tests/test_torch_dense.py``)."""
+    """Only sharded serving is refused, and so are names the enum does not
+    hold; the dense slots (``paged=False``) and ``backend="gather"`` are
+    ported (``tests/test_torch_dense.py``), and so are the observability
+    attachments (``tests/test_torch_obs.py``)."""
     _, _, cfg, params = pair
     for kw, err in ((dict(paged=True, mesh=object()),          # chunked
                      NotImplementedError),
@@ -289,9 +290,7 @@ def test_spec_refuses_what_is_not_ported(pair):
                     (dict(paged=True, chunked=False, backend="xla"),
                      ValueError),
                     (dict(paged=False, chunked=False, backend="plain"),
-                     ValueError),
-                    (dict(paged=True, chunked=False, tracer=object()),
-                     NotImplementedError)):
+                     ValueError)):
         with pytest.raises(err):
             spec.make_gateway(cfg, params, spec.ServeSpec(**kw),
                               device="cpu")
