@@ -17,6 +17,7 @@
     python3 chip_smoke.py --whisper
                                    # phase 13 alone
     python3 chip_smoke.py --obs    # phase 14 alone
+    python3 chip_smoke.py --vlm    # phase 15 alone
 
 Phases, each printing one JSON line:
 
@@ -251,7 +252,32 @@ Phases, each printing one JSON line:
      host ms per captured tick, per cold fold chunk (the traced fold's
      synchronize) and per bucket-32 frame batch, traced against untraced
      in turns, with obs callbacks per tick and per batch.
-     ``python3 chip_smoke.py --obs`` runs it alone.
+     ``python3 chip_smoke.py --obs`` runs it alone;
+ 15. the vlm family (``vlm_main_path`` line): llama-3.2-vision-90b at its
+     published width cut to 20 layers (16 self and 4 gated cross layers,
+     ``cross_every`` 5 kept; d_model 8,192, 64 heads over 8 KV heads of
+     128, d_ff 28,672, vocabulary 128,256; bf16, 39.6 GB of random weights
+     drawn on the card after phase 13's are freed, every ``gate_attn`` at
+     0.5 so that the cross path shows, a seeded (1, 1,024, 8,192) vision
+     embedding as every admission's ``extras``): ``flash_attention`` at 64
+     x 128 over 8 KV heads, causal at a 1,000-token prompt and non-causal
+     at 1,000 and 16 queries over the 1,024 vision keys (as planned,
+     unsplit and one tile per split), the paged kernels at those heads,
+     each against its plain version and timed beside its bound and SDPA
+     (``vlm_shapes_timing`` line); the vision cross K/V (no kernel); phase
+     10's dense gateway against the paged ``"plain"`` and ``"gather"``
+     gateways (the reference refuses the kernels' ticks for the family:
+     ``"cuda"`` must be refused, the automatic tick is ``"plain"``); phase
+     5's load (b) one-shot (its radix hit and copy-on-write), the
+     prefill's attention through the kernel against its plain version on
+     the same card and weights; the captured flat tick at 8 lanes of
+     1,024-token contexts bit for bit its eager step, one graph launch per
+     tick; ``flash_attention`` L + G = 24 times per one-shot prompt, no
+     kernel on a tick; then, the bf16 weights freed, float32 at depth 5
+     (one whole group, 26.1 GB): dense, plain and gather gateways tokens
+     equal with logits within 2e-4 (gather bit for bit plain) and load (b)
+     through the kernel against the plain prefill, tokens equal and logits
+     within 2e-4.  ``python3 chip_smoke.py --vlm`` runs it alone.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -334,42 +360,48 @@ TIMING_PLANS = ("planned", "one split", "more splits")
 MORE_SPLITS = {"MIN_CTAS": 4 * 132, "MIN_SPLIT_POSITIONS": 64}
 
 
-# the encdec family's frame embeddings, by config name: the ``extras``
-# callable its adapters take (phase 13 registers whisper-medium's)
+# the encdec family's frame embeddings and the vlm family's patch
+# embeddings, by config name: the ``extras`` callable their adapters take
+# (phase 13 registers whisper-medium's, phase 15 llama-3.2-vision-90b's)
 FRAMES: dict = {}
 
 
 def extras_of(cfg):
-    """The ``extras`` callable of ``cfg``'s adapters: the frames of
-    :data:`FRAMES` for the encdec family, None for the others."""
-    return FRAMES.get(cfg.name) if cfg.family == "encdec" else None
+    """The ``extras`` callable of ``cfg``'s adapters: the embeddings of
+    :data:`FRAMES` for the encdec and vlm families, None for the
+    others."""
+    return FRAMES.get(cfg.name) if cfg.family in ("encdec", "vlm") \
+        else None
 
 
 def prefill_kw(cfg) -> dict:
     """The keywords ``engine.prefill`` takes for ``cfg``: the frame
-    embeddings for the encdec family."""
+    embeddings for the encdec family, the patch embeddings for the vlm
+    family."""
     extras = extras_of(cfg)
-    return {} if extras is None else {"enc_embed": extras()["enc_embed"]}
+    return {} if extras is None else dict(extras())
 
 
 def flash_launches(cfg, prefills: int, admissions: int) -> int:
     """``flash_attention``'s launches over ``prefills`` one-shot prompts or
     fold chunks of ``admissions`` admissions: one per layer and prompt or
-    chunk, two for the encdec family (the self- and the cross-attention),
-    which also runs its encoder once per admission, one per encoder
-    layer."""
-    if cfg.family != "encdec":
-        return cfg.n_layers * prefills
-    return 2 * cfg.n_layers * prefills + cfg.enc_layers * admissions
+    chunk, plus one per cross layer (the cross-attention: every decoder
+    layer of the encdec family, which also runs its encoder once per
+    admission, one per encoder layer; one layer in ``cross_every`` of the
+    vlm family)."""
+    n = (cfg.n_layers + cfg.n_cross) * prefills
+    return n + cfg.enc_layers * admissions if cfg.family == "encdec" else n
 
 
 def strict_cfg(cfg):
-    """The float32 config of the strict comparisons: depth 4, or the whole
-    depth for the encdec family (whisper-medium fits in float32 whole)."""
+    """The float32 config of the strict comparisons: depth 4, the whole
+    depth for the encdec family (whisper-medium fits in float32 whole),
+    one group of ``cross_every`` layers for the vlm family."""
     import dataclasses
     if cfg.family == "encdec":
         return dataclasses.replace(cfg, param_dtype="float32")
-    return dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    depth = cfg.cross_every if cfg.family == "vlm" else 4
+    return dataclasses.replace(cfg, n_layers=depth, param_dtype="float32")
 
 
 @contextlib.contextmanager
@@ -1710,6 +1742,7 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
         torch.cuda.synchronize()
         rec = {"ms": (time.perf_counter() - t0) * 1e3,
                "skipped": ad.slot_stats(slot)["prefill_tokens_skipped"],
+               "hits": ad.slot_stats(slot)["prefix_hit_blocks"],
                "logits": ad.last_prefill_logits[0].clone()}
         if keep_blocks:
             bids = torch.tensor(ad.slot_bids[slot][:-(-len(prompt)
@@ -2507,8 +2540,9 @@ def tick_timing(ad, tokens, active, after=None, runs: int | None = None
 def capture_main_path(dev, cfg, params, runs: int | None = None, *,
                       flat_len: int = 1024, chunked: bool = False) -> dict:
     """Phase 8: the captured ticks at the config's full width and depth:
-    the flat tick at 8 lanes x ``flat_len`` positions (``backend="cuda"``)
-    and load (c)'s cascade tick, prompts admitted one-shot or through the
+    the flat tick at 8 lanes x ``flat_len`` positions (``backend="cuda"``;
+    for the vlm family ``"plain"``, its only in-place tick, and no cascade
+    tick) and load (c)'s cascade tick, prompts admitted one-shot or through the
     fold (``chunked``; the flat load's lanes then share all but their last
     block), each right after the first tick (its capture):
     replay against the eager step bit for bit (the arena, and the hybrid
@@ -2529,10 +2563,12 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
     # all the same)
     own = LM_BLOCK if chunked else flat_len
     common = rng.integers(0, cfg.vocab, flat_len - own)
-    loads = {flat: ("cuda", [np.concatenate(
+    vlm = cfg.family == "vlm"
+    loads = {flat: ("plain" if vlm else "cuda", [np.concatenate(
         [common, rng.integers(0, cfg.vocab, own)]).astype(np.int32)
-        for _ in range(LM_SLOTS)]),
-             "cascade_load_c": ("cascade", load_c_prompts(cfg.vocab)[0])}
+        for _ in range(LM_SLOTS)])}
+    if not vlm:
+        loads["cascade_load_c"] = ("cascade", load_c_prompts(cfg.vocab)[0])
     out, failures = {}, []
     for name, (backend, prompts) in loads.items():
         gw = make_gateway(cfg, params, ServeSpec(
@@ -2550,13 +2586,13 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
                                   state={**ad.arena, **ad.state})
         timing = tick_timing(ad, tokens, active, runs=runs)
         captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
-        want = {"decode": 1} if backend == "cuda" else \
+        want = {"decode": 1} if backend != "cascade" else \
             {"decode": 0, "decode_cascade": 1}
         prof = timing["profile"]["captured"]
         out[name] = {"backend": backend, "groups": ad.last_groups,
                      "captures": captures, "replay": check, **timing}
-        # every arena key and recurrent state written, the encdec family's
-        # cross K/V read only
+        # every arena key and recurrent state written, the encdec and vlm
+        # families' cross K/V read only
         written = all(v == 0 if key in ("xk", "xv") else v
                       for key, v in check["rows_written"].items())
         if not (check["logits_bitwise"] and check["arena_bitwise"]
@@ -2843,13 +2879,72 @@ def trace_routing(cfg, params, diffs: list, specs: tuple, a_run: dict,
             d["near_tie"] = d["routing"]["near_tie"]
 
 
+def dense_pairs(cfg) -> dict:
+    """The gateway pairs phase 10 compares, name -> (paged backend a,
+    paged backend b or None for the dense gateway): dense against the
+    kernel tick, and the gather oracle against the plain and the kernel
+    tick; for the vlm family, whose tick is the plain one only, dense and
+    gather against the plain tick."""
+    if cfg.family == "vlm":
+        return {"dense_vs_plain": ("plain", None),
+                "gather_vs_plain": ("plain", "gather")}
+    return {"dense_vs_cuda": ("cuda", None),
+            "gather_vs_plain": ("plain", "gather"),
+            "gather_vs_cuda": ("cuda", "gather")}
+
+
+def paged_spec(backend):
+    """Phase 10's one-shot paged gateways on the default geometry."""
+    from repro_torch.serve.spec import ServeSpec
+    return ServeSpec(paged=True, chunked=False, backend=backend)
+
+
+def pair_backends(pairs: dict) -> list[str]:
+    """The paged backends :func:`dense_pairs`' pairs use, in the order
+    "cuda", "plain", "gather"."""
+    return [b for b in ("cuda", "plain", "gather")
+            if any(b in ab for ab in pairs.values())]
+
+
+def strict_dense_paths(dev, cfg4, params4, prompts
+                       ) -> tuple[dict, list, dict]:
+    """Phase 10's comparisons on a float32 model (``strict_cfg``): the
+    default gateway and the paged ones of :func:`dense_pairs` on
+    ``prompts``, tokens equal with logits within 2e-4, the gather tick bit
+    for bit the plain tick.  Returns (per pair the differences, the
+    failures, the default gateway's tokens)."""
+    from repro_torch.serve.spec import ServeSpec
+
+    pairs = dense_pairs(cfg4)
+    dense4 = serve_spec_load(dev, cfg4, params4, prompts, ServeSpec())
+    runs4 = {b: serve_spec_load(dev, cfg4, params4, prompts, paged_spec(b))
+             for b in pair_backends(pairs)}
+    f32 = {name: stream_differences(runs4[a], runs4[b] if b else dense4)
+           for name, (a, b) in pairs.items()}
+    failures = []
+    for name, d in f32.items():
+        if not (d["tokens_equal"] and d["max_abs_dlogit"] <= 2e-4):
+            failures.append(f"float32 depth {cfg4.n_layers} {name}: tokens "
+                            f"equal {d['tokens_equal']}, max |dlogit| "
+                            f"{d['max_abs_dlogit']}")
+    # the gather oracle runs the in-place plain tick's arithmetic on a
+    # gathered copy: bit for bit
+    if f32["gather_vs_plain"]["max_abs_dlogit"] != 0:
+        failures.append(f"float32 depth {cfg4.n_layers}: the gather tick is "
+                        f"not bit for bit the plain tick: "
+                        f"{f32['gather_vs_plain']}")
+    return f32, failures, dense4["tokens"]
+
+
 def dense_main_path(dev, cfg, params, *, sc: bool = True,
-                    runs: int | None = None) -> dict:
+                    runs: int | None = None, strict: bool = True) -> dict:
     """Phase 10: the dense KV path (the default ``ServeSpec()`` gateway),
     the gather-tick oracle and (``sc``) the SC LM frontend at the config's
     full width; for the moe family also the router gaps of the default
     gateway's streams (:func:`router_gaps`), in bf16 at full depth and in
-    float32 at depth 4.  Returns the kernels' launches on the default
+    float32 at depth 4 (``strict``; :func:`strict_dense_paths`, which the
+    vlm phase runs on its own float32 model once the bf16 one is freed).
+    Returns the kernels' launches on the default
     gateway's load ("dense") and on the SC gateways' ("sc", None without
     ``sc``); ``runs``: the tick timing's runs a side (:func:`tick_timing`).
     Raises SystemExit on a failed check."""
@@ -2870,9 +2965,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     n_req = len(prompts)
     default = ServeSpec()
     new = default.max_new_tokens
-
-    def paged(backend, **kw):
-        return ServeSpec(paged=True, chunked=False, backend=backend, **kw)
+    pairs = dense_pairs(cfg)
 
     def served_all(run) -> bool:
         return run["served"] == n_req and run["finite"] and \
@@ -2917,22 +3010,18 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     torch.cuda.empty_cache()
 
     # (3) the paged gateways on the same load, bf16 full depth: the flat
-    # kernel tick, the in-place plain tick and the gather oracle
-    runs = {b: serve_spec_load(dev, cfg, params, prompts, paged(b))
-            for b in ("cuda", "plain", "gather")}
+    # kernel tick (not for the vlm family), the in-place plain tick and
+    # the gather oracle
+    runs = {b: serve_spec_load(dev, cfg, params, prompts, paged_spec(b))
+            for b in pair_backends(pairs)}
     gaps = {"bf16": router_gaps(cfg, params, prompts, dense["tokens"])} \
         if cfg.moe else {}
-    bf16 = {"dense_vs_cuda": stream_differences(runs["cuda"], dense),
-            "gather_vs_plain": stream_differences(runs["plain"],
-                                                  runs["gather"]),
-            "gather_vs_cuda": stream_differences(runs["cuda"],
-                                                 runs["gather"])}
-    for name, (a, b) in {"dense_vs_cuda": ("cuda", None),
-                         "gather_vs_plain": ("plain", "gather"),
-                         "gather_vs_cuda": ("cuda", "gather")}.items():
+    bf16 = {name: stream_differences(runs[a], runs[b] if b else dense)
+            for name, (a, b) in pairs.items()}
+    for name, (a, b) in pairs.items():
         trace_routing(cfg, params, bf16[name]["first_differences"],
-                      (paged(a), paged(b) if b else default), runs[a],
-                      prompts, whole_load=False)
+                      (paged_spec(a), paged_spec(b) if b else default),
+                      runs[a], prompts, whole_load=False)
     for name, r in runs.items():
         if not served_all(r) or r["captures"] != {"decode": 1}:
             failures.append(f"paged {name}: served {r['served']}, finite "
@@ -2944,31 +3033,17 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
 
     # (4) float32 at depth 4 (encdec: whole): tokens equal, logits within
     # 2e-4
-    cfg4 = strict_cfg(cfg)
-    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
-    dense4 = serve_spec_load(dev, cfg4, params4, prompts, default)
-    runs4 = {b: serve_spec_load(dev, cfg4, params4, prompts, paged(b))
-             for b in ("cuda", "plain", "gather")}
-    f32 = {"dense_vs_cuda": stream_differences(runs4["cuda"], dense4),
-           "gather_vs_plain": stream_differences(runs4["plain"],
-                                                 runs4["gather"]),
-           "gather_vs_cuda": stream_differences(runs4["cuda"],
-                                                runs4["gather"])}
-    for name, d in f32.items():
-        if not (d["tokens_equal"] and d["max_abs_dlogit"] <= 2e-4):
-            failures.append(f"float32 depth 4 {name}: tokens equal "
-                            f"{d['tokens_equal']}, max |dlogit| "
-                            f"{d['max_abs_dlogit']}")
-    # the gather oracle runs the in-place plain tick's arithmetic on a
-    # gathered copy: bit for bit
-    if f32["gather_vs_plain"]["max_abs_dlogit"] != 0:
-        failures.append(f"float32 depth 4: the gather tick is not bit for "
-                        f"bit the plain tick: {f32['gather_vs_plain']}")
-    if cfg.moe:
-        gaps["f32_depth4"] = router_gaps(cfg4, params4, prompts,
-                                         dense4["tokens"])
-    del params4
-    torch.cuda.empty_cache()
+    f32 = None
+    if strict:
+        cfg4 = strict_cfg(cfg)
+        params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+        f32, bad, tokens4 = strict_dense_paths(dev, cfg4, params4, prompts)
+        failures += bad
+        if cfg.moe:
+            gaps["f32_depth4"] = router_gaps(cfg4, params4, prompts,
+                                             tokens4)
+        del params4
+        torch.cuda.empty_cache()
 
     dense_launches = {"flash_attention":
                       dense["launches"]["flash_attention"]}
@@ -2987,7 +3062,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
             "default_gateway": summary(dense),
             "dense_tick": {"replay": replay, **timing},
             "paged_runs": {b: summary(r) for b, r in runs.items()},
-            "bf16": bf16, "f32_depth4": f32,
+            "bf16": bf16, **({"f32_depth4": f32} if strict else {}),
             "router_gap_k_to_k_plus_1": gaps}
     if not sc:
         emit({**line, "launches": {"dense": dense_launches},
@@ -3028,7 +3103,8 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     sc_runs = {"dense": serve_spec_load(dev, cfg_sc, params_sc, prompts,
                                         default),
                "paged_oneshot": serve_spec_load(dev, cfg_sc, params_sc,
-                                                prompts, paged("cuda")),
+                                                prompts,
+                                                paged_spec("cuda")),
                "paged_chunked": serve_spec_load(
                    dev, cfg_sc, params_sc, prompts,
                    ServeSpec(paged=True, backend="cuda"))}
@@ -3768,6 +3844,296 @@ def whisper_main_path(dev, sleep: int) -> dict:
     FRAMES.pop(cfg.name)
     del params, enc
     torch.cuda.empty_cache()
+    return launches
+
+
+# -- the vlm family: llama-3.2-vision-90b (phase 15) --------------------------
+
+VLM_ARCH = "llama-3.2-vision-90b"
+# 20 of the published 100 layers (16 self and 4 gated cross layers,
+# cross_every 5 kept): 39.6 GB of bf16 weights, where the published depth's
+# 181 GB fits no one card
+VLM_DEPTH = 20
+# every cross layer's tanh gate: the reference initializes it to 0, where
+# the cross path adds nothing a comparison could see
+VLM_GATE = 0.5
+# llama-3.2-vision-90b's attention: 64 heads over 8 KV heads of 128
+VLM_H, VLM_HKV, VLM_D = 64, 8, 128
+# phase 15's captured-against-eager tick timings take this many runs a side
+VLM_HOST_RUNS = 3
+
+
+def vlm_main_path(dev, sleep: int) -> dict:
+    """Phase 15: the vlm family at llama-3.2-vision-90b's published width
+    and ``VLM_DEPTH`` layers (d_model 8,192, 64 heads over 8 KV heads of
+    128, d_ff 28,672, vocabulary 128,256, a gated cross layer every 5th;
+    bf16, random weights drawn on the card, every gate at ``VLM_GATE``), a
+    seeded (1, 1,024, 8,192) vision embedding as every admission's
+    ``extras``, through the paths the reference serves it on: the
+    attention kernels at its heads, ``flash_attention`` also non-causal
+    over the 1,024 vision keys (:func:`attn_shape_checks`); the vision
+    cross K/V; the kernels' ticks refused and the automatic tick
+    ``"plain"``; the default ``ServeSpec()`` dense gateway against the
+    paged ``"plain"`` and ``"gather"`` gateways (:func:`dense_main_path`);
+    load (b) one-shot, its radix hit and copy-on-write, with the prefill's
+    attention through the kernel and through its plain version; the
+    captured flat tick at 8 lanes of 1,024-token contexts against its
+    eager step (:func:`capture_main_path`, ``VLM_HOST_RUNS`` runs a side);
+    the one-shot prefill's host ms; then, the bf16 weights freed, float32
+    at depth 5 (:func:`strict_cfg`, one whole group): phase 10's strict
+    comparisons (:func:`strict_dense_paths`) and load (b) through the
+    kernel against the plain prefill.  Returns the kernels' launches over
+    the path; raises SystemExit on a failed check."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    from repro_torch.serve import engine
+    from repro_torch.serve.spec import make_gateway
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.config(VLM_ARCH), n_layers=VLM_DEPTH)
+    seconds, launches, failures = {}, {}, []
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def draw(cfg, seed):
+        params = lm.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+        params["cross_blocks"]["gate_attn"].fill_(VLM_GATE)
+        return params
+    params = timed("init", draw, cfg, 0)
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    vis = torch.randn((1, cfg.n_vision_tokens, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(15))
+    FRAMES[cfg.name] = lambda: {"vision_embed": vis}
+    gen = torch.Generator(device=dev).manual_seed(16)
+    T = cfg.n_vision_tokens
+    timing = timed("kernel_checks", attn_shape_checks, dev, gen, sleep,
+                   cfg.n_layers, tag="vlm", hq=VLM_H, hkv=VLM_HKV,
+                   d=VLM_D, n_pos=1024, fold_offset=512, one_len=1000,
+                   noncausal=(("cross prompt", 1000, T),
+                              ("cross 16 queries", 16, T)))
+
+    # the vision cross K/V, once per admission: plain products, no kernel
+    reset_counts()
+    xk, xv = engine.vision_cross(cfg, params, vis)
+    torch.cuda.synchronize()
+    cross_launches = {k: v for k, v in read_counts().items() if v}
+    cross_ms = host_ms(lambda: engine.vision_cross(cfg, params, vis),
+                       reps=5)
+    if cross_launches or tuple(xk.shape) != (
+            cfg.n_cross, 1, T, cfg.n_kv_heads, cfg.d_head) or \
+            not bool(torch.isfinite(xk).all() and torch.isfinite(xv).all()):
+        failures.append(f"vision_cross: launches {cross_launches}, xk "
+                        f"{tuple(xk.shape)}")
+    del xk, xv
+
+    # the kernels' ticks refused, as the reference refuses them; the
+    # automatic choice the plain tick, and admission one-shot
+    refused = {}
+    for backend in ("cuda", "cascade"):
+        try:
+            make_gateway(cfg, params, load_spec(backend, False, 8),
+                         extras=extras_of(cfg), device=dev)
+            refused[backend] = None
+        except ValueError as e:
+            refused[backend] = str(e)
+    gw = make_gateway(cfg, params, load_spec(None, True, 8),
+                      extras=extras_of(cfg), device=dev)
+    auto = {"backend": gw.batcher.adapter.backend,
+            "chunked": gw.batcher.adapter.chunked}
+    del gw
+    torch.cuda.empty_cache()
+    if not all(r and "vlm" in r for r in refused.values()) or \
+            auto != {"backend": "plain", "chunked": False}:
+        failures.append(f"refusals {refused}, automatic {auto}")
+
+    # phase 10's gateways: dense slots against the paged plain and gather
+    # ticks (the float32 comparisons come after the bf16 weights are freed)
+    dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
+                     sc=False, runs=VLM_HOST_RUNS, strict=False)
+    add(dense)
+
+    # load (b) one-shot: r1 a 32-block radix hit, r2 all of r0 (its
+    # partial block shared, so r0 and r2 each copy it on their first
+    # write); the prefill's attention through the kernel, then through its
+    # plain version on the same card and weights
+    pb, _ = load_b_prompts(cfg.vocab)
+
+    def plain_flash(q, k, v, **kw):
+        return ref.flash_attention_chunked(
+            q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+            kw["q_chunk"], kw["kv_chunk"])
+
+    def plain_prefill():
+        return mock.patch.object(attention, "flash_kernels",
+                                 SimpleNamespace(flash_attention=plain_flash))
+
+    def load_b(cfg, params):
+        kern = serve_load(dev, cfg, params, pb, backend="plain",
+                          chunked=False, new_tokens=32)
+        with plain_prefill():
+            plain = serve_load(dev, cfg, params, pb, backend="plain",
+                               chunked=False, new_tokens=32)
+        return kern, plain
+
+    def check_load_b(tag, cfg, kern, plain):
+        hits = [kern["prefill"][u]["hits"] for u in range(len(pb))]
+        n = kern["launches"]
+        others = {k: v for k, v in n.items()
+                  if v and k != "flash_attention"}
+        out = {"prefix_hit_blocks": hits,
+               "cow_copies": kern["pool"]["cow_copies"],
+               "r0_equals_r2": kern["tokens"][0] == kern["tokens"][2],
+               "ticks": kern["ticks"], "launches": n,
+               "plain_prefill_launches": {
+                   k: v for k, v in plain["launches"].items() if v},
+               "tick_ms_median": statistics.median(kern["tick_ms"])}
+        served = all(len(t) == 32 for r in (kern, plain)
+                     for t in r["tokens"].values()) and \
+            kern["logits_finite"] and plain["logits_finite"]
+        if hits != [0, 32, 63, 0] or out["cow_copies"] != 2 or \
+                not out["r0_equals_r2"] or others or not served or \
+                n["flash_attention"] != flash_launches(cfg, 4, 4) or \
+                plain["launches"]["flash_attention"] or \
+                kern["captures"] != {"decode": 1}:
+            failures.append(f"{tag} load (b): {out}, served {served}, "
+                            f"captures {kern['captures']}")
+        return out
+    b_k, b_p = timed("load_b", load_b, cfg, params)
+    add(b_k["launches"])
+    load_b_bf16 = check_load_b("bf16", cfg, b_k, b_p)
+    # bf16: equal up to each stream's first difference, a near tie
+    diffs = first_differences(b_p, b_k)
+    if not all(d["near_tie"] for d in diffs):
+        failures.append(f"bf16 load (b), kernel vs plain prefill: a "
+                        f"difference that is not a near tie: {diffs}")
+    agreement = sum(x == y for u, t in b_p["tokens"].items()
+                    for x, y in zip(t, b_k["tokens"][u])) / \
+        sum(len(t) for t in b_p["tokens"].values())
+    del b_k, b_p
+    torch.cuda.empty_cache()
+
+    # the captured plain tick at 8 lanes of 1,024-token contexts
+    capture = timed("capture", capture_main_path, dev, cfg, params,
+                    runs=VLM_HOST_RUNS)
+    flat = capture["flat_8x1k"]
+
+    # a 1,000-token one-shot prefill: its launches, and its host ms with
+    # the attention through the kernel and through its plain version
+    tokens = torch.from_numpy(pb[3][None]).to(dev)
+    reset_counts()
+    engine.prefill(cfg, params, tokens, **prefill_kw(cfg))
+    torch.cuda.synchronize()
+    per_prompt = {k: v for k, v in read_counts().items() if v}
+    if per_prompt != {"flash_attention": cfg.n_layers + cfg.n_cross}:
+        failures.append(f"one-shot prefill launches {per_prompt}")
+    prefill_ms = {"kernel": host_ms(lambda: engine.prefill(
+        cfg, params, tokens, **prefill_kw(cfg)), reps=3)}
+    with plain_prefill():
+        prefill_ms["plain"] = host_ms(lambda: engine.prefill(
+            cfg, params, tokens, **prefill_kw(cfg)), reps=3)
+
+    # a model of the tick's bytes, not a measurement: every layer's bf16
+    # weights and lm_head read once (not the embedding's rows), lm_head's
+    # float32 copy written and read, every layer's K/V rows of 8 lanes of
+    # 1,025 positions and the lanes' vision K/V in every cross layer
+    weights = 2 * sum(v for k, v in sizes.items()
+                      if k.startswith(("blocks.", "cross_blocks.")))
+    head = 2 * sizes["lm_head"]
+    row = cfg.n_kv_heads * cfg.d_head * 2
+    kv_bytes = 2 * cfg.n_layers * LM_SLOTS * 1025 * row
+    cross_bytes = 2 * cfg.n_cross * LM_SLOTS * T * row
+    tick_bytes = weights + head + 8 * sizes["lm_head"] + kv_bytes + \
+        cross_bytes
+    n_params = sum(sizes.values())
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at depth 5, one whole group: phase 10's strict comparisons,
+    # and load (b) through the kernel against the plain prefill
+    cfg5 = strict_cfg(cfg)
+    params5 = timed("init_f32", draw, cfg5, 1)
+    f32, bad, _ = timed("f32_dense_paths", strict_dense_paths, dev, cfg5,
+                        params5, dense_prompts(cfg.vocab))
+    failures += bad
+    k5, p5 = timed("f32_load_b", load_b, cfg5, params5)
+    load_b_f32 = check_load_b("float32", cfg5, k5, p5)
+    err = max([float((a - b).abs().max())
+               for a, b in zip(k5["logits"], p5["logits"])]
+              + [float((k5["prefill"][u]["logits"]
+                        - p5["prefill"][u]["logits"]).abs().max())
+                 for u in k5["slot"]])
+    f32["load_b_kernel_vs_plain_prefill"] = {
+        "tokens_equal": k5["tokens"] == p5["tokens"],
+        "max_abs_dlogit": err}
+    if k5["tokens"] != p5["tokens"] or not err <= 2e-4:
+        failures.append(f"float32 depth {cfg5.n_layers} load (b): kernel "
+                        f"vs plain prefill "
+                        f"{f32['load_b_kernel_vs_plain_prefill']}")
+    del params5, k5, p5
+    FRAMES.pop(cfg.name)
+    del vis
+    torch.cuda.empty_cache()
+
+    prof = flat["profile"]["captured"]
+    emit({"phase": "vlm_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "cross_every", "n_vision_tokens", "d_model",
+              "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab",
+              "param_dtype")},
+          "published_n_layers": configs.config(VLM_ARCH).n_layers,
+          "gate_attn": VLM_GATE, "params": n_params,
+          "f32_layers": cfg5.n_layers,
+          "vision_cross": {"launches": cross_launches, "host_ms": cross_ms,
+                           "bytes_per_slot": cross_bytes // LM_SLOTS},
+          "refused": refused, "automatic": auto,
+          "load_b_oneshot": load_b_bf16,
+          "load_b_f32": load_b_f32,
+          "bf16_kernel_vs_plain_prefill": {"first_differences": diffs,
+                                           "token_agreement": agreement},
+          "f32_depth5": f32,
+          "oneshot_prefill_1000_ms": prefill_ms,
+          "flash_launches_per_prompt": per_prompt,
+          "tick_8x1k_host_ms": {
+              s: flat["host_ms"][s]["median"] for s in ("captured", "eager")},
+          "tick_8x1k_device_busy_ms": prof["device_busy_ms_per_tick"],
+          "tick_8x1k_idle_share": prof["device_idle_share"],
+          "tick_8x1k_graph_launches": prof["graph_launches_per_tick"],
+          "tick_8x1k_top_device_ms": prof["top_device_ms_per_tick"],
+          "tick_bytes_model": {"layer_weights": weights, "lm_head": head,
+                               "lm_head_f32": 8 * sizes["lm_head"],
+                               "self_kv": kv_bytes,
+                               "vision_kv": cross_bytes,
+                               "total": tick_bytes},
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "launches": launches, "kernel_ms": {
+              k: v["ms"] for k, v in timing.items()},
+          "seconds": seconds, "failures": failures,
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise SystemExit(f"vlm path: {failures}")
     return launches
 
 
@@ -4959,7 +5325,7 @@ def table3_full_main() -> int:
 
 
 def family_main(path: str, run) -> int:
-    """``--moe`` / ``--hymba`` / ``--whisper``: the card's line, the
+    """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm``: the card's line, the
     attention kernels' build and one family's phase alone (``run(dev, sleep)``, its launches
     printed under ``path``)."""
     import torch
@@ -5174,6 +5540,8 @@ def main() -> int:
         return family_main("encdec", whisper_main_path)
     if args[:1] == ["--obs"]:
         return obs_main()
+    if args[:1] == ["--vlm"]:
+        return family_main("vlm", vlm_main_path)
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -5426,6 +5794,9 @@ def main() -> int:
 
     # -- 13. the encdec family: whisper-medium -------------------------------
     paths["encdec"] = whisper_main_path(dev, sleep)
+
+    # -- 15. the vlm family: llama-3.2-vision-90b at 20 layers ---------------
+    paths["vlm"] = vlm_main_path(dev, sleep)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

@@ -1,10 +1,12 @@
-"""The LM decoder, moe, hybrid and encdec families (llama-style pre-norm
-blocks, RoPE, SwiGLU; the moe family a dense layer 0 and routed-expert FFNs
-after it; the hybrid family hymba's parallel GQA attention and Mamba heads
-per block, sliding windows with periodic global layers; the encdec family
-whisper's non-causal encoder over frame embeddings and a decoder of causal
-self-attention, gated cross-attention and a GELU MLP, with biases,
-LayerNorm and sinusoidal positions) for inference in PyTorch:
+"""The LM decoder, moe, hybrid, encdec and vlm families (llama-style
+pre-norm blocks, RoPE, SwiGLU; the moe family a dense layer 0 and
+routed-expert FFNs after it; the hybrid family hymba's parallel GQA
+attention and Mamba heads per block, sliding windows with periodic global
+layers; the encdec family whisper's non-causal encoder over frame
+embeddings and a decoder of causal self-attention, gated cross-attention
+and a GELU MLP, with biases, LayerNorm and sinusoidal positions; the vlm
+family llama-3.2-vision's decoder with a gated cross-attention layer over
+vision tokens every ``cross_every``-th layer) for inference in PyTorch:
 configuration, parameters, the SC frontend, prefill blocks and the
 single-token decode attention, dense and paged.
 
@@ -24,8 +26,14 @@ function.  The encdec family keeps its encoder in ``params["enc_blocks"]``
 and ``params["enc_norm"]`` and its decoder in ``params["dec_blocks"]``
 (``"ln_x"``, ``"xattn"`` and ``"gate_attn"`` beside a decoder block's
 weights; :func:`cross_block`); its frontend is a stub, as in the
-reference: the caller hands over frame embeddings.  The other families and
-the int8 KV cache come in later slices (ROADMAP.md).
+reference: the caller hands over frame embeddings.  The vlm family keeps
+its ``n_layers - G`` self layers in ``params["blocks"]`` and its G =
+``n_layers / cross_every`` cross layers in ``params["cross_blocks"]`` (a
+decoder block with ``"ln_x"``, ``"xattn"`` and a ``"gate_attn"`` of 0
+beside it); group g runs self blocks ``g (k - 1)`` to ``g (k - 1) + k - 2``,
+then cross block g (:func:`layers`).  Its vision tower is a stub, as in
+the reference: the caller hands over patch embeddings.  The rwkv family
+and the int8 KV cache come in later slices (ROADMAP.md).
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -48,8 +56,8 @@ _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that the decoder, moe, hybrid
-    and encdec families read."""
+    """The reference's ``LMConfig`` fields that the decoder, moe, hybrid,
+    encdec and vlm families read."""
     name: str = "lm"
     family: str = "decoder"
     n_layers: int = 4
@@ -78,6 +86,9 @@ class LMConfig:
     # serving prefill routes dropless (see decoder_block): required for
     # prefix-cache resumption; off by default, as in the reference
     moe_dropless_prefill: bool = False
+    # --- vlm ---
+    cross_every: int = 0              # a cross-attn layer every k layers
+    n_vision_tokens: int = 1024
     # --- encdec ---
     enc_layers: int = 0
     enc_len: int = 1500               # encoder frames (cross-attention keys)
@@ -115,6 +126,23 @@ class LMConfig:
     def inner(self) -> int:
         return self.d_inner or 2 * self.d_model
 
+    @property
+    def n_cross(self) -> int:
+        """Cross-attention layers: every decoder layer of the encdec
+        family, one per group of ``cross_every`` layers of the vlm family,
+        none for the others."""
+        if self.family == "encdec":
+            return self.n_layers
+        if self.family == "vlm":
+            return self.n_layers // self.cross_every
+        return 0
+
+    @property
+    def cross_len(self) -> int:
+        """Keys of the cross-attention: the encoder's frames (encdec) or
+        the vision tokens (vlm)."""
+        return self.n_vision_tokens if self.family == "vlm" else self.enc_len
+
     def is_global_layer(self, idx: int) -> bool:
         if self.window == 0:
             return True
@@ -125,7 +153,7 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("decoder", "moe", "hybrid", "encdec"):
+    if cfg.family not in ("decoder", "moe", "hybrid", "encdec", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
             "the other families")
@@ -140,6 +168,11 @@ def check_supported(cfg: LMConfig) -> None:
         raise ValueError("the hybrid family needs ssm_state > 0")
     if cfg.family == "encdec" and cfg.enc_layers == 0:
         raise ValueError("the encdec family needs enc_layers > 0")
+    if cfg.family == "vlm" and (cfg.cross_every < 1
+                                or cfg.n_layers % cfg.cross_every):
+        raise ValueError(f"the vlm family needs n_layers ({cfg.n_layers}) "
+                         f"to be a multiple of cross_every "
+                         f"({cfg.cross_every}), as the reference asserts")
 
 
 def layer_window(cfg: LMConfig, idx: int) -> int:
@@ -256,8 +289,8 @@ def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
 
 
 def init(cfg: LMConfig, gen: torch.Generator) -> dict:
-    """Random decoder-, moe-, hybrid- or encdec-family parameters, drawn from
-    ``gen`` on its device in the reference's order and layout.  They are
+    """Random decoder-, moe-, hybrid-, encdec- or vlm-family parameters,
+    drawn from ``gen`` on its device in the reference's order and layout.  They are
     not the reference's numbers for any seed;
     ``repro_torch.convert.lm_params_from_jax`` shares the reference's
     weights instead."""
@@ -281,22 +314,30 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
         else:
             b["mlp"] = _mlp_params(gen, cfg, L, ff)
         return b
+
+    def cross_blocks(L: int, gate: float) -> dict:
+        # a decoder block with the cross-attention's norm, weights and a
+        # tanh gate after it (the reference's _cross_block_params)
+        return {**block(L, False, cfg.d_ff),
+                "ln_x": _norm_params(cfg, (L,), dev),
+                "xattn": _attn_params(gen, cfg, L),
+                "gate_attn": torch.full((L,), gate, dtype=cfg.dtype,
+                                        device=dev)}
     if cfg.family == "moe":
         p["dense0"] = block(1, False, cfg.first_dense_ff or cfg.d_ff)
         p["blocks"] = block(L - 1, True, cfg.d_ff)
     elif cfg.family == "hybrid":
         p["blocks"] = _hymba_params(gen, cfg, L)
     elif cfg.family == "encdec":
-        # the reference's encoder stack and its norm, then its decoder:
-        # each block a decoder block with the cross-attention's norm,
-        # weights and a tanh gate of 1 after it (_cross_block_params)
+        # the reference's encoder stack and its norm, then its decoder of
+        # cross blocks, gates 1
         p["enc_blocks"] = block(cfg.enc_layers, False, cfg.d_ff)
         p["enc_norm"] = _norm_params(cfg, (), dev)
-        p["dec_blocks"] = {**block(L, False, cfg.d_ff),
-                           "ln_x": _norm_params(cfg, (L,), dev),
-                           "xattn": _attn_params(gen, cfg, L),
-                           "gate_attn": torch.ones((L,), dtype=cfg.dtype,
-                                                   device=dev)}
+        p["dec_blocks"] = cross_blocks(L, 1.0)
+    elif cfg.family == "vlm":
+        # the self layers, then one cross block per group, gates 0
+        p["blocks"] = block(L - cfg.n_cross, False, cfg.d_ff)
+        p["cross_blocks"] = cross_blocks(cfg.n_cross, 0.0)
     else:
         p["blocks"] = block(L, False, cfg.d_ff)
     return p
@@ -310,26 +351,40 @@ def layer_params(params: dict, idx: int) -> dict:
 
 def layers(cfg: LMConfig, params: dict):
     """The blocks in order, each as (its parameters, its window, whether
-    its FFN is the MoE one); the cache's layer axis follows this order.
-    The moe family runs ``params["dense0"]`` first, with no window, then
-    its ``n_layers - 1`` MoE blocks, whose windows count from 0 at the
-    first MoE block (the reference's scan index, not the absolute
-    layer).  The encdec family yields its decoder blocks
-    (``params["dec_blocks"]``); its encoder runs in
-    ``serve.engine.encode_cross``."""
+    its FFN is the MoE one, its index into the lanes' cross K/V ``xk`` /
+    ``xv`` or None for a block without cross-attention); the cache's layer
+    axis follows this order.  The moe family runs ``params["dense0"]``
+    first, with no window, then its ``n_layers - 1`` MoE blocks, whose
+    windows count from 0 at the first MoE block (the reference's scan
+    index, not the absolute layer).  The encdec family yields its decoder
+    blocks (``params["dec_blocks"]``), block i reading cross K/V i; its
+    encoder runs in ``serve.engine.encode_cross``.  The vlm family yields,
+    for each group g of ``cross_every`` = k layers, the self blocks
+    ``params["blocks"][g (k - 1) + j]`` (j < k - 1), then
+    ``params["cross_blocks"][g]``, reading cross K/V g: layer g k + j is
+    the reference's grouped ``k[g, j]``, layer g k + k - 1 its
+    ``kx_self[g]``."""
     if cfg.family == "encdec":
         for i in range(cfg.n_layers):
-            yield layer_params(params["dec_blocks"], i), 0, False
+            yield layer_params(params["dec_blocks"], i), 0, False, i
+        return
+    if cfg.family == "vlm":
+        k = cfg.cross_every
+        for g in range(cfg.n_cross):
+            for j in range(k - 1):
+                yield layer_params(params["blocks"], g * (k - 1) + j), 0, \
+                    False, None
+            yield layer_params(params["cross_blocks"], g), 0, False, g
         return
     if cfg.family == "moe":
-        yield layer_params(params["dense0"], 0), 0, False
+        yield layer_params(params["dense0"], 0), 0, False, None
         for i in range(cfg.n_layers - 1):
             yield layer_params(params["blocks"], i), layer_window(cfg, i), \
-                True
+                True, None
     else:
         for i in range(cfg.n_layers):
             yield layer_params(params["blocks"], i), layer_window(cfg, i), \
-                False
+                False, None
 
 
 # ==========================================================================
@@ -535,12 +590,14 @@ def cross_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                 enc_kv: tuple[torch.Tensor, torch.Tensor], *,
                 q_offset: int = 0,
                 kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """The encdec decoder block: causal self-attention (resumed from
+    """The cross block (the encdec decoder's, the vlm family's cross
+    layer): causal self-attention (resumed from
     ``kv_prefix`` at ``q_offset`` in a fold chunk, see
-    :func:`_attn_apply`), then cross-attention over the encoder's K/V
-    ``enc_kv`` ((B, enc_len, Hkv, Dh) each, not causal, at offset 0, as the
-    reference passes it) scaled by tanh(``gate_attn``) in float32, then the
-    MLP.  Returns (x, (k, v)), the self-attention's rows."""
+    :func:`_attn_apply`), then cross-attention over the encoder's or the
+    vision tokens' K/V ``enc_kv`` ((B, cross_len, Hkv, Dh) each, not
+    causal, at offset 0, as the reference passes it; the queries take no
+    RoPE) scaled by tanh(``gate_attn``) in float32, then the MLP.  Returns
+    (x, (k, v)), the self-attention's rows."""
     h, kv = _attn_apply(cfg, p["attn"], _norm_apply(cfg, p["ln1"], x),
                         positions, causal=True, q_offset=q_offset,
                         kv_prefix=kv_prefix)
@@ -559,11 +616,13 @@ def _gate(p: dict, x: torch.Tensor) -> torch.Tensor:
 def cross_decode(cfg: LMConfig, p: dict, x: torch.Tensor,
                  xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     """A decode tick's gated cross-attention for a (B, 1, d) activation
-    against each lane's encoder K/V ``xk``, ``xv`` (B, enc_len, Hkv, Dh):
-    ``ln_x``, the biased query, the plain single-token attention over every
-    frame (:func:`repro_torch.nn.attention.attend_decode`, as the
-    reference's tick attends in XLA), the biased output projection and the
-    gate.  Returns what the tick adds to x, (B, 1, d)."""
+    against each lane's cross K/V ``xk``, ``xv`` (B, cross_len, Hkv, Dh):
+    ``ln_x``, the query (biased where the block has ``bq``), the plain
+    single-token attention over every frame or vision token
+    (:func:`repro_torch.nn.attention.attend_decode`, as the reference's
+    tick attends in XLA), the output projection (biased where the block
+    has ``bo``) and the gate.  Returns what the tick adds to x, (B, 1,
+    d)."""
     B, xa = x.shape[0], p["xattn"]
     q = _proj(_norm_apply(cfg, p["ln_x"], x), xa["wq"], xa.get("bq")
               ).reshape(B, 1, cfg.n_heads, cfg.d_head)

@@ -1,4 +1,4 @@
-"""Serving engine of the port, decoder, moe, hybrid and encdec families:
+"""Serving engine of the port, decoder, moe, hybrid, encdec and vlm families:
 one-shot prefill, the chunked prefill fold's step and the batched
 single-token decode ticks, against the dense cache and against the paged
 block arena.
@@ -9,7 +9,9 @@ family adds its recurrent state, ``conv`` (L, B, K-1, d_inner) in the
 model's dtype and ``ssm`` (L, B, d_inner, N) in float32; the encdec
 family adds the encoder's cross K/V of every decoder layer, ``xk`` and
 ``xv`` (L, B, enc_len, Hkv, Dh) in the model's dtype
-(:func:`encode_cross`).  The paged arena splices a ``num_blocks`` axis in
+(:func:`encode_cross`), the vlm family the vision tokens' cross K/V of
+each of its G cross layers, ``xk`` and ``xv`` (G, B, n_vision_tokens, Hkv,
+Dh) (:func:`vision_cross`).  The paged arena splices a ``num_blocks`` axis in
 just before the batch axis of a B=1, ``block_size``-long cache: (L,
 num_blocks, 1, bs, Hkv, Dh), layer-leading, so one layer's slice is
 exactly what the paged attention reads; the recurrent state and the cross
@@ -40,6 +42,18 @@ The encdec family runs its encoder once per admission
 the non-causal encoder blocks, the final norm, then each decoder layer's
 cross K and V); every chunk of a fold reads the same cross K/V, and a
 tick attends them in plain PyTorch, as the reference's tick does in XLA.
+
+The vlm family keeps one flat, layer-ordered cache and arena, as the
+other families do, where the reference keeps a grouped one for its
+``jax.lax.scan``: with k = ``cross_every``, the reference's ``k[g, j]``
+(G, k - 1, ...) is the port's layer g k + j, and its ``kx_self[g]`` (its
+cross layers' self K/V) is layer g k + k - 1 (:func:`lm.layers`).  Its
+cross K/V come from the vision embedding once per admission
+(:func:`vision_cross`), and its prompts are admitted one-shot: the
+reference leaves the family out of the chunked fold
+(:func:`prefill_chunked` refuses it), and its tick runs the plain
+in-place read (``backend="plain"``; :func:`decode_step_paged` refuses the
+kernels' backends, as the reference refuses them).
 """
 from __future__ import annotations
 
@@ -50,24 +64,29 @@ from repro_torch.kernels import ref
 from repro_torch.models import lm
 
 # Cache keys whose axis -3 is the (paged) sequence axis: k and v only (the
-# hybrid family's conv and ssm state and the encdec family's cross K/V are
-# per lane, not per position).
+# hybrid family's conv and ssm state and the encdec and vlm families' cross
+# K/V are per lane, not per position).
 PAGED_SEQ_KEYS = ("k", "v")
 # the hybrid family's recurrent state, per layer and lane
 STATE_KEYS = ("conv", "ssm")
-# the encdec family's cross K/V, per layer and lane
+# the encdec and vlm families' cross K/V, per cross layer and lane
 CROSS_KEYS = ("xk", "xv")
+# the keyword of each family's cross-attention input, the reference's
+# batch extras: the encoder's frames, the vision tower's patches
+EXTRAS_KEYS = {"encdec": "enc_embed", "vlm": "vision_embed"}
 
 
 def init_state(cfg: lm.LMConfig, batch: int,
                device: str | torch.device = "cuda") -> dict:
     """Zeroed lane state: the hybrid family's recurrent state, conv (L,
     B, K-1, d_inner) in the model's dtype and ssm (L, B, d_inner, N)
-    float32; the encdec family's cross K/V, xk / xv (L, B, enc_len, Hkv,
-    Dh) in the model's dtype; an empty dict for the other families."""
+    float32; the encdec and vlm families' cross K/V, xk / xv (n_cross, B,
+    cross_len, Hkv, Dh) in the model's dtype (``lm.LMConfig.n_cross``,
+    ``cross_len``); an empty dict for the other families."""
     L = cfg.n_layers
-    if cfg.family == "encdec":
-        shape = (L, batch, cfg.enc_len, cfg.n_kv_heads, cfg.d_head)
+    if cfg.n_cross:
+        shape = (cfg.n_cross, batch, cfg.cross_len, cfg.n_kv_heads,
+                 cfg.d_head)
         return {key: torch.zeros(shape, dtype=cfg.dtype, device=device)
                 for key in CROSS_KEYS}
     if cfg.family != "hybrid":
@@ -93,8 +112,8 @@ def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
 def empty_cache(cfg: lm.LMConfig, batch: int,
                 device: str | torch.device = "cuda") -> dict:
     """The prefix cache of a cold fold: k/v of no positions, ``len`` 0 and
-    the hybrid family's zero state; not the encdec family's cross K/V,
-    which each admission's :func:`encode_cross` provides."""
+    the hybrid family's zero state; not the cross K/V, which each
+    admission provides (:func:`cross_kv`)."""
     return {key: torch.zeros(a.shape, dtype=a.dtype, device=device)
             for key, a in init_cache(cfg, batch, 0, "meta").items()
             if key not in CROSS_KEYS}
@@ -162,23 +181,62 @@ def encode_cross(cfg: lm.LMConfig, params: dict, enc_embed: torch.Tensor
     return torch.stack(xk), torch.stack(xv)
 
 
+def vision_cross(cfg: lm.LMConfig, params: dict, vision_embed: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The vlm family's cross K/V: ``vision_embed`` (B, n_vision_tokens, d)
+    patch embeddings, cast to the model's dtype, through each cross layer's
+    ``xattn`` ``wk`` and ``wv``, with no bias, as the reference's prefill
+    projects them per group.  Returns (xk, xv), each (G, B,
+    n_vision_tokens, Hkv, Dh) in the model's dtype."""
+    if cfg.family != "vlm":
+        raise ValueError(f"vision_cross projects the vlm family's vision "
+                         f"tokens, not {cfg.family!r}'s")
+    vis = vision_embed.to(cfg.dtype)
+    shape = (vis.shape[0], vis.shape[1], cfg.n_kv_heads, cfg.d_head)
+    xa = params["cross_blocks"]["xattn"]
+    return (torch.stack([lm._proj(vis, w).reshape(shape) for w in xa["wk"]]),
+            torch.stack([lm._proj(vis, w).reshape(shape) for w in xa["wv"]]))
+
+
+def cross_kv(cfg: lm.LMConfig, params: dict, *,
+             enc_embed: torch.Tensor | None = None,
+             vision_embed: torch.Tensor | None = None) -> dict:
+    """An admission's cross K/V, ``{"xk", "xv"}``: the encdec family's
+    from its frames ``enc_embed`` (:func:`encode_cross`), the vlm family's
+    from its patches ``vision_embed`` (:func:`vision_cross`); {} for the
+    other families.  Each family needs its own input and refuses the
+    other's (``ValueError``)."""
+    given = {key: a for key, a in (("enc_embed", enc_embed),
+                                   ("vision_embed", vision_embed))
+             if a is not None}
+    want = EXTRAS_KEYS.get(cfg.family)
+    if set(given) != ({want} if want else set()):
+        need = f"{want} and only it" if want else "neither enc_embed nor " \
+            "vision_embed"
+        raise ValueError(f"the {cfg.family} family's prefill takes {need} "
+                         f"(got {sorted(given)})")
+    if not want:
+        return {}
+    fn = encode_cross if cfg.family == "encdec" else vision_cross
+    return dict(zip(CROSS_KEYS, fn(cfg, params, given[want])))
+
+
 def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor, *,
-            enc_embed: torch.Tensor | None = None):
+            enc_embed: torch.Tensor | None = None,
+            vision_embed: torch.Tensor | None = None):
     """Process a whole prompt.  tokens (B, S) -> (cache, last-token logits
     (B, vocab_padded) float32); cache k/v (L, B, S, Hkv, Dh), len S, and
     the lane state after the prompt: one fold step from an empty prefix
     (hybrid: a prompt of S tokens must be a multiple of ``min(cfg.ssm_chunk,
     S)``, else ``ValueError``).  The encdec family needs the frame
-    embeddings ``enc_embed`` (B, enc_len, d), which go through
-    :func:`encode_cross` first; the other families refuse them."""
+    embeddings ``enc_embed`` (B, enc_len, d) and the vlm family the patch
+    embeddings ``vision_embed`` (B, n_vision_tokens, d), which give the
+    cross K/V first (:func:`cross_kv`); the other families refuse both."""
     lm.check_supported(cfg)
-    cache = empty_cache(cfg, tokens.shape[0], tokens.device)
-    if (enc_embed is None) != (cfg.family != "encdec"):
-        raise ValueError("prefill takes enc_embed for the encdec family "
-                         f"and only for it (family {cfg.family!r})")
-    if enc_embed is not None:
-        cache["xk"], cache["xv"] = encode_cross(cfg, params, enc_embed)
-    return prefill_chunked(cfg, params, tokens, cache, 0)
+    cache = {**empty_cache(cfg, tokens.shape[0], tokens.device),
+             **cross_kv(cfg, params, enc_embed=enc_embed,
+                        vision_embed=vision_embed)}
+    return _fold_step(cfg, params, tokens, cache, 0)
 
 
 def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
@@ -193,7 +251,9 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     the admission's :func:`encode_cross`; all read and not written.
     Returns (cache covering prefix and chunk, len ``q_offset + S_chunk``,
     with the state after the chunk and the same xk / xv; the chunk's
-    last-token logits (B, vocab_padded) float32).
+    last-token logits (B, vocab_padded) float32).  The vlm family is
+    refused (``ValueError``), as the reference's fold asserts it out: its
+    prompts are admitted one-shot (:func:`prefill`).
 
     A radix prefix hit of H blocks resumes the fold at chunk H with the
     prefix gathered from the arena (and, hybrid, the boundary state the
@@ -203,18 +263,29 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     chunk concatenates the whole prefix in every layer and stacks the
     layers again, as the reference does."""
     lm.check_supported(cfg)
+    if cfg.family == "vlm":
+        raise ValueError("the chunked prefill fold does not cover the vlm "
+                         "family (the reference leaves it out); admit its "
+                         "prompts one-shot")
+    return _fold_step(cfg, params, tokens, cache, q_offset)
+
+
+def _fold_step(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
+               cache: dict, q_offset: int):
+    """:func:`prefill_chunked`'s step for every family: the one-shot
+    prefill is this step from an empty prefix."""
     B, S = tokens.shape
     if cache["k"].shape[-3] != q_offset:
         raise ValueError(f"prefix holds {cache['k'].shape[-3]} positions, "
                          f"q_offset is {q_offset}")
     hybrid = cfg.family == "hybrid"
-    encdec = cfg.family == "encdec"
     x = lm.embed_tokens(cfg, params, tokens, pos_offset=q_offset)
     positions = torch.arange(q_offset, q_offset + S,
                              device=x.device).expand(B, S)
     out = {key: [] for key in PAGED_SEQ_KEYS + (STATE_KEYS if hybrid
                                                  else ())}
-    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
+    for i, (lp, window, moe_layer, cross) in enumerate(
+            lm.layers(cfg, params)):
         prefix = (cache["k"][i], cache["v"][i])
         st = {}
         if hybrid:
@@ -222,9 +293,10 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                 cfg, lp, x, positions,
                 {key: cache[key][i] for key in STATE_KEYS}, window=window,
                 q_offset=q_offset, kv_prefix=prefix)
-        elif encdec:
+        elif cross is not None:
             x, (k, v) = lm.cross_block(
-                cfg, lp, x, positions, (cache["xk"][i], cache["xv"][i]),
+                cfg, lp, x, positions,
+                (cache["xk"][cross], cache["xv"][cross]),
                 q_offset=q_offset, kv_prefix=prefix)
         else:
             x, (k, v) = lm.decoder_block(
@@ -236,26 +308,26 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     new_cache = {"len": torch.tensor(q_offset + S, dtype=torch.int32,
                                      device=x.device),
                  **{key: torch.stack(ts) for key, ts in out.items()}}
-    if encdec:
+    if cfg.n_cross:
         new_cache.update({key: cache[key] for key in CROSS_KEYS})
     return new_cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
 
 
 def _block_tail(cfg: lm.LMConfig, lp: dict, x: torch.Tensor,
                 z: torch.Tensor, att: torch.Tensor, moe_layer: bool,
-                state: dict, i: int, active: torch.Tensor | None
-                ) -> torch.Tensor:
+                state: dict, i: int, cross: int | None,
+                active: torch.Tensor | None) -> torch.Tensor:
     """A decode tick's block after its attention ``att`` (from the normed
-    ``z``): the residual, for the encdec family the gated cross-attention
-    over layer ``i`` of ``state``'s xk / xv, and the FFN; or for the
-    hybrid family the SSM branch from layer ``i`` of ``state`` (whose
-    lanes' taps and state it overwrites in place, an inactive lane's put
-    back), the mix and the MLP."""
+    ``z``): the residual, for a cross block the gated cross-attention over
+    ``state``'s xk / xv at index ``cross``, and the FFN; or for the hybrid
+    family the SSM branch from layer ``i`` of ``state`` (whose lanes' taps
+    and state it overwrites in place, an inactive lane's put back), the mix
+    and the MLP."""
     if cfg.family != "hybrid":
         x = x + att
-        if cfg.family == "encdec":
-            x = x + lm.cross_decode(cfg, lp, x, state["xk"][i],
-                                    state["xv"][i])
+        if cross is not None:
+            x = x + lm.cross_decode(cfg, lp, x, state["xk"][cross],
+                                    state["xv"][cross])
         return x + lm.ffn_decode(cfg, lp, lm._norm_apply(cfg, lp["ln2"], x),
                                  moe_layer)
     y, conv, h = lm.ssm_decode(cfg, lp, z, state["conv"][i],
@@ -273,10 +345,10 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
 
     cache   k/v (L, B, Smax, Hkv, Dh), ``len`` (B,) int32 (or a scalar
             for every lane) and the lane state (the hybrid family's conv /
-            ssm, the encdec family's xk / xv), **updated in place**: per
-            layer and lane one K/V row at ``len``, the lane's next
-            recurrent state, and ``len + 1`` (the cross K/V are read
-            only).
+            ssm, the encdec and vlm families' xk / xv), **updated in
+            place**: per layer and lane one K/V row at ``len``, the
+            lane's next recurrent state, and ``len + 1`` (the cross K/V
+            are read only).
     tokens  (B, 1) integer.
     active  optional (B,) bool: an inactive lane still decodes (its logits
             are computed) but its rows, state and length stay as they
@@ -287,12 +359,14 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     B = tokens.shape[0]
     pos = cache["len"].to(torch.int32).expand(B)
     x = lm.embed_tick(cfg, params, tokens, pos)            # (B, 1, d)
-    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
+    for i, (lp, window, moe_layer, cross) in enumerate(
+            lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)
         att = lm.attn_decode(cfg, lp["attn"], z, cache["k"][i],
                              cache["v"][i], pos, window=window,
                              active=active)
-        x = _block_tail(cfg, lp, x, z, att, moe_layer, cache, i, active)
+        x = _block_tail(cfg, lp, x, z, att, moe_layer, cache, i, cross,
+                        active)
     step = 1 if active is None else active.to(cache["len"].dtype)
     cache["len"] += step
     return cache, lm.logits(cfg, params, x)[:, 0]
@@ -317,25 +391,31 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     backend ``"plain"`` (gather + masked softmax, indexed write),
             ``"cuda"`` (the ``paged_decode_attention`` kernel in every
             layer and one ``scatter_kv_rows`` launch after the layer loop,
-            from the layers' rows)
+            from the layers' rows; not for the vlm family)
             or ``"cascade"`` (shared-prefix cascade attention in every
             layer from the group metadata ``cascade``, see
             :func:`repro_torch.nn.attention.attend_decode_cascade`; the
             same write as ``"cuda"``, whose wrapper runs the plain write
-            for CPU tensors).
+            for CPU tensors; not for the vlm family, whose tick is
+            ``"plain"``, as the reference's is XLA).
     state   the lanes' state (:func:`init_state` with S lanes): the
             hybrid family's conv (L, S, K-1, d_inner) and ssm (L, S,
             d_inner, N), **updated in place**, ``active`` (S,) bool
             keeping an inactive lane's as it was, as the reference's
-            adapter selects it; the encdec family's cross K/V xk / xv (L,
-            S, enc_len, Hkv, Dh), read only.  The decoder and moe
-            families have no slot state besides ``lens`` (the caller's).
+            adapter selects it; the encdec and vlm families' cross K/V xk /
+            xv (n_cross, S, cross_len, Hkv, Dh), read only.  The decoder
+            and moe families have no slot state besides ``lens`` (the
+            caller's).
 
     Returns the logits (S, vocab_padded) float32."""
     lm.check_supported(cfg)
     if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
-    if cfg.family in ("hybrid", "encdec") and state is None:
+    if cfg.family == "vlm" and backend != "plain":
+        raise ValueError(f"backend={backend!r}: the vlm family's tick runs "
+                         "the plain read only, as the reference's runs XLA "
+                         "only")
+    if (cfg.family == "hybrid" or cfg.n_cross) and state is None:
         raise ValueError(f"the {cfg.family} family's tick needs the "
                          "lanes' state (state=)")
     bs = arena["k"].shape[-3]
@@ -347,12 +427,14 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
     x = lm.embed_tick(cfg, params, tokens, pos)            # (S, 1, d)
     k_rows, v_rows = [], []
-    for i, (lp, window, moe_layer) in enumerate(lm.layers(cfg, params)):
+    for i, (lp, window, moe_layer, cross) in enumerate(
+            lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)
         att, k1, v1 = lm.attn_decode_paged(
             cfg, lp["attn"], z, arena["k"][i], arena["v"][i], tables, pos,
             window=window, backend=backend, cascade=cascade)
-        x = _block_tail(cfg, lp, x, z, att, moe_layer, state, i, active)
+        x = _block_tail(cfg, lp, x, z, att, moe_layer, state, i, cross,
+                        active)
         k_rows.append(k1)
         v_rows.append(v1)
     # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,

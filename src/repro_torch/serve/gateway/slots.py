@@ -1,7 +1,7 @@
 """Continuous batching over slot adapters: the request record, the dense
 KV slots, the adapter factory and the family-agnostic scheduler loop.
 
-Two adapters of the decoder, moe, hybrid and encdec families so far:
+Two adapters of the decoder, moe, hybrid, encdec and vlm families so far:
 :class:`KVSlotAdapter`, each slot a dense cache of ``max_len`` positions
 with its own length (the reference's default), and the paged KV slots
 (``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
@@ -60,23 +60,28 @@ class Request:
 
 def extras_kwargs(cfg: LMConfig, extras, device: torch.device) -> dict:
     """The keywords ``engine.prefill`` takes from an adapter's ``extras``
-    callable, the reference's per-family modality stub: for the encdec
-    family the frame embeddings ``{"enc_embed": (1, enc_len, d)}`` it
-    returns (numpy or a tensor), on ``device``; nothing for the other
-    families, which take none."""
-    if cfg.family != "encdec":
+    callable, the reference's per-family modality stub: the frame
+    embeddings ``{"enc_embed": (1, enc_len, d)}`` of the encdec family and
+    the patch embeddings ``{"vision_embed": (1, n_vision_tokens, d)}`` of
+    the vlm family that it returns (numpy or a tensor), on ``device``;
+    nothing for the other families, which take none."""
+    key = engine.EXTRAS_KEYS.get(cfg.family)
+    if key is None:
         return {}
-    return {"enc_embed": torch.as_tensor(extras()["enc_embed"],
-                                         device=device)}
+    return {key: torch.as_tensor(extras()[key], device=device)}
 
 
 def check_extras(cfg: LMConfig, extras) -> None:
-    """The encdec family needs ``extras``; the other families take none."""
-    if (extras is None) == (cfg.family == "encdec"):
+    """The encdec and vlm families need ``extras``; the other families
+    take none."""
+    key = engine.EXTRAS_KEYS.get(cfg.family)
+    if (extras is None) == (key is not None):
         raise ValueError(f"extras= (a callable returning the frame "
-                         f"embeddings {{'enc_embed': (1, enc_len, d)}}) is "
-                         f"required for the encdec family and taken by no "
-                         f"other (family {cfg.family!r})")
+                         f"embeddings {{'enc_embed': (1, enc_len, d)}} or "
+                         f"the patch embeddings {{'vision_embed': (1, "
+                         f"n_vision_tokens, d)}}) is required for the "
+                         f"encdec and vlm families and taken by no other "
+                         f"(family {cfg.family!r})")
 
 
 def _dense_tick(cfg, params, cache, tokens, active):
@@ -88,10 +93,11 @@ def _dense_tick(cfg, params, cache, tokens, active):
 class KVSlotAdapter:
     """Dense KV slots, each lane's length its own: the cache holds k/v
     (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the lane state
-    (the hybrid family's recurrent state, conv / ssm, the encdec family's
-    cross K/V, xk / xv; (L, n_slots, ...)), on the params' device.
-    ``insert`` prefills one prompt (B=1, one-shot; for the encdec family
-    with the frame embeddings ``extras()`` returns) and writes its rows and
+    (the hybrid family's recurrent state, conv / ssm, (L, n_slots, ...);
+    the encdec and vlm families' cross K/V, xk / xv, (n_cross, n_slots,
+    ...)), on the params' device.  ``insert`` prefills one prompt (B=1,
+    one-shot; for the encdec and vlm families with the embeddings
+    ``extras()`` returns) and writes its rows and
     state into the slot in place, the rest of the slot zeros as the
     reference's padded write leaves it; ``clear`` sets the slot's length to
     0 (its rows and state stay, stale but unread); ``decode`` runs one
@@ -198,16 +204,19 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, extras=None, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg`` (decoder, moe, hybrid or encdec family,
-    the last with ``extras``, a callable returning ``{"enc_embed": (1,
-    enc_len, d)}`` for each admission, as the reference's): dense
+    """The slot adapter for ``cfg`` (decoder, moe, hybrid, encdec or vlm
+    family, the last two with ``extras``, a callable returning
+    ``{"enc_embed": (1, enc_len, d)}`` or ``{"vision_embed": (1,
+    n_vision_tokens, d)}`` for each admission, as the reference's): dense
     KV slots (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
     paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot
-    (``chunked=False``, storage-only prefix sharing); ``backend`` (paged
-    only) picks the decode tick's attention ("plain" | "cuda" | "cascade",
-    the last grouping lanes over shared prefix chains, or "gather", the
-    gather-tick oracle; None: "cuda" on a CUDA device, else "plain")."""
+    (``chunked=False``, storage-only prefix sharing; the vlm family is
+    always admitted one-shot); ``backend`` (paged only) picks the decode
+    tick's attention ("plain" | "cuda" | "cascade", the last grouping
+    lanes over shared prefix chains, or "gather", the gather-tick oracle;
+    None: "cuda" on a CUDA device, else "plain"; for the vlm family
+    "plain" or "gather" only, None giving "plain")."""
     if not paged:
         if backend is not None:
             raise ValueError(f"backend={backend!r} selects the paged decode "

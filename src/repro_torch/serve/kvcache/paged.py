@@ -64,13 +64,24 @@ Boundary states (the hybrid family)
     Each lane's own state lives in ``state`` (L, n_slots, ...), which the
     ticks overwrite in place (an inactive lane's put back bit for bit).
 
-Cross K/V (the encdec family)
+Cross K/V (the encdec and vlm families)
     Each admission runs the encoder on the frame embeddings ``extras()``
     returns (:func:`engine.encode_cross`), a prefix hit too: the radix
     index keys on tokens alone and a hit skips decoder work only, as in
     the reference.  Every chunk of the fold reads that one encoding, and
     the lane keeps it in ``state["xk"]`` / ``state["xv"]`` (L, n_slots,
-    enc_len, Hkv, Dh), which the ticks read.
+    enc_len, Hkv, Dh), which the ticks read.  The vlm family's admission
+    projects the patch embeddings ``extras()`` returns
+    (:func:`engine.vision_cross`) into ``state`` likewise, (G, n_slots,
+    n_vision_tokens, Hkv, Dh); its arena is the flat layer-ordered one
+    (``engine``'s docstring maps it onto the reference's grouped cache).
+
+The vlm family
+    As in the reference: admission is one-shot whatever ``chunked`` says
+    (the fold leaves the family out), with the radix sharing and
+    copy-on-write below; the tick is ``"plain"`` (auto-selection resolves
+    to it on every device, and an explicit ``"cuda"`` or ``"cascade"``
+    raises, ``serve/backend.py``); ``"gather"`` stays its oracle.
 
 Sharing / copy-on-write (one-shot prefill, ``chunked=False``)
     Admission walks the pool's radix index: full prompt blocks that match
@@ -104,8 +115,8 @@ Observability (``tracer``, wired by the prompt gateway for a run)
     ``work`` sums each stage's FLOP and byte counts for ``cost_args``.
     Without one the adapter makes no obs call and no extra synchronize.
 
-The reference's vlm family and mesh placement come with later slices
-(ROADMAP.md).
+The reference's mesh placement and its int8 KV layout come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -203,8 +214,8 @@ def _cascade_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
 
 
 class PagedKVSlotAdapter:
-    """Paged KV slots for the decoder, moe, hybrid and encdec families (the
-    last with ``extras``, see ``slots.make_adapter``), with the
+    """Paged KV slots for the decoder, moe, hybrid, encdec and vlm families
+    (the last two with ``extras``, see ``slots.make_adapter``), with the
     batcher surface (``insert`` / ``decode`` / ``clear``) and the paging
     hooks the batcher discovers by presence: ``can_admit``,
     ``validate_request``, ``at_capacity``, ``slot_stats``,
@@ -218,14 +229,15 @@ class PagedKVSlotAdapter:
         self.cfg = cfg
         self.extras = extras
         self.hybrid = cfg.family == "hybrid"
-        self.chunked = chunked
+        # the reference's fold leaves the vlm family out: one-shot always
+        self.chunked = chunked and cfg.family != "vlm"
         self.params = params
         self.device = params["embed"].device
         self.n_slots = n_slots
         self.bs = block_size
         self.nb_max = -(-max_len // block_size)
         self.max_len = self.nb_max * block_size
-        self.backend = resolve_backend(backend, self.device)
+        self.backend = resolve_backend(backend, self.device, cfg.family)
         # what a tick runs when nothing is grouped: the flat tick of the
         # device, so a cascade tick without a group is exactly that tick
         self.flat_backend = auto_backend(self.device) \
@@ -243,7 +255,7 @@ class PagedKVSlotAdapter:
                                              self.device)
         self.seq_keys = tuple(self.arena)
         # the lanes' state: the hybrid family's recurrent state, the encdec
-        # family's cross K/V ({} otherwise)
+        # and vlm families' cross K/V ({} otherwise)
         self.state = engine.init_state(cfg, n_slots, self.device)
         # the hybrid family's boundary states (see the module docstring),
         # by chain key, least recently used first
@@ -411,12 +423,9 @@ class PagedKVSlotAdapter:
     def _encode(self) -> dict[str, torch.Tensor]:
         """The encdec family's cross K/V for one admission, each (L, 1,
         enc_len, Hkv, Dh), from the frame embeddings ``extras()`` returns;
-        {} for the other families."""
-        kw = extras_kwargs(self.cfg, self.extras, self.device)
-        if not kw:
-            return {}
-        return dict(zip(engine.CROSS_KEYS, engine.encode_cross(
-            self.cfg, self.params, kw["enc_embed"])))
+        {} for the other families the fold takes."""
+        return engine.cross_kv(self.cfg, self.params, **extras_kwargs(
+            self.cfg, self.extras, self.device))
 
     def _prefix_cache(self, bids: list[int], state: dict | None = None
                       ) -> dict[str, torch.Tensor]:
@@ -477,8 +486,8 @@ class PagedKVSlotAdapter:
 
     def _set_state(self, slot: int, cache: dict) -> None:
         """The slot's lane state after its prefill (the hybrid family's
-        recurrent state, the encdec family's cross K/V), copied in place:
-        the captured ticks read these tensors."""
+        recurrent state, the encdec and vlm families' cross K/V), copied in
+        place: the captured ticks read these tensors."""
         for key, a in self.state.items():
             a[:, slot] = cache[key][:, 0]
 

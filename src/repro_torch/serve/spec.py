@@ -67,7 +67,8 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
     """Build the ``PromptGateway`` that ``spec`` (plus field ``overrides``)
     describes, on ``device``, where ``params`` must already live.
     ``extras`` is the per-family modality stub ``make_adapter`` takes (the
-    encdec family's frame embeddings)."""
+    encdec family's frame embeddings, the vlm family's patch
+    embeddings)."""
     from repro_torch.serve.gateway.gateway import PromptGateway
     from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 

@@ -1270,6 +1270,133 @@ def test_encdec_replay_after_readmission_reads_new_cross_kv(dev, paged):
     assert torch.equal(ad.last_logits[0], fresh.last_logits[0])
 
 
+# -- the vlm family at 64 heads of 128 over 8 KV heads (llama-3.2-vision) ----
+
+VLM_H, VLM_HKV, VLM_D, VLM_VIS = 64, 8, 128, 1024
+
+
+@pytest.mark.parametrize("Sq,q_offset", [(1000, 0), (16, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vlm_heads_causal(dev, Sq, q_offset, dtype):
+    """Causal prompt attention at GQA 8:1 over heads of 128: a
+    1,000-token one-shot prompt and a 16-query chunk at offset 512,
+    against the plain version, a repeated call bitwise."""
+    gen = torch.Generator().manual_seed(Sq + q_offset)
+    Sk = q_offset + Sq
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    q, k, v = arr(1, Sq, VLM_H, VLM_D), arr(1, Sk, VLM_HKV, VLM_D), \
+        arr(1, Sk, VLM_HKV, VLM_D)
+    got = flash_kernel.flash_attention(q, k, v, q_offset=q_offset)
+    want = ref.flash_attention_chunked(q, k, v, True, None, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(
+        q, k, v, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("Sq", [1000, 16])
+@pytest.mark.parametrize("min_ctas", [None, 0, 1 << 30])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vlm_vision_keys(monkeypatch, dev, Sq,
+                                                min_ctas, dtype):
+    """The vlm cross-attention: 1,000 and 16 queries over 1,024 vision
+    keys (16 whole 64-key tiles), not causal, at GQA 8:1 over heads of
+    128, as planned (None), unsplit (0) and one tile per split (1 << 30);
+    against the plain version, a repeated call bitwise, the splits
+    covering the keys once."""
+    if min_ctas is not None:
+        monkeypatch.setattr(flash_kernel, "MIN_CTAS", min_ctas)
+    splits, lo, keys = flash_kernel.flash_split_plan(
+        1, Sq, VLM_VIS, VLM_H, 0, None, causal=False)
+    assert lo == 0 and (splits - 1) * keys < VLM_VIS <= splits * keys
+    gen = torch.Generator().manual_seed(Sq + (min_ctas or 1))
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    q, k, v = arr(1, Sq, VLM_H, VLM_D), arr(1, VLM_VIS, VLM_HKV, VLM_D), \
+        arr(1, VLM_VIS, VLM_HKV, VLM_D)
+    got = flash_kernel.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_chunked(q, k, v, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(q, k, v,
+                                                         causal=False))
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_vlm_serving_on_card(dev, paged):
+    """The vlm family on the card, float32 at its smoke size with every
+    gate at 0.5: one-shot admissions launch ``flash_attention`` once per
+    layer and once per cross layer (L + G a prompt) and the ticks none;
+    the captured tick (dense, or the paged ``"plain"`` tick) is bit for
+    bit its eager step in logits, cache or arena, and leaves the lanes'
+    vision K/V as they were; the ticks' tokens equal those of the same
+    load with the prefill's attention through the plain version, logits
+    within 2e-4."""
+    from types import SimpleNamespace
+    from unittest import mock
+    cfg = dataclasses.replace(configs.smoke_config("llama-3.2-vision-90b"),
+                              param_dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    params["cross_blocks"]["gate_attn"].fill_(0.5)
+    rng = np.random.default_rng(37)
+    vis = torch.from_numpy(rng.normal(0, 1, (1, cfg.n_vision_tokens,
+                                             cfg.d_model)).astype(
+        np.float32)).to(dev)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 17, 30)]
+    forced = rng.integers(0, cfg.vocab, (6, 3)).astype(np.int32)
+
+    def adapter():
+        ad = make_adapter(cfg, params, n_slots=3, max_len=64,
+                          extras=lambda: {"vision_embed": vis}, paged=paged,
+                          block_size=16)
+        first = [ad.insert(s, p, max_new=8) for s, p in enumerate(prompts)]
+        return ad, first
+    (ad, first), admit = _counted(adapter)
+    assert admit["flash_attention"] == 3 * (cfg.n_layers + cfg.n_cross)
+    assert getattr(ad, "backend", "plain") == "plain"
+    active = np.ones(3, bool)
+    ad.decode(forced[0], active)                     # captures the tick
+    step, inputs, _ = ad._tick_inputs(forced[1], active)
+    state = {**ad.arena, **ad.state} if paged else ad.cache
+    start = {k: a.clone() for k, a in state.items()}
+    out = {}
+    for name, run in (("replay", lambda: step(*inputs).clone()),
+                      ("eager", lambda: step.fn(*step.load(*inputs)))):
+        for key, a in state.items():
+            a.copy_(start[key])
+        logits, counts = _counted(run)
+        out[name] = (logits, {k: a.clone() for k, a in state.items()},
+                     counts)
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    assert torch.equal(lr, le) and cr == ce
+    assert not any(cr.values())
+    for key in ar:
+        assert torch.equal(ar[key], ae[key]), key
+    for key in ("xk", "xv"):
+        assert torch.equal(ar[key], start[key])
+    for key, a in state.items():
+        a.copy_(start[key])
+
+    def plain(q, k, v, **kw):
+        return ref.flash_attention_chunked(
+            q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+            kw["q_chunk"], kw["kv_chunk"])
+    with mock.patch.object(attention, "flash_kernels",
+                           SimpleNamespace(flash_attention=plain)):
+        (base, base_first), admit = _counted(adapter)
+    assert admit["flash_attention"] == 0 and base_first == first
+    base.decode(forced[0], active)
+    for row in forced[1:]:
+        np.testing.assert_array_equal(ad.decode(row, active),
+                                      base.decode(row, active))
+        torch.testing.assert_close(ad.last_logits, base.last_logits,
+                                   rtol=2e-4, atol=2e-4)
+
+
 # -- the prompt path on the card ------------------------------------------------
 
 def _smoke_lm(dev, dtype):

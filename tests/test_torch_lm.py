@@ -29,6 +29,10 @@ ARCH = "stablelm_3b"
 MOE = "deepseek_moe_16b"
 HYMBA = "hymba_1_5b"
 ENCDEC = "whisper_medium"
+VLM = "llama32_vision_90b"
+# the vlm family's cross-attention gate in the parity tests: the
+# reference initializes it to 0, where tanh(0) hides the whole cross path
+VLM_GATE = 0.5
 
 
 def _t(a):
@@ -63,15 +67,36 @@ def frames(cfg):
     return rng.normal(0, 1, (1, cfg.enc_len, cfg.d_model)).astype(np.float32)
 
 
+def vision(cfg, seed=98):
+    """The reference tests' patch embeddings for the vlm family
+    (``tests/test_paged_decode.py``): (1, n_vision_tokens, d) float32 from
+    ``np.random.default_rng(98)``."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(0, 1, (1, cfg.n_vision_tokens, cfg.d_model)
+                      ).astype(np.float32)
+
+
+def vlm_pair(dtype="float32", gate=VLM_GATE, **kw):
+    """:func:`smoke_pair` for the vlm family with every cross layer's
+    ``gate_attn`` set to ``gate`` on both sides."""
+    jcfg, jparams, cfg, params = smoke_pair(dtype, arch=VLM, **kw)
+    g = jparams["cross_blocks"]["gate_attn"]
+    jparams["cross_blocks"]["gate_attn"] = jnp.full_like(g, gate)
+    params["cross_blocks"]["gate_attn"] = torch.full(
+        tuple(g.shape), gate, dtype=cfg.dtype)
+    return jcfg, jparams, cfg, params
+
+
 def extras_pair(cfg):
     """(the reference's ``extras``, the port's) for ``cfg``'s family: the
-    frames of :func:`frames` for the encdec family, (None, None) for the
-    others."""
-    if cfg.family != "encdec":
+    frames of :func:`frames` for the encdec family, the patches of
+    :func:`vision` for the vlm family, (None, None) for the others."""
+    if cfg.family not in ("encdec", "vlm"):
         return None, None
-    enc = frames(cfg)
-    return (lambda: {"enc_embed": jnp.asarray(enc)},
-            lambda: {"enc_embed": torch.from_numpy(enc)})
+    key = "enc_embed" if cfg.family == "encdec" else "vision_embed"
+    emb = frames(cfg) if cfg.family == "encdec" else vision(cfg)
+    return (lambda: {key: jnp.asarray(emb)},
+            lambda: {key: torch.from_numpy(emb)})
 
 
 @pytest.mark.parametrize("arch_fn", ["config", "smoke_config"])
