@@ -18,6 +18,7 @@
                                    # phase 13 alone
     python3 chip_smoke.py --obs    # phase 14 alone
     python3 chip_smoke.py --vlm    # phase 15 alone
+    python3 chip_smoke.py --rwkv   # phase 16 alone
 
 Phases, each printing one JSON line:
 
@@ -277,13 +278,39 @@ Phases, each printing one JSON line:
      (one whole group, 26.1 GB): dense, plain and gather gateways tokens
      equal with logits within 2e-4 (gather bit for bit plain) and load (b)
      through the kernel against the plain prefill, tokens equal and logits
-     within 2e-4.  ``python3 chip_smoke.py --vlm`` runs it alone.
+     within 2e-4.  ``python3 chip_smoke.py --vlm`` runs it alone;
+ 16. the rwkv family (``rwkv_main_path`` line): rwkv6-7b at its published
+     width and depth (32 layers, d_model 4,096, 64 wkv heads of 64, d_ff
+     14,336, vocabulary 65,536, ``rwkv_chunk`` 64; bf16, 15.05 GB of
+     random weights drawn on the card after phase 15's are freed) through
+     its state-slot path: ``make_gateway(..., ServeSpec(n_slots=8,
+     paged=True))`` builds a ``StateSlotAdapter`` (O(1) state, nothing to
+     page) and serves phase 10's prompts of 7, 64, 33 and 1 tokens and four
+     1,024-token prompts, 32 new tokens each, against each request served
+     alone by the same slots and against eager B = 1 decoding (in bf16
+     equal up to each stream's first difference, a near tie; reported
+     beside it: the first step of one tick where B = 1 and the 8 lanes
+     part);
+     phase 10's 100-token prompt refused (its chunks of 64 do not
+     divide it), the state untouched; the captured tick at 8 active lanes
+     bit for bit its eager step (logits and the wkv and shift states), one
+     graph launch per tick, timed captured against eager in turns beside a
+     byte model; a 1,024-token one-shot prefill's host ms; the SC frontend
+     at bits 4 on the 64- and 1,024-token prompts, bit for bit its plain
+     versions, ``sng_pack`` twice and ``sc_dot`` once per prompt and never
+     on a tick, the SC kernels timed at the 1,024-token shape beside their
+     bounds; then, the bf16 weights freed, float32 at depth 4: the 8-slot
+     batcher's tokens equal to dedicated decoding with logits within 2e-4,
+     and ``wkv6_chunked`` over layer 0's 128 steps within 2e-4 of 128
+     ``wkv6_step``s.  No attention kernel launches on the path.
+     ``python3 chip_smoke.py --rwkv`` runs it alone.
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
 
-Then a ``{"kernels": [...]}`` line (each kernel's launches on the path that
-brought it, and on every path in ``launches_by_path``) and, last,
+Then the whole script's seconds (``script_s`` line), a ``{"kernels":
+[...]}`` line (each kernel's launches on the path that brought it, and on
+every path in ``launches_by_path``) and, last,
 ``{"ok": true, "device": ...}``.
 Exits non-zero, and prints no result, without a CUDA device, without the
 repository beside it, or when any phase fails.
@@ -303,6 +330,7 @@ import time
 from pathlib import Path
 from unittest import mock
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -4137,6 +4165,570 @@ def vlm_main_path(dev, sleep: int) -> dict:
     return launches
 
 
+# -- the rwkv family: rwkv6-7b (phase 16) ------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RWKV_NEW_TOKENS = 32
+# phase 10's prompts that the one-shot prefill admits (at most rwkv_chunk =
+# 64 tokens, or a multiple of it: 7, 64, 33 and 1), then four 1,024-token
+# prompts; phase 10's 100-token prompt is refused
+RWKV_LONG, RWKV_REFUSED = 1024, 100
+# the SC frontend's prompts: 64 and 1,024 tokens
+RWKV_SC_LENS = (64, 1024)
+
+
+def rwkv_prompts(vocab: int):
+    """Phase 16's load: phase 10's prompts of 7, 64, 33 and 1 tokens, then
+    four seeded 1,024-token prompts.  Returns (the load, phase 10's
+    100-token prompt)."""
+    import numpy as np
+    dense = dense_prompts(vocab)
+    rng = np.random.default_rng(27)
+    load = [p for p in dense if len(p) in (7, 64, 33, 1)] + \
+        [rng.integers(0, vocab, RWKV_LONG).astype(np.int32)
+         for _ in range(4)]
+    refused = next(p for p in dense if len(p) == RWKV_REFUSED)
+    return load, refused
+
+
+def rwkv_serve(batcher, prompts, new_tokens: int) -> dict:
+    """``prompts`` through ``batcher`` (state slots, one slot per prompt,
+    so the first step admits them all and every request ticks in every
+    tick): per request (uid = index) its slot, its tokens and its first
+    token's logits (the prefill's), every tick's logits (float32 copies),
+    the host ms of each tick and of each admission (ending in a
+    synchronize), the kernels' launches from the first step on and the
+    captured keys.  The adapter's ``insert`` and ``decode`` are wrapped for
+    the run only."""
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request
+    ad = batcher.adapter
+    probe = TickProbe(ad)
+    logits, first = [], {}
+    inner = probe.inner
+
+    def keep(tokens, active):
+        out = inner(tokens, active)
+        logits.append(ad.last_logits.clone())
+        return out
+    probe.inner = keep
+
+    def timed_insert(slot, prompt, max_new=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = type(ad).insert(ad, slot, prompt, max_new)
+        torch.cuda.synchronize()
+        first[slot] = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "logits": ad.last_prefill_logits[0].clone()}
+        return tok
+    ad.insert = timed_insert
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        batcher.step()
+        slot = {r.uid: s for s, r in enumerate(batcher.active) if r}
+        done = batcher.run()
+        torch.cuda.synchronize()
+    finally:
+        del ad.insert, ad.decode
+    return {"run_s": time.perf_counter() - t0, "tick_ms": probe.times,
+            "logits_finite": probe.finite, "logits": logits, "slot": slot,
+            "launches": read_counts(),
+            "prefill": {uid: first[s] for uid, s in slot.items()},
+            "tokens": {r.uid: list(map(int, r.generated)) for r in done},
+            "captures": {name: fn._cache_size()
+                         for name, fn in ad.jit_fns().items()}}
+
+
+def _streams(per: list) -> dict:
+    """Per-request (tokens, first-token logits, tick logits) as the record
+    of :func:`rwkv_serve` (slot = uid), so :func:`first_differences`
+    compares two such records."""
+    import torch
+    n, ticks = len(per), len(per[0][2])
+    return {"tokens": {u: t for u, (t, _, _) in enumerate(per)},
+            "prefill": {u: {"logits": f} for u, (_, f, _) in enumerate(per)},
+            "logits": [torch.stack([per[u][2][k] for u in range(n)])
+                       for k in range(ticks)],
+            "slot": {u: u for u in range(n)}}
+
+
+def dedicated_decode(dev, cfg, params, prompts, new_tokens: int) -> dict:
+    """Each prompt decoded alone, the reference tests' oracle: prefill at
+    B = 1, then ``new_tokens - 1`` eager B = 1 ticks
+    (``engine.decode_step``), greedy (:func:`_streams`)."""
+    import torch
+
+    from repro_torch.serve import engine
+    per = []
+    for p in prompts:
+        cache, lg = engine.prefill(cfg, params,
+                                   torch.from_numpy(p[None]).to(dev))
+        toks, first, ticks = [int(lg[0].argmax())], lg[0].clone(), []
+        for _ in range(new_tokens - 1):
+            cache, lg = engine.decode_step(
+                cfg, params, cache, torch.tensor([[toks[-1]]], device=dev))
+            ticks.append(lg[0].clone())
+            toks.append(int(lg[0].argmax()))
+        per.append((toks, first, ticks))
+    return _streams(per)
+
+
+def alone_decode(ad, prompts, new_tokens: int) -> dict:
+    """Each prompt served alone by the state slots ``ad``: prefill at B = 1
+    into slot uid, then ``new_tokens - 1`` captured ticks of the adapter's
+    width with that lane the only active one, greedy; every slot cleared
+    after (:func:`_streams`)."""
+    import numpy as np
+    per = []
+    for uid, p in enumerate(prompts):
+        toks = [ad.insert(uid, p)]
+        first, ticks = ad.last_prefill_logits[0].clone(), []
+        active = np.arange(ad.n_slots) == uid
+        for _ in range(new_tokens - 1):
+            feed = np.zeros(ad.n_slots, np.int32)
+            feed[uid] = toks[-1]
+            toks.append(int(ad.decode(feed, active)[uid]))
+            ticks.append(ad.last_logits[uid].clone())
+        ad.clear(uid)
+        per.append((toks, first, ticks))
+    return _streams(per)
+
+
+def served_vs_dedicated(served: dict, alone: dict) -> dict:
+    """Tokens equal per request, and the max |logit difference| over every
+    request's prefill and ticks (the served lane's row against the
+    dedicated run's, up to each stream's first difference)."""
+    err = 0.0
+    for uid, s in served["slot"].items():
+        ta, tb = served["tokens"][uid], alone["tokens"][uid]
+        k = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 len(ta))
+        pairs = [(served["prefill"][uid]["logits"],
+                  alone["prefill"][uid]["logits"])]
+        pairs += [(served["logits"][i][s], alone["logits"][i][uid])
+                  for i in range(min(k, len(alone["logits"])))]
+        err = max([err] + [float((a - b).abs().max()) for a, b in pairs])
+    return {"tokens_equal": served["tokens"] == alone["tokens"],
+            "max_abs_dlogit": err}
+
+
+# the rwkv block's matrix products, in the order it makes them
+RWKV_PROJS = ("wr", "wk", "wv", "wg", "w_lora_a", "wo", "cm_k", "cm_r",
+              "cm_v")
+
+
+def rwkv_first_parting(cfg, params, state: dict, feed) -> list:
+    """One eager tick from ``state`` (the slots' ``len`` and states), the
+    lanes together against each lane alone at B = 1: every norm, matrix
+    product (``RWKV_PROJS``), ``wkv6_step`` (its decay input and its
+    output) and the logits recorded in order on both sides.  Per lane the
+    first recorded step whose output differs, where every input still
+    agrees: its layer, its name and its max |difference| (None where the
+    lane's tick is bit for bit the batch's)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.nn import norms, ssm
+    from repro_torch.serve import engine
+
+    def record(feed_, state_):
+        rec, n_proj = [], [0]
+
+        def wrap(mod, name):
+            fn = getattr(mod, name)
+
+            def inner(*a, **kw):
+                layer = n_proj[0] // len(RWKV_PROJS)
+                if name == "wkv6_step":
+                    rec.append((layer, "wkv6_step decay", a[3].clone()))
+                out = fn(*a, **kw)
+                tag = name
+                if name == "_proj":
+                    tag = RWKV_PROJS[n_proj[0] % len(RWKV_PROJS)]
+                    n_proj[0] += 1
+                rec.append((layer, tag, (out[0] if isinstance(out, tuple)
+                                         else out).clone()))
+                return out
+            return mock.patch.object(mod, name, inner)
+        with wrap(lm, "_proj"), wrap(lm, "_norm_apply"), \
+                wrap(norms, "rmsnorm"), wrap(ssm, "wkv6_step"), \
+                wrap(lm, "logits"):
+            engine.decode_step(cfg, params, {k: a.clone() for k, a in
+                                             state_.items()}, feed_)
+        return rec
+    batch = record(feed, state)
+    out = []
+    for s in range(feed.shape[0]):
+        alone = record(feed[s:s + 1], {
+            k: a[s:s + 1] if a.dim() == 1 else a[:, s:s + 1]
+            for k, a in state.items()})
+        first = next(({"layer": layer, "step": tag, "max_abs_diff": float(
+            (one[0].float() - many[s].float()).abs().max())}
+            for (layer, tag, one), (_, _, many) in zip(alone, batch)
+            if not torch.equal(one[0], many[s])), None)
+        out.append(first)
+        del alone
+    del batch
+    return out
+
+
+def rwkv_main_path(dev, sleep: int) -> dict:
+    """Phase 16: the rwkv family at rwkv6-7b's published width and depth
+    (32 layers, d_model 4,096, 64 wkv heads of 64, d_ff 14,336,
+    vocabulary 65,536, ``rwkv_chunk`` 64; bf16, random weights drawn on
+    the card) through its state-slot serving path:
+    ``make_gateway(..., ServeSpec(n_slots=8, paged=True))`` builds a
+    ``StateSlotAdapter`` and serves :func:`rwkv_prompts`, 32 new tokens
+    each, against each request served alone by the same slots (bf16: up
+    to each stream's first difference, a near tie) and against eager B = 1
+    decoding (the same rule; reported beside it, one tick's B = 1 against
+    8-lane logits and :func:`rwkv_first_parting`); a 100-token prompt
+    refused with the state untouched; the captured tick at 8 active lanes bit for bit its eager
+    step (logits and the three states), one graph launch per tick, timed
+    captured against eager in turns beside its byte model; a 1,024-token
+    one-shot prefill's host ms; the SC frontend at bits 4 on the 64- and
+    1,024-token prompts (its output bit for bit the plain versions',
+    ``sng_pack`` twice and ``sc_dot`` once per prompt and never on a tick,
+    the kernels timed at the 1,024-token shape beside their bounds); then,
+    the bf16 weights freed, float32 at depth 4 (:func:`strict_cfg`): the
+    8-slot batcher's tokens equal to dedicated decoding with logits within
+    2e-4, and ``wkv6_chunked`` over layer 0's 128-step r, k, v and w
+    within 2e-4 of 128 ``wkv6_step``s.  No attention kernel runs.
+    Returns the kernels' launches over the served runs; raises SystemExit
+    on a failed check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import sng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm
+    from repro_torch.serve import engine
+    from repro_torch.serve.gateway.slots import StateSlotAdapter
+    from repro_torch.serve.scheduler import RwkvContinuousBatcher
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    t_phase = time.perf_counter()
+    cfg = configs.config(RWKV_ARCH)
+    seconds, launches, failures = {}, {}, []
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def draw(cfg, seed):
+        return lm.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    params = timed("init", draw, cfg, 0)
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    prompts, p100 = rwkv_prompts(cfg.vocab)
+
+    # the bf16 gateway: state slots whatever paged says
+    spec = ServeSpec(n_slots=LM_SLOTS, paged=True,
+                     max_new_tokens=RWKV_NEW_TOKENS)
+    gw = make_gateway(cfg, params, spec, device=dev)
+    ad = gw.batcher.adapter
+    served = timed("serve_bf16", rwkv_serve, gw.batcher, prompts,
+                   RWKV_NEW_TOKENS)
+    add(served["launches"])
+    ran = {k: v for k, v in served["launches"].items() if v}
+    if type(ad) is not StateSlotAdapter or ad.max_len is not None or ran \
+            or not served["logits_finite"] or \
+            served["captures"] != {"decode": 1} or \
+            sorted(map(len, served["tokens"].values())) != \
+            [RWKV_NEW_TOKENS] * len(prompts):
+        failures.append(f"bf16 gateway: adapter {type(ad).__name__}, "
+                        f"launches {ran}, finite "
+                        f"{served['logits_finite']}, captures "
+                        f"{served['captures']}")
+
+    # a prompt the one-shot chunks do not divide: refused, state untouched
+    before = {k: a.clone() for k, a in ad.state.items()}
+    try:
+        ad.insert(0, p100)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    untouched = all(torch.equal(ad.state[k], before[k]) for k in before)
+    del before
+    if not refused or not untouched:
+        failures.append(f"100-token prompt: refused {refused}, state "
+                        f"untouched {untouched}")
+
+    # the captured tick at 8 active lanes: every prompt admitted again
+    for s, p in enumerate(prompts):
+        ad.insert(s, p)
+    tokens = torch.stack([served["logits"][0][s].argmax()
+                          for s in range(LM_SLOTS)]).cpu().numpy()
+    active = torch.ones(LM_SLOTS, dtype=torch.bool).numpy()
+    # one eager tick from these states, the 8 lanes together against each
+    # lane alone at B = 1: how far the logits part, and the first step
+    # where they do
+    feed = torch.from_numpy(tokens[:, None]).to(dev)
+    _, lg8 = engine.decode_step(cfg, params, {k: a.clone() for k, a in
+                                              ad.state.items()}, feed)
+
+    def lane(s):
+        return {k: (a[s:s + 1] if a.dim() == 1 else a[:, s:s + 1]).clone()
+                for k, a in ad.state.items()}
+    one_tick = [float((engine.decode_step(cfg, params, lane(s),
+                                          feed[s:s + 1])[1][0] - lg8[s]
+                       ).abs().max()) for s in range(LM_SLOTS)]
+    del lg8
+    first_parting = rwkv_first_parting(cfg, params, ad.state, feed)
+    replay = timed("tick_replay", tick_replay_check, ad, tokens, active,
+                   state=ad.state)
+    tick = timed("tick_timing", tick_timing, ad, tokens, active)
+    prof = tick["profile"]["captured"]
+    if not (replay["logits_bitwise"] and replay["arena_bitwise"] and
+            replay["logits_finite"] and replay["launches_equal"]) or \
+            replay["launches"] or prof["graph_launches_per_tick"] != 1:
+        failures.append(f"captured tick: {replay}, graph launches "
+                        f"{prof['graph_launches_per_tick']}")
+
+    # a 1,024-token one-shot prefill on the host clock
+    long = torch.from_numpy(prompts[-1][None]).to(dev)
+    reset_counts()
+    engine.prefill(cfg, params, long)
+    torch.cuda.synchronize()
+    prefill_launches = {k: v for k, v in read_counts().items() if v}
+    prefill_ms = host_ms(lambda: engine.prefill(cfg, params, long), reps=3)
+    if prefill_launches:
+        failures.append(f"one-shot prefill launches {prefill_launches}")
+
+    # bf16 at full depth: the gateway's streams against each request
+    # served alone by the same 8-lane state slots and against eager B = 1
+    # decoding, each equal up to each stream's first difference, a near
+    # tie
+    def compare(alone):
+        diffs = first_differences(alone, served)
+        agree = sum(x == y for u, t in alone["tokens"].items()
+                    for x, y in zip(t, served["tokens"][u])) / \
+            sum(len(t) for t in alone["tokens"].values())
+        return {"first_differences": diffs, "token_agreement": agree,
+                "streams_equal_whole": sum(alone["tokens"][u] ==
+                                           served["tokens"][u]
+                                           for u in alone["tokens"])}
+    alone = timed("alone_bf16", alone_decode, ad, prompts, RWKV_NEW_TOKENS)
+    bf16 = {"alone": compare(alone), "b1_eager": compare(timed(
+        "dedicated_bf16", dedicated_decode, dev, cfg, params, prompts,
+        RWKV_NEW_TOKENS))}
+    bf16["alone"]["logits_bitwise"] = all(
+        torch.equal(a, served["logits"][k][served["slot"][u]])
+        for k, row in enumerate(alone["logits"])
+        for u, a in enumerate(row)) and all(
+        torch.equal(alone["prefill"][u]["logits"],
+                    served["prefill"][u]["logits"]) for u in alone["slot"])
+    for name, got in bf16.items():
+        if not all(d["near_tie"] for d in got["first_differences"]):
+            failures.append(f"bf16 gateway vs {name}: a difference that "
+                            f"is not a near tie: {got}")
+    del alone
+    tick_ms = statistics.median(served["tick_ms"][1:])
+    admission_ms = [served["prefill"][u]["ms"] for u in range(len(prompts))]
+    del served, gw, ad
+    torch.cuda.empty_cache()
+
+    # the SC frontend at bits 4: bit for bit its plain versions on the
+    # 64- and 1,024-token prompts, then both served through a gateway
+    cfg_sc = dataclasses.replace(cfg, first_layer_mode="sc", sc_bits=4)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params_sc = dict(params, sc_frontend=lm.init(
+        dataclasses.replace(cfg_sc, n_layers=1), gen)["sc_frontend"])
+    sc_prompts = [next(p for p in prompts if len(p) == n)
+                  for n in RWKV_SC_LENS]
+
+    def plain_sc_dot(x, w, s0_mode="alt", adder="tff", *, length=None):
+        return ref.sc_dot(x, w, s0_mode, adder)
+    frontend = {}
+    for p in sc_prompts:
+        x = lm.token_rows(params, torch.from_numpy(p[None]).to(dev))
+        reset_counts()
+        got = lm.sc_frontend(cfg_sc, params_sc["sc_frontend"], x)
+        torch.cuda.synchronize()
+        calls = {n: read_counts()[n] for n in ("sng_pack", "sc_dot")}
+        t0 = time.perf_counter()
+        with mock.patch.object(sng_pack_k, "sng_pack", ref.sng_pack), \
+                mock.patch.object(sc_dot_k, "sc_dot", plain_sc_dot):
+            plain = lm.sc_frontend(cfg_sc, params_sc["sc_frontend"], x)
+        torch.cuda.synchronize()
+        frontend[len(p)] = {
+            "bitwise_vs_plain": bool(torch.equal(got, plain)),
+            "launches_per_call": calls,
+            "plain_frontend_ms": (time.perf_counter() - t0) * 1e3}
+        del got, plain
+    if not all(f["bitwise_vs_plain"] and f["launches_per_call"] ==
+               {"sng_pack": 2, "sc_dot": 1} for f in frontend.values()):
+        failures.append(f"SC frontend: {frontend}")
+    sc_new = 8
+    gw_sc = make_gateway(cfg_sc, params_sc, spec.replace(
+        max_new_tokens=sc_new), device=dev)
+    sc_run = timed("serve_sc", rwkv_serve, gw_sc.batcher, sc_prompts, sc_new)
+    del gw_sc
+    add(sc_run["launches"])
+    sc_launches = {k: v for k, v in sc_run["launches"].items() if v}
+    n_sc = len(sc_prompts)
+    if sc_launches != {"sng_pack": 2 * n_sc, "sc_dot": n_sc} or \
+            len(sc_run["tick_ms"]) != sc_new - 1 or \
+            not sc_run["logits_finite"]:
+        failures.append(f"SC gateway: launches {sc_launches} over "
+                        f"{len(sc_run['tick_ms'])} ticks, expected "
+                        f"{2 * n_sc} sng_pack and {n_sc} sc_dot")
+    # the SC kernels at the 1,024-token prompt's shapes
+    props = torch.cuda.get_device_properties(dev)
+    clk_sm = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6 * \
+        props.multi_processor_count
+    peak = b1_mma_peak(dev, sleep)
+    N, d, M = 16, cfg.d_model, RWKV_LONG
+    codes_a, codes_b = sng.codes_tensors("ramp_lowdisc", 4, dev)
+    sc_timing_rows = []
+    for name, shape, codes in (("levels", (M, d), codes_a),
+                               ("banks", (d, 2 * d), codes_b)):
+        lv = torch.randint(0, N + 1, shape, generator=gen, dtype=torch.int32,
+                           device=dev)
+        ms, _ = time_ms(functools.partial(sng_pack_k.sng_pack, lv, codes, N),
+                        3, 5, sleep)
+        sc_timing_rows.append({"kernel": "sng_pack", "operand": name,
+                               "shape": list(shape), "ms": ms,
+                               **sc_bounds("sng_pack", shape[0], shape[1], 0,
+                                           N, clk_sm, None)})
+    xs = stream_words(gen, (M, d, 1), N)
+    ws = stream_words(gen, (d, 2 * d, 1), N)
+    ms, _ = time_ms(functools.partial(ops.sc_dot_posneg, xs, ws, length=N),
+                    3, 2, sleep)
+    sc_timing_rows.append({"kernel": "sc_dot", "route": "posneg",
+                           "shape": f"x ({M}, {d}, 1), w ({d}, {2 * d}, 1)",
+                           "ms": ms, **sc_bounds("sc_dot", M, d, 2 * d, N,
+                                                 clk_sm, peak["mma_per_s"])})
+    del xs, ws, lv, params_sc
+
+    # a model of the tick's bytes, not a measurement: the blocks' bf16
+    # weights and lm_head read once (not the embedding's rows), the lanes'
+    # float32 wkv state read and written; beside it lm_head's float32 copy,
+    # written and read each tick by the logits' widening
+    weights = 2 * sum(v for k, v in sizes.items() if k.startswith("blocks."))
+    head = 2 * sizes["lm_head"]
+    wkv = 2 * 4 * cfg.n_layers * LM_SLOTS * cfg.n_heads * cfg.d_head ** 2
+    shifts = 2 * 2 * 2 * cfg.n_layers * LM_SLOTS * cfg.d_model
+    tick_bytes = weights + head + wkv
+    n_params = sum(sizes.values())
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at depth 4: the 8-slot batcher against dedicated decoding,
+    # and the chunked wkv against its recurrent steps on layer 0's inputs
+    cfg4 = strict_cfg(cfg)
+    params4 = timed("init_f32", draw, cfg4, 1)
+    b4 = RwkvContinuousBatcher(cfg4, params4, n_slots=LM_SLOTS)
+    run4 = timed("serve_f32", rwkv_serve, b4, prompts, RWKV_NEW_TOKENS)
+    add(run4["launches"])
+    alone4 = timed("dedicated_f32", dedicated_decode, dev, cfg4, params4,
+                   prompts, RWKV_NEW_TOKENS)
+    f32 = served_vs_dedicated(run4, alone4)
+    if not f32["tokens_equal"] or not f32["max_abs_dlogit"] <= 2e-4:
+        failures.append(f"float32 depth 4 batcher vs dedicated: {f32}")
+    del b4, run4, alone4
+    seen = []
+    wkv6 = ssm.wkv6_chunked
+
+    def keep_first(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return wkv6(*args, **kw)
+    steps = 128
+    with mock.patch.object(ssm, "wkv6_chunked", keep_first):
+        engine.prefill(cfg4, params4, torch.from_numpy(
+            prompts[-1][None, :steps]).to(dev))
+    (r, k, v, w, u), _ = seen[0]
+    out_c, st_c = wkv6(r, k, v, w, u, chunk=cfg4.rwkv_chunk)
+    st = torch.zeros_like(st_c)
+    outs = []
+    for i in range(steps):
+        o, st = ssm.wkv6_step(r[:, i], k[:, i], v[:, i], w[:, i], u, st)
+        outs.append(o)
+    out_s = torch.stack(outs, 1)
+    wkv_check = {"steps": steps, "chunk": cfg4.rwkv_chunk,
+                 "shape": list(r.shape),
+                 "out_max_abs_err": float((out_c - out_s).abs().max()),
+                 "state_max_abs_err": float((st_c - st).abs().max()),
+                 "out_close_2e-4": bool(torch.allclose(out_c, out_s,
+                                                       rtol=2e-4, atol=2e-4)),
+                 "state_close_2e-4": bool(torch.allclose(st_c, st, rtol=2e-4,
+                                                         atol=2e-4))}
+    if not (wkv_check["out_close_2e-4"] and wkv_check["state_close_2e-4"]):
+        failures.append(f"wkv6_chunked vs steps: {wkv_check}")
+    del params4, seen, r, k, v, w, u, out_c, st_c, st, outs, out_s
+    torch.cuda.empty_cache()
+
+    attention = [k for k in KERNELS if k not in ("sng_pack", "sc_dot")]
+    if any(launches.get(k, 0) for k in attention + [FUSED_MERGE]):
+        failures.append(f"an attention kernel launched: {launches}")
+    emit({"phase": "rwkv_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "d_model", "n_heads", "d_head", "d_ff", "vocab",
+              "rwkv_chunk", "param_dtype")},
+          "params": n_params, "f32_layers": cfg4.n_layers,
+          "adapter": "StateSlotAdapter", "prompt_lens": list(map(
+              len, prompts)), "new_tokens": RWKV_NEW_TOKENS,
+          "refused_100": refused, "state_untouched": untouched,
+          "admission_ms": admission_ms, "gateway_tick_ms_median": tick_ms,
+          "tick_replay": replay,
+          "tick_8_host_ms": {s: tick["host_ms"][s]["median"]
+                             for s in ("captured", "eager")},
+          "tick_8_host_ms_runs": {s: tick["host_ms"][s]["runs"]
+                                  for s in ("captured", "eager")},
+          "tick_8_device_busy_ms": prof["device_busy_ms_per_tick"],
+          "tick_8_idle_share": prof["device_idle_share"],
+          "tick_8_graph_launches": prof["graph_launches_per_tick"],
+          "tick_8_eager_host_launches":
+              tick["profile"]["eager"]["host_launches_per_tick"],
+          "tick_8_top_device_ms": prof["top_device_ms_per_tick"],
+          "tick_bytes_model": {"layer_weights": weights, "lm_head": head,
+                               "wkv_state_rw": wkv, "total": tick_bytes,
+                               "shift_rows_rw": shifts,
+                               "lm_head_f32_widening": 8 * sizes["lm_head"]},
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_with_widening_bound_ms":
+              (tick_bytes + 8 * sizes["lm_head"]) / PEAK_BYTES_PER_S * 1e3,
+          "oneshot_prefill_1024_ms": prefill_ms,
+          "bf16_vs_dedicated": bf16,
+          "one_tick_b1_vs_8_lanes_max_abs_dlogit": one_tick,
+          "b1_vs_8_lanes_first_parting": first_parting,
+          "f32_depth4_vs_dedicated": f32,
+          "wkv6_chunked_vs_steps": wkv_check,
+          "sc": {"bits": 4, "frontend": frontend,
+                 "served_launches": sc_launches,
+                 "ticks": len(sc_run["tick_ms"]),
+                 "b1_mma_per_s": peak["mma_per_s"],
+                 "timing_1024": sc_timing_rows},
+          "launches": launches, "seconds": seconds, "failures": failures,
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise SystemExit(f"rwkv path: {failures}")
+    return launches
+
+
 # -- the SC kernels (phase 3) -------------------------------------------------
 
 # bucket 32 of the full LeNet-5 conv1: windows of 5 x 5 = 25 leaves
@@ -5324,17 +5916,19 @@ def table3_full_main() -> int:
     return 0
 
 
-def family_main(path: str, run) -> int:
-    """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm``: the card's line, the
-    attention kernels' build and one family's phase alone (``run(dev, sleep)``, its launches
-    printed under ``path``)."""
+def family_main(path: str, run,
+                sources=("paged_attn", "cascade_attn", "flash_attn")) -> int:
+    """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm`` / ``--rwkv``:
+    the card's line, the build of ``sources`` (the attention kernels; the
+    SC kernels for ``--rwkv``) and one family's phase alone (``run(dev,
+    sleep)``, its launches printed under ``path``)."""
     import torch
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(nvidia_smi("name,power.limit"), flush=True)
     t0 = time.perf_counter()
-    build.build_all(("paged_attn", "cascade_attn", "flash_attn"))
+    build.build_all(sources)
     emit({"build_s": time.perf_counter() - t0})
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     launches = run(torch.device("cuda"), int(0.05 * clock_mhz * 1e6))
@@ -5542,6 +6136,8 @@ def main() -> int:
         return obs_main()
     if args[:1] == ["--vlm"]:
         return family_main("vlm", vlm_main_path)
+    if args[:1] == ["--rwkv"]:
+        return family_main("rwkv", rwkv_main_path, ("sng_pack", "sc_dot"))
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -5798,6 +6394,9 @@ def main() -> int:
     # -- 15. the vlm family: llama-3.2-vision-90b at 20 layers ---------------
     paths["vlm"] = vlm_main_path(dev, sleep)
 
+    # -- 16. the rwkv family: rwkv6-7b ----------------------------------------
+    paths["rwkv"] = rwkv_main_path(dev, sleep)
+
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",
                             "src/repro/kernels/sng_pack.py:33"),
@@ -5849,6 +6448,7 @@ def main() -> int:
                        standalone_launches_by_path={
                            p: c.get(name, 0) for p, c in paths.items()})
         return out
+    emit({"script_s": time.perf_counter() - T_START})
     emit({"kernels": [row(name) for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

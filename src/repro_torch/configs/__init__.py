@@ -11,7 +11,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("stablelm_3b", "deepseek_moe_16b", "moonshot_v1_16b_a3b",
-         "hymba_1_5b", "whisper_medium", "llama32_vision_90b", "lenet5")
+         "hymba_1_5b", "whisper_medium", "llama32_vision_90b", "rwkv6_7b",
+         "lenet5")
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 # the published names
 ALIASES["hymba-1.5b"] = "hymba_1_5b"

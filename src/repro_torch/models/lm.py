@@ -1,4 +1,4 @@
-"""The LM decoder, moe, hybrid, encdec and vlm families (llama-style
+"""The LM decoder, moe, hybrid, encdec, vlm and rwkv families (llama-style
 pre-norm blocks, RoPE, SwiGLU; the moe family a dense layer 0 and
 routed-expert FFNs after it; the hybrid family hymba's parallel GQA
 attention and Mamba heads per block, sliding windows with periodic global
@@ -6,7 +6,8 @@ layers; the encdec family whisper's non-causal encoder over frame
 embeddings and a decoder of causal self-attention, gated cross-attention
 and a GELU MLP, with biases, LayerNorm and sinusoidal positions; the vlm
 family llama-3.2-vision's decoder with a gated cross-attention layer over
-vision tokens every ``cross_every``-th layer) for inference in PyTorch:
+vision tokens every ``cross_every``-th layer; the rwkv family RWKV6's
+attention-free time mix and channel mix) for inference in PyTorch:
 configuration, parameters, the SC frontend, prefill blocks and the
 single-token decode attention, dense and paged.
 
@@ -32,8 +33,15 @@ its ``n_layers - G`` self layers in ``params["blocks"]`` and its G =
 decoder block with ``"ln_x"``, ``"xattn"`` and a ``"gate_attn"`` of 0
 beside it); group g runs self blocks ``g (k - 1)`` to ``g (k - 1) + k - 2``,
 then cross block g (:func:`layers`).  Its vision tower is a stub, as in
-the reference: the caller hands over patch embeddings.  The rwkv family
-and the int8 KV cache come in later slices (ROADMAP.md).
+the reference: the caller hands over patch embeddings.  The rwkv family's
+blocks hold the token-shift mixes ``mu`` (L, 7, d), the r / k / v / g
+projections, ``wo``, the LoRA decay (``w0``, ``w_lora_a``, ``w_lora_b``),
+the bonus ``u`` (L, H, Dh), the wkv output's norm ``ln_wkv`` and the
+channel mix (``cm_k``, ``cm_v``, ``cm_r``) (:func:`_rwkv_params`), and
+carry a recurrent state per layer, the wkv state (B, H, Dh, Dh) in float32
+and the two token-shift rows (B, d) in the model's dtype
+(:func:`rwkv_block`).  The int8 KV cache comes in a later slice
+(ROADMAP.md).
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -52,12 +60,14 @@ from repro_torch.nn import attention, mlp as mlp_lib, moe as moe_lib
 from repro_torch.nn import norms, rope, ssm
 
 _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
+FAMILIES = ("decoder", "moe", "rwkv", "hybrid", "encdec", "vlm")
+RWKV_LORA = 64                 # the rank of the rwkv family's decay LoRA
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig`` fields that the decoder, moe, hybrid,
-    encdec and vlm families read."""
+    encdec, vlm and rwkv families read."""
     name: str = "lm"
     family: str = "decoder"
     n_layers: int = 4
@@ -102,6 +112,7 @@ class LMConfig:
     param_dtype: str = "bfloat16"     # "bfloat16" | "float32"
     q_chunk: int = 512
     kv_chunk: int = 1024
+    rwkv_chunk: int = 16              # the prompt wkv's chunk (rwkv)
     ssm_chunk: int = 32               # the prompt scan's chunk (hybrid)
     first_layer_mode: str = "none"    # "none" | "sc" (the SC frontend)
     sc_bits: int = 4
@@ -152,11 +163,11 @@ class LMConfig:
 
 
 def check_supported(cfg: LMConfig) -> None:
-    """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("decoder", "moe", "hybrid", "encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md §1, "
-            "the other families")
+    """Raise for what the port does not cover, and for a family it does not
+    know (``ValueError``, as the reference's ``init`` raises)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} (families: "
+                         f"{FAMILIES})")
     if cfg.mlp_type not in ("swiglu", "gelu"):
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r}: only swiglu "
                                   "and gelu are ported")
@@ -279,6 +290,37 @@ def _hymba_params(gen, cfg: LMConfig, L: int) -> dict:
             "mlp": _mlp_params(gen, cfg, L, cfg.d_ff)}
 
 
+def _rwkv_params(gen, cfg: LMConfig, L: int) -> dict:
+    """The reference's rwkv block (``_rwkv_block_params``), same names,
+    order, shapes, fills and scales: ``ln1``, ``ln2``, the seven token-shift
+    mixes ``mu`` (L, 7, d) at 0.5 (time mix r, k, v, g, w; channel mix k,
+    r), ``wr`` / ``wk`` / ``wv`` / ``wg`` (d, H Dh), ``wo``, the decay
+    base ``w0`` -6, the decay LoRA ``w_lora_a`` (d, 64) and ``w_lora_b``
+    (64, H Dh) at scale 0.01, the bonus ``u`` (H, Dh) at scale 0.3,
+    ``ln_wkv`` over H Dh, and the channel mix ``cm_k`` (d, d_ff), ``cm_v``
+    (d_ff, d), ``cm_r`` (d, d).  The norms have no bias whatever
+    ``use_bias`` is."""
+    dev, dt = gen.device, cfg.dtype
+    d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+
+    def ones(width):
+        return {"scale": torch.ones((L, width), dtype=dt, device=dev)}
+    p = {"ln1": ones(d), "ln2": ones(d),
+         "mu": torch.full((L, 7, d), 0.5, dtype=dt, device=dev)}
+    for nm in ("wr", "wk", "wv", "wg"):
+        p[nm] = _dense(gen, (L, d, hd), dt)
+    p["wo"] = _dense(gen, (L, hd, d), dt)
+    p["w0"] = torch.full((L, hd), -6.0, dtype=dt, device=dev)
+    p["w_lora_a"] = _dense(gen, (L, d, RWKV_LORA), dt)
+    p["w_lora_b"] = _dense(gen, (L, RWKV_LORA, hd), dt, scale=0.01)
+    p["u"] = _dense(gen, (L, cfg.n_heads, cfg.d_head), dt, scale=0.3)
+    p["ln_wkv"] = ones(hd)
+    p["cm_k"] = _dense(gen, (L, d, cfg.d_ff), dt)
+    p["cm_v"] = _dense(gen, (L, cfg.d_ff, d), dt)
+    p["cm_r"] = _dense(gen, (L, d, d), dt)
+    return p
+
+
 def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
     p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=cfg.dtype,
                              device=device)}
@@ -289,7 +331,8 @@ def _norm_params(cfg: LMConfig, lead: tuple[int, ...], device) -> dict:
 
 
 def init(cfg: LMConfig, gen: torch.Generator) -> dict:
-    """Random decoder-, moe-, hybrid-, encdec- or vlm-family parameters,
+    """Random decoder-, moe-, rwkv-, hybrid-, encdec- or vlm-family
+    parameters,
     drawn from ``gen`` on its device in the reference's order and layout.  They are
     not the reference's numbers for any seed;
     ``repro_torch.convert.lm_params_from_jax`` shares the reference's
@@ -326,6 +369,8 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
     if cfg.family == "moe":
         p["dense0"] = block(1, False, cfg.first_dense_ff or cfg.d_ff)
         p["blocks"] = block(L - 1, True, cfg.d_ff)
+    elif cfg.family == "rwkv":
+        p["blocks"] = _rwkv_params(gen, cfg, L)
     elif cfg.family == "hybrid":
         p["blocks"] = _hymba_params(gen, cfg, L)
     elif cfg.family == "encdec":
@@ -710,6 +755,65 @@ def ssm_decode(cfg: LMConfig, p: dict, z: torch.Tensor, conv: torch.Tensor,
     y1, h = ssm.selective_step(xm[:, 0], dt[:, 0].to(z.dtype), p["A_log"],
                                Bm[:, 0], Cm[:, 0], p["D_skip"], h)
     return _ssm_out(p, y1[:, None], gate), conv, h
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) shifted right by one; ``last`` (B, d) fills position 0."""
+    return torch.cat([last[:, None, :], x[:, :-1]], dim=1)
+
+
+def rwkv_block(cfg: LMConfig, p: dict, x: torch.Tensor, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """The RWKV6 block over a prompt (S > 1) or one decode step (S == 1)
+    from ``state`` {"wkv": (B, H, Dh, Dh) float32, "shift1", "shift2": (B,
+    d)}, read and never written.  Returns (x, the new state).
+
+    The time mix: ``ln1``, the token shift from ``shift1``, the r / k / v /
+    g / w mixes by ``mu``, the decay w = exp(-exp(w0 + LoRA)) computed in
+    float32 (no tanh, as in the reference) and rounded to x's dtype before
+    either form reads it, :func:`repro_torch.nn.ssm.wkv6_step` at S == 1,
+    else :func:`repro_torch.nn.ssm.wkv6_chunked` in chunks of
+    ``min(cfg.rwkv_chunk, S)`` (so S must be a multiple of that: a
+    ``ValueError`` where the reference asserts), RMSNorm ``ln_wkv``
+    whatever ``norm_type`` is, the ``silu(g)`` gate in float32 cast back,
+    ``wo``.  The channel mix: ``ln2``, the token shift from ``shift2``,
+    relu(k)^2 and sigmoid(r) in float32, each cast back."""
+    B, S, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.d_head
+    f32 = torch.float32
+    xa = _norm_apply(cfg, p["ln1"], x)
+    xs = _token_shift(xa, state["shift1"])
+    mu = p["mu"]
+
+    def mix(i):
+        return xa + (xs - xa) * mu[i]
+    r, k, v = (_proj(mix(i), p[nm]).reshape(B, S, H, Dh)
+               for i, nm in enumerate(("wr", "wk", "wv")))
+    g = _proj(mix(3), p["wg"])
+    ww = p["w0"].to(f32) + (_proj(mix(4), p["w_lora_a"])
+                            @ p["w_lora_b"]).to(f32)
+    w = torch.exp(-torch.exp(ww)).reshape(B, S, H, Dh).to(x.dtype)
+    if S == 1:
+        o1, wkv_state = ssm.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                      p["u"], state["wkv"])
+        wkv = o1[:, None].to(x.dtype)
+    else:
+        wkv, wkv_state = ssm.wkv6_chunked(r, k, v, w, p["u"],
+                                          chunk=min(cfg.rwkv_chunk, S),
+                                          state0=state["wkv"])
+    wkv = norms.rmsnorm(wkv.reshape(B, S, H * Dh), p["ln_wkv"]["scale"],
+                        cfg.norm_eps)
+    silu = torch.nn.functional.silu
+    x = x + _proj(wkv * silu(g.to(f32)).to(x.dtype), p["wo"])
+    xc = _norm_apply(cfg, p["ln2"], x)
+    xcs = _token_shift(xc, state["shift2"])
+    kr = xc + (xcs - xc) * mu[5]
+    rr = xc + (xcs - xc) * mu[6]
+    kk = torch.square(torch.relu(_proj(kr, p["cm_k"]).to(f32))).to(x.dtype)
+    cm = torch.sigmoid(_proj(rr, p["cm_r"]).to(f32)).to(x.dtype) * \
+        _proj(kk, p["cm_v"])
+    return x + cm, {"wkv": wkv_state, "shift1": xa[:, -1],
+                    "shift2": xc[:, -1]}
 
 
 def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Serving engine of the port, decoder, moe, hybrid, encdec and vlm families:
-one-shot prefill, the chunked prefill fold's step and the batched
+"""Serving engine of the port, decoder, moe, hybrid, encdec, vlm and rwkv
+families: one-shot prefill, the chunked prefill fold's step and the batched
 single-token decode ticks, against the dense cache and against the paged
-block arena.
+block arena (the rwkv family: one-shot prefill and the dense tick over its
+recurrent state only).
 
 Cache layout (leading axis = layers): k/v (L, B, Smax, Hkv, Dh) plus
 ``len``, a scalar or, in the dense tick, one length per lane; the hybrid
@@ -11,7 +12,16 @@ family adds the encoder's cross K/V of every decoder layer, ``xk`` and
 ``xv`` (L, B, enc_len, Hkv, Dh) in the model's dtype
 (:func:`encode_cross`), the vlm family the vision tokens' cross K/V of
 each of its G cross layers, ``xk`` and ``xv`` (G, B, n_vision_tokens, Hkv,
-Dh) (:func:`vision_cross`).  The paged arena splices a ``num_blocks`` axis in
+Dh) (:func:`vision_cross`).  The rwkv family has no K/V at all: its cache
+is its recurrent state, ``wkv`` (L, B, H, Dh, Dh) in float32 and the
+token-shift rows ``shift1`` / ``shift2`` (L, B, d) in the model's dtype,
+O(1) in the context, so there is nothing to page and no fold to resume:
+its prompts are admitted one-shot (:func:`prefill`, in chunks of
+``min(rwkv_chunk, S)``, so S must be a multiple of that, as the reference
+asserts), and its tick (:func:`decode_step`) advances the state in place.
+The paged arena, the fold and the paged tick refuse the family
+(``ValueError``), as the reference asserts ("rwkv has O(1) state; nothing
+to page").  The paged arena splices a ``num_blocks`` axis in
 just before the batch axis of a B=1, ``block_size``-long cache: (L,
 num_blocks, 1, bs, Hkv, Dh), layer-leading, so one layer's slice is
 exactly what the paged attention reads; the recurrent state and the cross
@@ -69,6 +79,8 @@ from repro_torch.models import lm
 PAGED_SEQ_KEYS = ("k", "v")
 # the hybrid family's recurrent state, per layer and lane
 STATE_KEYS = ("conv", "ssm")
+# the rwkv family's recurrent state, per layer and lane: its whole context
+RWKV_KEYS = ("wkv", "shift1", "shift2")
 # the encdec and vlm families' cross K/V, per cross layer and lane
 CROSS_KEYS = ("xk", "xv")
 # the keyword of each family's cross-attention input, the reference's
@@ -80,10 +92,18 @@ def init_state(cfg: lm.LMConfig, batch: int,
                device: str | torch.device = "cuda") -> dict:
     """Zeroed lane state: the hybrid family's recurrent state, conv (L,
     B, K-1, d_inner) in the model's dtype and ssm (L, B, d_inner, N)
-    float32; the encdec and vlm families' cross K/V, xk / xv (n_cross, B,
-    cross_len, Hkv, Dh) in the model's dtype (``lm.LMConfig.n_cross``,
-    ``cross_len``); an empty dict for the other families."""
+    float32; the rwkv family's, wkv (L, B, H, Dh, Dh) float32 and shift1
+    / shift2 (L, B, d) in the model's dtype; the encdec and vlm families'
+    cross K/V, xk / xv (n_cross, B, cross_len, Hkv, Dh) in the model's
+    dtype (``lm.LMConfig.n_cross``, ``cross_len``); an empty dict for the
+    other families."""
     L = cfg.n_layers
+    if cfg.family == "rwkv":
+        wkv = (L, batch, cfg.n_heads, cfg.d_head, cfg.d_head)
+        return {"wkv": torch.zeros(wkv, dtype=torch.float32, device=device),
+                **{key: torch.zeros((L, batch, cfg.d_model), dtype=cfg.dtype,
+                                    device=device)
+                   for key in ("shift1", "shift2")}}
     if cfg.n_cross:
         shape = (cfg.n_cross, batch, cfg.cross_len, cfg.n_kv_heads,
                  cfg.d_head)
@@ -100,8 +120,12 @@ def init_state(cfg: lm.LMConfig, batch: int,
 def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
     """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh), ``len`` and the
-    lane state (:func:`init_state`)."""
+    lane state (:func:`init_state`); for the rwkv family ``len`` and its
+    state only, whatever ``max_len`` is."""
     lm.check_supported(cfg)
+    if cfg.family == "rwkv":
+        return {"len": torch.zeros((), dtype=torch.int32, device=device),
+                **init_state(cfg, batch, device)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -123,7 +147,9 @@ def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
                      device: str | torch.device = "cuda") -> dict:
     """Block arenas for the paged KV cache: per sequence key, the B=1 cache
     of ``max_len=block_size`` with a ``num_blocks`` axis spliced in just
-    before the batch axis — (L, num_blocks, 1, bs, Hkv, Dh)."""
+    before the batch axis — (L, num_blocks, 1, bs, Hkv, Dh).  The rwkv
+    family has nothing to page (``ValueError``)."""
+    _refuse_rwkv(cfg, "the paged arena")
     blk = init_cache(cfg, 1, block_size, device="meta")
     out = {}
     for key in PAGED_SEQ_KEYS:
@@ -132,6 +158,13 @@ def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
         out[key] = torch.zeros(s[:ax] + (num_blocks,) + s[ax:],
                                dtype=blk[key].dtype, device=device)
     return out
+
+
+def _refuse_rwkv(cfg: lm.LMConfig, what: str) -> None:
+    if cfg.family == "rwkv":
+        raise ValueError(f"{what} does not cover the rwkv family: rwkv has "
+                         "O(1) state; nothing to page (the reference "
+                         "asserts it)")
 
 
 def arena_block_axis(a: torch.Tensor) -> int:
@@ -231,8 +264,13 @@ def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor, *,
     S)``, else ``ValueError``).  The encdec family needs the frame
     embeddings ``enc_embed`` (B, enc_len, d) and the vlm family the patch
     embeddings ``vision_embed`` (B, n_vision_tokens, d), which give the
-    cross K/V first (:func:`cross_kv`); the other families refuse both."""
+    cross K/V first (:func:`cross_kv`); the other families refuse both.
+    The rwkv family's cache is ``len`` and its state after the prompt
+    (:func:`_rwkv_prefill`)."""
     lm.check_supported(cfg)
+    if cfg.family == "rwkv":
+        cross_kv(cfg, params, enc_embed=enc_embed, vision_embed=vision_embed)
+        return _rwkv_prefill(cfg, params, tokens)
     cache = {**empty_cache(cfg, tokens.shape[0], tokens.device),
              **cross_kv(cfg, params, enc_embed=enc_embed,
                         vision_embed=vision_embed)}
@@ -261,13 +299,33 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     inputs whether the fold started at 0 or at H <= j, so the resumed fold
     reproduces the cold fold's K/V, state and logits bit for bit.  Every
     chunk concatenates the whole prefix in every layer and stacks the
-    layers again, as the reference does."""
+    layers again, as the reference does.  The rwkv family has no fold
+    (``ValueError``)."""
     lm.check_supported(cfg)
+    _refuse_rwkv(cfg, "the chunked prefill fold")
     if cfg.family == "vlm":
         raise ValueError("the chunked prefill fold does not cover the vlm "
                          "family (the reference leaves it out); admit its "
                          "prompts one-shot")
     return _fold_step(cfg, params, tokens, cache, q_offset)
+
+
+def _rwkv_prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor):
+    """The rwkv family's one-shot prefill: every block from a zero state
+    (``lm.rwkv_block``).  Returns ({"len": S, "wkv", "shift1", "shift2"},
+    each state stacked over the layers; the last token's logits)."""
+    B, S = tokens.shape
+    x = lm.embed_tokens(cfg, params, tokens)
+    zero = init_state(cfg, B, x.device)
+    out = {key: [] for key in RWKV_KEYS}
+    for i, (lp, _, _, _) in enumerate(lm.layers(cfg, params)):
+        x, st = lm.rwkv_block(cfg, lp, x,
+                              {key: zero[key][i] for key in RWKV_KEYS})
+        for key in RWKV_KEYS:
+            out[key].append(st[key])
+    cache = {"len": torch.tensor(S, dtype=torch.int32, device=x.device),
+             **{key: torch.stack(ts) for key, ts in out.items()}}
+    return cache, lm.logits(cfg, params, x[:, -1:])[:, 0]
 
 
 def _fold_step(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
@@ -348,7 +406,9 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
             ssm, the encdec and vlm families' xk / xv), **updated in
             place**: per layer and lane one K/V row at ``len``, the
             lane's next recurrent state, and ``len + 1`` (the cross K/V
-            are read only).
+            are read only).  The rwkv family's cache is ``len`` and its
+            state (wkv, shift1, shift2), each lane's overwritten by its
+            next.
     tokens  (B, 1) integer.
     active  optional (B,) bool: an inactive lane still decodes (its logits
             are computed) but its rows, state and length stay as they
@@ -361,14 +421,19 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
     x = lm.embed_tick(cfg, params, tokens, pos)            # (B, 1, d)
     for i, (lp, window, moe_layer, cross) in enumerate(
             lm.layers(cfg, params)):
+        if cfg.family == "rwkv":
+            x, st = lm.rwkv_block(cfg, lp, x,
+                                  {key: cache[key][i] for key in RWKV_KEYS})
+            for key in RWKV_KEYS:
+                _put(cache[key][i], st[key], active)
+            continue
         z = lm._norm_apply(cfg, lp["ln1"], x)
         att = lm.attn_decode(cfg, lp["attn"], z, cache["k"][i],
                              cache["v"][i], pos, window=window,
                              active=active)
         x = _block_tail(cfg, lp, x, z, att, moe_layer, cache, i, cross,
                         active)
-    step = 1 if active is None else active.to(cache["len"].dtype)
-    cache["len"] += step
+    cache["len"] += 1 if active is None else active.to(cache["len"].dtype)
     return cache, lm.logits(cfg, params, x)[:, 0]
 
 
@@ -409,6 +474,7 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
 
     Returns the logits (S, vocab_padded) float32."""
     lm.check_supported(cfg)
+    _refuse_rwkv(cfg, "the paged tick")
     if backend not in ("plain", "cuda", "cascade"):
         raise ValueError(f"unknown decode backend {backend!r}")
     if cfg.family == "vlm" and backend != "plain":

@@ -1,11 +1,18 @@
-"""Continuous batching over slot adapters: the request record, the dense
-KV slots, the adapter factory and the family-agnostic scheduler loop.
+"""Continuous batching over slot adapters: the request record, the state
+slots, the dense KV slots, the adapter factory and the family-agnostic
+scheduler loop.
 
-Two adapters of the decoder, moe, hybrid, encdec and vlm families so far:
+What differs between the families is only how a slot's context is stored.
+:class:`StateSlotAdapter` serves the rwkv family, whose whole context is
+an O(1) recurrent state: admission is one prefill written into the slot.
+The decoder, moe, hybrid, encdec and vlm families keep K/V:
 :class:`KVSlotAdapter`, each slot a dense cache of ``max_len`` positions
-with its own length (the reference's default), and the paged KV slots
-(``serve/kvcache/paged.py``), with chunked or one-shot prefill.  The rwkv ``StateSlotAdapter`` comes with
-the other families.
+with its own length (the reference's default), or the paged KV slots
+(``serve/kvcache/paged.py``), with chunked or one-shot prefill.
+
+Every adapter masks its tick's state writes with the active-slot mask, so
+a freed slot keeps what ``clear`` left: :class:`StateSlotAdapter` zeroes
+the slot's state, the KV adapters reset its length to 0.
 
 The batcher discovers paging hooks by presence: ``can_admit`` (queue while
 the pool cannot cover a request's worst-case block demand),
@@ -85,12 +92,113 @@ def check_extras(cfg: LMConfig, extras) -> None:
 
 
 def _dense_tick(cfg, params, cache, tokens, active):
-    """The dense tick's captured body: :func:`engine.decode_step` with the
-    active-lane mask."""
+    """The dense and state ticks' captured body: :func:`engine.decode_step`
+    with the active-lane mask."""
     return engine.decode_step(cfg, params, cache, tokens, active)[1]
 
 
-class KVSlotAdapter:
+class _CapturedTick:
+    """The tick of the state and dense KV slots: one captured step,
+    ``self._decode``, over every lane, with the tokens and the active
+    mask as its host inputs."""
+
+    def _tick_inputs(self, tokens: np.ndarray, active: np.ndarray
+                     ) -> tuple[capture.CapturedStep, tuple, np.ndarray]:
+        """The tick's captured step, its host inputs (tokens (n_slots, 1)
+        int32 and the active mask) and the lanes that write."""
+        active = np.asarray(active, bool)
+        return self._decode, (np.asarray(tokens, np.int32)[:, None],
+                              active), active
+
+    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One tick over every lane; returns the greedy token per lane
+        (garbage for inactive lanes).  ``last_logits`` is this tick's
+        (n_slots, vocab_padded) float32 logits, a copy that later ticks
+        leave as it is."""
+        step, inputs, _ = self._tick_inputs(tokens, active)
+        # the step's output is overwritten by its next replay
+        self.last_logits = step(*inputs).clone()
+        return self.last_logits.argmax(-1).cpu().numpy()
+
+    def jit_fns(self) -> dict[str, capture.CapturedStep]:
+        """Named captured steps, for ``obs.RecompileDetector.track``: the
+        reference's ``decode``; its ``prefill`` runs eagerly here."""
+        return {"decode": self._decode}
+
+
+class StateSlotAdapter(_CapturedTick):
+    """State slots for the rwkv family: the state holds ``len``
+    (n_slots,) int32, wkv (L, n_slots, H, Dh, Dh) float32 and shift1 /
+    shift2 (L, n_slots, d) in the model's dtype, on the params' device
+    (``max_len`` is None: the state is O(1) in the context).  ``insert``
+    prefills one prompt (B=1, one-shot: S must be at most ``rwkv_chunk``
+    or a multiple of it, else ``ValueError``) and writes its length and
+    state into the slot in place; ``clear`` zeroes the slot's length and
+    state; ``decode`` runs one batched tick over every lane
+    (:func:`engine.decode_step`), in which an inactive lane's length and
+    state stay as they were.
+
+    The tick is one captured step (``serve/capture.py``) over fixed
+    ``(n_slots,)`` shapes, the reference's jitted ``decode``; its inputs
+    are the tokens and the active mask, copied from pinned memory, and the
+    masked state write happens inside it.  Prefill runs eagerly, as in the
+    KV adapters (``paged.NOT_CAPTURED``)."""
+
+    STATE_KEYS = engine.RWKV_KEYS
+
+    def __init__(self, cfg: LMConfig, params: dict, n_slots: int):
+        if cfg.family != "rwkv":
+            raise ValueError(f"state slots serve the rwkv family, not "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.n_slots = n_slots
+        self.max_len = None                 # O(1) state: no length cap
+        if self.device.type == "cuda":
+            # float32 matrix products in full float32, as the reference
+            # computes them
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.state = {"len": torch.zeros(n_slots, dtype=torch.int32,
+                                         device=self.device),
+                      **engine.init_state(cfg, n_slots, self.device)}
+        self.last_logits = None
+        self.last_prefill_logits = None     # the latest insert's logits
+        self._decode = capture.CapturedStep(
+            functools.partial(_dense_tick, cfg, params, self.state),
+            self.device)
+
+    def insert(self, slot: int, prompt: np.ndarray,
+               max_new: int | None = None) -> int:
+        """Prefill ``prompt`` into ``slot``; returns the first generated
+        token."""
+        tokens = torch.from_numpy(np.asarray(prompt, np.int32)[None]
+                                  ).to(self.device)
+        cache1, logits = engine.prefill(self.cfg, self.params, tokens)
+        # in place: the captured tick reads these very tensors
+        self.state["len"][slot] = cache1["len"]
+        for key in self.STATE_KEYS:
+            self.state[key][:, slot] = cache1[key][:, 0]
+        self.last_prefill_logits = logits
+        return int(logits[0].argmax())
+
+    def clear(self, slot: int) -> None:
+        self.state["len"][slot] = 0
+        for key in self.STATE_KEYS:
+            self.state[key][:, slot] = 0
+
+    def cost_args(self, prompt_len: int = 8) -> dict[str, tuple]:
+        """The prefill and the tick for ``obs.costmodel``; the analytic
+        counts cover the decoder family only, so both stages degrade to
+        measured-only, as the other families' do."""
+        cfg, n = self.cfg, self.n_slots
+        return {"prefill": costmodel.lm_stage(
+                    cfg, costmodel.prompt_work(cfg, 0, prompt_len)),
+                "decode": costmodel.lm_stage(
+                    cfg, costmodel.tick_work(cfg, n, []))}
+
+
+class KVSlotAdapter(_CapturedTick):
     """Dense KV slots, each lane's length its own: the cache holds k/v
     (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the lane state
     (the hybrid family's recurrent state, conv / ssm, (L, n_slots, ...);
@@ -116,6 +224,9 @@ class KVSlotAdapter:
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, extras=None):
+        if cfg.family == "rwkv":
+            raise ValueError("the rwkv family has no K/V: use "
+                             "StateSlotAdapter")
         check_extras(cfg, extras)
         self.cfg = cfg
         self.extras = extras
@@ -165,29 +276,6 @@ class KVSlotAdapter:
         # admission overwrites every row
         self.cache["len"][slot] = 0
 
-    def _tick_inputs(self, tokens: np.ndarray, active: np.ndarray
-                     ) -> tuple[capture.CapturedStep, tuple, np.ndarray]:
-        """The tick's captured step, its host inputs (tokens (n_slots, 1)
-        int32 and the active mask) and the lanes that write."""
-        active = np.asarray(active, bool)
-        return self._decode, (np.asarray(tokens, np.int32)[:, None],
-                              active), active
-
-    def decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
-        """One tick over every lane; returns the greedy token per lane
-        (garbage for inactive lanes).  ``last_logits`` is this tick's
-        (n_slots, vocab_padded) float32 logits, a copy that later ticks
-        leave as it is."""
-        step, inputs, _ = self._tick_inputs(tokens, active)
-        # the step's output is overwritten by its next replay
-        self.last_logits = step(*inputs).clone()
-        return self.last_logits.argmax(-1).cpu().numpy()
-
-    def jit_fns(self) -> dict[str, capture.CapturedStep]:
-        """Named captured steps, for ``obs.RecompileDetector.track``: the
-        reference's ``decode``; its ``prefill`` runs eagerly here."""
-        return {"decode": self._decode}
-
     def cost_args(self, prompt_len: int = 8) -> dict[str, tuple]:
         """The prefill and the tick with their analytic counts, for
         ``obs.costmodel``: a ``prompt_len``-token prompt (the reference's
@@ -204,12 +292,14 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, extras=None, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg`` (decoder, moe, hybrid, encdec or vlm
-    family, the last two with ``extras``, a callable returning
-    ``{"enc_embed": (1, enc_len, d)}`` or ``{"vision_embed": (1,
-    n_vision_tokens, d)}`` for each admission, as the reference's): dense
-    KV slots (:class:`KVSlotAdapter`, the default), or with ``paged=True`` the
-    paged KV slots, admitting prompts through the chunked prefill fold
+    """The slot adapter for ``cfg``: for the rwkv family the state slots
+    (:class:`StateSlotAdapter`, whatever ``paged`` is: its O(1) state has
+    nothing to page; ``backend`` raises ``ValueError``); for the decoder,
+    moe, hybrid, encdec or vlm family (the last two with ``extras``, a
+    callable returning ``{"enc_embed": (1, enc_len, d)}`` or
+    ``{"vision_embed": (1, n_vision_tokens, d)}`` for each admission, as
+    the reference's): dense KV slots (:class:`KVSlotAdapter`, the
+    default), or with ``paged=True`` the paged KV slots, admitting prompts through the chunked prefill fold
     (``chunked=True``, prefix hits skip their compute) or one-shot
     (``chunked=False``, storage-only prefix sharing; the vlm family is
     always admitted one-shot); ``backend`` (paged only) picks the decode
@@ -217,6 +307,13 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
     lanes over shared prefix chains, or "gather", the gather-tick oracle;
     None: "cuda" on a CUDA device, else "plain"; for the vlm family
     "plain" or "gather" only, None giving "plain")."""
+    if cfg.family == "rwkv":
+        if backend is not None:
+            raise ValueError(f"backend={backend!r} selects the paged decode "
+                             "tick's attention; the rwkv family has no "
+                             "attention and nothing to page")
+        check_extras(cfg, extras)
+        return StateSlotAdapter(cfg, params, n_slots)
     if not paged:
         if backend is not None:
             raise ValueError(f"backend={backend!r} selects the paged decode "

@@ -9,8 +9,11 @@ default ``chunked=True``) or one-shot (``chunked=False``), with the flat
 decode tick (``backend`` "plain" | "cuda"), the shared-prefix cascade tick
 (``backend="cascade"``) or the gather-tick oracle (``backend="gather"``),
 with the observability attachments (``tracer``, ``metrics``, ``slo``,
-``shed_factor``, ``flight``, ``incident_dir``).  ``mesh``/``roles`` (sharded
-and disaggregated serving) raise until their slice.
+``shed_factor``, ``flight``, ``incident_dir``).  The rwkv family is served
+over state slots whatever ``paged`` says (its O(1) state has nothing to
+page), and refuses ``backend`` and ``mesh``, as the reference does.
+``mesh``/``roles`` (sharded and disaggregated serving) raise until their
+slice.
 """
 from __future__ import annotations
 
@@ -68,7 +71,9 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
     describes, on ``device``, where ``params`` must already live.
     ``extras`` is the per-family modality stub ``make_adapter`` takes (the
     encdec family's frame embeddings, the vlm family's patch
-    embeddings)."""
+    embeddings).  For the rwkv family ``paged`` is off (state slots), and
+    ``backend`` and ``mesh`` raise ``ValueError``, as the reference's
+    do."""
     from repro_torch.serve.gateway.gateway import PromptGateway
     from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 
@@ -79,13 +84,20 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, the "
                          f"gateway on {dev}")
+    paged = spec.paged and cfg.family != "rwkv"
+    if spec.backend is not None and not paged:
+        raise ValueError(f"backend={spec.backend!r} selects the paged decode "
+                         "tick's attention; it requires paged=True and a "
+                         f"non-rwkv family (got paged={spec.paged}, "
+                         f"family={cfg.family})")
+    if spec.mesh is not None and cfg.family == "rwkv":
+        raise ValueError("mesh (sharded serving) requires paged=True and a "
+                         f"non-rwkv family (got paged={spec.paged}, "
+                         f"family={cfg.family})")
     if spec.mesh is not None or spec.roles is not None:
         raise NotImplementedError(
             "mesh/roles (sharded and disaggregated serving) are not ported "
             "yet: ROADMAP.md §1, sharded and disaggregated serving")
-    if spec.backend is not None and not spec.paged:
-        raise ValueError(f"backend={spec.backend!r} selects the paged decode "
-                         "tick's attention; it requires paged=True")
     # forensics: flight=True builds the default bounded ring;
     # incident_dir arms the capture pipeline against slo + flight (the
     # gateway hangs its debug_state off context_fn)
@@ -100,7 +112,7 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
                                    slo=spec.slo, metrics=spec.metrics)
     adapter = make_adapter(
         cfg, params, n_slots=spec.n_slots, max_len=spec.max_len,
-        extras=extras, paged=spec.paged, block_size=spec.block_size,
+        extras=extras, paged=paged, block_size=spec.block_size,
         num_blocks=spec.num_blocks, chunked=spec.chunked,
         backend=spec.backend)
     return PromptGateway(

@@ -32,6 +32,8 @@ from repro.serve import engine as jengine
 from repro.serve import spec as jspec
 from repro.serve.gateway import sensors as jsensors
 from repro.serve.gateway import slots as jslots
+from repro_torch import configs
+from repro_torch.models import lm
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
 from repro_torch.serve.kvcache.pool import PoolExhausted
@@ -425,13 +427,19 @@ def test_chunked_gateway_matches_reference(pair):
 
 
 def test_default_spec_builds_the_chunked_gateway(pair):
+    """``ServeSpec(paged=True)`` admits through the fold; for the rwkv
+    family, whose O(1) state has nothing to page, it builds state slots
+    (``StateSlotAdapter``), as the reference's does."""
     _, _, cfg, params = pair
     gw = spec.make_gateway(cfg, params, spec.ServeSpec(paged=True),
                            device="cpu")
     assert gw.batcher.adapter.chunked
-    with pytest.raises(NotImplementedError):
-        spec.make_gateway(dataclasses.replace(cfg, family="rwkv"), params,
-                          spec.ServeSpec(paged=True), device="cpu")
+    rwkv = dataclasses.replace(configs.smoke_config("rwkv6_7b"),
+                               param_dtype="float32")
+    gw = spec.make_gateway(rwkv, lm.init(rwkv, torch.Generator()
+                                         .manual_seed(0)),
+                           spec.ServeSpec(paged=True), device="cpu")
+    assert type(gw.batcher.adapter).__name__ == "StateSlotAdapter"
 
 
 def test_encdec_adapter_resume_matches_cold_insert(encdec_pair):

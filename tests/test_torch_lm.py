@@ -122,7 +122,9 @@ def test_layer_window_matches_reference(window, global_every):
 def test_sc_frontend_and_other_families_raise():
     """``first_layer_mode="sc"`` is ported: ``lm.init`` builds the
     frontend's (d, d) weights and ones for ``gamma``, in the reference's
-    place in the tree; the other families still raise."""
+    place in the tree; a family no package knows raises ``ValueError``, as
+    the reference's ``init`` does, and the configs not ported yet raise
+    naming the ROADMAP."""
     cfg = configs.smoke_config(ARCH)
     gen = torch.Generator().manual_seed(0)
     params = lm.init(dataclasses.replace(cfg, first_layer_mode="sc"), gen)
@@ -135,8 +137,10 @@ def test_sc_frontend_and_other_families_raise():
     assert torch.equal(params["sc_frontend"]["gamma"],
                        torch.ones(d, dtype=cfg.dtype))
     assert "sc_frontend" not in lm.init(cfg, gen)
+    with pytest.raises(ValueError, match="unknown family"):
+        lm.init(dataclasses.replace(cfg, family="retnet"), gen)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init(dataclasses.replace(cfg, family="rwkv"), gen)
+        configs.config("starcoder2_15b")
     with pytest.raises(NotImplementedError):
         configs.config("llama3_405b")
 
