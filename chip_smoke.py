@@ -19,13 +19,18 @@
     python3 chip_smoke.py --obs    # phase 14 alone
     python3 chip_smoke.py --vlm    # phase 15 alone
     python3 chip_smoke.py --rwkv   # phase 16 alone
+    python3 chip_smoke.py --decoders
+                                   # phase 17 alone
 
 Phases, each printing one JSON line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      TF32 switched off for matmul and cuDNN;
   2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all started together), and the count of
+     (one ``nvcc`` per source, all started together; the script waits
+     for the attention libraries, runs phase 3's attention checks and
+     phases 5–8 while ``sc_dot`` compiles, then waits for the SC ones and
+     runs the rest of phase 3 and phase 4), and the count of
      tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
      in the attention libraries (``cuobjdump -sass``; the run fails
      without HMMA and LDGSTS in ``flash_attention`` and LDGSTS in
@@ -134,12 +139,15 @@ Phases, each printing one JSON line:
      one-shot) and a 1,000-token one-shot prefill with attention through
      the kernel and through its plain version;
   8. the captured ticks (``capture`` line): the flat tick at 8 lanes x 1k
-     and load (c)'s cascade tick, each right after its capture, replayed
+     and load (c)'s cascade tick (held mid load on phase 6's own cascade
+     gateway, the arena and lane state put back, on the
+     ``cascade_main_path`` line), each right after its capture, replayed
      against the step's ``fn`` called eagerly on the same static inputs
      from the same arena (logits and the whole arena bit for bit, launch
      counts equal), one captured step each, and the host ms per tick
      captured against eager in turns (``HOST_RUNS`` runs a side) with a
-     profile of each (device busy, idle share, kernel and graph launches
+     profile (the eager step's only where a line reports it; device busy,
+     idle share, kernel and graph launches
      per tick: one graph and at most ``MAX_CAPTURED_TICK_LAUNCHES``
      kernels when captured);
   9. the retraining pipeline (``table3`` line): the reference's fast Table
@@ -304,6 +312,29 @@ Phases, each printing one JSON line:
      and ``wkv6_chunked`` over layer 0's 128 steps within 2e-4 of 128
      ``wkv6_step``s.  No attention kernel launches on the path.
      ``python3 chip_smoke.py --rwkv`` runs it alone.
+ 17. the last decoder configs and the int8 KV layout
+     (``decoders_main_path`` line, launches under the paths ``decoders``
+     and ``int8``): starcoder2-15b whole (40 layers, 48 heads over 4 KV
+     heads of 128, GQA 12:1; bf16, ~31.9 GB drawn on the card after phase
+     16's weights are freed): the attention kernels at its heads, phase
+     10's gateways (dense, paged ``"cuda"`` / ``"plain"`` / ``"gather"``;
+     float32 at depth 4), load (c) admitted through the fold with the
+     cascade tick against the flat tick, the captured 8 x 1k ticks beside
+     a byte model; on the same weights the int8 layout (``kv_quant``): the
+     kernel ticks refused, the dense and paged ``"plain"`` gateways
+     against the gather oracle bit for bit and against the bf16 gateway
+     (the first tick within 5 % of its max |logit|, the same argmax), the
+     in-place int8 tick bit for bit its gather oracle over every arena
+     block, the captured int8 ticks bit for bit their eager steps, the
+     arena's bytes per position; then deepseek-67b at 24 of 95 layers and
+     llama3-405b at 5 of 126 (its kernels at 128 x 128 over 8 KV heads)
+     through the dense, ``"cuda"`` and ``"plain"`` gateways, bf16 near
+     ties and float32 at depth 2 equal.  ``python3 chip_smoke.py
+     --decoders`` runs it alone.
+
+Phases 3–8 and 10–17 print their ``phase_s`` and a ``seconds`` breakdown
+(phases 3 and 4 on the ``kernels_seconds`` and ``frame_path_seconds``
+lines).
 
 Every served step on the card runs captured: the eager calls above reach
 ``CapturedStep.fn`` explicitly, for the comparison.
@@ -394,6 +425,28 @@ MORE_SPLITS = {"MIN_CTAS": 4 * 132, "MIN_SPLIT_POSITIONS": 64}
 FRAMES: dict = {}
 
 
+class Stopwatch:
+    """Host seconds of a phase's parts, each ending in a synchronize:
+    ``lap(name)`` charges the time since the previous lap (or the start)
+    to ``name``; ``fields()`` gives the ``seconds`` breakdown and the
+    ``phase_s`` every phase line carries."""
+
+    def __init__(self):
+        self.t0 = self.mark = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        import torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.mark
+        self.mark = now
+
+    def fields(self) -> dict:
+        return {"seconds": dict(self.seconds),
+                "phase_s": time.perf_counter() - self.t0}
+
+
 def extras_of(cfg):
     """The ``extras`` callable of ``cfg``'s adapters: the embeddings of
     :data:`FRAMES` for the encdec and vlm families, None for the
@@ -471,21 +524,40 @@ def nvidia_smi(fields: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, inner: int, sleep_cycles: int) -> tuple[float,
-                                                                    float]:
+# the longest sleep queued ahead of timed calls: ``sleep_cycles`` is this
+# many seconds of the SM clock
+SLEEP_S = 0.05
+
+
+def issue_sleep(fn, inner: int, sleep_cycles: int) -> int:
+    """Cycles of the sleep kernel to queue ahead of ``inner`` calls of
+    ``fn`` so that the device waits for the host's whole issue of them:
+    three times their issue as one call (a warm-up, timed on the host)
+    takes, at least 2 ms, at most ``sleep_cycles``."""
+    t0 = time.perf_counter()
+    fn()
+    issue = time.perf_counter() - t0
+    per_s = sleep_cycles / SLEEP_S
+    return int(min(sleep_cycles, per_s * max(2e-3, 3 * inner * issue)))
+
+
+def time_ms(fn, reps: int, inner: int, sleep_cycles: int,
+            b2b: bool = True) -> tuple[float, float | None]:
     """(device, back-to-back) ms per call, each the median over ``reps`` of
     the CUDA-event time of ``inner`` calls, after two warm-up calls.
 
     Device: the calls are queued behind a sleep kernel longer than it takes
-    the host to issue them, so the events time the kernels alone.
+    the host to issue them (:func:`issue_sleep`), so the events time the
+    kernels alone.
     Back-to-back: nothing is queued ahead, so a call shorter than the host's
     launch overhead is timed at the host's launch rate, which is what the
-    frame path pays between synchronizations."""
+    frame path pays between synchronizations; without ``b2b`` it is not
+    timed (None)."""
     import torch
     fn()
-    fn()
+    sleep_cycles = issue_sleep(fn, inner, sleep_cycles)
     out = []
-    for sleep in (sleep_cycles, 0):
+    for sleep in (sleep_cycles, 0) if b2b else (sleep_cycles,):
         times = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -499,7 +571,7 @@ def time_ms(fn, reps: int, inner: int, sleep_cycles: int) -> tuple[float,
             end.synchronize()
             times.append(start.elapsed_time(end) / inner)
         out.append(statistics.median(times))
-    return out[0], out[1]
+    return out[0], out[1] if b2b else None
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -521,18 +593,21 @@ def issue_us(fn, plans: dict, sleep_cycles: int, reps: int = 11,
     """Median host time in microseconds to issue one call of ``fn`` (its
     Python, allocations and launches) under each of ``plans`` (a function
     returning the context that puts the plan in force), the calls queued
-    behind a sleep kernel so that the device never holds the host back;
+    behind a sleep kernel (:func:`issue_sleep`) so that the device never
+    holds the host back;
     the plans take turns in every repetition, so a drift of the host's
     speed reaches them all alike."""
     import torch
     times = {key: [] for key in plans}
-    for plan in plans.values():
+    sleeps = {}
+    for key, plan in plans.items():
         with plan():
             fn()
+            sleeps[key] = issue_sleep(fn, inner, sleep_cycles)
     for _ in range(reps):
         for key, plan in plans.items():
             with plan():
-                torch.cuda._sleep(sleep_cycles)
+                torch.cuda._sleep(sleeps[key])
                 t0 = time.perf_counter()
                 for _ in range(inner):
                     fn()
@@ -797,17 +872,17 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         with plan():
             sweep.append({"positions_per_split": positions,
                           "splits": paged_k.paged_split_plan(nb, bs)[0],
-                          "ms": time_ms(attn, 5, 20, sleep)[0],
+                          "ms": time_ms(attn, 5, 20, sleep, b2b=False)[0],
                           "host_issue_us": host[positions]})
     attn_plain = time_ms(lambda: ref.paged_decode_attention(
-        q, ka, va, tables, lens, None, (k1, v1)), 3, 3, sleep)[0]
+        q, ka, va, tables, lens, None, (k1, v1)), 3, 3, sleep, b2b=False)[0]
     # the library yardstick attends over the already-gathered dense view
     # (the gather itself is not timed)
     kd = ka[tables.long()].reshape(B, nb * bs, H, D)[:, :n_pos]
     vd = va[tables.long()].reshape(B, nb * bs, H, D)[:, :n_pos]
     kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
     attn_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd), 5, 20, sleep)[0]
+        q[:, :, None], kd, vd), 5, 20, sleep, b2b=False)[0]
     row = H * D * 2                                   # bytes per K or V row
     attn_bytes = (2 * B * n_pos * row                 # live K and V rows
                   + 2 * B * H * D * 2                 # q in, out
@@ -840,12 +915,13 @@ def paged_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         kaL, vaL, torch.stack(k_layers), torch.stack(v_layers), w, o),
         {"stacked": contextlib.nullcontext}, sleep)["stacked"]
     sc_plain = time_ms(lambda: ref.scatter_kv_rows(kaL, vaL, kr, vr, w, o),
-                       3, 5, sleep)[0]
+                       3, 5, sleep, b2b=False)[0]
     idx = (torch.arange(L, device=dev)[:, None], w.long()[None, :],
            torch.zeros((1, 1), dtype=torch.long, device=dev),
            o.long()[None, :])
     sc_lib = time_ms(lambda: (kaL.index_put_(idx, kr),
-                              vaL.index_put_(idx, vr)), 5, 20, sleep)[0]
+                              vaL.index_put_(idx, vr)), 5, 20, sleep,
+                     b2b=False)[0]
     sc_bytes = 2 * 2 * L * S * row + 2 * S * 4        # rows in + out, ids
     del kaL, vaL, k_layers, v_layers
     torch.cuda.empty_cache()
@@ -1243,7 +1319,7 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
                 out[key] = {"splits": splits, "blocks_per_split": bps,
                             "ctas": ctas * splits,
                             "combine_ctas": Lc * H if splits > 1 else 0,
-                            "ms": time_ms(fn, 5, 20, sleep)[0],
+                            "ms": time_ms(fn, 5, 20, sleep, b2b=False)[0],
                             "host_issue_us": host[key]}
         return {**{k: v for k, v in out["planned"].items() if k != "ms"},
                 "plans": out, "device_us_by_kernel": device_us(fn)}
@@ -1260,9 +1336,9 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         "sass": sass_counts("cascade_attn", ("LDGSTS", "HMMA")),
         "ms": pre_ms[0], "back_to_back_ms": pre_ms[1],
         "plain_ms": time_ms(lambda: ref.cascade_prefix_attention(
-            qg, ka, va, gt, glen, ll), 3, 3, sleep)[0],
+            qg, ka, va, gt, glen, ll), 3, 3, sleep, b2b=False)[0],
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(0, 1)[None], kd, vd), 5, 20, sleep)[0],
+            q.transpose(0, 1)[None], kd, vd), 5, 20, sleep, b2b=False)[0],
         "library": "F.scaled_dot_product_attention of the 8 queries on the "
                    "gathered chain (normalized output only; gather not "
                    "timed)",
@@ -1281,9 +1357,9 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         + ptxas_of("paged_attn", "combine_states_kernelIf"),
         "ms": suf_ms[0], "back_to_back_ms": suf_ms[1],
         "plain_ms": time_ms(lambda: ref.paged_decode_attention_with_state(
-            q, ka, va, st, lens, None, q0s, nk), 3, 3, sleep)[0],
+            q, ka, va, st, lens, None, q0s, nk), 3, 3, sleep, b2b=False)[0],
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], ks, vs), 5, 20, sleep)[0],
+            q[:, :, None], ks, vs), 5, 20, sleep, b2b=False)[0],
         "library": "F.scaled_dot_product_attention on the gathered suffix "
                    "(normalized output only; gather not timed)",
         "bytes_ms": (2 * Lc * n_suf * row + Lc * H * D * 2
@@ -1335,8 +1411,8 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
             q, ka, va, st, lens, q0=q0s, new_kv=nk, prefix=pstates)
     state_ms, merged_ms = [], []
     for _ in range(3):
-        state_ms.append(time_ms(suffix, 5, 20, sleep)[0])
-        merged_ms.append(time_ms(suffix_merged, 5, 20, sleep)[0])
+        state_ms.append(time_ms(suffix, 5, 20, sleep, b2b=False)[0])
+        merged_ms.append(time_ms(suffix_merged, 5, 20, sleep, b2b=False)[0])
     fused_ms = {"ms": statistics.median(merged_ms)
                 - statistics.median(state_ms),
                 "with_prefix_ms": statistics.median(merged_ms),
@@ -1354,7 +1430,7 @@ def cascade_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         "fused_into": "paged_decode_attention_with_state",
         "standalone_ms": mg_ms[0], "back_to_back_ms": mg_ms[1],
         "plain_ms": time_ms(lambda: ref.merge_attn_states(*a, *b), 3, 5,
-                            sleep)[0],
+                            sleep, b2b=False)[0],
         "library_ms": None,
         "bytes_ms": 4 * (3 * B * Hq * D + 4 * B * Hq) / PEAK_BYTES_PER_S
         * 1e3,
@@ -1487,20 +1563,21 @@ def flash_kernel_checks(dev, gen, sleep: int) -> tuple[dict, dict]:
         whole = None
         if splits > 1:
             with whole_band():
-                whole = {"splits": 1, "ms": time_ms(flash, 5, 20, sleep)[0],
+                whole = {"splits": 1,
+                         "ms": time_ms(flash, 5, 20, sleep, b2b=False)[0],
                          "host_issue_us": host["whole"]}
         plain = time_ms(lambda: ref.flash_attention_chunked(
-            q, k, v, True, None, off), 3, 3, sleep)[0]
+            q, k, v, True, None, off), 3, 3, sleep, b2b=False)[0]
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if off == 0:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 5, 20, sleep)[0]
+                qt, kt, vt, is_causal=True), 5, 20, sleep, b2b=False)[0]
             how = "is_causal=True"
         else:
             mask = (torch.arange(Sk, device=dev)[None, :]
                     <= off + torch.arange(Sq, device=dev)[:, None])
             lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), 5, 20, sleep)[0]
+                qt, kt, vt, attn_mask=mask), 5, 20, sleep, b2b=False)[0]
             how = "an explicit boolean mask"
         # each input read once, the output written once; the operations of
         # the causal band this call needs (2 per multiply-add, QK and PV)
@@ -1662,31 +1739,57 @@ class CascadeProbe(TickProbe):
         return out
 
 
-def forced_ticks(cfg, params, prompts, forced, backend: str,
-                 chunked: bool = False):
-    """Admit ``prompts`` into fresh paged slots (one-shot, or through the
-    fold with ``chunked``) and run one tick per row of ``forced`` tokens.
-    Returns (first tokens, per-tick tokens, per-tick logits, per-tick host
-    ms, per-tick cascade groups)."""
+def forced_ticks(cfg, params, prompts, forced, backends: tuple,
+                 chunked: bool = False) -> dict:
+    """Admit ``prompts`` into paged slots (one-shot, or through the fold
+    with ``chunked``) once, give each of ``backends`` its own adapter
+    holding that admission (the arena, the lane state and the host's
+    paging state copied before any tick: admission does not depend on the
+    tick's backend), and run one tick per row of ``forced`` tokens on
+    each.  Returns per backend (first tokens, per-tick tokens, per-tick
+    logits, per-tick host ms, per-tick cascade groups)."""
+    import copy
+
     import numpy as np
     import torch
 
     from repro_torch.serve.gateway.slots import make_adapter
-    ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=LM_MAX_LEN,
-                      extras=extras_of(cfg), paged=True, block_size=LM_BLOCK,
-                      chunked=chunked, backend=backend)
-    probe = TickProbe(ad)
-    first = [ad.insert(s, p, max_new=len(forced) + 1)
+
+    def adapter(backend):
+        return make_adapter(cfg, params, n_slots=len(prompts),
+                            max_len=LM_MAX_LEN, extras=extras_of(cfg),
+                            paged=True, block_size=LM_BLOCK, chunked=chunked,
+                            backend=backend)
+    first_ad = adapter(backends[0])
+    first = [first_ad.insert(s, p, max_new=len(forced) + 1)
              for s, p in enumerate(prompts)]
-    active = np.ones(len(prompts), bool)
-    toks, logits, groups = [], [], []
-    for row in forced:
-        toks.append(ad.decode(row, active))
-        logits.append(ad.last_logits.clone())
-        groups.append(ad.last_groups)
-    del ad
+    ads = {backends[0]: first_ad}
+    for backend in backends[1:]:
+        ad = adapter(backend)
+        for key, a in first_ad.arena.items():
+            ad.arena[key].copy_(a)
+        for key, a in first_ad.state.items():
+            ad.state[key].copy_(a)
+        for name in ("tables", "lens", "slot_bids", "cow_blk", "cow_spare",
+                     "partial_reg", "_stats", "pool", "_boundary_states"):
+            setattr(ad, name, copy.deepcopy(getattr(first_ad, name)))
+        ad.pool.on_unindex = \
+            lambda bid, key, ad=ad: ad._boundary_states.pop(key, None)
+        ads[backend] = ad
+    out = {}
+    for backend, ad in ads.items():
+        probe = TickProbe(ad)
+        active = np.ones(len(prompts), bool)
+        toks, logits, groups = [], [], []
+        for row in forced:
+            toks.append(ad.decode(row, active))
+            logits.append(ad.last_logits.clone())
+            groups.append(ad.last_groups)
+        out[backend] = (first, np.stack(toks), torch.stack(logits),
+                        probe.times, groups)
+    del ads, first_ad, ad
     torch.cuda.empty_cache()
-    return first, np.stack(toks), torch.stack(logits), probe.times, groups
+    return out
 
 
 def load_b_prompts(vocab: int):
@@ -1734,7 +1837,7 @@ def load_spec(backend: str, chunked: bool, new_tokens: int):
 
 def serve_load(dev, cfg, params, prompts, *, backend: str,
                chunked: bool, new_tokens: int, profile: bool = False,
-               keep_blocks: bool = False) -> dict:
+               keep_blocks: bool = False, after_first=None) -> dict:
     """One load through ``make_gateway`` (8 lanes of 1,536 tokens): the
     first step admits every prompt and ticks once, four timed ticks follow,
     then (with ``profile``) three under the profiler, left out of the tick
@@ -1742,7 +1845,9 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
     slot and its admission: host ms (ending in a synchronize), prefill
     tokens skipped, first-token logits and, with ``keep_blocks``, a copy of
     its prompt's K/V blocks taken right after the insert.  Counts every
-    kernel's launches and the fold's chunks from the first step on."""
+    kernel's launches and the fold's chunks from the first step on;
+    ``after_first(adapter, batcher)``, where given, runs right after the
+    first step, its launches left out of the counts."""
     import torch
 
     from repro_torch.serve.gateway.slots import Request
@@ -1792,6 +1897,12 @@ def serve_load(dev, cfg, params, prompts, *, backend: str,
     t0 = time.perf_counter()
     batcher.step()
     slot = {r.uid: s for s, r in enumerate(batcher.active) if r}
+    if after_first is not None:
+        counts = read_counts()
+        after_first(ad, batcher)
+        reset_counts()
+        from repro_torch import kernels
+        kernels.add_counts(counts)
     for _ in range(4):
         batcher.step()
     device = profile_ticks(batcher, 3, statistics.median(
@@ -1863,6 +1974,7 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
     # the kernels this path launches: the two paged kernels on the ticks,
     # flash_attention in every one-shot prefill
     paged = ("paged_decode_attention", "scatter_kv_rows", "flash_attention")
+    sw = Stopwatch()
     cfg = configs.config("stablelm-3b")
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -1888,6 +2000,7 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
     gw.warmup(fleet.cfg.prompt_lens)
     probe = TickProbe(ad)
     failures = []
+    sw.lap("init")
 
     def count(run):
         reset_counts()
@@ -1917,6 +2030,7 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
               "p99_latency_ms": rep.get("p99_latency_ms"),
               "tick_ms_median": statistics.median(probe.times),
               "logits_finite": probe.finite}
+    sw.lap("load_a")
 
     # (b) four 1,000-token requests: r1 shares r0's first 512 tokens (a
     # 32-block radix hit); r2 repeats r0 whole (62 full blocks + the shared
@@ -1942,6 +2056,7 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
               "cow_copies": cow, "r0_equals_r2": same,
               "ticks": len(probe.times), "run_s": run_b,
               "launches": counts_b, "logits_finite": probe.finite}
+    sw.lap("load_b")
 
     # the decode tick at 8 lanes x 1,024..1,031 positions: the first step
     # admits all 8 (prefill) and ticks once, then 4 timed ticks, then 3
@@ -1964,6 +2079,7 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
     launches = {n: counts_a[n] + counts_b[n] for n in paged}
     del gw, ad, batcher, probe
     torch.cuda.empty_cache()
+    sw.lap("tick_8x1k")
 
     # the kernel tick against the plain tick, same card, same weights
     lens = [1000, 517, 16, 1, 33, 250, 800, 1024]
@@ -1971,21 +2087,21 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
     forced = rng.integers(0, cfg.vocab, (8, len(lens))).astype(np.int32)
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
-    f_k, t_k, l_k, _, _ = forced_ticks(cfg4, params4, prompts, forced,
-                                       "cuda")
-    f_p, t_p, l_p, _, _ = forced_ticks(cfg4, params4, prompts, forced,
-                                       "plain")
+    runs4 = forced_ticks(cfg4, params4, prompts, forced, ("cuda", "plain"))
+    f_k, t_k, l_k, _, _ = runs4["cuda"]
+    f_p, t_p, l_p, _, _ = runs4["plain"]
     f32_err = float((l_k - l_p).abs().max())
     f32_ok = f_k == f_p and np.array_equal(t_k, t_p) and \
         torch.allclose(l_k, l_p, rtol=2e-4, atol=2e-4)
     del params4
     torch.cuda.empty_cache()
-    b_k, bt_k, bl_k, ms_k, _ = forced_ticks(cfg, params, prompts, forced,
-                                            "cuda")
-    b_p, bt_p, bl_p, ms_p, _ = forced_ticks(cfg, params, prompts, forced,
-                                            "plain")
+    sw.lap("forced_f32")
+    runs = forced_ticks(cfg, params, prompts, forced, ("cuda", "plain"))
+    b_k, bt_k, bl_k, ms_k, _ = runs["cuda"]
+    b_p, bt_p, bl_p, ms_p, _ = runs["plain"]
     bf16_err = float((bl_k - bl_p).abs().max())
     bf16_finite = bool(torch.isfinite(bl_k).all())
+    sw.lap("forced_bf16")
     if not f32_ok:
         failures.append(f"float32 depth 4: kernel tick vs plain tick "
                         f"max |dlogit| {f32_err}, tokens equal "
@@ -2009,22 +2125,26 @@ def lm_main_path(dev, attn_ms: float) -> tuple:
           "bf16_max_abs_dlogit": bf16_err,
           "bf16_logit_bound": BF16_LOGIT_BOUND,
           "bf16_token_agreement": float((bt_k == bt_p).mean()),
-          "failures": failures})
+          "failures": failures, **sw.fields()})
     if failures:
         raise SystemExit(f"prompt path: {failures}")
     return launches, cfg, params
 
 
 def cascade_main_path(dev, cfg, params, chunked: bool = False,
-                      turns: bool = True) -> dict:
+                      turns: bool = True, host_runs: int | None = None,
+                      eager_profile: bool = True) -> dict:
     """Phase 6: the cascade tick at the config's full width and depth
     (stablelm-3b in phase 6), its prompts admitted one-shot or, with
     ``chunked``, through the fold (the hybrid family, whose one-shot
     prefill refuses load (c)'s 1,088 tokens as the reference's does);
     without ``turns`` load (c) is served once per gateway, not twice in
     turns (the second pair only times the tick again and repeats its
-    tokens).  Returns the launches of load (c); raises SystemExit on a
-    failed check."""
+    tokens).  The cascade gateway's tick right after its first is held
+    against its eager step and timed (:func:`captured_tick_check`,
+    ``host_runs`` and ``eager_profile``; phase 8's cascade tick).
+    Returns the launches of load (c); raises SystemExit on a failed
+    check."""
     import numpy as np
     import torch
 
@@ -2032,16 +2152,26 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
 
     prompts, rng = load_c_prompts(cfg.vocab)
     failures = []
+    sw = Stopwatch()
 
-    def serve(cfg, params, backend: str, profile: bool) -> dict:
+    def serve(cfg, params, backend: str, profile: bool,
+              after_first=None) -> dict:
         return serve_load(dev, cfg, params, prompts,
                           backend=backend, chunked=chunked,
-                          new_tokens=NEW_TOKENS_C, profile=profile)
+                          new_tokens=NEW_TOKENS_C, profile=profile,
+                          after_first=after_first)
 
+    captured = {}
+
+    def capture_check(ad, batcher):
+        captured.update(captured_tick_check(
+            ad, batcher, "cascade_load_c", host_runs, eager_profile,
+            failures))
     # bf16, full depth, the main path; runs in turns (cascade, flat, flat,
     # cascade) because the host clock drifts within a call
-    runs = [serve(cfg, params, "cascade", True), serve(cfg, params, "cuda",
-                                                       True)]
+    runs = [serve(cfg, params, "cascade", True, capture_check),
+            serve(cfg, params, "cuda", True)]
+    sw.lap("load_c_bf16")
     if turns:
         runs += [serve(cfg, params, "cuda", False),
                  serve(cfg, params, "cascade", False)]
@@ -2116,6 +2246,7 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
                         f"gateway that is not a near tie: {diffs}")
     agree = sum(a == b for uid, t in casc["tokens"].items()
                 for a, b in zip(t, flat["tokens"][uid]))
+    sw.lap("load_c_bf16_checks")
     # float32 at depth 4 (encdec: whole), where the reference's contract is
     # exact tokens
     cfg4 = strict_cfg(cfg)
@@ -2139,6 +2270,7 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
         r["prefill_ms"] = statistics.median(
             x["ms"] for x in r.pop("prefill").values())
     torch.cuda.empty_cache()
+    sw.lap("load_c_f32")
 
     # the cascade tick against the plain flat tick, same card and weights:
     # eight prompts share a 512-token prefix, with tails of 0 to 511 tokens
@@ -2148,21 +2280,23 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
                 for n in (0, 1, 15, 16, 47, 130, 300, 511)]
     forced = rng.integers(0, cfg.vocab, (8, len(fprompts))).astype(np.int32)
     params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
-    f_c, t_c, l_c, _, g4 = forced_ticks(cfg4, params4, fprompts, forced,
-                                        "cascade", chunked)
-    f_p, t_p, l_p, _, _ = forced_ticks(cfg4, params4, fprompts, forced,
-                                       "plain", chunked)
+    pair4 = forced_ticks(cfg4, params4, fprompts, forced,
+                         ("cascade", "plain"), chunked)
+    f_c, t_c, l_c, _, g4 = pair4["cascade"]
+    f_p, t_p, l_p, _, _ = pair4["plain"]
     f32_err = float((l_c - l_p).abs().max())
     f32_ok = f_c == f_p and np.array_equal(t_c, t_p) and \
         torch.allclose(l_c, l_p, rtol=2e-4, atol=2e-4) and \
         all(g == 1 for g in g4)
     del params4
     torch.cuda.empty_cache()
-    b_c, bt_c, bl_c, ms_c, gb = forced_ticks(cfg, params, fprompts, forced,
-                                             "cascade", chunked)
-    b_p, bt_p, bl_p, ms_p, _ = forced_ticks(cfg, params, fprompts, forced,
-                                            "plain", chunked)
+    sw.lap("forced_f32")
+    pair = forced_ticks(cfg, params, fprompts, forced, ("cascade", "plain"),
+                        chunked)
+    b_c, bt_c, bl_c, ms_c, gb = pair["cascade"]
+    b_p, bt_p, bl_p, ms_p, _ = pair["plain"]
     bf16_err = float((bl_c - bl_p).abs().max())
+    sw.lap("forced_bf16")
     if not f32_ok:
         failures.append(f"float32 depth 4: cascade tick vs plain tick max "
                         f"|dlogit| {f32_err}, tokens equal "
@@ -2206,7 +2340,8 @@ def cascade_main_path(dev, cfg, params, chunked: bool = False,
               "bf16_token_agreement": float((bt_c == bt_p).mean()),
               "cascade_tick_ms_bf16": statistics.median(ms_c[1:]),
               "plain_tick_ms_bf16": statistics.median(ms_p[1:])},
-          "failures": failures})
+          "captured_cascade_tick": captured,
+          "failures": failures, **sw.fields()})
     if failures:
         raise SystemExit(f"cascade path: {failures}")
     return casc["launches"]
@@ -2241,6 +2376,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
     failures = []
+    sw = Stopwatch()
     pb, _ = load_b_prompts(cfg.vocab)
     # each load: its prompts, backend, the fold's chunks (from the
     # adapter's own count) and the prefill tokens each request skips
@@ -2267,6 +2403,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             if hybrid else ch[key]
         os_[key] = serve(cfg, params, aligned if hybrid else prompts,
                          backend, False)
+        sw.lap(f"load_{key}_bf16")
     refused = None
     if hybrid:
         # the reference's one-shot prefill asserts S % min(ssm_chunk, S)
@@ -2335,6 +2472,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
     if not all(d["near_tie"] for ds in diffs.values() for d in ds):
         failures.append(f"bf16 chunked vs one-shot: a difference that is "
                         f"not a near tie: {diffs}")
+    sw.lap("refusal_and_traces")
 
     # load (b)'s r1 (a 512-token hit, resumed at block 32) against the same
     # prompt admitted cold into a fresh gateway: bitwise
@@ -2393,6 +2531,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
             rec.pop("blocks", None)
             rec.pop("cross", None)
     torch.cuda.empty_cache()
+    sw.lap("resume_bitwise")
 
     # one-shot prefill of a 1,000-token prompt (hybrid: 1,024) with
     # attention through the kernel, and through its plain version (the
@@ -2411,6 +2550,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
         prefill_plain_ms = host_ms(lambda: engine.prefill(
             cfg, params, tokens, **prefill_kw(cfg)), reps=3)
     torch.cuda.empty_cache()
+    sw.lap("prefill_ms")
 
     # float32 at depth 4 (encdec: whole): tokens equal and logits within
     # 2e-4
@@ -2433,6 +2573,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
                             f"one-shot {f32[key]}")
     del params4
     torch.cuda.empty_cache()
+    sw.lap("f32")
 
     def prefill_ms(runs, pick):
         return [r["prefill"][u]["ms"] for r in runs for u in sorted(r["slot"])
@@ -2485,7 +2626,7 @@ def chunked_main_path(dev, cfg, params, loads: str = "bc") -> dict:
               f"{key}_{'chunked' if r['chunked'] else 'oneshot'}":
                   statistics.median(r["tick_ms"])
               for key in spec for r in (ch[key], os_[key])},
-          "failures": failures})
+          "failures": failures, **sw.fields()})
     if failures:
         raise SystemExit(f"chunked path ({cfg.name}): {failures}")
     return {"launches": launches,
@@ -2542,14 +2683,16 @@ def tick_replay_check(ad, tokens, active, state=None) -> dict:
     return out
 
 
-def tick_timing(ad, tokens, active, after=None, runs: int | None = None
-                ) -> dict:
+def tick_timing(ad, tokens, active, after=None, runs: int | None = None,
+                eager_profile: bool = True) -> dict:
     """Host ms of the adapter's next tick at its current state (its host
     side, the step, the logits' copy and the tokens on the host; the state
     does not advance: a paged tick rewrites its rows, and ``after``, where
     given, puts back what the tick advanced), captured and eager in turns
     (:func:`turns`, ``runs`` a side, default ``HOST_RUNS``), and
-    :func:`profile_ticks` over three ticks of each."""
+    :func:`profile_ticks` over three ticks of the captured step and, with
+    ``eager_profile``, of the eager one (seconds of profiler work at a
+    large model's thousands of launches a tick)."""
     from types import SimpleNamespace
 
     def tick(eager: bool):
@@ -2562,22 +2705,71 @@ def tick_timing(ad, tokens, active, after=None, runs: int | None = None
     ms = turns(sides, runs or HOST_RUNS)
     return {"host_ms": ms, "profile": {
         name: profile_ticks(SimpleNamespace(step=fn), 3, ms[name]["median"])
-        for name, fn in sides.items()}}
+        for name, fn in sides.items()
+        if eager_profile or name == "captured"}}
+
+
+def captured_tick_check(ad, batcher, name: str, runs: int | None,
+                        eager_profile: bool, failures: list) -> dict:
+    """The paged adapter's next tick right after its first (its capture),
+    mid load: replayed against the eager step bit for bit (the arena, and
+    the hybrid family's per-lane state), launch counts, captured steps, and
+    host ms per tick captured against eager in turns with a profile
+    (:func:`tick_timing`, ``runs`` a side); appends to ``failures``.
+    The arena and the lane state are put back afterwards (the timed ticks
+    advance the hybrid family's recurrent state), so the load can go on.
+    Returns the check's fields."""
+    import numpy as np
+    tokens = batcher.last_token.copy()
+    active = np.asarray([r is not None for r in batcher.active])
+    state = {**ad.arena, **ad.state}
+    check = tick_replay_check(ad, tokens, active, state=state)
+    start = {key: a.clone() for key, a in state.items()}
+    timing = tick_timing(ad, tokens, active, runs=runs,
+                         eager_profile=eager_profile)
+    for key, a in state.items():
+        a.copy_(start[key])
+    del start
+    captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
+    want = {"decode": 1} if ad.backend != "cascade" else \
+        {"decode": 0, "decode_cascade": 1}
+    prof = timing["profile"]["captured"]
+    # every arena key and recurrent state written, the encdec and vlm
+    # families' cross K/V read only
+    written = all(v == 0 if key in ("xk", "xv") else v
+                  for key, v in check["rows_written"].items())
+    if not (check["logits_bitwise"] and check["arena_bitwise"]
+            and check["launches_equal"] and check["logits_finite"]
+            and written):
+        failures.append(f"{name}: the replayed tick differs from the "
+                        f"eager step: {check}")
+    if captures != want:
+        failures.append(f"{name}: captured steps {captures}, expected "
+                        f"{want}")
+    if prof["graph_launches_per_tick"] != 1 or \
+            prof["host_launches_per_tick"] > MAX_CAPTURED_TICK_LAUNCHES:
+        failures.append(f"{name}: a captured tick issued "
+                        f"{prof['graph_launches_per_tick']} graphs and "
+                        f"{prof['host_launches_per_tick']} kernels")
+    return {"backend": ad.backend, "groups": ad.last_groups,
+            "captures": captures, "replay": check, **timing}
 
 
 def capture_main_path(dev, cfg, params, runs: int | None = None, *,
-                      flat_len: int = 1024, chunked: bool = False) -> dict:
-    """Phase 8: the captured ticks at the config's full width and depth:
-    the flat tick at 8 lanes x ``flat_len`` positions (``backend="cuda"``;
-    for the vlm family ``"plain"``, its only in-place tick, and no cascade
-    tick) and load (c)'s cascade tick, prompts admitted one-shot or through the
-    fold (``chunked``; the flat load's lanes then share all but their last
-    block), each right after the first tick (its capture):
-    replay against the eager step bit for bit (the arena, and the hybrid
-    family's per-lane state), launch counts, captured steps, and host ms
-    per tick captured against eager in turns, with a profile of each
-    (``runs`` a side, :func:`tick_timing`).  Raises SystemExit on a failed
-    check."""
+                      flat_len: int = 1024, chunked: bool = False,
+                      eager_profile: bool = True) -> dict:
+    """Phase 8: the captured flat tick at the config's full width and depth,
+    8 lanes x ``flat_len`` positions (``backend="cuda"``; for the vlm family
+    ``"plain"``, its only in-place tick), prompts admitted one-shot or
+    through the fold (``chunked``; the lanes then share all but their last
+    block), right after the first tick (its capture)
+    (:func:`captured_tick_check`: replay against the eager step bit for
+    bit, the arena and the hybrid family's per-lane state, launch counts,
+    captured steps, and host ms per tick captured against eager in turns,
+    with a profile, ``runs`` a side; the eager step profiled with
+    ``eager_profile``).  Load (c)'s cascade tick is held the same way on
+    :func:`cascade_main_path`'s own cascade gateway, so load (c) is not
+    admitted again here.  Raises SystemExit on a failed check."""
     import numpy as np
     import torch
 
@@ -2595,9 +2787,8 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
     loads = {flat: ("plain" if vlm else "cuda", [np.concatenate(
         [common, rng.integers(0, cfg.vocab, own)]).astype(np.int32)
         for _ in range(LM_SLOTS)])}
-    if not vlm:
-        loads["cascade_load_c"] = ("cascade", load_c_prompts(cfg.vocab)[0])
     out, failures = {}, []
+    sw = Stopwatch()
     for name, (backend, prompts) in loads.items():
         gw = make_gateway(cfg, params, ServeSpec(
             n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
@@ -2608,39 +2799,15 @@ def capture_main_path(dev, cfg, params, runs: int | None = None, *,
             batcher.submit(Request(uid=i, prompt=p,
                                    max_new_tokens=NEW_TOKENS_C))
         batcher.step()          # admits all eight; the first tick captures
-        tokens = batcher.last_token.copy()
-        active = np.asarray([r is not None for r in batcher.active])
-        check = tick_replay_check(ad, tokens, active,
-                                  state={**ad.arena, **ad.state})
-        timing = tick_timing(ad, tokens, active, runs=runs)
-        captures = {n: fn._cache_size() for n, fn in ad.jit_fns().items()}
-        want = {"decode": 1} if backend != "cascade" else \
-            {"decode": 0, "decode_cascade": 1}
-        prof = timing["profile"]["captured"]
-        out[name] = {"backend": backend, "groups": ad.last_groups,
-                     "captures": captures, "replay": check, **timing}
-        # every arena key and recurrent state written, the encdec and vlm
-        # families' cross K/V read only
-        written = all(v == 0 if key in ("xk", "xv") else v
-                      for key, v in check["rows_written"].items())
-        if not (check["logits_bitwise"] and check["arena_bitwise"]
-                and check["launches_equal"] and check["logits_finite"]
-                and written):
-            failures.append(f"{name}: the replayed tick differs from the "
-                            f"eager step: {check}")
-        if captures != want:
-            failures.append(f"{name}: captured steps {captures}, expected "
-                            f"{want}")
-        if prof["graph_launches_per_tick"] != 1 or \
-                prof["host_launches_per_tick"] > MAX_CAPTURED_TICK_LAUNCHES:
-            failures.append(f"{name}: a captured tick issued "
-                            f"{prof['graph_launches_per_tick']} graphs and "
-                            f"{prof['host_launches_per_tick']} kernels")
+        sw.lap(f"{name}_admit")
+        out[name] = captured_tick_check(ad, batcher, name, runs,
+                                        eager_profile, failures)
+        sw.lap(f"{name}_check")
         del gw, ad, batcher
         torch.cuda.empty_cache()
     emit({"phase": "capture", "model": cfg.name,
           "admission": "chunked fold" if chunked else "one-shot", **out,
-          "failures": failures})
+          "failures": failures, **sw.fields()})
     if failures:
         raise SystemExit(f"captured ticks: {failures}")
     return out
@@ -2965,7 +3132,9 @@ def strict_dense_paths(dev, cfg4, params4, prompts
 
 
 def dense_main_path(dev, cfg, params, *, sc: bool = True,
-                    runs: int | None = None, strict: bool = True) -> dict:
+                    runs: int | None = None, strict: bool = True,
+                    keep: dict | None = None,
+                    eager_profile: bool = True) -> dict:
     """Phase 10: the dense KV path (the default ``ServeSpec()`` gateway),
     the gather-tick oracle and (``sc``) the SC LM frontend at the config's
     full width; for the moe family also the router gaps of the default
@@ -2974,8 +3143,11 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     vlm phase runs on its own float32 model once the bf16 one is freed).
     Returns the kernels' launches on the default
     gateway's load ("dense") and on the SC gateways' ("sc", None without
-    ``sc``); ``runs``: the tick timing's runs a side (:func:`tick_timing`).
-    Raises SystemExit on a failed check."""
+    ``sc``); ``runs``: the tick timing's runs a side, ``eager_profile``
+    whether it profiles the eager step too (:func:`tick_timing`);
+    ``keep``, where given, receives the default gateway's bf16 run under
+    "dense" (:func:`serve_spec_load`).  Raises SystemExit on a failed
+    check."""
     import dataclasses
 
     import numpy as np
@@ -2989,6 +3161,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     from repro_torch.serve.spec import ServeSpec, make_gateway
 
     failures = []
+    sw = Stopwatch()
     prompts = dense_prompts(cfg.vocab)
     n_req = len(prompts)
     default = ServeSpec()
@@ -3001,6 +3174,8 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
 
     # (1) the default gateway (dense slots), bf16 at full depth
     dense = serve_spec_load(dev, cfg, params, prompts, default)
+    if keep is not None:
+        keep["dense"] = dense
     want = {name: 0 for name in dense["launches"]}
     want["flash_attention"] = flash_launches(cfg, n_req, n_req)
     if dense["adapter"] != "KVSlotAdapter" or not served_all(dense) or \
@@ -3009,6 +3184,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
                         f"served {dense['served']}, finite "
                         f"{dense['finite']}, launches {dense['launches']}, "
                         f"captures {dense['captures']}")
+    sw.lap("default_gateway")
 
     # (2) the captured dense tick against its eager step, four lanes mid
     # stream: logits and the whole cache bit for bit, then host ms per
@@ -3024,7 +3200,8 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
     replay = tick_replay_check(ad, toks, active, state=ad.cache)
     len0 = ad.cache["len"].clone()
     timing = tick_timing(ad, toks, active,
-                         after=lambda: ad.cache["len"].copy_(len0), runs=runs)
+                         after=lambda: ad.cache["len"].copy_(len0), runs=runs,
+                         eager_profile=eager_profile)
     prof = timing["profile"]["captured"]
     if not (replay["logits_bitwise"] and replay["arena_bitwise"]
             and replay["launches_equal"] and replay["logits_finite"]
@@ -3036,6 +3213,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
                         "graph launches per tick")
     del gw, ad, batcher
     torch.cuda.empty_cache()
+    sw.lap("dense_tick")
 
     # (3) the paged gateways on the same load, bf16 full depth: the flat
     # kernel tick (not for the vlm family), the in-place plain tick and
@@ -3058,6 +3236,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
         if not all(x["near_tie"] for x in d["first_differences"]):
             failures.append(f"bf16 {name}: a difference that is not a near "
                             f"tie: {d['first_differences']}")
+    sw.lap("paged_bf16")
 
     # (4) float32 at depth 4 (encdec: whole): tokens equal, logits within
     # 2e-4
@@ -3072,6 +3251,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
                                              tokens4)
         del params4
         torch.cuda.empty_cache()
+        sw.lap("f32")
 
     dense_launches = {"flash_attention":
                       dense["launches"]["flash_attention"]}
@@ -3094,7 +3274,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
             "router_gap_k_to_k_plus_1": gaps}
     if not sc:
         emit({**line, "launches": {"dense": dense_launches},
-              "failures": failures})
+              "failures": failures, **sw.fields()})
         if failures:
             raise SystemExit(f"dense path ({cfg.name}): {failures}")
         return dense_launches, None
@@ -3159,7 +3339,7 @@ def dense_main_path(dev, cfg, params, *, sc: bool = True,
                  "runs": {n: summary(r) for n, r in sc_runs.items()},
                  "dense_vs_paged_bf16": sc_vs},
           "launches": {"dense": dense_launches, "sc": sc_launches},
-          "failures": failures})
+          "failures": failures, **(sw.lap("sc") or sw.fields())})
     if failures:
         raise SystemExit(f"dense path: {failures}")
     return dense_launches, sc_launches
@@ -3429,8 +3609,8 @@ def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
                     ops_ms = ops / BF16_FLOPS * 1e3     # bf16 operands
                     timing[name] = {
                         "ms": ms, "back_to_back_ms": b2b,
-                        "plain_ms": time_ms(plain, 3, 3, sleep)[0],
-                        "library_ms": time_ms(lib, 5, 20, sleep)[0],
+                        "plain_ms": time_ms(plain, 3, 3, sleep, b2b=False)[0],
+                        "library_ms": time_ms(lib, 5, 20, sleep, b2b=False)[0],
                         "bound_ms": max(bytes_ms, ops_ms),
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations", "bytes_ms": bytes_ms,
@@ -3502,11 +3682,12 @@ def moe_main_path(dev, sleep: int) -> dict:
     and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
     at depth 4 (dense layer 0 and 3 MoE layers at full width) and bf16 at
     full depth (:func:`dense_main_path`, with :func:`router_gaps`); load
-    (c) through the cascade tick against the flat tick
-    (:func:`cascade_main_path`); load (b) chunked, the resumed fold bit for
-    bit the cold one (:func:`chunked_main_path`); the captured ticks
-    against their eager steps (:func:`capture_main_path`; the tick timings
-    at ``MOE_HOST_RUNS`` runs a side).  In bf16 a first difference between
+    (c) through the cascade tick against the flat tick, served once per
+    gateway (:func:`cascade_main_path`); load (b) chunked, the resumed fold
+    bit for bit the cold one (:func:`chunked_main_path`); the captured
+    ticks against their eager steps (:func:`capture_main_path`; the tick
+    timings at ``MOE_HOST_RUNS`` runs a side, the captured step
+    profiled).  In bf16 a first difference between
     two gateways' streams may also be a near tie of the router's logits
     (:func:`trace_routing`).  Returns the kernels' launches over the path;
     raises SystemExit on a failed check."""
@@ -3524,14 +3705,7 @@ def moe_main_path(dev, sleep: int) -> dict:
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    sizes, stack = {}, [("", params)]
-    while stack:
-        path, p = stack.pop()
-        for k, v in p.items():
-            if isinstance(v, dict):
-                stack.append((f"{path}{k}.", v))
-            else:
-                sizes[path + k] = v.numel()
+    sizes = param_sizes(params)
     n_params = sum(sizes.values())
     routed = sum(n for k, n in sizes.items()
                  if k.startswith("blocks.moe.w_"))
@@ -3552,14 +3726,16 @@ def moe_main_path(dev, sleep: int) -> dict:
     timing = timed("kernel_checks", attn_shape_checks, dev, gen, sleep,
                    cfg.n_layers, tag="moe", hq=MOE_H, hkv=MOE_H, d=MOE_D)
     dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
-                     sc=False, runs=MOE_HOST_RUNS)
+                     sc=False, runs=MOE_HOST_RUNS, eager_profile=False)
     add(dense)
-    add(timed("cascade_path", cascade_main_path, dev, cfg, params))
+    add(timed("cascade_path", cascade_main_path, dev, cfg, params,
+              turns=False,
+              host_runs=MOE_HOST_RUNS, eager_profile=False))
     chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
                     loads="b")
     add(chunked["launches"])
     capture = timed("capture", capture_main_path, dev, cfg, params,
-                    runs=MOE_HOST_RUNS)
+                    runs=MOE_HOST_RUNS, eager_profile=False)
     flat = capture["flat_8x1k"]
     # a model of the tick's bytes, not a measurement: every bf16 weight but
     # the embedding read once (the routed experts all, as the reference's
@@ -3642,14 +3818,7 @@ def hymba_main_path(dev, sleep: int) -> dict:
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    sizes, stack = {}, [("", params)]
-    while stack:
-        path, p = stack.pop()
-        for k, v in p.items():
-            if isinstance(v, dict):
-                stack.append((f"{path}{k}.", v))
-            else:
-                sizes[path + k] = v.numel()
+    sizes = param_sizes(params)
     n_params = sum(sizes.values())
     gen = torch.Generator(device=dev).manual_seed(12)
     seconds, launches = {}, {}
@@ -3670,16 +3839,17 @@ def hymba_main_path(dev, sleep: int) -> dict:
                    d=HYMBA_D, n_pos=HYMBA_CONTEXT, fold_offset=1072,
                    one_len=1024, windows=(HYMBA_WINDOW, None), cut_len=2048)
     dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
-                     sc=False, runs=HYMBA_HOST_RUNS)
+                     sc=False, runs=HYMBA_HOST_RUNS, eager_profile=False)
     add(dense)
     add(timed("cascade_path", cascade_main_path, dev, cfg, params,
-              chunked=True, turns=False))
+              chunked=True, turns=False,
+              host_runs=HYMBA_HOST_RUNS, eager_profile=False))
     chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
                     loads="b")
     add(chunked["launches"])
     capture = timed("capture", capture_main_path, dev, cfg, params,
                     runs=HYMBA_HOST_RUNS, flat_len=HYMBA_CONTEXT,
-                    chunked=True)
+                    chunked=True, eager_profile=False)
     flat = capture[f"flat_8x{HYMBA_CONTEXT}"]
     # a model of the tick's bytes, not a measurement: every bf16 weight but
     # the embedding read once, lm_head's float32 copy written and read, the
@@ -3768,14 +3938,7 @@ def whisper_main_path(dev, sleep: int) -> dict:
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    sizes, stack = {}, [("", params)]
-    while stack:
-        path, p = stack.pop()
-        for k, v in p.items():
-            if isinstance(v, dict):
-                stack.append((f"{path}{k}.", v))
-            else:
-                sizes[path + k] = v.numel()
+    sizes = param_sizes(params)
     n_params = sum(sizes.values())
     enc = torch.randn((1, cfg.enc_len, cfg.d_model), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(13))
@@ -3816,15 +3979,16 @@ def whisper_main_path(dev, sleep: int) -> dict:
                          f"{tuple(xk.shape)}")
     del xk, xv
     dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
-                     sc=False, runs=WHISPER_HOST_RUNS)
+                     sc=False, runs=WHISPER_HOST_RUNS, eager_profile=False)
     add(dense)
     add(timed("cascade_path", cascade_main_path, dev, cfg, params,
-              turns=False))
+              turns=False,
+              host_runs=WHISPER_HOST_RUNS, eager_profile=False))
     chunked = timed("chunked_path", chunked_main_path, dev, cfg, params,
                     loads="b")
     add(chunked["launches"])
     capture = timed("capture", capture_main_path, dev, cfg, params,
-                    runs=WHISPER_HOST_RUNS)
+                    runs=WHISPER_HOST_RUNS, eager_profile=False)
     flat = capture["flat_8x1k"]
     # a model of the tick's bytes, not a measurement: the decoder's bf16
     # weights and lm_head read once (not the encoder's, nor the
@@ -3944,14 +4108,7 @@ def vlm_main_path(dev, sleep: int) -> dict:
         params["cross_blocks"]["gate_attn"].fill_(VLM_GATE)
         return params
     params = timed("init", draw, cfg, 0)
-    sizes, stack = {}, [("", params)]
-    while stack:
-        path, p = stack.pop()
-        for k, v in p.items():
-            if isinstance(v, dict):
-                stack.append((f"{path}{k}.", v))
-            else:
-                sizes[path + k] = v.numel()
+    sizes = param_sizes(params)
     vis = torch.randn((1, cfg.n_vision_tokens, cfg.d_model), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(15))
     FRAMES[cfg.name] = lambda: {"vision_embed": vis}
@@ -4000,7 +4157,8 @@ def vlm_main_path(dev, sleep: int) -> dict:
     # phase 10's gateways: dense slots against the paged plain and gather
     # ticks (the float32 comparisons come after the bf16 weights are freed)
     dense, _ = timed("dense_path", dense_main_path, dev, cfg, params,
-                     sc=False, runs=VLM_HOST_RUNS, strict=False)
+                     sc=False, runs=VLM_HOST_RUNS, strict=False,
+                     eager_profile=False)
     add(dense)
 
     # load (b) one-shot: r1 a 32-block radix hit, r2 all of r0 (its
@@ -4065,7 +4223,7 @@ def vlm_main_path(dev, sleep: int) -> dict:
 
     # the captured plain tick at 8 lanes of 1,024-token contexts
     capture = timed("capture", capture_main_path, dev, cfg, params,
-                    runs=VLM_HOST_RUNS)
+                    runs=VLM_HOST_RUNS, eager_profile=False)
     flat = capture["flat_8x1k"]
 
     # a 1,000-token one-shot prefill: its launches, and its host ms with
@@ -4434,14 +4592,7 @@ def rwkv_main_path(dev, sleep: int) -> dict:
     def draw(cfg, seed):
         return lm.init(cfg, torch.Generator(device=dev).manual_seed(seed))
     params = timed("init", draw, cfg, 0)
-    sizes, stack = {}, [("", params)]
-    while stack:
-        path, p = stack.pop()
-        for k, v in p.items():
-            if isinstance(v, dict):
-                stack.append((f"{path}{k}.", v))
-            else:
-                sizes[path + k] = v.numel()
+    sizes = param_sizes(params)
     prompts, p100 = rwkv_prompts(cfg.vocab)
 
     # the bf16 gateway: state slots whatever paged says
@@ -4608,7 +4759,7 @@ def rwkv_main_path(dev, sleep: int) -> dict:
         lv = torch.randint(0, N + 1, shape, generator=gen, dtype=torch.int32,
                            device=dev)
         ms, _ = time_ms(functools.partial(sng_pack_k.sng_pack, lv, codes, N),
-                        3, 5, sleep)
+                        3, 5, sleep, b2b=False)
         sc_timing_rows.append({"kernel": "sng_pack", "operand": name,
                                "shape": list(shape), "ms": ms,
                                **sc_bounds("sng_pack", shape[0], shape[1], 0,
@@ -4616,7 +4767,7 @@ def rwkv_main_path(dev, sleep: int) -> dict:
     xs = stream_words(gen, (M, d, 1), N)
     ws = stream_words(gen, (d, 2 * d, 1), N)
     ms, _ = time_ms(functools.partial(ops.sc_dot_posneg, xs, ws, length=N),
-                    3, 2, sleep)
+                    3, 2, sleep, b2b=False)
     sc_timing_rows.append({"kernel": "sc_dot", "route": "posneg",
                            "shape": f"x ({M}, {d}, 1), w ({d}, {2 * d}, 1)",
                            "ms": ms, **sc_bounds("sc_dot", M, d, 2 * d, N,
@@ -4729,6 +4880,429 @@ def rwkv_main_path(dev, sleep: int) -> dict:
     return launches
 
 
+# -- the last decoder configs and the int8 KV layout (phase 17) -------------
+
+SC2_ARCH = "starcoder2-15b"
+# starcoder2-15b's attention: 48 query heads over 4 KV heads of 128 (GQA
+# 12:1), 40 layers
+SC2_HQ, SC2_HKV, SC2_D = 48, 4, 128
+# deepseek-67b and llama3-405b at full width, cut in depth to fit the card
+# with room for their paths: 24 of 95 layers (~36.6 GB in bf16) and 5 of
+# 126 (~40.3 GB, and 8.4 GB more while ``lm.logits`` widens lm_head)
+DS67_ARCH, DS67_DEPTH = "deepseek-67b", 24
+L405_ARCH, L405_DEPTH = "llama3-405b", 5
+# llama3-405b's attention: 128 query heads over 8 KV heads of 128 (16:1)
+L405_HQ, L405_HKV, L405_D = 128, 8, 128
+# the float32 depth of the cut models' strict comparisons
+CUT_F32_DEPTH = 2
+# phase 17's captured-against-eager tick timings take this many runs a side
+DECODER_HOST_RUNS = 2
+# the reference's own bound for the int8 cache (tests/test_kvquant.py):
+# the first tick's max |dlogit| against the bf16 cache's, over its max
+# |logit|, and the same argmax
+INT8_LOGIT_SHARE = 0.05
+
+
+def free_card() -> None:
+    """Give the card back what a freed model held: the gateways' captured
+    steps close over the weights, and the adapters they hang on sit in
+    reference cycles (their wrapped ``insert`` / ``decode``), which only a
+    collection breaks; then the allocator's cache."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def param_sizes(params) -> dict:
+    """Elements of every leaf of a parameter tree, by dotted path."""
+    sizes, stack = {}, [("", params)]
+    while stack:
+        path, p = stack.pop()
+        for k, v in p.items():
+            if isinstance(v, dict):
+                stack.append((f"{path}{k}.", v))
+            else:
+                sizes[path + k] = v.numel()
+    return sizes
+
+
+def int8_main_path(dev, cfg, params, bf16_dense: dict) -> dict:
+    """Phase 17's int8 KV layout on ``cfg``'s bf16 weights (``kv_quant``):
+    the explicit kernel and cascade ticks refused and the automatic tick
+    ``"plain"`` with one-shot admission; phase 10's six prompts through the
+    default ``ServeSpec()`` gateway (dense int8 slots), the paged
+    ``"plain"`` gateway and the gather oracle (tokens and logits bit for
+    bit the plain gateway's; the dense gateway's first differences near
+    ties), each request's first tick within ``INT8_LOGIT_SHARE`` of the
+    bf16 default gateway's (``bf16_dense``) with the same argmax; then 8
+    lanes of 1,024-token prompts through the in-place plain adapter and
+    the gather adapter, 8 forced ticks, logits and every chain block of
+    k, v, k_scale and v_scale bit for bit; the captured int8 tick (paged
+    and dense) bit for bit its eager step; the arena's bytes per position
+    against the bf16 layout's.  Returns the line's fields (launches under
+    "launches"); raises SystemExit on a failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request, make_adapter
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    sw = Stopwatch()
+    failures = []
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    prompts = dense_prompts(cfg.vocab)
+    n_req = len(prompts)
+
+    refused = {}
+    for backend in ("cuda", "cascade"):
+        try:
+            make_gateway(qcfg, params, load_spec(backend, False, 8),
+                         device=dev)
+            refused[backend] = None
+        except ValueError as e:
+            refused[backend] = str(e)
+    gw = make_gateway(qcfg, params, load_spec(None, True, 8), device=dev)
+    auto = {"backend": gw.batcher.adapter.backend,
+            "chunked": gw.batcher.adapter.chunked}
+    del gw
+    torch.cuda.empty_cache()
+    if not all(r and "kv_quant" in r for r in refused.values()) or \
+            auto != {"backend": "plain", "chunked": False}:
+        failures.append(f"refusals {refused}, automatic {auto}")
+    sw.lap("refusals")
+
+    runs = {"dense": serve_spec_load(dev, qcfg, params, prompts,
+                                     ServeSpec()),
+            "plain": serve_spec_load(dev, qcfg, params, prompts,
+                                     paged_spec("plain")),
+            "gather": serve_spec_load(dev, qcfg, params, prompts,
+                                      paged_spec("gather"))}
+    want = {name: 0 for name in runs["dense"]["launches"]}
+    want["flash_attention"] = flash_launches(qcfg, n_req, n_req)
+    for name, r in runs.items():
+        if r["served"] != n_req or not r["finite"] or \
+                r["launches"] != want or r["captures"] != {"decode": 1}:
+            failures.append(f"int8 {name}: served {r['served']}, finite "
+                            f"{r['finite']}, launches {r['launches']}, "
+                            f"captures {r['captures']}")
+    gather = stream_differences(runs["plain"], runs["gather"])
+    dense = stream_differences(runs["plain"], runs["dense"])
+    if not gather["tokens_equal"] or gather["max_abs_dlogit"] != 0:
+        failures.append(f"int8 gather vs plain: {gather}")
+    if not all(d["near_tie"] for d in dense["first_differences"]):
+        failures.append(f"int8 dense vs plain: a difference that is not a "
+                        f"near tie: {dense['first_differences']}")
+    # the first tick reads the prompt's K/V through the int8 cache, after a
+    # prefill computed in bf16 either way (the same first token)
+    share, argmax = [], []
+    for uid in range(n_req):
+        a, b = runs["dense"]["rows"][uid][0], bf16_dense["rows"][uid][0]
+        share.append(float((a - b).abs().max() / b.abs().max()))
+        argmax.append(int(a.argmax()) == int(b.argmax()))
+    if not max(share) <= INT8_LOGIT_SHARE or not all(argmax):
+        failures.append(f"int8 vs bf16 first tick: |dlogit| / max|logit| "
+                        f"{share}, argmax equal {argmax}")
+    int8_launches = {k: sum(r["launches"][k] for r in runs.values())
+                     for k in want}
+    sw.lap("gateways")
+
+    # 8 lanes of 1,024 tokens, the in-place plain tick against the gather
+    # oracle on the same forced tokens; then the captured tick replayed
+    rng = np.random.default_rng(23)
+    lanes = [rng.integers(0, cfg.vocab, 1024).astype(np.int32)
+             for _ in range(LM_SLOTS)]
+    forced = rng.integers(0, cfg.vocab, (8, LM_SLOTS)).astype(np.int32)
+    ads = {b: make_adapter(qcfg, params, n_slots=LM_SLOTS,
+                           max_len=LM_MAX_LEN, paged=True,
+                           block_size=LM_BLOCK, backend=b)
+           for b in ("plain", "gather")}
+    first = {b: [ad.insert(s, p, 9) for s, p in enumerate(lanes)]
+             for b, ad in ads.items()}
+    active = np.ones(LM_SLOTS, bool)
+    logits_equal, tokens_equal = True, first["plain"] == first["gather"]
+    for row in forced:
+        out = {b: ad.decode(row, active) for b, ad in ads.items()}
+        tokens_equal &= bool(np.array_equal(out["plain"], out["gather"]))
+        logits_equal &= bool(torch.equal(ads["plain"].last_logits,
+                                         ads["gather"].last_logits))
+    inp, gat = ads["plain"], ads["gather"]
+    blocks = inp.slot_bids == gat.slot_bids and all(
+        torch.equal(inp.arena_block(key, b), gat.arena_block(key, b))
+        for s in range(LM_SLOTS) for b in inp.slot_bids[s]
+        for key in inp.seq_keys)
+    keys = sorted(inp.seq_keys)
+    bf16_ad = make_adapter(cfg, params, n_slots=1, max_len=LM_BLOCK,
+                           paged=True, block_size=LM_BLOCK, backend="plain")
+    token_bytes = {"bf16": bf16_ad._token_bytes, "int8": inp._token_bytes}
+    del bf16_ad
+    if not (tokens_equal and logits_equal and blocks) or \
+            keys != ["k", "k_scale", "v", "v_scale"] or \
+            inp.arena["k"].dtype != torch.int8:
+        failures.append(f"int8 in-place vs gather: tokens {tokens_equal}, "
+                        f"logits {logits_equal}, blocks {blocks}, keys "
+                        f"{keys}")
+    tokens = np.asarray(out["plain"], np.int32)
+    replay = tick_replay_check(inp, tokens, active)
+    tick = tick_timing(inp, tokens, active, runs=DECODER_HOST_RUNS,
+                       eager_profile=False)
+    del ads, inp, gat
+    torch.cuda.empty_cache()
+    sw.lap("inplace_vs_gather")
+
+    # the dense int8 tick, four lanes mid stream
+    gw = make_gateway(qcfg, params, ServeSpec(), device=dev)
+    ad, batcher = gw.batcher.adapter, gw.batcher
+    for i, p in enumerate(prompts[:ad.n_slots]):
+        batcher.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    batcher.step()
+    dense_replay = tick_replay_check(
+        ad, batcher.last_token.copy(),
+        np.asarray([r is not None for r in batcher.active]), state=ad.cache)
+    del gw, ad, batcher
+    torch.cuda.empty_cache()
+    for name, r in (("paged", replay), ("dense", dense_replay)):
+        if not (r["logits_bitwise"] and r["arena_bitwise"]
+                and r["launches_equal"] and r["logits_finite"]):
+            failures.append(f"int8 {name} tick: the replay differs from the "
+                            f"eager step: {r}")
+    sw.lap("dense_replay")
+    out = {"refused": refused, "automatic": auto,
+           "gateways": {n: {"served": r["served"], "run_s": r["run_s"],
+                            "tick_ms_median": statistics.median(r["tick_ms"]),
+                            "launches": {k: v for k, v in
+                                         r["launches"].items() if v}}
+                        for n, r in runs.items()},
+           "gather_vs_plain": {k: gather[k] for k in ("tokens_equal",
+                                                      "max_abs_dlogit")},
+           "dense_vs_plain": dense,
+           "first_tick_vs_bf16": {"max_abs_dlogit_share": share,
+                                  "bound": INT8_LOGIT_SHARE,
+                                  "argmax_equal": argmax},
+           "inplace_vs_gather_8x1k": {"tokens_equal": tokens_equal,
+                                      "logits_bitwise": logits_equal,
+                                      "blocks_bitwise": blocks,
+                                      "arena_keys": keys},
+           "arena_bytes_per_position": {
+               **token_bytes, "ratio": token_bytes["int8"]
+               / token_bytes["bf16"], "predicted_ratio": 0.52},
+           "replay_paged": replay, "replay_dense": dense_replay,
+           "tick_8x1k_plain_host_ms": {
+               s: tick["host_ms"][s]["median"] for s in ("captured",
+                                                         "eager")},
+           "tick_8x1k_plain_device_busy_ms":
+               tick["profile"]["captured"]["device_busy_ms_per_tick"],
+           "launches": int8_launches, "failures": failures, **sw.fields()}
+    emit({"phase": "int8_main_path", "model": qcfg.name, **out})
+    if failures:
+        raise SystemExit(f"int8 path: {failures}")
+    return out
+
+
+def cut_decoder_path(dev, arch: str, depth: int, sleep: int,
+                     heads: tuple | None = None) -> dict:
+    """One decoder config of phase 17 at its published width, cut to
+    ``depth`` layers (bf16, random weights drawn on the card): with
+    ``heads`` (query heads, KV heads, head width) the attention kernels at
+    that geometry (:func:`attn_shape_checks`); phase 10's six prompts
+    through the default ``ServeSpec()`` gateway and the paged ``"cuda"``
+    tick against the paged ``"plain"`` tick (first differences near
+    ties); then, the bf16 weights freed, the same three gateways in
+    float32 at ``CUT_F32_DEPTH`` layers: tokens equal, logits within 2e-4.
+    Returns the line's fields; raises SystemExit on a failed check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.spec import ServeSpec
+
+    sw = Stopwatch()
+    failures = []
+    full = configs.config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    sizes = param_sizes(params)
+    sw.lap("init")
+    timing = {}
+    if heads:
+        hq, hkv, d = heads
+        timing = attn_shape_checks(
+            dev, torch.Generator(device=dev).manual_seed(27), sleep,
+            cfg.n_layers, tag=arch.split("-")[0], hq=hq, hkv=hkv, d=d)
+        sw.lap("kernel_checks")
+    prompts = dense_prompts(cfg.vocab)
+    n_req = len(prompts)
+
+    def three(cfg, params):
+        return {"dense": serve_spec_load(dev, cfg, params, prompts,
+                                         ServeSpec()),
+                **{b: serve_spec_load(dev, cfg, params, prompts,
+                                      paged_spec(b))
+                   for b in ("cuda", "plain")}}
+    runs = three(cfg, params)
+    bf16 = {"cuda_vs_plain": stream_differences(runs["cuda"], runs["plain"]),
+            "dense_vs_plain": stream_differences(runs["dense"],
+                                                 runs["plain"])}
+    for name, r in runs.items():
+        if r["served"] != n_req or not r["finite"] or \
+                r["captures"] != {"decode": 1}:
+            failures.append(f"bf16 {name}: served {r['served']}, finite "
+                            f"{r['finite']}, captures {r['captures']}")
+    ticks = len(runs["cuda"]["tick_ms"])
+    n = runs["cuda"]["launches"]
+    if n["flash_attention"] != flash_launches(cfg, n_req, n_req) or \
+            n["paged_decode_attention"] != cfg.n_layers * ticks or \
+            n["scatter_kv_rows"] != ticks or \
+            runs["plain"]["launches"]["paged_decode_attention"]:
+        failures.append(f"bf16 launches: cuda {n}, plain "
+                        f"{runs['plain']['launches']}")
+    for name, dd in bf16.items():
+        if not all(x["near_tie"] for x in dd["first_differences"]):
+            failures.append(f"bf16 {name}: a difference that is not a near "
+                            f"tie: {dd['first_differences']}")
+    launches = {k: v for k, v in n.items() if v}
+    del params
+    for r in runs.values():
+        r.pop("rows")
+    free_card()
+    sw.lap("bf16")
+    cfg2 = dataclasses.replace(full, n_layers=CUT_F32_DEPTH,
+                               param_dtype="float32")
+    params2 = lm.init(cfg2, torch.Generator(device=dev).manual_seed(1))
+    runs2 = three(cfg2, params2)
+    f32 = {"cuda_vs_plain": stream_differences(runs2["cuda"],
+                                               runs2["plain"]),
+           "dense_vs_plain": stream_differences(runs2["dense"],
+                                                runs2["plain"])}
+    for name, dd in f32.items():
+        if not (dd["tokens_equal"] and dd["max_abs_dlogit"] <= 2e-4):
+            failures.append(f"float32 depth {CUT_F32_DEPTH} {name}: tokens "
+                            f"equal {dd['tokens_equal']}, max |dlogit| "
+                            f"{dd['max_abs_dlogit']}")
+    del params2, runs2
+    free_card()
+    sw.lap("f32")
+    out = {"model": full.name, "n_layers": depth,
+           "published_n_layers": full.n_layers, "f32_layers": CUT_F32_DEPTH,
+           "params": sum(sizes.values()),
+           "bytes_bf16": 2 * sum(sizes.values()),
+           "heads": f"{full.n_heads} over {full.n_kv_heads} of "
+                    f"{full.d_head}",
+           "tick_ms_median": {n: statistics.median(r["tick_ms"])
+                              for n, r in runs.items()},
+           "bf16": bf16, "f32": f32, "launches": launches,
+           "kernel_ms": {k: v["ms"] for k, v in timing.items()},
+           "failures": failures, **sw.fields()}
+    if failures:
+        emit({"phase": "cut_decoder_path", **out})
+        raise SystemExit(f"{arch} path: {failures}")
+    return out
+
+
+def decoders_main_path(dev, sleep: int) -> dict:
+    """Phase 17: the reference's last three decoder configs and the int8 KV
+    layout.  starcoder2-15b whole (40 layers, d_model 6,144, 48 heads over
+    4 KV heads of 128, GELU MLP of 24,576 with biases, LayerNorm, RoPE at
+    base 1e5, vocabulary 49,152; bf16, random weights drawn on the card,
+    ~31.9 GB): the attention kernels at 48 x 128 over 4 KV heads
+    (:func:`attn_shape_checks`); the default ``ServeSpec()`` gateway and
+    the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32 at
+    depth 4 and bf16 at full depth (:func:`dense_main_path`); load (c)
+    admitted through the fold, the cascade tick against the flat tick
+    (:func:`cascade_main_path`); the captured 8 x 1k flat tick and load
+    (c)'s cascade tick against their eager steps
+    (:func:`capture_main_path`) beside a byte model of the flat tick; the
+    int8 layout on the same weights (:func:`int8_main_path`).  Then, each
+    model freed before the next, deepseek-67b at ``DS67_DEPTH`` layers and
+    llama3-405b at ``L405_DEPTH`` (the kernels at 128 x 128 over 8 KV heads
+    first) through :func:`cut_decoder_path`.  Returns the launches of the
+    bf16 paths ("decoders") and of the int8 ones ("int8"); raises
+    SystemExit on a failed check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    sw = Stopwatch()
+    cfg = configs.config(SC2_ARCH)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    sizes = param_sizes(params)
+    n_params = sum(sizes.values())
+    sw.lap("init")
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    timing = attn_shape_checks(
+        dev, torch.Generator(device=dev).manual_seed(17), sleep,
+        cfg.n_layers, tag="starcoder2", hq=SC2_HQ, hkv=SC2_HKV, d=SC2_D)
+    sw.lap("kernel_checks")
+    keep = {}
+    dense, _ = dense_main_path(dev, cfg, params, sc=False,
+                               runs=DECODER_HOST_RUNS, keep=keep,
+                               eager_profile=False)
+    add(dense)
+    sw.lap("dense_path")
+    add(cascade_main_path(dev, cfg, params, chunked=True, turns=False,
+                          host_runs=DECODER_HOST_RUNS, eager_profile=False))
+    sw.lap("cascade_path")
+    capture = capture_main_path(dev, cfg, params, runs=DECODER_HOST_RUNS,
+                                eager_profile=False)
+    flat = capture["flat_8x1k"]
+    sw.lap("capture")
+    int8 = int8_main_path(dev, cfg, params, keep.pop("dense"))
+    sw.lap("int8")
+    del params
+    free_card()
+    cut = {DS67_ARCH: cut_decoder_path(dev, DS67_ARCH, DS67_DEPTH, sleep)}
+    add(cut[DS67_ARCH]["launches"])
+    sw.lap(DS67_ARCH)
+    cut[L405_ARCH] = cut_decoder_path(dev, L405_ARCH, L405_DEPTH, sleep,
+                                      (L405_HQ, L405_HKV, L405_D))
+    add(cut[L405_ARCH]["launches"])
+    sw.lap(L405_ARCH)
+    # a model of the 8 x 1k flat tick's bytes, not a measurement: every
+    # layer's bf16 weights and lm_head read once (not the embedding's rows),
+    # lm_head's float32 copy written and read, and the K and V rows of 8
+    # lanes x 1,025 positions in every layer
+    weights = 2 * (n_params - sizes["embed"] - sizes["lm_head"])
+    kv_bytes = 2 * cfg.n_layers * LM_SLOTS * 1025 * SC2_HKV * SC2_D * 2
+    tick_bytes = weights + 2 * sizes["lm_head"] + 8 * sizes["lm_head"] + \
+        kv_bytes
+    prof = flat["profile"]["captured"]
+    emit({"phase": "decoders_main_path", "model": cfg.name,
+          "config": {k: getattr(cfg, k) for k in (
+              "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head",
+              "d_ff", "mlp_type", "use_bias", "norm_type", "rope_theta",
+              "vocab", "param_dtype")},
+          "params": n_params, "bytes_bf16": 2 * n_params,
+          "tick_8x1k_host_ms": {s: flat["host_ms"][s]["median"]
+                                for s in ("captured", "eager")},
+          "tick_8x1k_device_busy_ms": prof["device_busy_ms_per_tick"],
+          "tick_8x1k_idle_share": prof["device_idle_share"],
+          "tick_8x1k_top_device_ms": prof["top_device_ms_per_tick"],
+          "tick_bytes_model": {"layer_weights": weights,
+                               "lm_head": 2 * sizes["lm_head"],
+                               "lm_head_f32": 8 * sizes["lm_head"],
+                               "kv": kv_bytes, "total": tick_bytes},
+          "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "int8": {k: int8[k] for k in ("arena_bytes_per_position",
+                                        "first_tick_vs_bf16",
+                                        "tick_8x1k_plain_host_ms")},
+          "cut": cut,
+          "launches": {"decoders": launches, "int8": int8["launches"]},
+          "kernel_ms": {k: v["ms"] for k, v in timing.items()},
+          **sw.fields()})
+    return {"decoders": launches, "int8": int8["launches"]}
+
+
 # -- the SC kernels (phase 3) -------------------------------------------------
 
 # bucket 32 of the full LeNet-5 conv1: windows of 5 x 5 = 25 leaves
@@ -4750,7 +5324,7 @@ FRONTEND_D, FRONTEND_M = 2560, 1000
 # the H100 SXM's ridge point for the cost model's verdicts: dense bf16
 # tensor peak over HBM3 bandwidth (NVIDIA data sheet), in FLOPs per byte
 H100_RIDGE = BF16_FLOPS / PEAK_BYTES_PER_S
-OBS_HOST_RUNS = 3           # turns a side, traced against untraced
+OBS_HOST_RUNS = 2           # turns a side, traced against untraced
 OBS_TURN_TICKS = 8          # ticks per turn
 OBS_FOLDS = 1               # cold 1,000-token folds a side, per turn
 OBS_ATTACHMENTS = ("tracer", "metrics", "slo", "flight", "incident")
@@ -5188,15 +5762,17 @@ def obs_prompt_load(dev, cfg, params, load: str) -> dict:
 def obs_main_path(dev, cfg, params) -> dict:
     """Phase 14: observability on the frame path and the prompt path
     (``obs_main_path`` line).  Returns the phase's kernel launches."""
-    t_phase = time.perf_counter()
+    sw = Stopwatch()
     reset_counts()
     frame = obs_frame_path(dev)
+    sw.lap("frame")
     launches = dict(frame["launches"])
     loads = {}
     for load in ("b", "c"):
         loads[load] = obs_prompt_load(dev, cfg, params, load)
         for k, v in loads[load]["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        sw.lap(f"load_{load}")
     emit({"phase": "obs_main_path", "gpu": nvidia_smi("name,power.limit"),
           "frame": frame, "prompt": loads,
           "overhead": {
@@ -5217,7 +5793,7 @@ def obs_main_path(dev, cfg, params) -> dict:
                   for side in ("untraced", "traced")},
               "bucket32_obs_callbacks_per_batch":
                   frame["bucket32_obs_callbacks_per_batch"]},
-          "phase_s": time.perf_counter() - t_phase})
+          **sw.fields()})
     return launches
 
 
@@ -5278,7 +5854,7 @@ def b1_mma_peak(dev, sleep_cycles: int) -> dict:
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"b1 peak probe failed: CUDA error {err}")
-    ms, _ = time_ms(launch, 5, 5, sleep_cycles)
+    ms, _ = time_ms(launch, 5, 5, sleep_cycles, b2b=False)
     mmas = ctas * threads // 32 * iters * 8
     per_s = mmas / (ms * 1e-3)
     # an m16n8k256 product: 16 x 8 x 256 ANDs and as many adds
@@ -5541,7 +6117,8 @@ def sc_frontend_timing(dev, sleep: int, clk_sm: float,
                            device=dev)
         fn = functools.partial(sng_pack_k.sng_pack, lv, codes, N)
         ms, b2b = time_ms(fn, 5, 10, sleep)
-        plain = time_ms(lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep)[0]
+        plain = time_ms(lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep,
+                        b2b=False)[0]
         rows.append({"kernel": "sng_pack", "bits": 4, "operand": name,
                      "shape": f"levels {shape}, N={N}", "ms": ms,
                      "back_to_back_ms": b2b,
@@ -5553,7 +6130,8 @@ def sc_frontend_timing(dev, sleep: int, clk_sm: float,
     w = stream_words(gen, (d, 2 * d, 1), N)
     fn = functools.partial(ops.sc_dot_posneg, x, w, length=N)
     ms, b2b = time_ms(fn, 5, 5, sleep)
-    plain = time_ms(lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep)[0]
+    plain = time_ms(lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep,
+                    b2b=False)[0]
     rows.append({"kernel": "sc_dot", "bits": 4, "K": d, "O": 2 * d,
                  "route": "posneg", "shape": f"x ({M}, {d}, 1), "
                  f"w ({d}, {2 * d}, 1)", "ms": ms, "back_to_back_ms": b2b,
@@ -5566,9 +6144,9 @@ def sc_frontend_timing(dev, sleep: int, clk_sm: float,
 # runs a side of a captured-against-eager host-clock comparison, each the
 # median of HOST_REPS calls; the sides take turns, each run starting with
 # the other side than the run before, since the host clock drifts within a
-# call (PERF.md); 5 runs since phase 13 joined (9 before), to keep the
-# script near 700 s
-HOST_RUNS, HOST_REPS = 5, 5
+# call (PERF.md); 3 runs since phase 17 joined (9 before phase 13, then
+# 5), so that the script stays under 900 s
+HOST_RUNS, HOST_REPS = 3, 5
 
 
 def turns(sides: dict, runs: int = HOST_RUNS, reps: int = HOST_REPS
@@ -5918,10 +6496,11 @@ def table3_full_main() -> int:
 
 def family_main(path: str, run,
                 sources=("paged_attn", "cascade_attn", "flash_attn")) -> int:
-    """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm`` / ``--rwkv``:
-    the card's line, the build of ``sources`` (the attention kernels; the
-    SC kernels for ``--rwkv``) and one family's phase alone (``run(dev,
-    sleep)``, its launches printed under ``path``)."""
+    """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm`` / ``--rwkv`` /
+    ``--decoders``: the card's line, the build of ``sources`` (the
+    attention kernels; the SC kernels for ``--rwkv``) and one phase alone
+    (``run(dev, sleep)``, its launches printed under ``path``, or by path
+    where ``path`` is None)."""
     import torch
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5932,7 +6511,9 @@ def family_main(path: str, run,
     emit({"build_s": time.perf_counter() - t0})
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     launches = run(torch.device("cuda"), int(0.05 * clock_mhz * 1e6))
-    emit({"launches_by_path": {path: launches}})
+    # a phase that serves several paths returns their launches by path
+    emit({"launches_by_path": launches if path is None else
+          {path: launches}})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -6138,6 +6719,8 @@ def main() -> int:
         return family_main("vlm", vlm_main_path)
     if args[:1] == ["--rwkv"]:
         return family_main("rwkv", rwkv_main_path, ("sng_pack", "sc_dot"))
+    if args[:1] == ["--decoders"]:
+        return family_main(None, decoders_main_path)
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -6167,14 +6750,15 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     clk_sm = clock_mhz * 1e6 * props.multi_processor_count
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: every source's nvcc started together; the attention
+    # libraries are waited for first, and the SC ones (sc_dot takes about a
+    # minute) after phase 3's attention checks and phases 5-8, which need
+    # none
     t0 = time.perf_counter()
-    logs = build.build_all(SOURCES)
-    build_s = time.perf_counter() - t0
-    emit({"build_s": build_s, "ptxas": {
-        name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln]
-        for name, log in logs.items()}})
+    build.start(SOURCES)
+    attn_sources = ("paged_attn", "cascade_attn", "flash_attn")
+    logs = build.build_all(attn_sources)
+    attn_build_s = time.perf_counter() - t0
     # the redesigned attention kernels' instructions: tensor-core products
     # (HMMA), asynchronous copies (LDGSTS, cp.async) and ldmatrix (LDSM)
     sass = {name: sass_counts(name, ("HMMA", "LDGSTS", "LDSM"))
@@ -6185,6 +6769,43 @@ def main() -> int:
             and sass["cascade_attn"]["LDGSTS"]):
         raise SystemExit(f"the attention kernels lack tensor-core or "
                          f"asynchronous-copy instructions: {sass}")
+
+    # -- 3. each kernel against its plain version: the attention kernels --
+    sw = Stopwatch()
+    sleep = int(SLEEP_S * clock_mhz * 1e6)  # 50 ms of the SM clock
+    gen_attn = torch.Generator(device=dev).manual_seed(3)
+    paged_err, paged_timing = paged_kernel_checks(dev, gen_attn, sleep)
+    sw.lap("paged")
+    cascade_err, cascade_timing = cascade_kernel_checks(dev, gen_attn, sleep)
+    sw.lap("cascade")
+    flash_err, flash_timing = flash_kernel_checks(dev, gen_attn, sleep)
+    sw.lap("flash")
+    attn_seconds = sw.fields()
+
+    # -- 5. the prompt path (while the SC libraries build) -----------------
+    paths = {}
+    paths["prompt"], lm_cfg, lm_params = lm_main_path(
+        dev, paged_timing["paged_decode_attention"]["ms"])
+
+    # -- 6. the cascade tick ---------------------------------------------------
+    paths["cascade"] = cascade_main_path(dev, lm_cfg, lm_params,
+                                         eager_profile=False)
+
+    # -- 7. the chunked prefill fold ----------------------------------------
+    paths["chunked"] = chunked_main_path(dev, lm_cfg, lm_params)["launches"]
+
+    # -- 8. the captured ticks against their eager steps ------------------
+    capture_main_path(dev, lm_cfg, lm_params)
+
+    # -- 2, continued: the SC libraries, built meanwhile --------------------
+    t1 = time.perf_counter()
+    logs.update(build.build_all(("sng_pack", "sc_dot")))
+    build_s = time.perf_counter() - t0
+    emit({"build_s": build_s, "attention_build_s": attn_build_s,
+          "sc_build_wait_s": time.perf_counter() - t1, "ptxas": {
+              name: [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln]
+              for name, log in logs.items()}})
     # the SC kernels: popcounts, cp.async, b1 tensor-core products (BMMA),
     # and every function's stack frame, which must be 0 bytes: the TFF tree
     # and the stream table live in registers and shared memory
@@ -6203,11 +6824,12 @@ def main() -> int:
     if not all(frames.values()) or framed:
         raise SystemExit(f"an SC kernel keeps a stack frame: {framed}")
 
-    # -- 3. each kernel against its plain version ---------------------------
+    # -- 3, continued: the SC kernels against their plain versions --------
+    sw = Stopwatch()
     gen = torch.Generator(device=dev).manual_seed(0)
     err, checks = sc_kernel_checks(dev, gen)
     bad = [c for c in checks if not c["bitwise"]]
-    sleep = int(0.05 * clock_mhz * 1e6)     # 50 ms of the SM clock
+    sw.lap("sc_checks")
     sc = sc_timing(dev, sleep, clk_sm)
     # the plain versions at the main path's shapes (K = 25, two banks of 32)
     plain = {}
@@ -6220,9 +6842,9 @@ def main() -> int:
         x = stream_words(gen, (SC_M, SC_K, Wd), N)
         w = stream_words(gen, (SC_K, 64, Wd), N)
         plain[("sng_pack", bits)] = time_ms(
-            lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep)[0]
+            lambda: ref.sng_pack(lv, codes, N), 3, 2, sleep, b2b=False)[0]
         plain[("sc_dot", bits)] = time_ms(
-            lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep)[0]
+            lambda: ref.sc_dot(x, w, "alt", "tff"), 3, 1, sleep, b2b=False)[0]
     # the path's own rows: bits 4, the full LeNet-5's O = 64, K = 25, the
     # kernel as the SC layer calls it (two banks)
     timing = {(row["kernel"], row["bits"]):
@@ -6236,18 +6858,21 @@ def main() -> int:
           "plain_ms": {f"{k}_bits{b}": v for (k, b), v in plain.items()}})
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    sw.lap("sc_timing")
     emit({"sc_frontend_timing": sc_frontend_timing(dev, sleep, clk_sm,
                                                    sc["b1_mma_per_s"])})
-    paged_err, paged_timing = paged_kernel_checks(dev, gen, sleep)
-    err.update(paged_err)
-    cascade_err, cascade_timing = cascade_kernel_checks(dev, gen, sleep)
-    err.update(cascade_err)
-    flash_err, flash_timing = flash_kernel_checks(dev, gen, sleep)
-    err.update(flash_err)
+    sw.lap("sc_frontend_timing")
+    for e in (paged_err, cascade_err, flash_err):
+        err.update(e)
+    sc_seconds = sw.fields()
+    emit({"phase": "kernels_seconds",
+          "seconds": {**attn_seconds["seconds"], **sc_seconds["seconds"]},
+          "phase_s": attn_seconds["phase_s"] + sc_seconds["phase_s"]})
 
     # -- 4. the frame path --------------------------------------------------
+    sw = Stopwatch()
     trace = SensorFleet(FleetConfig(seed=7)).events(TRACE_SECONDS)
-    paths = {"frame": {name: 0 for name in sc_kernels}}
+    paths["frame"] = {name: 0 for name in sc_kernels}
     for bits in (4, 8):
         spec = fe.FrontendSpec(mode="sc", bits=bits,
                                lenet=configs.config("lenet5"))
@@ -6356,25 +6981,15 @@ def main() -> int:
             raise SystemExit(f"bits={bits}: a captured stage issued "
                              f"{profile['graph_launches_per_stage']} graph "
                              "launches")
-
-    # -- 5. the prompt path -------------------------------------------------
-    paths["prompt"], lm_cfg, lm_params = lm_main_path(
-        dev, paged_timing["paged_decode_attention"]["ms"])
-
-    # -- 6. the cascade tick ---------------------------------------------------
-    paths["cascade"] = cascade_main_path(dev, lm_cfg, lm_params)
-
-    # -- 7. the chunked prefill fold ----------------------------------------
-    paths["chunked"] = chunked_main_path(dev, lm_cfg, lm_params)["launches"]
-
-    # -- 8. the captured ticks against their eager steps ------------------
-    capture_main_path(dev, lm_cfg, lm_params)
+        sw.lap(f"bits{bits}")
+    emit({"phase": "frame_path_seconds", **sw.fields()})
 
     # -- 9. the retraining pipeline (Table 3) ---------------------------------
     paths["retrain"] = retrain_main_path(dev, TABLE3_FAST)
 
     # -- 10. the dense path, the gather oracle and the SC frontend ---------
-    paths["dense"], paths["sc"] = dense_main_path(dev, lm_cfg, lm_params)
+    paths["dense"], paths["sc"] = dense_main_path(dev, lm_cfg, lm_params,
+                                                  eager_profile=False)
 
     # -- 14. observability on the frame path and the prompt path ---------
     # (run here, while stablelm-3b's weights are on the card)
@@ -6396,6 +7011,9 @@ def main() -> int:
 
     # -- 16. the rwkv family: rwkv6-7b ----------------------------------------
     paths["rwkv"] = rwkv_main_path(dev, sleep)
+
+    # -- 17. starcoder2-15b, deepseek-67b, llama3-405b and the int8 layout ----
+    paths.update(decoders_main_path(dev, sleep))
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

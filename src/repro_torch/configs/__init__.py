@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("stablelm_3b", "deepseek_moe_16b", "moonshot_v1_16b_a3b",
-         "hymba_1_5b", "whisper_medium", "llama32_vision_90b", "rwkv6_7b",
-         "lenet5")
+ARCHS = ("stablelm_3b", "starcoder2_15b", "deepseek_67b", "llama3_405b",
+         "deepseek_moe_16b", "moonshot_v1_16b_a3b", "hymba_1_5b",
+         "whisper_medium", "llama32_vision_90b", "rwkv6_7b", "lenet5")
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 # the published names
 ALIASES["hymba-1.5b"] = "hymba_1_5b"
@@ -23,8 +23,8 @@ def get(arch: str):
     mod = ALIASES.get(arch, arch)
     if mod not in ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ported: {ARCHS}); see "
-            "ROADMAP.md §1, the other families")
+            f"arch {arch!r} is not in the port's registry (ported: "
+            f"{ARCHS}); see ROADMAP.md")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -23,6 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc runs started by :func:`start` and not yet waited for, by source
+_pending: dict[str, tuple[subprocess.Popen, Path, Path]] = {}
 
 
 def nvcc() -> str:
@@ -73,13 +75,25 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> str:
     return log
 
 
+def start(names: tuple[str, ...]) -> None:
+    """Start ``nvcc`` for every named source not built or building yet,
+    without waiting: :func:`build_all` and :func:`load` wait for it."""
+    for name in names:
+        if name not in _pending:
+            job = _start(name)
+            if job is not None:
+                _pending[name] = job
+
+
 def build_all(names: tuple[str, ...]) -> dict[str, str]:
     """Compile every named source at once (one ``nvcc`` each, all started
-    together) and return each compiler log (``-Xptxas -v``: registers,
-    shared memory, spills); an already-built library returns its saved log."""
-    jobs = {name: _start(name) for name in names}
+    together, or already started by :func:`start`) and return each
+    compiler log (``-Xptxas -v``: registers, shared memory, spills); an
+    already-built library returns its saved log."""
+    start(names)
     logs = {}
-    for name, job in jobs.items():
+    for name in names:
+        job = _pending.pop(name, None)
         logs[name] = _finish(name, job) if job is not None else \
             library_path(name).with_suffix(".log").read_text()
     return logs

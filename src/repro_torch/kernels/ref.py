@@ -138,8 +138,9 @@ def scatter_kv_rows(k_arena: torch.Tensor, v_arena: torch.Tensor, k_rows,
     """In place: ``arena[l, wbids[b], 0, offs[b]] = rows[l][b]`` for both
     arenas (L, num_blocks, 1, bs, Hkv, D), rows stacked (L, S, Hkv, D) or
     a sequence of L tensors (S, Hkv, D).  No other row changes; lanes that
-    collide (only trash-routed ones may) land in some order.  Returns the
-    two arenas."""
+    collide (only trash-routed ones may) land in some order.  The int8
+    layout's tick writes its int8 rows and, in a second call, its float32
+    scale rows (D = 1) through it.  Returns the two arenas."""
     if not isinstance(k_rows, torch.Tensor):
         k_rows, v_rows = torch.stack(list(k_rows)), torch.stack(list(v_rows))
     w, o = wbids.long(), offs.long()

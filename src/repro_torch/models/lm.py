@@ -40,8 +40,10 @@ the bonus ``u`` (L, H, Dh), the wkv output's norm ``ln_wkv`` and the
 channel mix (``cm_k``, ``cm_v``, ``cm_r``) (:func:`_rwkv_params`), and
 carry a recurrent state per layer, the wkv state (B, H, Dh, Dh) in float32
 and the two token-shift rows (B, d) in the model's dtype
-(:func:`rwkv_block`).  The int8 KV cache comes in a later slice
-(ROADMAP.md).
+(:func:`rwkv_block`).  ``kv_quant`` stores the decoder, moe and hybrid
+families' K/V int8 with a float32 scale per (token, head)
+(``serve/kvquant.py``): the decode attentions take the layer's scales
+(``scales=``), quantize the new row and read the dequantized cache.
 
 ``first_layer_mode="sc"`` puts the paper's SC layer in front of the blocks
 as a residual projection (:func:`sc_frontend`), on the prompt's tokens
@@ -58,6 +60,7 @@ import torch
 from repro_torch.core import sc_layer
 from repro_torch.nn import attention, mlp as mlp_lib, moe as moe_lib
 from repro_torch.nn import norms, rope, ssm
+from repro_torch.serve import kvquant
 
 _GLOBAL_WINDOW = 1 << 30       # a "window" so large it never masks
 FAMILIES = ("decoder", "moe", "rwkv", "hybrid", "encdec", "vlm")
@@ -116,6 +119,8 @@ class LMConfig:
     ssm_chunk: int = 32               # the prompt scan's chunk (hybrid)
     first_layer_mode: str = "none"    # "none" | "sc" (the SC frontend)
     sc_bits: int = 4
+    # --- serving: int8 KV cache with a float32 scale per (token, head) ---
+    kv_quant: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -205,7 +210,9 @@ def _dense(gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    # scaled in place: one float32 copy of the tensor at a time, so a
+    # stacked weight of many layers draws with room to spare on the card
+    return t.mul_(scale).to(dtype)
 
 
 def _attn_params(gen, cfg: LMConfig, L: int) -> dict:
@@ -534,7 +541,9 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
                       k_blocks: torch.Tensor, v_blocks: torch.Tensor,
                       tables: torch.Tensor, pos: torch.Tensor, *,
                       window: int = 0, backend: str = "plain",
-                      cascade: dict | None = None):
+                      cascade: dict | None = None,
+                      scales: tuple[torch.Tensor, torch.Tensor] | None
+                      = None):
     """One-token decode attention for a batch of slot lanes, reading K/V in
     place from one layer's slice of the paged block arena.
 
@@ -545,7 +554,15 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     caller writes into the arena after the layer loop; attention reads them
     at ``pos`` in place of the arena's row (``backend`` "plain", "cuda" or
     "cascade" with the group metadata ``cascade``, see
-    :func:`repro_torch.nn.attention.attend_decode_paged`)."""
+    :func:`repro_torch.nn.attention.attend_decode_paged`).
+
+    ``scales``: (k_scale_blocks, v_scale_blocks), each (num_blocks, 1, bs,
+    Hkv, 1) float32, one layer of the int8 ``kv_quant`` scale arenas.  The
+    new row is quantized post-RoPE, and the plain read dequantizes the
+    gathered view with the dequantized-quantized row spliced in, what the
+    dense int8 tick reads after its write.  Returns (out, k1q, v1q, k1_scale,
+    v1_scale) then; only the plain backend covers the layout, as in the
+    reference (``ValueError`` for the others)."""
     B = x1.shape[0]
     q = _proj(x1, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.d_head)
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
@@ -556,19 +573,31 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
         q = rope.apply_rope(q, posb, cfg.rope_theta)
         k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
     k1, v1 = k1[:, 0].contiguous(), v1[:, 0].contiguous()
+    if scales is None:
+        rows = (k1, v1)
+        new_kv, sc = rows, None
+    else:
+        (k1q, k1s), (v1q, v1s) = kvquant.quantize(k1), kvquant.quantize(v1)
+        rows = (k1q, v1q, k1s, v1s)
+        new_kv = (kvquant.dequantize(k1q, k1s, cfg.dtype),
+                  kvquant.dequantize(v1q, v1s, cfg.dtype))
+        sc = (scales[0][:, 0], scales[1][:, 0])
     o = attention.attend_decode_paged(q, k_blocks[:, 0], v_blocks[:, 0],
                                       tables, pos + 1, window=window,
-                                      new_kv=(k1, v1), backend=backend,
-                                      cascade=cascade)
+                                      new_kv=new_kv, backend=backend,
+                                      cascade=cascade, scales=sc,
+                                      out_dtype=cfg.dtype)
     out = _proj(o.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"],
                 p.get("bo"))
-    return out, k1, v1
+    return (out, *rows)
 
 
 def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
                 pos: torch.Tensor, *, window: int = 0,
-                active: torch.Tensor | None = None) -> torch.Tensor:
+                active: torch.Tensor | None = None,
+                scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
     """One-token decode attention for a batch of lanes against one layer
     of the dense cache, each lane at its own position.
 
@@ -579,7 +608,11 @@ def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
     reads ``pos + 1`` positions.  With ``active`` (B,) bool, an inactive
     lane's row is put back as it was after the read: the cache is then
     bitwise the reference's masked tick, which selects every inactive
-    lane's old cache.  Returns (B, 1, d)."""
+    lane's old cache.  ``scales`` (k_scale, v_scale), each (B, Smax, Hkv,
+    1) float32 and updated in place too, is the int8 ``kv_quant`` layout:
+    the row is quantized post-RoPE before it lands, and attention reads the
+    whole cache dequantized to the model's dtype, as the reference's tick
+    does.  Returns (B, 1, d)."""
     B = x1.shape[0]
     q = _proj(x1, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.d_head)
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
@@ -589,17 +622,28 @@ def attn_decode(cfg: LMConfig, p: dict, x1: torch.Tensor,
         posb = pos[:, None]
         q = rope.apply_rope(q, posb, cfg.rope_theta)
         k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
+    caches, rows = (cache_k, cache_v), (k1[:, 0], v1[:, 0])
+    if scales is not None:
+        (k1q, k1s), (v1q, v1s) = kvquant.quantize(k1), kvquant.quantize(v1)
+        caches += tuple(scales)
+        rows = (k1q[:, 0], v1q[:, 0], k1s[:, 0], v1s[:, 0])
     lanes = torch.arange(B, device=x1.device)
     at = pos.clamp(max=cache_k.shape[1] - 1).long()
-    kept = None if active is None else \
-        (cache_k[lanes, at].clone(), cache_v[lanes, at].clone())
-    cache_k[lanes, at] = k1[:, 0].to(cache_k.dtype)
-    cache_v[lanes, at] = v1[:, 0].to(cache_v.dtype)
-    o = attention.attend_decode(q, cache_k, cache_v, pos + 1, window=window)
+    kept = None if active is None else [c[lanes, at].clone() for c in caches]
+    for c, r in zip(caches, rows):
+        c[lanes, at] = r.to(c.dtype)
+    if scales is None:
+        o = attention.attend_decode(q, cache_k, cache_v, pos + 1,
+                                    window=window)
+    else:
+        o = attention.attend_decode(
+            q, kvquant.dequantize(cache_k, scales[0], cfg.dtype),
+            kvquant.dequantize(cache_v, scales[1], cfg.dtype), pos + 1,
+            window=window)
     if kept is not None:
         keep = active[:, None, None]
-        cache_k[lanes, at] = torch.where(keep, cache_k[lanes, at], kept[0])
-        cache_v[lanes, at] = torch.where(keep, cache_v[lanes, at], kept[1])
+        for c, old in zip(caches, kept):
+            c[lanes, at] = torch.where(keep, c[lanes, at], old)
     return _proj(o.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"],
                  p.get("bo"))
 

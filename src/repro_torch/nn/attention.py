@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import paged_attn as paged_kernels
 from repro_torch.kernels.ref import (NEG_INF,  # noqa: F401
                                      merge_softmax_states, splice_rows)
+from repro_torch.serve import kvquant
 
 
 def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -80,7 +81,10 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
                         cache_len: torch.Tensor, *, window: int = 0,
                         new_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
                         backend: str = "plain",
-                        cascade: dict | None = None) -> torch.Tensor:
+                        cascade: dict | None = None,
+                        scales: tuple[torch.Tensor, torch.Tensor] | None
+                        = None,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One-token decode attention against a paged cache (one layer).
 
     q: (B, 1, Hq, D); k_arena, v_arena: (num_blocks, bs, Hkv, D);
@@ -94,7 +98,17 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
     (no gather, no cast of the probabilities); ``"cascade"`` runs
     :func:`attend_decode_cascade` with the group metadata ``cascade`` (the
     block table is then unused).  Returns (B, 1, Hq, D) in v_arena's
-    dtype."""
+    dtype.
+
+    ``scales``: (k_scale_arena, v_scale_arena), each (num_blocks, bs, Hkv,
+    1) float32, the int8 ``kv_quant`` layout (plain backend only): the
+    scales are gathered beside K/V and the gathered view dequantized to
+    ``out_dtype`` (elementwise, so bitwise dequantizing the dense cache and
+    gathering it); ``new_kv`` then carries the dequantized row, and the
+    result is in ``out_dtype``."""
+    if scales is not None and backend != "plain":
+        raise ValueError(f"backend={backend!r} does not cover the int8 "
+                         "kv_quant layout")
     if backend == "cuda":
         return paged_kernels.paged_decode_attention(
             q[:, 0], k_arena, v_arena, block_table, cache_len,
@@ -111,6 +125,11 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
     Hkv = k_arena.shape[2]
     k = gather_paged_kv(k_arena, block_table)        # (B, S, Hkv, D)
     v = gather_paged_kv(v_arena, block_table)
+    if scales is not None:
+        k = kvquant.dequantize(k, gather_paged_kv(scales[0], block_table),
+                               out_dtype)
+        v = kvquant.dequantize(v, gather_paged_kv(scales[1], block_table),
+                               out_dtype)
     if new_kv is not None:
         k = splice_rows(k, new_kv[0], cache_len - 1)
         v = splice_rows(v, new_kv[1], cache_len - 1)

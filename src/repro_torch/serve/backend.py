@@ -22,41 +22,56 @@
                        each lane's new row scattered back; plain PyTorch on
                        every device, as the reference's is XLA
 
-The vlm family's tick is the plain one: the reference runs its grouped
-cache through the XLA tick only, refusing an explicit kernel or cascade
-request and falling back without a word under auto-selection.  So an
-explicit ``"cuda"`` or ``"cascade"`` for it raises, and ``None`` resolves
-to ``"plain"`` on every device.
+The vlm family's tick and the int8 ``kv_quant`` layout's are the plain
+one: the reference runs its grouped cache and its int8 cache through the
+XLA tick only, refusing an explicit kernel or cascade request and falling
+back without a word under auto-selection.  So an explicit ``"cuda"`` or
+``"cascade"`` for either raises, and ``None`` resolves to ``"plain"`` on
+every device.
 """
 from __future__ import annotations
 
 import torch
 
 BACKENDS = ("plain", "cuda", "cascade", "gather")
-# the backends the reference refuses for the vlm family
-NOT_FOR_VLM = ("cuda", "cascade")
+# the backends the reference refuses where the tick is plain only (the vlm
+# family, the int8 layout)
+KERNEL_TICKS = ("cuda", "cascade")
 
 
-def auto_backend(device: str | torch.device, family: str | None = None
-                 ) -> str:
-    """``"cuda"`` on a CUDA device, ``"plain"`` on the CPU, and for the
-    vlm family ``"plain"`` everywhere."""
-    if family == "vlm":
+def plain_only(cfg) -> str | None:
+    """What makes ``cfg``'s tick plain only, as the reference refuses its
+    kernel and cascade ticks there (the vlm family's layout or the int8
+    ``kv_quant`` layout), or None."""
+    if cfg is None:
+        return None
+    if cfg.family == "vlm":
+        return "the vlm family's tick"
+    if cfg.kv_quant:
+        return "the int8 kv_quant layout"
+    return None
+
+
+def auto_backend(device: str | torch.device, cfg=None) -> str:
+    """``"cuda"`` on a CUDA device, ``"plain"`` on the CPU, and where
+    :func:`plain_only` names a reason ``"plain"`` everywhere."""
+    if plain_only(cfg):
         return "plain"
     return "cuda" if torch.device(device).type == "cuda" else "plain"
 
 
 def resolve_backend(backend: str | None, device: str | torch.device,
-                    family: str | None = None) -> str:
-    """``backend`` checked against the enum and, for the vlm family,
-    against :data:`NOT_FOR_VLM`; ``None`` is :func:`auto_backend`."""
+                    cfg=None) -> str:
+    """``backend`` checked against the enum and, where :func:`plain_only`
+    names a reason, against :data:`KERNEL_TICKS`; ``None`` is
+    :func:`auto_backend`."""
     if backend is None:
-        return auto_backend(device, family)
+        return auto_backend(device, cfg)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    if family == "vlm" and backend in NOT_FOR_VLM:
-        raise ValueError(f"backend={backend!r} does not cover the vlm "
-                         "family's tick (the reference refuses it too); "
-                         "use backend=\"plain\"")
+    why = plain_only(cfg)
+    if why and backend in KERNEL_TICKS:
+        raise ValueError(f"backend={backend!r} does not cover {why} (the "
+                         "reference refuses it too); use backend=\"plain\"")
     return backend

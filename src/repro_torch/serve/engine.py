@@ -72,11 +72,17 @@ import torch
 from repro_torch.kernels import paged_attn as paged_kernels
 from repro_torch.kernels import ref
 from repro_torch.models import lm
+from repro_torch.serve import kvquant
 
-# Cache keys whose axis -3 is the (paged) sequence axis: k and v only (the
-# hybrid family's conv and ssm state and the encdec and vlm families' cross
-# K/V are per lane, not per position).
-PAGED_SEQ_KEYS = ("k", "v")
+# Cache keys whose axis -3 is the (paged) sequence axis: k and v, and their
+# scales under ``kv_quant`` (the hybrid family's conv and ssm state and the
+# encdec and vlm families' cross K/V are per lane, not per position).
+PAGED_SEQ_KEYS = ("k", "v", "k_scale", "v_scale")
+# the int8 layout's scale keys, per (token, head)
+SCALE_KEYS = ("k_scale", "v_scale")
+# the families whose K/V ``kv_quant`` stores int8 (the encdec and vlm
+# families ignore it, as in the reference; the rwkv family has no K/V)
+QUANT_FAMILIES = ("decoder", "moe", "hybrid")
 # the hybrid family's recurrent state, per layer and lane
 STATE_KEYS = ("conv", "ssm")
 # the rwkv family's recurrent state, per layer and lane: its whole context
@@ -117,20 +123,32 @@ def init_state(cfg: lm.LMConfig, batch: int,
                                dtype=torch.float32, device=device)}
 
 
+def quantized(cfg: lm.LMConfig) -> bool:
+    """Whether ``cfg``'s K/V are stored int8 (``kv_quant`` on a family of
+    :data:`QUANT_FAMILIES`)."""
+    return cfg.kv_quant and cfg.family in QUANT_FAMILIES
+
+
 def init_cache(cfg: lm.LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
     """Zeroed dense cache: k/v (L, B, max_len, Hkv, Dh), ``len`` and the
-    lane state (:func:`init_state`); for the rwkv family ``len`` and its
-    state only, whatever ``max_len`` is."""
+    lane state (:func:`init_state`); under :func:`quantized` k/v int8 and
+    k_scale / v_scale (L, B, max_len, Hkv, 1) float32; for the rwkv family
+    ``len`` and its state only, whatever ``max_len`` is."""
     lm.check_supported(cfg)
     if cfg.family == "rwkv":
         return {"len": torch.zeros((), dtype=torch.int32, device=device),
                 **init_state(cfg, batch, device)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"len": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            **init_state(cfg, batch, device)}
+    kv_dtype = torch.int8 if quantized(cfg) else cfg.dtype
+    cache = {"len": torch.zeros((), dtype=torch.int32, device=device),
+             "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if quantized(cfg):
+        for key in SCALE_KEYS:
+            cache[key] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                     device=device)
+    return {**cache, **init_state(cfg, batch, device)}
 
 
 def empty_cache(cfg: lm.LMConfig, batch: int,
@@ -153,6 +171,8 @@ def init_paged_arena(cfg: lm.LMConfig, num_blocks: int, block_size: int,
     blk = init_cache(cfg, 1, block_size, device="meta")
     out = {}
     for key in PAGED_SEQ_KEYS:
+        if key not in blk:
+            continue
         s = blk[key].shape                       # (L, 1, bs, Hkv, Dh)
         ax = len(s) - 4                          # just before the B axis
         out[key] = torch.zeros(s[:ax] + (num_blocks,) + s[ax:],
@@ -266,7 +286,9 @@ def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor, *,
     embeddings ``vision_embed`` (B, n_vision_tokens, d), which give the
     cross K/V first (:func:`cross_kv`); the other families refuse both.
     The rwkv family's cache is ``len`` and its state after the prompt
-    (:func:`_rwkv_prefill`)."""
+    (:func:`_rwkv_prefill`).  Under :func:`quantized` the returned k/v are
+    int8 with their k_scale / v_scale (``kvquant.quantize``), as the
+    reference's prefill returns them."""
     lm.check_supported(cfg)
     if cfg.family == "rwkv":
         cross_kv(cfg, params, enc_embed=enc_embed, vision_embed=vision_embed)
@@ -274,7 +296,11 @@ def prefill(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor, *,
     cache = {**empty_cache(cfg, tokens.shape[0], tokens.device),
              **cross_kv(cfg, params, enc_embed=enc_embed,
                         vision_embed=vision_embed)}
-    return _fold_step(cfg, params, tokens, cache, 0)
+    cache, logits = _fold_step(cfg, params, tokens, cache, 0)
+    if quantized(cfg):
+        cache["k"], cache["k_scale"] = kvquant.quantize(cache["k"])
+        cache["v"], cache["v_scale"] = kvquant.quantize(cache["v"])
+    return cache, logits
 
 
 def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
@@ -291,7 +317,9 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     with the state after the chunk and the same xk / xv; the chunk's
     last-token logits (B, vocab_padded) float32).  The vlm family is
     refused (``ValueError``), as the reference's fold asserts it out: its
-    prompts are admitted one-shot (:func:`prefill`).
+    prompts are admitted one-shot (:func:`prefill`).  So is the int8
+    layout (``kv_quant``, ``ValueError``): the fold needs the prefix's
+    unquantized K/V, which the int8 cache no longer holds.
 
     A radix prefix hit of H blocks resumes the fold at chunk H with the
     prefix gathered from the arena (and, hybrid, the boundary state the
@@ -307,6 +335,10 @@ def prefill_chunked(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         raise ValueError("the chunked prefill fold does not cover the vlm "
                          "family (the reference leaves it out); admit its "
                          "prompts one-shot")
+    if cfg.kv_quant:
+        raise ValueError("the chunked prefill fold does not cover the int8 "
+                         "kv_quant layout (the reference asserts it out); "
+                         "admit its prompts one-shot")
     return _fold_step(cfg, params, tokens, cache, q_offset)
 
 
@@ -340,8 +372,8 @@ def _fold_step(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     x = lm.embed_tokens(cfg, params, tokens, pos_offset=q_offset)
     positions = torch.arange(q_offset, q_offset + S,
                              device=x.device).expand(B, S)
-    out = {key: [] for key in PAGED_SEQ_KEYS + (STATE_KEYS if hybrid
-                                                 else ())}
+    out = {key: [] for key in ("k", "v") + (STATE_KEYS if hybrid
+                                              else ())}
     for i, (lp, window, moe_layer, cross) in enumerate(
             lm.layers(cfg, params)):
         prefix = (cache["k"][i], cache["v"][i])
@@ -406,7 +438,9 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
             ssm, the encdec and vlm families' xk / xv), **updated in
             place**: per layer and lane one K/V row at ``len``, the
             lane's next recurrent state, and ``len + 1`` (the cross K/V
-            are read only).  The rwkv family's cache is ``len`` and its
+            are read only); under :func:`quantized` the rows land int8
+            with their scales, and attention reads the cache dequantized.
+            The rwkv family's cache is ``len`` and its
             state (wkv, shift1, shift2), each lane's overwritten by its
             next.
     tokens  (B, 1) integer.
@@ -416,6 +450,7 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
 
     Returns (cache, logits (B, vocab_padded) float32)."""
     lm.check_supported(cfg)
+    quant = quantized(cfg)
     B = tokens.shape[0]
     pos = cache["len"].to(torch.int32).expand(B)
     x = lm.embed_tick(cfg, params, tokens, pos)            # (B, 1, d)
@@ -430,7 +465,9 @@ def decode_step(cfg: lm.LMConfig, params: dict, cache: dict,
         z = lm._norm_apply(cfg, lp["ln1"], x)
         att = lm.attn_decode(cfg, lp["attn"], z, cache["k"][i],
                              cache["v"][i], pos, window=window,
-                             active=active)
+                             active=active,
+                             scales=tuple(cache[key][i] for key in SCALE_KEYS)
+                             if quant else None)
         x = _block_tail(cfg, lp, x, z, att, moe_layer, cache, i, cross,
                         active)
     cache["len"] += 1 if active is None else active.to(cache["len"].dtype)
@@ -449,7 +486,10 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     tables  (S, nb) int32 arena block ids (trash-padded past each chain).
     lens    (S,) int32 lengths; the new token lands at position ``lens``.
     arena   :func:`init_paged_arena` dict, **updated in place**: one K and
-            one V row per layer and lane at (``wbids``, ``lens % bs``).
+            one V row per layer and lane at (``wbids``, ``lens % bs``);
+            under :func:`quantized` int8 rows and their float32 scale rows
+            in k_scale / v_scale, written by the plain row write (the
+            reference's is XLA), and ``backend`` must be ``"plain"``.
     wbids   (S,) int32 block each lane's row lands in; the caller routes
             lanes that must not write to the trash block 0.  ``None``
             derives it from the table, routing lanes past the table to 0.
@@ -481,6 +521,11 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         raise ValueError(f"backend={backend!r}: the vlm family's tick runs "
                          "the plain read only, as the reference's runs XLA "
                          "only")
+    quant = quantized(cfg)
+    if quant and backend != "plain":
+        raise ValueError(f"backend={backend!r}: the int8 kv_quant layout's "
+                         "tick runs the plain read only, as the reference's "
+                         "runs XLA only")
     if (cfg.family == "hybrid" or cfg.n_cross) and state is None:
         raise ValueError(f"the {cfg.family} family's tick needs the "
                          "lanes' state (state=)")
@@ -492,22 +537,27 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
         blk = tables.gather(1, (pos // bs).clamp(max=nb - 1).long()[:, None])
         wbids = torch.where(pos >= nb * bs, 0, blk[:, 0])
     x = lm.embed_tick(cfg, params, tokens, pos)            # (S, 1, d)
-    k_rows, v_rows = [], []
+    keys = PAGED_SEQ_KEYS if quant else ("k", "v")
+    rows = {key: [] for key in keys}
     for i, (lp, window, moe_layer, cross) in enumerate(
             lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)
-        att, k1, v1 = lm.attn_decode_paged(
+        att, *new = lm.attn_decode_paged(
             cfg, lp["attn"], z, arena["k"][i], arena["v"][i], tables, pos,
-            window=window, backend=backend, cascade=cascade)
+            window=window, backend=backend, cascade=cascade,
+            scales=tuple(arena[key][i] for key in SCALE_KEYS)
+            if quant else None)
         x = _block_tail(cfg, lp, x, z, att, moe_layer, state, i, cross,
                         active)
-        k_rows.append(k1)
-        v_rows.append(v1)
-    # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer,
-    # landed after the layer loop so every layer read the arena as it was;
-    # the kernel takes the layers' rows where they lie (no stacked copy)
+        for key, r in zip(keys, new):
+            rows[key].append(r)
+    # the tick's only sequence-axis write: one (S, Hkv, Dh) row per layer
+    # (and under kv_quant one (S, Hkv, 1) scale row per layer), landed
+    # after the layer loop so every layer read the arena as it was; the
+    # kernel takes the layers' rows where they lie (no stacked copy)
     wbids, offs = wbids.to(torch.int32), offs.to(torch.int32)
     scatter = ref.scatter_kv_rows if backend == "plain" else \
         paged_kernels.scatter_kv_rows
-    scatter(arena["k"], arena["v"], k_rows, v_rows, wbids, offs)
+    for kk, vk in zip(keys[::2], keys[1::2]):
+        scatter(arena[kk], arena[vk], rows[kk], rows[vk], wbids, offs)
     return lm.logits(cfg, params, x)[:, 0]

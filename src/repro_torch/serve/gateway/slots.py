@@ -203,7 +203,9 @@ class KVSlotAdapter(_CapturedTick):
     (L, n_slots, max_len, Hkv, Dh), ``len`` (n_slots,) and the lane state
     (the hybrid family's recurrent state, conv / ssm, (L, n_slots, ...);
     the encdec and vlm families' cross K/V, xk / xv, (n_cross, n_slots,
-    ...)), on the params' device.  ``insert`` prefills one prompt (B=1,
+    ...)), on the params' device; under ``kv_quant`` (the decoder, moe
+    and hybrid families) k/v int8 beside k_scale / v_scale (L, n_slots,
+    max_len, Hkv, 1) float32.  ``insert`` prefills one prompt (B=1,
     one-shot; for the encdec and vlm families with the embeddings
     ``extras()`` returns) and writes its rows and
     state into the slot in place, the rest of the slot zeros as the
@@ -218,9 +220,9 @@ class KVSlotAdapter(_CapturedTick):
     Prefill runs eagerly, as in the paged adapter (``paged.NOT_CAPTURED``).
     """
 
-    # cache keys whose axis -3 is the sequence axis (the decoder and moe
-    # families')
-    SEQ_KEYS = ("k", "v")
+    # cache keys whose axis -3 is the sequence axis (k / v, and their
+    # scales under kv_quant)
+    SEQ_KEYS = engine.PAGED_SEQ_KEYS
 
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, extras=None):
@@ -261,6 +263,8 @@ class KVSlotAdapter(_CapturedTick):
             self.cfg, self.params, tokens,
             **extras_kwargs(self.cfg, self.extras, self.device))
         for key in self.SEQ_KEYS:
+            if key not in self.cache:
+                continue
             self.cache[key][:, slot, :P] = cache1[key][:, 0]
             self.cache[key][:, slot, P:] = 0
         # in place: the captured tick reads these very tensors

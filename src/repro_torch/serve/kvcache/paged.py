@@ -115,8 +115,15 @@ Observability (``tracer``, wired by the prompt gateway for a run)
     ``work`` sums each stage's FLOP and byte counts for ``cost_args``.
     Without one the adapter makes no obs call and no extra synchronize.
 
-The reference's mesh placement and its int8 KV layout come with later
-slices (ROADMAP.md).
+The int8 layout (``cfg.kv_quant``)
+    As in the reference: the arena holds int8 k / v and their float32
+    k_scale / v_scale (``seq_keys``), which the prompt writes, the
+    copy-on-write copy, the gather oracle and the ticks move together;
+    admission is one-shot whatever ``chunked`` says (the fold needs the
+    prefix's unquantized K/V); the tick is ``"plain"`` (``serve/backend.py``
+    refuses an explicit ``"cuda"`` or ``"cascade"``).
+
+The reference's mesh placement comes with a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -185,7 +192,7 @@ def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
     max_len = nb * bs
     idx = tables.long()
     cache = {"len": lens.clone(), **state}
-    for key in engine.PAGED_SEQ_KEYS:
+    for key in arena:
         g = arena[key][:, idx, 0]                # (L, S, nb, bs, Hkv, Dh)
         cache[key] = g.reshape(g.shape[0], S, max_len, *g.shape[4:])
     _, logits = engine.decode_step(cfg, params, cache, tokens, active)
@@ -194,7 +201,7 @@ def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
     wbids = torch.where(oor, TRASH_BLOCK, wbids).long()
     rows = start[:, None] + torch.arange(bs, device=start.device)  # (S, bs)
     lanes = torch.arange(S, device=start.device)[:, None]
-    for key in engine.PAGED_SEQ_KEYS:
+    for key in arena:
         arena[key][:, wbids, 0] = cache[key][:, lanes, rows]
     return logits
 
@@ -229,15 +236,16 @@ class PagedKVSlotAdapter:
         self.cfg = cfg
         self.extras = extras
         self.hybrid = cfg.family == "hybrid"
-        # the reference's fold leaves the vlm family out: one-shot always
-        self.chunked = chunked and cfg.family != "vlm"
+        # the reference's fold leaves the vlm family and the int8 layout
+        # out (it needs the prefix's unquantized K/V): one-shot always
+        self.chunked = chunked and cfg.family != "vlm" and not cfg.kv_quant
         self.params = params
         self.device = params["embed"].device
         self.n_slots = n_slots
         self.bs = block_size
         self.nb_max = -(-max_len // block_size)
         self.max_len = self.nb_max * block_size
-        self.backend = resolve_backend(backend, self.device, cfg.family)
+        self.backend = resolve_backend(backend, self.device, cfg)
         # what a tick runs when nothing is grouped: the flat tick of the
         # device, so a cascade tick without a group is exactly that tick
         self.flat_backend = auto_backend(self.device) \

@@ -275,7 +275,7 @@ def lm_step_cost(cfg, tokens: float, pairs: float, kv_read: float,
     heads = cfg.n_heads * cfg.d_head
     flops = 2 * tokens * (cfg.n_layers * w["layer"]) \
         + 2 * logit_rows * w["head"] + 4 * heads * pairs
-    row = 2 * cfg.n_kv_heads * cfg.d_head * isz           # one K and V row
+    row = kv_row_bytes(cfg)                               # one K and V row
     head_copy = 0 if isz == 4 or cfg.tie_embeddings else 8 * w["head"]
     nbytes = isz * (cfg.n_layers * w["layer"] + w["head"] + w["other"]) \
         + head_copy + isz * tokens * cfg.d_model \
@@ -283,13 +283,20 @@ def lm_step_cost(cfg, tokens: float, pairs: float, kv_read: float,
     return {"flops": flops, "bytes": nbytes}
 
 
+def kv_row_bytes(cfg) -> int:
+    """Bytes of one position's K and V rows in one layer: 2 Hkv Dh values
+    of the model's dtype, or under ``kv_quant`` 2 Hkv (Dh + 4), the int8
+    values and a float32 scale per head."""
+    if cfg.kv_quant:
+        return 2 * cfg.n_kv_heads * (cfg.d_head + 4)
+    return 2 * cfg.n_kv_heads * cfg.d_head * _ITEMSIZE[cfg.param_dtype]
+
+
 def block_copy_cost(cfg, block_size: int) -> dict:
     """A copy-on-write block copy: one block's K and V rows of every layer
     read and written; no arithmetic."""
-    isz = _ITEMSIZE[cfg.param_dtype]
     rows = cfg.n_layers * block_size
-    return {"flops": 0.0,
-            "bytes": 2 * rows * 2 * cfg.n_kv_heads * cfg.d_head * isz}
+    return {"flops": 0.0, "bytes": 2 * rows * kv_row_bytes(cfg)}
 
 
 def frame_sensor_cost(spec, bs: int) -> dict:

@@ -32,6 +32,9 @@ from repro_torch.serve.kvcache import paged
 from repro_torch.serve.obs import RecompileDetector
 from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, frames, smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BS = 4
 CPU = torch.device("cpu")
 

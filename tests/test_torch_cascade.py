@@ -30,6 +30,9 @@ from repro_torch.serve import spec
 from repro_torch.serve.gateway import slots
 from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BS = 4
 TOL = 2e-6
 WINDOWS = [0, 8, 2]                    # none; clips lane 1's prefix; suffix

@@ -33,6 +33,9 @@ from repro_torch.serve.gateway.slots import (ContinuousBatcher,
 from repro_torch.serve.obs import costmodel
 from test_torch_obs import MicroBatchGateway, _setup
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 # the H100 SXM's ridge: dense bf16 tensor peak over HBM3 bandwidth (NVIDIA
 # data sheet)
 H100_RIDGE = 989e12 / 3.35e12
@@ -321,3 +324,25 @@ def test_prompt_pairs_closed_form_matches_the_sum():
             rows += (min(q0, w) if w else q0) + c
         assert costmodel.prompt_pairs(cfg, q0, c) == (pairs, rows)
 
+
+
+def test_int8_kv_rows_count_their_scales():
+    """Under ``kv_quant`` a K/V row is 2 Hkv (Dh + 4) bytes, the int8
+    values and a float32 scale per head: the block copy moves exactly the
+    bytes of one block of the int8 arena's four tensors, read and written,
+    and a step's K/V traffic shrinks by the difference per row."""
+    cfg = dataclasses.replace(configs.smoke_config("stablelm_3b"),
+                              kv_quant=True)
+    arena = engine.init_paged_arena(cfg, 3, 8, "cpu")
+    assert set(arena) == {"k", "v", "k_scale", "v_scale"}
+    block = sum(a[:, 1].numel() * a.element_size() for a in arena.values())
+    assert costmodel.block_copy_cost(cfg, 8) == {"flops": 0.0,
+                                                 "bytes": 2 * block}
+    bf16 = dataclasses.replace(cfg, kv_quant=False)
+    rows = 10 + 4
+    got = costmodel.lm_step_cost(cfg, 1, 10, 10, 4, 1)
+    want = costmodel.lm_step_cost(bf16, 1, 10, 10, 4, 1)
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    assert got["flops"] == want["flops"]
+    assert want["bytes"] - got["bytes"] == \
+        rows * (2 * hkv * dh * 2 - 2 * hkv * (dh + 4))

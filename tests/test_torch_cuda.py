@@ -1783,3 +1783,209 @@ def test_tail_train_step_on_card_matches_cpu(dev):
             assert torch.allclose(card[l][k].cpu(), want[l][k], rtol=0,
                                   atol=1e-6)
     assert torch.equal(card["conv1"]["w"].cpu(), params["conv1"]["w"])
+
+
+# -- the attention kernels at GQA 12:1 and 16:1 (starcoder2, llama3-405b) ---
+
+# (query heads, KV heads, head width, layers) of starcoder2-15b (12:1) and
+# llama3-405b (16:1)
+GQA_HEADS = {"12:1": (48, 4, 128, 40), "16:1": (128, 8, 128, 126)}
+
+
+@pytest.mark.parametrize("ratio", list(GQA_HEADS))
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_kernel_gqa_heads(monkeypatch, dev, ratio,
+                                                 split, dtype):
+    """The flat tick's call at 8 lanes x ~1k positions with 12 and 16
+    query heads per KV head: split as planned and in one split, windows
+    None and 100, the tick's new rows spliced in, against the plain
+    version."""
+    hq, hkv, d, _ = GQA_HEADS[ratio]
+    if not split:
+        monkeypatch.setattr(paged_attn_kernel, "SPLIT_POSITIONS", 1 << 20)
+    gen = torch.Generator().manual_seed(hq + split)
+    B, nb, bs = 8, 66, 16
+    q, ka, va, tables, lens, k1, v1 = _paged_case(gen, B, nb, bs, hq, hkv,
+                                                  d, dtype, dev)
+    lens = torch.arange(1024, 1024 + B, dtype=torch.int32, device=dev)
+    for window in (None, 100):
+        n = paged_attn_kernel.paged_decode_attention.launches
+        got = paged_attn_kernel.paged_decode_attention(
+            q, ka, va, tables, lens, window=window, new_kv=(k1, v1))
+        assert paged_attn_kernel.paged_decode_attention.launches == n + 1
+        want = ref.paged_decode_attention(q, ka, va, tables, lens, window,
+                                          (k1, v1))
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("ratio", list(GQA_HEADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kv_rows_kernel_gqa_heads_bitwise(dev, ratio, dtype):
+    """The tick's write at the config's layer count (40; 126, two launches'
+    worth of pointers) of its KV heads, one tensor per layer, bit for bit
+    the plain version; one wrapper call."""
+    _, hkv, d, L = GQA_HEADS[ratio]
+    gen = torch.Generator().manual_seed(L)
+    nbk, bs, S = 9, 16, 8
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    ka, va = (arr(L, nbk, 1, bs, hkv, d) for _ in range(2))
+    kr, vr = (arr(L, S, hkv, d) for _ in range(2))
+    wbids = torch.tensor([3, 0, 7, 8, 1, 5, 0, 2], dtype=torch.int32,
+                         device=dev)
+    offs = torch.tensor([0, 5, 15, 5, 9, 1, 2, 14], dtype=torch.int32,
+                        device=dev)
+    rk, rv = ref.scatter_kv_rows(ka.clone(), va.clone(), kr, vr, wbids, offs)
+    n = paged_attn_kernel.scatter_kv_rows.launches
+    paged_attn_kernel.scatter_kv_rows(ka, va, list(kr), list(vr), wbids,
+                                      offs)
+    assert paged_attn_kernel.scatter_kv_rows.launches == n + 1
+    assert torch.equal(ka[:, 1:], rk[:, 1:]) and torch.equal(va[:, 1:],
+                                                             rv[:, 1:])
+
+
+@pytest.mark.parametrize("ratio", list(GQA_HEADS))
+@pytest.mark.parametrize("Sq,q_offset", [(16, 512), (7, 1072), (1000, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_gqa_heads(dev, ratio, Sq, q_offset, dtype):
+    """Fold chunks and a 1,000-token one-shot prompt at 12 and 16 query
+    heads per KV head, causal, against the plain version; a second call
+    bitwise."""
+    hq, hkv, d, _ = GQA_HEADS[ratio]
+    gen = torch.Generator().manual_seed(Sq + q_offset + hq)
+    Sk = q_offset + Sq
+    q = torch.randn((1, Sq, hq, d), generator=gen).to(dtype).to(dev)
+    k = torch.randn((1, Sk, hkv, d), generator=gen).to(dtype).to(dev)
+    v = torch.randn((1, Sk, hkv, d), generator=gen).to(dtype).to(dev)
+    n = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, q_offset=q_offset)
+    assert flash_kernel.flash_attention.launches == n + 1
+    want = ref.flash_attention_chunked(q, k, v, True, 0, q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.equal(got, flash_kernel.flash_attention(
+        q, k, v, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("plan",
+                         list(paged_attn_kernel.CASCADE_FORCED_PLANS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_kernels_gqa_12_heads(monkeypatch, dev, plan, dtype):
+    """Load (c)'s cascade tick at 48 heads over 4 KV heads of 128: eight
+    lanes sharing a 1,024-position chain (96 query rows per KV head in the
+    prefix pass), suffixes of 1 to 64 positions, windows 0 and 100, at
+    each forced plan: the prefix pass against its plain version, the
+    suffix pass with the merge fused bit for bit the composition and
+    within the tolerance of its plain version."""
+    for const, value in paged_attn_kernel.CASCADE_FORCED_PLANS[plan].items():
+        monkeypatch.setattr(paged_attn_kernel, const, value)
+    hq, hkv, d, _ = GQA_HEADS["12:1"]
+    gen = torch.Generator().manual_seed(hq)
+    bs, Lc, npre = 16, 8, 64
+
+    def arr(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    nblk = 1 + npre + 4 * Lc
+    ka, va = arr(nblk, bs, hkv, d), arr(nblk, bs, hkv, d)
+    gt = torch.arange(1, 1 + npre, **i32)[None]
+    glen = torch.tensor([npre * bs], **i32)
+    ll = glen + torch.tensor([[1, 7, 16, 17, 33, 48, 63, 64]], **i32)
+    meta = attention.with_lane_meta(
+        {"group_lanes": torch.arange(Lc, **i32)[None],
+         "group_mask": torch.ones((1, Lc), dtype=torch.bool, device=dev)},
+        ll[0])
+    qg = arr(1, Lc, hq, d)
+    nk = (arr(Lc, hkv, d), arr(Lc, hkv, d))
+    st = torch.arange(1 + npre, nblk, **i32).reshape(Lc, 4)
+    tol = _tol(dtype)
+    for window in (0, 100):
+        n = paged_attn_kernel.cascade_prefix_attention.launches
+        prefix = paged_attn_kernel.cascade_prefix_attention(
+            qg, ka, va, gt, glen, ll, window=window)
+        assert paged_attn_kernel.cascade_prefix_attention.launches == n + 1
+        for g, w in zip(prefix, ref.cascade_prefix_attention(
+                qg, ka, va, gt, glen, ll, window)):
+            assert not torch.isnan(g).any()
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        _fused_against_composition(
+            prefix, meta, (qg[0], ka, va, st, ll[0]), window,
+            glen.expand(Lc).contiguous(), nk, tol)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "llama3-405b"])
+def test_decoder_kernel_tick_matches_plain_tick_float32(dev, arch):
+    """The smoke configs of the last decoders (starcoder2's GELU, biases
+    and LayerNorm) on the card in float32: the kernel tick's greedy tokens
+    equal to the plain tick's, logits within 2e-4, over forced tokens."""
+    cfg = dataclasses.replace(configs.smoke_config(arch),
+                              param_dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (1, 15, 16, 40)]
+    forced = rng.integers(0, cfg.vocab, (6, len(prompts))).astype(np.int32)
+    out = {}
+    for backend in ("cuda", "plain"):
+        ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=48,
+                          paged=True, block_size=16, chunked=False,
+                          backend=backend)
+        first = [ad.insert(s, p, max_new=7) for s, p in enumerate(prompts)]
+        active = np.ones(len(prompts), bool)
+        toks, logits = [], []
+        for row in forced:
+            toks.append(ad.decode(row, active))
+            logits.append(ad.last_logits.clone())
+        out[backend] = (first, np.stack(toks), torch.stack(logits))
+    assert out["cuda"][0] == out["plain"][0]
+    np.testing.assert_array_equal(out["cuda"][1], out["plain"][1])
+    torch.testing.assert_close(out["cuda"][2], out["plain"][2], rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_tick_on_card_bitwise_gather_and_replay(dev, dtype):
+    """The int8 layout on the card (starcoder2's smoke config,
+    ``kv_quant``): the kernel ticks refused, the in-place plain tick's
+    tokens, logits and every chain block of the four arenas bit for bit the
+    gather oracle's over forced tokens, and the captured tick bit for bit
+    its eager step; no paged kernel launches."""
+    cfg = dataclasses.replace(configs.smoke_config("starcoder2-15b"),
+                              param_dtype=dtype, kv_quant=True)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    for backend in ("cuda", "cascade"):
+        with pytest.raises(ValueError, match="kv_quant"):
+            make_adapter(cfg, params, n_slots=2, max_len=48, paged=True,
+                         backend=backend)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 20, 33)]
+    ads = [make_adapter(cfg, params, n_slots=3, max_len=64, paged=True,
+                        block_size=16, backend=b) for b in ("plain",
+                                                            "gather")]
+    assert ads[0].backend == "plain" and ads[0].arena["k"].dtype == \
+        torch.int8
+    for s, p in enumerate(prompts):
+        assert ads[0].insert(s, p, 8) == ads[1].insert(s, p, 8)
+    active = np.ones(3, bool)
+    before = paged_attn_kernel.paged_decode_attention.launches
+    for row in rng.integers(0, cfg.vocab, (5, 3)).astype(np.int32):
+        np.testing.assert_array_equal(ads[0].decode(row, active),
+                                      ads[1].decode(row, active))
+        assert torch.equal(ads[0].last_logits, ads[1].last_logits)
+    assert paged_attn_kernel.paged_decode_attention.launches == before
+    for s in range(3):
+        for b in ads[0].slot_bids[s]:
+            for key in ("k", "v", "k_scale", "v_scale"):
+                assert torch.equal(ads[0].arena_block(key, b),
+                                   ads[1].arena_block(key, b)), key
+    forced = rng.integers(0, cfg.vocab, 3).astype(np.int32)
+    step, out = _tick_replay_and_eager(ads[0], forced, active)
+    (lr, ar, cr), (le, ae, ce) = out["replay"], out["eager"]
+    assert torch.equal(lr, le) and bool(torch.isfinite(lr).all())
+    for key in ar:
+        assert torch.equal(ar[key], ae[key]), key
+    assert cr == ce

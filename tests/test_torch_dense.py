@@ -29,6 +29,9 @@ from repro_torch.serve.kvcache import paged
 from repro_torch.serve.gateway import sensors, slots
 from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BS = 4
 
 

@@ -32,6 +32,9 @@ from repro_torch.serve import engine
 from repro_torch.serve.gateway import slots
 from test_torch_lm import ENCDEC, frames, smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BS = 4
 
 

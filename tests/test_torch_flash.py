@@ -19,6 +19,9 @@ from repro.nn import attention as jattn
 from repro_torch.kernels import flash_attn, ref
 from repro_torch.nn import attention
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 PALLAS_CASES = [
     (4, 256, 64, 128, 128, True, "float32"),
     (2, 256, 128, 64, 128, False, "float32"),

@@ -11,6 +11,7 @@ keeps the same spans, tails and accounting, shrinks alike, and re-folds
 to the same critical paths and rankings."""
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import obs as jobs
 from repro_torch.serve import obs
@@ -21,6 +22,9 @@ from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 from repro_torch.serve.obs import critpath
 from repro_torch.serve.obs.tracer import REQUESTS_PID
 from test_torch_obs import MicroBatchGateway, _setup
+
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
 
 
 def _prompt_arrivals(cfg, n, plen=8, seed=0, dt=0.001):

@@ -11,6 +11,7 @@ from unittest import mock
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import engine as jengine
 from repro.serve.gateway import frontend as jfe
@@ -23,6 +24,9 @@ from repro_torch.serve.gateway import sensors
 from repro_torch.serve.gateway import slots
 from conftest import sequential_decode_reference
 from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
+
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
 
 
 def _fleet():

@@ -25,6 +25,9 @@ from repro_torch.data import mnist_synth
 from repro_torch.models import lenet
 from repro_torch.train import optim
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 SMALL = dict(conv1_filters=8, conv2_filters=16, dense=64)
 CFG, JCFG = lenet.LeNetConfig(**SMALL), jlenet.LeNetConfig(**SMALL)
 # the port's retrained accuracy from the reference's pretrained weights and

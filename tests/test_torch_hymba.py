@@ -29,6 +29,9 @@ from repro_torch.nn import attention
 from repro_torch.serve import engine
 from test_torch_lm import smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 HYMBA = "hymba_1_5b"
 BS = 4
 

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import obs as jobs
 from repro.serve import spec as jspec
@@ -38,6 +39,9 @@ from repro_torch.serve.spec import ServeSpec
 from test_torch_lm import smoke_pair
 from test_torch_obs import (MicroBatchGateway, _setup, fake_clock,
                             make_gateway)
+
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
 
 
 def _prompt_arrivals(cfg, n, plen=8, seed=0, dt=0.001):

@@ -20,6 +20,9 @@ from repro_torch.models import lenet
 from repro_torch.serve.gateway import frontend as fe
 from repro_torch.serve.gateway.gateway import GatewayConfig, MicroBatchGateway
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 
 def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)

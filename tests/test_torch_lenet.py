@@ -15,6 +15,9 @@ from repro_torch.data import mnist_synth
 from repro_torch.models import lenet
 from repro_torch.serve.gateway import frontend as fe
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 SMOKE = lenet.LeNetConfig(conv1_filters=8, conv2_filters=8, dense=32)
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -25,6 +25,9 @@ from repro_torch.models import lm
 from repro_torch.nn import attention, mlp, moe, norms, rope
 from repro_torch.serve import engine
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 ARCH = "stablelm_3b"
 MOE = "deepseek_moe_16b"
 HYMBA = "hymba_1_5b"
@@ -123,7 +126,7 @@ def test_sc_frontend_and_other_families_raise():
     """``first_layer_mode="sc"`` is ported: ``lm.init`` builds the
     frontend's (d, d) weights and ones for ``gamma``, in the reference's
     place in the tree; a family no package knows raises ``ValueError``, as
-    the reference's ``init`` does, and the configs not ported yet raise
+    the reference's ``init`` does, and an arch in neither registry raises
     naming the ROADMAP."""
     cfg = configs.smoke_config(ARCH)
     gen = torch.Generator().manual_seed(0)
@@ -139,10 +142,12 @@ def test_sc_frontend_and_other_families_raise():
     assert "sc_frontend" not in lm.init(cfg, gen)
     with pytest.raises(ValueError, match="unknown family"):
         lm.init(dataclasses.replace(cfg, family="retnet"), gen)
+    # an arch absent from both registries
+    assert "gpt2_xl" not in jconfigs.ARCHS + configs.ARCHS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.config("starcoder2_15b")
+        configs.config("gpt2-xl")
     with pytest.raises(NotImplementedError):
-        configs.config("llama3_405b")
+        configs.smoke_config("gpt2_xl")
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])

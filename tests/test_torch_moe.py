@@ -24,6 +24,9 @@ from repro_torch.models import lm
 from repro_torch.nn import moe
 from repro_torch.serve import engine
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 D, E, F, K = 32, 8, 24, 2
 
 

@@ -25,6 +25,7 @@ from unittest import mock
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import obs as jobs
 from repro.serve import spec as jspec
@@ -43,6 +44,9 @@ from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 from repro_torch.serve.gateway.telemetry import Telemetry
 from repro_torch.serve.obs import tracer as tracer_mod
 from test_torch_lm import smoke_pair
+
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
 
 BS = 4
 

@@ -13,6 +13,9 @@ from repro.nn import attention as jattn
 from repro_torch.kernels import paged_attn, ref
 from repro_torch.nn import attention
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 CASES = [                              # B, nb, bs, Hq, Hkv, D, dtype
     (3, 4, 8, 4, 4, 32, "float32"),    # MHA
     (2, 3, 16, 8, 2, 64, "float32"),   # GQA 4:1

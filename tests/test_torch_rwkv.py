@@ -25,6 +25,9 @@ from repro_torch.nn import ssm
 from repro_torch.serve import engine
 from test_torch_lm import smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 ARCH = "rwkv6_7b"
 TOL = 2e-5
 # bf16 r, k, v, w and u: both sides widen the same bf16 values and round

@@ -31,6 +31,9 @@ from repro_torch.serve.obs import tracer
 from test_torch_lm import smoke_pair
 from test_torch_obs import fake_clock
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 ARCH = "rwkv6_7b"
 KEYS = ("wkv", "shift1", "shift2")
 LOGITS, STATE = 2e-4, 1e-5

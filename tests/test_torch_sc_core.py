@@ -11,6 +11,9 @@ from repro.core import sc_layer as jsc
 from repro.core import sng as jsng
 from repro_torch.core import arith, sc_layer, sng
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BITS = range(2, 9)
 
 

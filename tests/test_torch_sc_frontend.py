@@ -27,6 +27,9 @@ from repro_torch.models import lm
 from repro_torch.serve import engine
 from repro_torch.serve.gateway import slots
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 ARCH = "stablelm_3b"
 BS = 4
 

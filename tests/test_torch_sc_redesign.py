@@ -25,6 +25,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import sc_dot as sc_dot_kernel
 from repro_torch.kernels import sng_pack as sng_pack_kernel
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 S0 = {"zero": (0, 0), "one": (1, 1), "alt": (0, 1)}   # (s_even, s_odd)
 CASES = [("zero", "tff"), ("one", "tff"), ("alt", "tff"), ("alt", "ideal")]
 

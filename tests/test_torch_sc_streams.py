@@ -18,6 +18,9 @@ from repro.core import sng as jsng
 from repro_torch.core import arith, bipolar, bitstream as bs, energy, sc_layer
 from repro_torch.core import sng
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BITS = range(2, 9)
 
 

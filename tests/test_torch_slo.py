@@ -16,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.serve import obs as jobs
 from repro.serve import spec as jspec
@@ -33,6 +34,9 @@ from repro_torch.serve.gateway.telemetry import Telemetry
 from repro_torch.serve.obs import tracer as tracer_mod
 from test_torch_lm import smoke_pair
 from test_torch_obs import MicroBatchGateway, _setup, fake_clock
+
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
 
 BS = 4
 

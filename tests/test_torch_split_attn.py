@@ -31,6 +31,9 @@ from test_torch_cascade import TOL, _fixture
 from test_torch_chunked import BS, _empty, _fold
 from test_torch_lm import smoke_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 
 # -- the planners ------------------------------------------------------------
 

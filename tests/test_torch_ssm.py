@@ -17,6 +17,9 @@ from repro.nn import ssm as jssm
 from repro_torch.models import lm
 from repro_torch.nn import ssm
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 TOL = 1e-5
 # bf16 inputs and outputs: y is rounded to bf16 (8 bits of mantissa) on
 # both sides, so the two differ by about one bf16 ulp of |y| <= 8

@@ -28,6 +28,9 @@ from repro_torch.models import lm
 from repro_torch.serve import engine
 from test_torch_lm import VLM, VLM_GATE, vision, vlm_pair
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))

@@ -29,6 +29,9 @@ from repro_torch.serve.gateway import slots
 from test_torch_lm import extras_pair, vlm_pair
 from test_torch_vlm import flat, grouped
 
+# one intra-op thread: the suite's worker processes share the CPU
+torch.set_num_threads(1)
+
 BS = 4
 
 
