@@ -21,6 +21,7 @@
     python3 chip_smoke.py --rwkv   # phase 16 alone
     python3 chip_smoke.py --decoders
                                    # phase 17 alone
+    python3 chip_smoke.py --shard  # phase 18 alone
 
 Phases, each printing one JSON line:
 
@@ -331,8 +332,32 @@ Phases, each printing one JSON line:
      through the dense, ``"cuda"`` and ``"plain"`` gateways, bf16 near
      ties and float32 at depth 2 equal.  ``python3 chip_smoke.py
      --decoders`` runs it alone.
+ 18. sharded and disaggregated serving (``shard_main_path`` line, run
+     right after phase 14 on its stablelm-3b weights, which every slice
+     shares): four slices on the one card (``ServeSpec(mesh=...)``), each
+     with its own dense-equivalent arena; (a) a one-slice gateway bit for
+     bit the unsharded ``make_gateway(paged=True)`` on load (b), tokens
+     and every logit row; (b) four slices against one on load (b)
+     (chunked) and load (c) (one-shot), bf16 under the near-tie rule and
+     float32 at depth 4 tokens equal, with the routing counters
+     (affinity, affinity_spill, load, migrations); (c) a lane migrated
+     between two slices mid-decode through the host, its logits bit for
+     bit a stay-put adapter's, with the bytes moved and the round trip's
+     ms per MB; (d) ``RolePlan.split(1, 3)`` traced against the
+     colocated run: tokens (near ties), handoffs and their bytes, the
+     ledger's ``migration_nj``, the span energies re-folding to
+     ``fleet_energy_nj`` exactly, the protected chain on the decode
+     slices, the critical paths by role; (e) ``obs.attribute`` over the
+     sharded run's ``sliceN.`` stages at the H100's ridge; (f) phases
+     11-13 and 15-16 print the cost model's decode-tick bytes beside their
+     own byte model (``tick_bytes_analytic``).  The ``kernels`` line's
+     ``shard`` launches are the sharded runs' alone (the migration's two
+     slices included), and each sharded run must launch every kernel of
+     the path itself; the unsharded baselines' launches are printed apart
+     (``baseline_launches``).  ``python3 chip_smoke.py --shard`` runs it
+     alone.
 
-Phases 3–8 and 10–17 print their ``phase_s`` and a ``seconds`` breakdown
+Phases 3–8 and 10–18 print their ``phase_s`` and a ``seconds`` breakdown
 (phases 3 and 4 on the ``kernels_seconds`` and ``frame_path_seconds``
 lines).
 
@@ -3760,6 +3785,7 @@ def moe_main_path(dev, sleep: int) -> dict:
               flat["profile"]["captured"]["top_device_ms_per_tick"],
           "tick_bytes_model": tick_bytes,
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_analytic": analytic_tick(cfg, tick_bytes, 1024),
           "oneshot_prefill_1000_ms": chunked["oneshot_prefill_1000_ms"],
           "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
           "launches": launches, "kernel_ms": {
@@ -3883,6 +3909,7 @@ def hymba_main_path(dev, sleep: int) -> dict:
                                "kv": kv_bytes, "ssm_state": state_bytes,
                                "total": tick_bytes},
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_analytic": analytic_tick(cfg, tick_bytes, ctx),
           "oneshot_prefill_ms": chunked["oneshot_prefill_1000_ms"],
           "oneshot_prefill_tokens": chunked["oneshot_prefill_tokens"],
           "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
@@ -4025,6 +4052,7 @@ def whisper_main_path(dev, sleep: int) -> dict:
                                "self_kv": kv_bytes, "cross_kv": cross_bytes,
                                "total": tick_bytes},
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_analytic": analytic_tick(cfg, tick_bytes, 1025),
           "oneshot_prefill_ms": chunked["oneshot_prefill_1000_ms"],
           "oneshot_prefill_tokens": chunked["oneshot_prefill_tokens"],
           "cold_fold_ms_per_chunk": chunked["cold_fold_ms_per_chunk"],
@@ -4314,6 +4342,7 @@ def vlm_main_path(dev, sleep: int) -> dict:
                                "vision_kv": cross_bytes,
                                "total": tick_bytes},
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_analytic": analytic_tick(cfg, tick_bytes, 1025),
           "launches": launches, "kernel_ms": {
               k: v["ms"] for k, v in timing.items()},
           "seconds": seconds, "failures": failures,
@@ -4860,6 +4889,7 @@ def rwkv_main_path(dev, sleep: int) -> dict:
                                "shift_rows_rw": shifts,
                                "lm_head_f32_widening": 8 * sizes["lm_head"]},
           "tick_bytes_bound_ms": tick_bytes / PEAK_BYTES_PER_S * 1e3,
+          "tick_bytes_analytic": analytic_tick(cfg, tick_bytes, None),
           "tick_bytes_with_widening_bound_ms":
               (tick_bytes + 8 * sizes["lm_head"]) / PEAK_BYTES_PER_S * 1e3,
           "oneshot_prefill_1024_ms": prefill_ms,
@@ -5797,6 +5827,388 @@ def obs_main_path(dev, cfg, params) -> dict:
     return launches
 
 
+# -- sharded and disaggregated serving (phase 18) ---------------------------
+
+SHARD_SLICES = 4
+SHARD_NEW_TOKENS = 16
+SHARD_MIGRATE_BLOCKS = 80   # a migration check adapter's blocks (1.3 GB)
+SHARD_PATH = ("paged_decode_attention", "scatter_kv_rows", "flash_attention")
+
+
+def shard_spec(mesh=None, roles=None, chunked: bool = True, tracer=None):
+    """The ``ServeSpec`` of phase 18's gateways: phase 5's 8 lanes of
+    1,536 tokens in 16-token blocks, each slice (``mesh``) with its own
+    arena of the dense-equivalent ``num_blocks``."""
+    from repro_torch.serve.spec import ServeSpec
+    return ServeSpec(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+                     block_size=LM_BLOCK, chunked=chunked, mesh=mesh,
+                     roles=roles, tracer=tracer,
+                     max_new_tokens=SHARD_NEW_TOKENS)
+
+
+def shard_load(dev, cfg, params, prompts, spec, stagger: bool = False
+               ) -> dict:
+    """``prompts`` (arriving at t = 0; with ``stagger`` the first at 0 and
+    the others at 1 µs, so they route after its admission indexed its
+    chain: affinity, a spill and load routing on load (b)) through
+    ``make_gateway(cfg, params, spec)``, one-slice or sharded: per request
+    (uid = index) the
+    tokens, the first token's logits and the logits of every tick it
+    decoded in, on whichever slice (float32 copies); every kernel's
+    launches over the run; the ledger; the routing, migration and handoff
+    counters; each slice's protected chain keys; with a tracer, the cost
+    model at the H100's ridge, the energy re-fold and the critical paths
+    by role."""
+    import torch
+
+    from repro_torch.serve import obs
+    from repro_torch.serve.gateway.sensors import Arrival
+    from repro_torch.serve.spec import make_gateway
+
+    gw = make_gateway(cfg, params, spec, device=dev)
+    parts = [(sl.adapter, sl.batcher) for sl in gw.slices] \
+        if hasattr(gw, "slices") else [(gw.batcher.adapter, gw.batcher)]
+    prefill, rows, tokens = {}, {}, {}
+    finite = [True]
+
+    def wire(ad, b):
+        insert, decode, step, admissible = ad.insert, ad.decode, b.step, \
+            b._admissible
+        cur = [None]
+
+        def keep_admissible(req):
+            cur[0] = req.uid                # the insert that follows
+            return admissible(req)
+
+        def keep_insert(slot, prompt, max_new=None):
+            tok = insert(slot, prompt, max_new)
+            prefill[cur[0]] = ad.last_prefill_logits[0].float().clone()
+            return tok
+
+        def keep_decode(toks, active):
+            lanes = {r.uid: s for s, r in enumerate(b.active)
+                     if r is not None}
+            out = decode(toks, active)
+            logits = ad.last_logits.float()
+            finite[0] &= bool(torch.isfinite(logits).all())
+            for uid, s in lanes.items():
+                rows.setdefault(uid, []).append(logits[s].clone())
+            return out
+
+        def keep_step(*args, **kw):
+            fin = step(*args, **kw)
+            for r in fin:
+                tokens[r.uid] = list(map(int, r.generated))
+            return fin
+        ad.insert, ad.decode = keep_insert, keep_decode
+        b.step, b._admissible = keep_step, keep_admissible
+    for ad, b in parts:
+        wire(ad, b)
+    arrivals = [Arrival(uid=i, t=1e-6 if stagger and i else 0.0,
+                        endpoint=0, kind="prompt", payload=p)
+                for i, p in enumerate(prompts)]
+    reset_counts()
+    t0 = time.perf_counter()
+    tel = gw.run(arrivals)
+    torch.cuda.synchronize()
+    out = {"run_s": time.perf_counter() - t0, "tokens": tokens,
+           "prefill": prefill, "rows": rows, "finite": finite[0],
+           "launches": read_counts(), "served": len(tel.records),
+           "dropped": len(tel.dropped),
+           "fleet_energy_nj": tel.fleet_energy_nj,
+           "records": {r.uid: (r.energy_nj, r.migration_bytes, r.migrations)
+                       for r in tel.records}}
+    if hasattr(gw, "slices"):
+        out.update(routing=dict(gw.routing), migrations=gw.migrations,
+                   migration_bytes=gw.migration_bytes,
+                   handoffs=gw.handoffs, handoff_bytes=gw.handoff_bytes,
+                   protected=[len(sl.adapter.pool.protected)
+                              for sl in gw.slices],
+                   captures={n: f._cache_size()
+                             for n, f in gw.jit_fns().items()})
+    tr = spec.tracer
+    if tr is not None:
+        cost = obs.attribute(gw.cost_args(), tr, ridge=H100_RIDGE,
+                             telemetry=tel)
+        cps = obs.analyze_critical_paths(tr.events)
+        agg = obs.aggregate_critical_paths(cps, roles=spec.roles is not None)
+        out.update(cost=cost, critical_paths=len(cps),
+                   by_role={k: v["share"]
+                            for k, v in agg.get("by_role", {}).items()})
+    del gw, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def shard_streams(a: dict, b: dict, mode: str) -> dict:
+    """:func:`stream_differences` of two runs with its verdict under
+    ``mode``: ``"bitwise"`` (tokens and logits equal), ``"tokens"``
+    (tokens equal: float32) or ``"near_tie"`` (bf16: every first
+    difference a near tie)."""
+    d = stream_differences(a, b)
+    ties = all(x["near_tie"] for x in d["first_differences"])
+    d["ok"] = {"bitwise": d["tokens_equal"] and d["max_abs_dlogit"] == 0.0,
+               "tokens": d["tokens_equal"], "near_tie": ties}[mode]
+    return d
+
+
+def shard_migration(dev, cfg, params, prompt) -> dict:
+    """Check (c): a lane one-shot prefilled on slice A of two (one card),
+    four forced ticks, migrated to slice B through the host, four more;
+    A's and B's logits bit for bit a stay-put adapter's on the same forced
+    tokens, with the bytes the receipt charges and the round trip's ms.
+    The stay-put run goes first and whole, so that the launches counted
+    are A's and B's alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.gateway.slots import make_adapter
+    from repro_torch.serve.shard import build_slices, migrate_slot
+
+    kw = dict(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, block_size=LM_BLOCK,
+              num_blocks=SHARD_MIGRATE_BLOCKS, chunked=False)
+    rng = np.random.default_rng(19)
+    forced = rng.integers(0, cfg.vocab, (8, LM_SLOTS)).astype(np.int32)
+    lane = np.zeros(LM_SLOTS, bool)
+    lane[0] = True
+    oracle = make_adapter(cfg, params, paged=True, **kw)
+    first = oracle.insert(0, prompt, SHARD_NEW_TOKENS)
+    stay = []
+    for t in range(8):
+        tok = oracle.decode(forced[t], lane)[0]
+        stay.append((tok, oracle.last_logits[0].clone()))
+    del oracle
+    torch.cuda.empty_cache()
+    A, B = (sl.adapter for sl in build_slices(cfg, params, [[dev], [dev]],
+                                              **kw))
+
+    def same(ad, t):
+        tok = ad.decode(forced[t], lane)[0]
+        return bool(tok == stay[t][0]) and \
+            bool(torch.equal(ad.last_logits[0], stay[t][1]))
+    reset_counts()
+    pre = A.insert(0, prompt, SHARD_NEW_TOKENS) == first
+    pre &= all([same(A, t) for t in range(4)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    receipt = migrate_slot(A, 0, B, 0, prompt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    post = [same(B, t) for t in range(4, 8)]
+    out = {"pre_move_bitwise": bool(pre), "post_move_bitwise": post,
+           "receipt": dataclasses.asdict(receipt), "migrate_ms": ms,
+           "ms_per_mb": ms / (receipt.bytes_moved / 1e6),
+           "source_released": not A.slot_bids[0],
+           "launches": read_counts()}
+    del A, B, stay
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_main_path(dev, sleep: int, cfg=None, params=None) -> dict:
+    """Phase 18: sharded and disaggregated serving at stablelm-3b's full
+    width and depth (bf16; phase 5's weights, shared by every slice, or
+    drawn the same way when run alone), ``SHARD_SLICES`` slices on the one
+    card, each with its own arena (``shard_main_path`` line).  Returns the
+    sharded runs' kernel launches (not the unsharded baselines'); raises
+    SystemExit on a failed check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import obs
+    from repro_torch.serve.shard import RolePlan
+
+    sw = Stopwatch()
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = configs.config("stablelm-3b")
+        params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        sw.lap("init")
+    mesh = [[dev]] * SHARD_SLICES
+    load_b, _ = load_b_prompts(cfg.vocab)
+    load_c, _ = load_c_prompts(cfg.vocab)
+    launches: dict = {}
+    failures: list[str] = []
+
+    # (a) one slice against the unsharded gateway, bit for bit
+    flat = shard_load(dev, cfg, params, load_b, shard_spec(), stagger=True)
+    single = shard_load(dev, cfg, params, load_b, shard_spec(mesh=[[dev]]),
+                        stagger=True)
+    a = shard_streams(flat, single, "bitwise")
+    if not a["ok"]:
+        failures.append(f"(a) one slice is not bit for bit the unsharded "
+                        f"gateway: {a}")
+    sw.lap("a_single_slice")
+
+    # (b) four slices: bf16 under the near-tie rule (load (b) chunked and
+    # staggered, traced for (e); load (c) one-shot), float32 at depth 4
+    # equal
+    four = shard_load(dev, cfg, params, load_b,
+                      shard_spec(mesh=mesh, tracer=obs.Tracer()),
+                      stagger=True)
+    b_bf16 = {"b": shard_streams(flat, four, "near_tie")}
+    flat_c = shard_load(dev, cfg, params, load_c, shard_spec(chunked=False))
+    four_c = shard_load(dev, cfg, params, load_c,
+                        shard_spec(mesh=mesh, chunked=False))
+    b_bf16["c"] = shard_streams(flat_c, four_c, "near_tie")
+    sw.lap("b_four_slices_bf16")
+    cfg4 = strict_cfg(cfg)
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    b_f32, f32_runs = {}, {}
+    for name, prompts, chunked in (("b", load_b, True),
+                                   ("c", load_c, False)):
+        one = shard_load(dev, cfg4, params4, prompts,
+                         shard_spec(chunked=chunked), stagger=chunked)
+        many = shard_load(dev, cfg4, params4, prompts,
+                          shard_spec(mesh=mesh, chunked=chunked),
+                          stagger=chunked)
+        b_f32[name] = shard_streams(one, many, "tokens")
+        f32_runs.update({f"flat_f32_{name}": one, f"four_f32_{name}": many})
+    del params4
+    torch.cuda.empty_cache()
+    for name, d in {**{f"bf16 {k}": v for k, v in b_bf16.items()},
+                    **{f"float32 {k}": v for k, v in b_f32.items()}}.items():
+        if not d["ok"]:
+            failures.append(f"(b) four slices vs one, {name}: {d}")
+    sw.lap("b_four_slices_f32")
+
+    # (c) a forced migration mid-decode, bit for bit its stay-put run
+    mig = shard_migration(dev, cfg, params, load_b[0])
+    if not (mig["pre_move_bitwise"] and all(mig["post_move_bitwise"]) and
+            mig["source_released"] and mig["receipt"]["bytes_moved"] > 0):
+        failures.append(f"(c) the migrated lane parted from its stay-put "
+                        f"run: {mig}")
+    sw.lap("c_migration")
+
+    # (d) one prefill slice and three decode slices, traced
+    disagg = shard_load(dev, cfg, params, load_b,
+                        shard_spec(mesh=mesh, roles=RolePlan.split(1, 3),
+                                   tracer=obs.Tracer()), stagger=True)
+    d = shard_streams(four, disagg, "near_tie")
+    energy = disagg["cost"]["energy"]
+    d_ok = d["ok"] and disagg["handoffs"] == len(load_b) and \
+        disagg["handoff_bytes"] > 0 and \
+        energy["stages_nj"].get("migration_nj", 0.0) > 0 and \
+        energy["conserved"] is True and \
+        energy["total_nj"] == disagg["fleet_energy_nj"] and \
+        any(disagg["protected"][1:]) and not disagg["protected"][0] and \
+        {"prefill", "decode"} <= set(disagg["by_role"])
+    if not d_ok:
+        failures.append(f"(d) disaggregated: tokens {d}, handoffs "
+                        f"{disagg['handoffs']} ({disagg['handoff_bytes']} "
+                        f"B), energy {energy}, protected "
+                        f"{disagg['protected']}, roles {disagg['by_role']}")
+    sw.lap("d_disaggregated")
+
+    # (e) the cost model over the sharded run's sliceN. stages
+    stages = four["cost"]["stages"]
+    decode = {k: v for k, v in stages.items() if k.endswith(".decode")}
+    e_ok = len(decode) == SHARD_SLICES and all(
+        v["source"] == "analytic" and v["verdict"] != "unknown"
+        for v in decode.values()) and \
+        sum(v["calls"] for v in decode.values()) > 0 and \
+        all(k.startswith(("slice", "prefill", "decode"))
+            for k in stages)
+    if not e_ok:
+        failures.append(f"(e) the cost model's slice stages: {stages}")
+    roles_stages = sorted(disagg["cost"]["stages"])
+
+    # the kernels line's shard launches are the sharded runs' alone (the
+    # migration's A and B slices included); every one of those runs must
+    # launch each kernel of the path itself, so that a sharded run that
+    # took a plain route fails though its unsharded baseline did not
+    sharded = {"single_b": single, "four_b": four, "four_c": four_c,
+               "disagg_b": disagg, "four_f32_b": f32_runs["four_f32_b"],
+               "four_f32_c": f32_runs["four_f32_c"], "migration": mig}
+    baselines = {"flat_b": flat, "flat_c": flat_c,
+                 "flat_f32_b": f32_runs["flat_f32_b"],
+                 "flat_f32_c": f32_runs["flat_f32_c"]}
+    baseline_launches: dict = {}
+    for r in sharded.values():
+        add_launches(launches, r["launches"])
+    for r in baselines.values():
+        add_launches(baseline_launches, r["launches"])
+    runs = [r for name, r in {**sharded, **baselines}.items()
+            if name != "migration"]
+    if not all(r["finite"] and not r["dropped"] for r in runs):
+        failures.append("a run dropped a request or a logit was not finite")
+    for name, r in sharded.items():
+        missing = [k for k in SHARD_PATH if not r["launches"].get(k, 0)]
+        if missing:
+            failures.append(f"the sharded run {name} never launched "
+                            f"{missing}: {r['launches']}")
+    emit({"phase": "shard_main_path", "gpu": nvidia_smi("name,power.limit"),
+          "slices": SHARD_SLICES, "new_tokens": SHARD_NEW_TOKENS,
+          "a_single_slice": {k: a[k] for k in ("tokens_equal",
+                                               "max_abs_dlogit")},
+          "b_four_slices": {
+              "bf16": {k: {"tokens_equal": v["tokens_equal"],
+                           "max_abs_dlogit": v["max_abs_dlogit"],
+                           "first_differences": v["first_differences"]}
+                       for k, v in b_bf16.items()},
+              "float32_depth4": {k: {"tokens_equal": v["tokens_equal"],
+                                     "max_abs_dlogit": v["max_abs_dlogit"]}
+                                 for k, v in b_f32.items()},
+              "routing": {"b": {**four["routing"],
+                                "migrations": four["migrations"]},
+                          "c": {**four_c["routing"],
+                                "migrations": four_c["migrations"]}}},
+          "c_migration": {k: v for k, v in mig.items() if k != "launches"},
+          "d_disaggregated": {
+              "tokens_vs_colocated": {k: d[k] for k in (
+                  "tokens_equal", "max_abs_dlogit", "first_differences")},
+              "handoffs": disagg["handoffs"],
+              "handoff_bytes": disagg["handoff_bytes"],
+              "migration_nj": energy["stages_nj"].get("migration_nj"),
+              "stage_energy_total_nj": energy["total_nj"],
+              "fleet_energy_nj": disagg["fleet_energy_nj"],
+              "protected_keys_by_slice": disagg["protected"],
+              "critical_path_share_by_role": disagg["by_role"],
+              "captures": disagg["captures"]},
+          "e_cost_model": {
+              "ridge_flops_per_byte": H100_RIDGE,
+              "stages": {k: {f: v.get(f) for f in (
+                  "source", "verdict", "flops", "bytes", "intensity",
+                  "calls", "achieved_bytes_per_s")}
+                  for k, v in stages.items()},
+              "role_stages": roles_stages},
+          "run_s": {name: r["run_s"] for name, r in (
+              ("flat_b", flat), ("single_b", single), ("four_b", four),
+              ("flat_c", flat_c), ("four_c", four_c),
+              ("disagg_b", disagg))},
+          "launches": launches,
+          "launches_by_run": {name: {k: r["launches"].get(k, 0)
+                                     for k in SHARD_PATH}
+                              for name, r in sharded.items()},
+          "baseline_launches": {k: baseline_launches.get(k, 0)
+                                for k in SHARD_PATH},
+          "failures": failures, **sw.fields()})
+    if failures:
+        raise SystemExit(f"phase 18: {failures}")
+    return launches
+
+
+def analytic_tick(cfg, model_bytes: int, context: int | None) -> dict:
+    """Check (f): the cost model's decode tick (``serve/obs/costmodel.py``,
+    its counts from the shapes) for the tick a phase's byte model
+    describes, ``LM_SLOTS`` lanes at ``context`` positions each (None: the
+    rwkv family's state slots), beside that model and their gap."""
+    from repro_torch.serve.obs import costmodel
+    contexts = [] if context is None else [context] * LM_SLOTS
+    fn, args = costmodel.lm_stage(cfg, costmodel.tick_work(cfg, LM_SLOTS,
+                                                            contexts))
+    cost = fn(*args)
+    return {"flops": cost["flops"], "bytes": cost["bytes"],
+            "model_bytes": model_bytes,
+            "gap": cost["bytes"] / model_bytes - 1.0}
+
+
 def obs_main() -> int:
     """``--obs``: the card's line, every kernel's build and phase 14 alone,
     on stablelm-3b's random weights (seeded, as phase 5 draws them)."""
@@ -6497,7 +6909,7 @@ def table3_full_main() -> int:
 def family_main(path: str, run,
                 sources=("paged_attn", "cascade_attn", "flash_attn")) -> int:
     """``--moe`` / ``--hymba`` / ``--whisper`` / ``--vlm`` / ``--rwkv`` /
-    ``--decoders``: the card's line, the build of ``sources`` (the
+    ``--decoders`` / ``--shard``: the card's line, the build of ``sources`` (the
     attention kernels; the SC kernels for ``--rwkv``) and one phase alone
     (``run(dev, sleep)``, its launches printed under ``path``, or by path
     where ``path`` is None)."""
@@ -6721,6 +7133,8 @@ def main() -> int:
         return family_main("rwkv", rwkv_main_path, ("sng_pack", "sc_dot"))
     if args[:1] == ["--decoders"]:
         return family_main(None, decoders_main_path)
+    if args[:1] == ["--shard"]:
+        return family_main("shard", shard_main_path)
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -6994,6 +7408,10 @@ def main() -> int:
     # -- 14. observability on the frame path and the prompt path ---------
     # (run here, while stablelm-3b's weights are on the card)
     paths["obs"] = obs_main_path(dev, lm_cfg, lm_params)
+
+    # -- 18. sharded and disaggregated serving --------------------------------
+    # (run here, on stablelm-3b's weights, shared by every slice)
+    paths["shard"] = shard_main_path(dev, sleep, lm_cfg, lm_params)
 
     # -- 11. the moe family: deepseek-moe-16b ------------------------------
     del lm_params

@@ -92,6 +92,18 @@ def lm_token_energy_nj(spec: FrontendSpec, d_model: int) -> float:
     return r.sc_energy_nj if spec.mode == "sc" else r.bin_energy_nj
 
 
+def migration_energy_nj(spec: FrontendSpec, n_bytes: int) -> float:
+    """Energy charged for moving ``n_bytes`` of KV blocks between gateway
+    slices (``serve/shard/``): each byte priced as one 8-bit window pass
+    through the calibrated k-bit binary datapath
+    (``energy.scaled_report(k_window=8, n_units=1, n_kernels=1)``: a move
+    between hosts rides the binary partition) plus the per-byte link cost,
+    as the reference prices it.  Charged onto the migrated request's
+    ledger entry, so the fleet total stays conserved."""
+    r = energy.scaled_report(spec.bits, k_window=8, n_units=1, n_kernels=1)
+    return n_bytes * (r.bin_energy_nj + E_LINK_PJ_PER_BYTE * 1e-3)
+
+
 def sensor_latency_s(spec: FrontendSpec) -> float:
     """At-sensor processing latency before the payload hits the link: the SC
     engine streams 2**bits cycles/frame; the binary partition transmits

@@ -298,7 +298,8 @@ class MicroBatchGateway:
 def drive_prompt_loop(arrivals, tel: Telemetry, *, busy, queue_depth,
                       max_queue, submit, step, record,
                       clock: SimClock | None = None, tracer=None,
-                      metrics=None, slo=None, incident=None) -> None:
+                      metrics=None, slo=None, step_cost=None,
+                      incident=None) -> None:
     """The prompt path's virtual-time event loop: drain arrivals into
     ``submit`` as virtual time reaches them (dropping, with accounting,
     beyond ``max_queue`` queued requests), charge each ``step``'s measured
@@ -316,8 +317,17 @@ def drive_prompt_loop(arrivals, tel: Telemetry, *, busy, queue_depth,
     once per tick.  ``incident``: observes every admission drop and is
     polled once per tick; its SLO trigger fires inside ``slo.evaluate``,
     before the next admission pass.  All default to None, and the loop
-    makes no obs call then.  The reference's ``step_cost`` (the sharded
-    router's re-pricing of a tick) comes with sharded serving."""
+    makes no obs call then.
+
+    ``step_cost`` (optional, ``fn(wall_seconds) -> virtual_seconds``)
+    re-prices a step before it is charged to the clock: the sharded router
+    charges a round the slowest slice's tick plus its own serial work, as
+    slices on disjoint devices tick at once.  It excludes ``tracer``,
+    whose sub-tick spans interpolate real wall offsets inside each tick
+    (``ValueError`` where the reference asserts)."""
+    if step_cost is not None and tracer is not None:
+        raise ValueError("step_cost re-pricing and wall-anchored tracing "
+                         "are exclusive")
     if tracer is not None and clock is None:
         clock = tracer.clock
     now, i, n = 0.0, 0, len(arrivals)
@@ -352,7 +362,10 @@ def drive_prompt_loop(arrivals, tel: Telemetry, *, busy, queue_depth,
             tracer.anchor()
         t0 = time.perf_counter()
         finished = step()
-        now += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if step_cost is not None:
+            dt = step_cost(dt)
+        now += dt
         if clock is not None:
             clock.advance(now)
         if tracer is not None:
@@ -372,12 +385,15 @@ def drive_prompt_loop(arrivals, tel: Telemetry, *, busy, queue_depth,
 def record_prompt_completion(tel: Telemetry, req: Request, now: float,
                              t_arrival: float, endpoint: int,
                              token_energy_nj: float,
-                             bytes_per_token: int, *, tracer=None,
-                             slo=None) -> None:
+                             bytes_per_token: int, *,
+                             energy_spec: fe.FrontendSpec | None = None,
+                             tracer=None, slo=None) -> None:
     """Charge one finished prompt request into the ledger, as the reference
     does: per processed token the first-projection energy (prefix-cache
     resumes skip the shared prompt tokens; the link still carries every
-    token), plus the link energy, folded left to right.  With a ``tracer``
+    token), plus the link energy, plus the bytes a request moved between
+    slices priced by :func:`frontend.migration_energy_nj` (with an
+    ``energy_spec``), folded left to right.  With a ``tracer``
     the parts close the request span (opened late, at arrival, for a
     request whose life predates the tracer), so the span stream re-folds
     to the ledger bitwise; an ``slo`` monitor observes the record."""
@@ -391,6 +407,9 @@ def record_prompt_completion(tel: Telemetry, req: Request, now: float,
              * (processed - decode_tok),
              "frontend_decode_nj": token_energy_nj * decode_tok,
              "link_nj": fe.link_energy_nj(link)}
+    if req.migration_bytes and energy_spec is not None:
+        parts["migration_nj"] = fe.migration_energy_nj(energy_spec,
+                                                       req.migration_bytes)
     energy_nj = 0.0
     for v in parts.values():
         energy_nj += v
@@ -536,7 +555,8 @@ class PromptGateway:
                 record=lambda req, now: record_prompt_completion(
                     tel, req, now, arr_t[req.uid], arr_ep[req.uid],
                     self._token_energy_nj, self.bytes_per_token,
-                    tracer=self.tracer, slo=self.slo),
+                    energy_spec=self.energy_spec, tracer=self.tracer,
+                    slo=self.slo),
                 clock=clock, tracer=self.tracer, metrics=self.metrics,
                 slo=self.slo, incident=self.incident)
         finally:

@@ -29,7 +29,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.device import synchronize
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import capture, engine
 from repro_torch.serve.kvcache.pool import PoolExhausted
@@ -188,9 +188,10 @@ class StateSlotAdapter(_CapturedTick):
             self.state[key][:, slot] = 0
 
     def cost_args(self, prompt_len: int = 8) -> dict[str, tuple]:
-        """The prefill and the tick for ``obs.costmodel``; the analytic
-        counts cover the decoder family only, so both stages degrade to
-        measured-only, as the other families' do."""
+        """The prefill and the tick with their analytic counts, for
+        ``obs.costmodel``: a ``prompt_len``-token prompt and a tick over
+        every lane, each reading and writing the lanes' state; there are
+        no K/V rows."""
         cfg, n = self.cfg, self.n_slots
         return {"prefill": costmodel.lm_stage(
                     cfg, costmodel.prompt_work(cfg, 0, prompt_len)),
@@ -292,11 +293,27 @@ class KVSlotAdapter(_CapturedTick):
                     cfg, costmodel.tick_work(cfg, n, [self.max_len] * n))}
 
 
+def params_on(params: dict, device: torch.device) -> dict:
+    """``params`` on ``device``: the same tree when they already live
+    there, else a copy."""
+    if params["embed"].device == device:
+        return params
+
+    def move(tree: dict) -> dict:
+        return {k: move(v) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+    return move(params)
+
+
 def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, extras=None, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
-                 chunked: bool = True, backend: str | None = None):
-    """The slot adapter for ``cfg``: for the rwkv family the state slots
+                 chunked: bool = True, backend: str | None = None,
+                 device: str | torch.device | None = None):
+    """The slot adapter for ``cfg``, on ``device`` (None: where ``params``
+    live; else the params are copied there unless they already are, which
+    is how a sharded gateway's slice places its arena on its own
+    device): for the rwkv family the state slots
     (:class:`StateSlotAdapter`, whatever ``paged`` is: its O(1) state has
     nothing to page; ``backend`` raises ``ValueError``); for the decoder,
     moe, hybrid, encdec or vlm family (the last two with ``extras``, a
@@ -311,6 +328,8 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
     lanes over shared prefix chains, or "gather", the gather-tick oracle;
     None: "cuda" on a CUDA device, else "plain"; for the vlm family
     "plain" or "gather" only, None giving "plain")."""
+    if device is not None:
+        params = params_on(params, resolve_device(device))
     if cfg.family == "rwkv":
         if backend is not None:
             raise ValueError(f"backend={backend!r} selects the paged decode "
@@ -422,12 +441,16 @@ class ContinuousBatcher:
         synchronize(self.adapter.device)
         self.tracer.end("tick", pid=self.trace_pid, tid=0, args=args)
 
-    def step(self) -> list[Request]:
+    def step(self, decode: bool = True) -> list[Request]:
         """Admit + one decode tick.  Returns requests completed this tick.
         The ``tick`` span wraps the captured tick from outside (an obs call
-        inside a captured step would run only at its capture).  The
-        reference's ``decode=False`` (the prefill role of disaggregated
-        serving) comes with sharded serving."""
+        inside a captured step would run only at its capture).
+
+        ``decode=False`` is the prefill role of disaggregated serving
+        (``serve/shard/``): admit pending requests and retire at-capacity /
+        EOS-at-prefill lanes, but skip the tick; admitted lanes keep their
+        prefill token staged in ``last_token`` until the router hands them
+        to a decode slice."""
         tr = self.tracer
         if tr is not None:
             tr.begin("tick", pid=self.trace_pid, tid=0)
@@ -497,6 +520,11 @@ class ContinuousBatcher:
         if not active.any():
             if tr is not None:
                 self._end_tick(active=0, finished=len(finished))
+            return finished
+        if not decode:
+            if tr is not None:
+                self._end_tick(active=self.last_active,
+                               finished=len(finished), decode=False)
             return finished
         toks = self.adapter.decode(self.last_token, active)
         for slot, req in enumerate(self.active):

@@ -878,6 +878,14 @@ class PagedKVSlotAdapter:
         return self.arena[key].select(engine.arena_block_axis(
             self.arena[key]), bid)
 
+    def write_block(self, bid: int, contents: dict[str, torch.Tensor]
+                    ) -> None:
+        """Land block contents from elsewhere (a cross-slice migration) at
+        block ``bid``, in place: ``contents[key]`` is one block in the
+        :meth:`arena_block` layout, on any device."""
+        for key, blk in contents.items():
+            self.arena_block(key, bid).copy_(blk)
+
     def slot_stats(self, slot: int) -> dict:
         return dict(self._stats[slot])
 

@@ -31,9 +31,9 @@ from repro_torch.serve.obs.tracer import REQUESTS_PID, _bump
 STAGES = ("queue_wait", "prefill", "handoff", "decode", "migrate",
           "sensor_link", "service", "unattributed")
 
-# stage -> executing role under a disaggregated RolePlan (sharded
-# serving, not ported yet): queue and chunked prefill run on the prefill
-# tier, ticks and migrations on the decode tier, the handoff copy on the
+# stage -> executing role under a disaggregated RolePlan
+# (serve/shard/): queue and chunked prefill run on the prefill tier,
+# ticks and migrations on the decode tier, the handoff copy on the
 # boundary between them; the frame path's stages and the residual belong
 # to neither tier
 STAGE_ROLE = {"queue_wait": "prefill", "prefill": "prefill",

@@ -9,11 +9,11 @@ default ``chunked=True``) or one-shot (``chunked=False``), with the flat
 decode tick (``backend`` "plain" | "cuda"), the shared-prefix cascade tick
 (``backend="cascade"``) or the gather-tick oracle (``backend="gather"``),
 with the observability attachments (``tracer``, ``metrics``, ``slo``,
-``shed_factor``, ``flight``, ``incident_dir``).  The rwkv family is served
-over state slots whatever ``paged`` says (its O(1) state has nothing to
-page), and refuses ``backend`` and ``mesh``, as the reference does.
-``mesh``/``roles`` (sharded and disaggregated serving) raise until their
-slice.
+``shed_factor``, ``flight``, ``incident_dir``), and the sharded gateway
+over ``mesh`` slices (``serve/shard/``), disaggregated into prefill and
+decode slices by ``roles``.  The rwkv family is served over state slots
+whatever ``paged`` says (its O(1) state has nothing to page), and refuses
+``backend`` and ``mesh``, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,7 +39,11 @@ class ServeSpec:
     ``obs.FlightRecorder``, or pass one); ``incident_dir`` arms an
     ``obs.IncidentCapture`` wired to ``slo``, ``flight`` and ``metrics``
     that writes validated bundles into that directory on its triggers and
-    on ``gateway.capture_incident(reason)``."""
+    on ``gateway.capture_incident(reason)``.  Topology: ``mesh`` (a serving
+    mesh or a list of per-slice device groups) builds the sharded gateway,
+    one slice per group, ``auto_rebalance`` letting it migrate requests
+    between slices; ``roles`` (a ``shard.RolePlan``) partitions the slices
+    into prefill and decode."""
     n_slots: int = 4
     max_len: int = 128
     paged: bool = False
@@ -49,6 +53,7 @@ class ServeSpec:
     backend: str | None = None
     mesh: object | None = None
     roles: object | None = None
+    auto_rebalance: bool = True
     max_new_tokens: int = 16
     bytes_per_token: int = 4
     max_queue: int = 64
@@ -67,13 +72,17 @@ class ServeSpec:
 def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
                  extras=None, device: str | torch.device = "cuda",
                  **overrides):
-    """Build the ``PromptGateway`` that ``spec`` (plus field ``overrides``)
-    describes, on ``device``, where ``params`` must already live.
-    ``extras`` is the per-family modality stub ``make_adapter`` takes (the
-    encdec family's frame embeddings, the vlm family's patch
-    embeddings).  For the rwkv family ``paged`` is off (state slots), and
-    ``backend`` and ``mesh`` raise ``ValueError``, as the reference's
-    do."""
+    """Build the gateway that ``spec`` (plus field ``overrides``)
+    describes, on ``device``, where ``params`` must already live: a
+    ``PromptGateway`` (one adapter, one batcher), or with ``spec.mesh`` a
+    ``ShardedPromptGateway`` (one slice per sub-mesh, each on its own
+    device; ``spec.roles`` further disaggregates them into prefill and
+    decode).  ``extras`` is the per-family modality stub ``make_adapter``
+    takes (the encdec family's frame embeddings, the vlm family's patch
+    embeddings).  The knobs are validated before any arena is allocated,
+    with the reference's ``ValueError``s: ``backend`` and ``mesh`` need
+    ``paged=True`` and a non-rwkv family (for the rwkv family ``paged`` is
+    off: state slots), ``roles`` needs ``mesh``."""
     from repro_torch.serve.gateway.gateway import PromptGateway
     from repro_torch.serve.gateway.slots import ContinuousBatcher, make_adapter
 
@@ -90,14 +99,9 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
                          "tick's attention; it requires paged=True and a "
                          f"non-rwkv family (got paged={spec.paged}, "
                          f"family={cfg.family})")
-    if spec.mesh is not None and cfg.family == "rwkv":
-        raise ValueError("mesh (sharded serving) requires paged=True and a "
-                         f"non-rwkv family (got paged={spec.paged}, "
-                         f"family={cfg.family})")
-    if spec.mesh is not None or spec.roles is not None:
-        raise NotImplementedError(
-            "mesh/roles (sharded and disaggregated serving) are not ported "
-            "yet: ROADMAP.md §1, sharded and disaggregated serving")
+    if spec.roles is not None and spec.mesh is None:
+        raise ValueError("roles (disaggregated serving) partitions mesh "
+                         "slices; set mesh as well")
     # forensics: flight=True builds the default bounded ring;
     # incident_dir arms the capture pipeline against slo + flight (the
     # gateway hangs its debug_state off context_fn)
@@ -110,6 +114,25 @@ def make_gateway(cfg, params: dict, spec: ServeSpec | None = None, *,
         from repro_torch.serve.obs import IncidentCapture
         incident = IncidentCapture(spec.incident_dir, flight=flight,
                                    slo=spec.slo, metrics=spec.metrics)
+    if spec.mesh is not None:
+        if not paged:
+            raise ValueError("mesh (sharded serving) requires paged=True "
+                             f"and a non-rwkv family (got "
+                             f"paged={spec.paged}, family={cfg.family})")
+        from repro_torch.serve.shard.router import (ShardedPromptGateway,
+                                                    build_slices)
+        slices = build_slices(
+            cfg, params, spec.mesh, n_slots=spec.n_slots,
+            max_len=spec.max_len, block_size=spec.block_size,
+            num_blocks=spec.num_blocks, extras=extras,
+            chunked=spec.chunked, backend=spec.backend)
+        return ShardedPromptGateway(
+            slices, max_new_tokens=spec.max_new_tokens,
+            bytes_per_token=spec.bytes_per_token, max_queue=spec.max_queue,
+            energy_spec=spec.energy_spec,
+            auto_rebalance=spec.auto_rebalance, roles=spec.roles,
+            tracer=spec.tracer, metrics=spec.metrics, slo=spec.slo,
+            shed_factor=spec.shed_factor, flight=flight, incident=incident)
     adapter = make_adapter(
         cfg, params, n_slots=spec.n_slots, max_len=spec.max_len,
         extras=extras, paged=paged, block_size=spec.block_size,

@@ -12,7 +12,13 @@ tick, the frame gateway stages in both modes; the SC sensor stage against
 the bit operations of the ``sc_dot`` shapes it really calls.  A traced
 paged gateway's ``cost_args()`` are the mean work of its spans, its decode
 tick memory-bound at the H100's ridge, and ``source`` reads
-``"analytic"``."""
+``"analytic"``.  Every family (moe, hybrid, encdec, vlm, rwkv) and the SC
+frontend: the dense adapter's prefill and tick stages ``"analytic"``,
+their FLOPs within 10 % of ``FlopCounterMode`` over the plain versions
+plus the terms written out from the shapes where the plain version
+computes elementwise (the selective scan's state update, ``wkv6_step``'s
+update and readout, the SC frontend's bit operations), and the weight
+counts equal to the parameter tree's elements."""
 import dataclasses
 from unittest import mock
 
@@ -78,9 +84,13 @@ def test_analyze_degrades_to_none_when_count_offers_nothing():
     assert obs.analyze(_fake_fn(result={"flops": 0.0, "bytes": 0.0}), ()) \
         is None
     cfg, _ = _setup()
+    unknown = dataclasses.replace(cfg, family="gru")
+    assert obs.analyze(costmodel.lm_step_cost,
+                       (unknown, 1, 1, 1, 1, 1)) is None
+    # every family the port serves is counted
     hybrid = dataclasses.replace(cfg, family="hybrid")
     assert obs.analyze(costmodel.lm_step_cost,
-                       (hybrid, 1, 1, 1, 1, 1)) is None
+                       (hybrid, 1, 1, 1, 1, 1))["flops"] > 0
 
 
 def test_analyze_passes_the_args_and_keeps_partial_counts():
@@ -280,7 +290,7 @@ def test_traced_gateway_costs_are_its_spans_work(backend):
     # the counts are the representative calls, whatever the run did
     block = costmodel.prompt_work(cfg, 0, 16)
     assert stages["chunk_fold"][1][1:] == tuple(block[k] for k in (
-        "tokens", "pairs", "kv_read", "kv_written", "logit_rows"))
+        "tokens", "pairs", "kv_read", "kv_written", "logit_rows")) + ({},)
     rep = obs.attribute(stages, tr, ridge=H100_RIDGE, telemetry=tel)
     st = rep["stages"]
     assert st["decode"]["source"] == "analytic"
@@ -303,9 +313,10 @@ def test_untraced_gateway_counts_the_representative_calls():
     stages = gw.cost_args()
     block = costmodel.prompt_work(cfg, 0, 8)
     assert stages["chunk_fold"][1][1:] == tuple(block[k] for k in (
-        "tokens", "pairs", "kv_read", "kv_written", "logit_rows"))
+        "tokens", "pairs", "kv_read", "kv_written", "logit_rows")) + ({},)
     pairs = costmodel.tick_pairs(cfg, [32, 32])
-    assert stages["decode"][1][1:] == (2, pairs, pairs, 2 * cfg.n_layers, 2)
+    assert stages["decode"][1][1:] == (2, pairs, pairs, 2 * cfg.n_layers, 2,
+                                       {})
     assert obs.analyze(*stages["copy"]) == {
         "flops": 0.0,
         "bytes": float(2 * cfg.n_layers * 8 * 2 * cfg.n_kv_heads
@@ -346,3 +357,146 @@ def test_int8_kv_rows_count_their_scales():
     assert got["flops"] == want["flops"]
     assert want["bytes"] - got["bytes"] == \
         rows * (2 * hkv * dh * 2 - 2 * hkv * (dh + 4))
+
+
+# ==========================================================================
+# Every family and the SC frontend.
+# ==========================================================================
+
+FAMILY_ARCHS = {"moe": ("deepseek_moe_16b", {}),
+                "hybrid": ("hymba_1_5b", {}),
+                "encdec": ("whisper_medium", {}),
+                "vlm": ("llama32_vision_90b", {}),
+                "rwkv": ("rwkv6_7b", {}),
+                "sc": ("stablelm_3b", {"first_layer_mode": "sc"})}
+
+
+def _family_setup(name):
+    """A float32 smoke model of ``name``'s family on the CPU, its params
+    and the ``extras`` callable its adapters take (None for the
+    families that take none)."""
+    arch, over = FAMILY_ARCHS[name]
+    cfg = dataclasses.replace(configs.smoke_config(arch),
+                              param_dtype="float32", **over)
+    params = __import__("repro_torch.models.lm", fromlist=["lm"]).init(
+        cfg, torch.Generator().manual_seed(0))
+    key = engine.EXTRAS_KEYS.get(cfg.family)
+    extras = None
+    if key is not None:
+        emb = torch.from_numpy(np.random.default_rng(3).normal(
+            0, 1, (1, cfg.cross_len, cfg.d_model)).astype(np.float32))
+        extras = lambda: {key: emb}                  # noqa: E731
+    return cfg, params, extras
+
+
+def _elementwise_flops(cfg, tokens, prompt):
+    """The FLOPs the plain version computes elementwise, where
+    ``FlopCounterMode`` sees no matrix product, written out from the
+    shapes: the selective scan's state update (one multiply-add per state
+    element a token and layer; its readout is a product the counter sees),
+    and on a tick ``wkv6_step``'s k^T v update and readout (2 Dh^2
+    multiply-adds a head; the prompt's chunked wkv is matrix products)."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        return 2 * tokens * L * cfg.inner * cfg.ssm_state
+    if cfg.family == "rwkv" and not prompt:
+        return 4 * tokens * L * cfg.n_heads * cfg.d_head ** 2
+    return 0
+
+
+@pytest.mark.parametrize("stage", ["prefill", "decode"])
+@pytest.mark.parametrize("name", list(FAMILY_ARCHS))
+def test_family_stage_counts_match_flop_counter(name, stage):
+    """The dense adapter's (for rwkv the state slots') prefill of a
+    16-token prompt and tick over 3 lanes of 24 positions: ``"analytic"``,
+    the FLOPs within 10 % of ``FlopCounterMode`` over the plain version
+    plus :func:`_elementwise_flops` and, for the SC frontend's prompt, the
+    bit operations of the ``sc_dot`` call it really makes (an AND and an
+    add per stream bit of every product, from the recorded shapes); the
+    weights the counts read equal the parameter tree's elements."""
+    cfg, params, extras = _family_setup(name)
+    n, max_len, plen = 3, 24, 16
+    ad = make_adapter(cfg, params, n_slots=n, max_len=max_len,
+                      extras=extras)
+    stages = ad.cost_args(prompt_len=plen)
+    entry = obs.attribute(stages)["stages"][stage]
+    assert entry["source"] == "analytic", name
+    calls = []
+    plain = ref.sc_dot
+
+    def recorded(x, w, *a, **kw):
+        calls.append((x.shape, w.shape))
+        return plain(x, w, *a, **kw)
+    with mock.patch.object(ref, "sc_dot", recorded):
+        if stage == "prefill":
+            kw = {} if extras is None else {
+                k: v for k, v in extras().items()}
+            counted = _flops(engine.prefill, cfg, params,
+                             torch.zeros((1, plen), dtype=torch.int64), **kw)
+            tokens = plen
+        else:
+            state = ad.state if cfg.family == "rwkv" else ad.cache
+            counted = _flops(engine.decode_step, cfg, params, state,
+                             torch.zeros((n, 1), dtype=torch.int64))
+            tokens = n
+    counted += _elementwise_flops(cfg, tokens, stage == "prefill")
+    if name == "sc" and stage == "prefill":
+        (M, K, _), (_, O, _) = calls[0]
+        assert len(calls) == 1 and (M, K, O) == (plen, cfg.d_model,
+                                                 2 * cfg.d_model)
+        counted += 2 * M * K * O * (1 << cfg.sc_bits)
+    else:
+        assert not calls
+    assert entry["flops"] == pytest.approx(counted, rel=0.1)
+    w = costmodel.lm_weights(cfg)
+    tree = sum(a.numel() for k, a in _leaves(params).items()
+               if k != "embed" and not k.startswith("lm_head"))
+    assert w["read"] + w["admit"] + w["sc"] == tree
+    assert w["head"] == cfg.d_model * cfg.vocab_padded
+
+
+def _leaves(tree, path=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{path}{k}."))
+        else:
+            out[path + k] = v
+    return out
+
+
+def test_family_state_and_cross_bytes():
+    """The terms only some families have, in bytes: a hybrid or rwkv
+    lane's state read and written once a tick (the state tensors' own
+    sizes), an encdec tick reading every lane's cross K/V once, an
+    admission writing its cross K/V rows, the moe tick running every
+    expert's capacity buffer of one routed group a lane."""
+    for name in ("hybrid", "rwkv"):
+        cfg, _, _ = _family_setup(name)
+        st = engine.init_state(cfg, 1, "cpu")
+        keys = ("conv", "ssm") if name == "hybrid" else engine.RWKV_KEYS
+        assert costmodel.state_bytes(cfg) == sum(
+            st[k].numel() * st[k].element_size() for k in keys)
+        one = costmodel.lm_step_cost(*costmodel.lm_stage(
+            cfg, costmodel.tick_work(cfg, 1, []))[1])
+        two = costmodel.lm_step_cost(*costmodel.lm_stage(
+            cfg, costmodel.tick_work(cfg, 2, []))[1])
+        # a lane more: its embedding row, its logits and its state twice
+        assert two["bytes"] - one["bytes"] == \
+            2 * costmodel.state_bytes(cfg) + 4 * cfg.d_model \
+            + 4 * cfg.vocab_padded + (costmodel.kv_row_bytes(cfg)
+                                      * cfg.n_layers if name == "hybrid"
+                                      else 0)
+    cfg, params, extras = _family_setup("encdec")
+    xk, _ = engine.encode_cross(cfg, params, extras()["enc_embed"])
+    work = costmodel.tick_work(cfg, 3, [])
+    assert work["cross_read"] == 3 * xk.shape[0] * xk.shape[2]
+    admit = costmodel.admission_cost(cfg)
+    assert admit["bytes"] - 4 * cfg.enc_len * cfg.d_model == \
+        2 * xk.numel() * xk.element_size()
+    cfg, _, _ = _family_setup("moe")
+    work = costmodel.tick_work(cfg, 3, [])
+    assert work["expert_rows"] == (cfg.n_layers - 1) * 3 * \
+        cfg.n_experts * max(cfg.top_k, 4 * -(-int(
+            cfg.top_k / cfg.n_experts * cfg.capacity_factor) // 4))
+

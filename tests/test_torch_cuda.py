@@ -1989,3 +1989,74 @@ def test_int8_tick_on_card_bitwise_gather_and_replay(dev, dtype):
     for key in ar:
         assert torch.equal(ar[key], ae[key]), key
     assert cr == ce
+
+
+# -- sharded and disaggregated serving on the card -----------------------------
+
+def test_forced_migration_on_card_bitwise(dev):
+    """Two slices on the one card (``build_slices`` over two groups of
+    ``cuda:0``): a lane migrated mid-decode from slice A to slice B, its
+    blocks and state row through the host, continues the stay-put
+    oracle's logits bit for bit under the kernel tick (bf16)."""
+    from repro_torch.serve.shard import build_slices, migrate_slot
+    cfg, params = _smoke_lm(dev, "bfloat16")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9)]
+    oracle = make_adapter(cfg, params, n_slots=2, max_len=24, paged=True,
+                          block_size=4)
+    A, B = (sl.adapter for sl in build_slices(
+        cfg, params, [[dev], [dev]], n_slots=2, max_len=24, block_size=4))
+    assert A.backend == B.backend == oracle.backend == "cuda"
+    active = np.ones(2, bool)
+    for slot, p in enumerate(prompts):
+        assert oracle.insert(slot, p, max_new=8) == \
+            A.insert(slot, p, max_new=8)
+    for _ in range(3):
+        forced = rng.integers(0, cfg.vocab, 2).astype(np.int32)
+        assert np.array_equal(oracle.decode(forced, active),
+                              A.decode(forced, active))
+    receipt = migrate_slot(A, 1, B, 1, prompts[1])
+    assert receipt.blocks_moved > 0 and receipt.bytes_moved > 0
+    assert not A.slot_bids[1]
+    lane1 = np.asarray([False, True])
+    before = paged_attn_kernel.paged_decode_attention.launches
+    for _ in range(3):
+        forced = rng.integers(0, cfg.vocab, 2).astype(np.int32)
+        to, tb = oracle.decode(forced, active), B.decode(forced, lane1)
+        assert to[1] == tb[1]
+        assert torch.equal(oracle.last_logits[1], B.last_logits[1])
+    assert paged_attn_kernel.paged_decode_attention.launches > before
+
+
+def test_prefill_role_step_launches_no_tick_graph(dev):
+    """``ContinuousBatcher.step(decode=False)`` on a prefill slice admits
+    (the fold through ``flash_attention``) and stages the prefill token,
+    but captures and replays no tick and launches no decode kernel; the
+    handoff's decode slice then runs its captured tick."""
+    from repro_torch.serve.shard import RolePlan
+    cfg, params = _smoke_lm(dev, "bfloat16")
+    gw = make_gateway(cfg, params, ServeSpec(
+        n_slots=2, max_len=64, paged=True, mesh=[[dev], [dev]],
+        roles=RolePlan.split(1, 1), max_new_tokens=4))
+    pre, dec = (sl.batcher for sl in gw.slices)
+    rng = np.random.default_rng(3)
+    req = Request(uid=0, prompt=rng.integers(0, cfg.vocab, 20).astype(
+        np.int32), max_new_tokens=4)
+    gw.submit(req)
+    counts = kernels.read_counts()
+    assert pre.step(decode=False) == []
+    after = kernels.read_counts()
+    assert after["flash_attention"] > counts["flash_attention"]
+    for name in ("paged_decode_attention", "scatter_kv_rows"):
+        assert after[name] == counts[name], name
+    assert pre.adapter._decode._cache_size() == 0
+    assert pre.active[0] is req and len(req.generated) == 1
+    assert pre.last_token[0] == req.generated[0]
+    done = []
+    while gw.busy:
+        done += gw.step()
+    assert done == [req] and len(req.generated) == 4
+    assert gw.handoffs == 1
+    assert pre.adapter._decode._cache_size() == 0
+    assert dec.adapter._decode._cache_size() == 1

@@ -23,8 +23,10 @@ from repro.serve import engine as jengine
 from repro.serve import spec as jspec
 from repro.serve.gateway import sensors as jsensors
 from repro.serve.gateway import slots as jslots
+from repro_torch.dist.sharding import Mesh
 from repro_torch.serve import engine, spec
 from repro_torch.serve.gateway import sensors, slots
+from repro_torch.serve.shard import RolePlan
 from test_torch_lm import ENCDEC, HYMBA, MOE, extras_pair, smoke_pair
 
 # one intra-op thread: the suite's worker processes share the CPU
@@ -280,16 +282,23 @@ def test_encdec_prompt_gateway_matches_reference(encdec_pair):
 
 
 def test_spec_refuses_what_is_not_ported(pair):
-    """Only sharded serving is refused, and so are names the enum does not
-    hold; the dense slots (``paged=False``) and ``backend="gather"`` are
-    ported (``tests/test_torch_dense.py``), and so are the observability
-    attachments (``tests/test_torch_obs.py``)."""
+    """Only tensor parallelism within a sharded slice (a slice of more
+    than one device) is refused, and so are names the enum does not hold
+    and the reference's refused combinations (``mesh`` without
+    ``paged=True``, ``roles`` without ``mesh``); the dense slots
+    (``paged=False``), ``backend="gather"``, the observability
+    attachments (``tests/test_torch_obs.py``) and single-device slices
+    (``tests/test_torch_sharded.py``) are ported."""
     _, _, cfg, params = pair
-    for kw, err in ((dict(paged=True, mesh=object()),          # chunked
+    cpu = torch.device("cpu")
+    wide = Mesh(np.asarray([[cpu, cpu]], object), ("data", "model"))
+    for kw, err in ((dict(paged=True, mesh=wide),              # chunked
                      NotImplementedError),
-                    (dict(paged=True, chunked=False, mesh=object()),
+                    (dict(paged=True, chunked=False, mesh=[[cpu, cpu]]),
                      NotImplementedError),
-                    (dict(mesh=object()), NotImplementedError),  # dense
+                    (dict(mesh=[cpu]), ValueError),              # dense
+                    (dict(paged=True, roles=RolePlan.split(1, 1)),
+                     ValueError),
                     (dict(paged=True, chunked=False, backend="xla"),
                      ValueError),
                     (dict(paged=False, chunked=False, backend="plain"),
