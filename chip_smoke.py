@@ -22,6 +22,7 @@
     python3 chip_smoke.py --decoders
                                    # phase 17 alone
     python3 chip_smoke.py --shard  # phase 18 alone
+    python3 chip_smoke.py --train  # phase 19 alone
 
 Phases, each printing one JSON line:
 
@@ -188,16 +189,17 @@ Phases, each printing one JSON line:
      the chunked fold (the frontend on every prompt or chunk, its launches
      counted; dense against paged in bf16 under the near-tie rule);
  11. the moe family (``moe_main_path`` line): deepseek-moe-16b at its
-     published width and depth (28 layers, d_model 2,048, 16 heads of
-     128, 64 routed experts of 1,408 top-6 and 2 shared, dense layer 0
-     of 10,944, vocabulary 102,400; bf16, random weights drawn on the
+     published width cut to ``MOE_DEPTH`` = 10 of its 28 layers (dense
+     layer 0 and 9 MoE layers; d_model 2,048, 16 heads of 128, 64 routed
+     experts of 1,408 top-6 and 2 shared, dense layer 0 of 10,944,
+     vocabulary 102,400; bf16, random weights drawn on the
      card after phases 5-10's stablelm-3b weights are freed; prefill
      routed dropless): the attention kernels at 16 heads of 128 against
      their plain versions in both dtypes and timed beside their bounds
      (``moe_shapes_timing`` line), then phase 10's four gateways (float32
      at depth 4 strict, the gather tick bit for bit the plain tick, and
-     the least top-6/top-7 router gap of the streams; bf16 at full depth
-     under the near-tie rule, which a first difference meets on the
+     the least top-6/top-7 router gap of the streams; bf16 at the phase's
+     depth under the near-tie rule, which a first difference meets on the
      logits or, past ``NEAR_TIE_BOUND`` there, on the router's logits at
      the first routing difference of the two gateways' eager replays,
      ``trace_routing``), phase 6's load (c) through the cascade
@@ -205,9 +207,10 @@ Phases, each printing one JSON line:
      the cold fold, and phase 8's captured ticks bit for bit their
      eager steps, one graph launch per tick, with the same helpers;
  12. the hybrid family (``hymba_main_path`` line): hymba-1.5b at its
-     published width and depth (32 layers, d_model 1,600, 25 heads over
-     5 KV heads of 64, d_ff 5,504, SSM d_inner 3,200 and state 16, a
-     window of 1,024 with layers 0 and 16 global, vocabulary 32,001;
+     published width cut to ``HYMBA_DEPTH`` = 12 of its 32 layers (layer
+     0 global, 1-11 sliding; d_model 1,600, 25 heads over 5 KV heads of
+     64, d_ff 5,504, SSM d_inner 3,200 and state 16, a window of 1,024,
+     vocabulary 32,001;
      bf16, random weights drawn on the card after phase 11's are freed):
      the attention kernels at 25 x 64 over 5 KV heads with windows 1,024
      and none against their plain versions in both dtypes and timed
@@ -356,8 +359,26 @@ Phases, each printing one JSON line:
      the path itself; the unsharded baselines' launches are printed apart
      (``baseline_launches``).  ``python3 chip_smoke.py --shard`` runs it
      alone.
+ 19. training (``bwd_kernel_checks`` and ``train_main_path`` lines, run
+     last): (a) the ``flash_attention_bwd`` kernel against its plain
+     version at stablelm-3b's 32 x 80 (B 8, S 256, causal), GQA 8:1 and
+     12:1 x 128 (1,024 tokens), hymba-1.5b's 25 over 5 heads of 64 with a
+     window of 1,024 (2,048 tokens) and whisper-medium's 16 x 64
+     non-causal cross (256 over 1,500), float32 within 2e-5 and bf16
+     within 1e-2 of each gradient's max, two calls bit for bit, timed
+     beside its bound, its plain version and SDPA's forward and backward;
+     (b) stablelm-3b whole (bf16, float32 AdamW master, ``remat="full"``)
+     trained 20 steps of 8 x 256 tokens: losses finite and falling, the
+     attention gradients non-zero, ms per step, tokens/s, the model-FLOP
+     share, idle share, peak memory, the flash launches per step; (c) the
+     same with the SC frontend (bits 4), 10 steps, its launches and its
+     output bit for bit the plain versions'; (d) float32 at depth 4, one
+     step through the kernels against the plain versions; (e) a restart
+     at depth 2 through ``ckpt/manager.py``, losses and state bit for bit,
+     the checkpoint's bytes and seconds.  ``python3 chip_smoke.py
+     --train`` runs it alone.
 
-Phases 3–8 and 10–18 print their ``phase_s`` and a ``seconds`` breakdown
+Phases 3–8 and 10–19 print their ``phase_s`` and a ``seconds`` breakdown
 (phases 3 and 4 on the ``kernels_seconds`` and ``frame_path_seconds``
 lines).
 
@@ -378,6 +399,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -401,10 +423,11 @@ F32_FLOPS = 67e12
 # dense bf16 on the tensor cores (NVIDIA H100 SXM data sheet): the least
 # time for prompt attention's bf16 products
 BF16_FLOPS = 989e12
-SOURCES = ("sng_pack", "sc_dot", "paged_attn", "cascade_attn", "flash_attn")
+SOURCES = ("sng_pack", "sc_dot", "paged_attn", "cascade_attn", "flash_attn",
+           "flash_attn_bwd")
 KERNELS = ("sng_pack", "sc_dot", "paged_decode_attention", "scatter_kv_rows",
            "paged_decode_attention_with_state", "cascade_prefix_attention",
-           "merge_attn_states", "flash_attention")
+           "merge_attn_states", "flash_attention", "flash_attention_bwd")
 CASCADE = ("paged_decode_attention_with_state", "cascade_prefix_attention",
            "merge_attn_states")
 # the cascade tick's merge runs in the suffix pass's epilogue: the calls of
@@ -428,7 +451,8 @@ NEAR_TIE_BOUND = 0.2
 # kernels line reports as its own
 HOME_PATH = {"sng_pack": "frame", "sc_dot": "frame",
              "paged_decode_attention": "prompt", "scatter_kv_rows": "prompt",
-             **dict.fromkeys(CASCADE, "cascade"), "flash_attention": "chunked"}
+             **dict.fromkeys(CASCADE, "cascade"), "flash_attention": "chunked",
+             "flash_attention_bwd": "train"}
 # the prompt path: stablelm-3b, 8 lanes of 1,536 tokens, 16-token blocks
 LM_SLOTS, LM_MAX_LEN, LM_BLOCK = 8, 1536, 16
 # load (c): a shared 1,024-token prompt (64 full blocks), a 64-token tail per
@@ -653,6 +677,16 @@ def kernel_us(prof, n: int) -> dict[str, float]:
                 not getattr(ev, "is_user_annotation", False):
             out[ev.name] = out.get(ev.name, 0) + ev.device_time_total / n
     return out
+
+
+def top_ms(dev_us: dict[str, float], n: int) -> dict[str, float]:
+    """The ``n`` largest of ``kernel_us``'s times in ms, names cut to 80
+    characters; kernels whose names share those 80 (the templated
+    elementwise and ``_foreach`` kernels) are summed, not overwritten."""
+    out: dict[str, float] = {}
+    for k, v in dev_us.items():
+        out[k[:80]] = out.get(k[:80], 0.0) + v / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
 
 
 def device_us(fn, n: int = 20) -> dict[str, float]:
@@ -1705,7 +1739,7 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
         return {"device_busy_ms_per_tick": None, "device_idle_share": None,
                 "top_device_ms_per_tick": None, **host_out}
     busy = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+
     def ms_of(*needles: str) -> float:
         return sum(us for name, us in dev_us.items()
                    if any(x in name for x in needles)) / 1e3
@@ -1728,7 +1762,7 @@ def profile_ticks(batcher, n: int, tick_ms: float) -> dict:
             "cascade_prefix_share_of_busy": prefix / busy if busy else None,
             "combine_f32_ms_per_tick": combine_f32,
             "merge_ms_per_tick": merge,
-            "top_device_ms_per_tick": {k[:80]: v / 1e3 for k, v in top},
+            "top_device_ms_per_tick": top_ms(dev_us, 8),
             **host_out}
 
 
@@ -3379,6 +3413,10 @@ MOE_H, MOE_D = 16, 128
 # (an eager tick takes 90-160 ms on an H100 at this width, PERF.md), so
 # that the phase stays near two minutes
 MOE_HOST_RUNS = 3
+# phase 11's depth: the dense layer 0 and 9 MoE layers of the 28, at full
+# width (cut to give the script's time to phase 19; the float32
+# comparisons run at depth 4 whatever this is)
+MOE_DEPTH = 10
 
 
 def attn_shape_checks(dev, gen, sleep: int, n_layers: int, *, tag: str,
@@ -3697,16 +3735,17 @@ def router_gaps(cfg, params, prompts, tokens) -> dict:
 
 
 def moe_main_path(dev, sleep: int) -> dict:
-    """Phase 11: the moe family at deepseek-moe-16b's published width and
-    depth (28 layers, d_model 2,048, 16 heads of 128, 64 routed experts of
-    1,408 top-6 and 2 shared, dense layer 0 of 10,944, vocabulary 102,400;
+    """Phase 11: the moe family at deepseek-moe-16b's published width cut
+    to ``MOE_DEPTH`` layers (dense layer 0 and MOE_DEPTH - 1 MoE layers of
+    the 28; d_model 2,048, 16 heads of 128, 64 routed experts of 1,408
+    top-6 and 2 shared, dense layer 0 of 10,944, vocabulary 102,400;
     bf16, random weights drawn on the card, routed dropless in prefill as
     the reference serves it) through every serving path, with the earlier
     phases' helpers: the attention kernels at 16 heads of 128
     (:func:`attn_shape_checks`); the default ``ServeSpec()`` dense gateway
     and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
     at depth 4 (dense layer 0 and 3 MoE layers at full width) and bf16 at
-    full depth (:func:`dense_main_path`, with :func:`router_gaps`); load
+    the phase's depth (:func:`dense_main_path`, with :func:`router_gaps`); load
     (c) through the cascade tick against the flat tick, served once per
     gateway (:func:`cascade_main_path`); load (b) chunked, the resumed fold
     bit for bit the cold one (:func:`chunked_main_path`); the captured
@@ -3724,7 +3763,7 @@ def moe_main_path(dev, sleep: int) -> dict:
     from repro_torch.models import lm
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(configs.config(MOE_ARCH),
+    cfg = dataclasses.replace(configs.config(MOE_ARCH), n_layers=MOE_DEPTH,
                               moe_dropless_prefill=True)
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3808,18 +3847,22 @@ HYMBA_HQ, HYMBA_HKV, HYMBA_D, HYMBA_WINDOW = 25, 5, 64, 1024
 HYMBA_CONTEXT = 1200
 # phase 12's captured-against-eager tick timings take this many runs a side
 HYMBA_HOST_RUNS = 3
+# phase 12's depth: layer 0 global and 11 sliding layers of the 32, at full
+# width (cut to give the script's time to phase 19)
+HYMBA_DEPTH = 12
 
 
 def hymba_main_path(dev, sleep: int) -> dict:
-    """Phase 12: the hybrid family at hymba-1.5b's published width and
-    depth (32 layers, d_model 1,600, 25 heads over 5 KV heads of 64, d_ff
-    5,504, SSM d_inner 3,200 and state 16, a window of 1,024 with layers 0
-    and 16 global, vocabulary 32,001; bf16, random weights drawn on the
+    """Phase 12: the hybrid family at hymba-1.5b's published width cut to
+    ``HYMBA_DEPTH`` layers of the 32 (layer 0 global, the rest sliding;
+    d_model 1,600, 25 heads over 5 KV heads of 64, d_ff 5,504, SSM d_inner
+    3,200 and state 16, a window of 1,024, vocabulary 32,001; bf16, random
+    weights drawn on the
     card) through every serving path, with the earlier phases' helpers: the
     attention kernels at 25 x 64 over 5 KV heads, windows 1,024 and none
     (:func:`attn_shape_checks`); the default ``ServeSpec()`` dense gateway
     and the paged ``"cuda"``, ``"plain"`` and ``"gather"`` gateways, float32
-    at depth 4 (layer 0 global, 1-3 sliding) and bf16 at full depth
+    at depth 4 (layer 0 global, 1-3 sliding) and bf16 at the phase's depth
     (:func:`dense_main_path`); load (c) through the cascade tick against
     the flat tick, admitted through the fold (the one-shot prefill refuses
     1,088 tokens, as the reference's does; :func:`cascade_main_path`); load
@@ -3839,7 +3882,8 @@ def hymba_main_path(dev, sleep: int) -> dict:
     from repro_torch.models import lm
 
     t_phase = time.perf_counter()
-    cfg = configs.config(HYMBA_ARCH)
+    cfg = dataclasses.replace(configs.config(HYMBA_ARCH),
+                              n_layers=HYMBA_DEPTH)
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -6642,9 +6686,7 @@ def profile_stages(stage, n: int) -> dict:
             "device_idle_share": max(0.0, 1 - busy / stage_ms)
             if dev_us else None,
             "device_ops_per_stage": ops,
-            "device_ms_by_kernel": {
-                k[:80]: v / 1e3 for k, v in
-                sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]}}
+            "device_ms_by_kernel": top_ms(dev_us, 10)}
 
 
 # -- the retraining pipeline, Table 3 (phase 9) --------------------------------
@@ -7099,6 +7141,478 @@ def cascade_compare(parent: Path) -> int:
     return 0
 
 
+# -- training (phase 19) -----------------------------------------------------
+
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS, TRAIN_SC_STEPS = 20, 10
+# (d): the float32 step, kernels against plain versions, at full width and
+# this depth; (e): the restart at full width and this depth, in bf16
+TRAIN_STRICT_DEPTH, TRAIN_RESTART_DEPTH = 4, 2
+TRAIN_RESTART_STEPS = 6
+# (a): the backward kernel at each family's attention shape: (B, Sq, Sk,
+# Hq, Hkv, D, causal, window); the first is the main path's own
+BWD_SHAPES = {
+    "stablelm-3b (train step)": (8, 256, 256, 32, 32, 80, True, None),
+    "gqa 8:1 x 128": (1, 1024, 1024, 64, 8, 128, True, None),
+    "gqa 12:1 x 128": (1, 1024, 1024, 48, 4, 128, True, None),
+    "hymba-1.5b window 1,024": (1, 2048, 2048, 25, 5, 64, True, 1024),
+    "whisper-medium cross 256 over 1,500": (1, 256, 1500, 16, 16, 64, False,
+                                            None),
+}
+# (a)'s bound on each gradient's max |error| against the plain version, as a
+# share of its max |value|
+BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+def bwd_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs of one head that the mask keeps (queries at
+    offset 0)."""
+    win = window or 1 << 30
+    return sum(min(i + 1, Sk, win) if causal else Sk for i in range(Sq))
+
+
+def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
+    """Phase 19 (a): ``flash_attention_bwd`` against its plain version
+    (``ref.flash_attention_bwd_chunked``) on the same CUDA tensors at each
+    of ``BWD_SHAPES``, float32 within 2e-5 and bf16 within 1e-2 of each
+    gradient's max |value|, two calls bit for bit, the forward's lse (from
+    the kernel) within 2e-5 of the plain forward's; then in bf16 the
+    kernel's ms beside its bound (each input read once and each output
+    written once over 3.35 TB/s, against the backward's five products, 10
+    x D operations per kept (query, key) pair and head, over the bf16
+    peak), the plain version's ms and, as the library time, one forward
+    and backward of ``F.scaled_dot_product_attention`` on the same problem
+    (no PyTorch call computes the backward alone).  Prints the
+    ``bwd_kernel_checks`` line and returns ({"flash_attention_bwd": max abs
+    error}, the timing rows); raises SystemExit on a failed check."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+
+    sw = Stopwatch()
+    checks, timing, err = [], {}, 0.0
+    for label, (B, Sq, Sk, Hq, Hkv, D, causal, window) in BWD_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(Sq * Hq + D)
+            q, dout = (torch.randn((B, Sq, Hq, D), generator=gen,
+                                   device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Sk, Hkv, D), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            out, lse = flash_k.flash_attention(q, k, v, return_lse=True, **kw)
+            _, plain_lse = ref.flash_attention_chunked(
+                q, k, v, causal, window, return_lse=True)
+            got = flash_k.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            again = flash_k.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            want = ref.flash_attention_bwd_chunked(q, k, v, out, dout, lse,
+                                                   causal, window)
+            name = str(dtype).split(".")[1]
+            shares, abs_err = [], 0.0
+            for g, w in zip(got, want):
+                e = float((g.float() - w.float()).abs().max())
+                abs_err = max(abs_err, e)
+                shares.append(e / float(w.float().abs().max()))
+            lse_err = float((lse - plain_lse).abs().max())
+            check = {"shape": label, "dtype": name,
+                     "err_share_dq_dk_dv": shares, "lse_err": lse_err,
+                     "bitwise_repeat": all(torch.equal(a, b)
+                                           for a, b in zip(got, again))}
+            check["ok"] = (max(shares) <= BWD_TOL[name] and lse_err <= 2e-5
+                           and check["bitwise_repeat"])
+            checks.append(check)
+            err = max(err, abs_err)
+            if dtype != torch.bfloat16:
+                continue
+            ms = time_ms(lambda: flash_k.flash_attention_bwd(
+                q, k, v, out, dout, lse, **kw), 3, 5, sleep, b2b=False)[0]
+            plain = time_ms(lambda: ref.flash_attention_bwd_chunked(
+                q, k, v, out, dout, lse, causal, window), 2, 1, sleep,
+                b2b=False)[0]
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            gt = dout.transpose(1, 2).contiguous()
+            sdpa = {"enable_gqa": Hq != Hkv}
+            if window:
+                pos = torch.arange(Sq, device=dev)
+                rel = pos[:, None] - torch.arange(Sk, device=dev)[None, :]
+                sdpa["attn_mask"] = (rel >= 0) & (rel < window)
+            else:
+                sdpa["is_causal"] = causal
+
+            def library():
+                o = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+                return torch.autograd.grad(o, (qt, kt, vt), gt)
+            lib = time_ms(library, 3, 5, sleep, b2b=False)[0]
+            pairs = B * bwd_pairs(Sq, Sk, causal, window)
+            n_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+            ops = 10 * Hq * D * pairs
+            row = {"shape": f"q (B={B}, {Sq}, {Hq}, {D}) bf16, k and v "
+                            f"({B}, {Sk}, {Hkv}, {D}), "
+                            + ("causal" if causal else "non-causal")
+                            + (f", window {window}" if window else ""),
+                   "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "library": "F.scaled_dot_product_attention forward and "
+                              "backward on (B, H, S, D) copies"
+                              + (" with a boolean window mask"
+                                 if window else ""),
+                   "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                   "ops_ms": ops / BF16_FLOPS * 1e3}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] \
+                else "operations"
+            timing[label] = row
+            del qt, kt, vt, gt
+        del q, k, v, dout, out, lse, got, again, want
+        torch.cuda.empty_cache()
+        sw.lap(label)
+    bad = [c for c in checks if not c["ok"]]
+    emit({"phase": "bwd_kernel_checks", "checks": len(checks), "failed": bad,
+          "max_abs_err": err, "results": checks, "timing": timing,
+          "ptxas": ptxas_of("flash_attn_bwd", "_kernel"), **sw.fields()})
+    if bad:
+        raise SystemExit(f"flash_attention_bwd disagrees with its plain "
+                         f"version: {bad}")
+    return {"flash_attention_bwd": err}, timing
+
+
+def train_batches(cfg, n: int, start: int = 0) -> list:
+    """Steps ``start`` to ``start + n - 1`` of the token pipeline at the
+    phase's batch and sequence, seed 0, as host arrays."""
+    from repro_torch.data.tokens import TokenPipeline
+    pipe = TokenPipeline(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+                         start_step=start)
+    return [pipe.next() for _ in range(n)]
+
+
+def on_device(dev, batch: dict) -> dict:
+    """A host batch's arrays as tensors on ``dev``."""
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_run(dev, cfg, params, opt, batches, tcfg) -> dict:
+    """``make_train_step``'s steps over ``batches``, each timed on the host
+    to its synchronize: the losses, ms per step, and the flash kernels'
+    launches over the run (counted from 0)."""
+    import torch
+
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(cfg, tcfg)
+    losses, ms = [], []
+    reset_counts()
+    for b in batches:
+        batch = on_device(dev, b)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "ms": ms, "launches": read_counts()}
+
+
+def step_profile(dev, cfg, params, opt, batches, tcfg) -> dict:
+    """``torch.profiler`` over steps on ``batches``: device busy ms per step
+    and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(cfg, tcfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            step(params, opt, on_device(dev, b))
+        torch.cuda.synchronize()
+    dev_us = kernel_us(prof, len(batches))
+    return {"device_busy_ms_per_step": sum(dev_us.values()) / 1e3
+            if dev_us else None,
+            "top_device_ms_per_step": top_ms(dev_us, 8)}
+
+
+def plain_flash():
+    """``flash_attention`` and ``flash_attention_bwd`` patched to their
+    plain versions on every device (for (d)'s step through the plain
+    versions)."""
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+
+    def fwd(q, k, v, *, causal=True, window=None, q_offset=0, q_chunk=512,
+            kv_chunk=1024, return_lse=False):
+        return ref.flash_attention_chunked(q, k, v, causal, window, q_offset,
+                                           q_chunk, kv_chunk, return_lse)
+
+    def bwd(q, k, v, out, dout, lse, *, causal=True, window=None,
+            q_offset=0, q_chunk=512, kv_chunk=1024):
+        return ref.flash_attention_bwd_chunked(q, k, v, out, dout, lse,
+                                               causal, window, q_offset,
+                                               q_chunk, kv_chunk)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(flash_k, "flash_attention", fwd))
+    stack.enter_context(mock.patch.object(flash_k, "flash_attention_bwd",
+                                          bwd))
+    return stack
+
+
+def tree_close(a, b, rtol: float, atol: float) -> tuple[bool, float]:
+    """Whether every leaf of ``a`` is within ``atol + rtol |b|`` of ``b``'s,
+    and the largest |a - b|."""
+    from repro_torch.train import optim
+    ok, worst = True, 0.0
+    for x, y in zip(optim.leaves(a), optim.leaves(b)):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        ok &= bool((d <= atol + rtol * y.float().abs()).all())
+    return ok, worst
+
+
+def train_main_path(dev, sleep: int) -> dict:
+    """Phase 19: single-card training of stablelm-3b (``lm.forward``,
+    ``train/step.py``, ``train/optim.py``'s in-place AdamW,
+    ``ckpt/manager.py``), after (a) ``bwd_kernel_checks``:
+
+    (b) the whole model (32 x 2,560, 2.795 B parameters, bf16 with a
+        float32 AdamW master, ``remat="full"``) for ``TRAIN_STEPS`` steps
+        of B = 8, S = 256 from ``TokenPipeline``: every loss finite, the
+        mean of the last five below step 0's, every layer's attention
+        ``wq`` and ``wk`` gradients non-zero on the first batch, ms per
+        step, tokens per second, 6 N tokens over the step time as a share
+        of the bf16 peak, the device's idle share over two profiled steps,
+        the peak of ``torch.cuda.max_memory_allocated``, and the flash
+        kernels' launches (per step: 64 forward, 32 of them the remat's
+        recomputes, and 32 backward);
+    (c) the same with ``first_layer_mode="sc"`` (bits 4) for
+        ``TRAIN_SC_STEPS`` steps: 2 ``sng_pack`` and 1 ``sc_dot`` per
+        step, the SC frontend's output on the first batch bit for bit its
+        plain versions';
+    (d) float32 at full width and ``TRAIN_STRICT_DEPTH`` layers: the loss,
+        every gradient and one AdamW step through the kernels against the
+        same through the plain versions on the card, within the CPU
+        tests' bounds (loss 1e-5 relative, gradients 1e-4 of each leaf's
+        max |g|, parameters rtol 2e-3, atol 2e-5);
+    (e) a restart at full width and ``TRAIN_RESTART_DEPTH`` layers (bf16):
+        ``TRAIN_RESTART_STEPS`` steps straight against half of them, a
+        ``save_sync``, every tensor of the run dropped, a restore into a
+        fresh model drawn from another seed with a fresh step function and
+        pipeline, and the other half: losses and the final parameters and
+        optimizer state bit for bit; the checkpoint's bytes and the save
+        and restore seconds.
+    Returns the flash and SC kernels' launches over (b) and (c); raises
+    SystemExit on a failed check."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sc_dot as sc_dot_k
+    from repro_torch.kernels import sng_pack as sng_pack_k
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.step import TrainConfig, value_and_grad
+
+    sw = Stopwatch()
+    failures = []
+    cfg = configs.config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    n_params = lm.count_params(cfg)
+    batches = train_batches(cfg, TRAIN_STEPS + 2)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+
+    # (b) the whole model
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = optim.init(params, tcfg.adamw)
+    torch.cuda.synchronize()
+    sw.lap("init")
+    _, _, grads = value_and_grad(cfg, params, on_device(dev, batches[0]))
+    attn_grad_max = {
+        name: grads["blocks"]["attn"][name].float().abs().amax(dim=(1, 2))
+        .tolist() for name in ("wq", "wk")}
+    del grads
+    if not all(m > 0 for g in attn_grad_max.values() for m in g):
+        failures.append(f"(b) a layer's wq / wk gradient is zero: "
+                        f"{attn_grad_max}")
+    sw.lap("attn_grads")
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run(dev, cfg, params, opt, batches[:TRAIN_STEPS], tcfg)
+    peak = torch.cuda.max_memory_allocated()
+    sw.lap("steps")
+    losses = run["losses"]
+    steady = statistics.median(run["ms"][2:])
+    prof = step_profile(dev, cfg, params, opt, batches[TRAIN_STEPS:], tcfg)
+    sw.lap("profile")
+    # a forward launch per layer, and one more where the layer is
+    # recomputed for its backward
+    fwd = 1 if cfg.remat == "none" else 2
+    want = {"flash_attention": fwd * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+            "sng_pack": 0, "sc_dot": 0}
+    got = {k: run["launches"][k] for k in want}
+    finite = all(math.isfinite(x) for x in losses)
+    falling = statistics.mean(losses[-5:]) < losses[0]
+    if not (finite and falling) or got != want:
+        failures.append(f"(b) losses finite {finite}, falling {falling}, "
+                        f"launches {got} against {want}")
+    busy = prof["device_busy_ms_per_step"]
+    whole = {"config": {k: getattr(cfg, k) for k in (
+                 "n_layers", "d_model", "n_heads", "d_head", "d_ff",
+                 "vocab", "param_dtype", "remat", "loss_chunk")},
+             "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "steps": TRAIN_STEPS, "losses": losses,
+             "ms_per_step": run["ms"], "ms_per_step_median_after_2": steady,
+             "tokens_per_s": tokens_per_step / steady * 1e3,
+             "model_flops_share_of_bf16_peak":
+                 6 * n_params * tokens_per_step / (steady / 1e3)
+                 / BF16_FLOPS,
+             "device_busy_ms_per_step": busy,
+             "device_idle_share": max(0.0, 1 - busy / steady)
+             if busy else None,
+             "top_device_ms_per_step": prof["top_device_ms_per_step"],
+             "peak_memory_allocated_bytes": peak,
+             "launches": got, "attn_grad_max_by_layer": attn_grad_max}
+    launches = dict(got)
+
+    # (c) the SC frontend, trained
+    cfg_sc = dataclasses.replace(cfg, first_layer_mode="sc", sc_bits=4)
+    del opt
+    free_card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = dict(params, sc_frontend=lm.init(
+        dataclasses.replace(cfg_sc, n_layers=1), gen)["sc_frontend"])
+    opt = optim.init(params, tcfg.adamw)
+    x = lm.token_rows(params, on_device(dev, batches[0])["tokens"])
+    reset_counts()
+    got_sc = lm.sc_frontend(cfg_sc, params["sc_frontend"], x)
+    torch.cuda.synchronize()
+    call = {n: read_counts()[n] for n in ("sng_pack", "sc_dot")}
+
+    def plain_sc_dot(x, w, s0_mode="alt", adder="tff", *, length=None):
+        return ref.sc_dot(x, w, s0_mode, adder)
+    with mock.patch.object(sng_pack_k, "sng_pack", ref.sng_pack), \
+            mock.patch.object(sc_dot_k, "sc_dot", plain_sc_dot):
+        plain_sc = lm.sc_frontend(cfg_sc, params["sc_frontend"], x)
+    sc_bitwise = bool(torch.equal(got_sc, plain_sc))
+    del x, got_sc, plain_sc
+    sw.lap("sc_check")
+    sc_run = train_run(dev, cfg_sc, params, opt,
+                       batches[:TRAIN_SC_STEPS], tcfg)
+    sw.lap("sc_steps")
+    want_sc = {"sng_pack": 2 * TRAIN_SC_STEPS, "sc_dot": TRAIN_SC_STEPS,
+               "flash_attention": fwd * cfg.n_layers * TRAIN_SC_STEPS,
+               "flash_attention_bwd": cfg.n_layers * TRAIN_SC_STEPS}
+    got_sc_launches = {k: sc_run["launches"][k] for k in want_sc}
+    if not sc_bitwise or call != {"sng_pack": 2, "sc_dot": 1} or \
+            got_sc_launches != want_sc or \
+            not all(math.isfinite(x) for x in sc_run["losses"]):
+        failures.append(f"(c) SC frontend bitwise {sc_bitwise}, one call "
+                        f"{call}, launches {got_sc_launches} against "
+                        f"{want_sc}, losses {sc_run['losses']}")
+    for k, n in got_sc_launches.items():
+        launches[k] += n
+    sc = {"bits": 4, "steps": TRAIN_SC_STEPS, "losses": sc_run["losses"],
+          "ms_per_step_median_after_2": statistics.median(sc_run["ms"][2:]),
+          "frontend_bitwise_plain": sc_bitwise,
+          "launches": got_sc_launches}
+    del params, opt
+    free_card()
+
+    # (d) float32 at full width and depth 4: kernels against plain versions
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_STRICT_DEPTH,
+                               param_dtype="float32")
+    params = lm.init(cfg4, torch.Generator(device=dev).manual_seed(4))
+    batch = on_device(dev, batches[0])
+    reset_counts()
+    loss_k, _, grads_k = value_and_grad(cfg4, params, batch)
+    strict_launches = {k: read_counts()[k] for k in
+                       ("flash_attention", "flash_attention_bwd")}
+    with plain_flash():
+        loss_p, _, grads_p = value_and_grad(cfg4, params, batch)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_share = max(
+        float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        for a, b in zip(optim.leaves(grads_k), optim.leaves(grads_p)))
+    stepped = []
+    for grads in (grads_k, grads_p):
+        p = optim.unflatten(params, [t.clone() for t in
+                                     optim.leaves(params)])
+        optim.apply_(p, grads, optim.init(p, tcfg.adamw), tcfg.adamw)
+        stepped.append(p)
+    params_ok, params_err = tree_close(*stepped, 2e-3, 2e-5)
+    if loss_rel > 1e-5 or grad_share > 1e-4 or not params_ok or \
+            strict_launches != {"flash_attention": fwd * TRAIN_STRICT_DEPTH,
+                                "flash_attention_bwd": TRAIN_STRICT_DEPTH}:
+        failures.append(f"(d) loss {loss_rel}, gradients {grad_share}, "
+                        f"params {params_err}, launches {strict_launches}")
+    strict = {"depth": TRAIN_STRICT_DEPTH, "loss_rel_diff": loss_rel,
+              "grad_err_share_of_max": grad_share,
+              "params_max_abs_diff": params_err, "launches": strict_launches}
+    del params, grads_k, grads_p, stepped, p, grads
+    free_card()
+    sw.lap("strict_f32")
+
+    # (e) a restart at depth 2
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_RESTART_DEPTH)
+    half = TRAIN_RESTART_STEPS // 2
+    feed = batches[:TRAIN_RESTART_STEPS]
+
+    def fresh(seed):
+        p = lm.init(cfg2, torch.Generator(device=dev).manual_seed(seed))
+        return p, optim.init(p, tcfg.adamw)
+    straight_p, straight_o = fresh(0)
+    straight = train_run(dev, cfg2, straight_p, straight_o, feed, tcfg)
+    p, o = fresh(0)
+    first = train_run(dev, cfg2, p, o, feed[:half], tcfg)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = ckpt.CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        mgr.save_sync(half, (p, o), extra={"arch": cfg2.name})
+        save_s = time.perf_counter() - t0
+        step_dir = Path(d) / f"step_{half:010d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        del p, o
+        free_card()
+        target = fresh(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p, o), manifest = mgr.restore_latest(target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del target
+    resumed = train_run(dev, cfg2, p, o, feed[manifest["step"]:], tcfg)
+    losses_equal = first["losses"] + resumed["losses"] == straight["losses"]
+    state_equal = all(torch.equal(a, b) for a, b in zip(
+        optim.leaves({"p": p, "o": o}),
+        optim.leaves({"p": straight_p, "o": straight_o})))
+    if not (losses_equal and state_equal):
+        failures.append(f"(e) restart: losses equal {losses_equal}, state "
+                        f"equal {state_equal}: {straight['losses']} against "
+                        f"{first['losses'] + resumed['losses']}")
+    restart = {"depth": TRAIN_RESTART_DEPTH, "steps": TRAIN_RESTART_STEPS,
+               "restored_at": manifest["step"],
+               "losses_bitwise": losses_equal, "state_bitwise": state_equal,
+               "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+               "restore_s": restore_s}
+    del p, o, straight_p, straight_o
+    free_card()
+    sw.lap("restart")
+    emit({"phase": "train_main_path", "model": cfg.name, "whole": whole,
+          "sc": sc, "strict_f32": strict, "restart": restart,
+          "launches": launches, "failures": failures, **sw.fields()})
+    if failures:
+        raise SystemExit(f"train path: {failures}")
+    return launches
+
+
+def train_main(dev, sleep: int) -> dict:
+    """``--train``: phase 19 alone, (a) then (b)-(e)."""
+    bwd_kernel_checks(dev, sleep)
+    return train_main_path(dev, sleep)
+
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--sc-compare"]:
@@ -7135,6 +7649,10 @@ def main() -> int:
         return family_main(None, decoders_main_path)
     if args[:1] == ["--shard"]:
         return family_main("shard", shard_main_path)
+    if args[:1] == ["--train"]:
+        return family_main("train", train_main,
+                           ("flash_attn", "flash_attn_bwd", "sng_pack",
+                            "sc_dot"))
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -7170,7 +7688,8 @@ def main() -> int:
     # none
     t0 = time.perf_counter()
     build.start(SOURCES)
-    attn_sources = ("paged_attn", "cascade_attn", "flash_attn")
+    attn_sources = ("paged_attn", "cascade_attn", "flash_attn",
+                    "flash_attn_bwd")
     logs = build.build_all(attn_sources)
     attn_build_s = time.perf_counter() - t0
     # the redesigned attention kernels' instructions: tensor-core products
@@ -7433,6 +7952,12 @@ def main() -> int:
     # -- 17. starcoder2-15b, deepseek-67b, llama3-405b and the int8 layout ----
     paths.update(decoders_main_path(dev, sleep))
 
+    # -- 19. training: the backward kernel, then stablelm-3b trained -------
+    free_card()
+    bwd_err, bwd_timing = bwd_kernel_checks(dev, sleep)
+    err.update(bwd_err)
+    paths["train"] = train_main_path(dev, sleep)
+
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",
                             "src/repro/kernels/sng_pack.py:33"),
@@ -7455,13 +7980,20 @@ def main() -> int:
                    "src/repro/kernels/paged_attn.py:486"),
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attn.cu",
-                   "src/repro/kernels/flash_attn.py:74")}
+                   "src/repro/kernels/flash_attn.py:74"),
+               # no Pallas kernel: the reference's XLA backward of its
+               # flash attention (_flash_bwd; _sliding_bwd at :295)
+               "flash_attention_bwd": (
+                   "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                   "src/repro/nn/attention.py:161")}
     results = {name: dict(timing[(name, 4)], library_ms=None)
                for name in sc_kernels}
     results.update(paged_timing)
     results.update(cascade_timing)
     # the chunked path's own shape: a fold chunk
     results["flash_attention"] = flash_timing["fold_chunk"]
+    # the train path's own shape: stablelm-3b's train step
+    results["flash_attention_bwd"] = bwd_timing[next(iter(BWD_SHAPES))]
 
     def row(name: str) -> dict:
         # kernel 7 runs on the path fused into kernel 5's epilogue: its

@@ -17,4 +17,5 @@ def smoke_config() -> LMConfig:
         name="deepseek-67b-smoke", family="decoder",
         n_layers=5, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
         d_ff=688, vocab=512, mlp_type="swiglu", rope_theta=10000.0,
+        remat="none",
     )

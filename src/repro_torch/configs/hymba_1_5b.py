@@ -21,4 +21,5 @@ def smoke_config() -> LMConfig:
         n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, d_head=32,
         d_ff=448, vocab=512, ssm_state=8, d_inner=256,
         window=16, global_every=2, rope_theta=10000.0,
+        remat="none",
     )

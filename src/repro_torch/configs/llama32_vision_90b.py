@@ -20,4 +20,5 @@ def smoke_config() -> LMConfig:
         n_layers=6, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
         d_ff=896, vocab=512, mlp_type="swiglu", rope_theta=500000.0,
         cross_every=3, n_vision_tokens=16,
+        remat="none",
     )

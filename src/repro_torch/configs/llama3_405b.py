@@ -16,4 +16,5 @@ def smoke_config() -> LMConfig:
         name="llama3-405b-smoke", family="decoder",
         n_layers=4, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
         d_ff=832, vocab=512, mlp_type="swiglu", rope_theta=500000.0,
+        remat="none",
     )

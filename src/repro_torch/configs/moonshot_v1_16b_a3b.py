@@ -21,4 +21,5 @@ def smoke_config() -> LMConfig:
         d_ff=96, vocab=512, mlp_type="swiglu", rope_theta=50000.0,
         n_experts=8, top_k=2, n_shared=1, d_expert=96, first_dense_ff=384,
         moe_group_size=64, moe_dropless_prefill=True,
+        remat="none",
     )

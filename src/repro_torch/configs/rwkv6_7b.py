@@ -17,4 +17,5 @@ def smoke_config() -> LMConfig:
         name="rwkv6-7b-smoke", family="rwkv",
         n_layers=3, d_model=128, n_heads=4, n_kv_heads=4, d_head=32,
         d_ff=448, vocab=512,
+        remat="none",
     )

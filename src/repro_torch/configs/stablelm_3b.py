@@ -16,4 +16,5 @@ def smoke_config() -> LMConfig:
         name="stablelm-3b-smoke", family="decoder",
         n_layers=4, d_model=160, n_heads=4, n_kv_heads=4, d_head=40,
         d_ff=432, vocab=512, mlp_type="swiglu", rope_theta=10000.0,
+        remat="none",
     )

@@ -19,4 +19,5 @@ def smoke_config() -> LMConfig:
         n_layers=4, d_model=192, n_heads=6, n_kv_heads=2, d_head=32,
         d_ff=768, vocab=512, mlp_type="gelu", use_bias=True,
         norm_type="layernorm", rope_theta=100000.0,
+        remat="none",
     )

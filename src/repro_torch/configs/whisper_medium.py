@@ -22,4 +22,5 @@ def smoke_config() -> LMConfig:
         d_model=128, n_heads=4, n_kv_heads=4, d_head=32,
         d_ff=512, vocab=512, mlp_type="gelu", use_bias=True,
         norm_type="layernorm", pos_embedding="sinusoidal",
+        remat="none",
     )

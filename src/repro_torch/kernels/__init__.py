@@ -34,6 +34,8 @@ COUNTERS = {
     "merge_attn_states (fused)": (
         "paged_attn", "paged_decode_attention_with_state", "fused_merges"),
     "flash_attention": ("flash_attn", "flash_attention", "launches"),
+    "flash_attention_bwd": ("flash_attn", "flash_attention_bwd",
+                            "launches"),
 }
 
 

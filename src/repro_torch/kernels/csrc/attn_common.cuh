@@ -22,7 +22,8 @@
 //   a call is reproducible bit for bit): M = max_s m_s, l = sum_s exp(m_s
 //   - M) l_s, acc = sum_s exp(m_s - M) acc_s.  Three epilogues (a template
 //   argument): combine_states writes acc / max(l, 1e-30) to out (R, D) in
-//   T; combine_to_state writes the float32 state (acc, M, l) itself;
+//   T (and, given an lse (R) float32, M + log(max(l, 1e-30)) to it);
+//   combine_to_state writes the float32 state (acc, M, l) itself;
 //   combine_merge computes that same state and merges each row's prefix
 //   state into it (merge_two, the Prefix below), writing out (R, D) in T.
 //   A split whose keys are all masked for a row (m_s = -1e30, l_s = 0,
@@ -182,6 +183,9 @@ combine_states_kernel(const float* __restrict__ acc,
     m_out[r] = M;
     l_out[r] = L;
   }
+  // kNormalize: m_out, when given, takes the merged rows' log-sum-exp
+  if (kEpi == kNormalize && m_out != nullptr && threadIdx.x == 0)
+    m_out[r] = M + logf(lf);
 }
 
 // One CTA per row.
@@ -200,11 +204,13 @@ cudaError_t launch_combine(const States& in, int S, long long R, int D,
   return cudaGetLastError();
 }
 
-// The merged rows normalized, out (R, D) in T.
+// The merged rows normalized, out (R, D) in T; with lse, each merged row's
+// M + log(max(l, 1e-30)) there, (R) float32.
 template <typename T>
 cudaError_t combine_states(const States& in, int S, long long R, int D,
-                           T* out, cudaStream_t stream) {
-  return launch_combine<T, kNormalize>(in, S, R, D, out, nullptr, nullptr,
+                           T* out, cudaStream_t stream,
+                           float* lse = nullptr) {
+  return launch_combine<T, kNormalize>(in, S, R, D, out, lse, nullptr,
                                        Prefix{}, stream);
 }
 

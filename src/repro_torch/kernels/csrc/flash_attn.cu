@@ -27,7 +27,10 @@
 //   through corr = exp(-1e30 - m) = 0.  A row with no valid key at all is
 //   garbage (in the reference too).  No atomics and no order that depends
 //   on anything but the shapes: a call is reproducible bit for bit, which
-//   the chunked prefill's resume relies on.
+//   the chunked prefill's resume relies on.  With lse != nullptr the launch
+//   also writes each row's float32 log-sum-exp m + log(max(l, 1e-30)), (B,
+//   Sq, Hq), which the backward (csrc/flash_attn_bwd.cu) reads; the output
+//   does not depend on it.
 //
 //   Bound on the H100.  One-shot prefill of a 1,000-token prompt (32 heads
 //   of 80, bf16): q, k, v and out are 20.5 MB, 6.1 us at 3.35 TB/s; the
@@ -65,8 +68,9 @@
 //   a function of the shapes alone.  Each CTA then writes its unnormalized
 //   float32 state (acc, m, l) to scratch, and a second launch
 //   (attn::combine_states, attn_common.cuh) merges the splits in split
-//   order and normalizes.  A split in which a row's keys are all masked
-//   has m = -1e30 there and drops out of the merge exactly.
+//   order and normalizes (and writes the merged rows' lse where asked).  A
+//   split in which a row's keys are all masked has m = -1e30 there and
+//   drops out of the merge exactly.
 #include "attn_common.cuh"
 
 namespace {
@@ -142,7 +146,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int Sq, int Sk, int Hq, int Hkv,
+                  float* __restrict__ l_out, float* __restrict__ lse_out,
+                  int Sq, int Sk, int Hq, int Hkv,
                   int D, int q_offset, int win, int causal, float scale,
                   int q_tiles, int split_lo, int split_keys) {
   constexpr int A = BQ / kTY;           // rows per thread
@@ -277,6 +282,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int d = tx + kTX * cc;
         if (d < D) out[row * D + d] = acc[a][cc] / l;
       }
+      if (lse_out != nullptr && tx == 0) lse_out[row] = ms[r] + logf(l);
     } else {
 #pragma unroll
       for (int cc = 0; cc < kMaxC; ++cc) {
@@ -340,7 +346,8 @@ __global__ void __launch_bounds__(NW * 32)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ acc_out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int Sq, int Sk, int Hq, int Hkv,
+                 float* __restrict__ l_out, float* __restrict__ lse_out,
+                 int Sq, int Sk, int Hq, int Hkv,
                  int D, int q_offset, int win, int causal, float scale,
                  int q_tiles, int split_lo, int split_keys) {
   constexpr int BQ = NW * 16, DP = KS * 16, LD = mma_ld(KS), NT = DP / 8;
@@ -529,6 +536,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<__nv_bfloat162*>(out + row * D + c) =
               __floats2bfloat162_rn(o[dt][2 * i] / l, o[dt][2 * i + 1] / l);
       }
+      if (lse_out != nullptr && tq == 0) lse_out[row] = m_r[i] + logf(l);
     } else {
 #pragma unroll
       for (int dt = 0; dt < NT; ++dt) {
@@ -553,7 +561,7 @@ int tile_rows(int Sq) { return Sq <= 16 ? 16 : 64; }
 
 struct Args {
   const void *q, *k, *v;
-  void *out, *acc, *m, *l;
+  void *out, *acc, *m, *l, *lse;
   int B, Sq, Sk, Hq, Hkv, D, q_offset, win, causal;
   float scale;
   int splits, split_lo, split_keys;
@@ -572,7 +580,8 @@ cudaError_t run(Kernel kernel, const Args& a, int BQ, int threads,
   const dim3 grid(q_tiles * a.splits, a.Hq, a.B);
   kernel<<<grid, threads, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out,
-      split ? (float*)a.acc : nullptr, (float*)a.m, (float*)a.l, a.Sq, a.Sk,
+      split ? (float*)a.acc : nullptr, (float*)a.m, (float*)a.l,
+      (float*)a.lse, a.Sq, a.Sk,
       a.Hq, a.Hkv, a.D, a.q_offset, a.win, a.causal, a.scale, q_tiles,
       a.split_lo, a.split_keys);
   const cudaError_t e = cudaGetLastError();
@@ -581,7 +590,7 @@ cudaError_t run(Kernel kernel, const Args& a, int BQ, int threads,
   return attn::combine_states<T>(
       attn::stacked_states((const float*)a.acc, (const float*)a.m,
                            (const float*)a.l),
-      a.splits, R, a.D, (T*)a.out, stream);
+      a.splits, R, a.D, (T*)a.out, stream, (float*)a.lse);
 }
 
 template <int KS>
@@ -622,11 +631,13 @@ cudaError_t run_f32(const Args& a, cudaStream_t stream) {
 // `splits` runs of `split_keys` keys from `split_lo` (split_keys a
 // multiple of 64); with splits > 1, acc (splits, B, Sq, Hq, D), m, l
 // (splits, B, Sq, Hq) float32 are the scratch the combine launch reads.
-// Returns cudaGetLastError() after the last launch.
+// lse: null, or (B, Sq, Hq) float32 for the rows' log-sum-exp.  Returns
+// cudaGetLastError() after the last launch.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, void* acc, void* m, void* l,
-                                 int B, int Sq, int Sk, int Hq, int Hkv,
-                                 int D, int q_offset, int win, int causal,
+                                 void* lse, int B, int Sq, int Sk, int Hq,
+                                 int Hkv, int D, int q_offset, int win,
+                                 int causal,
                                  float scale, int dtype, int splits,
                                  int split_lo, int split_keys, void* stream) {
   const int elem = dtype == 0 ? 4 : 2;
@@ -639,9 +650,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
           0x7fffffffLL ||
       (splits > 1 && (acc == nullptr || m == nullptr || l == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k,   v,   out, acc,      m,   l,     B,
-               Sq, Sk,  Hq,  Hkv, D,        q_offset, win, causal,
-               scale, splits, split_lo, split_keys};
+  const Args a{q,  k,  v,   out, acc, m,        l,   lse,    B,
+               Sq, Sk, Hq,  Hkv, D,   q_offset, win, causal, scale,
+               splits, split_lo, split_keys};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? run_f32(a, s) : run_bf16(a, s));
 }

@@ -319,8 +319,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
                             window: int | None = None, q_offset: int = 0,
-                            q_chunk: int = 512, kv_chunk: int = 1024
-                            ) -> torch.Tensor:
+                            q_chunk: int = 512, kv_chunk: int = 1024,
+                            return_lse: bool = False):
     """The flash kernel's plain version: q (B, Sq, Hq, D) against k, v
     (B, Sk, Hkv, D), GQA by repetition, query i at absolute position
     ``q_offset + i``.  Key j attends when ``rel = q_offset + i - j`` has
@@ -333,7 +333,9 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
     ``NEG_INF``, so a chunk masked for a row before its first valid key
     gives that row p = 1 until the first real key's rescale (``corr = 0``)
     wipes it, as in the reference; the result is ``acc / max(l, 1e-30)``
-    in v's dtype."""
+    in v's dtype.  ``return_lse``: also the rows' float32 log-sum-exp ``m +
+    log(max(l, 1e-30))`` (B, Sq, Hq), which the backward reads; the
+    output's bits do not depend on it."""
     B, Sq, Hq, D = q.shape
     Sk = k.shape[1]
     n_rep = Hq // k.shape[2]
@@ -344,7 +346,7 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
     scale = D ** -0.5
     qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Sq, qc):
         q_i = qt[:, :, q0:q0 + qc].float()
         q_pos = q_offset + torch.arange(q0, q0 + q_i.shape[2], device=dev)
@@ -368,5 +370,85 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
             acc = acc * corr[..., None] + p.to(v.dtype).float() @ v_j.float()
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.cat(outs, dim=2).transpose(1, 2)
-    return out.to(v.dtype)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, dim=2).transpose(1, 2).to(v.dtype)
+    if not return_lse:
+        return out
+    return out, torch.cat(lses, dim=2).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_chunked(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                dout: torch.Tensor, lse: torch.Tensor,
+                                causal: bool = True,
+                                window: int | None = None, q_offset: int = 0,
+                                q_chunk: int = 512, kv_chunk: int = 1024
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The backward kernel's plain version: the reference's FA2 backward
+    (``repro/nn/attention.py`` ``_flash_bwd``) tile for tile.  q, out, dout
+    (B, Sq, Hq, D); k, v (B, Sk, Hkv, D); lse (B, Sq, Hq) float32 from the
+    forward; the mask of :func:`flash_attention_chunked`.  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes.
+
+    dout is widened to float32 first, and ``delta = rowsum(dout * out)``
+    in float32; then for each key chunk (outer) and query chunk (inner):
+    ``p = exp(s - lse)`` from the recomputed float32 scores, ``dv += p^T
+    dout`` (dout is float32 here, so p is not rounded), ``dp = dout v^T``,
+    ``ds = p (dp - delta) scale`` rounded to k's dtype, ``dq += ds k`` and
+    ``dk += ds^T q``, all accumulated in float32; dq sums its key chunks in
+    order.  K and V are repeated per query head (GQA), so each repeated
+    head's dk and dv is cast to k's dtype and the group's heads are then
+    summed, as the transpose of ``_repeat_kv``'s broadcast sums them."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    n_rep = Hq // Hkv
+    f32 = torch.float32
+    kt = repeat_kv(k, n_rep).transpose(1, 2)               # (B, H, Sk, D)
+    vt = repeat_kv(v, n_rep).transpose(1, 2)
+    qt = q.transpose(1, 2)                                 # (B, H, Sq, D)
+    g = dout.to(f32).transpose(1, 2)
+    lse_t = lse.transpose(1, 2)                            # (B, H, Sq)
+    delta = (g * out.to(f32).transpose(1, 2)).sum(-1)      # (B, H, Sq)
+    win = window if window else NO_WINDOW
+    scale = D ** -0.5
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    dev = q.device
+    dq = torch.zeros((B, Hq, Sq, D), dtype=f32, device=dev)
+    dks, dvs = [], []
+    for k0 in range(0, Sk, kc):
+        k_j, v_j = kt[:, :, k0:k0 + kc], vt[:, :, k0:k0 + kc]
+        k_pos = torch.arange(k0, k0 + k_j.shape[2], device=dev)
+        dk_j = torch.zeros(k_j.shape, dtype=f32, device=dev)
+        dv_j = torch.zeros(k_j.shape, dtype=f32, device=dev)
+        dq_inc = []
+        for q0 in range(0, Sq, qc):
+            q_i = qt[:, :, q0:q0 + qc]
+            g_i = g[:, :, q0:q0 + qc]
+            q_pos = q_offset + torch.arange(q0, q0 + q_i.shape[2],
+                                            device=dev)
+            s = (q_i.float() @ k_j.float().transpose(-1, -2)) * scale
+            rel = q_pos[:, None] - k_pos[None, :]
+            mask = rel < win
+            if causal:
+                mask &= rel >= 0
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse_t[:, :, q0:q0 + qc, None])
+            dv_j = dv_j + p.transpose(-1, -2) @ g_i
+            dp = g_i @ v_j.float().transpose(-1, -2)
+            ds = p * (dp - delta[:, :, q0:q0 + qc, None]) * scale
+            dsl = ds.to(k.dtype).float()
+            dq_inc.append(dsl @ k_j.float())
+            dk_j = dk_j + dsl.transpose(-1, -2) @ q_i.to(k.dtype).float()
+        dq = dq + torch.cat(dq_inc, dim=2)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+
+    def heads(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        t = t.transpose(1, 2).to(dtype)                    # (B, Sk, Hq, D)
+        if n_rep == 1:
+            return t
+        return t.reshape(B, Sk, Hkv, n_rep, D).sum(3)
+    return (dq.transpose(1, 2).to(q.dtype),
+            heads(torch.cat(dks, dim=2), k.dtype),
+            heads(torch.cat(dvs, dim=2), v.dtype))

@@ -1,2 +1,2 @@
-"""Mesh construction (the serving meshes; the training meshes come with
-training)."""
+"""Mesh construction (the serving meshes; the training meshes are not
+ported yet) and the single-device training launcher (``train``)."""

@@ -7,9 +7,9 @@ embeddings and a decoder of causal self-attention, gated cross-attention
 and a GELU MLP, with biases, LayerNorm and sinusoidal positions; the vlm
 family llama-3.2-vision's decoder with a gated cross-attention layer over
 vision tokens every ``cross_every``-th layer; the rwkv family RWKV6's
-attention-free time mix and channel mix) for inference in PyTorch:
-configuration, parameters, the SC frontend, prefill blocks and the
-single-token decode attention, dense and paged.
+attention-free time mix and channel mix) in PyTorch: configuration,
+parameters, the SC frontend, prefill blocks, the single-token decode
+attention, dense and paged, and the training forward (:func:`forward`).
 
 The public layout is the reference's: parameters are a nested dict of
 tensors with the per-layer ones stacked on a leading layer axis
@@ -113,10 +113,14 @@ class LMConfig:
     window: int = 0                   # sliding-window size (0 = full attn)
     global_every: int = 0             # every k-th layer is full attention
     param_dtype: str = "bfloat16"     # "bfloat16" | "float32"
+    # the training forward's recomputation per layer: "none" | "full" |
+    # "dots" (keep the matrix products' outputs), as the reference
+    remat: str = "full"
     q_chunk: int = 512
     kv_chunk: int = 1024
     rwkv_chunk: int = 16              # the prompt wkv's chunk (rwkv)
     ssm_chunk: int = 32               # the prompt scan's chunk (hybrid)
+    loss_chunk: int = 1024            # sequence chunk of the training loss
     first_layer_mode: str = "none"    # "none" | "sc" (the SC frontend)
     sc_bits: int = 4
     # --- serving: int8 KV cache with a float32 scale per (token, head) ---
@@ -206,7 +210,10 @@ def layer_window(cfg: LMConfig, idx: int) -> int:
 def _dense(gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
            scale: float | None = None) -> torch.Tensor:
     """``scale`` (default 1/sqrt(fan_in)) times a standard normal truncated
-    at +-2, drawn in float32 on the generator's device, then cast."""
+    at +-2, drawn in float32 on the generator's device, then cast.  On the
+    meta device (:func:`count_params`) only the shape is made."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -653,25 +660,28 @@ def decoder_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                   q_offset: int = 0, causal: bool = True,
                   kv_prefix: tuple[torch.Tensor, torch.Tensor] | None = None,
                   moe_layer: bool = False, moe_dropless: bool = False):
-    """Pre-norm transformer block.  Returns (x, (k, v)); with
+    """Pre-norm transformer block.  Returns (x, (k, v), aux): with
     ``kv_prefix`` (a chunk of the prefill fold, see :func:`_attn_apply`)
-    k, v span prefix and chunk.  ``moe_layer`` runs the MoE FFN
-    (``p["moe"]``) in groups of ``cfg.moe_group_size`` tokens;
-    ``moe_dropless`` routes the whole (B, S) input as one group that drops
-    nothing, so a token's output does not depend on the other tokens'
-    routing (serving prefill, ``cfg.moe_dropless_prefill``)."""
+    k, v span prefix and chunk; aux is the MoE FFN's load-balance loss
+    (None for a dense FFN), which the training forward adds to the loss
+    and serving drops.  ``moe_layer`` runs the MoE FFN (``p["moe"]``) in
+    groups of ``cfg.moe_group_size`` tokens; ``moe_dropless`` routes the
+    whole (B, S) input as one group that drops nothing, so a token's output
+    does not depend on the other tokens' routing (serving prefill,
+    ``cfg.moe_dropless_prefill``)."""
     h, kv = _attn_apply(cfg, p["attn"], _norm_apply(cfg, p["ln1"], x),
                         positions, causal=causal, window=window,
                         q_offset=q_offset, kv_prefix=kv_prefix)
     x = x + h
     z = _norm_apply(cfg, p["ln2"], x)
     if not moe_layer:
-        return x + _mlp_apply(cfg, p["mlp"], z), kv
+        return x + _mlp_apply(cfg, p["mlp"], z), kv, None
     m = cfg.moe
     if moe_dropless:
         m = dataclasses.replace(m, group_size=z.shape[0] * z.shape[1],
                                 dropless=True)
-    return x + moe_lib.moe_ffn(z, p["moe"], m)[0], kv
+    y, aux = moe_lib.moe_ffn(z, p["moe"], m)
+    return x + y, kv, aux
 
 
 def cross_block(cfg: LMConfig, p: dict, x: torch.Tensor,
@@ -880,8 +890,10 @@ def sc_frontend(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def token_rows(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``tokens``."""
-    return params["embed"][tokens.long()]
+    """The embedding rows of ``tokens`` (a gather, whose backward on the
+    card adds each row's gradients in a fixed order: a training step is
+    reproducible bit for bit)."""
+    return torch.nn.functional.embedding(tokens.long(), params["embed"])
 
 
 def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -938,3 +950,244 @@ def logits(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = _norm_apply(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x.float() @ head.float()
+
+
+# ==========================================================================
+# Training: the whole-model forward and its loss.
+# ==========================================================================
+
+# the products whose outputs ``remat="dots"`` keeps (the reference's
+# ``checkpoint_dots_with_no_batch_dims``: a (B, S, d) @ (d, f) projection
+# runs as one 2-d product; attention's batched products are recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy():
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else \
+            CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _maybe_remat(cfg: LMConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` keeps every activation for the
+    backward; ``"full"`` keeps only ``fn``'s inputs and recomputes the rest
+    in the backward (``torch.utils.checkpoint``, non-reentrant: the
+    reference's ``jax.checkpoint``); ``"dots"`` also keeps the outputs of
+    the 2-d matrix products."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (none, full, dots)")
+    kw = {"context_fn": _dots_policy} if cfg.remat == "dots" else {}
+
+    def wrapped(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+    return wrapped
+
+
+def unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked parameter tree, each leaf split once
+    with ``torch.unbind`` (whose backward stacks the layers' gradients
+    once, where indexing a layer at a time would write a whole-stack
+    gradient per layer)."""
+    out = [{} for _ in range(n)]
+    for key, value in tree.items():
+        parts = unstack(value, n) if isinstance(value, dict) else \
+            torch.unbind(value)
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
+
+
+def chunked_xent(cfg: LMConfig, x: torch.Tensor, head: torch.Tensor,
+                 labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross-entropy with the vocabulary projection in chunks of
+    ``cfg.loss_chunk`` positions, so the (S, V) logits never exist at full
+    length: per chunk the float32 logits (products of the widened operands,
+    float32 sums), the log-sum-exp minus the label's logit summed over the
+    positions whose label is >= 0 (-1 is ignored), each chunk recomputed
+    in the backward (the reference's ``jax.checkpoint``).  x (B, S, d),
+    head (d, V), labels (B, S).  Returns (the mean over counted positions,
+    their count as float32)."""
+    S = x.shape[1]
+    ck = min(cfg.loss_chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, ck):
+        l, n = torch.utils.checkpoint.checkpoint(
+            _chunk_loss, x[:, c0:c0 + ck], head, labels[:, c0:c0 + ck],
+            use_reentrant=False, preserve_rng_state=False)
+        tot = tot + l
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def _chunk_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor):
+    logits = x.float() @ head.float()
+    mask = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask), torch.sum(mask, dtype=torch.float32)
+
+
+def forward(cfg: LMConfig, params: dict, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """The training forward: next-token cross-entropy of every family,
+    the reference's ``lm.forward``.
+
+    batch: {"tokens": (B, S) integer, "labels": (B, S) integer (-1 =
+    ignore)} and, for the encdec family, "enc_embed" (B, T_enc, d) frame
+    embeddings, for the vlm family "vision_embed" (B, T_vis, d) patch
+    embeddings.  Returns (loss + 0.01 * aux, {"loss", "aux", "tokens"}):
+    the mean cross-entropy (:func:`chunked_xent`), the MoE layers' summed
+    load-balance loss (float32 0 for the other families) and the count of
+    labelled positions.
+
+    The blocks are the serving blocks over the whole sequence from
+    position 0: decoder and moe (its dense layer 0 first, then the MoE
+    blocks, their windows counted from the first MoE block); rwkv from a
+    zero state in every layer; hybrid with a fresh conv and SSM state in
+    every layer (the reference's grouped static windows are the same
+    function as the per-layer windows here); vlm with each cross layer's
+    vision K/V projected from ``vision_embed``; encdec with the non-causal
+    encoder over ``enc_embed`` plus sinusoidal positions, then
+    ``enc_norm``, then every decoder layer's cross K/V.  Each stacked leaf
+    is split once (:func:`unstack`) and each layer runs under
+    ``cfg.remat`` (:func:`_maybe_remat`)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    dev = x.device
+    positions = torch.arange(S, device=dev).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    fam = cfg.family
+
+    if fam in ("decoder", "moe"):
+        def block(lp, x, window, moe_layer):
+            x, _, a = decoder_block(cfg, lp, x, positions, window=window,
+                                    moe_layer=moe_layer)
+            return x, a
+        run = _maybe_remat(cfg, block)
+        if fam == "moe":
+            x, _ = run(unstack(params["dense0"], 1)[0], x, 0, False)
+        n = cfg.n_layers - (1 if fam == "moe" else 0)
+        for i, lp in enumerate(unstack(params["blocks"], n)):
+            x, a = run(lp, x, layer_window(cfg, i), fam == "moe")
+            if a is not None:
+                aux = aux + a
+
+    elif fam == "rwkv":
+        def block(lp, x):
+            zero = {"wkv": torch.zeros((B, cfg.n_heads, cfg.d_head,
+                                        cfg.d_head), dtype=torch.float32,
+                                       device=dev),
+                    "shift1": torch.zeros((B, cfg.d_model), dtype=x.dtype,
+                                          device=dev),
+                    "shift2": torch.zeros((B, cfg.d_model), dtype=x.dtype,
+                                          device=dev)}
+            return rwkv_block(cfg, lp, x, zero)[0]
+        run = _maybe_remat(cfg, block)
+        for lp in unstack(params["blocks"], cfg.n_layers):
+            x = run(lp, x)
+
+    elif fam == "hybrid":
+        def block(lp, x, window):
+            fresh = {"conv": torch.zeros((B, cfg.conv_k - 1, cfg.inner),
+                                         dtype=x.dtype, device=dev),
+                     "ssm": torch.zeros((B, cfg.inner, cfg.ssm_state),
+                                        dtype=torch.float32, device=dev)}
+            return hymba_block(cfg, lp, x, positions, fresh,
+                               window=window)[0]
+        run = _maybe_remat(cfg, block)
+        for i, lp in enumerate(unstack(params["blocks"], cfg.n_layers)):
+            x = run(lp, x, layer_window(cfg, i))
+
+    elif fam == "vlm":
+        vis = batch["vision_embed"].to(x.dtype)
+        shape = (B, vis.shape[1], cfg.n_kv_heads, cfg.d_head)
+
+        def self_block(lp, x):
+            return decoder_block(cfg, lp, x, positions)[0]
+
+        def cross(lp, x, vis):
+            xa = lp["xattn"]
+            kv = (_proj(vis, xa["wk"]).reshape(shape),
+                  _proj(vis, xa["wv"]).reshape(shape))
+            return cross_block(cfg, lp, x, positions, kv)[0]
+        run_self, run_cross = _maybe_remat(cfg, self_block), \
+            _maybe_remat(cfg, cross)
+        k = cfg.cross_every
+        selfs = unstack(params["blocks"], cfg.n_layers - cfg.n_cross)
+        for g, lp in enumerate(unstack(params["cross_blocks"], cfg.n_cross)):
+            for j in range(k - 1):
+                x = run_self(selfs[g * (k - 1) + j], x)
+            x = run_cross(lp, x, vis)
+
+    elif fam == "encdec":
+        enc = batch["enc_embed"].to(x.dtype)
+        T = enc.shape[1]
+        t = torch.arange(T, device=dev)
+        enc = enc + sinusoidal(t, cfg.d_model).to(enc.dtype)
+        enc_pos = t.expand(B, T)
+        shape = (B, T, cfg.n_kv_heads, cfg.d_head)
+
+        def enc_block(lp, h):
+            return decoder_block(cfg, lp, h, enc_pos, causal=False)[0]
+
+        def dec_block(lp, x, enc):
+            xa = lp["xattn"]
+            kv = (_proj(enc, xa["wk"]).reshape(shape),
+                  _proj(enc, xa["wv"], xa.get("bv")).reshape(shape))
+            return cross_block(cfg, lp, x, positions, kv)[0]
+        run_enc, run_dec = _maybe_remat(cfg, enc_block), \
+            _maybe_remat(cfg, dec_block)
+        for lp in unstack(params["enc_blocks"], cfg.enc_layers):
+            enc = run_enc(lp, enc)
+        enc = _norm_apply(cfg, params["enc_norm"], enc)
+        for lp in unstack(params["dec_blocks"], cfg.n_layers):
+            x = run_dec(lp, x, enc)
+
+    x = _norm_apply(cfg, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    loss, n_tok = chunked_xent(cfg, x, head, batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux, "tokens": n_tok}
+
+
+class _MetaGenerator:
+    """What :func:`init` reads of a generator when it only shapes the
+    parameters: a device."""
+    device = torch.device("meta")
+
+
+def count_params(cfg: LMConfig) -> int:
+    """The parameters :func:`init` draws for ``cfg``, counted on the meta
+    device (no memory)."""
+    total = 0
+
+    def walk(t):
+        nonlocal total
+        for v in t.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                total += v.numel()
+    walk(init(cfg, _MetaGenerator()))
+    return total
+
+
+def active_params(cfg: LMConfig) -> int:
+    """Parameters a token runs through: for the moe family the shared
+    experts and ``top_k`` of the routed ones, as the reference counts
+    them."""
+    total = count_params(cfg)
+    m = cfg.moe
+    if m is None:
+        return total
+    routed = (cfg.n_layers - 1) * m.n_experts * 3 * cfg.d_model * m.d_expert
+    return total - routed + routed * m.top_k // m.n_experts

@@ -2,9 +2,11 @@
 length per lane) and paged single-token decode, flat or cascaded over
 shared prefixes.
 
-``attend_chunked`` is the reference's flash-style prefill (float32 online
-softmax, forward only) through the ``flash_attention`` kernel, or its plain
-version on CPU tensors.
+``attend_chunked`` is the reference's flash-style prefill and training
+attention (float32 online softmax) through the ``flash_attention`` kernel,
+or its plain version on CPU tensors; when an input requires grad it runs
+as :class:`FlashAttention`, whose backward is the reference's FA2 backward
+(``flash_attention_bwd``).
 ``attend_decode_paged`` reads K/V through a block table: its ``"plain"``
 backend gathers each lane's chain and applies the masked softmax (the
 reference's ``"xla"`` body); its ``"cuda"`` backend calls the
@@ -33,10 +35,48 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference.  ``window`` > 0 masks keys more than ``window - 1`` positions
     behind the query; ``q_offset`` is the absolute position of q[:, 0].
     CUDA tensors run the ``flash_attention`` kernel (its own tiles); CPU
-    tensors run its plain version in ``q_chunk`` x ``kv_chunk`` chunks."""
+    tensors run its plain version in ``q_chunk`` x ``kv_chunk`` chunks.
+
+    When grad is enabled and q, k or v requires it, the call goes through
+    :class:`FlashAttention` (the same forward, which also keeps the rows'
+    log-sum-exp); otherwise it is the plain forward call, so serving and
+    captured steps are unchanged."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    q_chunk, kv_chunk)
     return flash_kernels.flash_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``attend_chunked`` with a gradient: the reference's ``_flash``
+    custom VJP.  The forward runs ``flash_attention`` with
+    ``return_lse`` and saves (q, k, v, out, lse); the backward runs
+    ``flash_attention_bwd`` (the kernel on CUDA tensors, its plain version
+    on CPU tensors), which recomputes the probabilities from (q, k, lse)
+    instead of storing them.  dk and dv of GQA sum each group's query
+    heads.  Causal, windowed, offset and non-causal (cross-attention over
+    a fixed key range) calls are covered alike; the reference's sliding
+    layers (``_sliding``) compute the same function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+        out, lse = flash_kernels.flash_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_kernels.flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,

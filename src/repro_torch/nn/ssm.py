@@ -178,9 +178,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     for c0 in range(0, S, chunk):
         xc, dtc, bc, cc = (t[:, c0:c0 + chunk].to(f32)
                            for t in (x, dt, Bm, Cm))
-        e = xc.new_empty((2,) + dtc.shape + (N,))         # (a, u) stacked
-        torch.exp(dtc[..., None] * A, out=e[0])            # (B, C, d, N)
-        torch.mul((dtc * xc)[..., None], bc[:, :, None, :], out=e[1])
+        e = torch.stack([torch.exp(dtc[..., None] * A),    # (a, u) stacked
+                         (dtc * xc)[..., None] * bc[:, :, None, :]])
         e = _scan(e)
         hs = e[0] * h[:, None] + e[1]
         ys.append(torch.einsum("bcdn,bcn->bcd", hs, cc) + D * xc)

@@ -221,9 +221,9 @@ def encode_cross(cfg: lm.LMConfig, params: dict, enc_embed: torch.Tensor
     enc = enc + lm.sinusoidal(t, cfg.d_model).to(enc.dtype)
     pos = t.expand(B, T)
     for i in range(cfg.enc_layers):
-        enc, _ = lm.decoder_block(cfg, lm.layer_params(params["enc_blocks"],
-                                                       i), enc, pos,
-                                  causal=False)
+        enc, _, _ = lm.decoder_block(
+            cfg, lm.layer_params(params["enc_blocks"], i), enc, pos,
+            causal=False)
     enc = lm._norm_apply(cfg, params["enc_norm"], enc)
     shape = (B, T, cfg.n_kv_heads, cfg.d_head)
     xk, xv = [], []
@@ -389,7 +389,7 @@ def _fold_step(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
                 (cache["xk"][cross], cache["xv"][cross]),
                 q_offset=q_offset, kv_prefix=prefix)
         else:
-            x, (k, v) = lm.decoder_block(
+            x, (k, v), _ = lm.decoder_block(
                 cfg, lp, x, positions, window=window, q_offset=q_offset,
                 kv_prefix=prefix, moe_layer=moe_layer,
                 moe_dropless=cfg.moe_dropless_prefill)

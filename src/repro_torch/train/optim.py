@@ -7,12 +7,20 @@ arithmetic is the reference's (``repro.train.optim``) in its float32 order:
 update, ``base - lr * update``, the global-norm clip on the gradients
 first.  ``torch.optim.AdamW`` divides by ``sqrt(v) / sqrt(bc2) + eps`` and
 decays the parameter on its own, so it rounds differently and is not used.
-Each step of that order is one ``torch._foreach_*`` call over all the
+Each step of that order is one ``torch._foreach_*`` call over a group of
 leaves (one rounding each, as separate operations; a few launches on the
 card rather than a dozen per leaf).
 
 Leaves are visited in sorted key order at every level, as ``jax.tree``
 orders a dict, so the clip's sum of squares adds them in the same order.
+
+:func:`apply_` updates the parameters, the master copy and the moments in
+place, a bounded group of leaf slices at a time, as the reference's jitted
+step does when it donates its inputs; :func:`apply` runs it on copies and
+keeps the old trees.  The train step updates in place: at stablelm-3b's
+2.8 B parameters one float32 copy of the model is 11.2 GB, and a second
+state or whole-model temporaries would not fit beside the first on an
+80 GB card.
 """
 from __future__ import annotations
 
@@ -77,40 +85,89 @@ def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
 
 def apply(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step.  Returns (new_params, new_state); nothing is updated
-    in place."""
+    in place: :func:`apply_` on copies of ``params`` and ``state``."""
+    def copy(tree):
+        return unflatten(tree, [t.clone(memory_format=torch.contiguous_format)
+                                for t in leaves(tree)])
+    return apply_(copy(params), grads, {k: copy(t) for k, t in state.items()},
+                  cfg)
+
+
+# elements updated at once by :func:`apply_` (256 MB in float32)
+APPLY_CHUNK = 1 << 26
+
+
+def _groups(views: list[list[torch.Tensor]]):
+    """Slices of the leaves' flat views (``views[i]`` holds leaf ``i``'s
+    parameter, gradient, moments...) gathered into groups of at most
+    :data:`APPLY_CHUNK` elements, in leaf order; each group is one list per
+    kind of tensor."""
+    group, size = [], 0
+    for vs in views:
+        for lo in range(0, vs[0].numel(), APPLY_CHUNK):
+            part = [t[lo:lo + APPLY_CHUNK] for t in vs]
+            if group and size + part[0].numel() > APPLY_CHUNK:
+                yield [list(col) for col in zip(*group)]
+                group, size = [], 0
+            group.append(part)
+            size += part[0].numel()
+    if group:
+        yield [list(col) for col in zip(*group)]
+
+
+def apply_(params, grads, state: dict, cfg: AdamWConfig):
+    """One AdamW step in place: ``params``, ``state["m"]``, ``state["v"]``,
+    ``state["master"]`` and ``state["step"]`` are updated and returned as
+    (params, state), and must be contiguous; ``grads`` are read, not
+    written.  Each step of the update is one ``torch._foreach_*`` call
+    over a group of leaf slices of at most :data:`APPLY_CHUNK` elements in
+    all, so its float32 temporaries are a few such groups, never the whole
+    model (the clip's sum of squares reads each gradient leaf whole, in
+    leaf order).  Float32 moments and master are updated where they lie;
+    a tensor of another dtype gets a float32 copy, written back rounded."""
     ps, gs = leaves(params), leaves(grads)
-    step = state["step"] + 1
+    kinds = [ps, gs, leaves(state["m"]), leaves(state["v"])]
+    if "master" in state:
+        kinds.append(leaves(state["master"]))
+    scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / (_global_norm(gs) + 1e-9),
                             max=1.0)
-        gs = [g * scale.to(g.dtype) for g in gs]
+    state["step"].add_(1)
     b1, b2 = cfg.b1, cfg.b2
-    stepf = step.to(torch.float32)
+    stepf = state["step"].to(torch.float32)
     bc1, bc2 = (1.0 - torch.pow(torch.full_like(stepf, b), stepf)
                 for b in (b1, b2))
     f32 = torch.float32
     mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
-    g32 = [g.to(f32) for g in gs]
-    bases = [t.to(f32) for t in
-             (leaves(state["master"]) if "master" in state else ps)]
-    m_new = add(mul([m.to(f32) for m in leaves(state["m"])], b1),
-                mul(g32, 1 - b1))
-    v_new = add(mul([v.to(f32) for v in leaves(state["v"])], b2),
-                mul(mul(g32, g32), 1 - b2))
-    update = div(div(m_new, bc1),
-                 add(torch._foreach_sqrt(div(v_new, bc2)), cfg.eps))
-    if cfg.weight_decay > 0:
-        update = add(update, mul(bases, cfg.weight_decay))
-    masters = torch._foreach_sub(bases, mul(update, cfg.lr))
-    new_p = [t.to(p.dtype) for t, p in zip(masters, ps)]
-    new_m = [t.to(cfg.state_dtype) for t in m_new]
-    new_v = [t.to(cfg.state_dtype) for t in v_new]
-    new_state = {"step": step, "m": unflatten(params, new_m),
-                 "v": unflatten(params, new_v)}
-    if "master" in state:
-        new_state["master"] = unflatten(
-            params, [t.to(cfg.master_dtype) for t in masters])
-    return unflatten(params, new_p), new_state
+    # the gradient is read (any layout); the others are written through
+    views = [[t.reshape(-1) if j == 1 else t.view(-1)
+              for j, t in enumerate(leaf)] for leaf in zip(*kinds)]
+    for pc, gc, mc, vc, *mst in _groups(views):
+        if scale is not None:
+            gc = [g * scale.to(g.dtype) for g in gc]
+        g32 = [g.to(f32) for g in gc]
+        # ``to`` returns a float32 tensor itself, so these update in place
+        m32, v32 = [m.to(f32) for m in mc], [v.to(f32) for v in vc]
+        base = [t.to(f32) for t in (mst[0] if mst else pc)]
+        torch._foreach_mul_(m32, b1)
+        torch._foreach_add_(m32, mul(g32, 1 - b1))
+        torch._foreach_mul_(v32, b2)
+        torch._foreach_add_(v32, mul(mul(g32, g32), 1 - b2))
+        update = div(div(m32, bc1),
+                     add(torch._foreach_sqrt(div(v32, bc2)), cfg.eps))
+        if cfg.weight_decay > 0:
+            update = add(update, mul(base, cfg.weight_decay))
+        torch._foreach_sub_(base, mul(update, cfg.lr))
+        writes = [(mc, m32), (vc, v32), (pc, base)]
+        if mst:
+            writes.append((mst[0], base))
+        pairs = [(d, s) for dst, src in writes for d, s in zip(dst, src)
+                 if d is not s]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs],
+                                 [s for _, s in pairs])
+    return params, state
 
 
 def sgd(params, grads, lr: float):

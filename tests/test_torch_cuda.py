@@ -2060,3 +2060,142 @@ def test_prefill_role_step_launches_no_tick_graph(dev):
     assert gw.handoffs == 1
     assert pre.adapter._decode._cache_size() == 0
     assert dec.adapter._decode._cache_size() == 1
+
+
+# -- training: the flash attention backward and the train step ---------------
+
+def _bwd_inputs(dev, dtype, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset,
+                seed):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, D), generator=gen).to(dtype).to(dev)
+    k = torch.randn((B, Sk, Hkv, D), generator=gen).to(dtype).to(dev)
+    v = torch.randn((B, Sk, Hkv, D), generator=gen).to(dtype).to(dev)
+    dout = torch.randn((B, Sq, Hq, D), generator=gen).to(dtype).to(dev)
+    out, lse = flash_kernel.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        return_lse=True)
+    return q, k, v, out, dout, lse
+
+
+BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset
+    (2, 200, 200, 4, 4, 80, True, 0, 0),
+    (1, 130, 130, 8, 2, 128, True, 0, 0),
+    (1, 96, 96, 6, 2, 64, True, 24, 0),
+    (2, 16, 80, 4, 4, 40, True, 0, 64),
+    (1, 70, 300, 4, 4, 64, False, 0, 0),
+    (1, 33, 33, 12, 1, 128, True, 0, 0)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_against_plain(dev, case, dtype):
+    """The backward kernel against its plain version on the same CUDA
+    tensors (float32 within 2e-5, bf16 within 1e-2 of each gradient's max
+    |value|), a second call bit for bit, one launch a call; the forward's
+    lse within 2e-5 of the plain forward's, its output bitwise the call
+    without lse."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset = case
+    q, k, v, out, dout, lse = _bwd_inputs(dev, dtype, *case, seed=Sq + Sk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert torch.equal(out, flash_kernel.flash_attention(q, k, v, **kw))
+    _, plain_lse = ref.flash_attention_chunked(
+        q, k, v, causal, window, q_offset, return_lse=True)
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-5, atol=2e-5)
+    before = flash_kernel.flash_attention_bwd.launches
+    got = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert flash_kernel.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_chunked(q, k, v, out, dout, lse, causal,
+                                           window, q_offset)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+    again = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_in_split_combine(monkeypatch, dev, dtype):
+    """A fold chunk split one tile per CTA writes its lse in the combine:
+    within 2e-5 of the plain forward's, and the output bitwise the call
+    without lse."""
+    monkeypatch.setattr(flash_kernel, "MIN_CTAS", 1 << 30)
+    q, k, v, out, dout, lse = _bwd_inputs(dev, dtype, 1, 16, 400, 4, 4, 80,
+                                          True, 0, 384, seed=9)
+    assert flash_kernel.flash_split_plan(1, 16, 400, 4, 384, 0)[0] > 1
+    assert torch.equal(out, flash_kernel.flash_attention(q, k, v,
+                                                         q_offset=384))
+    _, plain_lse = ref.flash_attention_chunked(q, k, v, True, 0, 384,
+                                               return_lse=True)
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_attend_chunked_grad_runs_the_kernels(dev):
+    """``attend_chunked`` with grad: forward and backward kernels once
+    each, gradients equal to the backward wrapper's; without grad the
+    call is the plain forward, bit for bit."""
+    q, k, v, out, dout, lse = _bwd_inputs(dev, torch.bfloat16, 1, 64, 64, 4,
+                                          2, 64, True, 0, 0, seed=3)
+    with torch.no_grad():
+        assert torch.equal(attention.attend_chunked(q, k, v), out)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = kernels.read_counts()
+    o = attention.attend_chunked(*leaves)
+    grads = torch.autograd.grad(o, leaves, dout)
+    after = kernels.read_counts()
+    assert after["flash_attention"] == counts["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == counts["flash_attention_bwd"] + 1
+    assert torch.equal(o.detach(), out)
+    want = flash_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One float32 ``make_train_step`` step of the smoke model (TF32 off)
+    on the card against the CPU: loss within 1e-5 relative, parameters
+    within the reference's own 2e-3 / 2e-5; the flash kernels launched
+    forward (with its remat recompute) and backward once per layer."""
+    from repro_torch.data.tokens import batch_at
+    from repro_torch.train import optim
+    from repro_torch.train.step import TrainConfig, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.smoke_config("stablelm-3b"),
+                              param_dtype="float32", remat="full")
+    tcfg = TrainConfig()
+    sides = {}
+    for d in (torch.device("cpu"), dev):
+        params = lm.init(cfg, torch.Generator().manual_seed(0))
+        params = optim.unflatten(params, [p.to(d) for p in
+                                          optim.leaves(params)])
+        opt = optim.init(params, tcfg.adamw)
+        batch = {k: torch.from_numpy(v).to(d)
+                 for k, v in batch_at(0, 0, 2, 64, cfg.vocab).items()}
+        counts = kernels.read_counts()
+        params, opt, m = make_train_step(cfg, tcfg)(params, opt, batch)
+        after = kernels.read_counts()
+        sides[d.type] = (params, m, {n: after[n] - counts[n]
+                                     for n in ("flash_attention",
+                                               "flash_attention_bwd")})
+    (pc, mc, _), (pg, mg, launches) = sides["cpu"], sides["cuda"]
+    assert launches == {"flash_attention": 2 * cfg.n_layers,
+                        "flash_attention_bwd": cfg.n_layers}
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        1e-5 * abs(float(mc["loss"]))
+    for a, b in zip(optim.leaves(pg), optim.leaves(pc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-5)
+
+
+def test_flash_attention_bwd_kernel_refuses_bad_inputs(dev):
+    q, k, v, out, dout, lse = _bwd_inputs(dev, torch.float32, 1, 16, 16, 2,
+                                          2, 64, True, 0, 0, seed=1)
+    bwd = flash_kernel.flash_attention_bwd
+    with pytest.raises(ValueError):               # lse of the wrong shape
+        bwd(q, k, v, out, dout, lse[:, :8].contiguous())
+    with pytest.raises(ValueError):               # dout of the wrong shape
+        bwd(q, k, v, out, dout[:, :8].contiguous(), lse)
+    with pytest.raises(TypeError):                # dout in another dtype
+        bwd(q, k, v, out, dout.bfloat16(), lse)
+    with pytest.raises(ValueError):               # not contiguous
+        bwd(q, k, v, out, dout.transpose(1, 2).contiguous().transpose(1, 2),
+            lse)

@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "examples" / "near_sensor_lenet_torch.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "near_sensor_lenet_torch.py",
+     ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -53,6 +54,10 @@ def test_files_found():
     assert "src/repro_torch/core/hybrid.py" in rel
     assert "src/repro_torch/core/bipolar.py" in rel
     assert "examples/near_sensor_lenet_torch.py" in rel
+    assert "examples/train_lm_torch.py" in rel
+    for module in ("data/tokens.py", "dist/compress.py", "train/step.py",
+                   "ckpt/manager.py", "launch/train.py"):
+        assert f"src/repro_torch/{module}" in rel
 
 
 def test_gateway_import_leaves_jax_unloaded():
@@ -61,7 +66,10 @@ def test_gateway_import_leaves_jax_unloaded():
             "repro_torch.serve.spec, repro_torch.serve.kvcache.paged, "
             "repro_torch.configs.stablelm_3b, repro_torch.serve.capture, "
             "repro_torch.serve.obs.recompile, repro_torch.core.hybrid, "
-            "repro_torch.core.bipolar, repro_torch.train.optim\n"
+            "repro_torch.core.bipolar, repro_torch.train.optim, "
+            "repro_torch.train.step, repro_torch.ckpt.manager, "
+            "repro_torch.data.tokens, repro_torch.dist.compress, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "assert not bad, bad\n")
