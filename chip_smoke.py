@@ -7163,6 +7163,9 @@ BWD_SHAPES = {
 # (a)'s bound on each gradient's max |error| against the plain version, as a
 # share of its max |value|
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# the kernels of csrc/flash_attn_bwd.cu, as the profiler names them
+BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+                    "dkdv_f32_kernel", "dq_f32_kernel", "sum_splits_kernel")
 
 
 def bwd_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
@@ -7181,9 +7184,14 @@ def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
     kernel's ms beside its bound (each input read once and each output
     written once over 3.35 TB/s, against the backward's five products, 10
     x D operations per kept (query, key) pair and head, over the bf16
-    peak), the plain version's ms and, as the library time, one forward
+    peak), its device µs by kernel (``torch.profiler``), the plain
+    version's ms and, as the library time, one forward
     and backward of ``F.scaled_dot_product_attention`` on the same problem
-    (no PyTorch call computes the backward alone).  Prints the
+    (no PyTorch call computes the backward alone).  Each shape's row also
+    gives the head split plan (``bwd_head_split_plan``), each device
+    launch's CTAs and the launches a call; the line gives the ``ptxas``
+    registers and spills of every backward kernel, and the phase fails if
+    a bf16 tile kernel spills at D = 64, 80 or 128.  Prints the
     ``bwd_kernel_checks`` line and returns ({"flash_attention_bwd": max abs
     error}, the timing rows); raises SystemExit on a failed check."""
     import torch
@@ -7195,6 +7203,10 @@ def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
     sw = Stopwatch()
     checks, timing, err = [], {}, 0.0
     for label, (B, Sq, Sk, Hq, Hkv, D, causal, window) in BWD_SHAPES.items():
+        splits, run = flash_k.bwd_head_split_plan(B, Sk, Hkv, Hq // Hkv)
+        plan = {"splits": splits, "heads_per_split": run,
+                "ctas": bwd_ctas(B, Sq, Sk, Hq, Hkv, D, splits),
+                "launches_per_call": 3 + (splits > 1)}
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device=dev).manual_seed(Sq * Hq + D)
             q, dout = (torch.randn((B, Sq, Hq, D), generator=gen,
@@ -7228,6 +7240,8 @@ def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
                 continue
             ms = time_ms(lambda: flash_k.flash_attention_bwd(
                 q, k, v, out, dout, lse, **kw), 3, 5, sleep, b2b=False)[0]
+            by_kernel = device_us(lambda: flash_k.flash_attention_bwd(
+                q, k, v, out, dout, lse, **kw), 10)
             plain = time_ms(lambda: ref.flash_attention_bwd_chunked(
                 q, k, v, out, dout, lse, causal, window), 2, 1, sleep,
                 b2b=False)[0]
@@ -7259,7 +7273,8 @@ def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
                               + (" with a boolean window mask"
                                  if window else ""),
                    "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
-                   "ops_ms": ops / BF16_FLOPS * 1e3}
+                   "ops_ms": ops / BF16_FLOPS * 1e3,
+                   "device_us_by_kernel": by_kernel, **plan}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] \
                 else "operations"
@@ -7269,13 +7284,48 @@ def bwd_kernel_checks(dev, sleep: int) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         sw.lap(label)
     bad = [c for c in checks if not c["ok"]]
+    spills = bwd_mma_spills()
     emit({"phase": "bwd_kernel_checks", "checks": len(checks), "failed": bad,
           "max_abs_err": err, "results": checks, "timing": timing,
-          "ptxas": ptxas_of("flash_attn_bwd", "_kernel"), **sw.fields()})
+          "ptxas": {name: ptxas_of("flash_attn_bwd", name)
+                    for name in BWD_KERNEL_NAMES},
+          "mma_spill_store_bytes": spills, **sw.fields()})
     if bad:
         raise SystemExit(f"flash_attention_bwd disagrees with its plain "
                          f"version: {bad}")
+    if any(v != 0 for v in spills.values()):
+        raise SystemExit(f"a bf16 backward tile kernel spills: {spills}")
     return {"flash_attention_bwd": err}, timing
+
+
+def bwd_ctas(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+             splits: int) -> dict:
+    """CTAs of each device launch of one ``flash_attention_bwd`` call
+    (``csrc/flash_attn_bwd.cu``'s grids): delta, one warp a row; dK/dV,
+    one per (key tile, KV head, batch row, split); dQ, one per (query tile,
+    head, batch row); the split sum, 256 threads of four elements over dk
+    and dv."""
+    from repro_torch.kernels.flash_attn import TILE_K as tile
+    out = {"delta": -(-B * Sq * Hq // 8),
+           "dkdv": -(-Sk // tile) * Hkv * B * splits,
+           "dq": -(-Sq // tile) * Hq * B}
+    if splits > 1:
+        out["sum_splits"] = 2 * -(-B * Sk * Hkv * D // 4 // 256)
+    return out
+
+
+def bwd_mma_spills() -> dict:
+    """Spill-store bytes of the bf16 backward tile kernels at D = 64, 80
+    and 128 (``KS`` = 4, 5, 8), from their ``ptxas`` lines; None where no
+    line was found."""
+    out = {}
+    for name in ("dkdv_mma", "dq_mma"):
+        for ks in (4, 5, 8):
+            found = [int(n) for ln in ptxas_of("flash_attn_bwd", name,
+                                                 f"ILi{ks}E")
+                     for n in re.findall(r"(\d+) bytes spill stores", ln)]
+            out[f"{name}<{ks}>"] = max(found) if found else None
+    return out
 
 
 def train_batches(cfg, n: int, start: int = 0) -> list:
@@ -7314,8 +7364,9 @@ def train_run(dev, cfg, params, opt, batches, tcfg) -> dict:
 
 
 def step_profile(dev, cfg, params, opt, batches, tcfg) -> dict:
-    """``torch.profiler`` over steps on ``batches``: device busy ms per step
-    and the kernels that take the most device time."""
+    """``torch.profiler`` over steps on ``batches``: device busy ms per step,
+    the kernels that take the most device time, and the device ms of
+    ``flash_attention_bwd``'s kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -7329,7 +7380,10 @@ def step_profile(dev, cfg, params, opt, batches, tcfg) -> dict:
     dev_us = kernel_us(prof, len(batches))
     return {"device_busy_ms_per_step": sum(dev_us.values()) / 1e3
             if dev_us else None,
-            "top_device_ms_per_step": top_ms(dev_us, 8)}
+            "top_device_ms_per_step": top_ms(dev_us, 8),
+            "flash_bwd_device_ms_per_step": top_ms(
+                {k: v for k, v in dev_us.items() if any(
+                    n in k for n in BWD_KERNEL_NAMES)}, 8)}
 
 
 def plain_flash():
@@ -7471,6 +7525,8 @@ def train_main_path(dev, sleep: int) -> dict:
              "device_idle_share": max(0.0, 1 - busy / steady)
              if busy else None,
              "top_device_ms_per_step": prof["top_device_ms_per_step"],
+             "flash_bwd_device_ms_per_step":
+                 prof["flash_bwd_device_ms_per_step"],
              "peak_memory_allocated_bytes": peak,
              "launches": got, "attn_grad_max_by_layer": attn_grad_max}
     launches = dict(got)
@@ -7695,9 +7751,11 @@ def main() -> int:
     # the redesigned attention kernels' instructions: tensor-core products
     # (HMMA), asynchronous copies (LDGSTS, cp.async) and ldmatrix (LDSM)
     sass = {name: sass_counts(name, ("HMMA", "LDGSTS", "LDSM"))
-            for name in ("flash_attn", "paged_attn", "cascade_attn")}
+            for name in ("flash_attn", "flash_attn_bwd", "paged_attn",
+                         "cascade_attn")}
     emit({"sass": sass})
     if not (sass["flash_attn"]["HMMA"] and sass["flash_attn"]["LDGSTS"]
+            and all(sass["flash_attn_bwd"].values())
             and sass["paged_attn"]["LDGSTS"]
             and sass["cascade_attn"]["LDGSTS"]):
         raise SystemExit(f"the attention kernels lack tensor-core or "

@@ -1,7 +1,8 @@
-// Helpers shared by csrc/paged_attn.cu, csrc/cascade_attn.cu and
-// csrc/flash_attn.cu: dtype conversions, warp reductions, cp.async, the
-// two-state merge, and the combine kernel that merges float32 partial
-// softmax states.
+// Helpers shared by csrc/paged_attn.cu, csrc/cascade_attn.cu,
+// csrc/flash_attn.cu and csrc/flash_attn_bwd.cu: dtype conversions, warp
+// reductions, cp.async, the bf16 tensor-core building blocks (ldmatrix,
+// mma.sync), the two-state merge, and the combine kernel that merges
+// float32 partial softmax states.
 //
 // merge_two
 //   The cascade's log-sum-exp merge of two states over disjoint key sets,
@@ -101,6 +102,44 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// The bf16 tensor-core building blocks of csrc/flash_attn.cu and
+// csrc/flash_attn_bwd.cu: ldmatrix of four 8 x 8 b16 tiles (plain and
+// transposed), mma.sync m16n8k16 and a pair of floats packed to bf16.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Row stride, in bf16 elements, of a tile whose rows hold KS x 16 columns:
+// an odd number of 16-byte units, so ldmatrix's eight row addresses fall
+// in distinct banks.
+__host__ __device__ constexpr int mma_ld(int KS) { return KS * 16 + 8; }
 
 // The cascade's two-state merge, normalized (see the top of the file).
 __device__ __forceinline__ float merge_two(float m1, float l1, float a1,

@@ -77,6 +77,11 @@ namespace {
 
 using attn::from_f32;
 using attn::kNegInf;
+using attn::ldsm_x4;
+using attn::ldsm_x4_trans;
+using attn::mma_bf16;
+using attn::mma_ld;
+using attn::pack_bf16;
 using attn::to_f32;
 using bf16 = __nv_bfloat16;
 
@@ -301,40 +306,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: tensor cores (mma.sync m16n8k16), cp.async ring
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Shared memory: rows of ld(KS) bf16 elements: the Q tile [BQ], then the
-// ring, 2 stages x (K [kBK], V [kBK]).
-__host__ __device__ constexpr int mma_ld(int KS) { return KS * 16 + 8; }
+// Shared memory: rows of mma_ld(KS) bf16 elements: the Q tile [BQ], then
+// the ring, 2 stages x (K [kBK], V [kBK]).
 size_t mma_smem_bytes(int BQ, int KS) {
   return sizeof(bf16) * (size_t)(BQ + 4 * kBK) * mma_ld(KS);
 }

@@ -21,10 +21,14 @@ normalizes.  See the source for the design.
 
 The forward also writes each row's float32 log-sum-exp where asked
 (``return_lse``), which :func:`flash_attention_bwd` reads: the reference's
-FA2 backward (``repro/nn/attention.py`` ``_flash_bwd``) as three launches,
-a ``delta = rowsum(dout * out)`` pass, a dK/dV kernel over key tiles and a
-dQ kernel over query tiles, each recomputing its score tiles (see the
-source).
+FA2 backward (``repro/nn/attention.py`` ``_flash_bwd``) as a ``delta =
+rowsum(dout * out)`` pass, a dK/dV kernel over key tiles and a dQ kernel
+over query tiles, each recomputing its score tiles, in bfloat16 on the
+tensor cores (``mma.sync``, ``cp.async`` rings) and in float32 on FMAs.
+Under GQA a small dK/dV grid splits each group's query heads into runs,
+one per CTA (:func:`bwd_head_split_plan`, a function of the shapes alone);
+each CTA writes float32 partials and a fourth launch sums them in split
+order (see the source).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version :func:`repro_torch.kernels.ref.flash_attention_chunked` (forward)
@@ -71,6 +75,23 @@ def flash_split_plan(B: int, Sq: int, Sk: int, Hq: int, q_offset: int,
     want = -(-MIN_CTAS // ctas) if ctas < MIN_CTAS else 1
     tiles_per_split = -(-n_tiles // min(want, n_tiles))
     return -(-n_tiles // tiles_per_split), k_lo, tiles_per_split * TILE_K
+
+
+def bwd_head_split_plan(B: int, Sk: int, Hkv: int, n_rep: int
+                        ) -> tuple[int, int]:
+    """(splits, run) of ``flash_attention_bwd``'s dK/dV launch: each
+    group's ``n_rep`` query heads cut into ``splits`` runs of ``run`` whole
+    heads, split s covering heads ``[s * run, min(n_rep, (s + 1) * run))``
+    of the group, none empty; together they cover the group once, in
+    order.  The heads are split only when the unsplit grid (key tiles of
+    ``TILE_K`` x Hkv x B CTAs) is under ``MIN_CTAS``, until the grid
+    reaches it or every head has a CTA of its own.  A function of the
+    shapes alone."""
+    ctas = -(-Sk // TILE_K) * Hkv * B
+    if ctas >= MIN_CTAS or n_rep <= 1:
+        return 1, n_rep
+    run = max(1, n_rep // -(-MIN_CTAS // ctas))
+    return -(-n_rep // run), run
 
 
 def _checks(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -179,10 +200,10 @@ flash_attention.launches = 0
 def _bwd_lib():
     lib = build.load("flash_attn_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_bwd_launch.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float] \
-        + [i, p]
+    lib.flash_bwd_launch.argtypes = [p] * 11 + [i] * 9 + [ctypes.c_float] \
+        + [i] * 3 + [p]
     lib.flash_bwd_launch.restype = i
-    lib.flash_bwd_smem_bytes.argtypes = [i]
+    lib.flash_bwd_smem_bytes.argtypes = [i, i]
     lib.flash_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -198,9 +219,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32 or bfloat16), lse (B, Sq, Hq) float32 from the forward
     (``return_lse``), and the forward's ``causal``, ``window`` and
     ``q_offset``.  Returns dq in q's layout and dk, dv in k's, in the
-    inputs' dtype: the kernel on CUDA tensors (its own tiles), the plain
-    version :func:`repro_torch.kernels.ref.flash_attention_bwd_chunked` in
-    ``q_chunk`` x ``kv_chunk`` chunks on CPU tensors."""
+    inputs' dtype: the kernel on CUDA tensors (its own tiles and
+    :func:`bwd_head_split_plan`), the plain version
+    :func:`repro_torch.kernels.ref.flash_attention_bwd_chunked` in
+    ``q_chunk`` x ``kv_chunk`` chunks on CPU tensors.  ``launches`` counts
+    calls, whatever the plan: three device launches a call, four when
+    the heads are split."""
     if not q.is_cuda:
         return ref.flash_attention_bwd_chunked(q, k, v, out, dout, lse,
                                                causal, window, q_offset,
@@ -209,8 +233,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev, dt = q.device, q.dtype
     B, Sq, Hq, D, Sk, Hkv, win = _checks(
         name, q, k, v, window, q_offset,
-        lambda Sq, D: _bwd_lib().flash_bwd_smem_bytes(D), out=out,
-        dout=dout)
+        lambda Sq, D: _bwd_lib().flash_bwd_smem_bytes(D, DTYPES[dt]),
+        out=out, dout=dout)
     if lse.shape != (B, Sq, Hq):
         raise ValueError(f"{name}: lse {tuple(lse.shape)}, expected "
                          f"{(B, Sq, Hq)}")
@@ -220,12 +244,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if -(-Sk // TILE_K) > 65535 or -(-Sq // TILE_K) > 65535:
+        raise ValueError(f"{name}: too large for one launch")
     delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
+    splits, run = bwd_head_split_plan(B, Sk, Hkv, Hq // Hkv)
+    # float32 partial dk and dv of each split, summed by a second launch
+    part = torch.empty((2, splits) + k.shape, dtype=torch.float32,
+                       device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         err = _bwd_lib().flash_bwd_launch(
-            *_ptrs(q, k, v, out, dout, lse, delta, dq, dk, dv), B, Sq, Sk,
-            Hq, Hkv, D, q_offset, win, int(causal), D ** -0.5, DTYPES[dt],
-            torch.cuda.current_stream().cuda_stream)
+            *_ptrs(q, k, v, out, dout, lse, delta, dq, dk, dv, part), B, Sq,
+            Sk, Hq, Hkv, D, q_offset, win, int(causal), D ** -0.5,
+            DTYPES[dt], splits, run, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -2083,7 +2083,11 @@ BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset
     (1, 96, 96, 6, 2, 64, True, 24, 0),
     (2, 16, 80, 4, 4, 40, True, 0, 64),
     (1, 70, 300, 4, 4, 64, False, 0, 0),
-    (1, 33, 33, 12, 1, 128, True, 0, 0)]
+    (1, 33, 33, 12, 1, 128, True, 0, 0),
+    # GQA 8:1 x 128, its heads split (bwd_head_split_plan: 8 runs of 1)
+    (1, 256, 256, 16, 2, 128, True, 0, 0),
+    # split (4 runs of 1), a ragged last key tile, non-causal
+    (1, 64, 1500, 8, 2, 64, False, 0, 0)]
 
 
 @pytest.mark.parametrize("case", BWD_CASES)

@@ -3,8 +3,11 @@ plain version of the ``flash_attention_bwd`` kernel
 (``ref.flash_attention_bwd_chunked``, which CPU tensors run) against
 ``jax.vjp`` of the reference's ``attend_chunked`` (its FA2 custom VJP,
 ``_flash_bwd``) and ``attend_sliding`` (``_sliding_bwd``), float32 within
-1e-5 of each gradient's max |value|; the forward's log-sum-exp; and
-``attend_chunked`` without grad bit for bit the serving call."""
+1e-5 of each gradient's max |value|; the forward's log-sum-exp;
+``attend_chunked`` without grad bit for bit the serving call; and the
+kernel's head split plan (``bwd_head_split_plan``)."""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from repro.nn import attention as jattn
 from repro_torch.kernels import flash_attn as flash_kernels
 from repro_torch.kernels import ref
+from repro_torch.kernels.paged_attn import MIN_CTAS
 from repro_torch.nn import attention
 
 # one intra-op thread: the suite's worker processes share the CPU
@@ -159,3 +163,67 @@ def test_bf16_backward_rounds_ds_to_the_inputs_dtype():
         assert a.dtype == torch.bfloat16
         assert float((a.float() - b).abs().max()) <= \
             1e-2 * float(b.abs().max())
+
+
+# (B, Sk, Hkv, n_rep) over batch rows, key lengths (ragged last tiles
+# included), KV heads and group sizes
+PLAN_GRID = list(itertools.product((1, 2, 8), (1, 64, 130, 300, 1024, 1500,
+                                               2048, 8192),
+                                   (1, 2, 4, 5, 8, 32), (1, 2, 3, 5, 8, 12,
+                                                         16)))
+
+
+def _runs(B, Sk, Hkv, n_rep):
+    """The plan's runs of each group's heads, as the dK/dV kernel takes
+    them: split s covers ``[s * run, min(n_rep, (s + 1) * run))``."""
+    splits, run = flash_kernels.bwd_head_split_plan(B, Sk, Hkv, n_rep)
+    return splits, [range(s * run, min(n_rep, (s + 1) * run))
+                    for s in range(splits)]
+
+
+def _unsplit_ctas(B, Sk, Hkv):
+    return -(-Sk // flash_kernels.TILE_K) * Hkv * B
+
+
+def test_bwd_head_split_plan_covers_each_group_once_in_order():
+    for shape in PLAN_GRID:
+        splits, runs = _runs(*shape)
+        assert splits >= 1 and all(len(r) > 0 for r in runs), shape
+        assert [h for r in runs for h in r] == list(range(shape[3])), shape
+
+
+def test_bwd_head_split_plan_keeps_full_grids_whole():
+    """One split whenever the unsplit grid fills ``MIN_CTAS`` CTAs, and
+    for MHA: stablelm-3b's train step (8 x 256, 32 heads) is never
+    split."""
+    for B, Sk, Hkv, n_rep in PLAN_GRID:
+        if _unsplit_ctas(B, Sk, Hkv) >= MIN_CTAS or n_rep == 1:
+            assert _runs(B, Sk, Hkv, n_rep)[0] == 1, (B, Sk, Hkv, n_rep)
+    assert flash_kernels.bwd_head_split_plan(8, 256, 32, 1) == (1, 1)
+
+
+def test_bwd_head_split_plan_fills_the_card():
+    """A split grid reaches ``MIN_CTAS`` CTAs, or gives every head a CTA
+    of its own."""
+    for B, Sk, Hkv, n_rep in PLAN_GRID:
+        splits, _ = _runs(B, Sk, Hkv, n_rep)
+        if splits > 1:
+            assert (splits * _unsplit_ctas(B, Sk, Hkv) >= MIN_CTAS
+                    or splits == n_rep), (B, Sk, Hkv, n_rep)
+
+
+def test_bwd_head_split_plan_is_a_function_of_the_shapes():
+    """The same shapes give the same plan, whatever integer type carries
+    them; the plans of the card's backward shapes (``chip_smoke.py``
+    ``BWD_SHAPES`` and the split ``BWD_CASES`` of
+    ``tests/test_torch_cuda.py``)."""
+    for shape in PLAN_GRID[::7]:
+        plan = flash_kernels.bwd_head_split_plan(*shape)
+        assert flash_kernels.bwd_head_split_plan(
+            *(np.int64(x) for x in shape)) == plan
+        assert flash_kernels.bwd_head_split_plan(*shape) == plan
+    want = {(8, 256, 32, 1): (1, 1), (1, 1024, 8, 8): (4, 2),
+            (1, 1024, 4, 12): (6, 2), (1, 2048, 5, 5): (3, 2),
+            (1, 1500, 16, 1): (1, 1), (1, 256, 2, 8): (8, 1),
+            (1, 1500, 2, 4): (4, 1)}
+    assert {s: flash_kernels.bwd_head_split_plan(*s) for s in want} == want
