@@ -9,6 +9,10 @@
                                    # load (c)'s cascade tick profile and
                                    # row write, parent and this checkout
                                    # in turns (P C C P)
+    python3 chip_smoke.py --stride-compare <parent checkout>
+                                   # the paged sweeps' outputs bit for bit
+                                   # the parent's, and their timing (P C C
+                                   # P)
     python3 chip_smoke.py --table3-full
                                    # phase 9 on the reference's full
                                    # Table 3 protocol alone
@@ -22,6 +26,8 @@
     python3 chip_smoke.py --decoders
                                    # phase 17 alone
     python3 chip_smoke.py --shard  # phase 18 alone
+    python3 chip_smoke.py --model-axis
+                                   # phase 20 alone
     python3 chip_smoke.py --train  # phase 19 alone
 
 Phases, each printing one JSON line:
@@ -207,8 +213,8 @@ Phases, each printing one JSON line:
      the cold fold, and phase 8's captured ticks bit for bit their
      eager steps, one graph launch per tick, with the same helpers;
  12. the hybrid family (``hymba_main_path`` line): hymba-1.5b at its
-     published width cut to ``HYMBA_DEPTH`` = 12 of its 32 layers (layer
-     0 global, 1-11 sliding; d_model 1,600, 25 heads over 5 KV heads of
+     published width cut to ``HYMBA_DEPTH`` = 6 of its 32 layers (layer
+     0 global, 1-5 sliding; d_model 1,600, 25 heads over 5 KV heads of
      64, d_ff 5,504, SSM d_inner 3,200 and state 16, a window of 1,024,
      vocabulary 32,001;
      bf16, random weights drawn on the card after phase 11's are freed):
@@ -323,7 +329,8 @@ Phases, each printing one JSON line:
      16's weights are freed): the attention kernels at its heads, phase
      10's gateways (dense, paged ``"cuda"`` / ``"plain"`` / ``"gather"``;
      float32 at depth 4), load (c) admitted through the fold with the
-     cascade tick against the flat tick, the captured 8 x 1k ticks beside
+     cascade tick against the flat tick (at ``SC2_CASCADE_DEPTH`` = 10 of
+     the 40 layers), the captured 8 x 1k ticks beside
      a byte model; on the same weights the int8 layout (``kv_quant``): the
      kernel ticks refused, the dense and paged ``"plain"`` gateways
      against the gather oracle bit for bit and against the bf16 gateway
@@ -377,8 +384,35 @@ Phases, each printing one JSON line:
      at depth 2 through ``ckpt/manager.py``, losses and state bit for bit,
      the checkpoint's bytes and seconds.  ``python3 chip_smoke.py
      --train`` runs it alone.
+ 20. sharded serving's model axis (``model_axis_main_path`` line, run
+     right after phase 18 on its weights and its one-device runs of loads
+     (b) and (c)): slices of 2 and 4 devices, each ``cuda:0`` (the arena
+     split over a slice's devices, ``engine.arena_specs``).  (a)
+     stablelm-3b whole in bf16: model 2 on load (b) (the fold and the
+     ``"cuda"`` tick, every shard's attention its own launches) and load
+     (c) (the cascade tick), model 4 on load (c), each against the
+     one-device gateway under the near-tie rule; float32 at depth 4 both
+     widths on both loads against the one-device gateway of the same
+     spec: tokens equal, logits within ``MA_F32_TOL`` = 1e-5 and every
+     kernel's launches those of ``expected_launches`` (layers x shards a
+     tick or chunk, one row write a shard); (b) the split-KV fallback,
+     hymba-1.5b cut to ``MA_HYMBA_DEPTH`` = 4 layers at model 2 (5 KV
+     heads: each shard 8 rows of every 16-position block) on load (c)
+     through the ``"cuda"`` and cascade ticks and at model 4 through the
+     ``"cuda"`` tick (kernel 5 at the block stride per shard, then the
+     merge of two states or of four), the same float32 gates, and kernel
+     5 at its shape against its plain version (two and four shards, the
+     merges against the plain read of the whole arena), timed beside the
+     unsplit sweep and its bound; (c) a lane migrated mid-decode 1 -> 2 -> 1
+     devices against its stay-put run (float32, depth 4), the receipts'
+     bytes; (d) a prefill slice of two devices and two decode slices of
+     one on load (b) (bf16), the handoffs and the prefill shards' flash
+     launches; (e) per width 1, 2, 4 the captured 8 x 1k tick bit for bit
+     its eager step, its host ms captured and eager, device busy ms and
+     launches per tick.  ``python3 chip_smoke.py --model-axis`` runs it
+     alone.
 
-Phases 3–8 and 10–19 print their ``phase_s`` and a ``seconds`` breakdown
+Phases 3–8 and 10–20 print their ``phase_s`` and a ``seconds`` breakdown
 (phases 3 and 4 on the ``kernels_seconds`` and ``frame_path_seconds``
 lines).
 
@@ -3847,9 +3881,9 @@ HYMBA_HQ, HYMBA_HKV, HYMBA_D, HYMBA_WINDOW = 25, 5, 64, 1024
 HYMBA_CONTEXT = 1200
 # phase 12's captured-against-eager tick timings take this many runs a side
 HYMBA_HOST_RUNS = 3
-# phase 12's depth: layer 0 global and 11 sliding layers of the 32, at full
-# width (cut to give the script's time to phase 19)
-HYMBA_DEPTH = 12
+# phase 12's depth: layer 0 global and 5 sliding layers of the 32, at full
+# width (cut to give the script's time to phases 19 and 20)
+HYMBA_DEPTH = 6
 
 
 def hymba_main_path(dev, sleep: int) -> dict:
@@ -4971,6 +5005,9 @@ L405_HQ, L405_HKV, L405_D = 128, 8, 128
 CUT_F32_DEPTH = 2
 # phase 17's captured-against-eager tick timings take this many runs a side
 DECODER_HOST_RUNS = 2
+# starcoder2-15b's cascade path (load (c), cascade against flat) at this
+# depth of its 40 layers (cut to give the script's time to phase 20)
+SC2_CASCADE_DEPTH = 10
 # the reference's own bound for the int8 cache (tests/test_kvquant.py):
 # the first tick's max |dlogit| against the bf16 cache's, over its max
 # |logit|, and the same argmax
@@ -5324,8 +5361,9 @@ def decoders_main_path(dev, sleep: int) -> dict:
                                eager_profile=False)
     add(dense)
     sw.lap("dense_path")
-    add(cascade_main_path(dev, cfg, params, chunked=True, turns=False,
-                          host_runs=DECODER_HOST_RUNS, eager_profile=False))
+    add(cascade_main_path(dev, dataclasses.replace(
+        cfg, n_layers=SC2_CASCADE_DEPTH), params, chunked=True, turns=False,
+        host_runs=DECODER_HOST_RUNS, eager_profile=False))
     sw.lap("cascade_path")
     capture = capture_main_path(dev, cfg, params, runs=DECODER_HOST_RUNS,
                                 eager_profile=False)
@@ -5879,14 +5917,16 @@ SHARD_MIGRATE_BLOCKS = 80   # a migration check adapter's blocks (1.3 GB)
 SHARD_PATH = ("paged_decode_attention", "scatter_kv_rows", "flash_attention")
 
 
-def shard_spec(mesh=None, roles=None, chunked: bool = True, tracer=None):
-    """The ``ServeSpec`` of phase 18's gateways: phase 5's 8 lanes of
-    1,536 tokens in 16-token blocks, each slice (``mesh``) with its own
-    arena of the dense-equivalent ``num_blocks``."""
+def shard_spec(mesh=None, roles=None, chunked: bool = True, tracer=None,
+               backend: str | None = None):
+    """The ``ServeSpec`` of phases 18 and 20's gateways: phase 5's 8 lanes
+    of 1,536 tokens in 16-token blocks, each slice (``mesh``) with its own
+    arena of the dense-equivalent ``num_blocks``; ``backend`` None: the
+    device's flat tick."""
     from repro_torch.serve.spec import ServeSpec
     return ServeSpec(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
                      block_size=LM_BLOCK, chunked=chunked, mesh=mesh,
-                     roles=roles, tracer=tracer,
+                     roles=roles, tracer=tracer, backend=backend,
                      max_new_tokens=SHARD_NEW_TOKENS)
 
 
@@ -6054,13 +6094,16 @@ def shard_migration(dev, cfg, params, prompt) -> dict:
     return out
 
 
-def shard_main_path(dev, sleep: int, cfg=None, params=None) -> dict:
+def shard_main_path(dev, sleep: int, cfg=None, params=None,
+                    keep: dict | None = None) -> dict:
     """Phase 18: sharded and disaggregated serving at stablelm-3b's full
     width and depth (bf16; phase 5's weights, shared by every slice, or
     drawn the same way when run alone), ``SHARD_SLICES`` slices on the one
     card, each with its own arena (``shard_main_path`` line).  Returns the
     sharded runs' kernel launches (not the unsharded baselines'); raises
-    SystemExit on a failed check."""
+    SystemExit on a failed check.  ``keep``, where given, receives the
+    one-device runs of loads (b) and (c) (``flat_b``, ``flat_c``), phase
+    20's baselines."""
     import torch
 
     from repro_torch import configs
@@ -6235,7 +6278,473 @@ def shard_main_path(dev, sleep: int, cfg=None, params=None) -> dict:
           "failures": failures, **sw.fields()})
     if failures:
         raise SystemExit(f"phase 18: {failures}")
+    if keep is not None:
+        keep.update(flat_b=flat, flat_c=flat_c)
     return launches
+
+
+# -- sharded serving's model axis (phase 20) ----------------------------------
+
+MA_WIDTHS = (2, 4)          # devices a slice, every one cuda:0 on one H100
+MA_HYMBA_DEPTH = 4          # hymba-1.5b's layers 0-3 (0 global, 1-3 windowed)
+MA_F32_TOL = 1e-5           # the reference's model-axis logits bound
+MA_TIMING_RUNS = 2          # turns a side of the per-width tick timing
+# the kernels a model-axis run launches, its gates' keys
+MA_KEYS = ("paged_decode_attention", "scatter_kv_rows",
+           "paged_decode_attention_with_state", "cascade_prefix_attention",
+           "merge_attn_states", FUSED_MERGE, "flash_attention")
+# the cascade tick's kernels (load (c): every tick grouped)
+MA_CASCADE_PATH = ("cascade_prefix_attention",
+                   "paged_decode_attention_with_state", FUSED_MERGE,
+                   "scatter_kv_rows", "flash_attention")
+# kernel 5 at the split-KV fallback's shape: hymba-1.5b's 25 heads over 5 KV
+# heads of 64, 8 lanes of 1,100-1,200 positions in 16-position blocks, each
+# of two shards holding 8 rows of every block
+MA_STRIDE = dict(B=8, Hq=25, Hkv=5, D=64, bs=16, shards=2, lo=1100, hi=1200)
+
+
+def expected_launches(one: dict, m: int, fallback: bool) -> dict:
+    """The kernels' launches of a model-``m`` slice on the run whose
+    one-device launches are ``one`` (the same ticks and chunks: float32
+    runs, tokens equal).  A head split launches every kernel once per
+    shard where the one-device slice launched it once.  Under the split-KV
+    fallback each of the tick's sweeps (the flat kernel's, and the
+    cascade's suffix passes) becomes ``m`` sweeps of kernel 5 at the block
+    stride and one merge of their states (``merge_attn_states``, over
+    more than two ``merge_attn_states_n``, counted as its launches), no
+    prefix pass or fused merge runs, the row write launches once per
+    shard, and prompt attention as before (on the prefix gathered back in
+    position order)."""
+    if not fallback:
+        return {k: m * one.get(k, 0) for k in MA_KEYS}
+    sweeps = one.get("paged_decode_attention", 0) + \
+        one.get("paged_decode_attention_with_state", 0)
+    return {"paged_decode_attention": 0,
+            "scatter_kv_rows": m * one.get("scatter_kv_rows", 0),
+            "paged_decode_attention_with_state": m * sweeps,
+            "cascade_prefix_attention": 0,
+            "merge_attn_states": sweeps, FUSED_MERGE: 0,
+            "flash_attention": one.get("flash_attention", 0)}
+
+
+def ma_compare(name: str, one: dict, many: dict, m: int, strict: bool,
+               fallback: bool, failures: list, path: tuple = ()) -> dict:
+    """A model-``m`` run against a one-device run: with ``strict``
+    (float32, the same spec) tokens equal, logits within ``MA_F32_TOL``
+    and the launches :func:`expected_launches` exactly; in bf16 every
+    first difference a near tie and every kernel of ``path`` launched.
+    Appends to ``failures``; returns the run's row."""
+    d = shard_streams(one, many, "tokens" if strict else "near_tie")
+    want = expected_launches(one["launches"], m, fallback)
+    got = {k: many["launches"].get(k, 0) for k in MA_KEYS}
+    row = {"tokens_equal": d["tokens_equal"],
+           "max_abs_dlogit": d["max_abs_dlogit"],
+           "first_differences": d["first_differences"], "launches": got,
+           "launches_expected": want, "run_s": many["run_s"]}
+    ok = d["ok"] and many["finite"] and not many["dropped"]
+    if strict:
+        ok &= d["max_abs_dlogit"] <= MA_F32_TOL and got == want
+    else:
+        ok &= all(got[k] for k in path)
+    if not ok:
+        failures.append(f"{name}: {row}")
+    return row
+
+
+def arena_state(ad) -> dict:
+    """A paged adapter's arena and lane state as one dict of tensors (a
+    sharded slice's arena key by key and shard)."""
+    arena = {f"{key}.{d}": a for d, sh in enumerate(ad.shards)
+             for key, a in sh.arrays.items()}
+    return {**arena, **ad.state}
+
+
+def ma_tick_timing(dev, cfg, params, m: int, failures: list) -> dict:
+    """The 8 x 1k flat ``"cuda"`` tick of a slice of ``m`` devices (1: the
+    one-device gateway): eight 1,024-token prompts admitted one-shot, the
+    first tick captured, the next replayed against the eager step bit for
+    bit (every shard's arena), then host ms per tick captured and eager in
+    turns, with a profile of the captured tick (device busy ms, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.gateway.slots import Request
+    from repro_torch.serve.spec import ServeSpec, make_gateway
+
+    rng = np.random.default_rng(17)
+    spec = ServeSpec(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, paged=True,
+                     block_size=LM_BLOCK, chunked=False, backend="cuda",
+                     max_new_tokens=NEW_TOKENS_C,
+                     mesh=None if m == 1 else [[dev] * m])
+    gw = make_gateway(cfg, params, spec, device=dev)
+    part = gw.slices[0] if m > 1 else gw
+    ad, batcher = part.adapter if m > 1 else gw.batcher.adapter, \
+        part.batcher
+    for i in range(LM_SLOTS):
+        batcher.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, 1024).astype(np.int32),
+            max_new_tokens=NEW_TOKENS_C))
+    batcher.step()                  # admits all eight; the tick captures
+    tokens = batcher.last_token.copy()
+    active = np.asarray([r is not None for r in batcher.active])
+    state = arena_state(ad)
+    check = tick_replay_check(ad, tokens, active, state=state)
+    start = {key: a.clone() for key, a in state.items()}
+    timing = tick_timing(ad, tokens, active, runs=MA_TIMING_RUNS,
+                         eager_profile=False)
+    for key, a in state.items():
+        a.copy_(start[key])
+    prof = timing["profile"]["captured"]
+    if not (check["logits_bitwise"] and check["arena_bitwise"]
+            and check["launches_equal"] and check["logits_finite"]) or \
+            prof["graph_launches_per_tick"] != 1:
+        failures.append(f"(e) width {m}: the captured tick {check}, "
+                        f"{prof['graph_launches_per_tick']} graphs a tick")
+    out = {"host_ms": timing["host_ms"],
+           "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+           "device_idle_share": prof["device_idle_share"],
+           "paged_attn_ms_per_tick": prof["paged_attn_ms_per_tick"],
+           "launches_per_tick": check["launches"],
+           "host_launches_per_tick": prof["host_launches_per_tick"],
+           "graph_launches_per_tick": prof["graph_launches_per_tick"]}
+    del gw, part, ad, batcher, state, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def stride_kernel_checks(dev, gen, sleep: int) -> dict:
+    """Kernel 5 at the split-KV fallback's shape (``MA_STRIDE``): each
+    shard's sweep at ``block_stride`` = the block size and ``q0`` its first
+    in-block position, against its plain version (both dtypes, window
+    1,024 and none, the new row spliced in: float32 within 2e-5, bf16
+    within 2e-2), the shards' merged states against the plain read of the
+    whole arena, and four shards' merged by ``merge_attn_states_n`` (against
+    its plain version within 2e-5 and the whole arena's read); then its
+    time (bf16, no window) beside the same kernel on
+    the unsplit arena at ``block_stride`` = bs, the plain version and the
+    bound (each shard's rows read once)."""
+    import torch
+
+    from repro_torch.kernels import paged_attn as paged_k
+    from repro_torch.kernels import ref
+
+    s = MA_STRIDE
+    B, Hq, Hkv, D, bs, m = (s[k] for k in ("B", "Hq", "Hkv", "D", "bs",
+                                            "shards"))
+    rows = bs // m
+    nb = -(-s["hi"] // bs)
+    num_blocks = B * nb + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    tables = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
+              [:B * nb] + 1).reshape(B, nb).to(torch.int32)
+    lens = torch.randint(s["lo"], s["hi"] + 1, (B,), generator=gen, **i32)
+    checks, err = [], 0.0
+    timing = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        ka, va = (torch.randn((num_blocks, bs, Hkv, D), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        ka[0], va[0] = float("nan"), float("nan")   # the trash block
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dt)
+        nk = tuple(torch.randn((B, Hkv, D), generator=gen, device=dev)
+                   .to(dt) for _ in range(2))
+        parts = [(ka[:, d * rows:(d + 1) * rows].contiguous(),
+                  va[:, d * rows:(d + 1) * rows].contiguous())
+                 for d in range(m)]
+        for win in (None, 1024):
+            states = []
+            for d, (kd, vd) in enumerate(parts):
+                q0 = torch.full((B,), d * rows, **i32)
+                got = paged_k.paged_decode_attention_with_state(
+                    q, kd, vd, tables, lens, window=win, q0=q0, new_kv=nk,
+                    block_stride=bs)
+                want = ref.paged_decode_attention_with_state(
+                    q, kd, vd, tables, lens, win, q0, nk, bs)
+                e = max(float((g - w).abs().max()) for g, w in
+                        zip((got[0], got[2]), (want[0], want[2])))
+                err = max(err, e)
+                checks.append({"dtype": str(dt), "window": win, "shard": d,
+                               "max_abs_err": e, "ok": all(
+                                   torch.allclose(g, w, rtol=tol, atol=tol)
+                                   for g, w in zip(got, want))})
+                states.append(got)
+            whole = ref.paged_decode_attention(q, ka, va, tables, lens, win,
+                                               nk)
+            # the two shards' merge, and four shards' (4 rows of each
+            # block) through the merge over S states against its plain
+            # version
+            quarters = []
+            for d in range(4):
+                q0 = torch.full((B,), d * bs // 4, **i32)
+                quarters.append(paged_k.paged_decode_attention_with_state(
+                    q, ka[:, d * bs // 4:(d + 1) * bs // 4].contiguous(),
+                    va[:, d * bs // 4:(d + 1) * bs // 4].contiguous(),
+                    tables, lens, window=win, q0=q0, new_kv=nk,
+                    block_stride=bs))
+            stacked = [torch.stack(ts) for ts in zip(*quarters)]
+            merged4 = paged_k.merge_attn_states_n(*stacked)
+            e = float((merged4 - ref.merge_attn_states_n(*stacked))
+                      .abs().max())
+            err = max(err, e)
+            checks.append({"dtype": str(dt), "window": win,
+                           "merge_n_vs_plain": e,
+                           "ok": torch.allclose(
+                               merged4, ref.merge_attn_states_n(*stacked),
+                               rtol=2e-5, atol=2e-5)})
+            for shards_n, merged in (
+                    (m, paged_k.merge_attn_states(*states[0], *states[1])),
+                    (4, merged4)):
+                e = float((merged.to(dt).float() - whole.float()).abs()
+                          .max())
+                checks.append({"dtype": str(dt), "window": win,
+                               "shards": shards_n, "merged_vs_whole": e,
+                               "ok": torch.allclose(
+                                   merged.to(dt).float(), whole.float(),
+                                   rtol=tol, atol=tol)})
+        if dt != torch.bfloat16:
+            continue
+        kd, vd = parts[0]
+        q0 = torch.zeros((B,), **i32)
+
+        def strided():
+            return paged_k.paged_decode_attention_with_state(
+                q, kd, vd, tables, lens, q0=q0, new_kv=nk, block_stride=bs)
+
+        def contiguous():
+            return paged_k.paged_decode_attention_with_state(
+                q, ka, va, tables, lens, new_kv=nk)
+        ms = time_ms(strided, 5, 20, sleep)
+        live = int(lens.sum())
+        shard_bytes = 2 * (live // m) * Hkv * D * 2 + B * Hq * D * 2 + \
+            B * Hq * (D + 2) * 4 + 4 * (B * nb + 2 * B)
+        timing = {
+            "shape": f"q ({B}, {Hq}, {D}) bf16, {m} shards of {rows} rows "
+                     f"of each {bs}-position block, tables ({B}, {nb}), "
+                     f"lens {s['lo']}-{s['hi']}, splice on",
+            "splits": paged_k.cascade_split_plan(B, Hkv, nb, rows)[0],
+            "ms": ms[0], "back_to_back_ms": ms[1],
+            "block_stride_bs_ms": time_ms(contiguous, 5, 20, sleep,
+                                          b2b=False)[0],
+            "plain_ms": time_ms(lambda: ref.paged_decode_attention_with_state(
+                q, kd, vd, tables, lens, None, q0, nk, bs), 3, 3, sleep,
+                b2b=False)[0],
+            "bytes_ms": shard_bytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_ms": 4 * B * Hq * (live // B // m) * D / F32_FLOPS * 1e3}
+        timing["bound_ms"] = max(timing["bytes_ms"], timing["ops_ms"])
+        timing["bound_by"] = "bytes" if timing["bytes_ms"] >= \
+            timing["ops_ms"] else "operations"
+    bad = [c for c in checks if not c["ok"]]
+    return {"checks": len(checks), "failed": bad, "max_abs_err": err,
+            "timing": timing}
+
+
+def model_axis_main_path(dev, sleep: int, cfg=None, params=None,
+                         base: dict | None = None) -> dict:
+    """Phase 20: sharded serving's model axis (slices of 2 and 4 devices,
+    each ``cuda:0`` on one H100), ``model_axis_main_path`` line.  (a)
+    stablelm-3b whole in bf16 (phase 5's weights, or drawn the same way
+    when run alone; ``base`` holds phase 18's one-device runs of loads (b)
+    and (c), else they run here): a model-2 slice serves load (b) through
+    the fold and the ``"cuda"`` tick and load (c) through the cascade
+    tick, a model-4 slice load (c), each against the one-device gateway
+    under the near-tie rule; at depth 4 in float32 both widths serve both
+    loads against the one-device gateway of the same spec, tokens equal,
+    logits within 1e-5 and every kernel's launches those of
+    :func:`expected_launches`.  (b) The split-KV fallback: hymba-1.5b cut
+    to 4 layers (layer 0 global, window 1,024 on 1-3) at model 2 (5 KV
+    heads: each shard 8 rows of every 16-position block) on load (c)
+    through the ``"cuda"`` and cascade ticks, the same float32 gates; and
+    kernel 5 at its shape (:func:`stride_kernel_checks`); at model 4
+    through the ``"cuda"`` tick (four shards of 4 rows, the merge over
+    four states).  (c) A lane
+    migrated mid-decode from a one-device slice to a two-device one and on
+    to another one-device slice, float32 at depth 4, against its stay-put
+    run.  (d) One prefill slice of two devices and two decode slices of
+    one on load (b) (bf16), against the one-device gateway.  (e) Per width
+    1, 2, 4: the captured 8 x 1k tick (:func:`ma_tick_timing`).  Returns
+    the model-axis runs' launches; raises SystemExit on a failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_disagg_meshes
+    from repro_torch.models import lm
+    from repro_torch.serve.gateway.slots import make_adapter
+    from repro_torch.serve.shard import RolePlan, build_slices, migrate_slot
+
+    sw = Stopwatch()
+    if cfg is None:
+        cfg = configs.config("stablelm-3b")
+        params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        sw.lap("init")
+    load_b, _ = load_b_prompts(cfg.vocab)
+    load_c, _ = load_c_prompts(cfg.vocab)
+    failures: list[str] = []
+    launches: dict = {}
+    runs: dict = {}
+
+    def sharded(name, run):
+        runs[name] = run
+        add_launches(launches, run["launches"])
+        return run
+
+    # (a) stablelm-3b whole, bf16; then float32 at depth 4
+    base = base or {}
+    flat_b = base.get("flat_b") or shard_load(
+        dev, cfg, params, load_b, shard_spec(), stagger=True)
+    flat_c = base.get("flat_c") or shard_load(
+        dev, cfg, params, load_c, shard_spec(chunked=False))
+    sw.lap("a_baselines")
+    a = {}
+    for m, load, prompts, one, kw in (
+            (2, "b", load_b, flat_b, dict(stagger=True)),
+            (2, "c", load_c, flat_c, {}),
+            (4, "c", load_c, flat_c, {})):
+        spec = shard_spec(mesh=[[dev] * m], chunked=load == "b",
+                          backend="cuda" if load == "b" else "cascade")
+        run = sharded(f"bf16_m{m}_{load}",
+                      shard_load(dev, cfg, params, prompts, spec, **kw))
+        a[f"bf16_m{m}_{load}"] = ma_compare(
+            f"(a) bf16 model {m} load ({load})", one, run, m, False, False,
+            failures, SHARD_PATH if load == "b" else MA_CASCADE_PATH)
+    sw.lap("a_bf16")
+    cfg4 = strict_cfg(cfg)
+    params4 = lm.init(cfg4, torch.Generator(device=dev).manual_seed(1))
+    for load, prompts, backend in (("b", load_b, "cuda"),
+                                   ("c", load_c, "cascade")):
+        chunked = load == "b"
+        one = shard_load(dev, cfg4, params4, prompts, shard_spec(
+            chunked=chunked, backend=backend), stagger=chunked)
+        for m in MA_WIDTHS:
+            run = sharded(f"f32_m{m}_{load}", shard_load(
+                dev, cfg4, params4, prompts, shard_spec(
+                    mesh=[[dev] * m], chunked=chunked, backend=backend),
+                stagger=chunked))
+            a[f"f32_m{m}_{load}"] = ma_compare(
+                f"(a) float32 model {m} load ({load})", one, run, m, True,
+                False, failures)
+    sw.lap("a_f32")
+
+    # (c) a migration 1 -> 2 -> 1 devices mid-decode, float32 at depth 4
+    kw = dict(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, block_size=LM_BLOCK,
+              num_blocks=SHARD_MIGRATE_BLOCKS, chunked=False)
+    rng = np.random.default_rng(29)
+    forced = rng.integers(0, cfg4.vocab, (8, LM_SLOTS)).astype(np.int32)
+    lane = np.zeros(LM_SLOTS, bool)
+    lane[0] = True
+    stay = make_adapter(cfg4, params4, paged=True, **kw)
+    stay.insert(0, load_b[0], SHARD_NEW_TOKENS)
+    want = []
+    for t in range(8):
+        want.append((stay.decode(forced[t], lane)[0],
+                     stay.last_logits[0].clone()))
+    del stay
+    A, B, C = (sl.adapter for sl in build_slices(
+        cfg4, params4, [[dev], [dev, dev], [dev]], **kw))
+    reset_counts()
+    A.insert(0, load_b[0], SHARD_NEW_TOKENS)
+    got, receipts = [], []
+    for t, ad in enumerate([A] * 4 + [B] * 2 + [C] * 2):
+        if t in (4, 6):
+            src = A if t == 4 else B
+            receipts.append(dataclasses.asdict(
+                migrate_slot(src, 0, ad, 0, load_b[0])))
+        got.append((ad.decode(forced[t], lane)[0],
+                    ad.last_logits[0].clone()))
+    torch.cuda.synchronize()
+    mig_launches = read_counts()
+    runs["migration"] = {"launches": mig_launches}
+    add_launches(launches, mig_launches)
+    dl = max(float((x[1] - y[1]).abs().max()) for x, y in zip(got, want))
+    block_bytes = A._token_bytes * LM_BLOCK
+    c = {"tokens_equal": [int(x[0]) for x in got] ==
+         [int(y[0]) for y in want], "max_abs_dlogit": dl,
+         "receipts": receipts, "two_device_slice_heads":
+             [sh.heads for sh in B.shards],
+         "sources_released": not A.slot_bids[0] and not B.slot_bids[0]}
+    n0 = len(load_b[0])
+    if not (c["tokens_equal"] and dl <= MA_F32_TOL and
+            c["sources_released"] and [r["bytes_moved"] for r in receipts]
+            == [-(-(n0 + 4) // LM_BLOCK) * block_bytes + 4,
+                -(-(n0 + 6) // LM_BLOCK) * block_bytes + 4]):
+        failures.append(f"(c) migration across widths: {c}")
+    del A, B, C, params4
+    torch.cuda.empty_cache()
+    sw.lap("c_migration")
+
+    # (d) a prefill slice of two devices, two decode slices of one
+    pre, dec = make_disagg_meshes(1, 2, prefill_model=2, device=dev)
+    disagg = sharded("disagg_b", shard_load(
+        dev, cfg, params, load_b,
+        shard_spec(mesh=pre + dec, roles=RolePlan.split(1, 2)),
+        stagger=True))
+    d = ma_compare("(d) disaggregated", flat_b, disagg, 1, False, False,
+                   failures, SHARD_PATH)
+    d.update(handoffs=disagg["handoffs"],
+             handoff_bytes=disagg["handoff_bytes"],
+             flash_vs_one_device=[disagg["launches"]["flash_attention"],
+                                  flat_b["launches"]["flash_attention"]])
+    if disagg["handoffs"] != len(load_b) or \
+            disagg["launches"]["flash_attention"] != \
+            2 * flat_b["launches"]["flash_attention"]:
+        failures.append(f"(d) handoffs {disagg['handoffs']}, flash "
+                        f"launches {d['flash_vs_one_device']} (one per "
+                        "prefill shard and layer expected)")
+    sw.lap("d_disaggregated")
+
+    # (e) the captured 8 x 1k tick per width
+    e = {f"width_{m}": ma_tick_timing(dev, cfg, params, m, failures)
+         for m in (1,) + MA_WIDTHS}
+    sw.lap("e_tick_timing")
+
+    # (b) the split-KV fallback: hymba-1.5b, 4 layers, model 2, float32
+    gen = torch.Generator(device=dev).manual_seed(23)
+    stride = stride_kernel_checks(dev, gen, sleep)
+    if stride["failed"]:
+        failures.append(f"(b) kernel 5 at the block stride: "
+                        f"{stride['failed']}")
+    cfgh = dataclasses.replace(configs.config(HYMBA_ARCH),
+                               n_layers=MA_HYMBA_DEPTH,
+                               param_dtype="float32")
+    paramsh = lm.init(cfgh, torch.Generator(device=dev).manual_seed(2))
+    load_ch, _ = load_c_prompts(cfgh.vocab)
+    b, ones = {}, {}
+    for backend, m in (("cuda", 2), ("cascade", 2), ("cuda", 4)):
+        spec = dict(chunked=True, backend=backend)
+        if backend not in ones:
+            ones[backend] = shard_load(dev, cfgh, paramsh, load_ch,
+                                       shard_spec(**spec))
+        name = f"fallback_m{m}_{backend}"
+        run = sharded(name, shard_load(
+            dev, cfgh, paramsh, load_ch,
+            shard_spec(mesh=[[dev] * m], **spec)))
+        b[name] = ma_compare(f"(b) {name}", ones[backend], run, m, True,
+                             True, failures)
+    del paramsh
+    torch.cuda.empty_cache()
+    sw.lap("b_fallback")
+
+    emit({"phase": "model_axis_main_path",
+          "gpu": nvidia_smi("name,power.limit"), "widths": MA_WIDTHS,
+          "a_stablelm": a, "b_fallback": {
+              "model": f"{HYMBA_ARCH} at {MA_HYMBA_DEPTH} layers, model 2",
+              "runs": b, "kernel5_stride": stride},
+          "c_migration": c, "d_disaggregated": d, "e_tick_by_width": e,
+          "launches": launches,
+          "launches_by_run": {name: {k: r["launches"].get(k, 0)
+                                     for k in MA_KEYS}
+                              for name, r in runs.items()},
+          "failures": failures, **sw.fields()})
+    if failures:
+        raise SystemExit(f"phase 20: {failures}")
+    return launches
+
+
+def model_axis_main(dev, sleep: int) -> dict:
+    """``--model-axis``: phase 20 alone."""
+    return model_axis_main_path(dev, sleep)
 
 
 def analytic_tick(cfg, model_bytes: int, context: int | None) -> dict:
@@ -7141,6 +7650,121 @@ def cascade_compare(parent: Path) -> int:
     return 0
 
 
+def stride_outputs_main(root: Path, out: Path) -> int:
+    """``--stride-outputs <checkout> <file>``: the paged sweeps of the
+    checkout at ``root`` (kernel 3, and kernel 5 with its state, its fused
+    merge and a nonzero ``q0``; contiguous blocks, which every checkout
+    takes) on seeded inputs at every forced plan, both dtypes, windows
+    none / 8 / 1,024 and the new row spliced in, saved to ``out``; then
+    kernel 5's time at load (c)'s suffix shape (8 lanes of 25 x 64 heads
+    at hymba-1.5b's width, 1,200 positions, and stablelm-3b's 32 x 80 at
+    1,088) and kernel 3's at the 8 x 1k tick.  One JSON line."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attn as paged_k
+    build.build_all(("paged_attn",))
+    dev = torch.device("cuda")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sleep = int(SLEEP_S * clock_mhz * 1e6)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outputs, timing = [], {}
+    for (B, Hq, Hkv, D, nb, lo, hi) in ((8, 32, 32, 80, 96, 1000, 1500),
+                                        (8, 25, 5, 64, 80, 1100, 1250),
+                                        (3, 8, 2, 128, 40, 1, 600)):
+        num_blocks = B * nb + 1
+        tables = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
+                  + 1).reshape(B, nb).to(torch.int32)
+        lens = torch.randint(lo, hi + 1, (B,), generator=gen, **i32)
+        q0 = torch.randint(0, lo, (B,), generator=gen, **i32) // 16 * 16
+        for dt in (torch.float32, torch.bfloat16):
+            ka, va = (torch.randn((num_blocks, 16, Hkv, D), generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dt)
+            nk = tuple(torch.randn((B, Hkv, D), generator=gen, device=dev)
+                       .to(dt) for _ in range(2))
+            pre = tuple(torch.randn(s, generator=gen, device=dev)
+                        for s in ((1, B, Hq, D), (1, B, Hq), (1, B, Hq)))
+            pre = (pre[0], pre[1], pre[2].abs() + 1,
+                   torch.arange(B, **i32))
+            for name, plan in paged_k.CASCADE_FORCED_PLANS.items():
+                with mock.patch.multiple(paged_k, **plan) if plan else \
+                        contextlib.nullcontext():
+                    for win in (None, 8, 1024):
+                        for splice in (None, nk):
+                            outputs.append(paged_k.paged_decode_attention(
+                                q, ka, va, tables, lens, window=win,
+                                new_kv=splice))
+                            outputs.extend(
+                                paged_k.paged_decode_attention_with_state(
+                                    q, ka, va, tables, lens, window=win,
+                                    q0=q0, new_kv=splice))
+                            outputs.append(
+                                paged_k.paged_decode_attention_with_state(
+                                    q, ka, va, tables, lens, window=win,
+                                    q0=q0, new_kv=splice, prefix=pre))
+            if dt == torch.bfloat16 and Hkv < 32:
+                timing[f"kernel5 {Hq} over {Hkv} x {D}"] = time_ms(
+                    lambda: paged_k.paged_decode_attention_with_state(
+                        q, ka, va, tables, lens, new_kv=nk), 5, 20, sleep,
+                    b2b=False)[0]
+            if dt == torch.bfloat16 and Hkv == 32:
+                timing["kernel5 32 x 80"] = time_ms(
+                    lambda: paged_k.paged_decode_attention_with_state(
+                        q, ka, va, tables, lens, new_kv=nk), 5, 20, sleep,
+                    b2b=False)[0]
+                timing["kernel3 32 x 80"] = time_ms(
+                    lambda: paged_k.paged_decode_attention(
+                        q, ka, va, tables, lens, new_kv=nk), 5, 20, sleep,
+                    b2b=False)[0]
+    torch.cuda.synchronize()
+    torch.save([t.cpu() for t in outputs], out)
+    emit({"stride_outputs": str(root), "gpu": nvidia_smi("name,power.limit"),
+          "outputs": len(outputs), "ms": timing,
+          "ptxas": ptxas_of("paged_attn", "paged_attn_kernel")})
+    return 0
+
+
+def stride_compare(parent: Path) -> int:
+    """``--stride-compare <parent checkout>``: :func:`stride_outputs_main`
+    for the parent and for this checkout in turns (parent, change, change,
+    parent), each in its own process: every output of the change bit for
+    bit the parent's (the block stride at its default, bs, changes
+    nothing), and the kernels' ms side by side."""
+    import tempfile
+
+    import torch
+    runs, saved = [], {}
+    tmp = tempfile.TemporaryDirectory()
+    for i, (label, root) in enumerate((("parent", parent), ("change", ROOT),
+                                       ("change", ROOT),
+                                       ("parent", parent))):
+        path = Path(tmp.name) / f"stride_outputs_{i}.pt"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--stride-outputs", str(root), str(path)],
+            capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            print(proc.stdout[-4000:])
+            return proc.returncode
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **out}), flush=True)
+        runs.append((label, out))
+        saved.setdefault(label, torch.load(path))
+    tmp.cleanup()
+    a, b = saved["parent"], saved["change"]
+    same = len(a) == len(b) and all(torch.equal(x, y)
+                                    for x, y in zip(a, b))
+    emit({"stride_compare": {"outputs": len(a), "bitwise_parent": same,
+                             "ms": [(label, out["ms"])
+                                    for label, out in runs],
+                             "ptxas": {label: out["ptxas"]
+                                       for label, out in runs}}})
+    return 0 if same else 1
+
+
 # -- training (phase 19) -----------------------------------------------------
 
 TRAIN_ARCH = "stablelm-3b"
@@ -7675,7 +8299,10 @@ def main() -> int:
         return sc_compare(Path(args[1]).resolve())
     if args[:1] == ["--cascade-compare"]:
         return cascade_compare(Path(args[1]).resolve())
-    if args[:1] in (["--sc-timing"], ["--cascade-timing"]):
+    if args[:1] == ["--stride-compare"]:
+        return stride_compare(Path(args[1]).resolve())
+    if args[:1] in (["--sc-timing"], ["--cascade-timing"],
+                    ["--stride-outputs"]):
         sys.path.insert(0, str(Path(args[1]).resolve() / "src"))
     import numpy as np
     import torch
@@ -7687,6 +8314,8 @@ def main() -> int:
         return sc_timing_main(Path(args[1]).resolve())
     if args[:1] == ["--cascade-timing"]:
         return cascade_timing_main(Path(args[1]).resolve())
+    if args[:1] == ["--stride-outputs"]:
+        return stride_outputs_main(Path(args[1]).resolve(), Path(args[2]))
     if args[:1] == ["--table3-full"]:
         return table3_full_main()
     if args[:1] == ["--moe"]:
@@ -7705,6 +8334,8 @@ def main() -> int:
         return family_main(None, decoders_main_path)
     if args[:1] == ["--shard"]:
         return family_main("shard", shard_main_path)
+    if args[:1] == ["--model-axis"]:
+        return family_main("model_axis", model_axis_main)
     if args[:1] == ["--train"]:
         return family_main("train", train_main,
                            ("flash_attn", "flash_attn_bwd", "sng_pack",
@@ -7988,7 +8619,13 @@ def main() -> int:
 
     # -- 18. sharded and disaggregated serving --------------------------------
     # (run here, on stablelm-3b's weights, shared by every slice)
-    paths["shard"] = shard_main_path(dev, sleep, lm_cfg, lm_params)
+    base: dict = {}
+    paths["shard"] = shard_main_path(dev, sleep, lm_cfg, lm_params, base)
+
+    # -- 20. sharded serving's model axis (slices of 2 and 4 devices) -------
+    paths["model_axis"] = model_axis_main_path(dev, sleep, lm_cfg,
+                                               lm_params, base)
+    del base
 
     # -- 11. the moe family: deepseek-moe-16b ------------------------------
     del lm_params

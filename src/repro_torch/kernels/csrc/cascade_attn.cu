@@ -4,7 +4,9 @@
 //
 // Replaces the TPU kernels in src/repro/kernels/paged_attn.py:
 //   cascade_prefix_attention (_cascade_prefix_kernel) -> cascade_prefix_launch
-//   merge_attn_states        (_merge_kernel)          -> merge_states_launch
+//   merge_attn_states        (_merge_kernel)          -> merge_states_launch,
+//                                                        and over S states
+//                                                        merge_states_n_launch
 // The prefix pass is templated on float and __nv_bfloat16 (the arena's
 // dtype); the merge works on float32 states.  Built without fast math: the
 // constants below must behave as the reference's (exp(-1e30 - m) is exactly
@@ -75,6 +77,15 @@
 //   pass (paged_attn.cu, paged_attn_merge_launch), through the same
 //   attn::merge_two, so this kernel, the TPU function's own API, gives the
 //   fused pass's values bit for bit.
+//
+// merge_states_n_launch
+//   The same merge over S >= 2 states stacked on a leading axis, acc (S,
+//   rows, D), m, l (S, rows) float32: M = max_s m_s, out = sum_s exp(m_s -
+//   M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30), the sums in s order
+//   (attn::combine_states, the normalizing epilogue of the split sweeps'
+//   combine launch), one CTA a row.  The split-KV fallback of a sharded
+//   serving slice merges its shards' suffix states through it when there
+//   are more than two.  Bound: bytes, as above.
 #include "attn_common.cuh"
 
 namespace {
@@ -519,4 +530,16 @@ extern "C" int merge_states_launch(const void* acc1, const void* m1,
       (const float*)acc2, (const float*)m2, (const float*)l2, (float*)out, n,
       D);
   return (int)cudaGetLastError();
+}
+
+// S >= 2 stacked states: acc (S, rows, D), m, l (S, rows) float32 -> out
+// (rows, D) float32.
+extern "C" int merge_states_n_launch(const void* acc, const void* m,
+                                     const void* l, void* out, int S,
+                                     long long rows, int D, void* stream) {
+  if (S < 2 || rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  return (int)attn::combine_states<float>(
+      attn::stacked_states((const float*)acc, (const float*)m,
+                           (const float*)l),
+      S, rows, D, (float*)out, (cudaStream_t)stream);
 }

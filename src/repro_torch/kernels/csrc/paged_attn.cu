@@ -54,11 +54,20 @@
 //   stale rows cannot reach the result.  No atomics: bit for bit
 //   reproducible.
 //
-// paged_attn_state_launch (the cascade's per-lane suffix pass)
-//   The same CTA loop: the table names lane b's divergent-suffix blocks,
-//   entry j holding absolute positions q0[b] + j*bs + i, so the sweep
-//   covers [max(q0, lens - win), min(lens, q0 + nb*bs)), split z the run
-//   [q0 + z*bps*bs, q0 + (z+1)*bps*bs) of it.  It writes the float32
+// paged_attn_state_launch (the cascade's per-lane suffix pass, and a
+// shard's sweep under sharded serving's split-KV fallback)
+//   The same CTA loop: the table names lane b's blocks, entry j holding
+//   absolute positions q0[b] + j*stride + i for i < bs.  The cascade's
+//   suffix tables hold contiguous blocks (stride = bs), so the sweep covers
+//   [max(q0, lens - win), min(lens, q0 + nb*bs)), split z the run [q0 +
+//   z*bps*bs, q0 + (z+1)*bps*bs) of it.  A fallback shard holds bs of each
+//   stride-position block from offset q0 (stride = the slice's block size,
+//   bs = stride / shards, q0 = shard * bs), so its sweep takes the table's
+//   local rows u = j*bs + i whose positions attend, the positions falling
+//   to the other shards skipped; the new row at lens - 1 is read only by
+//   the shard whose rows hold that position.  The loop walks local rows
+//   (split z the rows [z*bps*bs, (z+1)*bps*bs)), so at stride = bs it is
+//   the contiguous sweep above, row for row.  It writes the float32
 //   online-softmax state acc (B, Hq, D), m, l (B, Hq) unnormalized instead
 //   of out: at one split the CTAs write it themselves; with splits > 1
 //   they write their states to scratch and the combine launch merges them
@@ -130,8 +139,10 @@ size_t attn_smem_bytes(int elem, int D, int n_rep) {
                           (size_t)kWarps * n_rep * D + 3 * (size_t)n_rep);
 }
 
-// Split z of lane b sweeps positions [q0 + z*P, q0 + (z+1)*P) of its table
-// (q0 = q0s[b], or 0 without q0s).  out != nullptr: one split, write
+// Split z of lane b sweeps the local rows [z*P, (z+1)*P) of its table:
+// local row u is row u % bs of entry u / bs and holds position q0 + (u /
+// bs) * stride + u % bs (q0 = q0s[b], or 0 without q0s; stride = bs for a
+// contiguous chain).  out != nullptr: one split, write
 // acc / max(l, 1e-30) to out, or, with a prefix (pre.lane_slot !=
 // nullptr), the state merged with the lane's prefix state and normalized;
 // otherwise write the state of split z at acc_out + z*B*Hq*D, m_out +
@@ -145,9 +156,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
                   const T* __restrict__ v1, T* __restrict__ out,
                   const int32_t* __restrict__ q0s,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int num_blocks, int bs, int nb,
-                  int Hkv, int n_rep, int D, int win, int P,
-                  const attn::Prefix pre) {
+                  float* __restrict__ l_out, int num_blocks, int bs,
+                  int stride, int nb, int Hkv, int n_rep, int D, int win,
+                  int P, const attn::Prefix pre) {
   constexpr int kVec = 16 / sizeof(T);           // elements per 16 bytes
   constexpr int kGroups = kThreads / G;          // positions scored at once
   extern __shared__ __align__(16) unsigned char smem[];
@@ -178,9 +189,23 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
 
   const int len = lens[b];
   const int q0 = q0s != nullptr ? q0s[b] : 0;   // position of table entry 0
-  const int s_lo = q0 + z * P;
-  const int lo = max(max(q0, len - win), s_lo);  // positions [lo, hi) attend
-  const int hi = min(min(len, q0 + nb * bs), s_lo + P);
+  // the first local row whose position is at least p (p >= q0): p - q0
+  // itself for contiguous blocks
+  auto local = [&](int p) {
+    const int r = p - q0;
+    if (stride == bs) return r;
+    const int j = r / stride;
+    return j * bs + min(r - j * stride, bs);
+  };
+  const int s_lo = z * P;                        // local rows [lo, hi) attend
+  const int lo = max(local(max(q0, len - win)), s_lo);
+  const int hi = min(min(local(max(len, q0)), nb * bs), s_lo + P);
+  // the local row holding position len - 1, read from k1/v1 (-1: no new
+  // rows, or no row of this table holds it)
+  int u_new = -1;
+  if (k1 != nullptr && len - 1 >= q0 &&
+      (stride == bs || (len - 1 - q0) % stride < bs))
+    u_new = local(len - 1);
   const int n_chunks = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
   const float scale = 1.f / sqrtf((float)D);
   const int vpr = D / kVec;                      // 16-byte vectors per row
@@ -193,16 +218,15 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ka,
     T* ks = ring + (size_t)st * 2 * kChunk * D;
     for (int i = tid; i < 2 * n; i += kThreads) {
       const int which = i >= n;                  // 0: K, 1: V
-      const int t = i - which * n, pos = c0 + t;
+      const int t = i - which * n, u = c0 + t;   // local row
       const T* src;
-      if (k1 != nullptr && pos == len - 1) {
+      if (u == u_new) {
         src = (which ? v1 : k1) + ((size_t)b * Hkv + h) * D;
       } else {
-        const int loc = pos - q0;                // index into the table
-        int bid = tables[(size_t)b * nb + loc / bs];
+        int bid = tables[(size_t)b * nb + u / bs];
         if (bid < 0 || bid >= num_blocks) bid = 0;
         src = (which ? va : ka) +
-              ((size_t)bid * bs + loc % bs) * row_stride + (size_t)h * D;
+              ((size_t)bid * bs + u % bs) * row_stride + (size_t)h * D;
       }
       T* dst = ks + ((size_t)which * kChunk + t) * D;
 #pragma unroll
@@ -376,9 +400,9 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
                         const void* v1, void* out, const void* q0s,
                         void* acc, void* m, void* l, void* st_acc,
                         void* st_m, void* st_l, int B, int num_blocks,
-                        int bs, int nb, int Hkv, int n_rep, int D, int win,
-                        int splits, int P, const attn::Prefix& pre,
-                        cudaStream_t stream) {
+                        int bs, int stride, int nb, int Hkv, int n_rep,
+                        int D, int win, int splits, int P,
+                        const attn::Prefix& pre, cudaStream_t stream) {
   const size_t smem = attn_smem_bytes(sizeof(T), D, n_rep);
   const bool wide = D * (int)sizeof(T) > 16 * 16;  // more than 16 vectors
   const auto kernel =
@@ -395,8 +419,8 @@ cudaError_t attn_launch(const void* q, const void* ka, const void* va,
       (const int32_t*)lens, (const T*)k1, (const T*)v1,
       direct && !state ? (T*)out : nullptr, (const int32_t*)q0s,
       (float*)(direct ? st_acc : acc), (float*)(direct ? st_m : m),
-      (float*)(direct ? st_l : l), num_blocks, bs, nb, Hkv, n_rep, D, win,
-      P, pre);
+      (float*)(direct ? st_l : l), num_blocks, bs, stride, nb, Hkv, n_rep,
+      D, win, P, pre);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || direct) return e;
   const long long R = (long long)B * Hkv * n_rep;
@@ -450,38 +474,41 @@ extern "C" int paged_attn_launch(const void* q, const void* ka, const void* va,
   if (dtype == 0)
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out,
                                    nullptr, acc, m, l, nullptr, nullptr,
-                                   nullptr, B, num_blocks, bs, nb, Hkv, n_rep,
-                                   D, win, splits, P, attn::Prefix{}, s);
+                                   nullptr, B, num_blocks, bs, bs, nb, Hkv,
+                                   n_rep, D, win, splits, P, attn::Prefix{},
+                                   s);
   return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, out, nullptr, acc, m, l, nullptr,
-      nullptr, nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P,
-      attn::Prefix{}, s);
+      nullptr, nullptr, B, num_blocks, bs, bs, nb, Hkv, n_rep, D, win, splits,
+      P, attn::Prefix{}, s);
 }
 
-// The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32
-// and the float32 state acc_out (B, Hq, D), m_out, l_out (B, Hq) in place
-// of out; acc, m, l the scratch of a split plan.
+// The suffix pass of the cascade: as paged_attn_launch, with q0 (B,) int32,
+// the positions per table entry (stride, at least bs) and the float32 state
+// acc_out (B, Hq, D), m_out, l_out (B, Hq) in place of out; acc, m, l the
+// scratch of a split plan.
 extern "C" int paged_attn_state_launch(
     const void* q, const void* ka, const void* va, const void* tables,
     const void* lens, const void* q0s, const void* k1, const void* v1,
     void* acc_out, void* m_out, void* l_out, void* acc, void* m, void* l,
-    int B, int num_blocks, int bs, int nb, int Hkv, int n_rep, int D,
-    int win, int splits, int bps, int dtype, void* stream) {
+    int B, int num_blocks, int bs, int stride, int nb, int Hkv, int n_rep,
+    int D, int win, int splits, int bps, int dtype, void* stream) {
   if (!attn_args_ok(B, num_blocks, bs, nb, Hkv, n_rep, D, win, dtype) ||
       !plan_ok(nb, splits, bps, acc, m, l) || acc_out == nullptr ||
-      m_out == nullptr || l_out == nullptr)
+      m_out == nullptr || l_out == nullptr || stride < bs ||
+      (long long)nb * stride >= (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int P = bps * bs;
   if (dtype == 0)
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, nullptr,
                                    q0s, acc, m, l, acc_out, m_out, l_out, B,
-                                   num_blocks, bs, nb, Hkv, n_rep, D, win,
-                                   splits, P, attn::Prefix{}, s);
+                                   num_blocks, bs, stride, nb, Hkv, n_rep, D,
+                                   win, splits, P, attn::Prefix{}, s);
   return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, nullptr, q0s, acc, m, l, acc_out,
-      m_out, l_out, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P,
-      attn::Prefix{}, s);
+      m_out, l_out, B, num_blocks, bs, stride, nb, Hkv, n_rep, D, win, splits,
+      P, attn::Prefix{}, s);
 }
 
 // The suffix pass merged with the prefix pass's states: as
@@ -508,11 +535,12 @@ extern "C" int paged_attn_merge_launch(
   if (dtype == 0)
     return (int)attn_launch<float>(q, ka, va, tables, lens, k1, v1, out, q0s,
                                    acc, m, l, nullptr, nullptr, nullptr, B,
-                                   num_blocks, bs, nb, Hkv, n_rep, D, win,
+                                   num_blocks, bs, bs, nb, Hkv, n_rep, D, win,
                                    splits, P, pre, s);
   return (int)attn_launch<__nv_bfloat16>(
       q, ka, va, tables, lens, k1, v1, out, q0s, acc, m, l, nullptr, nullptr,
-      nullptr, B, num_blocks, bs, nb, Hkv, n_rep, D, win, splits, P, pre, s);
+      nullptr, B, num_blocks, bs, bs, nb, Hkv, n_rep, D, win, splits, P, pre,
+      s);
 }
 
 // Shared-memory bytes paged_attn_launch asks for at these sizes (the wrapper

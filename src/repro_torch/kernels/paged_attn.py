@@ -15,14 +15,19 @@ Each replaces the TPU kernel of the same name in
 - ``scatter_kv_rows``: the decode tick's in-place write of one K and one V
   row per (layer, lane), from the layers' own row tensors;
 - ``paged_decode_attention_with_state``: the same sweep restarted at an
-  absolute offset ``q0``, returning its unnormalized float32 softmax state
-  (the cascade's per-lane suffix pass), or, given the prefix pass's
+  absolute offset ``q0``, over table entries of ``block_stride`` positions
+  each (a shard of the split-KV fallback holds part of every block),
+  returning its unnormalized float32 softmax state (the cascade's
+  per-lane suffix pass, a fallback shard's sweep), or, given the prefix
+  pass's
   states, merged with them and normalized in its epilogue (the cascade
   tick's ``merge_attn_states``, fused: no launch of its own);
 - ``cascade_prefix_attention``: one multi-query pass per shared prefix
   chain, each chain row read once per group of lanes;
 - ``merge_attn_states``: the log-sum-exp merge of two states, normalized
-  (the TPU function's own API, bit for bit the fused merge).
+  (the TPU function's own API, bit for bit the fused merge), and
+  ``merge_attn_states_n`` over S stacked states (a split-KV fallback's
+  shards, more than two).
 
 The two cascade passes split their sweep across CTAs by
 :func:`cascade_split_plan` (runs of whole blocks until the grid fills the
@@ -58,7 +63,7 @@ def _lib():
     lib.paged_attn_launch.restype = i
     lib.paged_attn_smem_bytes.argtypes = [i] * 3
     lib.paged_attn_smem_bytes.restype = ctypes.c_longlong
-    lib.paged_attn_state_launch.argtypes = [p] * 14 + [i] * 11 + [p]
+    lib.paged_attn_state_launch.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.paged_attn_state_launch.restype = i
     lib.paged_attn_merge_launch.argtypes = \
         [p] * 12 + [ctypes.c_longlong] + [p] * 4 + [i] * 11 + [p]
@@ -78,6 +83,9 @@ def _cascade_lib():
     lib.cascade_prefix_smem_bytes.restype = ctypes.c_longlong
     lib.merge_states_launch.argtypes = [p] * 7 + [ctypes.c_longlong, i, p]
     lib.merge_states_launch.restype = i
+    lib.merge_states_n_launch.argtypes = [p] * 4 + [i, ctypes.c_longlong, i,
+                                                    p]
+    lib.merge_states_n_launch.restype = i
     return lib
 
 
@@ -277,10 +285,14 @@ def paged_decode_attention_with_state(
         tables: torch.Tensor, lens: torch.Tensor, *,
         window: int | None = None, q0: torch.Tensor | None = None,
         new_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-        prefix: tuple | None = None):
+        prefix: tuple | None = None, block_stride: int | None = None):
     """The flat sweep over each lane's suffix table, positions starting at
-    ``q0`` (B,) int32 (None: 0).  Operands as :func:`paged_decode_attention`.
-    Returns the float32 state (acc (B, Hq, D), m (B, Hq), l (B, Hq)), see
+    ``q0`` (B,) int32 (None: 0), table entry j holding positions ``q0 +
+    j * block_stride + i`` for the arena's bs rows i (``block_stride`` None:
+    bs, contiguous blocks; more: a shard of the split-KV fallback, which
+    holds bs positions of every ``block_stride``-position block).  Operands
+    as :func:`paged_decode_attention`.  Returns the float32 state (acc (B,
+    Hq, D), m (B, Hq), l (B, Hq)), see
     :func:`repro_torch.kernels.ref.paged_decode_attention_with_state`.
 
     ``prefix`` = (acc (G, Lc, Hq, D), m, l (G, Lc, Hq) float32, lane_slot
@@ -290,17 +302,27 @@ def paged_decode_attention_with_state(
     normalizes, and the call returns (B, Hq, D) in the arena's dtype: bit
     for bit the state, placed group states, ``merge_attn_states`` and the
     cast, in the launches of the state alone (see
-    :func:`repro_torch.kernels.ref.paged_decode_attention_merged`)."""
+    :func:`repro_torch.kernels.ref.paged_decode_attention_merged`); the
+    fused merge takes contiguous blocks only."""
+    bs = k_arena.shape[1]
+    if block_stride not in (None, bs) and prefix is not None:
+        raise ValueError("the fused prefix merge sweeps contiguous blocks; "
+                         f"block_stride={block_stride} with bs={bs}")
     if not q.is_cuda:
         if prefix is not None:
             return ref.paged_decode_attention_merged(
                 q, k_arena, v_arena, tables, lens, window, q0, new_kv,
                 prefix)
         return ref.paged_decode_attention_with_state(
-            q, k_arena, v_arena, tables, lens, window, q0, new_kv)
+            q, k_arena, v_arena, tables, lens, window, q0, new_kv,
+            block_stride)
     name = "paged_decode_attention_with_state"
     args = _sweep_args(name, q, k_arena, v_arena, tables, lens, window,
                        new_kv)
+    stride = bs if block_stride is None else int(block_stride)
+    if stride < bs or args[3] * stride >= 1 << 30:
+        raise ValueError(f"{name}: block_stride={block_stride} with "
+                         f"{args[3]} entries of {bs} rows")
     B, Hq, D = q.shape
     if q0 is None:
         q0 = torch.zeros((B,), dtype=torch.int32, device=q.device)
@@ -332,8 +354,8 @@ def paged_decode_attention_with_state(
         else:
             err = _lib().paged_attn_state_launch(
                 *_ptrs(q, k_arena, v_arena, tables, lens, q0, k1, v1, acc, m,
-                       l), sacc, sm, sl, *args[:8], splits, bps, args[8],
-                stream)
+                       l), sacc, sm, sl, *args[:3], stride, *args[3:8],
+                splits, bps, args[8], stream)
     _raise_on(err, name)
     paged_decode_attention_with_state.launches += 1
     if prefix is None:
@@ -470,6 +492,36 @@ def merge_attn_states(acc1: torch.Tensor, m1: torch.Tensor,
 
 
 merge_attn_states.launches = 0
+
+
+def merge_attn_states_n(acc: torch.Tensor, m: torch.Tensor,
+                        l: torch.Tensor) -> torch.Tensor:
+    """:func:`merge_attn_states` over S >= 2 float32 states stacked on a
+    leading axis, merged in order: acc (S, *rows, D), m and l (S, *rows).
+    Returns (*rows, D) float32, see
+    :func:`repro_torch.kernels.ref.merge_attn_states_n`.  Its launches
+    count as ``merge_attn_states``' (the same function of more states)."""
+    if not acc.is_cuda:
+        return ref.merge_attn_states_n(acc, m, l)
+    name = "merge_attn_states_n"
+    dev = acc.device
+    S, rows = acc.shape[0], acc.shape[1:-1]
+    for arg, t, shape in (("acc", acc, acc.shape), ("m", m, (S, *rows)),
+                          ("l", l, (S, *rows))):
+        _check(arg, t, dev, torch.float32, False)
+        if t.shape != shape or S < 2:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)} with S >= 2")
+    out = torch.empty(acc.shape[1:], dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _cascade_lib().merge_states_n_launch(
+            *_ptrs(acc, m, l, out), S, m[0].numel(), acc.shape[-1],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    merge_attn_states.launches += 1
+    return out
 
 
 def _layer_rows(name: str, rows, L: int, shape: tuple, dev: torch.device,

@@ -183,30 +183,42 @@ def paged_decode_attention_with_state(
         q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
         tables: torch.Tensor, lens: torch.Tensor, window: int | None = None,
         q0: torch.Tensor | None = None,
-        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None
+        new_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+        block_stride: int | None = None
         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flat sweep restarted at the absolute offset ``q0`` and left
     unnormalized.
 
     Same operands as :func:`paged_decode_attention`; ``tables`` (B, nsuf)
-    names each lane's suffix blocks, entry j holding positions ``q0[b] +
-    j*bs + i`` (``q0`` None: 0).  Position ``pos`` attends when ``lens[b] -
-    win <= pos < lens[b]``; ``new_kv`` replaces the row at ``lens[b] - 1``
-    (local index ``lens - 1 - q0``, dropped outside the table).  Returns the
-    float32 state (acc (B, Hq, D), m (B, Hq), l (B, Hq)); an all-masked
-    sweep gives the empty state.  Masked rows never reach acc, so garbage in
-    the trash block cannot either."""
+    names each lane's blocks of ``bs`` rows, entry j holding positions
+    ``q0[b] + j*stride + i`` for i < bs (``q0`` None: 0; ``block_stride``
+    None: stride = bs, contiguous blocks).  A stride past bs is a shard of
+    the split-KV fallback, which holds bs positions of each stride-position
+    block.  Position ``pos`` attends when ``lens[b] - win <= pos <
+    lens[b]``; ``new_kv`` replaces the row at ``lens[b] - 1``, dropped
+    where no row of the table holds that position.  Returns the float32
+    state (acc (B, Hq, D), m (B, Hq), l (B, Hq)); an all-masked sweep gives
+    the empty state.  Masked rows never reach acc, so garbage in the trash
+    block cannot either."""
     B, Hq, D = q.shape
-    Hkv = k_arena.shape[2]
+    bs, Hkv = k_arena.shape[1], k_arena.shape[2]
+    stride = block_stride or bs
     win = window if window else NO_WINDOW
     t = tables.long()
     k = k_arena[t].reshape(B, -1, Hkv, D).float()         # (B, S, Hkv, D)
     v = v_arena[t].reshape(B, -1, Hkv, D).float()
     start = torch.zeros_like(lens) if q0 is None else q0
     if new_kv is not None:
-        splice_rows(k, new_kv[0], lens - 1 - start)
-        splice_rows(v, new_kv[1], lens - 1 - start)
-    pos = start.long()[:, None] + torch.arange(k.shape[1], device=q.device)
+        # the new row's local index: entry r // stride, row r % stride,
+        # dropped (-1) where the row falls past the entry's bs rows
+        r = (lens - 1 - start).long()
+        j, i = r.div(stride, rounding_mode="floor"), r.remainder(stride)
+        at = torch.where(i < bs, j * bs + i, -1)
+        splice_rows(k, new_kv[0], at)
+        splice_rows(v, new_kv[1], at)
+    local = (torch.arange(t.shape[1], device=q.device)[:, None] * stride
+             + torch.arange(bs, device=q.device)).reshape(-1)
+    pos = start.long()[:, None] + local
     ln = lens.long()[:, None]
     valid = (pos < ln) & (pos >= ln - win)                 # (B, S)
     v = torch.where(valid[:, :, None, None], v, 0.0)
@@ -255,6 +267,17 @@ def merge_attn_states(acc1, m1, l1, acc2, m2, l2) -> torch.Tensor:
     normalize: ``acc / max(l, 1e-30)``, float32."""
     acc, _, l = merge_softmax_states(acc1, m1, l1, acc2, m2, l2)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def merge_attn_states_n(acc: torch.Tensor, m: torch.Tensor,
+                        l: torch.Tensor) -> torch.Tensor:
+    """Merge S float32 states stacked on a leading axis (acc (S, *rows,
+    D), m and l (S, *rows)) and normalize: with M the max of m over the
+    states, ``sum exp(m - M) acc / max(sum exp(m - M) l, 1e-30)``, float32
+    (*rows, D)."""
+    c = torch.exp(m - m.amax(0))
+    return (c[..., None] * acc).sum(0) / \
+        torch.clamp((c * l).sum(0), min=1e-30)[..., None]
 
 
 def paged_decode_attention_merged(

@@ -550,7 +550,7 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
                       window: int = 0, backend: str = "plain",
                       cascade: dict | None = None,
                       scales: tuple[torch.Tensor, torch.Tensor] | None
-                      = None):
+                      = None, shards: list | None = None):
     """One-token decode attention for a batch of slot lanes, reading K/V in
     place from one layer's slice of the paged block arena.
 
@@ -569,7 +569,14 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
     gathered view with the dequantized-quantized row spliced in, what the
     dense int8 tick reads after its write.  Returns (out, k1q, v1q, k1_scale,
     v1_scale) then; only the plain backend covers the layout, as in the
-    reference (``ValueError`` for the others)."""
+    reference (``ValueError`` for the others).
+
+    ``shards``: the layer's arena shards over a slice's ``"model"`` axis
+    (``attention.KVShard``, each with its own scales under the int8 layout)
+    in place of ``k_blocks`` / ``v_blocks`` / ``scales``: the attention
+    runs once per shard (:func:`repro_torch.nn.attention.attend_decode_shards`)
+    and the shards' outputs are joined in head order on ``x1``'s device, so
+    the output projection's reduction is the unsharded one."""
     B = x1.shape[0]
     q = _proj(x1, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.d_head)
     k1 = _proj(x1, p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
@@ -580,20 +587,28 @@ def attn_decode_paged(cfg: LMConfig, p: dict, x1: torch.Tensor,
         q = rope.apply_rope(q, posb, cfg.rope_theta)
         k1 = rope.apply_rope(k1, posb, cfg.rope_theta)
     k1, v1 = k1[:, 0].contiguous(), v1[:, 0].contiguous()
-    if scales is None:
+    quant = scales is not None or (shards is not None
+                                   and shards[0].scales is not None)
+    if not quant:
         rows = (k1, v1)
-        new_kv, sc = rows, None
+        new_kv = rows
     else:
         (k1q, k1s), (v1q, v1s) = kvquant.quantize(k1), kvquant.quantize(v1)
         rows = (k1q, v1q, k1s, v1s)
         new_kv = (kvquant.dequantize(k1q, k1s, cfg.dtype),
                   kvquant.dequantize(v1q, v1s, cfg.dtype))
-        sc = (scales[0][:, 0], scales[1][:, 0])
-    o = attention.attend_decode_paged(q, k_blocks[:, 0], v_blocks[:, 0],
-                                      tables, pos + 1, window=window,
-                                      new_kv=new_kv, backend=backend,
-                                      cascade=cascade, scales=sc,
-                                      out_dtype=cfg.dtype)
+    if shards is not None:
+        o = attention.attend_decode_shards(q, shards, tables, pos + 1,
+                                           window=window, new_kv=new_kv,
+                                           backend=backend, cascade=cascade,
+                                           out_dtype=cfg.dtype)
+    else:
+        o = attention.attend_decode_paged(
+            q, k_blocks[:, 0], v_blocks[:, 0], tables, pos + 1,
+            window=window, new_kv=new_kv, backend=backend, cascade=cascade,
+            scales=None if scales is None else (scales[0][:, 0],
+                                                scales[1][:, 0]),
+            out_dtype=cfg.dtype)
     out = _proj(o.reshape(B, 1, cfg.n_heads * cfg.d_head), p["wo"],
                 p.get("bo"))
     return (out, *rows)

@@ -12,8 +12,17 @@ backend gathers each lane's chain and applies the masked softmax (the
 reference's ``"xla"`` body); its ``"cuda"`` backend calls the
 ``paged_decode_attention`` kernel, which reads the blocks in place; its
 ``"cascade"`` backend is :func:`attend_decode_cascade`.
+
+Over a slice's ``"model"`` axis (sharded serving): a tick's attention runs
+once per arena shard (:func:`attend_decode_shards`), and a prompt's, inside
+:func:`over_head_shards`, once per KV-head range; each shard takes the
+query heads of its KV heads (GQA groups stay whole) and the outputs are
+joined in head order on the queries' device.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 
@@ -45,9 +54,39 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset,
                                     q_chunk, kv_chunk)
-    return flash_kernels.flash_attention(
-        q, k, v, causal=causal, window=window, q_offset=q_offset,
-        q_chunk=q_chunk, kv_chunk=kv_chunk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if _HEAD_SHARDS is None:
+        return flash_kernels.flash_attention(q, k, v, **kw)
+    rep = q.shape[2] // k.shape[2]
+    outs = []
+    for dev, (h0, h1) in _HEAD_SHARDS:
+        qd, kd, vd = (t[:, :, a:b].contiguous().to(dev) for t, a, b in
+                      ((q, h0 * rep, h1 * rep), (k, h0, h1), (v, h0, h1)))
+        outs.append(flash_kernels.flash_attention(qd, kd, vd, **kw)
+                    .to(q.device))
+    return torch.cat(outs, dim=2)
+
+
+# the KV-head ranges prompt attention splits over, with their devices
+# (:func:`over_head_shards`); None: one call over every head
+_HEAD_SHARDS: list | None = None
+
+
+@contextlib.contextmanager
+def over_head_shards(groups):
+    """Within the block, :func:`attend_chunked` runs once per ``(device,
+    (lo, hi))`` of ``groups``: KV heads [lo, hi) and their query heads on
+    ``device``, the outputs joined in head order on the queries' device
+    (a prefill or fold chunk of a slice whose arena splits KV heads over
+    its devices).  None: one call, as outside the block.  Training calls
+    (inputs that require grad) are not split."""
+    global _HEAD_SHARDS
+    prev, _HEAD_SHARDS = _HEAD_SHARDS, groups
+    try:
+        yield
+    finally:
+        _HEAD_SHARDS = prev
 
 
 class FlashAttention(torch.autograd.Function):
@@ -161,8 +200,6 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
                                      window=window, new_kv=new_kv)
     if backend != "plain":
         raise ValueError(f"unknown attention backend {backend!r}")
-    B, _, Hq, D = q.shape
-    Hkv = k_arena.shape[2]
     k = gather_paged_kv(k_arena, block_table)        # (B, S, Hkv, D)
     v = gather_paged_kv(v_arena, block_table)
     if scales is not None:
@@ -170,6 +207,17 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
                                out_dtype)
         v = kvquant.dequantize(v, gather_paged_kv(scales[1], block_table),
                                out_dtype)
+    return _read_gathered(q, k, v, cache_len, window, new_kv)
+
+
+def _read_gathered(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache_len: torch.Tensor, window: int,
+                   new_kv: tuple[torch.Tensor, torch.Tensor] | None
+                   ) -> torch.Tensor:
+    """The plain paged read's masked softmax over gathered chains k, v
+    (B, S, Hkv, D), ``new_kv`` spliced in at ``cache_len - 1``."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
     if new_kv is not None:
         k = splice_rows(k, new_kv[0], cache_len - 1)
         v = splice_rows(v, new_kv[1], cache_len - 1)
@@ -184,6 +232,104 @@ def attend_decode_paged(q: torch.Tensor, k_arena: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhrs,bshd->bhrd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, 1, Hq, D).to(v.dtype)
+
+
+@dataclasses.dataclass
+class KVShard:
+    """One layer of one arena shard (``serve.engine.ArenaShard``): k, v
+    (num_blocks, bs_d, Hkv_d, D), the int8 layout's (k_scale, v_scale)
+    alike or None, the shard's device, and the KV heads and in-block
+    positions [lo, hi) of the whole arena's that it holds."""
+    k: torch.Tensor
+    v: torch.Tensor
+    scales: tuple | None
+    device: torch.device
+    heads: tuple[int, int]
+    positions: tuple[int, int]
+
+
+def attend_decode_shards(q: torch.Tensor, shards: list[KVShard],
+                         block_table: torch.Tensor, cache_len: torch.Tensor,
+                         *, window: int = 0,
+                         new_kv: tuple[torch.Tensor, torch.Tensor] | None
+                         = None, backend: str = "plain",
+                         cascade: dict | None = None,
+                         out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
+    """:func:`attend_decode_paged` over an arena split across a slice's
+    devices.  Operands as there (``q`` (B, 1, Hq, D) and ``new_kv`` with
+    every head, on the first shard's device), the arena as ``shards``.
+    Returns (B, 1, Hq, D) on ``q``'s device, in the arena's dtype (the
+    int8 layout: ``out_dtype``).
+
+    KV heads split: each shard's read runs on its device with its KV
+    heads' query heads (GQA groups stay whole) and its heads of
+    ``new_kv``, through ``backend`` as :func:`attend_decode_paged` runs it,
+    and the outputs are joined in head order.
+
+    The split-KV fallback (each shard holds every head at part of each
+    block's positions): ``"plain"`` gathers each lane's chain from the
+    shards, joins the positions back in order and reads it as the
+    unsharded plain read does; ``"cuda"`` and ``"cascade"`` sweep each
+    shard's rows through ``paged_decode_attention_with_state`` (``q0`` the
+    shard's first in-block position, ``block_stride`` the block size, so
+    the window and the new row at ``cache_len - 1`` fall where they
+    belong) and merge the shards' float32 states in order
+    (``merge_attn_states``; over more than two shards
+    ``merge_attn_states_n``).  The cascade's group passes take contiguous
+    blocks, so under the fallback its tick reads each lane's whole chain
+    as the flat one does."""
+    dev0 = q.device
+    B, _, Hq, D = q.shape
+    Hkv = sum(h1 - h0 for h0, h1 in {sh.heads for sh in shards})
+    rep = Hq // Hkv
+    if shards[0].positions == shards[-1].positions:          # KV heads
+        outs = []
+        for sh in shards:
+            (h0, h1), dev = sh.heads, sh.device
+            qd = q[:, :, h0 * rep:h1 * rep].contiguous().to(dev)
+            nd = None if new_kv is None else tuple(
+                t[:, h0:h1].contiguous().to(dev) for t in new_kv)
+            meta = None if cascade is None else {
+                key: t.to(dev) for key, t in cascade.items()}
+            o = attend_decode_paged(qd, sh.k, sh.v, block_table.to(dev),
+                                    cache_len.to(dev), window=window,
+                                    new_kv=nd, backend=backend,
+                                    cascade=meta, scales=sh.scales,
+                                    out_dtype=out_dtype)
+            outs.append(o.to(dev0))
+        return torch.cat(outs, dim=2)
+    if backend == "plain":
+        def chains(get) -> torch.Tensor:
+            g = torch.cat([get(sh)[block_table.to(sh.device).long()].to(dev0)
+                           for sh in shards], dim=2)    # (B, nb, bs, H, D)
+            return g.reshape(B, -1, *g.shape[3:])
+        k, v = chains(lambda sh: sh.k), chains(lambda sh: sh.v)
+        if shards[0].scales is not None:
+            k = kvquant.dequantize(k, chains(lambda sh: sh.scales[0]),
+                                   out_dtype)
+            v = kvquant.dequantize(v, chains(lambda sh: sh.scales[1]),
+                                   out_dtype)
+        return _read_gathered(q, k, v, cache_len, window, new_kv)
+    if shards[0].scales is not None:
+        raise ValueError(f"backend={backend!r} does not cover the int8 "
+                         "kv_quant layout")
+    bs = shards[-1].positions[1]
+    states = []
+    for sh in shards:
+        dev = sh.device
+        q0 = torch.full((B,), sh.positions[0], dtype=torch.int32, device=dev)
+        st = paged_kernels.paged_decode_attention_with_state(
+            q[:, 0].contiguous().to(dev), sh.k, sh.v, block_table.to(dev),
+            cache_len.to(dev), window=window, q0=q0,
+            new_kv=None if new_kv is None else tuple(t.to(dev)
+                                                     for t in new_kv),
+            block_stride=bs)
+        states.append(tuple(t.to(dev0) for t in st))
+    out = paged_kernels.merge_attn_states(*states[0], *states[1]) \
+        if len(states) == 2 else paged_kernels.merge_attn_states_n(
+            *(torch.stack(ts) for ts in zip(*states)))
+    return out.to(shards[0].v.dtype)[:, None]
 
 
 def attend_decode_cascade(q: torch.Tensor, k_arena: torch.Tensor,

@@ -14,8 +14,10 @@ the first call of a key runs ``fn`` eagerly on those buffers (the warm-up a
 capture needs, and that call's real result), then captures ``fn`` into a
 graph; every later call refills the buffers and replays the graph on the
 current stream.  On the CPU, which only a caller asking for the CPU gets,
-every call runs ``fn`` on the same buffers.  A capture or replay that fails
-raises; nothing falls back to running the step eagerly.
+every call runs ``fn`` on the same buffers, as it does on a card for a step
+made with ``capture=False`` (a sharded slice whose shards live on distinct
+cards: one graph records one device's work).  A capture or replay that
+fails raises; nothing falls back to running the step eagerly.
 
 An owner's steps share one :class:`GraphPool`.  What a graph freezes at
 capture, and so what must not change under it:
@@ -99,9 +101,10 @@ class CapturedStep:
     (:data:`repro_torch.kernels.COUNTERS`)."""
 
     def __init__(self, fn, device: torch.device,
-                 pool: GraphPool | None = None):
+                 pool: GraphPool | None = None, capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
+        self.capture = capture
         self.pool = pool if pool is not None else GraphPool(self.device)
         self._entries: dict[tuple, _Entry] = {}
         self._stream = None
@@ -171,7 +174,7 @@ class CapturedStep:
             return entry.outputs
         out = self.fn(*entry.inputs)
         entry.ran = True
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.capture:
             self._capture(entry)
         return out
 

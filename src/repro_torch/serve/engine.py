@@ -64,14 +64,25 @@ reference leaves the family out of the chunked fold
 (:func:`prefill_chunked` refuses it), and its tick runs the plain
 in-place read (``backend="plain"``; :func:`decode_step_paged` refuses the
 kernels' backends, as the reference refuses them).
+
+Over a serving slice's ``"model"`` axis the arena is split by the
+reference's specs (:func:`cache_specs`, :func:`arena_specs`) into one
+:class:`ArenaShard` per device (:func:`shard_arena`): KV heads when the
+slice's width divides ``n_kv_heads``, else each block's positions (the
+split-KV fallback); :func:`decode_step_paged` takes the shards in place of
+the arena dict.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.dist.sharding import P, axis_if_divisible, batch_spec_axis
 from repro_torch.kernels import paged_attn as paged_kernels
 from repro_torch.kernels import ref
 from repro_torch.models import lm
+from repro_torch.nn import attention
 from repro_torch.serve import kvquant
 
 # Cache keys whose axis -3 is the (paged) sequence axis: k and v, and their
@@ -191,6 +202,155 @@ def arena_block_axis(a: torch.Tensor) -> int:
     """Block-id axis of an :func:`init_paged_arena` tensor (5 from the
     end, whatever the leading layer axes)."""
     return a.dim() - 5
+
+
+# ==========================================================================
+# Sharding over a slice's "model" axis.
+# ==========================================================================
+
+def cache_specs(cfg: lm.LMConfig, mesh_shape: dict[str, int],
+                batch: int) -> dict[str, P]:
+    """Partition specs matching :func:`init_cache` (the reference's
+    ``cache_specs``): the batch axis over the DP axes where they divide
+    it; KV heads over ``"model"`` when it divides ``n_kv_heads``, else the
+    sequence axis over ``"model"`` (the split-KV fallback); the hybrid
+    family's inner width and the rwkv family's heads over ``"model"`` when
+    divisible.  The vlm family's flat, layer-ordered k / v (L, B, Smax,
+    Hkv, Dh) get the spec the reference gives its grouped ``k`` (G, k - 1,
+    ...) and ``kx_self`` (G, ...), at the port's rank: the reference's
+    entries after its leading group axes."""
+    b = batch_spec_axis(mesh_shape, batch)
+    kv_heads = axis_if_divisible("model", cfg.n_kv_heads, mesh_shape)
+    seq = None if kv_heads else "model"              # split-KV fallback
+    kv = P(None, b, seq, kv_heads, None)
+    specs = {"len": P()}
+    if cfg.family == "rwkv":
+        h = axis_if_divisible("model", cfg.n_heads, mesh_shape)
+        specs["wkv"] = P(None, b, h, None, None)
+        specs["shift1"] = specs["shift2"] = P(None, b, None)
+        return specs
+    specs["k"] = specs["v"] = kv
+    if quantized(cfg):
+        for key in SCALE_KEYS:
+            specs[key] = kv
+    if cfg.family == "hybrid":
+        di = axis_if_divisible("model", cfg.inner, mesh_shape)
+        specs["conv"] = P(None, b, None, di)
+        specs["ssm"] = P(None, b, di, None)
+    if cfg.n_cross:
+        for key in CROSS_KEYS:
+            specs[key] = kv
+    return specs
+
+
+def arena_specs(cfg: lm.LMConfig, mesh_shape: dict[str, int]
+                ) -> dict[str, P]:
+    """Partition specs matching :func:`init_paged_arena`: the dense B=1
+    spec of :func:`cache_specs` with a replicated block axis spliced in
+    just before the batch axis, so KV heads shard over ``"model"`` when
+    divisible and the block-size axis otherwise; the block axis never
+    shards (slices partition the arena by pool, ``serve/shard/``)."""
+    _refuse_rwkv(cfg, "the paged arena")
+    dense = cache_specs(cfg, mesh_shape, batch=1)
+    out = {}
+    for key in PAGED_SEQ_KEYS:
+        if key in dense:
+            sp = tuple(dense[key])
+            ax = len(sp) - 4                     # just before the B axis
+            out[key] = P(*sp[:ax], None, *sp[ax:])
+    return out
+
+
+@dataclasses.dataclass
+class ArenaShard:
+    """One device's part of a paged arena split over a slice's ``"model"``
+    axis (:func:`shard_arena`): ``arrays`` holds every sequence key at
+    the KV heads ``heads`` = [lo, hi) and the in-block positions
+    ``positions`` = [lo, hi) of the whole arena's, on ``device``.  A head
+    split holds every position of its heads; a shard of the split-KV
+    fallback holds every head at ``positions[1] - positions[0]`` of each
+    block's positions."""
+    arrays: dict
+    device: torch.device
+    heads: tuple[int, int]
+    positions: tuple[int, int]
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        """This shard's part of a tensor in the arena's trailing layout
+        (..., bs, Hkv, Dh or 1), a view on ``t``'s device."""
+        (p0, p1), (h0, h1) = self.positions, self.heads
+        return t[..., p0:p1, h0:h1, :]
+
+
+def _model_axis(spec) -> int | None:
+    """The trailing axis a spec shards over ``"model"`` (None: none)."""
+    sp = tuple(spec)
+    return sp.index("model") - len(sp) if "model" in sp else None
+
+
+def shard_arena(arena: dict, specs: dict, devices) -> list[ArenaShard]:
+    """An :func:`init_paged_arena` dict split over ``devices`` by
+    ``specs`` (:func:`arena_specs`): the one axis a key's spec names
+    ``"model"`` (KV heads, or the block-size axis under the split-KV
+    fallback) into ``len(devices)`` equal contiguous ranges, range d a
+    copy on ``devices[d]`` (zeros for an arena on the ``"meta"`` device, so
+    a slice never holds the whole arena anywhere).  Returns one
+    :class:`ArenaShard` per device, recording the range it holds, so the
+    readers map a shard's heads back to their query heads and its rows
+    back to their positions."""
+    devices = [torch.device(d) for d in devices]
+    m = len(devices)
+    k = arena["k"]
+    bs, Hkv = k.shape[-3], k.shape[-2]
+    axes = {_model_axis(specs[key]) for key in arena}
+    if len(axes) != 1 or not axes <= {-2, -3}:
+        raise ValueError(f"arena specs {specs} do not shard one KV head or "
+                         "block-size axis alike")
+    ax = axes.pop()
+    size = Hkv if ax == -2 else bs
+    if size % m:
+        raise ValueError(f"{size} {'KV heads' if ax == -2 else 'positions'}"
+                         f" do not split over {m} devices")
+    n = size // m
+    out = []
+    for d, dev in enumerate(devices):
+        rng = (d * n, (d + 1) * n)
+        shard = ArenaShard({}, dev, rng if ax == -2 else (0, Hkv),
+                           rng if ax == -3 else (0, bs))
+        for key, a in arena.items():
+            part = shard.part(a)
+            shard.arrays[key] = torch.zeros(part.shape, dtype=a.dtype,
+                                            device=dev) \
+                if a.device.type == "meta" else \
+                part.to(dev, copy=True).contiguous()
+        out.append(shard)
+    return out
+
+
+def shard_axis(shards: list[ArenaShard]) -> int:
+    """The trailing axis the shards split: -3 (in-block positions, the
+    split-KV fallback) or -2 (KV heads, and a single shard)."""
+    return -3 if shards[0].positions != shards[-1].positions else -2
+
+
+def join_parts(shards: list[ArenaShard], parts, device) -> torch.Tensor:
+    """The whole tensor from the shards' parts (each in the arena's
+    trailing layout), joined in head or position order on ``device``; a
+    single shard's part as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(device) for p in parts], dim=shard_axis(shards))
+
+
+def layer_shards(shards: list[ArenaShard], i: int, quant: bool
+                 ) -> list[attention.KVShard]:
+    """Layer ``i`` of each arena shard as the attention reads it: k / v
+    (num_blocks, bs_d, Hkv_d, Dh) and, under ``quant``, the scales."""
+    return [attention.KVShard(
+        sh.arrays["k"][i][:, 0], sh.arrays["v"][i][:, 0],
+        tuple(sh.arrays[key][i][:, 0] for key in SCALE_KEYS)
+        if quant else None, sh.device, sh.heads, sh.positions)
+        for sh in shards]
 
 
 def _put(dst: torch.Tensor, new: torch.Tensor,
@@ -489,7 +649,15 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
             one V row per layer and lane at (``wbids``, ``lens % bs``);
             under :func:`quantized` int8 rows and their float32 scale rows
             in k_scale / v_scale, written by the plain row write (the
-            reference's is XLA), and ``backend`` must be ``"plain"``.
+            reference's is XLA), and ``backend`` must be ``"plain"``.  Or
+            the :func:`shard_arena` list of a slice's shards: each layer's
+            attention runs once per shard
+            (:func:`repro_torch.nn.attention.attend_decode_shards`), the
+            outputs joined in head order on the first shard's device (where
+            everything else runs) before the output projection, and each
+            shard writes its heads of the rows, or under the split-KV
+            fallback the rows of the lanes whose position it holds (the
+            other lanes write its trash block).
     wbids   (S,) int32 block each lane's row lands in; the caller routes
             lanes that must not write to the trash block 0.  ``None``
             derives it from the table, routing lanes past the table to 0.
@@ -529,7 +697,8 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     if (cfg.family == "hybrid" or cfg.n_cross) and state is None:
         raise ValueError(f"the {cfg.family} family's tick needs the "
                          "lanes' state (state=)")
-    bs = arena["k"].shape[-3]
+    sharded = isinstance(arena, (list, tuple))
+    bs = arena[-1].positions[1] if sharded else arena["k"].shape[-3]
     nb = tables.shape[1]
     pos = lens.to(torch.int32)
     offs = pos % bs
@@ -542,11 +711,17 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     for i, (lp, window, moe_layer, cross) in enumerate(
             lm.layers(cfg, params)):
         z = lm._norm_apply(cfg, lp["ln1"], x)
-        att, *new = lm.attn_decode_paged(
-            cfg, lp["attn"], z, arena["k"][i], arena["v"][i], tables, pos,
-            window=window, backend=backend, cascade=cascade,
-            scales=tuple(arena[key][i] for key in SCALE_KEYS)
-            if quant else None)
+        if sharded:
+            att, *new = lm.attn_decode_paged(
+                cfg, lp["attn"], z, None, None, tables, pos, window=window,
+                backend=backend, cascade=cascade,
+                shards=layer_shards(arena, i, quant))
+        else:
+            att, *new = lm.attn_decode_paged(
+                cfg, lp["attn"], z, arena["k"][i], arena["v"][i], tables,
+                pos, window=window, backend=backend, cascade=cascade,
+                scales=tuple(arena[key][i] for key in SCALE_KEYS)
+                if quant else None)
         x = _block_tail(cfg, lp, x, z, att, moe_layer, state, i, cross,
                         active)
         for key, r in zip(keys, new):
@@ -558,6 +733,34 @@ def decode_step_paged(cfg: lm.LMConfig, params: dict, tokens: torch.Tensor,
     wbids, offs = wbids.to(torch.int32), offs.to(torch.int32)
     scatter = ref.scatter_kv_rows if backend == "plain" else \
         paged_kernels.scatter_kv_rows
-    for kk, vk in zip(keys[::2], keys[1::2]):
-        scatter(arena[kk], arena[vk], rows[kk], rows[vk], wbids, offs)
+    if sharded:
+        _scatter_shards(scatter, arena, rows, keys, wbids, offs)
+    else:
+        for kk, vk in zip(keys[::2], keys[1::2]):
+            scatter(arena[kk], arena[vk], rows[kk], rows[vk], wbids, offs)
     return lm.logits(cfg, params, x)[:, 0]
+
+
+def _scatter_shards(scatter, shards: list[ArenaShard], rows: dict,
+                    keys: tuple, wbids: torch.Tensor,
+                    offs: torch.Tensor) -> None:
+    """The sharded tick's row write, one launch per shard and key pair: a
+    head split writes each shard's heads of every lane's rows; under the
+    split-KV fallback each shard writes the full rows of the lanes whose
+    in-block offset it holds, at the offset within its positions, and
+    routes the other lanes to its trash block."""
+    heads = shard_axis(shards) == -2
+    if heads:
+        rows = {key: torch.stack(rs) for key, rs in rows.items()}
+    for sh in shards:
+        dev, (p0, p1), (h0, h1) = sh.device, sh.positions, sh.heads
+        held = (offs >= p0) & (offs < p1)
+        wb = torch.where(held, wbids, 0).to(dev)
+        of = torch.where(held, offs - p0, 0).to(dev)
+        for kk, vk in zip(keys[::2], keys[1::2]):
+            if heads:
+                rk, rv = (rows[key][:, :, h0:h1].contiguous().to(dev)
+                          for key in (kk, vk))
+            else:
+                rk, rv = ([r.to(dev) for r in rows[key]] for key in (kk, vk))
+            scatter(sh.arrays[kk], sh.arrays[vk], rk, rv, wb, of)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.dist.sharding import Mesh, slice_mesh
 from repro_torch.models.lm import LMConfig
 from repro_torch.serve import capture, engine
 from repro_torch.serve.kvcache.pool import PoolExhausted
@@ -309,11 +310,14 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int = 128, extras=None, *, paged: bool = False,
                  block_size: int = 16, num_blocks: int | None = None,
                  chunked: bool = True, backend: str | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
     """The slot adapter for ``cfg``, on ``device`` (None: where ``params``
-    live; else the params are copied there unless they already are, which
-    is how a sharded gateway's slice places its arena on its own
-    device): for the rwkv family the state slots
+    live; else the params are copied there unless they already are), or
+    placed on ``mesh``, a serving slice's ``("model",)`` sub-mesh or list
+    of devices (the sharded-serving entry point, paged only, not for the
+    rwkv family: ``ValueError``): the params on its first device and the
+    paged arena split over its devices (``engine.arena_specs``; one device
+    is exactly the ``device=`` path).  For the rwkv family the state slots
     (:class:`StateSlotAdapter`, whatever ``paged`` is: its O(1) state has
     nothing to page; ``backend`` raises ``ValueError``); for the decoder,
     moe, hybrid, encdec or vlm family (the last two with ``extras``, a
@@ -328,6 +332,20 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
     lanes over shared prefix chains, or "gather", the gather-tick oracle;
     None: "cuda" on a CUDA device, else "plain"; for the vlm family
     "plain" or "gather" only, None giving "plain")."""
+    if mesh is not None:
+        if not paged or cfg.family == "rwkv":
+            # an unplaced adapter would defeat the sharding silently: only
+            # the paged attention families commit their arena to a slice
+            raise ValueError("mesh placement requires paged=True and a "
+                             f"non-rwkv family (got paged={paged}, "
+                             f"family={cfg.family})")
+        if device is not None:
+            raise ValueError("give the slice's devices as mesh= or one "
+                             "device as device=, not both")
+        mesh = slice_mesh(mesh)
+        mesh = Mesh(np.asarray([resolve_device(d) for d in mesh.device_list],
+                               object), mesh.axis_names)
+        device = mesh.device_list[0]
     if device is not None:
         params = params_on(params, resolve_device(device))
     if cfg.family == "rwkv":
@@ -346,7 +364,7 @@ def make_adapter(cfg: LMConfig, params: dict, n_slots: int,
     return PagedKVSlotAdapter(cfg, params, n_slots, max_len,
                               block_size=block_size, num_blocks=num_blocks,
                               extras=extras, chunked=chunked,
-                              backend=backend)
+                              backend=backend, mesh=mesh)
 
 
 class ContinuousBatcher:

@@ -123,7 +123,27 @@ The int8 layout (``cfg.kv_quant``)
     prefix's unquantized K/V); the tick is ``"plain"`` (``serve/backend.py``
     refuses an explicit ``"cuda"`` or ``"cascade"``).
 
-The reference's mesh placement comes with a later slice (ROADMAP.md).
+Sharded slices (``mesh``, a ``("model",)`` sub-mesh of m devices)
+    As in the reference (``engine.arena_specs``): the arena's KV heads
+    split over the m devices when m divides ``n_kv_heads``, else each
+    block's positions (the split-KV fallback), one
+    :class:`engine.ArenaShard` per device (``shards``; the arena is never
+    whole on any device).  The params, the lane state, the boundary
+    states and everything but attention and the arena's reads and writes
+    live on the slice's first device, where each layer's shards' outputs
+    are joined in head order before the output projection.  The prompt
+    writes, the copy-on-write copy, the gather oracle, a resumed fold's
+    prefix read and ``arena_block`` / ``write_block`` (a migration's
+    block moves, across slices of any width) go shard by shard; the
+    ticks' attention runs once per shard
+    (``nn.attention.attend_decode_shards``), and under a head split so
+    does prompt attention (``nn.attention.over_head_shards``), while the
+    fallback's fold reads the prefix gathered back in position order.
+    When every shard lives on one card the captured ticks capture every
+    shard's work; on distinct cards the ticks run uncaptured (one graph
+    records one device).  A one-device sub-mesh is the ``device=`` path,
+    bit for bit: ``arena`` is then the whole arena dict, and
+    ``shards`` its one shard.
 """
 from __future__ import annotations
 
@@ -134,7 +154,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import synchronize
+from repro_torch.dist.sharding import mesh_shape_dict
 from repro_torch.models.lm import LMConfig
+from repro_torch.nn import attention
 from repro_torch.serve import capture, engine
 from repro_torch.serve.backend import auto_backend, resolve_backend
 from repro_torch.serve.gateway.slots import check_extras, extras_kwargs
@@ -171,29 +193,32 @@ def _flat_tick(cfg, params, arena, state, backend, tokens, tables, lens,
                wbids, active=None):
     """The flat tick's captured body: :func:`engine.decode_step_paged`
     (``active``, the lanes whose state the tick advances, for the hybrid
-    family only)."""
+    family only; ``arena`` the arena dict or a slice's shards)."""
     return engine.decode_step_paged(cfg, params, tokens, tables=tables,
                                     lens=lens, arena=arena, wbids=wbids,
                                     backend=backend, state=state,
                                     active=active)
 
 
-def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
+def _gather_tick(cfg, params, shards, state, tokens, tables, lens, wbids,
                  active=None):
     """The gather tick's captured body (the reference's ``_tick_impl``):
-    gather each lane's chain into a dense cache (L, S, nb_max * bs, Hkv,
-    Dh), run :func:`engine.decode_step` on it (with the lanes' recurrent
-    state, advanced in place for the lanes that write), and write the
-    block that holds each lane's new row to ``wbids`` (a lane whose length
-    is past its table writes the trash block, from offset 0); the encdec
-    family's lanes read their cross K/V from ``state``."""
+    gather each lane's chain from the arena ``shards`` into a dense cache
+    (L, S, nb_max * bs, Hkv, Dh), run :func:`engine.decode_step` on it
+    (with the lanes' recurrent state, advanced in place for the lanes that
+    write), and write the block that holds each lane's new row to
+    ``wbids`` (a lane whose length is past its table writes the trash
+    block, from offset 0), each shard its part; the encdec family's lanes
+    read their cross K/V from ``state``."""
     S, nb = tables.shape
-    bs = arena["k"].shape[-3]
+    bs = shards[-1].positions[1]
     max_len = nb * bs
-    idx = tables.long()
+    dev = tokens.device
     cache = {"len": lens.clone(), **state}
-    for key in arena:
-        g = arena[key][:, idx, 0]                # (L, S, nb, bs, Hkv, Dh)
+    for key in shards[0].arrays:
+        g = engine.join_parts(shards, [
+            sh.arrays[key][:, tables.to(sh.device).long(), 0]
+            for sh in shards], dev)              # (L, S, nb, bs, Hkv, Dh)
         cache[key] = g.reshape(g.shape[0], S, max_len, *g.shape[4:])
     _, logits = engine.decode_step(cfg, params, cache, tokens, active)
     oor = lens >= max_len
@@ -201,8 +226,11 @@ def _gather_tick(cfg, params, arena, state, tokens, tables, lens, wbids,
     wbids = torch.where(oor, TRASH_BLOCK, wbids).long()
     rows = start[:, None] + torch.arange(bs, device=start.device)  # (S, bs)
     lanes = torch.arange(S, device=start.device)[:, None]
-    for key in arena:
-        arena[key][:, wbids, 0] = cache[key][:, lanes, rows]
+    for key in shards[0].arrays:
+        blocks = cache[key][:, lanes, rows]        # (L, S, bs, Hkv, Dh)
+        for sh in shards:
+            sh.arrays[key][:, wbids.to(sh.device), 0] = \
+                sh.part(blocks).to(sh.device)
     return logits
 
 
@@ -231,7 +259,8 @@ class PagedKVSlotAdapter:
     def __init__(self, cfg: LMConfig, params: dict, n_slots: int,
                  max_len: int, *, block_size: int = 16,
                  num_blocks: int | None = None, extras=None,
-                 chunked: bool = True, backend: str | None = None):
+                 chunked: bool = True, backend: str | None = None,
+                 mesh=None):
         check_extras(cfg, extras)
         self.cfg = cfg
         self.extras = extras
@@ -241,6 +270,12 @@ class PagedKVSlotAdapter:
         self.chunked = chunked and cfg.family != "vlm" and not cfg.kv_quant
         self.params = params
         self.device = params["embed"].device
+        # the slice's devices: the mesh's, its first holding the params
+        self.mesh = mesh
+        self.devices = [self.device] if mesh is None else mesh.device_list
+        if self.devices[0] != self.device:
+            raise ValueError(f"params on {self.device}, the slice's first "
+                             f"device is {self.devices[0]}")
         self.n_slots = n_slots
         self.bs = block_size
         self.nb_max = -(-max_len // block_size)
@@ -259,9 +294,21 @@ class PagedKVSlotAdapter:
             # dense-equivalent capacity + the reserved trash block
             num_blocks = n_slots * self.nb_max + 1
         self.pool = BlockPool(num_blocks, block_size)
-        self.arena = engine.init_paged_arena(cfg, num_blocks, block_size,
-                                             self.device)
-        self.seq_keys = tuple(self.arena)
+        if len(self.devices) == 1:
+            self.arena = engine.init_paged_arena(cfg, num_blocks, block_size,
+                                                 self.device)
+            self.shards = [engine.ArenaShard(
+                self.arena, self.device, (0, cfg.n_kv_heads),
+                (0, block_size))]
+        else:
+            # split over the slice's devices (engine.arena_specs), never
+            # allocated whole: the tick reads the shards
+            self.shards = engine.shard_arena(
+                engine.init_paged_arena(cfg, num_blocks, block_size, "meta"),
+                engine.arena_specs(cfg, mesh_shape_dict(mesh)),
+                self.devices)
+            self.arena = self.shards
+        self.seq_keys = tuple(self.shards[0].arrays)
         # the lanes' state: the hybrid family's recurrent state, the encdec
         # and vlm families' cross K/V ({} otherwise)
         self.state = engine.init_state(cfg, n_slots, self.device)
@@ -288,28 +335,33 @@ class PagedKVSlotAdapter:
         self.cow_spare: list[int | None] = [None] * n_slots
         self.partial_reg: list[tuple[int, int] | None] = [None] * n_slots
         self._stats: list[dict] = [{} for _ in range(n_slots)]
-        # per-token arena bytes (for the bytes-saved-vs-dense telemetry)
+        # per-token arena bytes (for the bytes-saved-vs-dense telemetry),
+        # summed over the shards
         self._token_bytes = sum(
-            a.element_size() * (a.numel() // num_blocks) // block_size
-            for a in self.arena.values())
+            a.element_size() * (a.numel() // num_blocks)
+            for sh in self.shards for a in sh.arrays.values()) // block_size
         self.peak_blocks_in_use = 0
         self.peak_bytes_saved = 0
         self.last_logits = None
         self.last_prefill_logits = None     # the latest insert's logits
         # the captured ticks (the steps close over the arena and weights,
         # never over the adapter), on one graph memory pool
+        # (one graph records one device's work: shards on distinct cards
+        # tick uncaptured)
         pool = capture.GraphPool(self.device)
-        tick = functools.partial(_gather_tick, cfg, params, self.arena,
+        one_card = len(set(self.devices)) == 1
+        tick = functools.partial(_gather_tick, cfg, params, self.shards,
                                  self.state) \
             if self.backend == "gather" else \
             functools.partial(_flat_tick, cfg, params, self.arena,
                               self.state, self.flat_backend)
-        self._decode = capture.CapturedStep(tick, self.device, pool)
+        self._decode = capture.CapturedStep(tick, self.device, pool,
+                                            capture=one_card)
         if self.backend == "cascade":
             self._decode_cascade = capture.CapturedStep(
                 functools.partial(_cascade_tick, cfg, params, self.arena,
                                   self.state),
-                self.device, pool)
+                self.device, pool, capture=one_card)
 
     # -- device work ---------------------------------------------------------
 
@@ -331,13 +383,17 @@ class PagedKVSlotAdapter:
                 a = torch.cat([a, a.new_zeros((a.shape[0], pad)
                                               + a.shape[2:])], dim=1)
             blocks = a[:, :n * self.bs].reshape(
-                a.shape[0], n, self.bs, *a.shape[2:])
-            self.arena[key][:, bids, 0] = blocks[:, js]
+                a.shape[0], n, self.bs, *a.shape[2:])[:, js]
+            for sh in self.shards:
+                sh.arrays[key][:, bids.to(sh.device), 0] = \
+                    sh.part(blocks).to(sh.device)
 
     def _copy(self, dst: int, src: int) -> None:
-        """Copy block ``src`` onto block ``dst`` for every key (CoW)."""
-        for a in self.arena.values():
-            a[:, dst] = a[:, src]
+        """Copy block ``src`` onto block ``dst`` for every key (CoW), in
+        every shard."""
+        for sh in self.shards:
+            for a in sh.arrays.values():
+                a[:, dst] = a[:, src]
 
     # -- admission ----------------------------------------------------------
 
@@ -420,13 +476,27 @@ class PagedKVSlotAdapter:
 
     def _gather_prefix(self, bids: list[int]) -> dict[str, torch.Tensor]:
         """An H-block chain in the layout :func:`engine.prefill_chunked`
-        consumes: per key (L, 1, H*bs, Hkv, Dh), copied out of the arena."""
+        consumes: per key (L, 1, H*bs, Hkv, Dh), copied out of the arena
+        (of a sharded slice: each shard's part, joined in head or position
+        order on the first device)."""
         idx = torch.tensor(bids, device=self.device)
         out = {}
         for key in self.seq_keys:
-            g = self.arena[key][:, idx, 0]         # (L, H, bs, Hkv, Dh)
+            g = engine.join_parts(self.shards, [
+                sh.arrays[key][:, idx.to(sh.device), 0]
+                for sh in self.shards], self.device)  # (L, H, bs, Hkv, Dh)
             out[key] = g.reshape(g.shape[0], 1, -1, *g.shape[3:])
         return out
+
+    def _prompt_attention(self):
+        """Where a prompt's attention runs: once per KV-head range of the
+        shards under a head split (``attention.over_head_shards``), else as
+        one call (one device, or the split-KV fallback, whose fold reads
+        the prefix gathered back in position order)."""
+        heads = None
+        if len(self.shards) > 1 and engine.shard_axis(self.shards) == -2:
+            heads = [(sh.device, sh.heads) for sh in self.shards]
+        return attention.over_head_shards(heads)
 
     def _encode(self) -> dict[str, torch.Tensor]:
         """The encdec family's cross K/V for one admission, each (L, 1,
@@ -462,8 +532,9 @@ class PagedKVSlotAdapter:
             c = min(self.bs, P - q)
             if self.tracer is not None:
                 self.tracer.begin("prefill_chunk")
-            cache, logits = engine.prefill_chunked(
-                self.cfg, self.params, tokens[:, q:q + c], cache, q)
+            with self._prompt_attention():
+                cache, logits = engine.prefill_chunked(
+                    self.cfg, self.params, tokens[:, q:q + c], cache, q)
             if self.tracer is not None:
                 # the span closes on the chunk's finished work, not on
                 # its issue
@@ -628,9 +699,10 @@ class PagedKVSlotAdapter:
             raise
 
         tokens = torch.from_numpy(prompt[None]).to(self.device)
-        cache, logits = engine.prefill(
-            self.cfg, self.params, tokens,
-            **extras_kwargs(self.cfg, self.extras, self.device))
+        with self._prompt_attention():
+            cache, logits = engine.prefill(
+                self.cfg, self.params, tokens,
+                **extras_kwargs(self.cfg, self.extras, self.device))
         self._scatter(cache, fresh)
         # index only after the contents exist (a failed insert must never
         # leave a key pointing at an unwritten block)
@@ -874,17 +946,24 @@ class PagedKVSlotAdapter:
 
     def arena_block(self, key: str, bid: int) -> torch.Tensor:
         """One arena block's contents for ``key``: the B=1 cache slice of
-        ``block_size`` positions."""
-        return self.arena[key].select(engine.arena_block_axis(
-            self.arena[key]), bid)
+        ``block_size`` positions, every head (a view of the arena; of a
+        sharded slice's, the shards' parts joined on the first device)."""
+        a = self.shards[0].arrays[key]
+        ax = engine.arena_block_axis(a)
+        return engine.join_parts(self.shards, [
+            sh.arrays[key].select(ax, bid) for sh in self.shards],
+            self.device)
 
     def write_block(self, bid: int, contents: dict[str, torch.Tensor]
                     ) -> None:
-        """Land block contents from elsewhere (a cross-slice migration) at
-        block ``bid``, in place: ``contents[key]`` is one block in the
-        :meth:`arena_block` layout, on any device."""
+        """Land block contents from elsewhere (a cross-slice migration, from
+        a slice of any width) at block ``bid``, in place: ``contents[key]``
+        is one block in the :meth:`arena_block` layout, on any device, each
+        shard taking its part."""
         for key, blk in contents.items():
-            self.arena_block(key, bid).copy_(blk)
+            for sh in self.shards:
+                a = sh.arrays[key]
+                a.select(engine.arena_block_axis(a), bid).copy_(sh.part(blk))
 
     def slot_stats(self, slot: int) -> dict:
         return dict(self._stats[slot])

@@ -40,8 +40,9 @@ radix affinity then decode occupancy; the handoff bytes ride the same
 ``roles=None`` is the colocated gateway (``tests/test_torch_disagg.py``).
 
 Slices may share a device: on one H100 every slice lives on ``cuda:0`` and
-on the CPU every slice on ``"cpu"``.  Tensor parallelism within a slice
-(a sub-mesh of more than one device) is not ported (ROADMAP §1).
+on the CPU every slice on ``"cpu"``.  A slice of m devices (a ``("model",)``
+sub-mesh) splits its arena over them (tensor parallelism within the slice,
+``serve/kvcache/paged.py``); its devices may repeat too, as on one H100.
 """
 from __future__ import annotations
 
@@ -49,9 +50,8 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
-from repro_torch.dist.sharding import MODEL_AXIS, Mesh, slice_meshes
+from repro_torch.dist.sharding import Mesh, slice_mesh, slice_meshes
 from repro_torch.serve.gateway import frontend as fe
 from repro_torch.serve.gateway.gateway import (drive_prompt_loop,
                                                record_prompt_completion,
@@ -107,22 +107,6 @@ class RolePlan:
         return "decode"
 
 
-def _sub_mesh(group) -> Mesh:
-    """One slice's ``("model",)`` sub-mesh from such a sub-mesh
-    (``slice_meshes``, ``launch.mesh.make_disagg_meshes``) or a list of
-    devices."""
-    if isinstance(group, Mesh):
-        if group.axis_names != (MODEL_AXIS,):
-            raise ValueError(f"a slice's sub-mesh has the one axis "
-                             f"{MODEL_AXIS!r}, not {group.axis_names}")
-        return group
-    if not isinstance(group, (list, tuple)):
-        raise TypeError(f"a slice is a list of devices or a sub-mesh, not "
-                        f"{group!r}")
-    return Mesh(np.asarray([torch.device(d) for d in group], object),
-                (MODEL_AXIS,))
-
-
 def build_slices(cfg, params, mesh, *, n_slots: int, max_len: int,
                  block_size: int = 16, num_blocks: int | None = None,
                  extras=None, chunked: bool = True,
@@ -131,28 +115,24 @@ def build_slices(cfg, params, mesh, *, n_slots: int, max_len: int,
 
     ``mesh`` is a serving :class:`Mesh` (factored by ``slice_meshes``) or a
     list of per-slice groups, each a ``("model",)`` sub-mesh or a list of
-    devices.  Slices may share devices.  Each slice's paged adapter
-    lives on its group's device (the params copied there unless they
-    already live there).  ``num_blocks`` is the per-slice block budget.
-    The rwkv family has no block pool to shard (``ValueError``); a slice
-    of more than one device (tensor parallelism, ``engine.arena_specs`` in
-    the reference) raises ``NotImplementedError``."""
+    devices.  Slices may share devices.  Each slice's paged adapter is
+    placed on its sub-mesh (``make_adapter(mesh=)``): on its one device,
+    or with its arena split over the sub-mesh's devices (tensor
+    parallelism, ``engine.arena_specs``) and the params on the first (the
+    params copied there unless they already live there).  ``num_blocks``
+    is the per-slice block budget.  The rwkv family has no block pool to
+    shard (``ValueError``)."""
     if cfg.family == "rwkv":
         raise ValueError("sharded gateway: rwkv has O(1) state and no block "
                          "pool to shard")
-    subs = [_sub_mesh(sm) for sm in mesh] \
+    subs = [slice_mesh(sm) for sm in mesh] \
         if isinstance(mesh, (list, tuple)) else slice_meshes(mesh)
     slices = []
     for i, sm in enumerate(subs):
-        if len(sm.device_list) != 1:
-            raise NotImplementedError(
-                f"slice {i} spans {len(sm.device_list)} devices: tensor "
-                "parallelism within a slice (engine.arena_specs) is not "
-                "ported yet: ROADMAP.md §1, sharded serving's model axis")
         ad = make_adapter(cfg, params, n_slots=n_slots, max_len=max_len,
                           extras=extras, paged=True, block_size=block_size,
                           num_blocks=num_blocks, chunked=chunked,
-                          backend=backend, device=sm.device_list[0])
+                          backend=backend, mesh=sm)
         slices.append(GatewaySlice(i, sm, ad, ContinuousBatcher(ad)))
     return slices
 
@@ -179,9 +159,9 @@ class ShardedPromptGateway:
                              "migration needs equal bs / nb_max)")
         self.slices = slices
         # slices tick at the same time only on devices of their own (see
-        # _step_cost)
-        self.parallel = len({sl.adapter.device for sl in slices}) == \
-            len(slices)
+        # _step_cost): every device of every slice's sub-mesh distinct
+        devs = [d for sl in slices for d in sl.adapter.devices]
+        self.parallel = len(set(devs)) == len(devs)
         # role-partitioned (disaggregated) serving: prefill slices run
         # admit-only steps, decode slices run ticks, finished prefixes
         # hand off through the migration path; roles=None is colocated

@@ -2203,3 +2203,118 @@ def test_flash_attention_bwd_kernel_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):               # not contiguous
         bwd(q, k, v, out, dout.transpose(1, 2).contiguous().transpose(1, 2),
             lse)
+
+
+# --------------------------------------------------------------------------
+# Sharded serving's model axis: kernel 5 at a block stride (the split-KV
+# fallback's shards) and the sharded kernel ticks against the plain ones.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 64])
+def test_kernel5_block_stride_matches_plain(dev, shards, dtype, window):
+    """Each fallback shard's sweep (``bs / shards`` rows of every
+    16-position block, ``q0`` its first in-block position, ``block_stride``
+    16; 25 heads over 5 KV heads of 64, the new row spliced in) against its
+    plain version, and the shards' states merged (``merge_attn_states``,
+    over four shards ``merge_attn_states_n``, itself within 2e-5 of its
+    plain version) against the plain read of the whole arena; at
+    ``block_stride`` = bs the default sweep bit for bit."""
+    B, Hq, Hkv, D, bs, nb = 4, 25, 5, 64, 16, 20
+    gen = torch.Generator(device=dev).manual_seed(shards)
+    rows = bs // shards
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    num_blocks = B * nb + 1
+    tables = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
+              + 1).reshape(B, nb).to(torch.int32)
+    lens = torch.tensor([1, 17, 150, 319], dtype=torch.int32, device=dev)
+    ka, va = (torch.randn((num_blocks, bs, Hkv, D), generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+    nk = tuple(torch.randn((B, Hkv, D), generator=gen, device=dev)
+               .to(dtype) for _ in range(2))
+    wrap = paged_attn_kernel.paged_decode_attention_with_state
+    states = []
+    before = wrap.launches
+    for d in range(shards):
+        kd = ka[:, d * rows:(d + 1) * rows].contiguous()
+        vd = va[:, d * rows:(d + 1) * rows].contiguous()
+        q0 = torch.full((B,), d * rows, dtype=torch.int32, device=dev)
+        got = wrap(q, kd, vd, tables, lens, window=window, q0=q0, new_kv=nk,
+                   block_stride=bs)
+        want = ref.paged_decode_attention_with_state(
+            q, kd, vd, tables, lens, window, q0, nk, bs)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        states.append(got)
+    assert wrap.launches == before + shards
+    merges = paged_attn_kernel.merge_attn_states.launches
+    if shards == 2:
+        merged = paged_attn_kernel.merge_attn_states(*states[0], *states[1])
+    else:
+        stacked = [torch.stack(ts) for ts in zip(*states)]
+        merged = paged_attn_kernel.merge_attn_states_n(*stacked)
+        torch.testing.assert_close(merged, ref.merge_attn_states_n(*stacked),
+                                   rtol=2e-5, atol=2e-5)
+    assert paged_attn_kernel.merge_attn_states.launches == merges + 1
+    merged = merged.to(dtype)
+    whole = ref.paged_decode_attention(q, ka, va, tables, lens, window, nk)
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=tol,
+                               atol=tol)
+    for got, want in zip(wrap(q, ka, va, tables, lens, window=window,
+                              new_kv=nk, block_stride=bs),
+                         wrap(q, ka, va, tables, lens, window=window,
+                              new_kv=nk)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch,kv_heads,width", [("stablelm-3b", None, 2),
+                                                 ("hymba-1.5b", 1, 2),
+                                                 ("hymba-1.5b", 1, 4)])
+def test_sharded_kernel_tick_matches_sharded_plain_tick(dev, arch, kv_heads,
+                                                        width):
+    """A slice of ``width`` devices (each the card) through the ``"cuda"``
+    tick against the same slice through the plain tick, float32: greedy
+    tokens equal and logits within 2e-4 (the paged kernel tick's
+    contract).  stablelm's 4 KV heads split two a shard (kernel 3 per
+    shard); hymba's smoke config at one KV head takes the split-KV
+    fallback (kernel 5 at the block stride per shard, then one merge of
+    their states, its window of 16 masking); every shard's launches
+    counted."""
+    cfg = dataclasses.replace(configs.smoke_config(arch),
+                              param_dtype="float32")
+    if kv_heads:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv_heads)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 17, 33)]
+    forced = rng.integers(0, cfg.vocab, (6, len(prompts))).astype(np.int32)
+    out = {}
+    for backend in ("cuda", "plain"):
+        ad = make_adapter(cfg, params, n_slots=len(prompts), max_len=48,
+                          paged=True, block_size=16, backend=backend,
+                          mesh=[dev] * width)
+        assert len(ad.shards) == width
+        first = [ad.insert(s, p, max_new=8) for s, p in enumerate(prompts)]
+        active = np.ones(len(prompts), bool)
+        counts = kernels.read_counts()
+        toks, logits = [], []
+        for row in forced:
+            toks.append(ad.decode(row, active))
+            logits.append(ad.last_logits.clone())
+        after = kernels.read_counts()
+        out[backend] = (first, np.stack(toks), torch.stack(logits),
+                        {k: after[k] - counts[k] for k in after})
+    assert out["cuda"][0] == out["plain"][0]
+    np.testing.assert_array_equal(out["cuda"][1], out["plain"][1])
+    torch.testing.assert_close(out["cuda"][2], out["plain"][2], rtol=2e-4,
+                               atol=2e-4)
+    launches, ticks = out["cuda"][3], len(forced)
+    sweeps = "paged_decode_attention_with_state" if kv_heads else \
+        "paged_decode_attention"
+    assert launches[sweeps] == width * cfg.n_layers * ticks
+    assert launches["scatter_kv_rows"] == width * ticks
+    if kv_heads:
+        assert launches["merge_attn_states"] == cfg.n_layers * ticks

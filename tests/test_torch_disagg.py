@@ -90,14 +90,15 @@ def test_roleplan_validation():
 def test_disagg_meshes_partition_devices():
     """``make_disagg_meshes(1, 7)`` gives one prefill and seven decode
     one-device groups, here all sharing ``"cpu"`` (the reference's: eight
-    forced host devices, disjoint); a role without a slice raises."""
+    forced host devices, disjoint); a role without a slice raises; a
+    prefill slice of two devices takes the two leading ones."""
     pre, dec = make_disagg_meshes(1, 7, device="cpu")
     assert len(pre) == 1 and len(dec) == 7
     assert all(m.device_list == [CPU] for m in pre + dec)
     with pytest.raises(ValueError):
         make_disagg_meshes(0, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_disagg_meshes(1, 1, decode_model=2, device="cpu")
+    pre, dec = make_disagg_meshes(1, 2, prefill_model=2, device="cpu")
+    assert [m.device_list for m in pre + dec] == [[CPU, CPU], [CPU], [CPU]]
 
 
 # ==========================================================================

@@ -282,21 +282,23 @@ def test_encdec_prompt_gateway_matches_reference(encdec_pair):
 
 
 def test_spec_refuses_what_is_not_ported(pair):
-    """Only tensor parallelism within a sharded slice (a slice of more
-    than one device) is refused, and so are names the enum does not hold
-    and the reference's refused combinations (``mesh`` without
-    ``paged=True``, ``roles`` without ``mesh``); the dense slots
-    (``paged=False``), ``backend="gather"``, the observability
-    attachments (``tests/test_torch_obs.py``) and single-device slices
-    (``tests/test_torch_sharded.py``) are ported."""
+    """Names the enum does not hold and the reference's refused
+    combinations (``mesh`` without ``paged=True``, ``roles`` without
+    ``mesh``) are refused; the dense slots (``paged=False``),
+    ``backend="gather"``, the observability attachments
+    (``tests/test_torch_obs.py``), single-device slices
+    (``tests/test_torch_sharded.py``) and slices of two devices (tensor
+    parallelism within a slice, ``tests/test_torch_model_axis.py``) are
+    ported: a ``mesh`` of two-device slices builds, chunked or not."""
     _, _, cfg, params = pair
     cpu = torch.device("cpu")
     wide = Mesh(np.asarray([[cpu, cpu]], object), ("data", "model"))
-    for kw, err in ((dict(paged=True, mesh=wide),              # chunked
-                     NotImplementedError),
-                    (dict(paged=True, chunked=False, mesh=[[cpu, cpu]]),
-                     NotImplementedError),
-                    (dict(mesh=[cpu]), ValueError),              # dense
+    for kw in (dict(paged=True, mesh=wide),                     # chunked
+               dict(paged=True, chunked=False, mesh=[[cpu, cpu]])):
+        gw = spec.make_gateway(cfg, params, spec.ServeSpec(**kw),
+                               device="cpu")
+        assert [len(sl.adapter.shards) for sl in gw.slices] == [2]
+    for kw, err in ((dict(mesh=[cpu]), ValueError),              # dense
                     (dict(paged=True, roles=RolePlan.split(1, 1)),
                      ValueError),
                     (dict(paged=True, chunked=False, backend="xla"),

@@ -14,8 +14,9 @@ The port's slices share ``"cpu"`` where the reference's ``@multi`` tests
 force 8 host devices, so those run here too, on 8 ``"cpu"`` slices (the
 reference's side of them on 8 slices sharing its one device).  The two
 tests of the model axis (``test_model_axis_sharded_slice_decodes``,
-``test_arena_specs_match_layout``) wait with tensor parallelism (ROADMAP
-§1); a slice of two devices raises ``NotImplementedError``."""
+``test_arena_specs_match_layout``) are mirrored in
+``tests/test_torch_model_axis.py``; here a slice of two devices builds
+from the mesh maker and ``build_slices``."""
 import functools
 import types
 
@@ -171,15 +172,19 @@ def test_slice_placement_bitwise(family):
 
 def test_model_axis_waits_for_tensor_parallelism():
     """A slice of two devices (the reference's tensor-parallel slice,
-    ``engine.arena_specs``) raises ``NotImplementedError`` naming the
-    ROADMAP, from the mesh maker and from ``build_slices``."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serving_mesh(1, model=2, device="cpu")
+    ``engine.arena_specs``) builds from the mesh maker and from
+    ``build_slices``: its adapter's arena splits the KV heads over the two
+    devices (``tests/test_torch_model_axis.py`` holds its answers)."""
+    (sub,) = slice_meshes(make_serving_mesh(1, model=2, device="cpu"))
+    assert sub.device_list == [CPU, CPU]
     _, port = _sides("decoder")
     wide = Mesh(np.asarray([[CPU, CPU]], object), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard.build_slices(port.cfg, port.params, wide, n_slots=2,
-                           max_len=16, block_size=BS)
+    (sl,) = shard.build_slices(port.cfg, port.params, wide, n_slots=2,
+                               max_len=16, block_size=BS)
+    assert sl.mesh.device_list == [CPU, CPU]
+    heads = port.cfg.n_kv_heads
+    assert [sh.heads for sh in sl.adapter.shards] == \
+        [(0, heads // 2), (heads // 2, heads)]
 
 
 # ==========================================================================
@@ -404,8 +409,11 @@ def test_serving_mesh_factors_into_slices():
     assert all(m.device_list == [CPU] for m in subs)
     assert mesh_shape_dict(mesh) == {"data": 8, "model": 1}
     assert [mesh_shape_dict(m) for m in subs] == [{"model": 1}] * 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serving_mesh(4, model=2, device="cpu")
+    mesh2 = make_serving_mesh(4, model=2, device="cpu")
+    assert mesh_shape_dict(mesh2) == {"data": 4, "model": 2}
+    subs2 = slice_meshes(mesh2)
+    assert len(subs2) == 4
+    assert all(m.device_list == [CPU, CPU] for m in subs2)
 
 
 def test_slice_groups_are_device_lists_or_sub_meshes():
