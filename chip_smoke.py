@@ -29,6 +29,8 @@
     python3 chip_smoke.py --model-axis
                                    # phase 20 alone
     python3 chip_smoke.py --train  # phase 19 alone
+    python3 chip_smoke.py --train-mesh
+                                   # phase 21 alone
 
 Phases, each printing one JSON line:
 
@@ -411,8 +413,29 @@ Phases, each printing one JSON line:
      its eager step, its host ms captured and eager, device busy ms and
      launches per tick.  ``python3 chip_smoke.py --model-axis`` runs it
      alone.
+ 21. the training meshes (``train_mesh_main_path`` line, run after phase
+     19), every mesh device ``cuda:0``: (a) ``gpipe_apply`` at 4 stages
+     over 6 and 2 microbatches against the sequential composition
+     (float32, 1e-5); (b) ``tests/test_dist.py``'s config in float32 on
+     the (2, 2, 2) ``("pod", "data", "model")`` mesh for 10 steps, losses
+     finite and falling, each step against the one-device step from the
+     same state (loss 1e-5 relative, parameters ``rtol=2e-3,
+     atol=2e-5``), the flash launches layers x model x data-parallel
+     coordinates x microbatches x (2 + 1) a step, the flash kernels
+     against their plain versions at a model shard's float32 shape; (c)
+     stablelm-3b whole in bf16 on ``"2x2 data,model"`` (ZeRO-1 state, 16
+     + 16 heads a layer, B 8, S 256): losses finite, step 0 within 1e-3 of the
+     one-device forward, ms a step, idle share, copy kernels' ms, peak
+     memory, launches; (d) a checkpoint saved on 2x2 at depth 2 restored
+     onto 1x1 and ``"1x4 data,model"`` bit for bit, the next step bit for
+     bit a step from the same state placed there directly; (e) the flash
+     forward and backward at the head-shard shape (4 x 256, 16 x 80)
+     checked against and timed beside their plain versions, bounds and
+     SDPA, and the GQA 16:1 fold chunk's forward checked, its plain time
+     and bound.  ``python3 chip_smoke.py --train-mesh``
+     runs it alone.
 
-Phases 3–8 and 10–20 print their ``phase_s`` and a ``seconds`` breakdown
+Phases 3–8 and 10–21 print their ``phase_s`` and a ``seconds`` breakdown
 (phases 3 and 4 on the ``kernels_seconds`` and ``frame_path_seconds``
 lines).
 
@@ -8293,6 +8316,490 @@ def train_main(dev, sleep: int) -> dict:
 
 
 
+# ==========================================================================
+# Phase 21: the training meshes.
+# ==========================================================================
+
+# (b): tests/test_dist.py's config (float32 here) on its (2, 2, 2) mesh
+TM_DIST = dict(name="t", family="decoder", n_layers=2, d_model=64,
+               n_heads=4, n_kv_heads=2, d_head=16, d_ff=128, vocab=256,
+               remat="full", param_dtype="float32")
+TM_DIST_MESH = "2x2x2"
+TM_DIST_STEPS = 10
+# (c), (d): stablelm-3b at full width over a 2x2 ("data", "model") mesh
+TM_FULL_MESH = "2x2 data,model"
+TM_FULL_STEPS = 4               # timed steps, then two profiled
+TM_RESTART_DEPTH = 2
+TM_RESTART_MESHES = ("1x1", "1x4 data,model")
+# (a): GPipe over 4 stages, 6 microbatches and fewer microbatches than
+# stages
+TM_GPIPE = ((4, 6), (4, 2))
+# (e): the head-shard shapes of (c) (B, S, heads, D: 32 heads split 16 +
+# 16, 4 of the 8 rows a data-parallel coordinate) and row 8's GQA 16:1
+# fold chunk (16 queries at offset 512, 128 over 8 KV heads of 128)
+TM_SHARD_SHAPE = (4, 256, 16, 80)
+TM_FOLD_16_1 = (16, 512, 128, 8, 128)
+
+
+def tm_coords(ms: dict, rows: int) -> int:
+    """The data-parallel coordinates that take a microbatch of ``rows``
+    rows (``batch_spec_axis``'s)."""
+    from repro_torch.dist import sharding as shd
+    axis = shd.batch_spec_axis(ms, rows)
+    return 1 if axis is None else math.prod(
+        ms[a] for a in ((axis,) if isinstance(axis, str) else axis))
+
+
+def tm_expected(cfg, mesh, batch: int, mb: int, steps: int) -> dict:
+    """The flash kernels' launches of ``steps`` sharded steps: per layer,
+    model shard, data-parallel coordinate that takes rows and microbatch,
+    one forward (two under ``remat="full"``: the layer is recomputed for
+    its backward) and one backward."""
+    from repro_torch.dist import sharding as shd
+    ms = shd.mesh_shape_dict(mesh)
+    n = cfg.n_layers * ms.get("model", 1) * tm_coords(ms, batch // mb) * \
+        mb * steps
+    return {"flash_attention": (1 if cfg.remat == "none" else 2) * n,
+            "flash_attention_bwd": n}
+
+
+def gpipe_checks(dev) -> list:
+    """(a): ``gpipe_apply`` over a ``"stage"`` mesh on the card against
+    the sequential composition of its stages, float32 within 1e-5."""
+    import torch
+
+    from repro_torch.dist.pipeline import gpipe_apply
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = []
+    for n_stages, n_micro in TM_GPIPE:
+        mesh = make_mesh((n_stages,), ("stage",), dev)
+        p = {"w": torch.randn((n_stages, 8, 8), generator=gen,
+                              device=dev) * 0.5,
+             "b": torch.randn((n_stages, 8), generator=gen, device=dev) * 0.1}
+        xs = torch.randn((n_micro, 2, 8), generator=gen, device=dev)
+        got = gpipe_apply(lambda q, x: torch.tanh(x @ q["w"] + q["b"]), p,
+                          xs, mesh)
+        want = xs
+        for s in range(n_stages):
+            want = torch.tanh(want @ p["w"][s] + p["b"][s])
+        err = float((got - want).abs().max())
+        out.append({"stages": n_stages, "microbatches": n_micro,
+                    "max_abs_err": err,
+                    "ok": bool(torch.allclose(got, want, rtol=1e-5,
+                                              atol=1e-5))})
+    return out
+
+
+def flash_pair_check(q, k, v, dout=None, **kw) -> dict:
+    """The flash kernels against their plain versions on the same inputs
+    (``kw``: causal, window, q_offset): the forward's out within phase 3's
+    tolerance (2e-5 float32, 2e-2 bf16, relative and absolute) and its lse
+    within 2e-5; with ``dout`` the backward's dq, dk and dv each within
+    ``BWD_TOL`` of its max |value|.  Returns the check (``ok``,
+    ``max_abs_err`` over every output)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+    name = str(q.dtype).split(".")[1]
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    out, lse = flash_k.flash_attention(q, k, v, return_lse=True, **kw)
+    p_out, p_lse = ref.flash_attention_chunked(
+        q, k, v, kw.get("causal", True), kw.get("window"),
+        kw.get("q_offset", 0), return_lse=True)
+    err = float((out.float() - p_out.float()).abs().max())
+    lse_err = float((lse - p_lse).abs().max())
+    check = {"dtype": name, "out_err": err, "lse_err": lse_err,
+             "ok": bool(torch.allclose(out.float(), p_out.float(), rtol=tol,
+                                       atol=tol)) and lse_err <= 2e-5}
+    if dout is not None:
+        got = flash_k.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        want = ref.flash_attention_bwd_chunked(
+            q, k, v, out, dout, lse, kw.get("causal", True), kw.get("window"),
+            kw.get("q_offset", 0))
+        shares = []
+        for g, w in zip(got, want):
+            e = float((g.float() - w.float()).abs().max())
+            err = max(err, e)
+            shares.append(e / float(w.float().abs().max()))
+        check["err_share_dq_dk_dv"] = shares
+        check["ok"] &= max(shares) <= BWD_TOL[name]
+    check["max_abs_err"] = max(err, lse_err)
+    return check
+
+
+def head_shard_timing(dev, sleep: int) -> dict:
+    """(e): the flash kernels at (c)'s head-shard shape, bf16, causal:
+    forward and backward held to their plain versions (``flash_pair_check``,
+    its ``max_abs_err`` in each row), then each timed beside its plain
+    version, its bound (each input read once and each output written once
+    over 3.35 TB/s, against the causal band's products over the bf16 peak)
+    and SDPA (the forward; forward and backward for the backward); then
+    row 8's GQA 16:1 fold chunk, its forward checked and timed the same
+    way."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as flash_k
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bf = torch.bfloat16
+    B, S, H, D = TM_SHARD_SHAPE
+
+    def arr(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def row(ms, plain, lib, n_bytes, ops, shape, library):
+        r = {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
+             "library": library, "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "ops_ms": ops / BF16_FLOPS * 1e3}
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else \
+            "operations"
+        return r
+    q, k, v = arr((B, S, H, D)), arr((B, S, H, D)), arr((B, S, H, D))
+    out, lse = flash_k.flash_attention(q, k, v, return_lse=True)
+    dout = arr((B, S, H, D))
+    check = flash_pair_check(q, k, v, dout)
+    pairs = B * bwd_pairs(S, S, True, None)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous()
+
+    def library_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    shape = (f"q, k and v ({B}, {S}, {H}, {D}) bf16, causal (a model "
+             "shard's heads of a data-parallel coordinate's rows)")
+    timing = {
+        "flash_attention": row(
+            time_ms(lambda: flash_k.flash_attention(q, k, v), 5, 20, sleep,
+                    b2b=False)[0],
+            time_ms(lambda: ref.flash_attention_chunked(q, k, v, True), 3, 3,
+                    sleep, b2b=False)[0],
+            time_ms(lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), is_causal=True), 5,
+                20, sleep, b2b=False)[0],
+            2 * 4 * q.numel(), 4 * H * D * pairs, shape,
+            "F.scaled_dot_product_attention with is_causal=True on (B, H, "
+            "S, D) copies"),
+        "flash_attention_bwd": row(
+            time_ms(lambda: flash_k.flash_attention_bwd(
+                q, k, v, out, dout, lse), 3, 5, sleep, b2b=False)[0],
+            time_ms(lambda: ref.flash_attention_bwd_chunked(
+                q, k, v, out, dout, lse, True, None), 2, 1, sleep,
+                b2b=False)[0],
+            time_ms(library_bwd, 3, 5, sleep, b2b=False)[0],
+            2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+            10 * H * D * pairs, shape,
+            "F.scaled_dot_product_attention forward and backward on (B, H, "
+            "S, D) copies")}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        timing[name]["check"] = check
+        timing[name]["max_abs_err"] = check["max_abs_err"]
+    del q, k, v, out, lse, dout, qt, kt, vt, gt
+    Sq, off, Hq, Hkv, Dh = TM_FOLD_16_1
+    Sk = off + Sq
+    q, k, v = arr((1, Sq, Hq, Dh)), arr((1, Sk, Hkv, Dh)), \
+        arr((1, Sk, Hkv, Dh))
+    fold_pairs = sum(off + i + 1 for i in range(Sq))
+    fold_check = flash_pair_check(q, k, v, q_offset=off)
+    timing["flash_attention_fold_chunk_gqa_16_1"] = row(
+        time_ms(lambda: flash_k.flash_attention(q, k, v, q_offset=off), 5,
+                20, sleep, b2b=False)[0],
+        time_ms(lambda: ref.flash_attention_chunked(q, k, v, True, None,
+                                                    off), 3, 3, sleep,
+                b2b=False)[0],
+        None, 2 * (2 * q.numel() + 2 * k.numel()), 4 * Hq * Dh * fold_pairs,
+        f"q (1, {Sq}, {Hq}, {Dh}) bf16 at q_offset {off}, k and v (1, {Sk},"
+        f" {Hkv}, {Dh}), causal", "not timed here (PERF.md row 8)")
+    timing["flash_attention_fold_chunk_gqa_16_1"].update(
+        check=fold_check, max_abs_err=fold_check["max_abs_err"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return timing
+
+
+def params_close(a, b, rtol: float = 2e-3, atol: float = 2e-5
+                 ) -> tuple[bool, float, int]:
+    """Whether every parameter of ``a`` is within ``atol + rtol |b|`` of
+    ``b``'s (the one-device step's result).  Returns (ok, the largest
+    |a - b|, the elements past the tolerance)."""
+    from repro_torch.train import optim
+    worst, far = 0.0, 0
+    for x, y in zip(optim.leaves(a), optim.leaves(b)):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > atol + rtol * y.float().abs()).sum())
+    return far == 0, worst, far
+
+
+def tm_state_equal(a, b) -> bool:
+    """Whether two (params, opt) trees hold the same leaves bit for bit."""
+    import torch
+
+    from repro_torch.ckpt import manager as ckpt
+    return all(x.dtype == y.dtype and bool(torch.equal(x, y))
+               for (_, x), (_, y) in zip(ckpt._flatten(a), ckpt._flatten(b)))
+
+
+def train_mesh_main_path(dev, sleep: int) -> dict:
+    """Phase 21: the training meshes on the one card, every mesh device
+    ``cuda:0`` (``launch/train.py``'s ``parse_mesh``, ``lm.param_specs``,
+    ``dist/sharding.py``'s ``shard`` / ``gather``, ZeRO-1's
+    ``optim.init``, ``make_train_step(cfg, tcfg, mesh)``,
+    ``dist/pipeline.py``, ``ckpt/manager.py``'s elastic restore):
+
+    (a) ``gpipe_apply`` at 4 stages and 6 microbatches and at 2 (fewer
+        than the stages) against the sequential composition, float32
+        within 1e-5;
+    (b) ``tests/test_dist.py``'s config in float32 on the (2, 2, 2)
+        ``("pod", "data", "model")`` mesh, ``TM_DIST_STEPS`` steps of
+        ``batch_at(0, i, 8, 32)``, microbatches 2, lr 1e-2: every loss
+        finite and the mean of the last three below the first three's (the
+        reference's gate); each step against the one-device step from the
+        sharded run's gathered state (loss within 1e-5 relative, every
+        parameter within ``rtol=2e-3, atol=2e-5``); the flash launches
+        those of ``tm_expected``; the flash kernels held to their plain
+        versions at a model shard's float32 shape (``flash_pair_check``);
+    (c) stablelm-3b whole in bf16 on ``TM_FULL_MESH`` (32 heads split 16 +
+        16, B 8, S 256, ``remat="full"``) for ``TM_FULL_STEPS`` steps:
+        every loss finite, step 0's within 1e-3 of the one-device forward
+        on the same batch and parameters, ms a step, the device's busy ms
+        and its copy kernels' ms over two profiled steps (the idle share
+        against the unprofiled steps' median), the peak of
+        ``max_memory_allocated``, the launches of ``tm_expected``;
+    (d) an elastic restart at full width and ``TM_RESTART_DEPTH`` layers:
+        a step on the 2x2 mesh, ``save_sync``, then restored onto each of
+        ``TM_RESTART_MESHES``: every leaf bit for bit the saved one, and
+        the next step bit for bit a step from the same state placed on
+        that mesh directly;
+    (e) ``head_shard_timing``.
+    Returns the flash kernels' launches over (b) and (c); raises
+    SystemExit on a failed check."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.data.tokens import batch_at
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    sw = Stopwatch()
+    failures = []
+    flash = ("flash_attention", "flash_attention_bwd")
+
+    def sharded(cfg, mesh, seed):
+        ms = shd.mesh_shape_dict(mesh)
+        return shd.shard(lm.init(cfg, torch.Generator(device=dev).manual_seed(
+            seed)), shd.named(mesh, lm.param_specs(cfg, ms)))
+
+    # (a) GPipe
+    gpipe = gpipe_checks(dev)
+    if not all(g["ok"] for g in gpipe):
+        failures.append(f"(a) gpipe_apply: {gpipe}")
+    sw.lap("gpipe")
+
+    # (b) the reference test's config on (2, 2, 2)
+    cfg = lm.LMConfig(**TM_DIST)
+    tcfg = TrainConfig(microbatches=2, adamw=optim.AdamWConfig(
+        lr=1e-2, weight_decay=0.1, grad_clip=1.0, master_dtype=torch.float32))
+    mesh = parse_mesh(TM_DIST_MESH, dev)
+    params = sharded(cfg, mesh, 0)
+    opt = optim.init(params, tcfg.adamw)
+    step, one = make_train_step(cfg, tcfg, mesh), make_train_step(cfg, tcfg)
+    got = dict.fromkeys(flash, 0)
+    losses, loss_rel, params_err, close, far = [], 0.0, 0.0, True, 0
+    for i in range(TM_DIST_STEPS):
+        batch = on_device(dev, batch_at(0, i, 8, 32, cfg.vocab))
+        p1, o1, m1 = one(shd.gather(params, dev), shd.gather(opt, dev),
+                         batch)
+        reset_counts()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k in flash:
+            got[k] += counts[k]
+        losses.append(float(m["loss"]))
+        loss_rel = max(loss_rel, abs(losses[-1] - float(m1["loss"]))
+                       / abs(float(m1["loss"])))
+        ok, err, n = params_close(shd.gather(params, dev), p1)
+        close &= ok
+        params_err = max(params_err, err)
+        far += n
+    want = tm_expected(cfg, mesh, 8, 2, TM_DIST_STEPS)
+    finite = all(math.isfinite(x) for x in losses)
+    falling = statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+    # the flash kernels at the shape a model shard of one coordinate gives
+    # them: its rows of a microbatch, its query heads over its KV heads
+    ms = shd.mesh_shape_dict(mesh)
+    m_size, rows = ms["model"], 8 // 2 // tm_coords(ms, 8 // 2)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    hq, hkv = cfg.n_heads // m_size, cfg.n_kv_heads // m_size
+    q, dout = (torch.randn((rows, 32, hq, cfg.d_head), generator=gen,
+                           device=dev) for _ in range(2))
+    k, v = (torch.randn((rows, 32, hkv, cfg.d_head), generator=gen,
+                        device=dev) for _ in range(2))
+    shard_check = {"shape": f"q ({rows}, 32, {hq}, {cfg.d_head}), k and v "
+                   f"({rows}, 32, {hkv}, {cfg.d_head}) float32, causal",
+                   **flash_pair_check(q, k, v, dout)}
+    del q, k, v, dout
+    if not (finite and falling and close and shard_check["ok"]) or \
+            loss_rel > 1e-5 or got != want:
+        failures.append(f"(b) losses finite {finite}, falling {falling}, "
+                        f"loss {loss_rel}, params {params_err} ({far} "
+                        f"far), launches {got} against {want}, kernels "
+                        f"{shard_check}")
+    dist = {"config": TM_DIST, "mesh": shd.mesh_shape_dict(mesh),
+            "steps": TM_DIST_STEPS, "microbatches": 2, "losses": losses,
+            "loss_rel_diff_max": loss_rel, "params_max_abs_diff": params_err,
+            "params_far_elements": far,
+            "head_shard_check": shard_check,
+            "tp_layers": step.tp_layers, "launches": got,
+            "launches_expected": want}
+    launches = dict(got)
+    del params, opt, p1, o1
+    sw.lap("dist_config")
+
+    # (c) stablelm-3b whole on the 2x2 mesh
+    cfg = configs.config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    mesh = parse_mesh(TM_FULL_MESH, dev)
+    ms = shd.mesh_shape_dict(mesh)
+    batches = train_batches(cfg, TM_FULL_STEPS + 2)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    whole = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        one_loss = float(lm.forward(cfg, whole, on_device(dev,
+                                                           batches[0]))[0])
+    params = shd.shard(whole, shd.named(mesh, lm.param_specs(cfg, ms)))
+    del whole
+    opt = optim.init(params, tcfg.adamw)
+    step = make_train_step(cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    sw.lap("full_init")
+    losses, ms_step = [], []
+    reset_counts()
+    for b in batches[:TM_FULL_STEPS]:
+        batch = on_device(dev, b)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms_step.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    counts = read_counts()
+    got = {k: counts[k] for k in flash}
+    peak = torch.cuda.max_memory_allocated()
+    sw.lap("full_steps")
+    from torch.profiler import ProfilerActivity, profile
+    # the device's own events only: host tracing slows these host-bound
+    # steps by more than half, so the idle share is taken against the
+    # unprofiled steps' median
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[TM_FULL_STEPS:]:
+            step(params, opt, on_device(dev, b))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / 2
+    dev_us = kernel_us(prof, 2)
+    busy = sum(dev_us.values()) / 1e3 if dev_us else None
+    copies = sum(v for k, v in dev_us.items()
+                 if "copy" in k.lower() or "memcpy" in k.lower()) / 1e3
+    sw.lap("full_profile")
+    steady = statistics.median(ms_step[1:])
+    want = tm_expected(cfg, mesh, TRAIN_BATCH, 1, TM_FULL_STEPS)
+    finite = all(math.isfinite(x) for x in losses)
+    rel0 = abs(losses[0] - one_loss) / abs(one_loss)
+    if not finite or rel0 > 1e-3 or got != want:
+        failures.append(f"(c) losses {losses} finite {finite}, step 0 "
+                        f"against one device {rel0}, launches {got} "
+                        f"against {want}")
+    full = {"model": cfg.name, "mesh": ms, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TM_FULL_STEPS, "losses": losses,
+            "one_device_loss_step0": one_loss, "step0_rel_diff": rel0,
+            "ms_per_step": ms_step, "ms_per_step_median_after_1": steady,
+            "profiled_ms_per_step": prof_ms,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": max(0.0, 1 - busy / steady)
+            if busy else None,
+            "copy_kernels_ms_per_step": copies,
+            "top_device_ms_per_step": top_ms(dev_us, 10),
+            "peak_memory_allocated_bytes": peak,
+            "tp_layers": step.tp_layers, "launches": got,
+            "launches_expected": want}
+    for k in flash:
+        launches[k] += got[k]
+    del params, opt, prof
+    free_card()
+
+    # (d) the elastic restart
+    cfg2 = dataclasses.replace(cfg, n_layers=TM_RESTART_DEPTH)
+    mesh = parse_mesh(TM_FULL_MESH, dev)
+    p = sharded(cfg2, mesh, 0)
+    o = optim.init(p, tcfg.adamw)
+    make_train_step(cfg2, tcfg, mesh)(p, o, on_device(dev, batches[0]))
+    nxt = on_device(dev, batches[1])
+    restart = {"depth": TM_RESTART_DEPTH, "saved_on": TM_FULL_MESH}
+    with tempfile.TemporaryDirectory() as d:
+        mgr = ckpt.CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        mgr.save_sync(1, (p, o))
+        restart["save_s"] = time.perf_counter() - t0
+        saved = shd.gather((p, o), dev)
+        del p, o
+        for spec in TM_RESTART_MESHES:
+            m2 = parse_mesh(spec, dev)
+            tp = sharded(cfg2, m2, 1)
+            to = optim.init(tp, tcfg.adamw)
+            shardings = (shd.shardings_of(tp), shd.shardings_of(to))
+            t0 = time.perf_counter()
+            (rp, ro), manifest = mgr.restore_latest((tp, to), shardings)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            del tp, to
+            leaves_equal = tm_state_equal(shd.gather((rp, ro), dev), saved)
+            direct = shd.shard(saved, shardings)
+            s2 = make_train_step(cfg2, tcfg, m2)
+            reset_counts()
+            _, _, ma = s2(rp, ro, nxt)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            _, _, mb_ = s2(*direct, nxt)
+            next_equal = bool(torch.equal(ma["loss"], mb_["loss"])) and \
+                tm_state_equal(shd.gather((rp, ro), dev),
+                               shd.gather(direct, dev))
+            want = tm_expected(cfg2, m2, TRAIN_BATCH, 1, 1)
+            got_r = {k: counts[k] for k in flash}
+            restart[spec] = {"restored_step": manifest["step"],
+                             "leaves_bitwise": leaves_equal,
+                             "next_step_bitwise": next_equal,
+                             "restore_s": restore_s, "launches": got_r,
+                             "launches_expected": want}
+            if not (leaves_equal and next_equal) or got_r != want:
+                failures.append(f"(d) restore onto {spec}: {restart[spec]}")
+            del rp, ro, direct
+        del saved
+    free_card()
+    sw.lap("restart")
+
+    # (e) the kernels at the head-shard shape
+    timing = head_shard_timing(dev, sleep)
+    sw.lap("head_shard_timing")
+    emit({"phase": "train_mesh_main_path", "gpipe": gpipe, "dist": dist,
+          "full": full, "restart": restart, "head_shard_timing": timing,
+          "launches": launches, "failures": failures, **sw.fields()})
+    if failures:
+        raise SystemExit(f"train mesh path: {failures}")
+    return launches
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--sc-compare"]:
@@ -8340,6 +8847,9 @@ def main() -> int:
         return family_main("train", train_main,
                            ("flash_attn", "flash_attn_bwd", "sng_pack",
                             "sc_dot"))
+    if args[:1] == ["--train-mesh"]:
+        return family_main("train_mesh", train_mesh_main_path,
+                           ("flash_attn", "flash_attn_bwd"))
 
     from repro_torch.core import sng
     from repro_torch.kernels import build, ref
@@ -8652,6 +9162,11 @@ def main() -> int:
     bwd_err, bwd_timing = bwd_kernel_checks(dev, sleep)
     err.update(bwd_err)
     paths["train"] = train_main_path(dev, sleep)
+
+    # -- 21. the training meshes: ZeRO-1, the model axis, GPipe, elastic
+    # restore, every mesh device the one card
+    free_card()
+    paths["train_mesh"] = train_mesh_main_path(dev, sleep)
 
     # -- the result ---------------------------------------------------------
     sources = {"sng_pack": ("src/repro_torch/kernels/csrc/sng_pack.cu",

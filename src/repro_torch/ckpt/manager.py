@@ -24,6 +24,11 @@ Guarantees, as in the reference:
   - Async: ``save_async`` copies the tree to host memory at once and writes
     the files on a background thread; ``wait()`` joins it.
   - Retention: the ``keep`` newest checkpoints are kept.
+  - Elasticity: a ``dist.sharding.Sharded`` leaf is saved gathered, so
+    its files are byte for byte a one-device save of the same values;
+    ``restore(..., shardings=)`` re-shards each leaf onto whatever mesh
+    and specs the restoring run gives (a checkpoint saved on a 2x2 mesh
+    restores onto 1x1, 1x4 or (2, 2, 2)).
 """
 from __future__ import annotations
 
@@ -37,6 +42,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import Sharded
 
 # numpy's dtype names of the tensors a checkpoint holds
 _NAMES = {torch.float32: "float32", torch.float64: "float64",
@@ -70,7 +78,10 @@ def _unflatten(tree, leaves: list):
 
 
 def _host(leaf) -> tuple[np.ndarray, tuple[int, ...], str]:
-    """A leaf's raw bytes (flat uint8), shape and dtype name."""
+    """A leaf's raw bytes (flat uint8), shape and dtype name (a sharded
+    leaf gathered whole)."""
+    if isinstance(leaf, Sharded):
+        leaf = collectives.all_gather(leaf, None, torch.device("cpu"))
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
         raw = t.reshape(-1).view(torch.uint8).numpy() if t.numel() else \
@@ -133,11 +144,15 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 def restore(directory: str | os.PathLike, target_tree, *,
-            step: int | None = None, verify: bool = True):
+            step: int | None = None, shardings=None, verify: bool = True):
     """The checkpoint at ``step`` (default the latest) in the structure of
     ``target_tree``: each leaf checked against its CRC32 and the target's
     shape, and returned as a tensor of the target leaf's dtype on its
-    device.  Returns (tree, manifest)."""
+    device.  ``shardings``: a tree like the target's of
+    ``dist.sharding.NamedSharding`` (or None leaves) to re-shard each leaf
+    onto on load, the elastic restart onto another mesh; where it is
+    None, a ``Sharded`` target leaf takes its own sharding.  Returns
+    (tree, manifest)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -150,8 +165,10 @@ def restore(directory: str | os.PathLike, target_tree, *,
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, target "
             f"expects {len(targets)} — structure mismatch")
+    shards = [sh for _, sh in _flatten(shardings)] if shardings is not None \
+        else [None] * len(targets)
     out = []
-    for meta, target in zip(manifest["leaves"], targets):
+    for meta, target, sh in zip(manifest["leaves"], targets, shards):
         raw = np.load(path / meta["file"])
         if verify and zlib.crc32(raw) & 0xFFFFFFFF != meta["crc32"]:
             raise IOError(f"CRC mismatch for {meta['key']} in {path}")
@@ -160,8 +177,14 @@ def restore(directory: str | os.PathLike, target_tree, *,
             raise ValueError(f"shape mismatch for {meta['key']}: "
                              f"{shape} vs {tuple(target.shape)}")
         t = torch.from_numpy(raw).view(_DTYPES[meta["dtype"]]).reshape(shape)
+        dt = target.dtype if isinstance(target, (torch.Tensor, Sharded)) \
+            else t.dtype
+        if sh is None and isinstance(target, Sharded):
+            sh = target.sharding
+        if sh is not None:
+            out.append(collectives.scatter(t.to(dt), sh))
+            continue
         dev = target.device if isinstance(target, torch.Tensor) else "cpu"
-        dt = target.dtype if isinstance(target, torch.Tensor) else t.dtype
         out.append(t.to(device=dev, dtype=dt))
     return _unflatten(target_tree, out), manifest
 
@@ -198,6 +221,8 @@ class CheckpointManager:
         thread."""
         self.wait()
         host = _unflatten(tree, [
+            collectives.all_gather(leaf, None, torch.device("cpu"))
+            if isinstance(leaf, Sharded) else
             leaf.detach().to("cpu", copy=True)
             if isinstance(leaf, torch.Tensor) else np.array(leaf)
             for _, leaf in _flatten(tree)])
@@ -220,5 +245,5 @@ class CheckpointManager:
             shutil.rmtree(self.directory / f"step_{s:010d}",
                           ignore_errors=True)
 
-    def restore_latest(self, target_tree):
-        return restore(self.directory, target_tree)
+    def restore_latest(self, target_tree, shardings=None):
+        return restore(self.directory, target_tree, shardings=shardings)

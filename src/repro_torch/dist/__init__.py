@@ -1,4 +1,4 @@
-"""Mesh-axis conventions for sharded serving (the serving part of the
-reference's ``repro.dist``) and the int8 gradient compression
-(``compress``); ZeRO, the optimizer specs and the activation ``hint`` come
-with the training meshes."""
+"""The mesh-axis conventions, specs and placement of sharded serving and
+training (``sharding``), the moves between a mesh's devices
+(``collectives``), GPipe over a ``"stage"`` axis (``pipeline``) and the
+int8 gradient compression (``compress``)."""

@@ -1,2 +1,2 @@
-"""Mesh construction (the serving meshes; the training meshes are not
-ported yet) and the single-device training launcher (``train``)."""
+"""Mesh construction (the production, training and serving meshes) and the
+training launcher (``train``), on one device or a mesh."""

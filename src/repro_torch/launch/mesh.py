@@ -1,16 +1,15 @@
-"""Serving mesh construction over ``torch.device`` lists.
+"""Mesh construction over ``torch.device`` lists: the production and
+training meshes and the serving meshes.
 
-A function, not a module-level constant: importing this module touches no
+Functions, not module-level constants: importing this module touches no
 device.  A mesh's devices are laid round-robin over the devices of the
-requested type (``"cuda"``: every visible card; ``"cpu"``: the one CPU),
-slice after slice and, within a slice of ``model`` devices (tensor
-parallelism within the slice), device after device, as the reference's
+requested type (``"cuda"``: every visible card; ``"cpu"``: the one CPU)
+in mesh order, the last axis fastest (slice after slice and, within a
+slice of ``model`` devices, device after device), as the reference's
 ``jax.make_mesh`` lays them; so devices repeat when the mesh wants more
-than there are: on one H100 every slice and every device of a slice is
-``cuda:0``, and on the CPU ``"cpu"`` (the port's stand-in for the
-reference's forced host devices).  An explicit index (``"cuda:1"``) puts
-everything there.  The production and training meshes wait for the
-training meshes (ROADMAP §1).
+than there are: on one H100 every coordinate is ``cuda:0``, and on the
+CPU ``"cpu"`` (the port's stand-in for the reference's forced host
+devices).  An explicit index (``"cuda:1"``) puts everything there.
 """
 from __future__ import annotations
 
@@ -36,6 +35,32 @@ def _devices(device: str | torch.device) -> list[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+              device: str | torch.device = "cuda") -> Mesh:
+    """An arbitrary mesh (elastic scaling, tests) with the axis-name
+    contract of ``dist.sharding``: ``"model"`` innermost for tensor
+    parallelism, every other axis data parallel."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=1) < 1:
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
+    devs = _devices(device)
+    grid = np.empty(shape, object)
+    for i, c in enumerate(np.ndindex(*shape)):
+        grid[c] = devs[i % len(devs)]
+    return Mesh(grid, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "cuda") -> Mesh:
+    """(16, 16) ``("data", "model")``, one pod of 256 chips, or (2, 16,
+    16) ``("pod", "data", "model")``, two pods: ``"pod"`` cross-pod data
+    parallelism (gradient sums only), ``"data"`` in-pod data parallelism
+    with FSDP and ZeRO-1, ``"model"`` tensor parallelism (innermost)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
 
 
 def make_serving_mesh(n_slices: int | None = None, model: int = 1,

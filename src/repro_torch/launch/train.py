@@ -1,4 +1,5 @@
-"""Training launcher: init, the checkpoint / restart loop, on one device.
+"""Training launcher: mesh setup, sharded init, the checkpoint / restart
+loop.
 
 The reference's launcher (``repro/launch/train.py``) with the same command
 line and log lines.  Its contract:
@@ -6,17 +7,23 @@ line and log lines.  Its contract:
     CRC32) is restored and the data pipeline resumes from its step, so
     re-running the same command after killing the process continues the
     run, bit for bit the run that was never killed.
+  - ELASTIC: pass another ``--mesh`` and the same checkpoint re-shards
+    onto it (specs are functions of the mesh, ``dist/sharding.py``).
   - Batches are a stateless (seed, step) map (``data/tokens.py``).
   - ASYNC CHECKPOINTS: the copy to host memory is synchronous, the file
     writes overlap the next steps (``CheckpointManager.save_async``).
 
-It runs on the card unless ``--device cpu`` is given.  ``--mesh`` takes
-``1`` or ``1x1``: the training meshes (ZeRO-1, the model axis, pipeline
-stages) are not ported (ROADMAP, "training meshes").
+``--mesh`` takes the reference's grammar (``"1"``, ``"2x2"``, ``"2x4
+data,model"``; three dims are ``("pod", "data", "model")``); the mesh's
+devices are laid over ``--device``'s (every coordinate ``cuda:0`` on one
+card).  The parameters are placed by ``lm.param_specs``, the optimizer
+state ZeRO-1 sharded, and the step is ``make_train_step(cfg, tcfg,
+mesh)``; a mesh of one coordinate (``"1"``, ``"1x1"``) runs the
+one-device step.  It runs on the card unless ``--device cpu`` is given.
 
 Example (the CPU, the reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
-      --smoke --device cpu --steps 20 --batch 8 --seq 128 \\
+      --smoke --device cpu --mesh 2x2x2 --steps 20 --batch 8 --seq 128 \\
       --ckpt-dir build/ckpt
 """
 from __future__ import annotations
@@ -31,21 +38,29 @@ from repro_torch import configs
 from repro_torch.ckpt import manager as ckpt
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.train import optim
 from repro_torch.train.step import TrainConfig, make_train_step
 
 
-def parse_mesh(spec: str) -> dict[str, int]:
-    """``"1"`` or ``"1x1"`` -> the mesh's axis sizes, as the reference's
-    ``mesh_shape_dict`` prints them; any other mesh raises."""
-    shape = tuple(int(x) for x in spec.split(" ")[0].split("x"))
-    if shape not in ((1,), (1, 1)):
-        raise NotImplementedError(
-            f"--mesh {spec!r}: the port trains on one device (mesh 1 or "
-            "1x1); the training meshes are not ported yet (ROADMAP, "
-            "'training meshes')")
-    return dict(zip(("data", "model"), shape))
+def parse_mesh(spec: str, device: str | torch.device = "cuda") -> shd.Mesh:
+    """``"1"`` | ``"2x2"`` | ``"2x4 data,model"`` style, as the
+    reference's: without names, up to two dims are ``("data", "model")``
+    and three ``("pod", "data", "model")``.  A malformed spec raises
+    ``ValueError``."""
+    if " " in spec:
+        dims, names = spec.split(" ")
+        shape = tuple(int(x) for x in dims.split("x"))
+        axes = tuple(names.split(","))
+    else:
+        shape = tuple(int(x) for x in spec.split("x"))
+        axes = ("data", "model")[:len(shape)] if len(shape) <= 2 else \
+            ("pod", "data", "model")
+    if len(axes) != len(shape):
+        raise ValueError(f"--mesh {spec!r}: {len(shape)} dims, axes {axes}")
+    return make_mesh(shape, axes, device)
 
 
 def main(argv=None) -> dict[int, float]:
@@ -72,7 +87,8 @@ def main(argv=None) -> dict[int, float]:
     dev = resolve_device(args.device)
     cfg = (configs.smoke_config(args.arch) if args.smoke
            else configs.config(args.arch))
-    mesh_shape = parse_mesh(args.mesh)
+    mesh = parse_mesh(args.mesh, args.device)
+    mesh_shape = shd.mesh_shape_dict(mesh)
     print(f"arch={cfg.name} params~{lm.count_params(cfg)/1e6:.1f}M "
           f"mesh={mesh_shape}")
 
@@ -81,8 +97,14 @@ def main(argv=None) -> dict[int, float]:
         adamw=optim.AdamWConfig(lr=args.lr, weight_decay=0.1, grad_clip=1.0,
                                 master_dtype=torch.float32))
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    specs = None
+    if math.prod(mesh_shape.values()) > 1:
+        specs = shd.named(mesh, lm.param_specs(cfg, mesh_shape))
+        params = shd.shard(params, specs)
+    else:       # one coordinate: the one-device step
+        mesh = None
     opt_state = optim.init(params, tcfg.adamw)
-    train_step = make_train_step(cfg, tcfg)
+    train_step = make_train_step(cfg, tcfg, mesh)
 
     start_step = 0
     mgr = None
@@ -91,7 +113,8 @@ def main(argv=None) -> dict[int, float]:
                                      save_interval=args.ckpt_every)
         if ckpt.latest_step(args.ckpt_dir) is not None:
             (params, opt_state), manifest = mgr.restore_latest(
-                (params, opt_state))
+                (params, opt_state), shardings=None if specs is None else (
+                    specs, shd.shardings_of(opt_state)))
             start_step = manifest["step"]
             print(f"resumed from step {start_step}")
 

@@ -402,6 +402,147 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
     return p
 
 
+# the reference's logical axes of each leaf past its layer axis
+# (``_attn_params``, ``_mlp_params``, ``_moe_params``,
+# ``_rwkv_block_params``, ``_hymba_block_params``, ``init``): "tp" is
+# sharded over "model" and "fsdp" over "data", each only where the dim
+# divides; a leaf not listed is replicated
+_ATTN_LOGICAL = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+                 "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp"),
+                 "bq": ("tp",), "bv": ("tp",)}
+_MLP_LOGICAL = {"w_gate": ("fsdp", "tp"), "w_in": ("fsdp", "tp"),
+                "w_out": ("tp", "fsdp"), "b_in": ("tp",)}
+_MOE_LOGICAL = {"w_gate": ("tp", "fsdp", None), "w_in": ("tp", "fsdp", None),
+                "w_out": ("tp", None, "fsdp"), "shared_gate": ("fsdp", "tp"),
+                "shared_in": ("fsdp", "tp"), "shared_out": ("tp", "fsdp")}
+_BLOCK_LOGICAL = {
+    # rwkv
+    "wr": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp"), "w_lora_b": (None, "tp"),
+    "cm_k": ("fsdp", "tp"), "cm_v": ("tp", "fsdp"), "cm_r": ("fsdp", None),
+    # hybrid
+    "in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"), "x_proj": ("tp", None),
+    "dt_proj": (None, "tp"), "dt_bias": ("tp",), "A_log": ("tp", None),
+    "D_skip": ("tp",), "ssm_out": ("tp", "fsdp")}
+_TOP_LOGICAL = {"embed": ("tp", None), "lm_head": ("fsdp", "tp")}
+_GROUP_LOGICAL = {"attn": _ATTN_LOGICAL, "xattn": _ATTN_LOGICAL,
+                  "mlp": _MLP_LOGICAL, "moe": _MOE_LOGICAL}
+# the stacked block groups (a leading layer axis on every leaf)
+STACKS = ("blocks", "dense0", "enc_blocks", "dec_blocks", "cross_blocks")
+
+
+def _shapes(cfg: LMConfig) -> dict:
+    """The parameter tree of ``cfg`` on the meta device (shapes only)."""
+    return init(cfg, _MetaGenerator())
+
+
+def param_specs(cfg: LMConfig, mesh_shape: dict[str, int]) -> dict:
+    """The parameters' partition specs on a mesh of ``mesh_shape``: the
+    reference's ``init(key, cfg, mesh_shape)[1]`` (``_Builder.spec``) for
+    the port's parameter tree.  ``"fsdp"`` dims go to ``"data"`` only
+    (never ``"pod"``), the embedding is ``"tp"`` on the vocabulary only."""
+    from repro_torch.dist.sharding import P
+    ms = mesh_shape or {}
+
+    def spec(shape, logical):
+        out = []
+        for dim, kind in zip(shape, logical):
+            if kind == "tp" and dim % ms.get("model", 1) == 0:
+                out.append("model")
+            elif kind == "fsdp" and dim % ms.get("data", 1) == 0:
+                out.append("data")
+            else:
+                out.append(None)
+        return P(*out)
+
+    def walk(tree, table, lead):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, _GROUP_LOGICAL.get(k, {}), lead)
+            else:
+                logical = table.get(k, (None,) * (v.dim() - lead))
+                out[k] = spec(v.shape, (None,) * lead + tuple(logical))
+        return out
+    tree = _shapes(cfg)
+    return {k: walk(v, _BLOCK_LOGICAL, 1) if k in STACKS else
+            walk(v, {}, 0) if isinstance(v, dict) else
+            spec(v.shape, _TOP_LOGICAL.get(k, (None,) * v.dim()))
+            for k, v in tree.items()}
+
+
+class Blocks:
+    """A leaf split over the ``"model"`` axis for tensor parallelism:
+    ``parts[j]``, model shard j's contiguous block along ``dim``, on that
+    shard's device (``train/step.py`` builds them, :func:`_attn_apply` and
+    :func:`_mlp_apply` read them)."""
+
+    def __init__(self, parts: list, dim: int):
+        self.parts, self.dim = list(parts), dim
+
+    def unbind(self) -> list["Blocks"]:
+        """One :class:`Blocks` a layer of a stacked leaf."""
+        per = [torch.unbind(t) for t in self.parts]
+        return [Blocks([u[i] for u in per], self.dim - 1)
+                for i in range(len(per[0]))]
+
+
+# the leaves a tensor-parallel attention or MLP splits, by the dim past
+# the layer axis that each splits (-1 columns, -2 rows); the others of
+# the group (``bo``, ``b_out``) are added once, whole
+_TP_ATTN = {"wq": -1, "wk": -1, "wv": -1, "bq": -1, "bv": -1, "wo": -2}
+_TP_MLP = {"w_gate": -1, "w_in": -1, "b_in": -1, "w_out": -2}
+
+
+def tp_plan(cfg: LMConfig, mesh_shape: dict[str, int]) -> tuple[dict, dict]:
+    """Which leaves tensor parallelism over ``"model"`` splits: (a tree
+    like the parameters' holding, per leaf, the dim its model shards cut
+    or None for a leaf used whole on a group's first device, and the
+    layers counted by kind: ``attention_split`` / ``attention_gathered``,
+    ``mlp_split`` / ``mlp_gathered``).  A self-attention splits by KV
+    heads when ``n_heads`` and ``n_kv_heads`` divide by the model size,
+    a dense MLP by its hidden width when that divides; otherwise the
+    layer runs unsplit on its leaves gathered whole (where GSPMD would
+    reshard).  Cross-attention (its K/V come from the encoder's or vision
+    tokens), the MoE experts, the SSM and rwkv mixes always run whole."""
+    m = (mesh_shape or {}).get("model", 1)
+    heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    counts = dict.fromkeys(("attention_split", "attention_gathered",
+                            "mlp_split", "mlp_gathered"), 0)
+
+    def group(tree, rule, ok):
+        return {k: (v.dim() + rule[k]) if ok and k in rule else None
+                for k, v in tree.items()}
+
+    def walk(tree, stacked):
+        out = {}
+        for k, v in tree.items():
+            if not isinstance(v, dict):
+                out[k] = None
+                continue
+            L = _first_leaf(v).shape[0] if stacked else 0
+            if stacked and k == "attn" and m > 1:
+                counts["attention_split" if heads else
+                       "attention_gathered"] += L
+                out[k] = group(v, _TP_ATTN, heads)
+            elif stacked and k == "mlp" and m > 1:
+                ok = v["w_in"].shape[-1] % m == 0
+                counts["mlp_split" if ok else "mlp_gathered"] += L
+                out[k] = group(v, _TP_MLP, ok)
+            else:
+                out[k] = walk(v, stacked)
+        return out
+    tree = _shapes(cfg)
+    plan = {k: walk(v, k in STACKS) if isinstance(v, dict) else None
+            for k, v in tree.items()}
+    return plan, counts
+
+
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) \
+        if isinstance(tree, dict) else tree
+
+
 def layer_params(params: dict, idx: int) -> dict:
     """Layer ``idx`` of the stacked ``params["blocks"]`` (views)."""
     return {k: layer_params(v, idx) if isinstance(v, dict) else v[idx]
@@ -465,11 +606,30 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
 
 def _mlp_apply(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU where the block has ``w_gate``, else the GELU MLP (with its
-    biases where it has them), as the reference picks."""
+    biases where it has them), as the reference picks.  With
+    :class:`Blocks` leaves (tensor parallelism), model shard j computes
+    its columns of ``w_gate`` / ``w_in`` / ``b_in`` and its rows of
+    ``w_out`` on its device, a partial output; the partials are added in
+    shard order on x's device, then ``b_out`` once."""
+    if isinstance(p["w_in"], Blocks):
+        out = None
+        for pj in _shard_leaves(p, "b_out"):
+            part = _mlp_apply(cfg, pj, x.to(pj["w_in"].device)).to(x.device)
+            out = part if out is None else out + part
+        return out if p.get("b_out") is None else out + p["b_out"]
     if "w_gate" in p:
         return mlp_lib.swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
     return mlp_lib.gelu_mlp(x, p["w_in"], p.get("b_in"), p["w_out"],
                             p.get("b_out"))
+
+
+def _shard_leaves(p: dict, whole: str) -> list[dict]:
+    """Model shard j's leaves of a tensor-parallel group, one dict a
+    shard: its block of each :class:`Blocks` leaf and every other leaf but
+    ``whole`` (the bias the caller adds once)."""
+    m = len(next(v for v in p.values() if isinstance(v, Blocks)).parts)
+    return [{k: v.parts[j] if isinstance(v, Blocks) else v
+             for k, v in p.items() if k != whole} for j in range(m)]
 
 
 def moe_ffn_decode(cfg: LMConfig, moe_params: dict, z: torch.Tensor
@@ -510,7 +670,30 @@ def _attn_apply(cfg: LMConfig, p: dict, x: torch.Tensor,
     ``kv_override``: the (k, v) to attend instead of projecting ``x``'s
     (the encdec decoder's cross-attention over the encoder's K/V); RoPE
     then goes on the queries only, and only when causal, as in the
-    reference."""
+    reference.
+
+    With :class:`Blocks` leaves (tensor parallelism, training only: no
+    prefix, no override), model shard j computes its contiguous run of
+    KV heads and their query heads from its columns of ``wq`` / ``wk`` /
+    ``wv`` (and ``bq`` / ``bv``) through :func:`attention.attend_chunked`
+    on its device, and its rows of ``wo`` give a partial output; the
+    partials are added in shard order on x's device, then ``bo`` once.
+    Returns (out, None) then."""
+    if isinstance(p["wq"], Blocks):
+        if kv_prefix is not None or kv_override is not None:
+            raise ValueError("a tensor-parallel attention takes no "
+                             "kv_prefix or kv_override")
+        m = len(p["wq"].parts)
+        sub = dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                                  n_kv_heads=cfg.n_kv_heads // m)
+        out = None
+        for pj in _shard_leaves(p, "bo"):
+            dev = pj["wq"].device
+            y = _attn_apply(sub, pj, x.to(dev), positions.to(dev),
+                            causal=causal, window=window,
+                            q_offset=q_offset)[0].to(x.device)
+            out = y if out is None else out + y
+        return (out if p.get("bo") is None else out + p["bo"]), None
     B, S, _ = x.shape
     rope_on = cfg.pos_embedding == "rope"
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.d_head)
@@ -1013,6 +1196,7 @@ def unstack(tree: dict, n: int) -> list[dict]:
     out = [{} for _ in range(n)]
     for key, value in tree.items():
         parts = unstack(value, n) if isinstance(value, dict) else \
+            value.unbind() if isinstance(value, Blocks) else \
             torch.unbind(value)
         for i in range(n):
             out[i][key] = parts[i]
@@ -1020,7 +1204,8 @@ def unstack(tree: dict, n: int) -> list[dict]:
 
 
 def chunked_xent(cfg: LMConfig, x: torch.Tensor, head: torch.Tensor,
-                 labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 labels: torch.Tensor, denom: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token cross-entropy with the vocabulary projection in chunks of
     ``cfg.loss_chunk`` positions, so the (S, V) logits never exist at full
     length: per chunk the float32 logits (products of the widened operands,
@@ -1028,7 +1213,9 @@ def chunked_xent(cfg: LMConfig, x: torch.Tensor, head: torch.Tensor,
     positions whose label is >= 0 (-1 is ignored), each chunk recomputed
     in the backward (the reference's ``jax.checkpoint``).  x (B, S, d),
     head (d, V), labels (B, S).  Returns (the mean over counted positions,
-    their count as float32)."""
+    their count as float32); with ``denom`` (a data-parallel shard of a
+    microbatch: the microbatch's count, floored at 1) the sum over
+    ``denom`` in place of the mean."""
     S = x.shape[1]
     ck = min(cfg.loss_chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -1039,6 +1226,8 @@ def chunked_xent(cfg: LMConfig, x: torch.Tensor, head: torch.Tensor,
             use_reentrant=False, preserve_rng_state=False)
         tot = tot + l
         cnt = cnt + n
+    if denom is not None:
+        return tot / denom.to(tot.device), cnt
     return tot / torch.clamp(cnt, min=1.0), cnt
 
 
@@ -1050,7 +1239,8 @@ def _chunk_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor):
     return torch.sum((lse - ll) * mask), torch.sum(mask, dtype=torch.float32)
 
 
-def forward(cfg: LMConfig, params: dict, batch: dict
+def forward(cfg: LMConfig, params: dict, batch: dict, *,
+            denom: torch.Tensor | None = None, aux_weight: float = 1.0
             ) -> tuple[torch.Tensor, dict]:
     """The training forward: next-token cross-entropy of every family,
     the reference's ``lm.forward``.
@@ -1073,7 +1263,15 @@ def forward(cfg: LMConfig, params: dict, batch: dict
     encoder over ``enc_embed`` plus sinusoidal positions, then
     ``enc_norm``, then every decoder layer's cross K/V.  Each stacked leaf
     is split once (:func:`unstack`) and each layer runs under
-    ``cfg.remat`` (:func:`_maybe_remat`)."""
+    ``cfg.remat`` (:func:`_maybe_remat`).
+
+    A data-parallel shard of a microbatch (``train/step.py``) passes
+    ``denom``, the microbatch's labelled positions floored at 1, and
+    ``aux_weight``, its share of the microbatch's MoE routing groups: its
+    loss is then its summed cross-entropy over ``denom`` plus ``0.01 *
+    aux_weight * aux``, so the shards' losses (and gradients) add up to
+    the microbatch's.  Leaves may be :class:`Blocks` (tensor
+    parallelism)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -1168,9 +1366,18 @@ def forward(cfg: LMConfig, params: dict, batch: dict
         for lp in unstack(params["dec_blocks"], cfg.n_layers):
             x = run_dec(lp, x, enc)
 
+    return _loss(cfg, params, x, batch["labels"], aux, denom, aux_weight)
+
+
+def _loss(cfg: LMConfig, params: dict, x: torch.Tensor,
+          labels: torch.Tensor, aux: torch.Tensor,
+          denom: torch.Tensor | None, aux_weight: float):
+    """The final norm, the chunked cross-entropy and the MoE term."""
     x = _norm_apply(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    loss, n_tok = chunked_xent(cfg, x, head, batch["labels"])
+    loss, n_tok = chunked_xent(cfg, x, head, labels, denom)
+    if aux_weight != 1.0:
+        aux = aux * aux_weight
     return loss + 0.01 * aux, {"loss": loss, "aux": aux, "tokens": n_tok}
 
 

@@ -28,6 +28,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (Sharded, mesh_shape_dict, named,
+                                       opt_state_specs)
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -63,8 +67,14 @@ def unflatten(tree, flat: list[torch.Tensor]):
 def init(params, cfg: AdamWConfig) -> dict:
     """``{"step", "m", "v"}`` (and ``"master"`` with ``master_dtype``),
     each moment shaped like ``params``; ``step`` is an int32 tensor on the
-    parameters' device."""
+    parameters' device.  Over a mesh (``params`` of
+    ``dist.sharding.Sharded`` leaves) the state is sharded as
+    ``dist.sharding.opt_state_specs`` says (the parameters' specs plus
+    ZeRO-1 over the data-parallel axes; ``step`` replicated): the moments
+    made in place, the master copy re-sharded from the parameters."""
     ps = leaves(params)
+    if isinstance(ps[0], Sharded):
+        return _init_sharded(params, ps, cfg)
     state = {"step": torch.zeros((), dtype=torch.int32, device=ps[0].device),
              "m": unflatten(params, [torch.zeros_like(p, dtype=cfg.state_dtype)
                                      for p in ps]),
@@ -76,10 +86,31 @@ def init(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+def _init_sharded(params, ps: list[Sharded], cfg: AdamWConfig) -> dict:
+    mesh = ps[0].mesh
+    specs = unflatten(params, [p.spec for p in ps])
+    opt = opt_state_specs(specs, params, mesh_shape_dict(mesh),
+                          master=cfg.master_dtype is not None)
+    shardings = {k: named(mesh, v) for k, v in opt.items()}
+    zero = [collectives.zeros(sh, p.shape, cfg.state_dtype)
+            for sh, p in zip(leaves(shardings["m"]), ps)]
+    state = {"step": collectives.zeros(shardings["step"], (), torch.int32),
+             "m": unflatten(params, zero),
+             "v": unflatten(params, [
+                 collectives.zeros(z.sharding, z.shape, cfg.state_dtype)
+                 for z in zero])}
+    if cfg.master_dtype is not None:
+        state["master"] = unflatten(params, [
+            collectives.relayout(p, sh, cfg.master_dtype)
+            for p, sh in zip(ps, leaves(shardings["master"]))])
+    return state
+
+
+def _global_norm(grads: list) -> torch.Tensor:
     total = 0
     for g in grads:
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        total = total + (collectives.square_sum(g) if isinstance(g, Sharded)
+                         else torch.sum(torch.square(g.to(torch.float32))))
     return torch.sqrt(total)
 
 
@@ -124,7 +155,13 @@ def apply_(params, grads, state: dict, cfg: AdamWConfig):
     all, so its float32 temporaries are a few such groups, never the whole
     model (the clip's sum of squares reads each gradient leaf whole, in
     leaf order).  Float32 moments and master are updated where they lie;
-    a tensor of another dtype gets a float32 copy, written back rounded."""
+    a tensor of another dtype gets a float32 copy, written back rounded.
+
+    Over a mesh (:class:`dist.sharding.Sharded` leaves, the gradients in
+    the optimizer state's layout) each ZeRO-1 shard of the moments and
+    the master is updated where it lies, leaf by leaf and device by
+    device through the same body, then the parameters' shards are
+    rewritten from the updated blocks (the master's, cast)."""
     ps, gs = leaves(params), leaves(grads)
     kinds = [ps, gs, leaves(state["m"]), leaves(state["v"])]
     if "master" in state:
@@ -133,16 +170,46 @@ def apply_(params, grads, state: dict, cfg: AdamWConfig):
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / (_global_norm(gs) + 1e-9),
                             max=1.0)
-    state["step"].add_(1)
-    b1, b2 = cfg.b1, cfg.b2
-    stepf = state["step"].to(torch.float32)
+    steps = [state["step"]] if not isinstance(state["step"], Sharded) else \
+        [t for _, _, t in state["step"].items()]
+    for t in steps:
+        t.add_(1)
+    stepf = steps[0].to(torch.float32)
     bc1, bc2 = (1.0 - torch.pow(torch.full_like(stepf, b), stepf)
-                for b in (b1, b2))
+                for b in (cfg.b1, cfg.b2))
+    if not isinstance(ps[0], Sharded):
+        # the gradient is read (any layout); the others are written through
+        _adamw([[t.reshape(-1) if j == 1 else t.view(-1)
+                 for j, t in enumerate(leaf)] for leaf in zip(*kinds)],
+               scale, bc1, bc2, cfg)
+        return params, state
+    for p, g, m, *rest in zip(*kinds):
+        # the parameter in the state's layout: the master copy itself
+        # (one view, so the body's write of the parameter is the master's
+        # own update), else the parameter's values re-laid
+        pz = None if "master" in state else \
+            collectives.relayout(p, m.sharding)
+        by_dev: dict = {}
+        for c, _, t in m.items():
+            own = [x.pieces[c].view(-1) for x in rest]
+            by_dev.setdefault(t.device, []).append(
+                [own[-1] if pz is None else pz.pieces[c].view(-1),
+                 g.pieces[c].reshape(-1), t.view(-1)] + own)
+        for dev, views in by_dev.items():
+            _adamw(views, None if scale is None else scale.to(dev),
+                   bc1.to(dev), bc2.to(dev), cfg)
+        collectives.copy_into(p, rest[-1] if pz is None else pz)
+    return params, state
+
+
+def _adamw(views: list[list[torch.Tensor]], scale, bc1, bc2,
+           cfg: AdamWConfig) -> None:
+    """The AdamW update of flat views, one list per leaf (or leaf shard):
+    its parameter, gradient, moments and master copy where there is one;
+    in groups of :func:`_groups`, in place."""
+    b1, b2 = cfg.b1, cfg.b2
     f32 = torch.float32
     mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
-    # the gradient is read (any layout); the others are written through
-    views = [[t.reshape(-1) if j == 1 else t.view(-1)
-              for j, t in enumerate(leaf)] for leaf in zip(*kinds)]
     for pc, gc, mc, vc, *mst in _groups(views):
         if scale is not None:
             gc = [g * scale.to(g.dtype) for g in gc]
@@ -167,7 +234,6 @@ def apply_(params, grads, state: dict, cfg: AdamWConfig):
         if pairs:
             torch._foreach_copy_([d for d, _ in pairs],
                                  [s for _, s in pairs])
-    return params, state
 
 
 def sgd(params, grads, lr: float):

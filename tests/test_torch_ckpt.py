@@ -4,7 +4,9 @@ format shared with the reference, a smoke model's (params, opt_state)
 written by either package restored by the other bit for bit (bf16
 included, with the same keys, dtypes, CRC32s and leaf files); and the
 launcher killed after a checkpoint and run again, giving the
-uninterrupted run's losses and parameters bit for bit."""
+uninterrupted run's losses and parameters bit for bit; the launcher's
+``--mesh`` grammar against the reference's ``parse_mesh``, and a run on
+the (2, 2, 2) ``("pod", "data", "model")`` mesh resumed on another."""
 import filecmp
 import functools
 import json
@@ -28,6 +30,7 @@ from repro.train import optim as joptim
 from repro_torch import configs
 from repro_torch.ckpt import manager as ckpt
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import train as launcher
 from repro_torch.train import optim
 
@@ -35,6 +38,7 @@ from repro_torch.train import optim
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
 
 
 def _tree(seed=0):
@@ -253,8 +257,64 @@ def test_launcher_killed_and_resumed_is_bitwise(tmp_path, capsys):
                            shallow=False), leaf["key"]
 
 
-def test_launcher_refuses_other_meshes():
-    with pytest.raises(NotImplementedError, match="training meshes"):
-        launcher.main([*ARGS, "--mesh", "2x1"])
-    assert launcher.parse_mesh("1") == {"data": 1}
-    assert launcher.parse_mesh("1x1") == {"data": 1, "model": 1}
+def test_parse_mesh_and_launcher_on_pod_data_model(tmp_path, capsys):
+    """``--mesh 2x2x2 --device cpu --smoke``: the arch line is the
+    reference's (its name, parameter count and ``mesh_shape_dict``), each
+    logged step the reference's format, every loss finite; the same run
+    with checkpoints, its last one lost (killed after the checkpoint of
+    step 3), run again on ``"1x4 data,model"``: it resumes from step 3
+    and goes on, its loss within 1e-2 of the uninterrupted run's (bf16:
+    the model shards' partial sums round differently)."""
+    args = ["--arch", "stablelm-3b", "--smoke", "--device", "cpu",
+            "--batch", "4", "--seq", "32", "--ckpt-every", "2",
+            "--log-every", "1", "--steps", "4"]
+    straight = launcher.main([*args, "--mesh", "2x2x2"])
+    out = capsys.readouterr().out.splitlines()
+    jcfg = jconfigs.smoke_config("stablelm-3b")
+    assert out[0] == (f"arch={jcfg.name} params~"
+                      f"{jlm.count_params(jcfg)/1e6:.1f}M mesh="
+                      f"{{'pod': 2, 'data': 2, 'model': 2}}")
+    for s in range(4):
+        assert out[1 + s].startswith(f"step {s:5d} loss "
+                                     f"{straight[s]:.4f} (")
+        assert out[1 + s].endswith(" ms/step)")
+        assert np.isfinite(straight[s])
+    assert out[-1] == "done"
+    first = launcher.main([*args, "--mesh", "2x2x2",
+                           "--ckpt-dir", str(tmp_path)])
+    assert first == straight
+    assert ckpt.latest_step(tmp_path) == 4
+    (tmp_path / "LATEST").unlink()
+    for f in (tmp_path / "step_0000000004").iterdir():
+        f.unlink()
+    (tmp_path / "step_0000000004").rmdir()
+    capsys.readouterr()
+    resumed = launcher.main([*args, "--mesh", "1x4 data,model",
+                             "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "mesh={'data': 1, 'model': 4}" in out
+    assert "resumed from step 3" in out
+    assert sorted(resumed) == [3]
+    assert abs(resumed[3] - straight[3]) <= 1e-2 * abs(straight[3])
+
+
+def test_parse_mesh_matches_reference():
+    """``parse_mesh`` takes the reference's grammar: ``"1"``, ``"2x2"``,
+    ``"2x4 data,model"`` and three dims, as ``mesh_shape_dict``s equal to
+    the reference's for the same spec; a malformed spec raises."""
+    from repro.launch import train as jlauncher
+    for spec in ("1", "1x1", "2x2", "2x4 data,model", "2x2x2",
+                 "4x2 data,model", "2x1x4 pod,data,model"):
+        mesh = launcher.parse_mesh(spec, "cpu")
+        shape = tuple(int(x) for x in spec.split(" ")[0].split("x"))
+        axes = tuple(spec.split(" ")[1].split(",")) if " " in spec else \
+            (("data", "model")[:len(shape)] if len(shape) <= 2 else
+             ("pod", "data", "model"))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jlauncher, "make_mesh", lambda s, a: (s, a))
+            assert jlauncher.parse_mesh(spec) == (shape, axes)
+        assert shd.mesh_shape_dict(mesh) == dict(zip(axes, shape))
+        assert set(mesh.device_list) == {CPU}
+    for bad in ("2x", "axb", "2x2 data", "2x2 data,model extra"):
+        with pytest.raises(ValueError):
+            launcher.parse_mesh(bad, "cpu")

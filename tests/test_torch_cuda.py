@@ -2318,3 +2318,62 @@ def test_sharded_kernel_tick_matches_sharded_plain_tick(dev, arch, kv_heads,
     assert launches["scatter_kv_rows"] == width * ticks
     if kv_heads:
         assert launches["merge_attn_states"] == cfg.n_layers * ticks
+
+
+def _dist_mesh_run(dev, steps: int):
+    """``tests/test_dist.py``'s config in float32 on the (2, 2, 2)
+    ``("pod", "data", "model")`` mesh of the card (every coordinate this
+    device) against the one-device step from the same state, step by step:
+    (losses, one-device losses, the sharded steps' flash launches, the
+    parameter elements past ``rtol=2e-3, atol=2e-5``)."""
+    from repro_torch.data.tokens import batch_at
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optim
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = lm.LMConfig(name="t", family="decoder", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
+                      vocab=256, remat="full", param_dtype="float32")
+    tcfg = TrainConfig(microbatches=2, adamw=optim.AdamWConfig(
+        lr=1e-2, weight_decay=0.1, grad_clip=1.0,
+        master_dtype=torch.float32))
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), dev)
+    ms = shd.mesh_shape_dict(mesh)
+    p = shd.shard(lm.init(cfg, torch.Generator(device=dev).manual_seed(0)),
+                  shd.named(mesh, lm.param_specs(cfg, ms)))
+    o = optim.init(p, tcfg.adamw)
+    step, one = make_train_step(cfg, tcfg, mesh), make_train_step(cfg, tcfg)
+    losses, ones, launches, misses = [], [], {}, 0
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             batch_at(0, i, 8, 32, cfg.vocab).items()}
+        p1, o1, m1 = one(shd.gather(p, dev), shd.gather(o, dev), b)
+        before = kernels.read_counts()
+        p, o, m = step(p, o, b)
+        after = kernels.read_counts()
+        for k in ("flash_attention", "flash_attention_bwd"):
+            launches[k] = launches.get(k, 0) + after[k] - before[k]
+        losses.append(float(m["loss"]))
+        ones.append(float(m1["loss"]))
+        for x, y in zip(optim.leaves(shd.gather(p, dev)), optim.leaves(p1)):
+            misses += int(((x - y).abs() > 2e-5 + 2e-3 * y.abs()).sum())
+    return losses, ones, launches, misses
+
+
+def test_mesh_step_matches_one_device_step(dev):
+    """Three sharded steps of ``tests/test_dist.py``'s config on (2, 2, 2),
+    every coordinate the card, through the flash kernels: each loss within
+    1e-5 relative of the one-device step's from the same state, and every
+    parameter within ``rtol=2e-3, atol=2e-5``."""
+    losses, ones, _, misses = _dist_mesh_run(dev, 3)
+    np.testing.assert_allclose(losses, ones, rtol=1e-5)
+    assert misses == 0
+
+
+def test_mesh_step_flash_launches(dev):
+    """The flash kernels launch per layer, model shard, data-parallel
+    coordinate and microbatch: 2 x 2 x 4 x 2, twice forward under
+    ``remat="full"`` and once backward, a step."""
+    _, _, launches, _ = _dist_mesh_run(dev, 2)
+    assert launches == {"flash_attention": 2 * 2 * 2 * 4 * 2 * 2,
+                        "flash_attention_bwd": 2 * 2 * 4 * 2 * 2}

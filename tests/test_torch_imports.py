@@ -56,7 +56,8 @@ def test_files_found():
     assert "examples/near_sensor_lenet_torch.py" in rel
     assert "examples/train_lm_torch.py" in rel
     for module in ("data/tokens.py", "dist/compress.py", "train/step.py",
-                   "ckpt/manager.py", "launch/train.py"):
+                   "ckpt/manager.py", "launch/train.py",
+                   "dist/collectives.py", "dist/pipeline.py"):
         assert f"src/repro_torch/{module}" in rel
 
 
